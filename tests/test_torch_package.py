@@ -1,0 +1,74 @@
+"""Port package rules: no JAX at runtime, no silent CPU fallback, and the
+kernel launcher's bookkeeping."""
+
+import ast
+import os
+import shutil
+import subprocess
+import sys
+import types
+from pathlib import Path
+
+import pytest
+
+import llm_guided_asr_tpu_torch
+from llm_guided_asr_tpu_torch.ops.cuda_build import BUILD_DIR, CudaKernel
+from llm_guided_asr_tpu_torch.ops.rel_attention import KERNEL as REL_KERNEL
+
+REPO = Path(__file__).resolve().parent.parent
+# the card-only tests run where JAX is not installed, so they count as port files
+PORT_FILES = sorted(Path(llm_guided_asr_tpu_torch.__file__).parent.rglob("*.py")) + [
+    REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py"
+]
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "transformers", "safetensors", "llm_guided_asr_tpu"}
+
+
+def _imported_roots(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_port_files_import_no_jax_nor_the_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & FORBIDDEN)
+    assert not bad, f"{path.relative_to(REPO)} imports {bad}"
+
+
+def _run_smoke(cwd: Path):
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):
+    for cwd in (REPO, tmp_path):
+        if cwd is tmp_path:  # a directory holding chip_smoke.py and nothing else
+            shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+        proc = _run_smoke(cwd)
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_launch_counts_only_successful_launches():
+    k = CudaKernel("rel_attention.cu", {"fn": []}, error_fn="err")
+    k._lib = types.SimpleNamespace(fn=lambda *a: 0, err=lambda code: b"invalid argument")
+    k.launch("fn")
+    k.launch("fn")
+    assert k.launches == 2
+    k._lib.fn = lambda *a: 1
+    with pytest.raises(RuntimeError, match="CUDA error 1 \\(invalid argument\\)"):
+        k.launch("fn")
+    assert k.launches == 2
+
+
+def test_kernel_build_targets_sm90a_into_the_build_directory(monkeypatch):
+    monkeypatch.setattr("llm_guided_asr_tpu_torch.ops.cuda_build.find_nvcc", lambda: "nvcc")
+    lib = REL_KERNEL.library_path()
+    assert lib.parent == BUILD_DIR and lib.name.startswith("librel_attention-")
+    cmd = REL_KERNEL.build_command(lib)
+    assert "arch=compute_90a,code=sm_90a" in cmd and str(REL_KERNEL.source) in cmd
+    assert REL_KERNEL.source.is_file()
