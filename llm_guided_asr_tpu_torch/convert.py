@@ -1,8 +1,10 @@
 """Weight bridge between the JAX package's variables and the port's modules.
 
 The port names its modules after the flax modules, so a flax path maps to
-a torch name by joining it with dots; only the leaf names and layouts
-differ:
+a torch name by joining it with dots (``encoder/block_0/conv_module/norm``
+-> ``encoder.block_0.conv_module.norm``, ``decoder/embed`` ->
+``decoder.embed``, for the LLM-guided model and the CTC/attention
+ASRModel alike); only the leaf names and layouts differ:
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW
@@ -75,8 +77,9 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every weight from ``seed`` on the model's device.
 
     The rule of the JAX benchmark's host_init_variables: biases, running
-    means and the rel-pos biases 0; norm scales and running variances 1;
-    every other weight (dense, conv, embedding) N(0, 0.02).
+    means and the rel-pos biases 0; norm scales (LayerNorm, RMSNorm, the
+    masked batch norm) and running variances 1; every other weight (dense,
+    conv, depthwise conv, the decoders' token embeddings) N(0, 0.02).
     """
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -1,16 +1,18 @@
 """Conformer encoder (counterpart of llm_guided_asr_tpu/models/conformer.py).
 
 conv2d x4 subsampling -> rel-pos encoding -> N blocks of
-[0.5*FFN (macaron) -> rel-pos MHSA -> conv module -> FFN -> LN], inference
-(eval-mode) path.  The two hand-written kernels of the serving path sit in
-every block: ops/rel_attention.py (self-attention) and
-ops/depthwise_conv.py (conv module).
+[0.5*FFN (macaron) -> rel-pos MHSA -> conv module -> FFN -> LN].
+``.eval()`` is the serving path (running BN statistics, no dropout);
+``.train()`` the training path (masked batch statistics with the running
+update, dropout from the ``rng`` the forward takes).  The hand-written
+kernels sit in every block: ops/rel_attention.py (self-attention) and
+ops/depthwise_conv.py (conv module), forward and backward.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -25,19 +27,23 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     sub4_lengths,
 )
 from llm_guided_asr_tpu_torch.ops.depthwise_conv import depthwise_conv1d
+from llm_guided_asr_tpu_torch.ops.masked_bn import masked_batch_norm
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 
 @dataclasses.dataclass(frozen=True)
 class ConformerConfig:
-    """The fields of the JAX ConformerConfig that the eval path reads
-    (dropout is off in eval mode)."""
+    """The fields of the JAX ConformerConfig that the Conformer reads."""
 
     output_size: int = 256
     attention_heads: int = 4
     linear_units: int = 2048
     num_blocks: int = 6
+    dropout_rate: float = 0.1
+    positional_dropout_rate: float = 0.1
+    attention_dropout_rate: float = 0.0
     input_layer: str = "conv2d"
     normalize_before: bool = True
     macaron_style: bool = False
@@ -56,18 +62,27 @@ _ACTIVATIONS = {"swish": F.silu, "relu": torch.relu, "gelu": F.gelu, "hardtanh":
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d over (batch, time), eval path: running statistics,
-    applied to every frame (pads included, as the JAX module does)."""
+    """BatchNorm1d over (batch, time), applied to every frame (pads
+    included, as the JAX module does).  Eval: running statistics.  Train:
+    statistics of the valid frames (ops/masked_bn.py), and the running ones
+    move towards them with momentum 0.9 (biased variance, as in JAX)."""
 
-    def __init__(self, d: int, eps: float = 1e-5):
+    def __init__(self, d: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(d))
         self.bias = nn.Parameter(torch.zeros(d))
         self.register_buffer("running_mean", torch.zeros(d))
         self.register_buffer("running_var", torch.ones(d))
 
-    def forward(self, x):
+    def forward(self, x, valid):
+        if self.training:
+            y, mean, var = masked_batch_norm(x, valid, self.weight, self.bias, self.eps)
+            with torch.no_grad():
+                self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+                self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+            return y
         inv = torch.rsqrt(self.running_var + self.eps)
         y = (x.float() - self.running_mean) * inv * self.weight + self.bias
         return y.to(x.dtype)
@@ -105,7 +120,8 @@ class ConvolutionModule(nn.Module):
         if self.mask_pads:
             h = h.masked_fill(~valid[..., None], 0.0)
         h = self.depthwise_conv(h.contiguous())
-        h = self.activation(self.norm(h))
+        h = self.norm(h, valid) if isinstance(self.norm, MaskedBatchNorm) else self.norm(h)
+        h = self.activation(h)
         return self.pointwise_conv2(h)
 
 
@@ -121,9 +137,11 @@ class ConformerBlock(nn.Module):
         self.cfg = cfg
         if cfg.macaron_style:
             self.norm_ff_macaron = LayerNorm(d)
-            self.feed_forward_macaron = PositionwiseFeedForward(d, cfg.linear_units, act)
+            self.feed_forward_macaron = PositionwiseFeedForward(d, cfg.linear_units, act,
+                                                                cfg.dropout_rate)
         self.norm_mha = LayerNorm(d)
-        self.self_attn = RelPositionMultiHeadedAttention(d, cfg.attention_heads)
+        self.self_attn = RelPositionMultiHeadedAttention(d, cfg.attention_heads,
+                                                         cfg.attention_dropout_rate)
         if cfg.use_cnn_module:
             self.norm_conv = LayerNorm(d)
             self.conv_module = ConvolutionModule(
@@ -131,23 +149,26 @@ class ConformerBlock(nn.Module):
             )
             self.norm_final = LayerNorm(d)
         self.norm_ff = LayerNorm(d)
-        self.feed_forward = PositionwiseFeedForward(d, cfg.linear_units, act)
+        self.feed_forward = PositionwiseFeedForward(d, cfg.linear_units, act, cfg.dropout_rate)
 
-    def forward(self, x, pos_emb, valid):
-        ff_scale = 0.5 if self.cfg.macaron_style else 1.0
-        if self.cfg.macaron_style:
-            x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
-        x = x + self.self_attn(self.norm_mha(x), pos_emb, valid)
-        if self.cfg.use_cnn_module:
-            x = x + self.conv_module(self.norm_conv(x), valid)
-        x = x + ff_scale * self.feed_forward(self.norm_ff(x))
+    def forward(self, x, pos_emb, valid, rng: Optional[StepRNG] = None):
+        cfg = self.cfg
+        rate = active_rate(self, cfg.dropout_rate)
+        ff_scale = 0.5 if cfg.macaron_style else 1.0
+        if cfg.macaron_style:
+            h = self.feed_forward_macaron(self.norm_ff_macaron(x), rng)
+            x = x + 0.5 * dropout(h, rate, rng)
+        x = x + dropout(self.self_attn(self.norm_mha(x), pos_emb, valid, rng), rate, rng)
+        if cfg.use_cnn_module:
+            x = x + dropout(self.conv_module(self.norm_conv(x), valid), rate, rng)
+        x = x + ff_scale * dropout(self.feed_forward(self.norm_ff(x), rng), rate, rng)
         if self.cfg.use_cnn_module:
             x = self.norm_final(x)
         return x
 
 
 class ConformerEncoder(nn.Module):
-    """[B, T, F] features -> ([B, T', D] encoded, [B] lengths); eval mode."""
+    """[B, T, F] features -> ([B, T', D] encoded, [B] lengths)."""
 
     def __init__(self, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda"):
@@ -158,19 +179,20 @@ class ConformerEncoder(nn.Module):
         self.cfg = cfg
         with torch.device(dev):
             self.embed = Conv2dSubsampling(input_size, cfg.output_size)
-            self.pos_enc = RelPositionalEncoding()
+            self.pos_enc = RelPositionalEncoding(cfg.positional_dropout_rate)
             for i in range(cfg.num_blocks):
                 setattr(self, f"block_{i}", ConformerBlock(cfg))
             if cfg.normalize_before:
                 self.after_norm = LayerNorm(cfg.output_size)
 
-    def forward(self, feats, feats_lengths) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, feats, feats_lengths,
+                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.embed(feats)
         out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
-        x, pos_emb = self.pos_enc(x)
+        x, pos_emb = self.pos_enc(x, rng)
         valid = make_valid_mask(out_lengths, x.shape[1])
         for i in range(self.cfg.num_blocks):
-            x = getattr(self, f"block_{i}")(x, pos_emb, valid)
+            x = getattr(self, f"block_{i}")(x, pos_emb, valid, rng)
         if self.cfg.normalize_before:
             x = self.after_norm(x)
         return x.masked_fill(~valid[..., None], 0.0), out_lengths

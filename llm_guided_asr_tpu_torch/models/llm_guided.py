@@ -1,14 +1,18 @@
-"""LLM-guided ASR model, serving path (counterpart of llm_guided_asr_tpu/models/llm_guided.py).
+"""LLM-guided ASR model (counterpart of llm_guided_asr_tpu/models/llm_guided.py).
 
 waveform -> frontend -> Conformer -> greedy CTC first pass -> ((HYP)) prompt
 -> frozen Llama -> response hidden states -> Linear(llm_hidden -> D)
 ("embed") -> 6-block guided decoder cross-attending to the encoder ->
 logits over the LLM vocabulary.
 
-``decode_prefix``/``decode_step`` are the cached decoding pair the beam
-search calls: the prompt KV is computed once per utterance and shared by
-the beam; each step runs one Llama token per beam and one position through
-the guided decoder.  Only the ``hidden`` score mode is ported.
+``forward`` is the phase-2 training loss: the encoder stays in eval mode
+whatever ``.train()`` says (the recipe freezes it), the LLM is frozen and
+its hidden states carry no gradient, and the guided decoder's dropout
+follows ``.train()``.  ``decode_prefix``/``decode_step`` are the cached
+decoding pair the beam search calls: the prompt KV is computed once per
+utterance and shared by the beam; each step runs one Llama token per beam
+and one position through the guided decoder.  Only the ``hidden`` score
+mode is ported.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llm_guided_asr_tpu_torch.models.asr_model import extract_features
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_encoder
 from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel
 from llm_guided_asr_tpu_torch.models.llm.prompt import (
@@ -27,17 +32,22 @@ from llm_guided_asr_tpu_torch.models.llm.prompt import (
     gather_response,
     pack_prompt,
 )
-from llm_guided_asr_tpu_torch.models.transformer import DecoderLayer
-from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
-from llm_guided_asr_tpu_torch.ops.frontend import (
-    FrontendConfig,
-    default_frontend,
-    global_mvn,
-    utterance_mvn,
+from llm_guided_asr_tpu_torch.models.transformer_decoder import (
+    TransformerDecoderConfig,
+    decoder_layers,
 )
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+from llm_guided_asr_tpu_torch.ops.losses import (
+    accuracy,
+    add_sos_eos,
+    ctc_loss,
+    label_smoothing_loss,
+)
+from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 from llm_guided_asr_tpu_torch.search.greedy import ctc_greedy_decode
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import causal_attn_mask, make_valid_mask
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,11 +56,15 @@ class LLMGuidedASRConfig:
     llm: LlamaConfig
     prompt: PromptTemplate
     frontend: FrontendConfig = FrontendConfig()
+    specaug: Optional[SpecAugConfig] = None
     normalize: str = "global_mvn"  # global_mvn | utterance_mvn | none
     encoder_type: str = "conformer"
     encoder: ConformerConfig = ConformerConfig()
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
     ctc_weight: float = 0.3
+    lsm_weight: float = 0.0
+    length_normalized_loss: bool = False
+    ignore_id: int = -1
     blank_id: int = 0
 
     @property
@@ -77,9 +91,8 @@ class LLMGuidedASRModel(nn.Module):
             self.ctc_head = nn.Linear(d, cfg.vocab_size)
             self.llm = LlamaModel(cfg.llm, dtype=llm_dtype, device=dev)
             self.embed = nn.Linear(cfg.llm.hidden_size, d)
-            dec = cfg.decoder
-            for i in range(dec.num_blocks):
-                setattr(self, f"block_{i}", DecoderLayer(d, dec.attention_heads, dec.linear_units))
+            for i, layer in enumerate(decoder_layers(cfg.decoder, d)):
+                setattr(self, f"block_{i}", layer)
             # a bare flax nn.LayerNorm in the JAX model: epsilon 1e-6
             self.after_norm = nn.LayerNorm(d, eps=1e-6)
             self.output_layer = nn.Linear(d, cfg.vocab_size)
@@ -91,19 +104,21 @@ class LLMGuidedASRModel(nn.Module):
     def decoders(self):
         return [getattr(self, f"block_{i}") for i in range(self.cfg.decoder.num_blocks)]
 
+    def train(self, mode: bool = True):
+        """Train mode reaches the guided decoder only: the phase-2 recipe
+        keeps the encoder in eval mode (batch-norm running statistics, no
+        dropout) and the LLM is frozen."""
+        super().train(mode)
+        self.encoder.eval()
+        self.llm.eval()
+        return self
+
     # ------------------------------------------------------------------
-    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor):
-        """[B, S] waveform -> ([B, T', D] encoder output, [B] lengths)."""
-        f = self.cfg.frontend
-        feats, feats_lengths = default_frontend(
-            speech, speech_lengths, fs=f.fs, n_fft=f.n_fft, win_length=f.win_length,
-            hop_length=f.hop_length, n_mels=f.n_mels, fmin=f.fmin, fmax=f.fmax,
-            htk=f.htk, center=f.center, window=f.window,
-        )
-        if self.cfg.normalize == "global_mvn":
-            feats = global_mvn(feats, self.mvn_mean, self.mvn_inv_std, feats_lengths)
-        elif self.cfg.normalize == "utterance_mvn":
-            feats = utterance_mvn(feats, feats_lengths)
+    def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+               rng: Optional[StepRNG] = None):
+        """[B, S] waveform -> ([B, T', D] encoder output, [B] lengths);
+        SpecAug runs in training mode, the encoder always in eval mode."""
+        feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
         return self.encoder(feats, feats_lengths)
 
     def ctc_log_softmax(self, encoder_out: torch.Tensor) -> torch.Tensor:
@@ -122,20 +137,49 @@ class LLMGuidedASRModel(nn.Module):
         """First-pass CTC -> prompt pack -> frozen LLM -> response hidden states."""
         hyp, hyp_lengths = self._first_pass_hyp(encoder_out, encoder_out_lengths)
         ids, valid, resp_start = pack_prompt(self.cfg.prompt, hyp, hyp_lengths, ys_in, ys_in_lengths)
-        hidden, _ = self.llm(ids, valid)
+        with torch.no_grad():  # the LLM is frozen: no backward graph through it
+            hidden, _ = self.llm(ids, valid)
         resp = gather_response(hidden, resp_start, ys_in.shape[1]).float()
         resp_valid = make_valid_mask(ys_in_lengths, ys_in.shape[1])
         return resp.masked_fill(~resp_valid[..., None], 0.0)
 
-    def decoder_logits(self, encoder_out, encoder_out_lengths, ys_in, ys_in_lengths):
+    def decoder_logits(self, encoder_out, encoder_out_lengths, ys_in, ys_in_lengths,
+                       rng: Optional[StepRNG] = None):
         """Full (uncached) guided decoder forward -> [B, L, V] logits."""
         x = self.embed(self._llm_response_states(
             encoder_out, encoder_out_lengths, ys_in, ys_in_lengths))
         tgt_mask = causal_attn_mask(ys_in_lengths, ys_in.shape[1])
         memory_mask = make_valid_mask(encoder_out_lengths, encoder_out.shape[1])[:, None, :]
         for layer in self.decoders:
-            x = layer(x, tgt_mask, encoder_out, memory_mask)
+            x = layer(x, tgt_mask, encoder_out, memory_mask, rng=rng)
         return self.output_layer(self.after_norm(x))
+
+    def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor, text: torch.Tensor,
+                text_lengths: torch.Tensor, rng: Optional[StepRNG] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
+        """Phase-2 loss: text [B, L] (LLM-vocab ids padded with ignore_id)
+        -> (loss, stats, weight), ctc_weight * CTC + (1 - ctc_weight) *
+        label-smoothed CE of the guided decoder."""
+        cfg = self.cfg
+        enc_out, enc_lens = self.encode(speech, speech_lengths, rng)
+        stats: Dict[str, torch.Tensor] = {}
+        loss_ctc = torch.zeros((), dtype=torch.float32, device=enc_out.device)
+        if cfg.ctc_weight > 0.0:
+            loss_ctc = ctc_loss(self.ctc_head(enc_out), enc_lens, text, text_lengths,
+                                cfg.blank_id)
+            stats["loss_ctc"] = loss_ctc
+        ys_in, ys_out = add_sos_eos(text, text_lengths, cfg.sos_id, cfg.eos_id, cfg.ignore_id)
+        dec_logits = self.decoder_logits(enc_out, enc_lens, ys_in, text_lengths + 1, rng)
+        loss_att = label_smoothing_loss(dec_logits, ys_out, cfg.lsm_weight, cfg.ignore_id,
+                                        cfg.length_normalized_loss)
+        stats["loss_att"] = loss_att
+        stats["acc"] = accuracy(dec_logits, ys_out, cfg.ignore_id)
+        if cfg.ctc_weight == 0.0:
+            loss = loss_att
+        else:
+            loss = cfg.ctc_weight * loss_ctc + (1.0 - cfg.ctc_weight) * loss_att
+        stats["loss"] = loss
+        return loss, stats, torch.tensor(float(speech.shape[0]), device=enc_out.device)
 
     # ------------------------------------------------------------------
     def decode_prefix(self, encoder_out, encoder_out_lengths, beam: int, resp_max: int) -> Dict:

@@ -3,6 +3,9 @@
 Module and parameter names follow the flax modules (``linear_q``,
 ``pos_bias_u``, ``norm1`` ...) so that convert.params_from_jax maps one tree
 onto the other by path.  Masks follow the valid convention (True = attend).
+Dropout runs in training mode (``nn.Module.train()`` stands for the JAX
+``deterministic=False``) and draws from the ``rng`` (utils/rng.py StepRNG)
+that every forward takes.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import torch
 from torch import nn
 
 from llm_guided_asr_tpu_torch.ops.rel_attention import rel_attention
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 NEG_INF = -1.0e9  # large-negative attention bias of the dense paths
 
@@ -23,6 +27,17 @@ NEG_INF = -1.0e9  # large-negative attention bias of the dense paths
 def LayerNorm(d: int, eps: float = 1e-5) -> nn.LayerNorm:
     """LayerNorm with torch's epsilon 1e-5, as the JAX helper sets it."""
     return nn.LayerNorm(d, eps=eps)
+
+
+@functools.lru_cache(maxsize=8)
+def sinusoidal_pos_enc(length: int, d_model: int) -> np.ndarray:
+    """Classic sinusoidal table [length, d_model] (embedding.py PositionalEncoding)."""
+    position = np.arange(length, dtype=np.float64)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float64) * -(math.log(10000.0) / d_model))
+    pe = np.zeros((length, d_model), dtype=np.float64)
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe.astype(np.float32)
 
 
 @functools.lru_cache(maxsize=8)
@@ -40,14 +55,16 @@ def rel_pos_enc(length: int, d_model: int) -> np.ndarray:
 
 class PositionwiseFeedForward(nn.Module):
     def __init__(self, d_model: int, hidden_units: int,
-                 activation: Callable = torch.relu):
+                 activation: Callable = torch.relu, dropout_rate: float = 0.1):
         super().__init__()
         self.w_1 = nn.Linear(d_model, hidden_units)
         self.w_2 = nn.Linear(hidden_units, d_model)
         self.activation = activation
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x):
-        return self.w_2(self.activation(self.w_1(x)))
+    def forward(self, x, rng: Optional[StepRNG] = None):
+        h = dropout(self.activation(self.w_1(x)), active_rate(self, self.dropout_rate), rng)
+        return self.w_2(h)
 
 
 def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -63,13 +80,14 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 class MultiHeadedAttention(nn.Module):
     """Standard MHA (attention.py MultiHeadedAttention)."""
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
         self.linear_q = nn.Linear(d_model, d_model)
         self.linear_k = nn.Linear(d_model, d_model)
         self.linear_v = nn.Linear(d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
+        self.dropout_rate = dropout_rate  # on the attention probabilities
 
     def _proj(self, x, layer):
         y = layer(x)
@@ -79,14 +97,15 @@ class MultiHeadedAttention(nn.Module):
         """k/v projections [B, Tk, H, dk] (utterance-constant cross-attention cache)."""
         return self._proj(key, self.linear_k), self._proj(value, self.linear_v)
 
-    def forward(self, query, key, value, mask, kv_precomputed=None):
+    def forward(self, query, key, value, mask, kv_precomputed=None,
+                rng: Optional[StepRNG] = None):
         q = self._proj(query, self.linear_q)
         if kv_precomputed is not None:
             k, v = kv_precomputed
         else:
             k, v = self.project_kv(key, value)
         scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.d_k)
-        attn = masked_softmax(scores, mask)
+        attn = dropout(masked_softmax(scores, mask), active_rate(self, self.dropout_rate), rng)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.linear_out(out.reshape(*out.shape[:-2], self.h * self.d_k))
 
@@ -96,10 +115,12 @@ class RelPositionMultiHeadedAttention(nn.Module):
 
     score = ((q + u) k^T + rel_shift((q + v) p^T)) / sqrt(d_k), with a
     key-padding mask.  The attention core is ops/rel_attention.py: the CUDA
-    kernel for tensors on the card, the dense rel-shift path on the CPU.
+    kernels for tensors on the card, the dense rel-shift path on the CPU.
+    Attention-prob dropout runs inside it, keyed by an int32 seed drawn per
+    call from ``rng.host``.
     """
 
-    def __init__(self, d_model: int, num_heads: int):
+    def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
         self.linear_q = nn.Linear(d_model, d_model)
@@ -109,8 +130,9 @@ class RelPositionMultiHeadedAttention(nn.Module):
         self.linear_out = nn.Linear(d_model, d_model)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.d_k))
+        self.dropout_rate = dropout_rate
 
-    def forward(self, x, pos_emb, valid):
+    def forward(self, x, pos_emb, valid, rng: Optional[StepRNG] = None):
         """x [B, T, D]; pos_emb [1, 2T-1, D]; valid [B, T] key mask."""
         b, t, d = x.shape
 
@@ -123,18 +145,42 @@ class RelPositionMultiHeadedAttention(nn.Module):
         k = heads(self.linear_k(x)).contiguous()
         v = heads(self.linear_v(x)).contiguous()
         p = heads(self.linear_pos(pos_emb))[0].contiguous()  # [H, 2T-1, dk]
+        rate = active_rate(self, self.dropout_rate)
+        if rate > 0.0 and rng is None:
+            raise ValueError("attention dropout in training mode needs a StepRNG")
         out = rel_attention(qu, qv, k, v, p, valid.to(torch.int32).contiguous(),
-                            1.0 / math.sqrt(self.d_k))
+                            1.0 / math.sqrt(self.d_k), seed=rng.seed32() if rate > 0.0 else None,
+                            dropout_rate=rate)
         return self.linear_out(out.transpose(1, 2).reshape(b, t, d))
 
 
-class RelPositionalEncoding(nn.Module):
-    """Scale the input by sqrt(d) and emit the [1, 2T-1, D] relative table."""
+class PositionalEncoding(nn.Module):
+    """x * sqrt(d) + sinusoidal table, then dropout (embedding.py PositionalEncoding)."""
 
-    def forward(self, x):
+    def __init__(self, dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x, offset: int = 0, rng: Optional[StepRNG] = None):
         t, d = x.shape[1], x.shape[2]
-        pos = torch.from_numpy(rel_pos_enc(t, d)).to(device=x.device, dtype=x.dtype)
-        return x * math.sqrt(d), pos[None]
+        pe = torch.from_numpy(sinusoidal_pos_enc(offset + t, d)[offset:])
+        x = x * math.sqrt(d) + pe.to(device=x.device, dtype=x.dtype)[None]
+        return dropout(x, active_rate(self, self.dropout_rate), rng)
+
+
+class RelPositionalEncoding(nn.Module):
+    """Scale the input by sqrt(d) and emit the [1, 2T-1, D] relative table;
+    dropout (one draw each) on both."""
+
+    def __init__(self, dropout_rate: float = 0.1):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x, rng: Optional[StepRNG] = None):
+        t, d = x.shape[1], x.shape[2]
+        pos = torch.from_numpy(rel_pos_enc(t, d)).to(device=x.device, dtype=x.dtype)[None]
+        rate = active_rate(self, self.dropout_rate)
+        return dropout(x * math.sqrt(d), rate, rng), dropout(pos, rate, rng)
 
 
 class Conv2dSubsampling(nn.Module):
@@ -175,25 +221,32 @@ def sub4_lengths(lengths: torch.Tensor, t: Optional[int] = None) -> torch.Tensor
 class DecoderLayer(nn.Module):
     """Pre-norm transformer decoder layer (decoder_layer.py): self-attn, src-attn, FFN."""
 
-    def __init__(self, d_model: int, num_heads: int, linear_units: int):
+    def __init__(self, d_model: int, num_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1, self_attention_dropout_rate: float = 0.0,
+                 src_attention_dropout_rate: float = 0.0):
         super().__init__()
         self.norm1 = LayerNorm(d_model)
-        self.self_attn = MultiHeadedAttention(d_model, num_heads)
+        self.self_attn = MultiHeadedAttention(d_model, num_heads, self_attention_dropout_rate)
         self.norm2 = LayerNorm(d_model)
-        self.src_attn = MultiHeadedAttention(d_model, num_heads)
+        self.src_attn = MultiHeadedAttention(d_model, num_heads, src_attention_dropout_rate)
         self.norm3 = LayerNorm(d_model)
-        self.feed_forward = PositionwiseFeedForward(d_model, linear_units)
+        self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
+                                                    dropout_rate=dropout_rate)
+        self.dropout_rate = dropout_rate
 
     def project_mem_kv(self, memory):
         """src_attn's (k, v) of the memory, computed once per utterance."""
         return self.src_attn.project_kv(memory, memory)
 
-    def forward(self, tgt, tgt_mask, memory, memory_mask, self_kv=None, mem_kv=None):
+    def forward(self, tgt, tgt_mask, memory, memory_mask, self_kv=None, mem_kv=None,
+                rng: Optional[StepRNG] = None):
         """tgt [B, Lq, D]; self_kv: optional [B, Lk, D] full key/value input
         stream (incremental decode); mem_kv: precomputed memory (k, v)."""
+        rate = active_rate(self, self.dropout_rate)
         h = self.norm1(tgt)
         hk = self.norm1(self_kv) if self_kv is not None else h
-        x = tgt + self.self_attn(h, hk, hk, tgt_mask)
+        x = tgt + dropout(self.self_attn(h, hk, hk, tgt_mask, rng=rng), rate, rng)
         h = self.norm2(x)
-        x = x + self.src_attn(h, memory, memory, memory_mask, kv_precomputed=mem_kv)
-        return x + self.feed_forward(self.norm3(x))
+        h = self.src_attn(h, memory, memory, memory_mask, kv_precomputed=mem_kv, rng=rng)
+        x = x + dropout(h, rate, rng)
+        return x + dropout(self.feed_forward(self.norm3(x), rng), rate, rng)

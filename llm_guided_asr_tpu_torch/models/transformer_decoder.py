@@ -1,20 +1,75 @@
-"""Transformer decoder configuration (counterpart of llm_guided_asr_tpu/models/transformer_decoder.py).
+"""Transformer attention decoder (counterpart of llm_guided_asr_tpu/models/transformer_decoder.py).
 
-Only the config is ported so far: the LLM-guided model builds its decoder
-blocks from it.  The stand-alone TransformerDecoder comes with the phase-1
-CTC/attention model.
+Token embedding * sqrt(d) + sinusoidal positions, N pre-norm decoder
+layers with causal self-attention and cross-attention over the encoder
+output, a final LayerNorm and the vocabulary projection.  The LLM-guided
+model builds its guided decoder's blocks from the same config.  Not
+ported: ``tie_input_output`` and the lightconv/dynamicconv variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from llm_guided_asr_tpu_torch.models.transformer import (
+    DecoderLayer,
+    LayerNorm,
+    PositionalEncoding,
+)
+from llm_guided_asr_tpu_torch.utils.masks import causal_attn_mask, make_valid_mask
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 
 
 @dataclasses.dataclass(frozen=True)
 class TransformerDecoderConfig:
-    """The fields of the JAX TransformerDecoderConfig that inference reads
-    (dropout is off in eval mode; the blocks are pre-norm)."""
-
     attention_heads: int = 4
     linear_units: int = 2048
     num_blocks: int = 6
+    dropout_rate: float = 0.1
+    positional_dropout_rate: float = 0.1
+    self_attention_dropout_rate: float = 0.0
+    src_attention_dropout_rate: float = 0.0
+    normalize_before: bool = True
+    use_output_layer: bool = True
+    tie_input_output: bool = False
+
+
+def decoder_layers(cfg: TransformerDecoderConfig, d_model: int) -> list:
+    """The config's ``num_blocks`` pre-norm decoder layers."""
+    return [DecoderLayer(d_model, cfg.attention_heads, cfg.linear_units, cfg.dropout_rate,
+                         cfg.self_attention_dropout_rate, cfg.src_attention_dropout_rate)
+            for _ in range(cfg.num_blocks)]
+
+
+class TransformerDecoder(nn.Module):
+    """(memory [B, T, D], lengths, ys_in [B, L], lengths) -> logits [B, L, V]."""
+
+    def __init__(self, vocab_size: int, cfg: TransformerDecoderConfig, d_model: int):
+        super().__init__()
+        if cfg.tie_input_output:
+            raise NotImplementedError("tie_input_output is not ported yet")
+        self.cfg = cfg
+        self.embed = nn.Embedding(vocab_size, d_model)
+        self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
+        for i, layer in enumerate(decoder_layers(cfg, d_model)):
+            setattr(self, f"block_{i}", layer)
+        if cfg.normalize_before:
+            self.after_norm = LayerNorm(d_model)
+        if cfg.use_output_layer:
+            self.output_layer = nn.Linear(d_model, vocab_size)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
+                ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
+        cfg = self.cfg
+        x = self.pos_enc(self.embed(ys_in), rng=rng)
+        tgt_mask = causal_attn_mask(ys_in_lengths, ys_in.shape[1])
+        memory_mask = make_valid_mask(memory_lengths, memory.shape[1])[:, None, :]
+        for i in range(cfg.num_blocks):
+            x = getattr(self, f"block_{i}")(x, tgt_mask, memory, memory_mask, rng=rng)
+        if cfg.normalize_before:
+            x = self.after_norm(x)
+        return self.output_layer(x) if cfg.use_output_layer else x

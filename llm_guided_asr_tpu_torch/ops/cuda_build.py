@@ -39,17 +39,18 @@ def find_nvcc() -> str:
 
 
 class CudaKernel:
-    """One ``.cu`` source: its build, its C entry points and a launch count.
+    """One ``.cu`` source: its build, its C entry points and their launch counts.
 
-    ``launches`` counts the kernel launches made through :meth:`launch` and
-    nothing else, so a caller can show that a path went through the kernel.
+    ``launches[name]`` counts the calls of the C entry point ``name`` made
+    through :meth:`launch` that the card accepted, and nothing else, so a
+    caller can show that a path went through each kernel.
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence], error_fn: str):
         self.source = CSRC_DIR / source
         self.functions = dict(functions)  # C name -> ctypes argtypes
         self.error_fn = error_fn
-        self.launches = 0
+        self.launches: Dict[str, int] = dict.fromkeys(self.functions, 0)
         self.ptxas_log = ""
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -101,5 +102,8 @@ class CudaKernel:
         if code != 0:
             msg = getattr(lib, self.error_fn)(code).decode()
             raise RuntimeError(f"{function} launch failed: CUDA error {code} ({msg})")
-        self.launches += 1
+        self.launches[function] += 1
+
+    def reset_launches(self) -> None:
+        self.launches = dict.fromkeys(self.functions, 0)
 

@@ -13,7 +13,13 @@ import numpy as np
 import pytest
 import torch
 
+from llm_guided_asr_tpu_torch.convert import init_weights
 from llm_guided_asr_tpu_torch.models import conformer as tconf
+from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as tdw
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
 
@@ -28,6 +34,19 @@ def _rel_attention_tol(ref):
     if ref.dtype == torch.float32:
         return 1e-5
     return 2.0 ** -7 * ref.float().abs().max().item() + 1e-5
+
+
+def _counts():
+    return {**tra.KERNEL.launches, **tdw.KERNEL.launches}
+
+
+def _grad_tol(ref: torch.Tensor) -> float:
+    """float32: 1e-4 of the largest reference gradient (the order of the
+    sums); bfloat16: 2**-6 of it, four units in the last place, which
+    covers the rounding of the stored gradients and of the bfloat16 output
+    the kernel's delta is taken from."""
+    scale = ref.float().abs().max().item()
+    return (1e-4 if ref.dtype == torch.float32 else 2.0 ** -6) * scale + 1e-6
 
 
 @pytest.fixture
@@ -57,10 +76,10 @@ def test_rel_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths):
     qu, qv, k, v = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(4))
     p = _rand(rng, h, 2 * t - 1, dk, scale=1.0).to(card, dtype)
     kv_valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
-    before = tra.KERNEL.launches
+    before = dict(tra.KERNEL.launches)
     out = tra.rel_attention(qu, qv, k, v, p, kv_valid, 1.0 / math.sqrt(dk))
     torch.cuda.synchronize()
-    assert tra.KERNEL.launches == before + 1
+    assert tra.KERNEL.launches == {**before, "rel_attention_fwd": before["rel_attention_fwd"] + 1}
     ref = tra.rel_attention_plain(qu, qv, k, v, p, kv_valid, 1.0 / math.sqrt(dk))
     assert out.dtype == dtype and out.shape == qu.shape
     assert (out.float() - ref.float()).abs().max().item() <= _rel_attention_tol(ref)
@@ -73,10 +92,10 @@ def test_depthwise_kernel_matches_plain(card, dtype, b, t, c, k_size):
     rng = np.random.default_rng(k_size)
     x = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
     w = _rand(rng, k_size, c, scale=1.0).to(card, dtype)
-    before = tdw.KERNEL.launches
+    before = dict(tdw.KERNEL.launches)
     out = tdw.depthwise_conv1d(x, w)
     torch.cuda.synchronize()
-    assert tdw.KERNEL.launches == before + 1
+    assert tdw.KERNEL.launches == {**before, "dwconv1d_fwd": before["dwconv1d_fwd"] + 1}
     ref = tdw.depthwise_conv1d_plain(x, w)
     assert (out.float() - ref.float()).abs().max().item() <= TOL[dtype] * k_size
 
@@ -112,11 +131,108 @@ def test_conformer_on_the_card_matches_the_cpu(card):
     rng = np.random.default_rng(0)
     feats = _rand(rng, 3, 157, 40, scale=1.0)
     lengths = torch.tensor([157, 120, 61])
-    before = (tra.KERNEL.launches, tdw.KERNEL.launches)
+    before = _counts()
     with torch.no_grad():
         out_gpu, lens_gpu = gpu(feats.to(card), lengths.to(card))
         out_cpu, lens_cpu = cpu(feats, lengths)
     torch.cuda.synchronize()
-    assert (tra.KERNEL.launches, tdw.KERNEL.launches) == (before[0] + 2, before[1] + 2)
+    assert _counts() == {**before, "rel_attention_fwd": before["rel_attention_fwd"] + 2,
+                         "dwconv1d_fwd": before["dwconv1d_fwd"] + 2}
     assert torch.equal(lens_gpu.cpu(), lens_cpu)
     torch.testing.assert_close(out_gpu.cpu(), out_cpu, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("b,h,t,dk,lengths", [
+    (2, 4, 312, 64, [312, 250]),  # the Conformer's training shape, two batch rows
+    (2, 3, 77, 32, [77, 50]),
+    (1, 2, 130, 128, [101]),
+    (2, 2, 5, 16, [5, 1]),
+])
+def test_rel_attention_backward_matches_plain(card, dtype, rate, b, h, t, dk, lengths):
+    """The kernels under autograd (forward with dropout, then the backward)
+    against autograd through the plain version with the same hash mask."""
+    rng = np.random.default_rng(t + dk)
+    qu, qv, k, v = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(4))
+    p = _rand(rng, h, 2 * t - 1, dk, scale=1.0).to(card, dtype)
+    dout = _rand(rng, b, h, t, dk, scale=1.0).to(card, dtype)
+    kv_valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
+    sm, seed = 1.0 / math.sqrt(dk), -123456789
+    leaves = [x.clone().requires_grad_(True) for x in (qu, qv, k, v, p)]
+    before = _counts()
+    out = tra.rel_attention(*leaves, kv_valid, sm, seed=seed, dropout_rate=rate)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "rel_attention_fwd": before["rel_attention_fwd"] + 1,
+                         "rel_attention_bwd": before["rel_attention_bwd"] + 1}
+    ref_out = tra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm, seed, rate)
+    refs = tra.rel_attention_bwd_plain(qu, qv, k, v, p, kv_valid, dout, sm, seed, rate)
+    assert (out.float() - ref_out.float()).abs().max().item() <= _rel_attention_tol(ref_out)
+    for name, g, r in zip(("dqu", "dqv", "dk", "dv", "dp"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        r = r.to(dtype)
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= _grad_tol(r), (name, err, _grad_tol(r))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,k_size", [(4, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)])
+def test_depthwise_backward_matches_plain(card, dtype, b, t, c, k_size):
+    rng = np.random.default_rng(k_size + 1)
+    x = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
+    w = _rand(rng, k_size, c, scale=1.0).to(card, dtype).requires_grad_(True)
+    dy = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
+    xg = x.clone().requires_grad_(True)
+    before = _counts()
+    dx, dw = torch.autograd.grad(tdw.depthwise_conv1d(xg, w), (xg, w), dy)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "dwconv1d_fwd": before["dwconv1d_fwd"] + 1,
+                         "dwconv1d_bwd": before["dwconv1d_bwd"] + 1}
+    ref_dx, ref_dw = tdw.depthwise_conv1d_bwd_plain(x, w.detach(), dy)
+    for g, r in ((dx, ref_dx), (dw, ref_dw)):
+        assert g.dtype == dtype and g.shape == r.shape
+        assert (g.float() - r.float()).abs().max().item() <= _grad_tol(r)
+
+
+@pytest.mark.gpu
+def test_conformer_train_step_on_the_card_matches_the_cpu(card):
+    """One fused train step of a 2-block CTC/attention model with mixed
+    lengths: the card (kernels forward and backward, one launch of each per
+    block) against the CPU (plain versions), same weights and batch, dropout
+    off."""
+    no_drop = dict(dropout_rate=0.0, positional_dropout_rate=0.0)
+    cfg = ASRModelConfig(
+        vocab_size=30, frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=40),
+        normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                      num_blocks=2, macaron_style=True, cnn_module_kernel=15,
+                                      attention_dropout_rate=0.0, **no_drop),
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=128, num_blocks=2,
+                                         **no_drop),
+        ctc_weight=0.3)
+    cpu = init_weights(ASRModel(cfg, device="cpu"), seed=0)
+    gpu = ASRModel(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(1)
+    batch = {"speech": _rand(rng, 3, 20000, scale=0.1),
+             "speech_lengths": torch.tensor([20000, 16000, 9000]),
+             "text": torch.from_numpy(rng.integers(1, 29, (3, 6))),
+             "text_lengths": torch.tensor([6, 4, 5])}
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        state = init_train_state(model, build_optimizer("adam", {"lr": 1e-3, "eps": 1e-3}))
+        step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+        before = _counts()
+        stats, _ = step({k: v.to(dev) for k, v in batch.items()})
+        if name == "gpu":
+            torch.cuda.synchronize()
+            assert _counts() == {k: n + 2 for k, n in before.items()}
+        losses[name] = float(stats["loss"])
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    want = cpu.state_dict()
+    for name, got in gpu.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-5, msg=name)

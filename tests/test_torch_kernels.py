@@ -66,13 +66,13 @@ def test_depthwise_conv_plain_matches_jax(k_size):
 
 
 def test_cpu_calls_take_the_plain_version_and_launch_nothing():
-    before = (tra.KERNEL.launches, tdw.KERNEL.launches)
+    before = {**tra.KERNEL.launches, **tdw.KERNEL.launches}
     qu, qv, k, v, p_dense, kv_valid = _rel_inputs(1, 2, 10, 8, [10], 3)
     T = torch.from_numpy
     tra.rel_attention(T(qu), T(qv), T(k), T(v), T(np.moveaxis(p_dense, 1, 0).copy()),
                       T(kv_valid), 0.3)
     tdw.depthwise_conv1d(torch.ones(1, 5, 3), torch.ones(3, 3))
-    assert (tra.KERNEL.launches, tdw.KERNEL.launches) == before
+    assert {**tra.KERNEL.launches, **tdw.KERNEL.launches} == before
 
 
 def test_wrappers_reject_bad_operands():

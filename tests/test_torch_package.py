@@ -54,15 +54,19 @@ def test_chip_smoke_without_a_card_fails_and_prints_no_result(tmp_path):
 
 
 def test_launch_counts_only_successful_launches():
-    k = CudaKernel("rel_attention.cu", {"fn": []}, error_fn="err")
-    k._lib = types.SimpleNamespace(fn=lambda *a: 0, err=lambda code: b"invalid argument")
+    k = CudaKernel("rel_attention.cu", {"fn": [], "gn": []}, error_fn="err")
+    k._lib = types.SimpleNamespace(fn=lambda *a: 0, gn=lambda *a: 0,
+                                   err=lambda code: b"invalid argument")
     k.launch("fn")
     k.launch("fn")
-    assert k.launches == 2
+    k.launch("gn")
+    assert k.launches == {"fn": 2, "gn": 1}  # counted per C entry point
     k._lib.fn = lambda *a: 1
     with pytest.raises(RuntimeError, match="CUDA error 1 \\(invalid argument\\)"):
         k.launch("fn")
-    assert k.launches == 2
+    assert k.launches == {"fn": 2, "gn": 1}
+    k.reset_launches()
+    assert k.launches == {"fn": 0, "gn": 0}
 
 
 def test_kernel_build_targets_sm90a_into_the_build_directory(monkeypatch):
