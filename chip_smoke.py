@@ -24,7 +24,7 @@ prints how long it took):
 3. serve   -- build the LLM-guided model at full width (Conformer 12x256,
               guided decoder 6x256, Llama-3.2-1B dims in bf16) with weights
               drawn from seed 0, serve one warm-up request at each of the
-              3 lengths and then each request 5 times through Speech2Text
+              3 lengths and then each request 3 times through Speech2Text
               with beam 10 (median latency and spread), and check the
               kernel launch counts of the timed requests (12 forward
               launches per request each, no backward), the hypotheses'
@@ -44,7 +44,27 @@ prints how long it took):
 6. train-2 -- phase 2: the serving model with encoder, ctc_head and llm
               frozen, B=2 x 10 s: 1 warm-up and 5 timed steps (forward
               kernels 12 launches per step, backward kernels none, frozen
-              weights bit-identical afterwards) and one profiled step.
+              weights bit-identical afterwards) and one profiled step;
+7. serve-transducer -- the RWKV transducer at full width (vocab 5000, the
+              Conformer of train-1, RWKV prediction network 4 x 512, joint
+              256) with weights drawn from seed 0: each of the 3 requests
+              once to warm up and 3 times timed through Speech2Text with
+              beam 5 (each timed request launches 12 of each encoder
+              forward, 4 WKV forwards per prediction-network call, 2 calls
+              per frame, and no backward), the 10 s request once greedily,
+              the card's prediction and joint networks against the CPU
+              plain path, and one profiled request;
+8. train-transducer -- the same model trained with SpecAug and dropout
+              0.1, AdamW, B=16 x 10 s, text [16, 24]: 2 warm-up and 5 timed
+              steps (losses finite and falling, 12 launches of each encoder
+              kernel entry point and 4 of each WKV entry point per step),
+              peak memory and one profiled step.
+
+Phase 2 also holds the WKV forward against its plain loop at the
+transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
+and training [16, 25, 512], each timed by CUDA graph; |k| up to ~100; a
+state chained across two calls) and the WKV backward against autograd
+through the plain loop at the training shape.
 
 The last two lines of standard output are the kernel table as one JSON
 object and {"ok": true, "device": {...}}; the line before them is the
@@ -69,9 +89,15 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 
 SR = 16000
 REQUEST_SECONDS = (10.0, 7.3, 4.1)
-ROUNDS = 5  # timed runs of each request
+ROUNDS = 3  # timed runs of each request (phases 3 and 7)
 TRAIN_B, TRAIN_SECONDS, TRAIN_WARMUP, TRAIN_STEPS = 64, 10.0, 2, 10
 GUIDED_B, GUIDED_WARMUP, GUIDED_STEPS = 2, 1, 5
+TRANSDUCER_BEAM = 5
+TRD_B, TRD_WARMUP, TRD_STEPS = 16, 2, 5
+WKV_SERVE = {"serve beam-5 [5,201,512]": (5, 201, 512), "serve greedy [1,313,512]": (1, 313, 512)}
+WKV_TRAIN = (16, 25, 512)  # B=16, U+1 = 25 labels, hidden 512
+ENCODER_FWD = ("rel_attention_fwd", "dwconv1d_fwd")  # one launch per Conformer block
+ENCODER_BWD = ("rel_attention_bwd", "dwconv1d_bwd")
 REL_SHAPE = dict(b=64, h=4, t=312, dk=64)  # phase 1: 10 s of audio, 4 heads of 64
 DW_SHAPE = (64, 312, 256)
 
@@ -361,6 +387,94 @@ def check_dwconv_train(dc, dtype, k_size, gen):
     return fwd_r, bwd_r
 
 
+def wkv_inputs(gen, b, t, c, k_scale=1.0):
+    w = -torch.exp(0.5 * torch.randn(c, generator=gen, device="cuda"))
+    u = 0.5 * torch.randn(c, generator=gen, device="cuda")
+    k = k_scale * torch.randn(b, t, c, generator=gen, device="cuda")
+    v = torch.randn(b, t, c, generator=gen, device="cuda")
+    return w, u, k, v
+
+
+def wkv_close(got, want) -> float:
+    """Max abs error, after checking |got - want| <= 1e-5 + 1e-5 |want|
+    elementwise (float32: the same formula with expf and IEEE division;
+    only the kernel's fused multiply-adds round differently)."""
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    return max_err(got, want)
+
+
+def wkv_fwd_bound(b, t, c):
+    """k, v in and y out, w and u, the state in and out; 20 operations per
+    (b, t, c) step (four exponentials and a division counted as one each)."""
+    return bound_ms(4 * (3 * b * t * c + 2 * c + 6 * b * c), 20.0 * b * t * c, torch.float32)
+
+
+def check_wkv(wk, gen):
+    """The forward at the serving and training shapes, with |k| ~ 30 and a
+    state chained across two calls; the backward at the training shape
+    against autograd through the plain loop (the plain backward's time
+    includes the forward it recomputes)."""
+    results = {}
+    for shape, (b, t, c) in WKV_SERVE.items():
+        w, u, k, v = wkv_inputs(gen, b, t, c)
+        state = wk.wkv_init_state(b, c, "cuda")
+        y, st = wk.wkv_fwd(w, u, k, v, state)
+        ref_y, ref_st = wk.wkv_scan(w, u, k, v, state)
+        torch.cuda.synchronize()
+        err = max([wkv_close(y, ref_y)] + [wkv_close(a, r) for a, r in zip(st, ref_st)])
+        bms, by = wkv_fwd_bound(b, t, c)
+        results[shape] = dict(
+            err=err, ms=graph_time_ms(lambda: wk.wkv_fwd(w, u, k, v, state)),
+            plain_ms=graph_time_ms(lambda: wk.wkv_scan(w, u, k, v, state), launches=2, replays=3),
+            library_ms=None, bound_ms=bms, bound_by=by)
+    b, t, c = WKV_TRAIN
+    w, u, k, v = wkv_inputs(gen, b, t, c)
+    y, _ = wk.wkv_fwd(w, u, k, v)
+    errs = {"y": wkv_close(y, wk.wkv_scan(w, u, k, v)[0])}
+    wb, ub, kb, vb = wkv_inputs(gen, 3, 40, 100, k_scale=30.0)  # the running max carries it
+    yb, stb = wk.wkv_fwd(wb, ub, kb, vb)
+    ref_yb, ref_stb = wk.wkv_scan(wb, ub, kb, vb)
+    errs["large_k"] = max([wkv_close(yb, ref_yb)] + [wkv_close(a, r) for a, r in zip(stb, ref_stb)])
+    y1, st1 = wk.wkv_fwd(w, u, k[:, :12], v[:, :12])  # a state chained across two calls
+    y2, st2 = wk.wkv_fwd(w, u, k[:, 12:], v[:, 12:], st1)
+    ref_y, ref_st = wk.wkv_scan(w, u, k, v)
+    errs["chained"] = max([wkv_close(torch.cat([y1, y2], 1), ref_y)]
+                          + [wkv_close(a, r) for a, r in zip(st2, ref_st)])
+    gy = torch.randn(b, t, c, generator=gen, device="cuda")
+    grads = wk.wkv_bwd(w, u, k, v, y, gy)
+    refs = wk.wkv_bwd_plain(w, u, k, v, gy)
+    torch.cuda.synchronize()
+    gerrs = {}
+    for name, g, r in zip(("gw", "gu", "gk", "gv"), grads, refs):
+        # 1e-4 of the largest reference gradient: the order of the sums over
+        # T, and for gw and gu the float32 atomics over B, which change it
+        # from run to run
+        tol = 1e-4 * r.abs().max().item() + 1e-6
+        gerrs[name] = max_err(g, r)
+        if not gerrs[name] <= tol:
+            raise AssertionError(f"wkv_bwd {name}: {gerrs[name]} > {tol}")
+    print("[kernels] wkv_fwd max_abs_err " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + "; wkv_bwd max_abs_err " + ", ".join(f"{n} {e:.2e}" for n, e in gerrs.items()))
+    # the kernels at the training shape run for a few microseconds, less
+    # than a launch from Python takes, so they too are timed by CUDA graph
+    # (back-to-back launches between events would time the host); the
+    # plain versions, thousands of launches each, by CUDA events
+    bms, by = wkv_fwd_bound(b, t, c)
+    results["train [16,25,512]"] = dict(
+        err=max(errs.values()), ms=graph_time_ms(lambda: wk.wkv_fwd(w, u, k, v)),
+        plain_ms=event_time_ms(lambda: wk.wkv_scan(w, u, k, v)), library_ms=None,
+        bound_ms=bms, bound_by=by)
+    # backward: k, v, y, gy in, gk and gv out, w and u in, gw and gu out;
+    # 50 operations per (b, t, c) for its two sweeps
+    bms, by = bound_ms(4 * (6 * b * t * c + 4 * c), 50.0 * b * t * c, torch.float32)
+    results["bwd train [16,25,512]"] = dict(
+        err=max(gerrs.values()), errs=gerrs,
+        ms=graph_time_ms(lambda: wk.wkv_bwd(w, u, k, v, y, gy)),
+        plain_ms=event_time_ms(lambda: wk.wkv_bwd_plain(w, u, k, v, gy), iters=5),
+        library_ms=None, bound_ms=bms, bound_by=by)
+    return results
+
+
 def _print_timing(card, name, shape, dtype, r):
     lib = "none (no one PyTorch call)" if r["library_ms"] is None else \
         f"{r['library_ms'] * 1e3:.2f} us"
@@ -369,9 +483,14 @@ def _print_timing(card, name, shape, dtype, r):
           f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) [{card}]")
 
 
-def phase_kernels(ra, dc, card):
+def phase_kernels(ra, dc, wk, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
+    for shape, r in check_wkv(wk, gen).items():
+        name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
+        shape = shape.removeprefix("bwd ")
+        _print_timing(card, name, shape, torch.float32, r)
+        results[(name, shape, torch.float32)] = r
     for dtype in (torch.float32, torch.bfloat16):
         cases = [("rel_attention_fwd", "serve B=1 T=312", check_rel_attention(ra, dtype, gen))]
         for k_size in (31, 8):
@@ -475,7 +594,7 @@ def phase_serve(model, kernels, card):
     n_blocks = model.cfg.encoder.num_blocks
     print(f"[serve] kernel launches over {n_requests} requests: {launches}")
     for name, n in launches.items():
-        want = n_blocks * n_requests if name.endswith("_fwd") else 0
+        want = n_blocks * n_requests if name in ENCODER_FWD else 0
         if n != want:
             raise AssertionError(f"{name}: {n} launches, expected {want}")
     print(f"[serve] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
@@ -631,9 +750,10 @@ def phase_train1(kernels, card):
         raise AssertionError(f"train-1: loss did not fall: {losses}")
     n_blocks = cfg.encoder.num_blocks
     for name, n in launches.items():
-        if n != n_blocks * TRAIN_STEPS:
+        want = n_blocks * TRAIN_STEPS if name in ENCODER_FWD + ENCODER_BWD else 0
+        if n != want:
             raise AssertionError(f"train-1: {name} launched {n} times in {TRAIN_STEPS} steps, "
-                                 f"expected {n_blocks} per step")
+                                 f"expected {want}")
     print(f"[train-1] audio seconds per second at the median: "
           f"{TRAIN_B * TRAIN_SECONDS / (med / 1e3):.1f} [{card}]")
     profile_step("train-1", step, batch, med)
@@ -681,7 +801,7 @@ def phase_train2(model, kernels, card):
                                  card)
     n_blocks = model.cfg.encoder.num_blocks
     for name, n in launches.items():
-        want = n_blocks * GUIDED_STEPS if name.endswith("_fwd") else 0
+        want = n_blocks * GUIDED_STEPS if name in ENCODER_FWD else 0
         if n != want:
             raise AssertionError(f"train-2: {name} launched {n} times, expected {want}")
     print(f"[train-2] audio seconds per second at the median: "
@@ -698,13 +818,185 @@ def phase_train2(model, kernels, card):
     return launches, med
 
 
+def build_transducer():
+    """The RWKV transducer at full width: vocab 5000, utterance MVN, the
+    flagship Conformer of train-1 with SpecAug and encoder and attention
+    dropout 0.1 (training mode only), the reference RWKVDecoder's defaults
+    (block_size 512, 4 blocks), joint 256, aux CTC 0.3; float32."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
+    from llm_guided_asr_tpu_torch.models.transducer import (
+        TransducerDecoderConfig,
+        TransducerModel,
+        TransducerModelConfig,
+    )
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
+
+    cfg = TransducerModelConfig(
+        vocab_size=5000, frontend=FrontendConfig(), normalize="utterance_mvn",
+        specaug=SpecAugConfig(),
+        encoder=ConformerConfig(output_size=256, attention_heads=4, linear_units=1024,
+                                num_blocks=12, macaron_style=True, use_cnn_module=True,
+                                cnn_module_kernel=31, dropout_rate=0.1,
+                                attention_dropout_rate=0.1),
+        decoder=TransducerDecoderConfig(decoder_type="rwkv", embed_size=512, hidden_size=512,
+                                        num_layers=4),
+        joint_size=256, aux_ctc_weight=0.3,
+    )
+    return init_weights(TransducerModel(cfg, device="cuda"), seed=0)
+
+
+def phase_serve_transducer(model, waves, kernels, card):
+    """Beam-5 serving of the three requests (one warm-up each, then
+    ``ROUNDS`` timed runs with the counts reset before each),
+    the 10 s request greedily, the card's prediction and joint networks
+    against the CPU plain path, and one profiled request."""
+    import copy
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    s2t = Speech2Text(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM)
+    n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
+    with torch.inference_mode():  # each request's encoder frames, outside the counted runs
+        frames = [int(model.encode(torch.from_numpy(w[None]).cuda(),
+                                   torch.tensor([w.shape[0]], device="cuda"))[1][0])
+                  for w in waves]
+    for sec, wave in zip(REQUEST_SECONDS, waves):
+        t0 = time.perf_counter()
+        s2t(wave)
+        torch.cuda.synchronize()
+        print(f"[serve-transducer] warm-up request, {sec:.1f} s audio: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    lat = {sec: [] for sec in REQUEST_SECONDS}
+    total = dict.fromkeys(counts(kernels), 0)
+    for _ in range(ROUNDS):
+        for sec, wave, n_frames in zip(REQUEST_SECONDS, waves, frames):
+            reset_counts(kernels)
+            t0 = time.perf_counter()
+            out = s2t(wave)
+            torch.cuda.synchronize()
+            lat[sec].append(time.perf_counter() - t0)
+            launches = counts(kernels)
+            # 2 prediction-network calls per frame (max_sym_exp 2), each
+            # running the WKV forward once per RWKV block
+            want = dict.fromkeys(launches, 0)
+            want.update(rel_attention_fwd=n_blocks, dwconv1d_fwd=n_blocks,
+                        wkv_fwd=n_layers * 2 * n_frames)
+            if launches != want:
+                raise AssertionError(f"serve-transducer {sec} s: launches {launches} != {want}")
+            scores = [h.score for _, h in out]
+            if not (all(math.isfinite(x) for x in scores) and scores == sorted(scores, reverse=True)
+                    and all(0 < i < model.cfg.vocab_size for ids, _ in out for i in ids)):
+                raise AssertionError(f"serve-transducer {sec} s: bad hypotheses {scores}")
+            total = {k: total[k] + n for k, n in launches.items()}
+    peak = torch.cuda.max_memory_allocated()
+    for sec, n_frames in zip(REQUEST_SECONDS, frames):
+        ms = sorted(x * 1e3 for x in lat[sec])
+        med = float(np.median(ms))
+        print(f"[serve-transducer] {sec:.1f} s audio ({n_frames} frames), {len(ms)} runs, beam "
+              f"{TRANSDUCER_BEAM}: latency median {med:.1f} ms (min {ms[0]:.1f}, max "
+              f"{ms[-1]:.1f}), RTFx at the median {sec / med * 1e3:.2f} [{card}]")
+    print(f"[serve-transducer] 10.0 s request launches: rel_attention_fwd {n_blocks}, "
+          f"dwconv1d_fwd {n_blocks}, wkv_fwd {n_layers * 2 * frames[0]} "
+          f"(= {n_layers} blocks x 2 calls x {frames[0]} frames), backward 0; over all "
+          f"{ROUNDS * len(waves)} timed requests {total}")
+    print(f"[serve-transducer] torch.cuda.max_memory_allocated: {peak} bytes "
+          f"({peak / 2**30:.2f} GiB)")
+
+    greedy = Speech2Text(model, beam_size=1)
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    (ids, _), = greedy(waves[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    g_launches = counts(kernels)
+    if g_launches["wkv_fwd"] % n_layers or not g_launches["wkv_fwd"] or any(
+            g_launches[k] != n_blocks for k in ENCODER_FWD):
+        raise AssertionError(f"serve-transducer greedy: launches {g_launches}")
+    print(f"[serve-transducer] 10.0 s request greedy (beam 1), one run, first at this shape: "
+          f"{dt * 1e3:.1f} ms, {len(ids)} tokens, {g_launches['wkv_fwd'] // n_layers} "
+          f"prediction-network calls, launches {g_launches} [{card}]")
+
+    # the card's prediction and joint networks against the CPU plain path
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(1, model.cfg.vocab_size, (TRANSDUCER_BEAM, 200), generator=gen)
+    with torch.inference_mode():
+        enc, _ = model.encode(torch.from_numpy(waves[-1][None]).cuda(),
+                              torch.tensor([waves[-1].shape[0]], device="cuda"))
+        h = enc[0, :TRANSDUCER_BEAM]
+        g = model.decode_labels(tokens.cuda())
+        logits = model.joint_step(h[:, None, :], g)
+        cpu_dec, cpu_joint = copy.deepcopy(model.decoder).cpu(), copy.deepcopy(model.joint).cpu()
+        ref_g = cpu_dec(tokens)
+        ref_logits = cpu_joint(h.cpu()[:, None, :], ref_g)
+    errs = (max_err(g.cpu(), ref_g), max_err(logits.cpu(), ref_logits))
+    print(f"[serve-transducer] decode_labels [5, 201, 512] and joint_step [5, 201, 5000], card "
+          f"vs CPU plain path: max_abs_err {errs[0]:.3e} and {errs[1]:.3e} (tol 1e-4)")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"serve-transducer: card and CPU disagree: {errs}")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    wall_s = float(np.median(lat[REQUEST_SECONDS[0]]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s2t(waves[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms, events = device_busy(prof)
+    print(f"[serve-transducer] 10.0 s request traced (card only): wall {wall * 1e3:.1f} ms, "
+          f"device busy {dev_ms:.1f} ms = {100 * dev_ms / 1e3 / wall_s:.1f}% of the unprofiled "
+          f"median latency")
+    print_top("serve-transducer", events)
+    return total
+
+
+def phase_train_transducer(model, kernels, card):
+    """The transducer trained at B=16 x 10 s, float32 with TF32 off,
+    SpecAug and dropout 0.1, AdamW lr 1e-3."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(2))
+    samples = int(TRAIN_SECONDS * SR)
+    rng = np.random.default_rng(5)
+    batch = {
+        "speech": torch.from_numpy((rng.standard_normal((TRD_B, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((TRD_B,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(1, 5000, (TRD_B, 24))).cuda(),
+        "text_lengths": torch.full((TRD_B,), 24, device="cuda"),
+    }
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"[train-transducer] {n_params} parameters, batch {TRD_B} x {TRAIN_SECONDS} s, text "
+          f"[{TRD_B}, 24]; joint lattice [{TRD_B}, T', 25, {model.cfg.vocab_size}] float32")
+    all_stats, med, launches = run_steps("train-transducer", step, batch, TRD_WARMUP, TRD_STEPS,
+                                         kernels, card)
+    losses = [s["loss"] for s in all_stats]
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train-transducer: loss did not fall: {losses}")
+    n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
+    for name, n in launches.items():
+        want = (n_layers if name.startswith("wkv") else n_blocks) * TRD_STEPS
+        if n != want:
+            raise AssertionError(f"train-transducer: {name} launched {n} times in {TRD_STEPS} "
+                                 f"steps, expected {want}")
+    print(f"[train-transducer] audio seconds per second at the median: "
+          f"{TRD_B * TRAIN_SECONDS / (med / 1e3):.1f} [{card}]")
+    profile_step("train-transducer", step, batch, med)
+    return launches, med
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
     from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
     from llm_guided_asr_tpu_torch.ops import rel_attention as ra
-
+    from llm_guided_asr_tpu_torch.ops import wkv as wk
     from llm_guided_asr_tpu_torch.utils.device import resolve_device
 
     resolve_device("cuda")  # the card's float32 policy, before the first kernel check
@@ -712,7 +1004,7 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
     t_start = time.perf_counter()
-    kernels = [ra.KERNEL, dc.KERNEL]
+    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL]
     phases = {}
 
     def timed(name, fn, *args):
@@ -723,37 +1015,49 @@ def main() -> int:
         return out
 
     timed("build", phase_build, kernels)
-    timings = timed("kernels", phase_kernels, ra, dc, card)
+    timings = timed("kernels", phase_kernels, ra, dc, wk, card)
     model = build_model()
-    serve_launches, waves, wall_10s = timed("serve", phase_serve, model, kernels, card)
+    paths = {}
+    paths["serve"], waves, wall_10s = timed("serve", phase_serve, model, kernels, card)
     timed("profile", phase_profile, model, waves[0], wall_10s, card)
-    train_launches, _ = timed("train-1", phase_train1, kernels, card)
-    guided_launches, _ = timed("train-2", phase_train2, model, kernels, card)
+    paths["train-1"], _ = timed("train-1", phase_train1, kernels, card)
+    paths["train-2"], _ = timed("train-2", phase_train2, model, kernels, card)
+    del model
+    torch.cuda.empty_cache()
+    transducer = build_transducer()
+    paths["serve-transducer"] = timed("serve-transducer", phase_serve_transducer, transducer,
+                                      waves, kernels, card)
+    paths["train-transducer"], _ = timed("train-transducer", phase_train_transducer, transducer,
+                                         kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
     f32 = torch.float32
     table = []
-    for name, shape, serve_shape, kernel, replaces in (
+    # (entry point, timed shape, serving shape or None, kernel, TPU kernel, path of "launches")
+    for name, shape, serve_shape, kernel, replaces, path in (
         ("rel_attention_fwd", "train B=64 T=312 dropout 0.1", "serve B=1 T=312", ra.KERNEL,
-         "llm_guided_asr_tpu/ops/rel_attention.py:143"),
+         "llm_guided_asr_tpu/ops/rel_attention.py:143", "train-1"),
         ("rel_attention_bwd", "train B=64 T=312 dropout 0.1", None, ra.KERNEL,
-         "llm_guided_asr_tpu/ops/rel_attention.py:200"),
+         "llm_guided_asr_tpu/ops/rel_attention.py:200", "train-1"),
         ("dwconv1d_fwd", "train [64,312,256] K=31", "serve [1,312,256] K=31", dc.KERNEL,
-         "llm_guided_asr_tpu/ops/depthwise_conv.py:37"),
+         "llm_guided_asr_tpu/ops/depthwise_conv.py:37", "train-1"),
         ("dwconv1d_bwd", "train [64,312,256] K=31", None, dc.KERNEL,
-         "llm_guided_asr_tpu/ops/depthwise_conv.py:48"),
+         "llm_guided_asr_tpu/ops/depthwise_conv.py:48", "train-1"),
+        ("wkv_fwd", "train [16,25,512]", "serve beam-5 [5,201,512]", wk.KERNEL,
+         "llm_guided_asr_tpu/ops/wkv.py:79", "serve-transducer"),
+        ("wkv_bwd", "train [16,25,512]", None, wk.KERNEL,
+         "llm_guided_asr_tpu/ops/wkv.py:179", "train-transducer"),
     ):
         r = timings[(name, shape, f32)]
         row = {
             "name": name, "route": "cuda",
             "source": str(kernel.source.relative_to(kernel.source.parents[2])),
-            "replaces": replaces, "launches": train_launches[name],
+            "replaces": replaces, "launches": paths[path][name],
             "max_abs_err": r["err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-            "shape": shape,
-            "launches_by_path": {"serve": serve_launches[name], "train-1": train_launches[name],
-                                 "train-2": guided_launches[name]},
+            "shape": shape, "launches_path": path,
+            "launches_by_path": {p_: c[name] for p_, c in paths.items()},
         }
         if serve_shape is not None:
             s = timings[(name, serve_shape, f32)]

@@ -1,11 +1,15 @@
-"""Speech2Text for the LLM-guided model (counterpart of llm_guided_asr_tpu/bin/asr_inference.py).
+"""Speech2Text (counterpart of llm_guided_asr_tpu/bin/asr_inference.py).
 
 Built from a model whose weights are already loaded (the config.yaml task
 layer is not ported yet).  A call pads the waveform to a multiple of
-``speech_pad_multiple`` samples, encodes it, and runs the beam search with
-the cached guided scorer.  Results are token ids in the LLM vocabulary;
-turning them into text needs the LLM tokenizer, which comes with the task
-layer.
+``speech_pad_multiple`` samples, encodes it and searches:
+
+- the LLM-guided model: the beam search with the cached guided scorer;
+- a transducer (a model with ``joint_full``): the fixed-expansion beam
+  search when ``beam_size > 1``, the greedy decode when it is 1.
+
+Results are token ids; turning them into text needs the tokenizer, which
+comes with the task layer.
 """
 
 from __future__ import annotations
@@ -15,7 +19,11 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
+from llm_guided_asr_tpu_torch.models.transducer import transducer_greedy_decode
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch, Hypothesis
+from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
+
+TRANSDUCER_SEARCHES = ("default", "alsd", "tsd", "nsc", "mbg")
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -35,6 +43,7 @@ class Speech2Text:
         minlenratio: float = 0.0,
         nbest: int = 1,
         speech_pad_multiple: int = 1600,
+        transducer_search: str = "default",
     ):
         self.model = model.eval()
         self.device = next(model.parameters()).device
@@ -42,12 +51,29 @@ class Speech2Text:
         self.minlenratio = minlenratio
         self.nbest = nbest
         self.speech_pad_multiple = speech_pad_multiple
+        self.beam_size = beam_size
+        self.is_transducer = hasattr(model, "joint_full")
+        self.beam = None
         cfg = model.cfg
-        self.beam = BatchBeamSearch(
-            model, vocab_size=cfg.vocab_size, sos=cfg.sos_id, eos=cfg.eos_id,
-            beam_size=max(beam_size, 1), ctc_weight=ctc_weight, penalty=penalty,
-            blank_id=cfg.blank_id,
-        )
+        if self.is_transducer:
+            if transducer_search not in TRANSDUCER_SEARCHES:
+                raise ValueError(f"transducer_search={transducer_search!r}")
+            if transducer_search != "default":
+                raise NotImplementedError(
+                    f"transducer_search={transducer_search!r} is not ported yet")
+        else:
+            self.beam = BatchBeamSearch(
+                model, vocab_size=cfg.vocab_size, sos=cfg.sos_id, eos=cfg.eos_id,
+                beam_size=max(beam_size, 1), ctc_weight=ctc_weight, penalty=penalty,
+                blank_id=cfg.blank_id,
+            )
+
+    def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:
+        if self.beam_size > 1:
+            return transducer_beam_decode(self.model, enc, enc_lens, beam_size=self.beam_size,
+                                          nbest=self.nbest)
+        tokens, n = transducer_greedy_decode(self.model, enc, enc_lens)
+        return [Hypothesis(yseq=tokens[0, : int(n[0])].tolist(), score=0.0, scores={})]
 
     @torch.inference_mode()
     def __call__(self, speech: np.ndarray) -> List[Tuple[List[int], Hypothesis]]:
@@ -60,7 +86,10 @@ class Speech2Text:
             torch.from_numpy(padded[None]).to(self.device),
             torch.tensor([n], device=self.device),
         )
-        hyps = self.beam(enc, enc_lens, maxlenratio=self.maxlenratio,
-                         minlenratio=self.minlenratio, nbest=self.nbest)
+        if self.is_transducer:
+            hyps = self._transducer_search(enc, enc_lens)
+        else:
+            hyps = self.beam(enc, enc_lens, maxlenratio=self.maxlenratio,
+                             minlenratio=self.minlenratio, nbest=self.nbest)
         special = (self.model.cfg.sos_id, self.model.cfg.eos_id)
         return [([i for i in h.yseq if i not in special], h) for h in hyps[: self.nbest]]

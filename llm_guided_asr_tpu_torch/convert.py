@@ -3,8 +3,10 @@
 The port names its modules after the flax modules, so a flax path maps to
 a torch name by joining it with dots (``encoder/block_0/conv_module/norm``
 -> ``encoder.block_0.conv_module.norm``, ``decoder/embed`` ->
-``decoder.embed``, for the LLM-guided model and the CTC/attention
-ASRModel alike); only the leaf names and layouts differ:
+``decoder.embed``, ``decoder/block_0/att/key`` -> ``decoder.block_0.att.key``,
+for the LLM-guided model, the CTC/attention ASRModel and the transducer
+alike); only the leaf names and layouts differ (RWKV's [C] leaves
+``mu_*``, ``time_decay`` and ``time_first`` keep their names):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW

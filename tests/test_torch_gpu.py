@@ -22,6 +22,7 @@ from llm_guided_asr_tpu_torch.train.optim import build_optimizer
 from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as tdw
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
+from llm_guided_asr_tpu_torch.ops import wkv as twkv
 
 # bf16 outputs are rounded to 8 mantissa bits; float32 differs only by the
 # order of the sums
@@ -37,7 +38,7 @@ def _rel_attention_tol(ref):
 
 
 def _counts():
-    return {**tra.KERNEL.launches, **tdw.KERNEL.launches}
+    return {**tra.KERNEL.launches, **tdw.KERNEL.launches, **twkv.KERNEL.launches}
 
 
 def _grad_tol(ref: torch.Tensor) -> float:
@@ -230,9 +231,165 @@ def test_conformer_train_step_on_the_card_matches_the_cpu(card):
         stats, _ = step({k: v.to(dev) for k, v in batch.items()})
         if name == "gpu":
             torch.cuda.synchronize()
+            assert _counts() == {k: n + (0 if k.startswith("wkv") else 2)
+                                 for k, n in before.items()}
+        losses[name] = float(stats["loss"])
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    want = cpu.state_dict()
+    for name, got in gpu.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-5, msg=name)
+
+
+def _wkv_inputs(rng, b, t, c, k_scale, card):
+    w = -torch.exp(_rand(rng, c, scale=0.5)).to(card)
+    u = _rand(rng, c, scale=0.5).to(card)
+    k = _rand(rng, b, t, c, scale=k_scale).to(card)
+    v = _rand(rng, b, t, c, scale=1.0).to(card)
+    return w, u, k, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,k_scale,given_state", [
+    (5, 201, 512, 1.0, False),  # beam-5 serving: the prediction network over u_max + 1
+    (1, 313, 512, 1.0, False),  # greedy serving at 10 s of audio
+    (16, 25, 512, 1.0, True),   # training, chained from a given state
+    (2, 17, 70, 1.0, False),    # C not a multiple of 32
+    (1, 1, 33, 1.0, True),      # B = 1, T = 1
+    (3, 40, 100, 30.0, True),   # |k| up to ~100: the running maximum carries everything
+])
+def test_wkv_kernel_matches_plain(card, b, t, c, k_scale, given_state):
+    """float32, 1e-5: the same formula with expf and IEEE division; only
+    the kernel's fused multiply-adds round differently."""
+    rng = np.random.default_rng(t + c)
+    w, u, k, v = _wkv_inputs(rng, b, t, c, k_scale, card)
+    state = None
+    if given_state:  # a state carried out of an earlier call, as a chained stream has
+        state = twkv.wkv_scan(w, u, *_wkv_inputs(rng, b, 7, c, k_scale, card)[2:])[1]
+    before = _counts()
+    y, st = twkv.wkv_fwd(w, u, k, v, state)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "wkv_fwd": before["wkv_fwd"] + 1}
+    ref_y, ref_st = twkv.wkv_scan(w, u, k, v, state)
+    torch.testing.assert_close(y, ref_y, rtol=1e-5, atol=1e-5)
+    for got, want in zip(st, ref_st):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,k_scale", [
+    (16, 25, 512, 1.0),  # training: the prediction network over U + 1 = 25 labels
+    (2, 17, 70, 1.0),
+    (1, 1, 33, 1.0),
+    (3, 30, 40, 30.0),
+])
+def test_wkv_backward_matches_autograd(card, b, t, c, k_scale):
+    """The backward kernel against autograd through the plain loop: every
+    gradient at 1e-4 of its largest reference value; gw and gu are float32
+    atomic sums over the batch, so their order changes between runs."""
+    rng = np.random.default_rng(b + t + c)
+    w, u, k, v = _wkv_inputs(rng, b, t, c, k_scale, card)
+    gy = _rand(rng, b, t, c, scale=1.0).to(card)
+    leaves = [x.clone().requires_grad_(True) for x in (w, u, k, v)]
+    before = _counts()
+    y = twkv.wkv(*leaves)
+    grads = torch.autograd.grad(y, leaves, gy)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "wkv_fwd": before["wkv_fwd"] + 1,
+                         "wkv_bwd": before["wkv_bwd"] + 1}
+    refs = twkv.wkv_bwd_plain(w, u, k, v, gy)
+    for name, g, r in zip(("gw", "gu", "gk", "gv"), grads, refs):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        err = (g - r).abs().max().item()
+        assert err <= 1e-4 * r.abs().max().item() + 1e-6, (name, err)
+
+
+@pytest.mark.gpu
+def test_wkv_wrappers_raise_instead_of_falling_back(card):
+    w, u, k, v = _wkv_inputs(np.random.default_rng(0), 1, 4, 8, 1.0, card)
+    with pytest.raises(TypeError, match="float32"):
+        twkv.wkv_fwd(w.double(), u, k, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        twkv.wkv_fwd(torch.stack([w, w], 1)[:, 0], u, k, v)
+    with pytest.raises(ValueError, match="different devices"):
+        twkv.wkv_fwd(w, u, k, v.cpu())
+    with pytest.raises(ValueError, match="state"):
+        twkv.wkv_fwd(w, u, k, v, twkv.wkv_init_state(1, 8))  # a state on the CPU
+
+
+def _transducer_cfg():
+    from llm_guided_asr_tpu_torch.models import transducer as ttd
+
+    no_drop = dict(dropout_rate=0.0, positional_dropout_rate=0.0, attention_dropout_rate=0.0)
+    return ttd.TransducerModelConfig(
+        vocab_size=30, frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=40),
+        normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                      num_blocks=2, macaron_style=True, cnn_module_kernel=15,
+                                      **no_drop),
+        decoder=ttd.TransducerDecoderConfig(decoder_type="rwkv", embed_size=48, hidden_size=48,
+                                            num_layers=2),
+        joint_size=32, aux_ctc_weight=0.3)
+
+
+@pytest.mark.gpu
+def test_transducer_train_step_on_the_card_matches_the_cpu(card):
+    """One fused step of a 2-block Conformer + 2-block RWKV transducer with
+    mixed lengths: the card (every kernel forward and backward: one launch
+    of each per block) against the CPU (plain versions), same weights and
+    batch, dropout off."""
+    from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
+
+    cpu = init_weights(TransducerModel(_transducer_cfg(), device="cpu"), seed=0)
+    gpu = TransducerModel(_transducer_cfg(), device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batch = {"speech": _rand(rng, 3, 20000, scale=0.1),
+             "speech_lengths": torch.tensor([20000, 16000, 9000]),
+             "text": torch.from_numpy(rng.integers(1, 29, (3, 6))),
+             "text_lengths": torch.tensor([6, 4, 5])}
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        state = init_train_state(model, build_optimizer("adam", {"lr": 1e-3, "eps": 1e-3}))
+        step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+        before = _counts()
+        stats, _ = step({k: v.to(dev) for k, v in batch.items()})
+        if name == "gpu":
+            torch.cuda.synchronize()
             assert _counts() == {k: n + 2 for k, n in before.items()}
         losses[name] = float(stats["loss"])
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
     want = cpu.state_dict()
     for name, got in gpu.state_dict().items():
         torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-5, msg=name)
+
+
+@pytest.mark.gpu
+def test_transducer_decoding_on_the_card_matches_the_cpu(card):
+    """Greedy and beam-3 decoding of one utterance: the same tokens, and the
+    beam's scores at 1e-4."""
+    from llm_guided_asr_tpu_torch.models.transducer import (
+        TransducerModel,
+        transducer_greedy_decode,
+    )
+    from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
+
+    cpu = TransducerModel(_transducer_cfg(), device="cpu").eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.3)
+    gpu = TransducerModel(_transducer_cfg(), device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    speech = _rand(np.random.default_rng(3), 1, 16000, scale=0.1)
+    out = {}
+    with torch.no_grad():
+        for name, model in (("cpu", cpu), ("gpu", gpu)):
+            dev = next(model.parameters()).device
+            enc, lens = model.encode(speech.to(dev), torch.tensor([16000], device=dev))
+            tok, n = transducer_greedy_decode(model, enc, lens)
+            out[name] = (tok[0, : n[0]].tolist(),
+                         transducer_beam_decode(model, enc, lens, beam_size=3, nbest=3))
+    assert out["gpu"][0] == out["cpu"][0]
+    assert [h.yseq for h in out["gpu"][1]] == [h.yseq for h in out["cpu"][1]]
+    np.testing.assert_allclose([h.score for h in out["gpu"][1]],
+                               [h.score for h in out["cpu"][1]], rtol=1e-4)
