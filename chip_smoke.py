@@ -58,13 +58,31 @@ prints how long it took):
               0.1, AdamW, B=16 x 10 s, text [16, 24]: 2 warm-up and 5 timed
               steps (losses finite and falling, 12 launches of each encoder
               kernel entry point and 4 of each WKV entry point per step),
-              peak memory and one profiled step.
+              peak memory and one profiled step;
+9. serve-flash -- flash-ASR (the train-1 model with the long-form
+              encoder: abs_pos encoding, flash self-attention) served as
+              phase 3 serves, on requests of 60, 45 and 30 s (T' = 1874,
+              1405, 937) at beam 10 with the stateless scorer: 12 flash and
+              12 depthwise forward launches per request, nothing else, the
+              card's encoder against the CPU plain path on the 30 s
+              request; then the 60 s request profiled as phase 4;
+10. train-flash -- flash-ASR trained at B=8 x 60 s, text [8, 96], SpecAug
+              and dropout 0.1, AdamW: 2 warm-up and 5 timed steps (losses
+              finite and falling, 12 launches of each flash and depthwise
+              entry point per step, no rel-attention), peak memory and one
+              profiled step.
 
 Phase 2 also holds the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
 and training [16, 25, 512], each timed by CUDA graph; |k| up to ~100; a
 state chained across two calls) and the WKV backward against autograd
-through the plain loop at the training shape.
+through the plain loop at the training shape; the flash forward at the
+serving shape [1, 4, 1874, 64] (CUDA graph) and the forward, dK/dV and dQ
+at the training shape [8, 4, 1874, 64] under autograd against autograd
+through the plain version (all frames valid and ragged, pad query rows
+exactly 0; CUDA events), each beside F.scaled_dot_product_attention with
+the same key mask (timed only); and the rel-pos forward at the long-form
+length [1, 4, 1874, 64], the yardstick beside the flash forward.
 
 The last two lines of standard output are the kernel table as one JSON
 object and {"ok": true, "device": {...}}; the line before them is the
@@ -100,6 +118,14 @@ ENCODER_FWD = ("rel_attention_fwd", "dwconv1d_fwd")  # one launch per Conformer 
 ENCODER_BWD = ("rel_attention_bwd", "dwconv1d_bwd")
 REL_SHAPE = dict(b=64, h=4, t=312, dk=64)  # phase 1: 10 s of audio, 4 heads of 64
 DW_SHAPE = (64, 312, 256)
+# the flash-attention Conformer (phases 9-10): long-form requests, one pass
+FLASH_SECONDS = (60.0, 45.0, 30.0)
+FLASH_B, FLASH_TEXT, FLASH_WARMUP, FLASH_STEPS = 8, 96, 2, 5
+FLASH_T = 1874  # encoder frames of 60 s of audio (hop 128, x4 subsampling)
+FLASH_SERVE = (1, 4, FLASH_T, 64)
+FLASH_TRAIN = (FLASH_B, 4, FLASH_T, 64)
+FLASH_FWD = ("flash_attention_fwd", "dwconv1d_fwd")
+FLASH_BWD = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq", "dwconv1d_bwd")
 
 
 def nvidia_smi_name_power() -> str:
@@ -204,23 +230,24 @@ def grad_tol(ref: torch.Tensor, dtype) -> float:
     return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale + 1e-6
 
 
-def check_rel_attention(ra, dtype, gen):
-    """Serving shapes: B=1, H=4, T=312 (10 s of audio), dk=64, no gradient.
+def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
+    """Serving shapes: B=1, H=4, T=312 (10 s of audio), dk=64, no gradient;
+    also T=1874 (60 s), the long-form length, in float32.
 
     Unit-scale inputs give logits of standard deviation about 1.4, so the
     softmax is peaked enough that dropping or misplacing the positional
     term moves outputs far beyond the tolerance.  The error is checked with
     all keys valid (the serving path: every frame of a B=1 request is
-    valid) and with 25 keys masked; the time and the bound are taken with
-    all keys valid, as the serving path calls the kernel.
+    valid) and with ``n_masked`` keys masked; the time and the bound are
+    taken with all keys valid, as the serving path calls the kernel.
     """
-    b, h, t, dk = 1, 4, 312, 64
+    b, h, dk = 1, 4, 64
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
     qu, qv, k, v = (mk(b, h, t, dk) for _ in range(4))
     p = mk(h, 2 * t - 1, dk)
     sm = 1.0 / math.sqrt(dk)
     errs = {}
-    for n_valid in (t, 287):
+    for n_valid in (t, t - n_masked):
         kv_valid = (torch.arange(t, device="cuda")[None] < n_valid).to(torch.int32)
         out = ra.rel_attention(qu, qv, k, v, p, kv_valid, sm)
         ref = ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm)
@@ -244,7 +271,8 @@ def check_rel_attention(ra, dtype, gen):
     return dict(
         err=err, tol=tol,
         ms=graph_time_ms(lambda: ra.rel_attention(qu, qv, k, v, p, kv_valid, sm)),
-        plain_ms=graph_time_ms(lambda: ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm)),
+        plain_ms=graph_time_ms(lambda: ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm),
+                               launches=plain_launches),
         library_ms=None,  # no single PyTorch call computes rel-pos attention
         bound_ms=bms, bound_by=by,
     )
@@ -387,6 +415,155 @@ def check_dwconv_train(dc, dtype, k_size, gen):
     return fwd_r, bwd_r
 
 
+def flash_fwd_tol(ref: torch.Tensor) -> float:
+    """float32: 2e-5 of the largest output, the order of the sums over up to
+    1874 keys; bfloat16: one unit in the last place, as the rel-attention
+    checks."""
+    scale = ref.float().abs().max().item()
+    return (2e-5 if ref.dtype == torch.float32 else 2.0 ** -7) * scale + 1e-5
+
+
+def flash_bounds(q, valid, with_lse: bool = True) -> dict:
+    """Bounds of the three entry points on these inputs: each [B, H, T, dk]
+    operand read or written once, lse and delta float32 [B, H, T], the int32
+    mask; the operations over the pairs of valid frames only (a masked key
+    or a pad query row costs nothing): per pair and head 4*dk FLOPs forward
+    (scores, P.v), 8*dk dK/dV (scores, dP, dV, dK), 6*dk dQ (scores, dP,
+    dQ)."""
+    b, h, t, dk = q.shape
+    n = valid.sum(dim=1).double()
+    pairs = h * float((n * n).sum().item())
+    slab, rows, mask = q.dtype.itemsize * b * h * t * dk, 4 * b * h * t, 4 * b * t
+    return {
+        "flash_attention_fwd": bound_ms(4 * slab + rows * with_lse + mask, 4.0 * dk * pairs,
+                                        q.dtype),
+        "flash_attention_bwd_dkv": bound_ms(6 * slab + 2 * rows + mask, 8.0 * dk * pairs, q.dtype),
+        "flash_attention_bwd_dq": bound_ms(5 * slab + 2 * rows + mask, 6.0 * dk * pairs, q.dtype),
+    }
+
+
+FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+
+# the library yardsticks are checked only to compute the same function (a
+# lost mask or scale is an O(1) error), not to any kernel's tolerance: their
+# float32 may run on TF32 tensor cores
+LIBRARY_RTOL = 5e-2
+
+
+def sdpa(q, k, v, valid, sm):
+    """The library yardstick (timed only, never on the port's path):
+    F.scaled_dot_product_attention with the same key mask; it computes the
+    same function on the valid query rows (it does not zero the pad rows)."""
+    mask = valid.bool()[:, None, None, :]
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sm)
+
+
+def check_flash_attention(fa, dtype, gen):
+    """Serving shape [1, 4, 1874, 64] (the 60 s request), no gradient: all
+    frames valid (B=1 serving) and 469 pads (the 45 s request's frames in a
+    60 s wide batch), the pad query rows exactly 0.  Timed with all frames
+    valid, as the serving path calls it."""
+    b, h, t, dk = FLASH_SERVE
+    q, k, v = (torch.randn(b, h, t, dk, generator=gen, device="cuda").to(dtype) for _ in range(3))
+    sm = 1.0 / math.sqrt(dk)
+    errs = []
+    for n_valid in (1405, t):  # the last, all frames valid, is timed
+        valid = (torch.arange(t, device="cuda")[None] < n_valid).to(torch.int32)
+        out = fa.flash_attention(q, k, v, valid, sm)
+        ref = fa.flash_attention_plain(q, k, v, valid, sm)
+        torch.cuda.synchronize()
+        err, tol = max_err(out, ref), flash_fwd_tol(ref)
+        if not err <= tol or not torch.all(out[:, :, n_valid:] == 0):
+            raise AssertionError(f"flash_attention {dtype} {n_valid} valid: {err} > {tol}, or a "
+                                 "pad query row is not 0")
+        errs.append((err, tol))
+    lib = lambda: sdpa(q, k, v, valid, sm)  # noqa: E731
+    lib_err = max_err(lib(), ref) / ref.float().abs().max().item()
+    if lib_err > LIBRARY_RTOL:
+        raise AssertionError(f"library yardstick computes another function ({lib_err})")
+    bms, by = flash_bounds(q, valid, with_lse=False)["flash_attention_fwd"]
+    err, tol = max(errs)
+    return dict(
+        err=err, tol=tol, ms=graph_time_ms(lambda: fa.flash_attention(q, k, v, valid, sm)),
+        plain_ms=graph_time_ms(lambda: fa.flash_attention_plain(q, k, v, valid, sm), launches=5),
+        library_ms=event_time_ms(lib), bound_ms=bms, bound_by=by,
+    )
+
+
+def check_flash_attention_train(fa, dtype, gen):
+    """Training shape [8, 4, 1874, 64] (train-flash: 8 x 60 s): the forward
+    and both backward kernels under autograd against autograd through the
+    plain version, all frames valid and ragged (lengths 1874 down to 400:
+    pad query rows exactly 0 in out and dq).  Timed with all frames valid,
+    as train-flash calls them, each entry point alone; the plain backward's
+    time is all three gradients with the forward recomputed, the library's
+    the autograd backward of F.scaled_dot_product_attention (dq, dk, dv)."""
+    b, h, t, dk = FLASH_TRAIN
+    mk = lambda: torch.randn(b, h, t, dk, generator=gen, device="cuda").to(dtype)  # noqa: E731
+    q, k, v, dout = mk(), mk(), mk(), mk()
+    sm = 1.0 / math.sqrt(dk)
+    full = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    lengths = torch.linspace(t, 400, b, device="cuda").long()
+    ragged = (torch.arange(t, device="cuda")[None] < lengths[:, None]).to(torch.int32)
+    errs = dict.fromkeys(("out", "dq", "dk", "dv"), 0.0)
+    for valid_name, valid in (("ragged", ragged), ("all", full)):
+        leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+        out = fa.flash_attention(*leaves, valid, sm)
+        grads = torch.autograd.grad(out, leaves, dout)
+        ref = fa.flash_attention_plain(q, k, v, valid, sm)
+        refs = fa.flash_attention_bwd_plain(q, k, v, valid, dout, sm)
+        torch.cuda.synchronize()
+        pads = ~valid.bool()[:, None, :, None].expand_as(q)
+        if not (torch.all(out[pads] == 0) and torch.all(grads[0][pads] == 0)):
+            raise AssertionError(f"flash_attention {dtype}: a pad query row is not 0")
+        parts = [("out", out, ref, flash_fwd_tol(ref))]
+        parts += [(n, g, r, grad_tol(r, dtype)) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
+        line = []
+        for name, got, want, tol in parts:
+            err = max_err(got, want)
+            if not err <= tol:
+                raise AssertionError(f"flash_attention {dtype} frames {valid_name}: {name} error "
+                                     f"{err} > {tol}")
+            errs[name] = max(errs[name], err)
+            line.append(f"{name} {err:.2e}/{tol:.1e}")
+        print(f"[kernels] flash_attention train {str(dtype)[6:]} frames {valid_name}: "
+              "max_abs_err/tol " + ", ".join(line))
+        del leaves, out, grads
+    # the yardsticks compute the same function (all frames valid here)
+    lq = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    y = sdpa(*lq, full, sm)
+    lib_fwd = lambda: sdpa(q, k, v, full, sm)  # noqa: E731
+    lib_bwd = lambda: torch.autograd.grad(y, lq, dout, retain_graph=True)  # noqa: E731
+    lib_err = max(max_err(g, r) / r.float().abs().max().item()
+                  for g, r in zip((y, *lib_bwd()), (ref, *refs)))
+    if lib_err > LIBRARY_RTOL:
+        raise AssertionError(f"library yardstick computes another function ({lib_err})")
+    del ref, refs
+    out, lse = fa.flash_attention_fwd(q, k, v, full, sm)
+    delta = (out.float() * dout.float()).sum(dim=-1)
+    bounds = flash_bounds(q, full)
+    plain_bwd_ms = event_time_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, full, dout, sm),
+                                 iters=5)
+    lib_bwd_ms = event_time_ms(lib_bwd, iters=5)
+    timed = {
+        "flash_attention_fwd": (lambda: fa.flash_attention_fwd(q, k, v, full, sm),
+                                event_time_ms(lambda: fa.flash_attention_plain(q, k, v, full, sm)),
+                                event_time_ms(lib_fwd), errs["out"]),
+        "flash_attention_bwd_dkv": (
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, full, dout, lse, delta, sm),
+            plain_bwd_ms, lib_bwd_ms, max(errs["dk"], errs["dv"])),
+        "flash_attention_bwd_dq": (
+            lambda: fa.flash_attention_bwd_dq(q, k, v, full, dout, lse, delta, sm),
+            plain_bwd_ms, lib_bwd_ms, errs["dq"]),
+    }
+    results = {}
+    for name, (fn, plain_ms, lib_ms, err) in timed.items():
+        bms, by = bounds[name]
+        results[name] = dict(err=err, errs=errs, ms=event_time_ms(fn), plain_ms=plain_ms,
+                             library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    return results
+
+
 def wkv_inputs(gen, b, t, c, k_scale=1.0):
     w = -torch.exp(0.5 * torch.randn(c, generator=gen, device="cuda"))
     u = 0.5 * torch.randn(c, generator=gen, device="cuda")
@@ -483,9 +660,14 @@ def _print_timing(card, name, shape, dtype, r):
           f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) [{card}]")
 
 
-def phase_kernels(ra, dc, wk, card):
+def phase_kernels(ra, dc, wk, fa, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
+    # the rel-pos kernel at the long-form length, the yardstick beside the
+    # flash forward at the same shape
+    r = check_rel_attention(ra, torch.float32, gen, t=FLASH_T, n_masked=469, plain_launches=5)
+    _print_timing(card, "rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32, r)
+    results[("rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32)] = r
     for shape, r in check_wkv(wk, gen).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
@@ -503,6 +685,10 @@ def phase_kernels(ra, dc, wk, card):
             fwd_r, bwd_r = check_dwconv_train(dc, dtype, k_size, gen)
             cases += [("dwconv1d_fwd", f"train [64,312,256] K={k_size}", fwd_r),
                       ("dwconv1d_bwd", f"train [64,312,256] K={k_size}", bwd_r)]
+        cases.append(("flash_attention_fwd", f"serve [1,4,{FLASH_T},64]",
+                      check_flash_attention(fa, dtype, gen)))
+        for name, r in check_flash_attention_train(fa, dtype, gen).items():
+            cases.append((name, f"train [{FLASH_B},4,{FLASH_T},64]", r))
         for name, shape, r in cases:
             _print_timing(card, name, shape, dtype, r)
             results.setdefault((name, shape, dtype), r)
@@ -542,28 +728,41 @@ def build_model():
     return init_weights(model, seed=0).eval()
 
 
-def phase_serve(model, kernels, card):
+def encoder_frames(model, waves) -> list:
+    """Each request's encoder frames T' (outside any counted run)."""
+    with torch.inference_mode():
+        return [int(model.encode(torch.from_numpy(w[None]).cuda(),
+                                 torch.tensor([w.shape[0]], device="cuda"))[1][0]) for w in waves]
+
+
+def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, encoder_fwd=ENCODER_FWD):
     """Serve every request ``ROUNDS`` times, after one warm-up at each
-    length; returns the launch counts and each length's median latency."""
+    length; returns the launch counts, the waveforms and the first length's
+    median latency.  The guided model (phase 3) and the flash ASRModel
+    (phase 9) take the same beam-10 search and the same checks."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
     s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
     rng = np.random.default_rng(0)
-    waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in REQUEST_SECONDS]
+    waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    frames = encoder_frames(model, waves)
+    print(f"[{tag}] encoder frames T' of the " + ", ".join(f"{s:.1f}" for s in seconds)
+          + " s requests: " + ", ".join(map(str, frames)))
     # one warm-up request at each length, so that the timed ones pay for no
     # first use of a cuBLAS/cuDNN path or allocator growth at their shapes;
     # the launch counts start after them
-    for sec, wave in zip(REQUEST_SECONDS, waves):
+    for sec, wave in zip(seconds, waves):
         t0 = time.perf_counter()
         s2t(wave)
         torch.cuda.synchronize()
-        print(f"[serve] warm-up request, {sec:.1f} s audio: {(time.perf_counter() - t0) * 1e3:.1f} ms")
+        print(f"[{tag}] warm-up request, {sec:.1f} s audio: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
     torch.cuda.reset_peak_memory_stats()
     reset_counts(kernels)
-    lat = {sec: [] for sec in REQUEST_SECONDS}
+    lat = {sec: [] for sec in seconds}
     hyps = []
     for _ in range(ROUNDS):
-        for sec, wave in zip(REQUEST_SECONDS, waves):
+        for sec, wave in zip(seconds, waves):
             t0 = time.perf_counter()
             (ids, hyp), = s2t(wave)
             torch.cuda.synchronize()
@@ -573,14 +772,15 @@ def phase_serve(model, kernels, card):
     peak = torch.cuda.max_memory_allocated()
 
     n_requests = len(hyps)
-    for sec in REQUEST_SECONDS:
+    for sec in seconds:
         ms = sorted(x * 1e3 for x in lat[sec])
         med = float(np.median(ms))
-        print(f"[serve] {sec:.1f} s audio, {len(ms)} runs: latency median {med:.1f} ms "
+        print(f"[{tag}] {sec:.1f} s audio, {len(ms)} runs: latency median {med:.1f} ms "
               f"(min {ms[0]:.1f}, max {ms[-1]:.1f}), RTFx at the median {sec / med * 1e3:.2f} "
               f"[{card}]")
-    for sec, (ids, hyp) in zip(REQUEST_SECONDS, hyps):
-        print(f"[serve] {sec:.1f} s audio: hyp {len(ids)} tokens, score {hyp.score:.4f} {hyp.scores}")
+    for sec, (ids, hyp) in zip(seconds, hyps):
+        print(f"[{tag}] {sec:.1f} s audio: hyp {len(ids)} tokens, score {hyp.score:.4f} "
+              f"{hyp.scores}")
     for ids, hyp in hyps:
         if not math.isfinite(hyp.score) or not all(0 <= i < model.cfg.vocab_size for i in ids):
             raise AssertionError(f"bad hypothesis: {hyp}")
@@ -589,15 +789,15 @@ def phase_serve(model, kernels, card):
         if abs(hyp.score - want) > 1e-3 * max(1.0, abs(want)):
             raise AssertionError(f"score {hyp.score} != weighted parts {want}")
     for i, (ids, _) in enumerate(hyps):
-        if ids != hyps[i % len(REQUEST_SECONDS)][0]:
+        if ids != hyps[i % len(seconds)][0]:
             raise AssertionError("the same request gave different hypotheses across rounds")
     n_blocks = model.cfg.encoder.num_blocks
-    print(f"[serve] kernel launches over {n_requests} requests: {launches}")
+    print(f"[{tag}] kernel launches over {n_requests} requests: {launches}")
     for name, n in launches.items():
-        want = n_blocks * n_requests if name in ENCODER_FWD else 0
+        want = n_blocks * n_requests if name in encoder_fwd else 0
         if n != want:
             raise AssertionError(f"{name}: {n} launches, expected {want}")
-    print(f"[serve] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
+    print(f"[{tag}] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
     # the card's encoder (CUDA kernels) against the plain path on the CPU
     import copy
@@ -612,11 +812,11 @@ def phase_serve(model, kernels, card):
         feats, flens = default_frontend(speech, n)
         enc_cpu, lens_cpu = cpu_model(utterance_mvn(feats, flens), flens)
     err = (enc_gpu.cpu() - enc_cpu).abs().max().item()
-    print(f"[serve] encoder card vs CPU plain path, {REQUEST_SECONDS[-1]} s: max_abs_err "
+    print(f"[{tag}] encoder card vs CPU plain path, {seconds[-1]} s: max_abs_err "
           f"{err:.3e} (tol 1e-3)")
     if not (err <= 1e-3 and torch.equal(lens_gpu.cpu(), lens_cpu)):
         raise AssertionError(f"encoder disagrees with the CPU plain path: {err}")
-    return launches, waves, float(np.median(lat[REQUEST_SECONDS[0]]))
+    return launches, waves, float(np.median(lat[seconds[0]]))
 
 
 def device_busy(prof) -> tuple:
@@ -630,10 +830,11 @@ def print_top(tag, events, n=12):
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
 
 
-def phase_profile(model, wave, wall_s: float, card):
-    """The 10 s request: its encode time alone (median of ``ROUNDS``), then
-    one run with the profiler tracing the card only; the busy share divides
-    that run's device time by the request's unprofiled median latency."""
+def phase_profile(model, wave, wall_s: float, card, tag="profile", sec=REQUEST_SECONDS[0]):
+    """The longest request (10 s guided, 60 s flash): its encode time alone
+    (median of ``ROUNDS``), then one run with the profiler tracing the card
+    only; the busy share divides that run's device time by the request's
+    unprofiled median latency."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
@@ -651,7 +852,7 @@ def phase_profile(model, wave, wall_s: float, card):
             t_enc.append(time.perf_counter() - t0)
     enc_ms = sorted(x * 1e3 for x in t_enc)
     med_enc = float(np.median(enc_ms))
-    print(f"[profile] {REQUEST_SECONDS[0]} s request, median latency {wall_s * 1e3:.1f} ms, of "
+    print(f"[{tag}] {sec} s request, median latency {wall_s * 1e3:.1f} ms, of "
           f"which encode (frontend + Conformer) median {med_enc:.1f} ms (min {enc_ms[0]:.1f}, "
           f"max {enc_ms[-1]:.1f}, {len(enc_ms)} runs); first pass and search "
           f"{wall_s * 1e3 - med_enc:.1f} ms [{card}]")
@@ -661,10 +862,10 @@ def phase_profile(model, wave, wall_s: float, card):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     dev_ms, events = device_busy(prof)
-    print(f"[profile] {REQUEST_SECONDS[0]} s request traced (card only): wall {wall * 1e3:.1f} ms, "
+    print(f"[{tag}] {sec} s request traced (card only): wall {wall * 1e3:.1f} ms, "
           f"device busy {dev_ms:.1f} ms = {100 * dev_ms / 1e3 / wall_s:.1f}% of the "
           f"unprofiled median latency")
-    print_top("profile", events)
+    print_top(tag, events)
 
 
 def run_steps(tag, step, batch, n_warmup, n_steps, kernels, card):
@@ -858,10 +1059,7 @@ def phase_serve_transducer(model, waves, kernels, card):
 
     s2t = Speech2Text(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM)
     n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
-    with torch.inference_mode():  # each request's encoder frames, outside the counted runs
-        frames = [int(model.encode(torch.from_numpy(w[None]).cuda(),
-                                   torch.tensor([w.shape[0]], device="cuda"))[1][0])
-                  for w in waves]
+    frames = encoder_frames(model, waves)
     for sec, wave in zip(REQUEST_SECONDS, waves):
         t0 = time.perf_counter()
         s2t(wave)
@@ -981,6 +1179,8 @@ def phase_train_transducer(model, kernels, card):
     n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
     for name, n in launches.items():
         want = (n_layers if name.startswith("wkv") else n_blocks) * TRD_STEPS
+        if name.startswith("flash"):
+            want = 0
         if n != want:
             raise AssertionError(f"train-transducer: {name} launched {n} times in {TRD_STEPS} "
                                  f"steps, expected {want}")
@@ -990,11 +1190,74 @@ def phase_train_transducer(model, kernels, card):
     return launches, med
 
 
+def build_flash_asr():
+    """flash-ASR: bench.py build_flagship's CTC/attention ASRModel with the
+    long-form encoder (abs_pos, flash self-attention; head dim 64); vocab
+    5000, utterance MVN, SpecAugConfig() and attention dropout 0.1 (used in
+    training mode only), float32 with TF32 off, weights from seed 0."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+    from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
+    from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
+
+    cfg = ASRModelConfig(
+        vocab_size=5000, frontend=FrontendConfig(), normalize="utterance_mvn",
+        specaug=SpecAugConfig(),
+        encoder=ConformerConfig(output_size=256, attention_heads=4, linear_units=1024,
+                                num_blocks=12, macaron_style=True, use_cnn_module=True,
+                                cnn_module_kernel=31, pos_enc_layer_type="abs_pos",
+                                selfattention_layer_type="flash", attention_dropout_rate=0.1),
+        decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
+        ctc_weight=0.3,
+    )
+    return init_weights(ASRModel(cfg, device="cuda"), seed=0)
+
+
+def phase_train_flash(model, kernels, card):
+    """flash-ASR trained at B=8 x 60 s, text [8, 96] of seeded ids, AdamW
+    lr 1e-3: losses finite and falling, 12 launches of each flash and
+    depthwise entry point per step, none of the others."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(3))
+    samples = int(FLASH_SECONDS[0] * SR)
+    rng = np.random.default_rng(6)
+    batch = {
+        "speech": torch.from_numpy((rng.standard_normal((FLASH_B, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((FLASH_B,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(1, 5000, (FLASH_B, FLASH_TEXT))).cuda(),
+        "text_lengths": torch.full((FLASH_B,), FLASH_TEXT, device="cuda"),
+    }
+    print(f"[train-flash] {sum(p.numel() for p in model.parameters())} parameters, batch "
+          f"{FLASH_B} x {FLASH_SECONDS[0]} s, text [{FLASH_B}, {FLASH_TEXT}]")
+    all_stats, med, launches = run_steps("train-flash", step, batch, FLASH_WARMUP, FLASH_STEPS,
+                                         kernels, card)
+    losses = [s["loss"] for s in all_stats]
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train-flash: loss did not fall: {losses}")
+    n_blocks = model.cfg.encoder.num_blocks
+    for name, n in launches.items():
+        want = n_blocks * FLASH_STEPS if name in FLASH_FWD + FLASH_BWD else 0
+        if n != want:
+            raise AssertionError(f"train-flash: {name} launched {n} times in {FLASH_STEPS} steps, "
+                                 f"expected {want}")
+    print(f"[train-flash] audio seconds per second at the median: "
+          f"{FLASH_B * FLASH_SECONDS[0] / (med / 1e3):.1f} [{card}]")
+    profile_step("train-flash", step, batch, med)
+    return launches, med
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
     from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
+    from llm_guided_asr_tpu_torch.ops import flash_attention as fa
     from llm_guided_asr_tpu_torch.ops import rel_attention as ra
     from llm_guided_asr_tpu_torch.ops import wkv as wk
     from llm_guided_asr_tpu_torch.utils.device import resolve_device
@@ -1004,7 +1267,7 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
     t_start = time.perf_counter()
-    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL]
+    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
     phases = {}
 
     def timed(name, fn, *args):
@@ -1015,7 +1278,7 @@ def main() -> int:
         return out
 
     timed("build", phase_build, kernels)
-    timings = timed("kernels", phase_kernels, ra, dc, wk, card)
+    timings = timed("kernels", phase_kernels, ra, dc, wk, fa, card)
     model = build_model()
     paths = {}
     paths["serve"], waves, wall_10s = timed("serve", phase_serve, model, kernels, card)
@@ -1029,6 +1292,15 @@ def main() -> int:
                                       waves, kernels, card)
     paths["train-transducer"], _ = timed("train-transducer", phase_train_transducer, transducer,
                                          kernels, card)
+    del transducer
+    torch.cuda.empty_cache()
+    flash_asr = build_flash_asr()
+    paths["serve-flash"], flash_waves, wall_60s = timed(
+        "serve-flash", phase_serve, flash_asr, kernels, card, "serve-flash", FLASH_SECONDS,
+        FLASH_FWD)
+    timed("profile-flash", phase_profile, flash_asr, flash_waves[0], wall_60s, card,
+          "profile-flash", FLASH_SECONDS[0])
+    paths["train-flash"], _ = timed("train-flash", phase_train_flash, flash_asr, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -1048,6 +1320,13 @@ def main() -> int:
          "llm_guided_asr_tpu/ops/wkv.py:79", "serve-transducer"),
         ("wkv_bwd", "train [16,25,512]", None, wk.KERNEL,
          "llm_guided_asr_tpu/ops/wkv.py:179", "train-transducer"),
+        ("flash_attention_fwd", f"train [{FLASH_B},4,{FLASH_T},64]", f"serve [1,4,{FLASH_T},64]",
+         fa.KERNEL, FLASH_LIBRARY + ":331 (_flash_attention_kernel), called at "
+         "llm_guided_asr_tpu/models/transformer.py:490", "train-flash"),
+        ("flash_attention_bwd_dkv", f"train [{FLASH_B},4,{FLASH_T},64]", None, fa.KERNEL,
+         FLASH_LIBRARY + ":796 (_flash_attention_dkv_kernel)", "train-flash"),
+        ("flash_attention_bwd_dq", f"train [{FLASH_B},4,{FLASH_T},64]", None, fa.KERNEL,
+         FLASH_LIBRARY + ":1146 (_flash_attention_dq_kernel)", "train-flash"),
     ):
         r = timings[(name, shape, f32)]
         row = {
@@ -1063,6 +1342,10 @@ def main() -> int:
             s = timings[(name, serve_shape, f32)]
             row.update(serve_ms=s["ms"], serve_plain_ms=s["plain_ms"],
                        serve_bound_ms=s["bound_ms"], serve_library_ms=s["library_ms"])
+        if name == "rel_attention_fwd":  # the long-form yardstick beside the flash forward
+            s = timings[(name, f"serve B=1 T={FLASH_T}", f32)]
+            row.update(longform_ms=s["ms"], longform_plain_ms=s["plain_ms"],
+                       longform_bound_ms=s["bound_ms"])
         table.append(row)
     print(card)
     print(json.dumps({"kernels": table}))

@@ -4,9 +4,16 @@ Built from a model whose weights are already loaded (the config.yaml task
 layer is not ported yet).  A call pads the waveform to a multiple of
 ``speech_pad_multiple`` samples, encodes it and searches:
 
-- the LLM-guided model: the beam search with the cached guided scorer;
+- the LLM-guided model (a model with ``decode_prefix``): the beam search
+  with the cached guided scorer;
+- the CTC/attention ASRModel: the beam search with the stateless
+  full-prefix scorer, or the greedy CTC decode when ``beam_size <= 1`` and
+  ``ctc_weight == 1.0``;
 - a transducer (a model with ``joint_full``): the fixed-expansion beam
   search when ``beam_size > 1``, the greedy decode when it is 1.
+
+Not ported: the opt-in per-beam KV cache of the standard decoder
+(``use_cached_decoder``, search/cached_decoder.py).
 
 Results are token ids; turning them into text needs the tokenizer, which
 comes with the task layer.
@@ -21,6 +28,8 @@ import torch
 
 from llm_guided_asr_tpu_torch.models.transducer import transducer_greedy_decode
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch, Hypothesis
+from llm_guided_asr_tpu_torch.search.greedy import ctc_greedy_decode
+from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
 
 TRANSDUCER_SEARCHES = ("default", "alsd", "tsd", "nsc", "mbg")
@@ -61,11 +70,14 @@ class Speech2Text:
             if transducer_search != "default":
                 raise NotImplementedError(
                     f"transducer_search={transducer_search!r} is not ported yet")
-        else:
+        elif beam_size > 1 or ctc_weight < 1.0:
+            # the guided model scores with its shared-prefix KV cache, any
+            # other attention model with the stateless full-prefix scorer
+            att_scorer = CachedGuidedScorer(model) if hasattr(model, "decode_prefix") else None
             self.beam = BatchBeamSearch(
                 model, vocab_size=cfg.vocab_size, sos=cfg.sos_id, eos=cfg.eos_id,
                 beam_size=max(beam_size, 1), ctc_weight=ctc_weight, penalty=penalty,
-                blank_id=cfg.blank_id,
+                blank_id=cfg.blank_id, att_scorer=att_scorer,
             )
 
     def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:
@@ -88,8 +100,12 @@ class Speech2Text:
         )
         if self.is_transducer:
             hyps = self._transducer_search(enc, enc_lens)
-        else:
+        elif self.beam is not None:
             hyps = self.beam(enc, enc_lens, maxlenratio=self.maxlenratio,
                              minlenratio=self.minlenratio, nbest=self.nbest)
+        else:
+            tokens, n = ctc_greedy_decode(self.model.ctc_log_softmax(enc), enc_lens,
+                                          blank_id=self.model.cfg.blank_id)
+            hyps = [Hypothesis(yseq=tokens[0, : int(n[0])].tolist(), score=0.0, scores={})]
         special = (self.model.cfg.sos_id, self.model.cfg.eos_id)
         return [([i for i in h.yseq if i not in special], h) for h in hyps[: self.nbest]]

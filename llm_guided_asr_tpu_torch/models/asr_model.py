@@ -135,8 +135,9 @@ class ASRModel(nn.Module):
         return F.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
 
     def decoder_logits(self, encoder_out, encoder_out_lengths, ys_in, ys_in_lengths,
-                       rng: Optional[StepRNG] = None) -> torch.Tensor:
-        return self.decoder(encoder_out, encoder_out_lengths, ys_in, ys_in_lengths, rng)
+                       rng: Optional[StepRNG] = None, only_last: bool = False) -> torch.Tensor:
+        return self.decoder(encoder_out, encoder_out_lengths, ys_in, ys_in_lengths, rng,
+                            only_last=only_last)
 
     def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor, text: torch.Tensor,
                 text_lengths: torch.Tensor, rng: Optional[StepRNG] = None

@@ -1,12 +1,16 @@
 """Conformer encoder (counterpart of llm_guided_asr_tpu/models/conformer.py).
 
-conv2d x4 subsampling -> rel-pos encoding -> N blocks of
-[0.5*FFN (macaron) -> rel-pos MHSA -> conv module -> FFN -> LN].
-``.eval()`` is the serving path (running BN statistics, no dropout);
-``.train()`` the training path (masked batch statistics with the running
-update, dropout from the ``rng`` the forward takes).  The hand-written
-kernels sit in every block: ops/rel_attention.py (self-attention) and
-ops/depthwise_conv.py (conv module), forward and backward.
+conv2d x4 subsampling -> positional encoding -> N blocks of
+[0.5*FFN (macaron) -> MHSA -> conv module -> FFN -> LN].  The self-attention
+is ``selfattention_layer_type``: ``rel_selfattn`` (Transformer-XL, over the
+``rel_pos`` table), ``flash`` (the long-form encoder: flash attention over
+the valid frames, usually with ``abs_pos``) or ``selfattn`` (dense MHA with
+a key mask).  ``.eval()`` is the serving path (running BN statistics, no
+dropout); ``.train()`` the training path (masked batch statistics with the
+running update, dropout from the ``rng`` the forward takes).  The
+hand-written kernels sit in every block: ops/rel_attention.py or
+ops/flash_attention.py (self-attention) and ops/depthwise_conv.py (conv
+module), forward and backward.
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ from torch import nn
 
 from llm_guided_asr_tpu_torch.models.transformer import (
     Conv2dSubsampling,
+    FlashSelfAttention,
     LayerNorm,
+    MultiHeadedAttention,
+    PositionalEncoding,
     PositionwiseFeedForward,
     RelPositionalEncoding,
     RelPositionMultiHeadedAttention,
@@ -59,6 +66,8 @@ class ConformerConfig:
 
 
 _ACTIVATIONS = {"swish": F.silu, "relu": torch.relu, "gelu": F.gelu, "hardtanh": F.hardtanh}
+_ATTENTIONS = {"rel_selfattn": RelPositionMultiHeadedAttention, "flash": FlashSelfAttention,
+               "selfattn": MultiHeadedAttention}
 
 
 class MaskedBatchNorm(nn.Module):
@@ -128,10 +137,10 @@ class ConvolutionModule(nn.Module):
 class ConformerBlock(nn.Module):
     def __init__(self, cfg: ConformerConfig):
         super().__init__()
-        if cfg.selfattention_layer_type != "rel_selfattn":
-            raise NotImplementedError(
-                f"selfattention_layer_type={cfg.selfattention_layer_type!r} is not ported yet"
-            )
+        attn_type = _ATTENTIONS.get(cfg.selfattention_layer_type)
+        if attn_type is None:
+            raise ValueError(f"selfattention_layer_type={cfg.selfattention_layer_type!r}; "
+                             f"expected one of {sorted(_ATTENTIONS)}")
         d = cfg.output_size
         act = _ACTIVATIONS[cfg.activation_type]
         self.cfg = cfg
@@ -140,8 +149,7 @@ class ConformerBlock(nn.Module):
             self.feed_forward_macaron = PositionwiseFeedForward(d, cfg.linear_units, act,
                                                                 cfg.dropout_rate)
         self.norm_mha = LayerNorm(d)
-        self.self_attn = RelPositionMultiHeadedAttention(d, cfg.attention_heads,
-                                                         cfg.attention_dropout_rate)
+        self.self_attn = attn_type(d, cfg.attention_heads, cfg.attention_dropout_rate)
         if cfg.use_cnn_module:
             self.norm_conv = LayerNorm(d)
             self.conv_module = ConvolutionModule(
@@ -158,7 +166,14 @@ class ConformerBlock(nn.Module):
         if cfg.macaron_style:
             h = self.feed_forward_macaron(self.norm_ff_macaron(x), rng)
             x = x + 0.5 * dropout(h, rate, rng)
-        x = x + dropout(self.self_attn(self.norm_mha(x), pos_emb, valid, rng), rate, rng)
+        h = self.norm_mha(x)
+        if cfg.selfattention_layer_type == "rel_selfattn":
+            h = self.self_attn(h, pos_emb, valid, rng)
+        elif cfg.selfattention_layer_type == "flash":
+            h = self.self_attn(h, valid, rng)
+        else:
+            h = self.self_attn(h, h, h, valid[:, None, :], rng=rng)
+        x = x + dropout(h, rate, rng)
         if cfg.use_cnn_module:
             x = x + dropout(self.conv_module(self.norm_conv(x), valid), rate, rng)
         x = x + ff_scale * dropout(self.feed_forward(self.norm_ff(x), rng), rate, rng)
@@ -173,13 +188,20 @@ class ConformerEncoder(nn.Module):
     def __init__(self, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.input_layer != "conv2d" or cfg.pos_enc_layer_type != "rel_pos":
-            raise NotImplementedError("only the conv2d / rel_pos Conformer is ported yet")
+        if cfg.input_layer != "conv2d":
+            raise NotImplementedError(f"input_layer={cfg.input_layer!r} is not ported yet")
+        if cfg.pos_enc_layer_type not in ("rel_pos", "abs_pos"):
+            raise ValueError(f"pos_enc_layer_type={cfg.pos_enc_layer_type!r}")
+        if cfg.selfattention_layer_type == "rel_selfattn" and cfg.pos_enc_layer_type != "rel_pos":
+            raise ValueError("rel_selfattn needs pos_enc_layer_type='rel_pos'")
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device(dev):
             self.embed = Conv2dSubsampling(input_size, cfg.output_size)
-            self.pos_enc = RelPositionalEncoding(cfg.positional_dropout_rate)
+            if cfg.pos_enc_layer_type == "rel_pos":
+                self.pos_enc = RelPositionalEncoding(cfg.positional_dropout_rate)
+            else:
+                self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
             for i in range(cfg.num_blocks):
                 setattr(self, f"block_{i}", ConformerBlock(cfg))
             if cfg.normalize_before:
@@ -189,7 +211,10 @@ class ConformerEncoder(nn.Module):
                 rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.embed(feats)
         out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
-        x, pos_emb = self.pos_enc(x, rng)
+        if self.cfg.pos_enc_layer_type == "rel_pos":
+            x, pos_emb = self.pos_enc(x, rng)
+        else:
+            x, pos_emb = self.pos_enc(x, rng=rng), None
         valid = make_valid_mask(out_lengths, x.shape[1])
         for i in range(self.cfg.num_blocks):
             x = getattr(self, f"block_{i}")(x, pos_emb, valid, rng)

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from llm_guided_asr_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
 from llm_guided_asr_tpu_torch.ops.rel_attention import rel_attention
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
@@ -152,6 +153,45 @@ class RelPositionMultiHeadedAttention(nn.Module):
                             1.0 / math.sqrt(self.d_k), seed=rng.seed32() if rate > 0.0 else None,
                             dropout_rate=rate)
         return self.linear_out(out.transpose(1, 2).reshape(b, t, d))
+
+
+class FlashSelfAttention(nn.Module):
+    """Self-attention over the valid frames (transformer.py FlashSelfAttention),
+    the long-form encoder's attention: no [B, H, T, T] scores on the card.
+
+    For a head dim of 64, 128 or 256 the core is ops/flash_attention.py on
+    every device (the CUDA kernels on the card, the plain version on the
+    CPU), so the port computes the JAX module's TPU branch everywhere, pad
+    query rows zeroed; for any other head dim it is the dense masked
+    softmax, as the JAX module's other branch (pad rows attend the valid
+    keys).  Dropout acts on the attention output, before ``linear_out``.
+    """
+
+    def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
+        super().__init__()
+        self.h, self.d_k = num_heads, d_model // num_heads
+        self.linear_q = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(d_model, d_model)
+        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_out = nn.Linear(d_model, d_model)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x, valid, rng: Optional[StepRNG] = None):
+        """x [B, T, D]; valid [B, T] frame mask."""
+        b, t, d = x.shape
+
+        def heads(layer):  # [B, T, D] -> [B, H, T, dk]
+            return layer(x).reshape(b, t, self.h, self.d_k).transpose(1, 2).contiguous()
+
+        q, k, v = heads(self.linear_q), heads(self.linear_k), heads(self.linear_v)
+        if self.d_k in HEAD_DIMS:
+            out = flash_attention(q, k, v, valid.to(torch.int32).contiguous(),
+                                  1.0 / math.sqrt(self.d_k))
+        else:
+            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(self.d_k)
+            out = torch.einsum("bhqk,bhkd->bhqd", masked_softmax(scores, valid[:, None, :]), v)
+        out = out.transpose(1, 2).reshape(b, t, d)
+        return self.linear_out(dropout(out, active_rate(self, self.dropout_rate), rng))
 
 
 class PositionalEncoding(nn.Module):

@@ -63,7 +63,11 @@ class TransformerDecoder(nn.Module):
             self.output_layer = nn.Linear(d_model, vocab_size)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
-                ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
+                ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,
+                only_last: bool = False) -> torch.Tensor:
+        """``only_last`` keeps the hidden state at position len-1 of each row
+        before the output layer: [B, V] logits for the beam search's scorer,
+        which needs no other position."""
         cfg = self.cfg
         x = self.pos_enc(self.embed(ys_in), rng=rng)
         tgt_mask = causal_attn_mask(ys_in_lengths, ys_in.shape[1])
@@ -72,4 +76,6 @@ class TransformerDecoder(nn.Module):
             x = getattr(self, f"block_{i}")(x, tgt_mask, memory, memory_mask, rng=rng)
         if cfg.normalize_before:
             x = self.after_norm(x)
+        if only_last:
+            x = x[torch.arange(x.shape[0], device=x.device), ys_in_lengths - 1]
         return self.output_layer(x) if cfg.use_output_layer else x

@@ -15,7 +15,9 @@ Static-shape tensor steps, one Python iteration per output token:
   finished one; that test reads one scalar from the device per step.
 
 Weights follow asr_inference.py: decoder 1-ctc_weight, ctc ctc_weight,
-length bonus penalty.  batch_decode and streaming are not ported yet.
+length bonus penalty.  The attention scorer is the stateless full-prefix
+one unless the caller passes another (the LLM-guided model's cached
+scorer).  batch_decode and streaming are not ported yet.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from llm_guided_asr_tpu_torch.search.ctc_prefix import (
     ctc_prefix_init,
     ctc_prefix_psi,
 )
-from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 
 NEG_INF = -1.0e10
 PRE_BEAM_RATIO = 1.5  # espnet beam_search.py:105
@@ -66,8 +68,7 @@ def _top_k(x: torch.Tensor, k: int):
 
 
 class BatchBeamSearch:
-    """Joint CTC/attention beam search over one utterance, with the
-    LLM-guided cached decoder as the attention scorer."""
+    """Joint CTC/attention beam search over one utterance."""
 
     def __init__(
         self,
@@ -79,9 +80,10 @@ class BatchBeamSearch:
         ctc_weight: float = 0.5,
         penalty: float = 0.0,
         blank_id: int = 0,
+        att_scorer=None,
     ):
         self.model = model
-        self.att_scorer = CachedGuidedScorer(model)
+        self.att_scorer = att_scorer or StatelessAttScorer(model)
         self.vocab_size = vocab_size
         self.sos = sos
         self.eos = eos

@@ -1,10 +1,14 @@
-"""Attention-decoder scorer for the beam search (counterpart of llm_guided_asr_tpu/search/scorers.py).
+"""Attention-decoder scorers for the beam search (counterpart of llm_guided_asr_tpu/search/scorers.py).
 
 A scorer is three functions over a state dictionary:
 
   init(enc, enc_len, beam, lmax) -> state
   step(enc, enc_len, state, tokens, lens, step) -> (logp [K, V], state)
   select(state, parent [K]) -> state     (beam reordering)
+
+- StatelessAttScorer: the whole prefix recomputed at every step through the
+  model's ``decoder_logits`` (the CTC/attention ASRModel); no state.
+- CachedGuidedScorer: the LLM-guided decoder with the shared-prefix KV cache.
 """
 
 from __future__ import annotations
@@ -12,6 +16,28 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
+
+
+class StatelessAttScorer:
+    """Full-prefix decoder scoring: each step runs the decoder over the K
+    prefixes against the utterance's encoder output broadcast over the beam
+    and keeps the logits at each prefix's last position."""
+
+    def __init__(self, model):
+        self.model = model
+
+    def init(self, enc, enc_len, beam: int, lmax: int) -> Dict:
+        return {}
+
+    def step(self, enc, enc_len, state, tokens, lens, step: int):
+        k = tokens.shape[0]
+        enc_k = enc[0].expand(k, *enc.shape[1:])
+        enc_lens_k = enc_len.reshape(1).expand(k)
+        last = self.model.decoder_logits(enc_k, enc_lens_k, tokens, lens, only_last=True)
+        return torch.log_softmax(last.float(), dim=-1), state
+
+    def select(self, state: Dict, parent: torch.Tensor) -> Dict:
+        return state
 
 
 class CachedGuidedScorer:

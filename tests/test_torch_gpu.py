@@ -21,6 +21,7 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.train.optim import build_optimizer
 from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as tdw
+from llm_guided_asr_tpu_torch.ops import flash_attention as tfa
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
 from llm_guided_asr_tpu_torch.ops import wkv as twkv
 
@@ -38,7 +39,8 @@ def _rel_attention_tol(ref):
 
 
 def _counts():
-    return {**tra.KERNEL.launches, **tdw.KERNEL.launches, **twkv.KERNEL.launches}
+    return {**tra.KERNEL.launches, **tdw.KERNEL.launches, **twkv.KERNEL.launches,
+            **tfa.KERNEL.launches}
 
 
 def _grad_tol(ref: torch.Tensor) -> float:
@@ -231,7 +233,7 @@ def test_conformer_train_step_on_the_card_matches_the_cpu(card):
         stats, _ = step({k: v.to(dev) for k, v in batch.items()})
         if name == "gpu":
             torch.cuda.synchronize()
-            assert _counts() == {k: n + (0 if k.startswith("wkv") else 2)
+            assert _counts() == {k: n + (0 if k.startswith(("wkv", "flash")) else 2)
                                  for k, n in before.items()}
         losses[name] = float(stats["loss"])
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
@@ -356,7 +358,8 @@ def test_transducer_train_step_on_the_card_matches_the_cpu(card):
         stats, _ = step({k: v.to(dev) for k, v in batch.items()})
         if name == "gpu":
             torch.cuda.synchronize()
-            assert _counts() == {k: n + 2 for k, n in before.items()}
+            assert _counts() == {k: n + (0 if k.startswith("flash") else 2)
+                                 for k, n in before.items()}
         losses[name] = float(stats["loss"])
     np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
     want = cpu.state_dict()
@@ -393,3 +396,166 @@ def test_transducer_decoding_on_the_card_matches_the_cpu(card):
     assert [h.yseq for h in out["gpu"][1]] == [h.yseq for h in out["cpu"][1]]
     np.testing.assert_allclose([h.score for h in out["gpu"][1]],
                                [h.score for h in out["cpu"][1]], rtol=1e-4)
+
+
+# the flash attention kernels: head dims 64, 128 and 256, T not a multiple
+# of the 32-row tiles, rows with pads, a batch row of pads only
+FLASH_CASES = [
+    (1, 4, 1874, 64, [1874]),      # serving, 60 s of audio (T' = 1874)
+    (2, 4, 313, 64, [313, 250]),   # two batch rows, one with pads
+    (2, 2, 150, 128, [150, 101]),
+    (2, 1, 77, 256, [77, 40]),
+    (3, 2, 33, 64, [33, 0, 1]),    # a row of pads only, a row with one frame
+]
+
+
+def _flash_inputs(rng, b, h, t, dk, lengths, dtype, card):
+    q, k, v, dout = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(4))
+    valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
+    return q, k, v, dout, valid
+
+
+def _flash_fwd_tol(ref):
+    """float32: 2e-5 of the largest output (the order of the sums over up to
+    1874 keys); bfloat16: one unit in the last place of the output, as the
+    rel-attention checks."""
+    scale = ref.float().abs().max().item()
+    return (2e-5 if ref.dtype == torch.float32 else 2.0 ** -7) * scale + 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dk,lengths", FLASH_CASES)
+def test_flash_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths):
+    rng = np.random.default_rng(t + dk)
+    q, k, v, _, valid = _flash_inputs(rng, b, h, t, dk, lengths, dtype, card)
+    sm = 1.0 / math.sqrt(dk)
+    before = _counts()
+    out = tfa.flash_attention(q, k, v, valid, sm)
+    out2, lse = tfa.flash_attention_fwd(q, k, v, valid, sm)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "flash_attention_fwd": before["flash_attention_fwd"] + 2}
+    ref = tfa.flash_attention_plain(q, k, v, valid, sm)
+    _, ref_lse = tfa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(), valid.cpu(), sm)
+    assert out.dtype == dtype and out.shape == q.shape and torch.equal(out, out2)
+    assert (out.float() - ref.float()).abs().max().item() <= _flash_fwd_tol(ref)
+    pads = ~valid.bool()[:, None, :, None].expand_as(out)
+    assert torch.all(out[pads] == 0)  # pad query rows are exactly 0
+    torch.testing.assert_close(lse.cpu(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dk,lengths", FLASH_CASES[1:] + [(8, 4, 313, 64, [313] * 8)])
+def test_flash_attention_backward_matches_plain(card, dtype, b, h, t, dk, lengths):
+    """The kernels under autograd (the forward, then dK/dV and dQ) against
+    autograd through the plain version: every gradient at 1e-4 (float32) or
+    2**-6 (bfloat16) of its largest reference value; pad query rows get an
+    exactly zero dq, masked keys exactly zero dk and dv."""
+    rng = np.random.default_rng(t + dk + 1)
+    q, k, v, dout, valid = _flash_inputs(rng, b, h, t, dk, lengths, dtype, card)
+    sm = 1.0 / math.sqrt(dk)
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = _counts()
+    out = tfa.flash_attention(*leaves, valid, sm)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "flash_attention_fwd": before["flash_attention_fwd"] + 1,
+                         "flash_attention_bwd_dkv": before["flash_attention_bwd_dkv"] + 1,
+                         "flash_attention_bwd_dq": before["flash_attention_bwd_dq"] + 1}
+    refs = tfa.flash_attention_bwd_plain(q, k, v, valid, dout, sm)
+    pads = ~valid.bool()[:, None, :, None].expand_as(q)
+    for name, g, r in zip(("dq", "dk", "dv"), grads, refs):
+        assert g.dtype == dtype and g.shape == r.shape, name
+        err = (g.float() - r.float()).abs().max().item()
+        assert err <= _grad_tol(r), (name, err, _grad_tol(r))
+        assert torch.all(g[pads] == 0), name
+
+
+@pytest.mark.gpu
+def test_flash_wrappers_raise_instead_of_falling_back(card):
+    valid = torch.ones(1, 4, dtype=torch.int32, device=card)
+    q = torch.zeros(1, 2, 4, 32, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        tfa.flash_attention(q, q, q, valid, 1.0)
+    q = torch.zeros(1, 2, 4, 64, device=card)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        tfa.flash_attention(q.half(), q.half(), q.half(), valid, 1.0)
+    with pytest.raises(ValueError, match="contiguous"):
+        qt = torch.zeros(1, 4, 2, 64, device=card).transpose(1, 2)
+        tfa.flash_attention(qt, qt, qt, valid, 1.0)
+    with pytest.raises(ValueError, match="different devices"):
+        tfa.flash_attention(q, q, q.cpu(), valid, 1.0)
+
+
+def _flash_asr_cfg():
+    no_drop = dict(dropout_rate=0.0, positional_dropout_rate=0.0)
+    return ASRModelConfig(
+        vocab_size=30, frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=40),
+        normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=128, attention_heads=2, linear_units=128,
+                                      num_blocks=2, macaron_style=True, cnn_module_kernel=15,
+                                      pos_enc_layer_type="abs_pos",
+                                      selfattention_layer_type="flash",
+                                      attention_dropout_rate=0.0, **no_drop),
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=128, num_blocks=2,
+                                         **no_drop),
+        ctc_weight=0.3)
+
+
+@pytest.mark.gpu
+def test_flash_asr_train_step_on_the_card_matches_the_cpu(card):
+    """One fused step of a 2-block flash/abs_pos CTC/attention model (head
+    dim 64) with mixed lengths: the card (the flash and depthwise kernels
+    forward and backward, one launch of each entry point per block, no
+    rel-attention) against the CPU (plain versions)."""
+    cpu = init_weights(ASRModel(_flash_asr_cfg(), device="cpu"), seed=0)
+    gpu = ASRModel(_flash_asr_cfg(), device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    batch = {"speech": _rand(rng, 3, 20000, scale=0.1),
+             "speech_lengths": torch.tensor([20000, 16000, 9000]),
+             "text": torch.from_numpy(rng.integers(1, 29, (3, 6))),
+             "text_lengths": torch.tensor([6, 4, 5])}
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        state = init_train_state(model, build_optimizer("adam", {"lr": 1e-3, "eps": 1e-3}))
+        step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+        before = _counts()
+        stats, _ = step({k: v.to(dev) for k, v in batch.items()})
+        if name == "gpu":
+            torch.cuda.synchronize()
+            assert _counts() == {k: n + (2 if k.startswith(("flash", "dwconv")) else 0)
+                                 for k, n in before.items()}
+        losses[name] = float(stats["loss"])
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    want = cpu.state_dict()
+    for name, got in gpu.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-5, msg=name)
+
+
+@pytest.mark.gpu
+def test_flash_asr_decoding_on_the_card_matches_the_cpu(card):
+    """Beam-3 Speech2Text of one utterance with the stateless scorer: the
+    same tokens and scores at 1e-4 on the card and on the CPU, and the
+    encoder at 1e-4."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    cpu = ASRModel(_flash_asr_cfg(), device="cpu").eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.1)
+    gpu = ASRModel(_flash_asr_cfg(), device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    speech = _rand(np.random.default_rng(5), 1, 24000, scale=0.1)
+    out, enc = {}, {}
+    with torch.no_grad():
+        for name, model in (("cpu", cpu), ("gpu", gpu)):
+            dev = next(model.parameters()).device
+            enc[name] = model.encode(speech.to(dev), torch.tensor([24000], device=dev))[0].cpu()
+            out[name] = Speech2Text(model, beam_size=3, nbest=3, maxlenratio=-8.0)(speech[0].numpy())
+    torch.testing.assert_close(enc["gpu"], enc["cpu"], rtol=1e-4, atol=1e-4)
+    assert [ids for ids, _ in out["gpu"]] == [ids for ids, _ in out["cpu"]]
+    np.testing.assert_allclose([h.score for _, h in out["gpu"]],
+                               [h.score for _, h in out["cpu"]], rtol=1e-4)

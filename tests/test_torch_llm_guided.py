@@ -149,7 +149,7 @@ def test_beam_search_matches_jax(models, ctc_weight, penalty):
     common = dict(vocab_size=V, sos=SOS, eos=EOS, beam_size=3, ctc_weight=ctc_weight,
                   penalty=penalty)
     j_bs = JBeamSearch(jmodel, variables, att_scorer=JCachedScorer(jmodel, variables), **common)
-    t_bs = BatchBeamSearch(tmodel, **common)
+    t_bs = BatchBeamSearch(tmodel, att_scorer=CachedGuidedScorer(tmodel), **common)
     j_hyps = j_bs(j_enc, j_lens, nbest=3)
     t_hyps = t_bs(torch.from_numpy(np.array(j_enc)), torch.from_numpy(np.array(j_lens)).long(),
                   nbest=3)
