@@ -80,9 +80,13 @@ through the plain loop at the training shape; the flash forward at the
 serving shape [1, 4, 1874, 64] (CUDA graph) and the forward, dK/dV and dQ
 at the training shape [8, 4, 1874, 64] under autograd against autograd
 through the plain version (all frames valid and ragged, pad query rows
-exactly 0; CUDA events), each beside F.scaled_dot_product_attention with
-the same key mask (timed only); and the rel-pos forward at the long-form
-length [1, 4, 1874, 64], the yardstick beside the flash forward.
+and masked keys exactly 0, repeat backward calls bitwise equal; CUDA
+events), each beside F.scaled_dot_product_attention with the same key mask
+(timed only; the backward pair's total and TFLOP/s printed beside it); and
+the rel-pos forward at the long-form length [1, 4, 1874, 64], the
+yardstick beside the flash forward.  Bounds take float32 matrix products
+(the attention kernels) at the 3xTF32 rate, 165 TFLOP/s, and other float32
+work at the CUDA cores' 67 TFLOP/s.
 
 The last two lines of standard output are the kernel table as one JSON
 object and {"ok": true, "device": {...}}; the line before them is the
@@ -104,6 +108,11 @@ import torch
 # Published H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# float32-accurate matrix products on the tensor cores: 3xTF32 (each operand
+# split into two TF32 parts, three TF32 products) at 495 TFLOP/s of TF32.
+# The bound of the attention kernels' float32 products; elementwise and
+# recurrent work (depthwise, WKV) keeps the 67 TFLOP/s CUDA-core rate.
+F32_PRODUCT_FLOPS = 495e12 / 3
 
 SR = 16000
 REQUEST_SECONDS = (10.0, 7.3, 4.1)
@@ -175,9 +184,12 @@ def event_time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(n_bytes: float, flops: float, dtype) -> tuple:
+def bound_ms(n_bytes: float, flops: float, dtype, products: bool = False) -> tuple:
+    """The least time for ``n_bytes`` and ``flops``: matrix ``products``
+    in float32 at the 3xTF32 rate, other work at the dtype's peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    peak = F32_PRODUCT_FLOPS if products and dtype == torch.float32 else PEAK_FLOPS[dtype]
+    t_ops = flops / peak * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -266,7 +278,7 @@ def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
     n_bytes = (item * (3 * b * h * t * dk + 2 * h * dk * n.sum().item()
                        + h * (t + n.max().item() - 1) * dk) + 4 * b * t)
     flops = 6.0 * h * t * dk * n.sum().item()  # qu.k, qv.p and probs.v products
-    bms, by = bound_ms(n_bytes, flops, dtype)
+    bms, by = bound_ms(n_bytes, flops, dtype, products=True)
     err, tol = max(errs.values())
     return dict(
         err=err, tol=tol,
@@ -357,8 +369,8 @@ def check_rel_attention_train(ra, dtype, gen):
     # backward reads qu, qv, k, v, out, dout, p, lse, kv_valid; writes the
     # four [B, H, T, dk] gradients and dp in float32
     bwd_bytes = item * (10 * b * h * t * dk + table) + 4 * (table + b * h * t + b * t)
-    fwd_bound, fwd_by = bound_ms(fwd_bytes, 6.0 * h * t * dk * n, dtype)
-    bwd_bound, bwd_by = bound_ms(bwd_bytes, 16.0 * h * t * dk * n, dtype)
+    fwd_bound, fwd_by = bound_ms(fwd_bytes, 6.0 * h * t * dk * n, dtype, products=True)
+    bwd_bound, bwd_by = bound_ms(bwd_bytes, 16.0 * h * t * dk * n, dtype, products=True)
     plain_fwd = lambda: ra.rel_attention_plain(qu, qv, k, v, p, full, sm, seed, rate)  # noqa: E731
     plain_bwd = lambda: ra.rel_attention_bwd_plain(  # noqa: E731
         qu, qv, k, v, p, full, dout, sm, seed, rate)
@@ -423,23 +435,30 @@ def flash_fwd_tol(ref: torch.Tensor) -> float:
     return (2e-5 if ref.dtype == torch.float32 else 2.0 ** -7) * scale + 1e-5
 
 
-def flash_bounds(q, valid, with_lse: bool = True) -> dict:
-    """Bounds of the three entry points on these inputs: each [B, H, T, dk]
-    operand read or written once, lse and delta float32 [B, H, T], the int32
-    mask; the operations over the pairs of valid frames only (a masked key
-    or a pad query row costs nothing): per pair and head 4*dk FLOPs forward
-    (scores, P.v), 8*dk dK/dV (scores, dP, dV, dK), 6*dk dQ (scores, dP,
-    dQ)."""
+def flash_flops(q, valid) -> dict:
+    """Operations of the three entry points over the pairs of valid frames
+    only (a masked key or a pad query row costs nothing): per pair and head
+    4*dk FLOPs forward (scores, P.v), 8*dk dK/dV (scores, dP, dV, dK), 6*dk
+    dQ (scores, dP, dQ)."""
     b, h, t, dk = q.shape
     n = valid.sum(dim=1).double()
     pairs = h * float((n * n).sum().item())
+    return {"flash_attention_fwd": 4.0 * dk * pairs, "flash_attention_bwd_dkv": 8.0 * dk * pairs,
+            "flash_attention_bwd_dq": 6.0 * dk * pairs}
+
+
+def flash_bounds(q, valid, with_lse: bool = True) -> dict:
+    """Bounds of the three entry points on these inputs: each [B, H, T, dk]
+    operand read or written once, lse and delta float32 [B, H, T], the int32
+    mask; the operations of :func:`flash_flops`, all matrix products."""
+    b, h, t, dk = q.shape
+    flops = flash_flops(q, valid)
     slab, rows, mask = q.dtype.itemsize * b * h * t * dk, 4 * b * h * t, 4 * b * t
-    return {
-        "flash_attention_fwd": bound_ms(4 * slab + rows * with_lse + mask, 4.0 * dk * pairs,
-                                        q.dtype),
-        "flash_attention_bwd_dkv": bound_ms(6 * slab + 2 * rows + mask, 8.0 * dk * pairs, q.dtype),
-        "flash_attention_bwd_dq": bound_ms(5 * slab + 2 * rows + mask, 6.0 * dk * pairs, q.dtype),
-    }
+    n_bytes = {"flash_attention_fwd": 4 * slab + rows * with_lse + mask,
+               "flash_attention_bwd_dkv": 6 * slab + 2 * rows + mask,
+               "flash_attention_bwd_dq": 5 * slab + 2 * rows + mask}
+    return {name: bound_ms(n_bytes[name], flops[name], q.dtype, products=True)
+            for name in flops}
 
 
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
@@ -490,14 +509,17 @@ def check_flash_attention(fa, dtype, gen):
     )
 
 
-def check_flash_attention_train(fa, dtype, gen):
+def check_flash_attention_train(fa, dtype, gen, card):
     """Training shape [8, 4, 1874, 64] (train-flash: 8 x 60 s): the forward
     and both backward kernels under autograd against autograd through the
     plain version, all frames valid and ragged (lengths 1874 down to 400:
-    pad query rows exactly 0 in out and dq).  Timed with all frames valid,
-    as train-flash calls them, each entry point alone; the plain backward's
-    time is all three gradients with the forward recomputed, the library's
-    the autograd backward of F.scaled_dot_product_attention (dq, dk, dv)."""
+    pad query rows exactly 0 in out and dq, masked keys exactly 0 in dk and
+    dv), and each backward entry point called twice on the same inputs,
+    bitwise equal (one owner per output element, no atomics).  Timed with
+    all frames valid, as train-flash calls them, each entry point alone; the
+    plain backward's time is all three gradients with the forward
+    recomputed, the library's the autograd backward of
+    F.scaled_dot_product_attention (dq, dk, dv), printed beside the pair."""
     b, h, t, dk = FLASH_TRAIN
     mk = lambda: torch.randn(b, h, t, dk, generator=gen, device="cuda").to(dtype)  # noqa: E731
     q, k, v, dout = mk(), mk(), mk(), mk()
@@ -514,8 +536,9 @@ def check_flash_attention_train(fa, dtype, gen):
         refs = fa.flash_attention_bwd_plain(q, k, v, valid, dout, sm)
         torch.cuda.synchronize()
         pads = ~valid.bool()[:, None, :, None].expand_as(q)
-        if not (torch.all(out[pads] == 0) and torch.all(grads[0][pads] == 0)):
-            raise AssertionError(f"flash_attention {dtype}: a pad query row is not 0")
+        if not all(torch.all(x[pads] == 0) for x in (out, *grads)):
+            raise AssertionError(f"flash_attention {dtype}: a pad query row is not 0 in out "
+                                 "or dq, or a masked key's dk or dv is not 0")
         parts = [("out", out, ref, flash_fwd_tol(ref))]
         parts += [(n, g, r, grad_tol(r, dtype)) for n, g, r in zip(("dq", "dk", "dv"), grads, refs)]
         line = []
@@ -529,6 +552,16 @@ def check_flash_attention_train(fa, dtype, gen):
         print(f"[kernels] flash_attention train {str(dtype)[6:]} frames {valid_name}: "
               "max_abs_err/tol " + ", ".join(line))
         del leaves, out, grads
+        out, lse = fa.flash_attention_fwd(q, k, v, valid, sm)
+        delta = (out.float() * dout.float()).sum(dim=-1)
+        for name, fn in (("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv),
+                         ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq)):
+            first, second = (fn(q, k, v, valid, dout, lse, delta, sm) for _ in range(2))
+            torch.cuda.synchronize()
+            if not all(map(torch.equal, first, second) if isinstance(first, tuple)
+                       else [torch.equal(first, second)]):
+                raise AssertionError(f"{name} {dtype} frames {valid_name}: a repeat call differs")
+        del out, lse, delta
     # the yardsticks compute the same function (all frames valid here)
     lq = [x.clone().requires_grad_(True) for x in (q, k, v)]
     y = sdpa(*lq, full, sm)
@@ -561,6 +594,16 @@ def check_flash_attention_train(fa, dtype, gen):
         bms, by = bounds[name]
         results[name] = dict(err=err, errs=errs, ms=event_time_ms(fn), plain_ms=plain_ms,
                              library_ms=lib_ms, bound_ms=bms, bound_by=by)
+    flops = flash_flops(q, full)
+    rate = {n: flops[n] / (results[n]["ms"] * 1e9) for n in flops}  # TFLOP/s
+    pair = results["flash_attention_bwd_dkv"]["ms"] + results["flash_attention_bwd_dq"]["ms"]
+    print(f"[kernels] flash_attention backward {str(dtype)[6:]} [{b},{h},{t},{dk}] all frames: "
+          f"dK/dV {results['flash_attention_bwd_dkv']['ms'] * 1e3:.2f} us "
+          f"({rate['flash_attention_bwd_dkv']:.1f} TFLOP/s), dQ "
+          f"{results['flash_attention_bwd_dq']['ms'] * 1e3:.2f} us "
+          f"({rate['flash_attention_bwd_dq']:.1f} TFLOP/s); pair {pair * 1e3:.2f} us against "
+          f"SDPA's autograd backward {lib_bwd_ms * 1e3:.2f} us ({pair / lib_bwd_ms:.2f}x); forward "
+          f"{rate['flash_attention_fwd']:.1f} TFLOP/s [{card}]")
     return results
 
 
@@ -687,7 +730,7 @@ def phase_kernels(ra, dc, wk, fa, card):
                       ("dwconv1d_bwd", f"train [64,312,256] K={k_size}", bwd_r)]
         cases.append(("flash_attention_fwd", f"serve [1,4,{FLASH_T},64]",
                       check_flash_attention(fa, dtype, gen)))
-        for name, r in check_flash_attention_train(fa, dtype, gen).items():
+        for name, r in check_flash_attention_train(fa, dtype, gen, card).items():
             cases.append((name, f"train [{FLASH_B},4,{FLASH_T},64]", r))
         for name, shape, r in cases:
             _print_timing(card, name, shape, dtype, r)

@@ -30,26 +30,42 @@
 //
 // Backward (the FlashAttention-2 split, scores recomputed from the saved
 // log-sum-exp; delta_i = out_i . dout_i comes from the caller, as the library
-// takes it from XLA):
-//   dkv  one block per (key tile of KB keys, head, batch row): a warp owns
-//        KPW keys, a lane owns a query of the current query tile; dk_j and
+// takes it from XLA), two kernels that replace _flash_attention_dkv_kernel
+// and _flash_attention_dq_kernel:
+//   dkv  one block per (tile of keys, head, batch row), key-major: dk_j and
 //        dv_j accumulate in registers over all query tiles;
-//   dq   one block per (query tile, head, batch row), laid out as the
-//        forward: dq_i = sum_j ds_ij k_j.
-// Every output element has one owner, so there are no atomics.
+//   dq   one block per (tile of query rows, head, batch row), query-major:
+//        dq_i = sum_j ds_ij k_j.
+// Every output element has one owner, so there are no atomics and a repeat
+// call is bitwise identical.
 //
-// What bounds it on this card: operations.  Per (b, h) and pair of valid
+// What bounds them on this card: operations.  Per (b, h) and pair of valid
 // frames the forward does 4*DK FLOPs (scores, P.v), the dK/dV kernel 8*DK
 // (scores and dP recomputed, dV, dK) and the dQ kernel 6*DK (scores, dP,
-// dQ), on the CUDA cores in float32 (67 TFLOP/s peak),
-// while moving O(T*DK) elements: at the training shape (B=8, H=4, T=1874,
-// DK=64) the forward is 2.9e10 FLOP (0.43 ms) against ~31 MB (0.01 ms).  It
-// does not use the tensor cores (wgmma/TMA are a later step); bf16 inputs are
-// widened to f32 in shared memory and every sum is taken in f32.
+// dQ), while moving O(T*DK) elements: at the training shape (B=8, H=4,
+// T=1874, DK=64) dK/dV is 5.8e10 FLOP against ~25 MB.  The forward runs on
+// the CUDA cores in float32 (67 TFLOP/s peak; bf16 widened to f32 in shared
+// memory).  The backward kernels run all five products (S = Q K^T, dP =
+// dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) on the tensor cores with
+// mma.sync m16n8k8 TF32 and the 3xTF32 split: each f32 operand becomes
+// big = tf32(x) and small = tf32(x - big), and small.big + big.small +
+// big.big in an f32 accumulator gives float32 accuracy (plain TF32 keeps
+// ~10 bits and misses the 1e-4 gradient tolerance on every one of the five).
+// Three TF32 products at 495 TFLOP/s make 165 TFLOP/s of f32-accurate
+// products, 2.46x the CUDA-core peak.  To feed them: 16-row warp tiles whose
+// score tiles stay in registers and feed the next product directly (see the
+// fragment note at the backward section), the streamed operand split once a
+// tile into shared big / small arrays that every warp reads (the split costs
+// as many instructions as the products it feeds), 16-byte-padded shared rows
+// that both fragment patterns read without bank conflicts, and cp.async
+// copies of the next tile while this one multiplies.  bf16 inputs are exact
+// in TF32, so their small parts and the products on them are dropped; P and
+// dS keep the split.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -59,10 +75,6 @@ constexpr int BQ = 32;           // query rows per block in the query-major kern
 constexpr int RPW = BQ / NW;     // query rows per warp
 constexpr int BK = 32;           // keys per tile (one per lane) in the query-major kernels
 constexpr int KTS = BK + 1;      // row stride of a transposed key tile
-constexpr int KB = 32;           // keys per block in the key-major kernel
-constexpr int KPW = KB / NW;     // keys per warp
-constexpr int QB = 32;           // queries per tile (one per lane) in the key-major kernel
-constexpr int QTS = QB + 1;      // row stride of a transposed query tile
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -217,218 +229,561 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 // ---------------------------------------------------------------------------
-// backward, key-major: dk and dv
+// backward: tensor-core products with the 3xTF32 split
 // ---------------------------------------------------------------------------
+//
+// Every product is a sum of mma.sync m16n8k8 TF32 tiles (A 16x8 row-major,
+// B 8x8 column-major, C 16x8 in f32).  With g = lane / 4 and t = lane % 4 a
+// thread holds A (g, t) (g+8, t) (g, t+4) (g+8, t+4), B (k t, n g) (k t+4,
+// n g) and C (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1).  A product whose A
+// operand is a C tile of the previous one (P^T and dS^T in the key-major
+// kernel, dS in the query-major one) takes the k index in the order
+// 2t, 2t+1 instead of t, t+4: the sum over k is the same, a C tile is then
+// an A fragment as it stands (no shuffle, no shared-memory round trip), and
+// the B fragment reads rows k0 + 2t and k0 + 2t + 1 of its tile.
+//
+// The split costs three instructions an element (cvt, sub, cvt), as many as
+// the products it feeds, so each element is split once where it is shared:
+// the streamed tile, the B operand of every warp, is split into big and
+// small shared arrays once per tile by the thread that copied it, in the
+// middle of the previous tile's products (double-buffered, so the split
+// overlaps other warps' tensor-core work); the A operands (a warp's own 16
+// rows, and the P / dS tiles in registers) are split as they are loaded.  Each tile's products go into a fresh C tile that
+// is then added to the running sum in f32: the tensor cores' accumulation
+// truncates, and over 1874 frames a single running C tile drifts by ~2e-5 of
+// the result; per tile the drift stays at the rounding of f32.
 
+constexpr int BW = 4;            // warps per block of the backward kernels
+constexpr int BT = BW * 32;      // threads per block of the backward kernels
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tiles of the backward kernels for head dim DK: a block owns ROWS rows (keys
+// in dK/dV, queries in dQ), 16 per warp row; the other operand streams in
+// tiles of STREAM rows.  A warp owns 16 of the block's rows and DW = 64 output
+// columns, so at DK = 128 (256) two (four) warps share their rows and each
+// recomputes the scores of those rows: nothing crosses warps, and a thread's
+// accumulators stay at 2 x 32 + 32 floats for every DK.  Shared rows are
+// padded by 16 bytes: LD (raw, in elements of T) and LDF (split, 4-byte
+// words) are then 4 mod 32 words, so both fragment patterns (rows g, columns
+// t; rows 2t, columns g) hit 32 distinct banks.  A float32 tile lands (by
+// cp.async) in its big array and is split in place; a bf16 tile lands in a
+// raw array and is widened into big (its small part is 0 and not stored).
+// Shared memory in float32: 103 KiB at DK = 64 (two blocks an SM), 163 and
+// 166 KiB at 256 and 128, plus a byte a tile for the tile mask.
 template <typename T, int DK>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const int* __restrict__ valid, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     T* __restrict__ dk_out, T* __restrict__ dv_out, int H, int T_len,
-                     float scale) {
-  constexpr int DPL = DK / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* s_k = smem;                  // [KB][DK]
-  float* s_v = s_k + KB * DK;         // [KB][DK]
-  float* s_qT = s_v + KB * DK;        // [DK][QTS]
-  float* s_doT = s_qT + DK * QTS;     // [DK][QTS]
-  float* s_lse = s_doT + DK * QTS;    // [QB]
-  float* s_delta = s_lse + QB;        // [QB]
+struct BwdTiles {
+  static constexpr int DW = 64;
+  static constexpr int WD = DK / DW;
+  static constexpr int WM = BW / WD;
+  static constexpr int ROWS = 16 * WM;
+  static constexpr int STREAM = DK == 256 ? 16 : 32;
+  static constexpr int NS = STREAM / 8;         // n tiles of the scores
+  static constexpr int LD = DK + 16 / (int)sizeof(T);
+  static constexpr int LDF = DK + 4;
+  static constexpr int RAW = STREAM * LD;       // elements of a raw streamed tile
+  static constexpr int SPLIT = STREAM * LDF;    // words of a split streamed tile
+  static constexpr bool EXACT = sizeof(T) == 2; // bf16 values are exact in TF32
+  // [ROWS][LD] x 2 own rows; big, small (float32) or raw (bf16) [buffer][2]
+  // streamed tiles; three [2][STREAM] rows of per-row values; the tile mask
+  static constexpr size_t fixed_bytes() {
+    return 2 * ROWS * LD * sizeof(T) + 4 * SPLIT * sizeof(uint32_t) +
+           (EXACT ? 4 * RAW * sizeof(T) : 4 * SPLIT * sizeof(uint32_t)) +
+           2 * STREAM * (2 * sizeof(float) + sizeof(int));
+  }
+  static size_t smem_bytes(int T_len) {
+    return fixed_bytes() + ((T_len + STREAM - 1) / STREAM + 15) / 16 * 16;
+  }
+};
 
-  const int j0 = blockIdx.x * KB;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t row_base = ((size_t)b * H + h) * T_len;
-  const size_t base = row_base * DK;
-  const int* valid_b = valid + (size_t)b * T_len;
+// the backward kernels' shared arrays, carved as BwdTiles lays them out
+template <typename T, int DK>
+struct BwdSmem {
+  using C = BwdTiles<T, DK>;
+  T* own0;             // [ROWS][LD]: k (dK/dV) or q (dQ)
+  T* own1;             // [ROWS][LD]: v or dout
+  uint32_t* big_base;  // [2 buffers][2 operands][SPLIT]
+  uint32_t* small_base;
+  T* raw_base;         // bf16 only: [2][2][RAW]
+  float* row0;         // [2][STREAM]: lse (dK/dV)
+  float* row1;         // [2][STREAM]: delta (dK/dV)
+  int* mask;           // [2][STREAM]: the streamed rows' mask
+  unsigned char* tiles;  // [n_tiles]: 1 where a streamed tile holds a valid frame
+  __device__ BwdSmem(unsigned char* p) {
+    own0 = reinterpret_cast<T*>(p);
+    own1 = own0 + C::ROWS * C::LD;
+    big_base = reinterpret_cast<uint32_t*>(own1 + C::ROWS * C::LD);
+    small_base = big_base + 4 * C::SPLIT;
+    raw_base = reinterpret_cast<T*>(small_base);  // the bf16 layout has no small arrays
+    unsigned char* rows = reinterpret_cast<unsigned char*>(big_base + 4 * C::SPLIT) +
+                          (C::EXACT ? 4 * C::RAW * sizeof(T) : 4 * C::SPLIT * sizeof(uint32_t));
+    row0 = reinterpret_cast<float*>(rows);
+    row1 = row0 + 2 * C::STREAM;
+    mask = reinterpret_cast<int*>(row1 + 2 * C::STREAM);
+    tiles = reinterpret_cast<unsigned char*>(mask + 2 * C::STREAM);
+  }
+  __device__ uint32_t* big(int buf, int op) const { return big_base + (2 * buf + op) * C::SPLIT; }
+  __device__ uint32_t* small(int buf, int op) const {
+    return small_base + (2 * buf + op) * C::SPLIT;
+  }
+  // where the streamed tile lands: in place in big (float32) or raw (bf16)
+  __device__ T* landing(int buf, int op) const {
+    return C::EXACT ? raw_base + (2 * buf + op) * C::RAW : reinterpret_cast<T*>(big(buf, op));
+  }
+};
 
-  float acc_k[KPW][DPL], acc_v[KPW][DPL];
-#pragma unroll
-  for (int r = 0; r < KPW; ++r)
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) acc_k[r][c] = acc_v[r][c] = 0.f;
+// 2^x by the SFU (relative error ~2^-22, far inside the gradients' 1e-4)
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
-  // masked keys take no probability: a tile of them gets zero gradients
-  const bool any_k = __syncthreads_or(tid < KB && is_valid(valid_b, j0 + tid, T_len));
-  if (any_k) {
-    stage_rows<T, DK, KB>(k + base, j0, T_len, s_k);
-    stage_rows<T, DK, KB>(v + base, j0, T_len, s_v);
-    bool key_ok[KPW];
-#pragma unroll
-    for (int r = 0; r < KPW; ++r) key_ok[r] = is_valid(valid_b, j0 + warp * KPW + r, T_len);
-    for (int i0 = 0; i0 < T_len; i0 += QB) {
-      // pad query rows carry no gradient; the barrier also ends the
-      // previous tile's reads (and publishes s_k, s_v)
-      if (!__syncthreads_or(tid < QB && is_valid(valid_b, i0 + tid, T_len))) continue;
-      stage_rows_t<T, DK, QB>(q + base, i0, T_len, s_qT, QTS);
-      stage_rows_t<T, DK, QB>(dout + base, i0, T_len, s_doT, QTS);
-      if (tid < QB) {
-        const bool ok = is_valid(valid_b, i0 + tid, T_len);
-        s_lse[tid] = ok ? lse[row_base + i0 + tid] : 0.f;
-        s_delta[tid] = ok ? delta[row_base + i0 + tid] : 0.f;
-      }
-      __syncthreads();
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
 
-      const bool i_valid = is_valid(valid_b, i0 + lane, T_len);  // this lane's query
-      float s[KPW], dp[KPW];
+// x = big + small, both TF32 (round to nearest, ties away, as the hardware
+// converts); a value known to be exact in TF32 has small = 0
+template <bool EXACT>
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  if (EXACT) {
+    big = __float_as_uint(x);
+    small = 0u;
+    return;
+  }
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(x - __uint_as_float(big)));
+}
+
+// c += a b to float32 accuracy: small.big, then big.small, then big.big
+// (a small part known to be 0 is skipped)
+template <bool A_EXACT, bool B_EXACT>
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const uint32_t (&ab)[4],
+                                           const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                           const uint32_t (&bs)[2]) {
+  if (!A_EXACT) mma_tf32(c, as, bb);
+  if (!B_EXACT) mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+// A fragment of rows [r0, r0 + 16) x columns [c0, c0 + 8) of a raw row-major
+// tile, split as it is loaded
+template <bool EXACT, int LD, typename T>
+__device__ __forceinline__ void load_a(const T* s, int r0, int c0, int lane, uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  const T* p = s + (r0 + (lane >> 2)) * LD + c0 + (lane & 3);
+  split_tf32<EXACT>(to_f32(p[0]), big[0], small[0]);
+  split_tf32<EXACT>(to_f32(p[8 * LD]), big[1], small[1]);
+  split_tf32<EXACT>(to_f32(p[4]), big[2], small[2]);
+  split_tf32<EXACT>(to_f32(p[8 * LD + 4]), big[3], small[3]);
+}
+
+// B fragment of tile^T from a split tile: n = tile rows [n0, n0 + 8),
+// k = tile columns [k0, k0 + 8)
+template <bool EXACT, int LDF>
+__device__ __forceinline__ void load_b_t(const uint32_t* big, const uint32_t* small, int n0,
+                                         int k0, int lane, uint32_t (&bb)[2], uint32_t (&bs)[2]) {
+  const int o = (n0 + (lane >> 2)) * LDF + k0 + (lane & 3);
+  bb[0] = big[o];
+  bb[1] = big[o + 4];
+  bs[0] = EXACT ? 0u : small[o];
+  bs[1] = EXACT ? 0u : small[o + 4];
+}
+
+// B fragment of a split tile itself: k = tile rows [k0, k0 + 8) in the order
+// 2t, 2t+1 (see above), n = tile columns [n0, n0 + 8)
+template <bool EXACT, int LDF>
+__device__ __forceinline__ void load_b_perm(const uint32_t* big, const uint32_t* small, int k0,
+                                            int n0, int lane, uint32_t (&bb)[2],
+                                            uint32_t (&bs)[2]) {
+  const int o = (k0 + 2 * (lane & 3)) * LDF + n0 + (lane >> 2);
+  bb[0] = big[o];
+  bb[1] = big[o + LDF];
+  bs[0] = EXACT ? 0u : small[o];
+  bs[1] = EXACT ? 0u : small[o + LDF];
+}
+
+// C tile (rows g, g+8; columns 2t, 2t+1) as the A fragment of the next
+// product in the permuted k order
+__device__ __forceinline__ void c_as_a(const float (&c)[4], uint32_t (&big)[4],
+                                       uint32_t (&small)[4]) {
+  split_tf32<false>(c[0], big[0], small[0]);
+  split_tf32<false>(c[2], big[1], small[1]);
+  split_tf32<false>(c[1], big[2], small[2]);
+  split_tf32<false>(c[3], big[3], small[3]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool pred) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(pred ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// rows [r0, r0 + ROWS) of a [T, DK] slab into a raw shared tile of row
+// stride LD by 16-byte cp.async; rows past T are zero-filled (nothing is
+// read).  A thread copies chunks idx = threadIdx.x + k * BT.
+template <typename T, int DK, int LD, int ROWS>
+__device__ __forceinline__ void copy_rows(const T* __restrict__ src, int r0, int T_len, T* dst) {
+  constexpr int E = 16 / (int)sizeof(T), CPR = DK / E;  // elements and chunks per row
+  for (int idx = threadIdx.x; idx < ROWS * CPR; idx += BT) {
+    const int r = idx / CPR, c = idx % CPR;
+    const bool ok = r0 + r < T_len;
+    cp_async16(dst + r * LD + c * E, src + (size_t)(ok ? r0 + r : 0) * DK + c * E, ok);
+  }
+}
+
+// a landed streamed tile into its big / small arrays; a thread splits the
+// chunks it copied (copy_rows' assignment), which its own cp.async wait has
+// landed.  float32 is read and rewritten in place through the same words.
+template <typename T, int DK>
+__device__ __forceinline__ void split_rows(const T* raw, uint32_t* big, uint32_t* small) {
+  using C = BwdTiles<T, DK>;
+  constexpr int E = 16 / (int)sizeof(T), CPR = DK / E;
+  for (int idx = threadIdx.x; idx < C::STREAM * CPR; idx += BT) {
+    const int r = idx / CPR, c = idx % CPR;
 #pragma unroll
-      for (int r = 0; r < KPW; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
-        const float q0 = s_qT[(d + 0) * QTS + lane], q1 = s_qT[(d + 1) * QTS + lane];
-        const float q2 = s_qT[(d + 2) * QTS + lane], q3 = s_qT[(d + 3) * QTS + lane];
-        const float g0 = s_doT[(d + 0) * QTS + lane], g1 = s_doT[(d + 1) * QTS + lane];
-        const float g2 = s_doT[(d + 2) * QTS + lane], g3 = s_doT[(d + 3) * QTS + lane];
+    for (int e = 0; e < E; e += 4) {
+      const int o = r * C::LDF + c * E + e;
+      float x[4];
+      if (C::EXACT) {
+        const T* src = raw + r * C::LD + c * E + e;
 #pragma unroll
-        for (int r = 0; r < KPW; ++r) {
-          const int jj = warp * KPW + r;
-          s[r] = dot4(ld4(s_k + jj * DK + d), q0, q1, q2, q3, s[r]);
-          dp[r] = dot4(ld4(s_v + jj * DK + d), g0, g1, g2, g3, dp[r]);
-        }
+        for (int i = 0; i < 4; ++i) x[i] = to_f32(src[i]);
+      } else {
+        const uint4 w = *reinterpret_cast<const uint4*>(big + o);
+        x[0] = __uint_as_float(w.x), x[1] = __uint_as_float(w.y);
+        x[2] = __uint_as_float(w.z), x[3] = __uint_as_float(w.w);
       }
-      const float lse_i = s_lse[lane], delta_i = s_delta[lane];
-      float pr[KPW], ds[KPW];
-#pragma unroll
-      for (int r = 0; r < KPW; ++r) {
-        pr[r] = (i_valid && key_ok[r]) ? expf(s[r] * scale - lse_i) : 0.f;
-        ds[r] = pr[r] * (dp[r] - delta_i) * scale;
-      }
-      // dv_j += sum_i P_ij dout_i;  dk_j += sum_i ds_ij q_i  (a lane owns dims)
-#pragma unroll 4
-      for (int ii = 0; ii < QB; ++ii) {
-        float pi[KPW], di[KPW];
-#pragma unroll
-        for (int r = 0; r < KPW; ++r) {
-          pi[r] = __shfl_sync(0xffffffffu, pr[r], ii);
-          di[r] = __shfl_sync(0xffffffffu, ds[r], ii);
-        }
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const int d = c * 32 + lane;
-          const float g = s_doT[d * QTS + ii];
-          const float x = s_qT[d * QTS + ii];
-#pragma unroll
-          for (int r = 0; r < KPW; ++r) {
-            acc_v[r][c] = fmaf(pi[r], g, acc_v[r][c]);
-            acc_k[r][c] = fmaf(di[r], x, acc_k[r][c]);
-          }
-        }
-      }
+      uint4 b4, s4;
+      split_tf32<C::EXACT>(x[0], b4.x, s4.x);
+      split_tf32<C::EXACT>(x[1], b4.y, s4.y);
+      split_tf32<C::EXACT>(x[2], b4.z, s4.z);
+      split_tf32<C::EXACT>(x[3], b4.w, s4.w);
+      *reinterpret_cast<uint4*>(big + o) = b4;
+      if (!C::EXACT) *reinterpret_cast<uint4*>(small + o) = s4;
     }
   }
+}
 
+// the tile mask: tiles[n] = 1 where rows [n STREAM, (n + 1) STREAM) hold a
+// valid frame; ends with a block barrier
+template <int STREAM>
+__device__ __forceinline__ void mark_tiles(const int* __restrict__ valid_b, int T_len,
+                                           unsigned char* tiles) {
+  const int n_tiles = (T_len + STREAM - 1) / STREAM;
+  for (int n = threadIdx.x; n < n_tiles; n += BT) tiles[n] = 0;
+  __syncthreads();
+  for (int i = threadIdx.x; i < T_len; i += BT)
+    if (valid_b[i] != 0) tiles[i / STREAM] = 1;  // every writer stores the same value
+  __syncthreads();
+}
+
+// the first tile start >= from that holds a valid frame, or T_len
+template <int STREAM>
+__device__ __forceinline__ int next_tile(const unsigned char* tiles, int from, int T_len) {
+  for (int t0 = from; t0 < T_len; t0 += STREAM)
+    if (tiles[t0 / STREAM]) return t0;
+  return T_len;
+}
+
+// S (16 rows x STREAM) = A rows . B rows and dP likewise, over DK: rows
+// [r0, r0 + 16) of the raw tiles sa / sa2 against every row of the split
+// streamed tiles b / b2
+template <typename T, int DK>
+__device__ __forceinline__ void scores_and_dp(const T* sa, const uint32_t* bb, const uint32_t* bs,
+                                              const T* sa2, const uint32_t* b2b,
+                                              const uint32_t* b2s, int r0, int lane,
+                                              float (&s)[BwdTiles<T, DK>::NS][4],
+                                              float (&dp)[BwdTiles<T, DK>::NS][4]) {
+  using C = BwdTiles<T, DK>;
 #pragma unroll
-  for (int r = 0; r < KPW; ++r) {
-    const int j = j0 + warp * KPW + r;
-    if (j >= T_len) continue;
+  for (int n = 0; n < C::NS; ++n)
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) {
-      const size_t g = base + (size_t)j * DK + c * 32 + lane;
-      dk_out[g] = from_f32<T>(acc_k[r][c]);
-      dv_out[g] = from_f32<T>(acc_v[r][c]);
+    for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DK; k0 += 8) {
+    uint32_t ab[4], as[4], a2b[4], a2s[4];
+    load_a<C::EXACT, C::LD>(sa, r0, k0, lane, ab, as);
+    load_a<C::EXACT, C::LD>(sa2, r0, k0, lane, a2b, a2s);
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      uint32_t fb[2], fs[2];
+      load_b_t<C::EXACT, C::LDF>(bb, bs, n * 8, k0, lane, fb, fs);
+      mma_3xtf32<C::EXACT, C::EXACT>(s[n], ab, as, fb, fs);
+      load_b_t<C::EXACT, C::LDF>(b2b, b2s, n * 8, k0, lane, fb, fs);
+      mma_3xtf32<C::EXACT, C::EXACT>(dp[n], a2b, a2s, fb, fs);
+    }
+  }
+}
+
+// acc (16 rows x DW columns from d0) += X (16 x STREAM, C tiles) . tile
+// (STREAM x DK, split); X is P^T, dS^T or dS, the tile dout, q or k.  The
+// tile's products go into a fresh C tile, added to acc in f32.
+template <typename T, int DK>
+__device__ __forceinline__ void accumulate(const float (&x)[BwdTiles<T, DK>::NS][4],
+                                           const uint32_t* big, const uint32_t* small, int d0,
+                                           int lane, float (&acc)[BwdTiles<T, DK>::DW / 8][4]) {
+  using C = BwdTiles<T, DK>;
+  float part[C::DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[n][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < C::NS; ++kk) {
+    uint32_t ab[4], as[4];
+    c_as_a(x[kk], ab, as);
+#pragma unroll
+    for (int n = 0; n < C::DW / 8; ++n) {
+      uint32_t fb[2], fs[2];
+      load_b_perm<C::EXACT, C::LDF>(big, small, kk * 8, d0 + n * 8, lane, fb, fs);
+      mma_3xtf32<false, C::EXACT>(part[n], ab, as, fb, fs);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < C::DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += part[n][e];
+}
+
+// rows [r0, r0 + 16) x columns [d0, d0 + DW) of a [T, DK] output from C tiles
+template <typename T, int DK>
+__device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0, int d0, int T_len,
+                                           int lane, const float (&acc)[BwdTiles<T, DK>::DW / 8][4]) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= T_len) continue;
+#pragma unroll
+    for (int n = 0; n < BwdTiles<T, DK>::DW / 8; ++n) {
+      T* p = dst + (size_t)r * DK + d0 + n * 8 + 2 * t;
+      p[0] = from_f32<T>(acc[n][2 * half]);
+      p[1] = from_f32<T>(acc[n][2 * half + 1]);
     }
   }
 }
 
 // ---------------------------------------------------------------------------
-// backward, query-major: dq
+// backward, key-major: dk and dv
 // ---------------------------------------------------------------------------
+//
+// One block per (tile of ROWS keys, head, batch row).  Warp (wm, wd) owns
+// keys [16 wm, 16 wm + 16) of the tile and output columns [64 wd, 64 wd + 64).
+// Query tiles stream through two buffers: at the top of a tile one barrier
+// publishes its split q and dout (and lse, delta, mask); the next valid
+// tile's cp.async copy starts; S^T = K Q^T and dP^T = V dO^T (C tiles in
+// registers), P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - delta) scale;
+// the thread waits for its own chunks of the next tile and splits them; then
+// dV += P^T dO and dK += dS^T Q, the accumulators in registers throughout.
 
 template <typename T, int DK>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const int* __restrict__ valid, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    T* __restrict__ dq, int H, int T_len, float scale) {
-  constexpr int DPL = DK / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;                // [BQ][DK]
-  float* s_do = s_q + BQ * DK;      // [BQ][DK]
-  float* s_kT = s_do + BQ * DK;     // [DK][KTS]
-  float* s_vT = s_kT + DK * KTS;    // [DK][KTS]
+__global__ void __launch_bounds__(BT)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const int* __restrict__ valid, const T* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     T* __restrict__ dk_out, T* __restrict__ dv_out, int H, int T_len,
+                     float scale) {
+  using C = BwdTiles<T, DK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdSmem<T, DK> sm(smem_raw);  // own rows: k, v; streamed operands: 0 = q, 1 = dout
 
-  const int i0 = blockIdx.x * BQ;
+  const int j0 = blockIdx.x * C::ROWS;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
+  const int r0 = (warp % C::WM) * 16;     // the warp's keys in the tile
+  const int d0 = (warp / C::WM) * C::DW;  // the warp's output columns
   const size_t row_base = ((size_t)b * H + h) * T_len;
   const size_t base = row_base * DK;
   const int* valid_b = valid + (size_t)b * T_len;
 
-  float acc[RPW][DPL], lse_r[RPW], delta_r[RPW];
-  bool row_ok[RPW];
+  float acc_k[C::DW / 8][4], acc_v[C::DW / 8][4];
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = i0 + warp * RPW + r;
-    row_ok[r] = is_valid(valid_b, i, T_len);
-    lse_r[r] = row_ok[r] ? lse[row_base + i] : 0.f;
-    delta_r[r] = row_ok[r] ? delta[row_base + i] : 0.f;
+  for (int n = 0; n < C::DW / 8; ++n)
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) acc[r][c] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc_k[n][e] = acc_v[n][e] = 0.f;
 
-  const bool any_q = __syncthreads_or(tid < BQ && is_valid(valid_b, i0 + tid, T_len));
-  if (any_q) {
-    stage_rows<T, DK, BQ>(q + base, i0, T_len, s_q);
-    stage_rows<T, DK, BQ>(dout + base, i0, T_len, s_do);
-    for (int j0 = 0; j0 < T_len; j0 += BK) {
-      if (!__syncthreads_or(tid < BK && is_valid(valid_b, j0 + tid, T_len))) continue;
-      stage_rows_t<T, DK, BK>(k + base, j0, T_len, s_kT, KTS);
-      stage_rows_t<T, DK, BK>(v + base, j0, T_len, s_vT, KTS);
+  // masked keys take no probability: a tile of them gets zero gradients
+  const bool any_k = __syncthreads_or(tid < C::ROWS && is_valid(valid_b, j0 + tid, T_len));
+  if (any_k) {
+    const bool key_ok[2] = {is_valid(valid_b, j0 + r0 + (lane >> 2), T_len),
+                            is_valid(valid_b, j0 + r0 + (lane >> 2) + 8, T_len)};
+    auto load_tile = [&](int i0, int buf) {
+      copy_rows<T, DK, C::LD, C::STREAM>(q + base, i0, T_len, sm.landing(buf, 0));
+      copy_rows<T, DK, C::LD, C::STREAM>(dout + base, i0, T_len, sm.landing(buf, 1));
+      if (tid < C::STREAM) {
+        const bool ok = i0 + tid < T_len;
+        const size_t src = ok ? row_base + i0 + tid : row_base;
+        cp_async4(sm.row0 + buf * C::STREAM + tid, lse + src, ok);
+        cp_async4(sm.row1 + buf * C::STREAM + tid, delta + src, ok);
+        cp_async4(sm.mask + buf * C::STREAM + tid, valid_b + (ok ? i0 + tid : 0), ok);
+      }
+      cp_async_commit();
+    };
+    auto split_tile = [&](int buf) {
+      cp_async_wait_all();
+      split_rows<T, DK>(sm.landing(buf, 0), sm.big(buf, 0), sm.small(buf, 0));
+      split_rows<T, DK>(sm.landing(buf, 1), sm.big(buf, 1), sm.small(buf, 1));
+    };
+    copy_rows<T, DK, C::LD, C::ROWS>(k + base, j0, T_len, sm.own0);
+    copy_rows<T, DK, C::LD, C::ROWS>(v + base, j0, T_len, sm.own1);
+    cp_async_commit();
+    // pad query rows carry no gradient: tiles of them are skipped whole
+    mark_tiles<C::STREAM>(valid_b, T_len, sm.tiles);
+    int i0 = next_tile<C::STREAM>(sm.tiles, 0, T_len);
+    if (i0 < T_len) load_tile(i0, 0);
+    split_tile(0);  // waits for k and v too
+    const float sl2 = scale * LOG2E;
+    for (int buf = 0; i0 < T_len; buf ^= 1) {
+      // publishes this tile's split arrays and rows; every warp is done with
+      // the other buffer, which the next tile now takes
       __syncthreads();
+      const int i_next = next_tile<C::STREAM>(sm.tiles, i0 + C::STREAM, T_len);
+      if (i_next < T_len) load_tile(i_next, buf ^ 1);
 
-      float s[RPW], dp[RPW];
+      float st[C::NS][4], dpt[C::NS][4];  // S^T and dP^T, then P^T and dS^T
+      scores_and_dp<T, DK>(sm.own0, sm.big(buf, 0), sm.small(buf, 0), sm.own1, sm.big(buf, 1),
+                           sm.small(buf, 1), r0, lane, st, dpt);
 #pragma unroll
-      for (int r = 0; r < RPW; ++r) s[r] = dp[r] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
-        const float k0 = s_kT[(d + 0) * KTS + lane], k1 = s_kT[(d + 1) * KTS + lane];
-        const float k2 = s_kT[(d + 2) * KTS + lane], k3 = s_kT[(d + 3) * KTS + lane];
-        const float v0 = s_vT[(d + 0) * KTS + lane], v1 = s_vT[(d + 1) * KTS + lane];
-        const float v2 = s_vT[(d + 2) * KTS + lane], v3 = s_vT[(d + 3) * KTS + lane];
+      for (int n = 0; n < C::NS; ++n) {
+        const int col = buf * C::STREAM + n * 8 + 2 * (lane & 3);
+        const float2 l2 = *reinterpret_cast<const float2*>(sm.row0 + col);
+        const float2 dl = *reinterpret_cast<const float2*>(sm.row1 + col);
+        const int2 qv = *reinterpret_cast<const int2*>(sm.mask + col);
 #pragma unroll
-        for (int r = 0; r < RPW; ++r) {
-          const int ii = warp * RPW + r;
-          s[r] = dot4(ld4(s_q + ii * DK + d), k0, k1, k2, k3, s[r]);
-          dp[r] = dot4(ld4(s_do + ii * DK + d), v0, v1, v2, v3, dp[r]);
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = key_ok[e >> 1] && ((e & 1) ? qv.y : qv.x) != 0;
+          const float l = (e & 1) ? l2.y : l2.x, dlt = (e & 1) ? dl.y : dl.x;
+          const float p = ok ? exp2_approx(fmaf(st[n][e], sl2, -l * LOG2E)) : 0.f;
+          dpt[n][e] = ok ? p * (dpt[n][e] - dlt) * scale : 0.f;
+          st[n][e] = p;
         }
       }
-      const bool j_valid = is_valid(valid_b, j0 + lane, T_len);
-      float ds[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float p = (row_ok[r] && j_valid) ? expf(s[r] * scale - lse_r[r]) : 0.f;
-        ds[r] = p * (dp[r] - delta_r[r]) * scale;
-      }
-      // dq_i += sum_j ds_ij k_j  (a lane owns dims)
-#pragma unroll 4
-      for (int jj = 0; jj < BK; ++jj) {
-        float dj[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) dj[r] = __shfl_sync(0xffffffffu, ds[r], jj);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const float kv = s_kT[(c * 32 + lane) * KTS + jj];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) acc[r][c] = fmaf(dj[r], kv, acc[r][c]);
-        }
-      }
+      if (i_next < T_len) split_tile(buf ^ 1);
+      accumulate<T, DK>(st, sm.big(buf, 1), sm.small(buf, 1), d0, lane, acc_v);   // dV += P^T dO
+      accumulate<T, DK>(dpt, sm.big(buf, 0), sm.small(buf, 0), d0, lane, acc_k);  // dK += dS^T Q
+      i0 = i_next;
     }
   }
+  store_rows<T, DK>(dk_out + base, j0 + r0, d0, T_len, lane, acc_k);
+  store_rows<T, DK>(dv_out + base, j0 + r0, d0, T_len, lane, acc_v);
+}
 
+// ---------------------------------------------------------------------------
+// backward, query-major: dq
+// ---------------------------------------------------------------------------
+//
+// One block per (tile of ROWS query rows, head, batch row), warps as in the
+// key-major kernel over query rows; key tiles (k and v split as above, the
+// key mask) stream through two buffers in the same way.  Per key tile:
+// S = Q K^T, dP = dO V^T, dS = P (dP - delta) scale, dQ += dS K.
+
+template <typename T, int DK>
+__global__ void __launch_bounds__(BT)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const int* __restrict__ valid, const T* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    T* __restrict__ dq, int H, int T_len, float scale) {
+  using C = BwdTiles<T, DK>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const BwdSmem<T, DK> sm(smem_raw);  // own rows: q, dout; streamed operands: 0 = k, 1 = v
+
+  const int i0 = blockIdx.x * C::ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r0 = (warp % C::WM) * 16;  // the warp's query rows in the tile
+  const int d0 = (warp / C::WM) * C::DW;
+  const size_t row_base = ((size_t)b * H + h) * T_len;
+  const size_t base = row_base * DK;
+  const int* valid_b = valid + (size_t)b * T_len;
+
+  bool row_ok[2];
+  float nl2[2], dlt[2];  // -lse log2(e) and delta of rows g and g + 8
 #pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = i0 + warp * RPW + r;
-    if (i >= T_len) continue;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c) dq[base + (size_t)i * DK + c * 32 + lane] = from_f32<T>(acc[r][c]);
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + r0 + (lane >> 2) + 8 * half;
+    row_ok[half] = is_valid(valid_b, i, T_len);
+    nl2[half] = row_ok[half] ? -lse[row_base + i] * LOG2E : 0.f;
+    dlt[half] = row_ok[half] ? delta[row_base + i] : 0.f;
   }
+  float acc[C::DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // a tile of pad rows only is written as zeros without reading a key
+  const bool any_q = __syncthreads_or(tid < C::ROWS && is_valid(valid_b, i0 + tid, T_len));
+  if (any_q) {
+    auto load_tile = [&](int j0, int buf) {
+      copy_rows<T, DK, C::LD, C::STREAM>(k + base, j0, T_len, sm.landing(buf, 0));
+      copy_rows<T, DK, C::LD, C::STREAM>(v + base, j0, T_len, sm.landing(buf, 1));
+      if (tid < C::STREAM) {
+        const bool ok = j0 + tid < T_len;
+        cp_async4(sm.mask + buf * C::STREAM + tid, valid_b + (ok ? j0 + tid : 0), ok);
+      }
+      cp_async_commit();
+    };
+    auto split_tile = [&](int buf) {
+      cp_async_wait_all();
+      split_rows<T, DK>(sm.landing(buf, 0), sm.big(buf, 0), sm.small(buf, 0));
+      split_rows<T, DK>(sm.landing(buf, 1), sm.big(buf, 1), sm.small(buf, 1));
+    };
+    copy_rows<T, DK, C::LD, C::ROWS>(q + base, i0, T_len, sm.own0);
+    copy_rows<T, DK, C::LD, C::ROWS>(dout + base, i0, T_len, sm.own1);
+    cp_async_commit();
+    // masked keys take no probability: tiles of them are skipped whole
+    mark_tiles<C::STREAM>(valid_b, T_len, sm.tiles);
+    int j0 = next_tile<C::STREAM>(sm.tiles, 0, T_len);
+    if (j0 < T_len) load_tile(j0, 0);
+    split_tile(0);  // waits for q and dout too
+    const float sl2 = scale * LOG2E;
+    for (int buf = 0; j0 < T_len; buf ^= 1) {
+      __syncthreads();
+      const int j_next = next_tile<C::STREAM>(sm.tiles, j0 + C::STREAM, T_len);
+      if (j_next < T_len) load_tile(j_next, buf ^ 1);
+
+      float s[C::NS][4], dp[C::NS][4];  // S and dP, then dS in dp
+      scores_and_dp<T, DK>(sm.own0, sm.big(buf, 0), sm.small(buf, 0), sm.own1, sm.big(buf, 1),
+                           sm.small(buf, 1), r0, lane, s, dp);
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) {
+        const int2 kv = *reinterpret_cast<const int2*>(sm.mask + buf * C::STREAM + n * 8 +
+                                                       2 * (lane & 3));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const bool ok = row_ok[e >> 1] && ((e & 1) ? kv.y : kv.x) != 0;
+          const float p = ok ? exp2_approx(fmaf(s[n][e], sl2, nl2[e >> 1])) : 0.f;
+          dp[n][e] = ok ? p * (dp[n][e] - dlt[e >> 1]) * scale : 0.f;
+        }
+      }
+      if (j_next < T_len) split_tile(buf ^ 1);
+      accumulate<T, DK>(dp, sm.big(buf, 0), sm.small(buf, 0), d0, lane, acc);  // dQ += dS K
+      j0 = j_next;
+    }
+  }
+  store_rows<T, DK>(dq + base, i0 + r0, d0, T_len, lane, acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -459,11 +814,12 @@ template <typename T, int DK>
 int launch_dkv(const void* q, const void* k, const void* v, const void* valid, const void* dout,
                const void* lse, const void* delta, void* dk_out, void* dv_out, int B, int H,
                int T_len, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * KB * DK + 2 * DK * QTS + 2 * QB) * sizeof(float);
+  using C = BwdTiles<T, DK>;
+  const size_t smem = C::smem_bytes(T_len);
   cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_len + KB - 1) / KB, H, B);
-  flash_bwd_dkv_kernel<T, DK><<<grid, NT, smem, stream>>>(
+  dim3 grid((T_len + C::ROWS - 1) / C::ROWS, H, B);
+  flash_bwd_dkv_kernel<T, DK><<<grid, BT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(valid), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
@@ -475,11 +831,12 @@ template <typename T, int DK>
 int launch_dq(const void* q, const void* k, const void* v, const void* valid, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H, int T_len, float scale,
               cudaStream_t stream) {
-  const size_t smem = (size_t)(2 * BQ * DK + 2 * DK * KTS) * sizeof(float);
+  using C = BwdTiles<T, DK>;
+  const size_t smem = C::smem_bytes(T_len);
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_bwd_dq_kernel<T, DK><<<grid, NT, smem, stream>>>(
+  dim3 grid((T_len + C::ROWS - 1) / C::ROWS, H, B);
+  flash_bwd_dq_kernel<T, DK><<<grid, BT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int*>(valid), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta), static_cast<T*>(dq), H,

@@ -150,6 +150,8 @@ def _check_bwd(q, k, v, valid, dout, lse, delta):
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != q.shape[:3] or x.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be float32 {tuple(q.shape[:3])}")
+    if any(x.data_ptr() % 16 for x in (q, k, v, dout)):  # the kernels copy 16-byte chunks
+        raise ValueError("flash_attention_bwd: q, k, v and dout must be 16-byte aligned")
 
 
 def flash_attention_bwd_dkv(q, k, v, valid, dout, lse, delta, sm_scale: float

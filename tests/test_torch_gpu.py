@@ -406,11 +406,17 @@ FLASH_CASES = [
     (2, 2, 150, 128, [150, 101]),
     (2, 1, 77, 256, [77, 40]),
     (3, 2, 33, 64, [33, 0, 1]),    # a row of pads only, a row with one frame
+    # the backward's 64-row tiles at d=64: one row past a tile, a tile of
+    # one frame after a full one
+    (2, 2, 65, 64, [65, 64]),
+    (3, 2, 129, 64, [129, 63, 1]),
+    (2, 2, 1874, 128, [1874, 1500]),  # d=128: 32-row tiles, two warps per row block
 ]
 
 
-def _flash_inputs(rng, b, h, t, dk, lengths, dtype, card):
-    q, k, v, dout = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(4))
+def _flash_inputs(rng, b, h, t, dk, lengths, dtype, card, qk_scale=1.0):
+    q, k = (_rand(rng, b, h, t, dk, scale=qk_scale).to(card, dtype) for _ in range(2))
+    v, dout = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(2))
     valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
     return q, k, v, dout, valid
 
@@ -444,16 +450,13 @@ def test_flash_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths)
     torch.testing.assert_close(lse.cpu(), ref_lse, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,h,t,dk,lengths", FLASH_CASES[1:] + [(8, 4, 313, 64, [313] * 8)])
-def test_flash_attention_backward_matches_plain(card, dtype, b, h, t, dk, lengths):
+def _check_flash_backward(card, dtype, b, h, t, dk, lengths, qk_scale=1.0):
     """The kernels under autograd (the forward, then dK/dV and dQ) against
     autograd through the plain version: every gradient at 1e-4 (float32) or
     2**-6 (bfloat16) of its largest reference value; pad query rows get an
     exactly zero dq, masked keys exactly zero dk and dv."""
     rng = np.random.default_rng(t + dk + 1)
-    q, k, v, dout, valid = _flash_inputs(rng, b, h, t, dk, lengths, dtype, card)
+    q, k, v, dout, valid = _flash_inputs(rng, b, h, t, dk, lengths, dtype, card, qk_scale)
     sm = 1.0 / math.sqrt(dk)
     leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
     before = _counts()
@@ -470,6 +473,40 @@ def test_flash_attention_backward_matches_plain(card, dtype, b, h, t, dk, length
         err = (g.float() - r.float()).abs().max().item()
         assert err <= _grad_tol(r), (name, err, _grad_tol(r))
         assert torch.all(g[pads] == 0), name
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,dk,lengths", FLASH_CASES[1:] + [(8, 4, 313, 64, [313] * 8)])
+def test_flash_attention_backward_matches_plain(card, dtype, b, h, t, dk, lengths):
+    _check_flash_backward(card, dtype, b, h, t, dk, lengths)
+
+
+@pytest.mark.gpu
+def test_flash_attention_backward_sharp_softmax(card):
+    """q and k at 3x scale (logits of standard deviation ~9): a product that
+    ran on plain TF32 instead of the 3xTF32 split would miss the float32
+    tolerance by 3x to 50x here."""
+    _check_flash_backward(card, torch.float32, 1, 4, 1874, 64, [1874], qk_scale=3.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_backward_is_deterministic(card, dtype):
+    """Every gradient element has one owner (no atomics): two calls of each
+    backward entry point on the same inputs are bitwise equal."""
+    b, h, t, dk, lengths = 2, 4, 700, 64, [700, 333]
+    rng = np.random.default_rng(7)
+    q, k, v, dout, valid = _flash_inputs(rng, b, h, t, dk, lengths, dtype, card)
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+    delta = (out.float() * dout.float()).sum(dim=-1)
+    first = (*tfa.flash_attention_bwd_dkv(q, k, v, valid, dout, lse, delta, 0.125),
+             tfa.flash_attention_bwd_dq(q, k, v, valid, dout, lse, delta, 0.125))
+    second = (*tfa.flash_attention_bwd_dkv(q, k, v, valid, dout, lse, delta, 0.125),
+              tfa.flash_attention_bwd_dq(q, k, v, valid, dout, lse, delta, 0.125))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("dk", "dv", "dq"), first, second):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.gpu
