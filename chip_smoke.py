@@ -20,7 +20,9 @@ prints how long it took):
               autograd through the plain version with the same hash mask
               (dropout 0 and 0.1, all keys valid and ragged), and the
               depthwise backward against its plain VJP, in float32 and
-              bfloat16 (CUDA events around back-to-back launches);
+              bfloat16 (CUDA events around back-to-back launches; the
+              depthwise kernels and F.conv1d, shorter than a call from
+              Python, by CUDA graph);
 3. serve   -- build the LLM-guided model at full width (Conformer 12x256,
               guided decoder 6x256, Llama-3.2-1B dims in bf16) with weights
               drawn from seed 0, serve one warm-up request at each of the
@@ -77,12 +79,14 @@ transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
 and training [16, 25, 512], each timed by CUDA graph; |k| up to ~100; a
 state chained across two calls) and the WKV backward against autograd
 through the plain loop at the training shape; the flash forward at the
-serving shape [1, 4, 1874, 64] (CUDA graph) and the forward, dK/dV and dQ
-at the training shape [8, 4, 1874, 64] under autograd against autograd
-through the plain version (all frames valid and ragged, pad query rows
-and masked keys exactly 0, repeat backward calls bitwise equal; CUDA
+serving shape [1, 4, 1874, 64] (CUDA graph; its key splits printed) and the
+forward, dK/dV and dQ at the training shape [8, 4, 1874, 64] under autograd
+against autograd through the plain version (all frames valid and ragged,
+pad query rows and masked keys exactly 0, repeat calls of every entry point
+bitwise equal, the forward's lse against the plain logsumexp; CUDA
 events), each beside F.scaled_dot_product_attention with the same key mask
-(timed only; the backward pair's total and TFLOP/s printed beside it); and
+(timed only; the forward's and the backward pair's TFLOP/s and ratio to it
+printed); and
 the rel-pos forward at the long-form length [1, 4, 1874, 64], the
 yardstick beside the flash forward.  Bounds take float32 matrix products
 (the attention kernels) at the 3xTF32 rate, 165 TFLOP/s, and other float32
@@ -290,7 +294,7 @@ def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
     )
 
 
-def check_dwconv(dc, dtype, k_size, gen):
+def check_dwconv(dc, dtype, k_size, gen, card):
     """Serving shape: [1, 312, 256] x [31, 256]; also an even K."""
     b, t, c = 1, 312, 256
     x = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
@@ -311,13 +315,17 @@ def check_dwconv(dc, dtype, k_size, gen):
     n_bytes = dtype.itemsize * (2 * b * t * c + k_size * c)
     flops = 2.0 * b * t * c * k_size
     bms, by = bound_ms(n_bytes, flops, dtype)
-    return dict(
+    r = dict(
         err=err, tol=tol,
         ms=graph_time_ms(lambda: dc.depthwise_conv1d(x, w)),
         plain_ms=graph_time_ms(lambda: dc.depthwise_conv1d_plain(x, w)),
         library_ms=graph_time_ms(lib),
         bound_ms=bms, bound_by=by,
     )
+    print(f"[kernels] dwconv1d_fwd serve [{b},{t},{c}] K={k_size} {str(dtype)[6:]}: "
+          f"{r['ms'] * 1e3:.2f} us against F.conv1d's {r['library_ms'] * 1e3:.2f} us "
+          f"({r['ms'] / r['library_ms']:.2f}x) [{card}]")
+    return r
 
 
 def check_rel_attention_train(ra, dtype, gen):
@@ -382,7 +390,7 @@ def check_rel_attention_train(ra, dtype, gen):
     return fwd_r, bwd_r
 
 
-def check_dwconv_train(dc, dtype, k_size, gen):
+def check_dwconv_train(dc, dtype, k_size, gen, card):
     """Training shape [64, 312, 256] x [K, 256]: the backward against the
     plain VJP, and the forward; the library yardstick of the backward is
     autograd's backward of F.conv1d(groups=C) (timed only)."""
@@ -417,13 +425,22 @@ def check_dwconv_train(dc, dtype, k_size, gen):
                                  2.0 * b * t * c * k_size, dtype)
     xf, wf = x.transpose(1, 2), w.t()[:, None, :]
     lib_fwd = lambda: torch.nn.functional.conv1d(xf, wf, groups=c, padding="same")  # noqa: E731
-    fwd_r = dict(err=fwd_err, ms=event_time_ms(lambda: dc.depthwise_conv1d(x, w)),
+    # the kernels and F.conv1d run for less time than a call from Python
+    # takes, so they are timed by CUDA graph (back-to-back launches between
+    # events would time the host); the plain versions and autograd's
+    # backward by CUDA events
+    fwd_r = dict(err=fwd_err, ms=graph_time_ms(lambda: dc.depthwise_conv1d(x, w)),
                  plain_ms=event_time_ms(lambda: dc.depthwise_conv1d_plain(x, w)),
-                 library_ms=event_time_ms(lib_fwd), bound_ms=fwd_bound, bound_by=fwd_by)
+                 library_ms=graph_time_ms(lib_fwd), bound_ms=fwd_bound, bound_by=fwd_by)
     bwd_r = dict(err=max(errs.values()), errs=errs,
-                 ms=event_time_ms(lambda: dc.depthwise_conv1d_bwd(x, w, dy)),
+                 ms=graph_time_ms(lambda: dc.depthwise_conv1d_bwd(x, w, dy)),
                  plain_ms=event_time_ms(lambda: dc.depthwise_conv1d_bwd_plain(x, w, dy)),
                  library_ms=event_time_ms(lib), bound_ms=bwd_bound, bound_by=bwd_by)
+    print(f"[kernels] dwconv1d train [{b},{t},{c}] K={k_size} {str(dtype)[6:]}: forward "
+          f"{fwd_r['ms'] * 1e3:.2f} us against F.conv1d's {fwd_r['library_ms'] * 1e3:.2f} us "
+          f"({fwd_r['ms'] / fwd_r['library_ms']:.2f}x), backward {bwd_r['ms'] * 1e3:.2f} us "
+          f"against autograd's {bwd_r['library_ms'] * 1e3:.2f} us "
+          f"({bwd_r['ms'] / bwd_r['library_ms']:.2f}x) [{card}]")
     return fwd_r, bwd_r
 
 
@@ -477,7 +494,16 @@ def sdpa(q, k, v, valid, sm):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sm)
 
 
-def check_flash_attention(fa, dtype, gen):
+def check_flash_lse(lse, q, k, valid, sm):
+    """The kernel's log-sum-exp against the plain float32 logsumexp over the
+    valid keys (0 at pad query rows), at 1e-5 absolute + 1e-5 relative."""
+    scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm
+    scores = scores.masked_fill(~valid.bool()[:, None, None, :], -math.inf)
+    ref = torch.where(valid.bool()[:, None, :], torch.logsumexp(scores, -1), 0.0)
+    torch.testing.assert_close(lse, ref, rtol=1e-5, atol=1e-5)
+
+
+def check_flash_attention(fa, dtype, gen, card):
     """Serving shape [1, 4, 1874, 64] (the 60 s request), no gradient: all
     frames valid (B=1 serving) and 469 pads (the 45 s request's frames in a
     60 s wide batch), the pad query rows exactly 0.  Timed with all frames
@@ -489,12 +515,17 @@ def check_flash_attention(fa, dtype, gen):
     for n_valid in (1405, t):  # the last, all frames valid, is timed
         valid = (torch.arange(t, device="cuda")[None] < n_valid).to(torch.int32)
         out = fa.flash_attention(q, k, v, valid, sm)
+        (out2, lse), (out3, lse3) = (fa.flash_attention_fwd(q, k, v, valid, sm) for _ in range(2))
         ref = fa.flash_attention_plain(q, k, v, valid, sm)
         torch.cuda.synchronize()
         err, tol = max_err(out, ref), flash_fwd_tol(ref)
         if not err <= tol or not torch.all(out[:, :, n_valid:] == 0):
             raise AssertionError(f"flash_attention {dtype} {n_valid} valid: {err} > {tol}, or a "
                                  "pad query row is not 0")
+        if not (torch.equal(out, out2) and torch.equal(out2, out3) and torch.equal(lse, lse3)):
+            raise AssertionError(f"flash_attention_fwd {dtype} {n_valid} valid: a repeat call "
+                                 "differs")
+        check_flash_lse(lse, q, k, valid, sm)
         errs.append((err, tol))
     lib = lambda: sdpa(q, k, v, valid, sm)  # noqa: E731
     lib_err = max_err(lib(), ref) / ref.float().abs().max().item()
@@ -502,11 +533,16 @@ def check_flash_attention(fa, dtype, gen):
         raise AssertionError(f"library yardstick computes another function ({lib_err})")
     bms, by = flash_bounds(q, valid, with_lse=False)["flash_attention_fwd"]
     err, tol = max(errs)
-    return dict(
+    r = dict(
         err=err, tol=tol, ms=graph_time_ms(lambda: fa.flash_attention(q, k, v, valid, sm)),
         plain_ms=graph_time_ms(lambda: fa.flash_attention_plain(q, k, v, valid, sm), launches=5),
         library_ms=event_time_ms(lib), bound_ms=bms, bound_by=by,
     )
+    rate = flash_flops(q, valid)["flash_attention_fwd"] / (r["ms"] * 1e9)
+    print(f"[kernels] flash_attention_fwd serve [{b},{h},{t},{dk}] {str(dtype)[6:]} all frames: "
+          f"{r['ms'] * 1e3:.2f} us ({rate:.1f} TFLOP/s, {fa.key_splits(q)} key splits) against "
+          f"SDPA's {r['library_ms'] * 1e3:.2f} us ({r['ms'] / r['library_ms']:.2f}x) [{card}]")
+    return r
 
 
 def check_flash_attention_train(fa, dtype, gen, card):
@@ -553,6 +589,13 @@ def check_flash_attention_train(fa, dtype, gen, card):
               "max_abs_err/tol " + ", ".join(line))
         del leaves, out, grads
         out, lse = fa.flash_attention_fwd(q, k, v, valid, sm)
+        out2, lse2 = fa.flash_attention_fwd(q, k, v, valid, sm)
+        torch.cuda.synchronize()
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+            raise AssertionError(f"flash_attention_fwd {dtype} frames {valid_name}: a repeat call "
+                                 "differs")
+        check_flash_lse(lse, q, k, valid, sm)
+        del out2, lse2
         delta = (out.float() * dout.float()).sum(dim=-1)
         for name, fn in (("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv),
                          ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq)):
@@ -602,8 +645,11 @@ def check_flash_attention_train(fa, dtype, gen, card):
           f"({rate['flash_attention_bwd_dkv']:.1f} TFLOP/s), dQ "
           f"{results['flash_attention_bwd_dq']['ms'] * 1e3:.2f} us "
           f"({rate['flash_attention_bwd_dq']:.1f} TFLOP/s); pair {pair * 1e3:.2f} us against "
-          f"SDPA's autograd backward {lib_bwd_ms * 1e3:.2f} us ({pair / lib_bwd_ms:.2f}x); forward "
-          f"{rate['flash_attention_fwd']:.1f} TFLOP/s [{card}]")
+          f"SDPA's autograd backward {lib_bwd_ms * 1e3:.2f} us ({pair / lib_bwd_ms:.2f}x) [{card}]")
+    fwd = results["flash_attention_fwd"]
+    print(f"[kernels] flash_attention_fwd train {str(dtype)[6:]} [{b},{h},{t},{dk}] all frames: "
+          f"{fwd['ms'] * 1e3:.2f} us ({rate['flash_attention_fwd']:.1f} TFLOP/s) against SDPA's "
+          f"{fwd['library_ms'] * 1e3:.2f} us ({fwd['ms'] / fwd['library_ms']:.2f}x) [{card}]")
     return results
 
 
@@ -720,16 +766,16 @@ def phase_kernels(ra, dc, wk, fa, card):
         cases = [("rel_attention_fwd", "serve B=1 T=312", check_rel_attention(ra, dtype, gen))]
         for k_size in (31, 8):
             cases.append(("dwconv1d_fwd", f"serve [1,312,256] K={k_size}",
-                          check_dwconv(dc, dtype, k_size, gen)))
+                          check_dwconv(dc, dtype, k_size, gen, card)))
         fwd_r, bwd_r = check_rel_attention_train(ra, dtype, gen)
         cases += [("rel_attention_fwd", "train B=64 T=312 dropout 0.1", fwd_r),
                   ("rel_attention_bwd", "train B=64 T=312 dropout 0.1", bwd_r)]
         for k_size in (31, 8):
-            fwd_r, bwd_r = check_dwconv_train(dc, dtype, k_size, gen)
+            fwd_r, bwd_r = check_dwconv_train(dc, dtype, k_size, gen, card)
             cases += [("dwconv1d_fwd", f"train [64,312,256] K={k_size}", fwd_r),
                       ("dwconv1d_bwd", f"train [64,312,256] K={k_size}", bwd_r)]
         cases.append(("flash_attention_fwd", f"serve [1,4,{FLASH_T},64]",
-                      check_flash_attention(fa, dtype, gen)))
+                      check_flash_attention(fa, dtype, gen, card)))
         for name, r in check_flash_attention_train(fa, dtype, gen, card).items():
             cases.append((name, f"train [{FLASH_B},4,{FLASH_T},64]", r))
         for name, shape, r in cases:

@@ -16,16 +16,25 @@
 // What bounds it on this card: memory.  The forward moves x in and y out;
 // the backward moves x and dy in and dx out (at the training shapes,
 // [64, 312, 256] x [31, 256] in float32, 61 MB: 18 us at 3.35 TB/s) and does
-// 4*B*T*C*K FLOPs (0.63 GFLOP, 9 us on the f32 cores).
-// Design: one block per (T tile, C chunk, batch row), threads laid on C so
-// that every global load and store is coalesced and every shared-memory
-// access is bank-conflict free.  The forward and dx stage a T tile plus
-// its K-1 halo rows once in shared memory and walk the K taps out of it,
-// reading the input (TT+K-1)/TT times instead of K times; dx is the
-// forward stencil with the taps flipped and the padding mirrored.  dw
-// stages a longer T tile of x (with halo) and dy, sums its K products per
-// channel in registers and adds one float32 atomicAdd per (k, c) per
-// block into the zeroed dw.
+// 4*B*T*C*K FLOPs (0.63 GFLOP, 9 us on the f32 cores).  At the serving shape
+// ([1, 312, 256], 0.6 MB, 0.2 us of bytes) nothing of that binds: the time is
+// the launch and the latency of one round of loads and one chain of K FMAs.
+// Design: the forward and dx are one stencil kernel (dx is the forward with
+// the taps flipped and the padding mirrored).  A thread owns R consecutive
+// output rows of one channel, threads laid on C (every load and store
+// coalesced), and slides a window of R inputs down the K taps in registers:
+// the R accumulators are independent FMA chains, and a thread loads each
+// tap's weight once and R+K-1 inputs for its R outputs (overlapping windows
+// of neighbouring row groups meet in L1).  K is a template for the
+// configs' kernel sizes (31, 15, 8), so the tap loop unrolls and every load
+// issues at once; any other K runs the same kernel with a runtime K.  R is
+// chosen from the grid: the most of 16, 4 and 2 rows a thread that still
+// gives two blocks an SM (16 at the training shapes; 2 at B = 1 serving,
+// [1, 312, 256]: 312 blocks of 4 warps, where one chain of 16 x 31 FMAs a
+// thread in 80 blocks of 2 warps ran before).  dw stages a T tile of x (with
+// halo) and dy in shared memory, sums its K products per channel in
+// registers and adds one float32 atomicAdd per (k, c) per block into the
+// zeroed dw.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -33,9 +42,10 @@
 
 namespace {
 
-constexpr int TT = 16;  // output rows per block (forward, dx)
+constexpr int SC = 32;  // channels per stencil block (one warp's lanes)
+constexpr int SG = 4;   // row groups per stencil block (= warps)
 constexpr int TW = 64;  // rows per block (dw)
-constexpr int CB = 64;  // channels per block (= threads)
+constexpr int CB = 64;  // channels per block (= threads) (dw)
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -47,41 +57,40 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 
 // FLIP = false: the forward, y = x (*) w with pad_l on the left.
 // FLIP = true: dx = dy (*) flip(w) with pad_r on the left.
-template <typename T, bool FLIP>
-__global__ void __launch_bounds__(CB)
+// KT > 0: K = KT at compile time; KT = 0: K = k_rt.  Rows [t0, t0 + R) of
+// channel c: win[r] holds x[t0 + r + k - pad] at tap k.
+template <typename T, bool FLIP, int KT, int R>
+__global__ void __launch_bounds__(SC * SG)
 dwconv1d_stencil_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                        T* __restrict__ y, int T_len, int C, int K) {
-  extern __shared__ float smem[];
-  float* xs = smem;                      // [(TT + K - 1)][CB]
-  float* ws = smem + (TT + K - 1) * CB;  // [K][CB]
-  const int t0 = blockIdx.x * TT;
-  const int c = blockIdx.y * CB + threadIdx.x;
+                        T* __restrict__ y, int T_len, int C, int k_rt) {
+  const int K = KT > 0 ? KT : k_rt;
+  const int c = blockIdx.y * SC + threadIdx.x % SC;
+  const int t0 = (blockIdx.x * SG + threadIdx.x / SC) * R;
   const int b = blockIdx.z;
+  if (c >= C || t0 >= T_len) return;  // no block barrier: each thread owns its outputs
   const int pad = FLIP ? K - 1 - (K - 1) / 2 : (K - 1) / 2;
-  const bool c_ok = c < C;
-  const T* xb = x + (size_t)b * T_len * C;
+  const T* xc = x + (size_t)b * T_len * C + c;
+  auto load = [&](int t) { return t >= 0 && t < T_len ? to_f32(xc[(size_t)t * C]) : 0.f; };
 
-  for (int r = 0; r < TT + K - 1; ++r) {
-    const int t = t0 - pad + r;
-    float v = 0.f;
-    if (c_ok && t >= 0 && t < T_len) v = to_f32(xb[(size_t)t * C + c]);
-    xs[r * CB + threadIdx.x] = v;
+  float win[R], acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    win[r] = load(t0 - pad + r);
+    acc[r] = 0.f;
   }
+#pragma unroll
   for (int k = 0; k < K; ++k) {
-    const int kw = FLIP ? K - 1 - k : k;
-    ws[k * CB + threadIdx.x] = c_ok ? to_f32(w[(size_t)kw * C + c]) : 0.f;
+    const float wk = to_f32(w[(size_t)(FLIP ? K - 1 - k : k) * C + c]);
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[r] = fmaf(win[r], wk, acc[r]);
+#pragma unroll
+    for (int r = 0; r + 1 < R; ++r) win[r] = win[r + 1];
+    if (k + 1 < K) win[R - 1] = load(t0 - pad + k + R);
   }
-  // each thread reads back only its own column: no block barrier needed
-  if (!c_ok) return;
-
-  T* yb = y + (size_t)b * T_len * C;
-  const int rows = min(TT, T_len - t0);
-  for (int tt = 0; tt < rows; ++tt) {
-    float acc = 0.f;
-    for (int k = 0; k < K; ++k)
-      acc = fmaf(xs[(tt + k) * CB + threadIdx.x], ws[k * CB + threadIdx.x], acc);
-    yb[(size_t)(t0 + tt) * C + c] = from_f32<T>(acc);
-  }
+  T* yc = y + (size_t)b * T_len * C + c;
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (t0 + r < T_len) yc[(size_t)(t0 + r) * C] = from_f32<T>(acc[r]);
 }
 
 template <typename T>
@@ -120,16 +129,37 @@ cudaError_t allow_smem(KernelT kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+template <typename T, bool FLIP, int R>
+int launch_stencil_rows(const void* x, const void* w, void* y, int B, int T_len, int C, int K,
+                        cudaStream_t stream) {
+  dim3 grid((T_len + R * SG - 1) / (R * SG), (C + SC - 1) / SC, B);
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(w);
+  T* yp = static_cast<T*>(y);
+  auto run = [&](auto kernel) { kernel<<<grid, SC * SG, 0, stream>>>(xp, wp, yp, T_len, C, K); };
+  switch (K) {
+    case 31: run(dwconv1d_stencil_kernel<T, FLIP, 31, R>); break;
+    case 15: run(dwconv1d_stencil_kernel<T, FLIP, 15, R>); break;
+    case 8: run(dwconv1d_stencil_kernel<T, FLIP, 8, R>); break;
+    default: run(dwconv1d_stencil_kernel<T, FLIP, 0, R>);
+  }
+  return (int)cudaGetLastError();
+}
+
+// the most rows a thread (16, 4, 2) that still leaves two blocks an SM
 template <typename T, bool FLIP>
 int launch_stencil(const void* x, const void* w, void* y, int B, int T_len, int C, int K,
                    cudaStream_t stream) {
-  const size_t smem = (size_t)(TT + K - 1 + K) * CB * sizeof(float);
-  cudaError_t e = allow_smem(dwconv1d_stencil_kernel<T, FLIP>, smem);
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_len + TT - 1) / TT, (C + CB - 1) / CB, B);
-  dwconv1d_stencil_kernel<T, FLIP><<<grid, CB, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), T_len, C, K);
-  return (int)cudaGetLastError();
+  auto fills = [&](int r) {
+    return (long)B * ((T_len + r * SG - 1) / (r * SG)) * ((C + SC - 1) / SC) >= 2L * sms;
+  };
+  if (fills(16)) return launch_stencil_rows<T, FLIP, 16>(x, w, y, B, T_len, C, K, stream);
+  if (fills(4)) return launch_stencil_rows<T, FLIP, 4>(x, w, y, B, T_len, C, K, stream);
+  return launch_stencil_rows<T, FLIP, 2>(x, w, y, B, T_len, C, K, stream);
 }
 
 template <typename T>

@@ -20,13 +20,16 @@
 // padding: a tile of keys (or queries) with no valid entry is skipped whole,
 // and inside a tile masked keys get no probability.
 //
-// Forward: one block per (query tile of BQ rows, head, batch row), 8 warps of
-// RPW rows.  Key tiles of BK = 32 keys stream through shared memory (k
-// transposed with an odd row stride, so the lane-per-key reads are bank
-// conflict free; v row-major).  A lane owns one key for the scores (the query
-// rows are read as float4 broadcasts, every k element feeds RPW rows) and
-// DK/32 output dims for the accumulation; the softmax is online over the key
-// tiles with float32 statistics, so the [T, T] scores never leave registers.
+// Forward (the FlashAttention-2 loop): one block per (tile of ROWS query
+// rows, head, batch row, key split); key tiles stream through shared memory
+// under an online softmax with float32 statistics, so the [T, T] scores
+// never leave registers.  The saved lse is the natural-log log-sum-exp the
+// backward reads.  At a small grid (B = 1 serving: 120 blocks of 64 rows for
+// 4 heads of 1874 frames, under one block per SM) the key range is split
+// over 2-8 blocks per query tile, each writing its unnormalized partial
+// output and (max, sum) to a float32 workspace, and a second kernel merges
+// the splits in their fixed order: every output element still has one
+// owner, and a repeat call is bitwise identical.
 //
 // Backward (the FlashAttention-2 split, scores recomputed from the saved
 // log-sum-exp; delta_i = out_i . dout_i comes from the caller, as the library
@@ -43,24 +46,24 @@
 // frames the forward does 4*DK FLOPs (scores, P.v), the dK/dV kernel 8*DK
 // (scores and dP recomputed, dV, dK) and the dQ kernel 6*DK (scores, dP,
 // dQ), while moving O(T*DK) elements: at the training shape (B=8, H=4,
-// T=1874, DK=64) dK/dV is 5.8e10 FLOP against ~25 MB.  The forward runs on
-// the CUDA cores in float32 (67 TFLOP/s peak; bf16 widened to f32 in shared
-// memory).  The backward kernels run all five products (S = Q K^T, dP =
-// dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) on the tensor cores with
-// mma.sync m16n8k8 TF32 and the 3xTF32 split: each f32 operand becomes
+// T=1874, DK=64) the forward is 2.9e10 FLOP and dK/dV 5.8e10 against
+// ~25 MB.  All seven products (forward S = Q K^T and O = P V; backward S,
+// dP = dO V^T, dV = P^T dO, dK = dS^T Q, dQ = dS K) run on the tensor cores
+// with mma.sync m16n8k8 TF32 and the 3xTF32 split: each f32 operand becomes
 // big = tf32(x) and small = tf32(x - big), and small.big + big.small +
 // big.big in an f32 accumulator gives float32 accuracy (plain TF32 keeps
-// ~10 bits and misses the 1e-4 gradient tolerance on every one of the five).
-// Three TF32 products at 495 TFLOP/s make 165 TFLOP/s of f32-accurate
-// products, 2.46x the CUDA-core peak.  To feed them: 16-row warp tiles whose
-// score tiles stay in registers and feed the next product directly (see the
-// fragment note at the backward section), the streamed operand split once a
+// ~10 bits and misses the forward's 2e-5 and the gradients' 1e-4
+// tolerances).  Three TF32 products at 495 TFLOP/s make 165 TFLOP/s of
+// f32-accurate products, 2.46x the CUDA-core peak.  To feed them: 16-row
+// warp tiles whose score tiles stay in registers and feed the next product
+// directly (see the fragment note below), the streamed operand split once a
 // tile into shared big / small arrays that every warp reads (the split costs
 // as many instructions as the products it feeds), 16-byte-padded shared rows
 // that both fragment patterns read without bank conflicts, and cp.async
-// copies of the next tile while this one multiplies.  bf16 inputs are exact
-// in TF32, so their small parts and the products on them are dropped; P and
-// dS keep the split.
+// copies of the next tile while this one multiplies.  The forward keeps a
+// warp's split q fragments in registers for the whole key loop at DK = 64.
+// bf16 inputs are exact in TF32, so their small parts and the products on
+// them are dropped; P and dS keep the split.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -68,13 +71,6 @@
 #include <stdint.h>
 
 namespace {
-
-constexpr int NW = 8;            // warps per block
-constexpr int NT = NW * 32;      // threads per block
-constexpr int BQ = 32;           // query rows per block in the query-major kernels
-constexpr int RPW = BQ / NW;     // query rows per warp
-constexpr int BK = 32;           // keys per tile (one per lane) in the query-major kernels
-constexpr int KTS = BK + 1;      // row stride of a transposed key tile
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -84,160 +80,20 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
 __device__ __forceinline__ bool is_valid(const int* __restrict__ valid_b, int i, int T_len) {
   return i < T_len && valid_b[i] != 0;
 }
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float dot4(float4 a, float x0, float x1, float x2, float x3, float s) {
-  s = fmaf(a.x, x0, s);
-  s = fmaf(a.y, x1, s);
-  s = fmaf(a.z, x2, s);
-  return fmaf(a.w, x3, s);
-}
-
-// rows [r0, r0 + ROWS) of a [T, DK] slab into shared memory, row-major
-// (stride DK) or transposed (element (r, d) at d * tstride + r); rows past
-// T are zero
-template <typename T, int DK, int ROWS>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ src, int r0, int T_len,
-                                          float* dst) {
-  for (int idx = threadIdx.x; idx < ROWS * DK; idx += NT) {
-    const int r = idx / DK, d = idx % DK;
-    dst[idx] = r0 + r < T_len ? to_f32(src[(size_t)(r0 + r) * DK + d]) : 0.f;
-  }
-}
-template <typename T, int DK, int ROWS>
-__device__ __forceinline__ void stage_rows_t(const T* __restrict__ src, int r0, int T_len,
-                                            float* dst, int tstride) {
-  for (int idx = threadIdx.x; idx < ROWS * DK; idx += NT) {
-    const int r = idx / DK, d = idx % DK;
-    dst[d * tstride + r] = r0 + r < T_len ? to_f32(src[(size_t)(r0 + r) * DK + d]) : 0.f;
-  }
-}
-
 // ---------------------------------------------------------------------------
-// forward
-// ---------------------------------------------------------------------------
-
-template <typename T, int DK>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ valid, T* __restrict__ out, float* __restrict__ lse,
-                 int H, int T_len, float scale) {
-  constexpr int DPL = DK / 32;
-  extern __shared__ __align__(16) float smem[];
-  float* s_q = smem;               // [BQ][DK]
-  float* s_kT = s_q + BQ * DK;     // [DK][KTS]
-  float* s_v = s_kT + DK * KTS;    // [BK][DK]
-
-  const int i0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const size_t row_base = ((size_t)b * H + h) * T_len;
-  const size_t base = row_base * DK;
-  const int* valid_b = valid + (size_t)b * T_len;
-
-  float m[RPW], l[RPW], acc[RPW][DPL];
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[r][e] = 0.f;
-  }
-
-  // a tile of pad rows only is written as zeros without reading a key
-  const bool any_q = __syncthreads_or(tid < BQ && is_valid(valid_b, i0 + tid, T_len));
-  if (any_q) {
-    stage_rows<T, DK, BQ>(q + base, i0, T_len, s_q);
-    for (int j0 = 0; j0 < T_len; j0 += BK) {
-      // the barrier also ends the previous tile's reads (and publishes s_q)
-      if (!__syncthreads_or(tid < BK && is_valid(valid_b, j0 + tid, T_len))) continue;
-      stage_rows_t<T, DK, BK>(k + base, j0, T_len, s_kT, KTS);
-      stage_rows<T, DK, BK>(v + base, j0, T_len, s_v);
-      __syncthreads();
-
-      float s[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) s[r] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < DK; d += 4) {
-        const float k0 = s_kT[(d + 0) * KTS + lane], k1 = s_kT[(d + 1) * KTS + lane];
-        const float k2 = s_kT[(d + 2) * KTS + lane], k3 = s_kT[(d + 3) * KTS + lane];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r)
-          s[r] = dot4(ld4(s_q + (warp * RPW + r) * DK + d), k0, k1, k2, k3, s[r]);
-      }
-      // every processed tile holds a valid key, so each row's maximum is finite
-      const bool j_valid = is_valid(valid_b, j0 + lane, T_len);
-      float e[RPW];
-#pragma unroll
-      for (int r = 0; r < RPW; ++r) {
-        const float sr = j_valid ? s[r] * scale : -INFINITY;
-        const float m_new = fmaxf(m[r], warp_max(sr));
-        const float alpha = expf(m[r] - m_new);  // 0 on the first tile
-        e[r] = expf(sr - m_new);
-        l[r] = l[r] * alpha + warp_sum(e[r]);
-        m[r] = m_new;
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) acc[r][c] *= alpha;
-      }
-#pragma unroll 4
-      for (int jj = 0; jj < BK; ++jj) {
-        float p[RPW];
-#pragma unroll
-        for (int r = 0; r < RPW; ++r) p[r] = __shfl_sync(0xffffffffu, e[r], jj);
-#pragma unroll
-        for (int c = 0; c < DPL; ++c) {
-          const float vv = s_v[jj * DK + c * 32 + lane];
-#pragma unroll
-          for (int r = 0; r < RPW; ++r) acc[r][c] = fmaf(p[r], vv, acc[r][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < RPW; ++r) {
-    const int i = i0 + warp * RPW + r;
-    if (i >= T_len) continue;
-    const bool ok = is_valid(valid_b, i, T_len);  // implies any_q, so l >= 1
-    const float inv_l = ok ? 1.f / l[r] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPL; ++c)
-      out[base + (size_t)i * DK + c * 32 + lane] = from_f32<T>(ok ? acc[r][c] * inv_l : 0.f);
-    if (lse != nullptr && lane == 0) lse[row_base + i] = ok ? m[r] + logf(l[r]) : 0.f;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward: tensor-core products with the 3xTF32 split
+// tensor-core products with the 3xTF32 split (every kernel)
 // ---------------------------------------------------------------------------
 //
 // Every product is a sum of mma.sync m16n8k8 TF32 tiles (A 16x8 row-major,
 // B 8x8 column-major, C 16x8 in f32).  With g = lane / 4 and t = lane % 4 a
 // thread holds A (g, t) (g+8, t) (g, t+4) (g+8, t+4), B (k t, n g) (k t+4,
 // n g) and C (g, 2t) (g, 2t+1) (g+8, 2t) (g+8, 2t+1).  A product whose A
-// operand is a C tile of the previous one (P^T and dS^T in the key-major
-// kernel, dS in the query-major one) takes the k index in the order
+// operand is a C tile of the previous one (P in the forward, P^T and dS^T in
+// the key-major kernel, dS in the query-major one) takes the k index in the order
 // 2t, 2t+1 instead of t, t+4: the sum over k is the same, a C tile is then
 // an A fragment as it stands (no shuffle, no shared-memory round trip), and
 // the B fragment reads rows k0 + 2t and k0 + 2t + 1 of its tile.
@@ -248,17 +104,18 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 // small shared arrays once per tile by the thread that copied it, in the
 // middle of the previous tile's products (double-buffered, so the split
 // overlaps other warps' tensor-core work); the A operands (a warp's own 16
-// rows, and the P / dS tiles in registers) are split as they are loaded.  Each tile's products go into a fresh C tile that
-// is then added to the running sum in f32: the tensor cores' accumulation
-// truncates, and over 1874 frames a single running C tile drifts by ~2e-5 of
-// the result; per tile the drift stays at the rounding of f32.
+// rows, and the P / dS tiles in registers) are split as they are loaded.
+// Each tile's products go into a fresh C tile that is then added to the
+// running sum in f32: the tensor cores' accumulation truncates, and over
+// 1874 frames a single running C tile drifts by ~2e-5 of the result; per
+// tile the drift stays at the rounding of f32.
 
-constexpr int BW = 4;            // warps per block of the backward kernels
-constexpr int BT = BW * 32;      // threads per block of the backward kernels
+constexpr int BW = 4;            // warps per block
+constexpr int BT = BW * 32;      // threads per block
 constexpr float LOG2E = 1.4426950408889634f;
 
-// Tiles of the backward kernels for head dim DK: a block owns ROWS rows (keys
-// in dK/dV, queries in dQ), 16 per warp row; the other operand streams in
+// Tiles for head dim DK: a block owns ROWS rows (keys in dK/dV, queries in
+// the forward and dQ), 16 per warp row; the other operand streams in
 // tiles of STREAM rows.  A warp owns 16 of the block's rows and DW = 64 output
 // columns, so at DK = 128 (256) two (four) warps share their rows and each
 // recomputes the scores of those rows: nothing crosses warps, and a thread's
@@ -271,7 +128,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 // Shared memory in float32: 103 KiB at DK = 64 (two blocks an SM), 163 and
 // 166 KiB at 256 and 128, plus a byte a tile for the tile mask.
 template <typename T, int DK>
-struct BwdTiles {
+struct Tiles {
   static constexpr int DW = 64;
   static constexpr int WD = DK / DW;
   static constexpr int WM = BW / WD;
@@ -295,12 +152,12 @@ struct BwdTiles {
   }
 };
 
-// the backward kernels' shared arrays, carved as BwdTiles lays them out
+// the kernels' shared arrays, carved as Tiles lays them out
 template <typename T, int DK>
-struct BwdSmem {
-  using C = BwdTiles<T, DK>;
-  T* own0;             // [ROWS][LD]: k (dK/dV) or q (dQ)
-  T* own1;             // [ROWS][LD]: v or dout
+struct TileSmem {
+  using C = Tiles<T, DK>;
+  T* own0;             // [ROWS][LD]: k (dK/dV) or q (forward, dQ)
+  T* own1;             // [ROWS][LD]: v or dout (unused by the forward)
   uint32_t* big_base;  // [2 buffers][2 operands][SPLIT]
   uint32_t* small_base;
   T* raw_base;         // bf16 only: [2][2][RAW]
@@ -308,7 +165,7 @@ struct BwdSmem {
   float* row1;         // [2][STREAM]: delta (dK/dV)
   int* mask;           // [2][STREAM]: the streamed rows' mask
   unsigned char* tiles;  // [n_tiles]: 1 where a streamed tile holds a valid frame
-  __device__ BwdSmem(unsigned char* p) {
+  __device__ TileSmem(unsigned char* p) {
     own0 = reinterpret_cast<T*>(p);
     own1 = own0 + C::ROWS * C::LD;
     big_base = reinterpret_cast<uint32_t*>(own1 + C::ROWS * C::LD);
@@ -331,7 +188,8 @@ struct BwdSmem {
   }
 };
 
-// 2^x by the SFU (relative error ~2^-22, far inside the gradients' 1e-4)
+// 2^x by the SFU (relative error ~2^-22, far inside the 2e-5 forward and
+// 1e-4 gradient tolerances)
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -452,7 +310,7 @@ __device__ __forceinline__ void copy_rows(const T* __restrict__ src, int r0, int
 // landed.  float32 is read and rewritten in place through the same words.
 template <typename T, int DK>
 __device__ __forceinline__ void split_rows(const T* raw, uint32_t* big, uint32_t* small) {
-  using C = BwdTiles<T, DK>;
+  using C = Tiles<T, DK>;
   constexpr int E = 16 / (int)sizeof(T), CPR = DK / E;
   for (int idx = threadIdx.x; idx < C::STREAM * CPR; idx += BT) {
     const int r = idx / CPR, c = idx % CPR;
@@ -508,9 +366,9 @@ template <typename T, int DK>
 __device__ __forceinline__ void scores_and_dp(const T* sa, const uint32_t* bb, const uint32_t* bs,
                                               const T* sa2, const uint32_t* b2b,
                                               const uint32_t* b2s, int r0, int lane,
-                                              float (&s)[BwdTiles<T, DK>::NS][4],
-                                              float (&dp)[BwdTiles<T, DK>::NS][4]) {
-  using C = BwdTiles<T, DK>;
+                                              float (&s)[Tiles<T, DK>::NS][4],
+                                              float (&dp)[Tiles<T, DK>::NS][4]) {
+  using C = Tiles<T, DK>;
 #pragma unroll
   for (int n = 0; n < C::NS; ++n)
 #pragma unroll
@@ -535,10 +393,10 @@ __device__ __forceinline__ void scores_and_dp(const T* sa, const uint32_t* bb, c
 // (STREAM x DK, split); X is P^T, dS^T or dS, the tile dout, q or k.  The
 // tile's products go into a fresh C tile, added to acc in f32.
 template <typename T, int DK>
-__device__ __forceinline__ void accumulate(const float (&x)[BwdTiles<T, DK>::NS][4],
+__device__ __forceinline__ void accumulate(const float (&x)[Tiles<T, DK>::NS][4],
                                            const uint32_t* big, const uint32_t* small, int d0,
-                                           int lane, float (&acc)[BwdTiles<T, DK>::DW / 8][4]) {
-  using C = BwdTiles<T, DK>;
+                                           int lane, float (&acc)[Tiles<T, DK>::DW / 8][4]) {
+  using C = Tiles<T, DK>;
   float part[C::DW / 8][4];
 #pragma unroll
   for (int n = 0; n < C::DW / 8; ++n)
@@ -564,19 +422,258 @@ __device__ __forceinline__ void accumulate(const float (&x)[BwdTiles<T, DK>::NS]
 // rows [r0, r0 + 16) x columns [d0, d0 + DW) of a [T, DK] output from C tiles
 template <typename T, int DK>
 __device__ __forceinline__ void store_rows(T* __restrict__ dst, int r0, int d0, int T_len,
-                                           int lane, const float (&acc)[BwdTiles<T, DK>::DW / 8][4]) {
+                                           int lane, const float (&acc)[Tiles<T, DK>::DW / 8][4]) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + g + 8 * half;
     if (r >= T_len) continue;
 #pragma unroll
-    for (int n = 0; n < BwdTiles<T, DK>::DW / 8; ++n) {
+    for (int n = 0; n < Tiles<T, DK>::DW / 8; ++n) {
       T* p = dst + (size_t)r * DK + d0 + n * 8 + 2 * t;
       p[0] = from_f32<T>(acc[n][2 * half]);
       p[1] = from_f32<T>(acc[n][2 * half + 1]);
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// forward
+// ---------------------------------------------------------------------------
+//
+// One block per (tile of ROWS query rows, head, batch row, key split), warps
+// as in the dQ kernel; the split's key tiles (k and v split into big and
+// small arrays, the key mask) stream through two buffers in the same way.
+// Per key tile: S = Q K^T; masked keys -inf; the running row max m and the
+// lane's part of the row sum l in base 2 (the max over the quad of lanes that
+// shares a row, by two shuffles; the sum's quad reduction waits for the
+// end); P = 2^(S scale log2(e) - m); O = O alpha + P V, with alpha =
+// 2^(m_old - m) and P V in a fresh C tile.  At DK = 64 the warp's 16 q rows
+// are split into TF32 fragments once and stay in 64 registers; at 128 and
+// 256 they are split from the shared q tile per key tile, as in dQ.
+
+// S (16 rows x STREAM) = Q rows [r0, r0 + 16) . every row of the split key
+// tile, over DK; the A fragments from registers (QF = DK / 8) or split from
+// the raw q tile as they are loaded (QF = 1)
+template <typename T, int DK, int QF>
+__device__ __forceinline__ void qk_scores(const uint32_t (&qb)[QF][4], const uint32_t (&qs)[QF][4],
+                                          const T* sq, const uint32_t* kb, const uint32_t* ks,
+                                          int r0, int lane, float (&s)[Tiles<T, DK>::NS][4]) {
+  using C = Tiles<T, DK>;
+#pragma unroll
+  for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < DK; k0 += 8) {
+    uint32_t ab[4], as[4];
+    if constexpr (QF == DK / 8) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ab[e] = qb[k0 / 8][e], as[e] = qs[k0 / 8][e];
+    } else {
+      load_a<C::EXACT, C::LD>(sq, r0, k0, lane, ab, as);
+    }
+#pragma unroll
+    for (int n = 0; n < C::NS; ++n) {
+      uint32_t fb[2], fs[2];
+      load_b_t<C::EXACT, C::LDF>(kb, ks, n * 8, k0, lane, fb, fs);
+      mma_3xtf32<C::EXACT, C::EXACT>(s[n], ab, as, fb, fs);
+    }
+  }
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+constexpr float LN2 = 0.6931471805599453f;
+
+// work == nullptr (one split): out and lse.  Otherwise split s of S writes
+// its unnormalized output rows (float32 [S][B H T][DK]) and its base-2 (max,
+// sum) pairs (float32 [S][B H T][2], after the outputs) to work, for
+// flash_fwd_merge_kernel.
+template <typename T, int DK>
+__global__ void __launch_bounds__(BT)
+flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                 const int* __restrict__ valid, T* __restrict__ out, float* __restrict__ lse,
+                 float* __restrict__ work, int splits, int H, int T_len, float scale) {
+  using C = Tiles<T, DK>;
+  constexpr int QF = DK == 64 ? DK / 8 : 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const TileSmem<T, DK> sm(smem_raw);  // own rows: q; streamed operands: 0 = k, 1 = v
+
+  const int i0 = blockIdx.x * C::ROWS;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z / splits;
+  const int split = blockIdx.z % splits;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int r0 = (warp % C::WM) * 16;  // the warp's query rows in the tile
+  const int d0 = (warp / C::WM) * C::DW;
+  const size_t row_base = ((size_t)b * H + h) * T_len;
+  const size_t base = row_base * DK;
+  const int* valid_b = valid + (size_t)b * T_len;
+  // the split's keys: tiles [split n / splits, (split + 1) n / splits)
+  const int n_tiles = (T_len + C::STREAM - 1) / C::STREAM;
+  const int j_begin = split * n_tiles / splits * C::STREAM;
+  const int j_end = min(T_len, (split + 1) * n_tiles / splits * C::STREAM);
+
+  float m[2] = {-INFINITY, -INFINITY};  // rows g and g + 8: running max, base 2
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  float acc[C::DW / 8][4];
+#pragma unroll
+  for (int n = 0; n < C::DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
+  // a tile of pad rows only is written as zeros without reading a key
+  const bool any_q = __syncthreads_or(tid < C::ROWS && is_valid(valid_b, i0 + tid, T_len));
+  if (any_q) {
+    auto load_tile = [&](int j0, int buf) {
+      copy_rows<T, DK, C::LD, C::STREAM>(k + base, j0, T_len, sm.landing(buf, 0));
+      copy_rows<T, DK, C::LD, C::STREAM>(v + base, j0, T_len, sm.landing(buf, 1));
+      if (tid < C::STREAM) {
+        const bool ok = j0 + tid < T_len;
+        cp_async4(sm.mask + buf * C::STREAM + tid, valid_b + (ok ? j0 + tid : 0), ok);
+      }
+      cp_async_commit();
+    };
+    auto split_tile = [&](int buf) {
+      cp_async_wait_all();
+      split_rows<T, DK>(sm.landing(buf, 0), sm.big(buf, 0), sm.small(buf, 0));
+      split_rows<T, DK>(sm.landing(buf, 1), sm.big(buf, 1), sm.small(buf, 1));
+    };
+    copy_rows<T, DK, C::LD, C::ROWS>(q + base, i0, T_len, sm.own0);
+    cp_async_commit();
+    // masked keys take no probability: tiles of them are skipped whole
+    mark_tiles<C::STREAM>(valid_b, T_len, sm.tiles);
+    int j0 = next_tile<C::STREAM>(sm.tiles, j_begin, j_end);
+    if (j0 < j_end) load_tile(j0, 0);
+    split_tile(0);  // waits for q too
+    __syncthreads();
+    uint32_t qb[QF][4], qs[QF][4];
+    if constexpr (QF == DK / 8) {
+#pragma unroll
+      for (int kk = 0; kk < QF; ++kk)
+        load_a<C::EXACT, C::LD>(sm.own0, r0, kk * 8, lane, qb[kk], qs[kk]);
+    }
+    const float sl2 = scale * LOG2E;
+    for (int buf = 0; j0 < j_end; buf ^= 1) {
+      __syncthreads();
+      const int j_next = next_tile<C::STREAM>(sm.tiles, j0 + C::STREAM, j_end);
+      if (j_next < j_end) load_tile(j_next, buf ^ 1);
+
+      float s[C::NS][4];  // S, then P
+      qk_scores<T, DK, QF>(qb, qs, sm.own0, sm.big(buf, 0), sm.small(buf, 0), r0, lane, s);
+      // every processed tile holds a valid key, so the new maxima are finite
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n) {
+        const int2 kv = *reinterpret_cast<const int2*>(sm.mask + buf * C::STREAM + n * 8 +
+                                                       2 * (lane & 3));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = ((e & 1) ? kv.y : kv.x) != 0 ? s[n][e] * sl2 : -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+        }
+      }
+      float alpha[2];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        mx[half] = quad_max(mx[half]);
+        alpha[half] = exp2_approx(m[half] - mx[half]);  // 0 on the first tile
+        m[half] = mx[half];
+        l[half] *= alpha[half];
+      }
+#pragma unroll
+      for (int n = 0; n < C::NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[n][e] = exp2_approx(s[n][e] - m[e >> 1]);
+          l[e >> 1] += s[n][e];
+        }
+#pragma unroll
+      for (int n = 0; n < C::DW / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] *= alpha[e >> 1];
+      if (j_next < j_end) split_tile(buf ^ 1);
+      accumulate<T, DK>(s, sm.big(buf, 1), sm.small(buf, 1), d0, lane, acc);  // O += P V
+      j0 = j_next;
+    }
+  }
+
+  const int g = lane >> 2, t = lane & 3;
+  const size_t rows_all = (size_t)gridDim.z / splits * H * T_len;  // B H T
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = i0 + r0 + g + 8 * half;
+    if (i >= T_len) continue;
+    const float l_row = quad_sum(l[half]);
+    if (work == nullptr) {
+      const bool ok = is_valid(valid_b, i, T_len);  // implies any_q, so l_row >= 1
+      const float inv_l = ok ? 1.f / l_row : 0.f;
+      T* p = out + base + (size_t)i * DK + d0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < C::DW / 8; ++n) {
+        p[n * 8] = from_f32<T>(acc[n][2 * half] * inv_l);
+        p[n * 8 + 1] = from_f32<T>(acc[n][2 * half + 1] * inv_l);
+      }
+      if (lse != nullptr && d0 == 0 && t == 0)
+        lse[row_base + i] = ok ? (m[half] + log2f(l_row)) * LN2 : 0.f;
+    } else {
+      const size_t row = split * rows_all + row_base + i;
+      float* p = work + row * DK + d0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < C::DW / 8; ++n)
+        *reinterpret_cast<float2*>(p + n * 8) = make_float2(acc[n][2 * half], acc[n][2 * half + 1]);
+      if (d0 == 0 && t == 0)
+        *reinterpret_cast<float2*>(work + splits * rows_all * DK + 2 * row) =
+            make_float2(m[half], l_row);
+    }
+  }
+}
+
+// The splits of flash_fwd_kernel merged in their fixed order, one warp a
+// row: out = sum_s O_s 2^(m_s - M) / L, L = sum_s l_s 2^(m_s - M), M the
+// largest m_s (a split with no valid key has m_s = -inf and adds 0).
+template <typename T, int DK>
+__global__ void __launch_bounds__(BT)
+flash_fwd_merge_kernel(const float* __restrict__ work, const int* __restrict__ valid,
+                       T* __restrict__ out, float* __restrict__ lse, int splits, int B, int H,
+                       int T_len) {
+  const size_t rows_all = (size_t)B * H * T_len;
+  const size_t row = (size_t)blockIdx.x * BW + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= rows_all) return;
+  const int i = (int)(row % T_len);
+  const int b = (int)(row / ((size_t)H * T_len));
+  float o[DK / 32];
+#pragma unroll
+  for (int c = 0; c < DK / 32; ++c) o[c] = 0.f;
+  float m_all = -INFINITY, l_all = 0.f;
+  const bool ok = valid[(size_t)b * T_len + i] != 0;  // a valid row has its own key
+  if (ok) {
+    const float2* ml = reinterpret_cast<const float2*>(work + splits * rows_all * DK);
+    for (int s = 0; s < splits; ++s) m_all = fmaxf(m_all, ml[s * rows_all + row].x);
+    for (int s = 0; s < splits; ++s) {
+      const float2 st = ml[s * rows_all + row];
+      const float wgt = exp2f(st.x - m_all);
+      l_all += wgt * st.y;
+      const float* src = work + (s * rows_all + row) * DK;
+#pragma unroll
+      for (int c = 0; c < DK / 32; ++c) o[c] += wgt * src[c * 32 + lane];
+    }
+  }
+  const float inv_l = ok ? 1.f / l_all : 0.f;
+#pragma unroll
+  for (int c = 0; c < DK / 32; ++c) out[row * DK + c * 32 + lane] = from_f32<T>(o[c] * inv_l);
+  if (lse != nullptr && lane == 0) lse[row] = ok ? (m_all + log2f(l_all)) * LN2 : 0.f;
 }
 
 // ---------------------------------------------------------------------------
@@ -599,9 +696,9 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      T* __restrict__ dk_out, T* __restrict__ dv_out, int H, int T_len,
                      float scale) {
-  using C = BwdTiles<T, DK>;
+  using C = Tiles<T, DK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem<T, DK> sm(smem_raw);  // own rows: k, v; streamed operands: 0 = q, 1 = dout
+  const TileSmem<T, DK> sm(smem_raw);  // own rows: k, v; streamed operands: 0 = q, 1 = dout
 
   const int j0 = blockIdx.x * C::ROWS;
   const int h = blockIdx.y;
@@ -702,9 +799,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
                     const int* __restrict__ valid, const T* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     T* __restrict__ dq, int H, int T_len, float scale) {
-  using C = BwdTiles<T, DK>;
+  using C = Tiles<T, DK>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const BwdSmem<T, DK> sm(smem_raw);  // own rows: q, dout; streamed operands: 0 = k, 1 = v
+  const TileSmem<T, DK> sm(smem_raw);  // own rows: q, dout; streamed operands: 0 = k, 1 = v
 
   const int i0 = blockIdx.x * C::ROWS;
   const int h = blockIdx.y;
@@ -796,17 +893,50 @@ cudaError_t allow_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
+// key splits of the forward: as many as keep every block of the grid in one
+// wave of resident blocks (B = 1 serving fills the card), at most MAX_SPLITS
+// and at most one per key tile; a negative value is minus a CUDA error code
+constexpr int MAX_SPLITS = 8;
+
+template <typename T, int DK>
+int fwd_splits(int B, int H, int T_len) {
+  using C = Tiles<T, DK>;
+  const size_t smem = C::smem_bytes(T_len);
+  cudaError_t e = allow_smem(flash_fwd_kernel<T, DK>, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, flash_fwd_kernel<T, DK>, BT, smem);
+  if (e != cudaSuccess) return -(int)e;
+  const long blocks = (long)B * H * ((T_len + C::ROWS - 1) / C::ROWS);
+  const long n_tiles = (T_len + C::STREAM - 1) / C::STREAM;
+  long splits = (long)per_sm * sms / (blocks > 0 ? blocks : 1);
+  splits = splits < MAX_SPLITS ? splits : MAX_SPLITS;
+  splits = splits < n_tiles ? splits : n_tiles;
+  return (int)(splits > 1 ? splits : 1);
+}
+
 template <typename T, int DK>
 int launch_fwd(const void* q, const void* k, const void* v, const void* valid, void* out,
-               void* lse, int B, int H, int T_len, float scale, cudaStream_t stream) {
-  const size_t smem = (size_t)(BQ * DK + DK * KTS + BK * DK) * sizeof(float);
+               void* lse, void* work, int splits, int B, int H, int T_len, float scale,
+               cudaStream_t stream) {
+  using C = Tiles<T, DK>;
+  if (splits < 1 || (splits > 1 && work == nullptr)) return (int)cudaErrorInvalidValue;
+  const size_t smem = C::smem_bytes(T_len);
   cudaError_t e = allow_smem(flash_fwd_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
-  dim3 grid((T_len + BQ - 1) / BQ, H, B);
-  flash_fwd_kernel<T, DK><<<grid, NT, smem, stream>>>(
+  dim3 grid((T_len + C::ROWS - 1) / C::ROWS, H, B * splits);
+  flash_fwd_kernel<T, DK><<<grid, BT, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const int*>(valid), static_cast<T*>(out), static_cast<float*>(lse), H, T_len,
-      scale);
+      static_cast<const int*>(valid), static_cast<T*>(out), static_cast<float*>(lse),
+      splits > 1 ? static_cast<float*>(work) : nullptr, splits, H, T_len, scale);
+  e = cudaGetLastError();
+  if (e != cudaSuccess || splits == 1) return (int)e;
+  const size_t rows_all = (size_t)B * H * T_len;
+  flash_fwd_merge_kernel<T, DK><<<(unsigned)((rows_all + BW - 1) / BW), BT, 0, stream>>>(
+      static_cast<const float*>(work), static_cast<const int*>(valid), static_cast<T*>(out),
+      static_cast<float*>(lse), splits, B, H, T_len);
   return (int)cudaGetLastError();
 }
 
@@ -814,7 +944,7 @@ template <typename T, int DK>
 int launch_dkv(const void* q, const void* k, const void* v, const void* valid, const void* dout,
                const void* lse, const void* delta, void* dk_out, void* dv_out, int B, int H,
                int T_len, float scale, cudaStream_t stream) {
-  using C = BwdTiles<T, DK>;
+  using C = Tiles<T, DK>;
   const size_t smem = C::smem_bytes(T_len);
   cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -831,7 +961,7 @@ template <typename T, int DK>
 int launch_dq(const void* q, const void* k, const void* v, const void* valid, const void* dout,
               const void* lse, const void* delta, void* dq, int B, int H, int T_len, float scale,
               cudaStream_t stream) {
-  using C = BwdTiles<T, DK>;
+  using C = Tiles<T, DK>;
   const size_t smem = C::smem_bytes(T_len);
   cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DK>, smem);
   if (e != cudaSuccess) return (int)e;
@@ -862,13 +992,22 @@ int launch_dq(const void* q, const void* k, const void* v, const void* valid, co
 
 extern "C" {
 
+// The number of key splits flash_attention_fwd takes for this shape on the
+// current device (>= 1), or minus a CUDA error code.
+int flash_attention_fwd_splits(int B, int H, int T_len, int dk, int dtype) {
+  if ((dk != 64 && dk != 128 && dk != 256) || (dtype != 0 && dtype != 1))
+    return -(int)cudaErrorInvalidValue;
+  FLASH_DISPATCH(fwd_splits, B, H, T_len)
+}
+
 // q, k, v, out: [B, H, T, dk] in dtype; valid: int32 [B, T]; lse: float32
-// [B, H, T] or null (not written).
+// [B, H, T] or null (not written); work: float32 [splits, B, H, T, dk + 2]
+// when splits > 1 (else unused; may be null).
 int flash_attention_fwd(const void* q, const void* k, const void* v, const void* valid,
-                        void* out, void* lse, int B, int H, int T_len, int dk, float scale,
-                        int dtype, void* stream) {
+                        void* out, void* lse, void* work, int splits, int B, int H, int T_len,
+                        int dk, float scale, int dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, valid, out, lse, B, H, T_len, scale, s)
+  FLASH_DISPATCH(launch_fwd, q, k, v, valid, out, lse, work, splits, B, H, T_len, scale, s)
 }
 
 // dk_out, dv_out for the output gradient dout, given the forward's lse and

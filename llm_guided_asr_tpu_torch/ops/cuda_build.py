@@ -46,9 +46,11 @@ class CudaKernel:
     caller can show that a path went through each kernel.
     """
 
-    def __init__(self, source: str, functions: Dict[str, Sequence], error_fn: str):
+    def __init__(self, source: str, functions: Dict[str, Sequence], error_fn: str,
+                 queries: Optional[Dict[str, Sequence]] = None):
         self.source = CSRC_DIR / source
         self.functions = dict(functions)  # C name -> ctypes argtypes
+        self.queries = dict(queries or {})  # C functions that launch nothing: name -> argtypes
         self.error_fn = error_fn
         self.launches: Dict[str, int] = dict.fromkeys(self.functions, 0)
         self.ptxas_log = ""
@@ -86,7 +88,7 @@ class CudaKernel:
         if self._lib is None:
             self.build()
             lib = ctypes.CDLL(str(self.library_path()))
-            for name, argtypes in self.functions.items():
+            for name, argtypes in {**self.functions, **self.queries}.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
                 fn.restype = ctypes.c_int
@@ -103,6 +105,11 @@ class CudaKernel:
             msg = getattr(lib, self.error_fn)(code).decode()
             raise RuntimeError(f"{function} launch failed: CUDA error {code} ({msg})")
         self.launches[function] += 1
+
+    def query(self, function: str, *args) -> int:
+        """The int a query function returns; it launches nothing and is not
+        counted."""
+        return getattr(self._load(), function)(*args)
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(self.functions, 0)

@@ -19,12 +19,17 @@ CUDA tensors they launch the hand-written kernels of
 they run :func:`flash_attention_plain`, the dense masked softmax, and
 :func:`flash_attention_bwd_plain`, autograd through it.  The backward's
 delta = rowsum(out * dout) is a torch reduction, as the library leaves it to
-XLA.  The log-sum-exp is float32 [B, H, T], 0 at pad query rows.
+XLA.  The log-sum-exp is float32 [B, H, T], 0 at pad query rows.  Where
+one block per query tile would leave the card part idle (B = 1 serving),
+the forward kernel splits the keys over :func:`key_splits` blocks, which
+write partial results to a float32 workspace that the wrapper allocates,
+and merges them in a fixed order, so a repeat call is bitwise equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -40,11 +45,12 @@ _TAIL = [_I] * 4 + [_F, _I, _P]  # B, H, T, dk, scale, dtype, stream
 KERNEL = CudaKernel(
     "flash_attention.cu",
     {
-        "flash_attention_fwd": [_P] * 6 + _TAIL,
+        "flash_attention_fwd": [_P] * 7 + [_I] + _TAIL,
         "flash_attention_bwd_dkv": [_P] * 9 + _TAIL,
         "flash_attention_bwd_dq": [_P] * 8 + _TAIL,
     },
     error_fn="flash_attention_error_string",
+    queries={"flash_attention_fwd_splits": [_I] * 5},
 )
 
 
@@ -132,15 +138,41 @@ def _fwd(q, k, v, valid, sm_scale, want_lse: bool):
             lse = torch.logsumexp(scores, dim=-1).masked_fill(~(valid[:, None, :] != 0), 0.0)
         return _plain_out(scores, v, valid), lse
     _check_card(q, k, v, valid)
+    _check_aligned("flash_attention_fwd", q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device) if want_lse else None
     if out.numel() == 0:
         return out, lse
     with torch.cuda.device(q.device):
+        splits = key_splits(q)
+        # the key splits' partial outputs and (max, sum) pairs, merged by the kernel
+        work = (torch.empty(splits * q.shape[:3].numel() * (q.shape[3] + 2), dtype=torch.float32,
+                            device=q.device) if splits > 1 else None)
         KERNEL.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-                      *_tail(q, sm_scale))
+                      None if work is None else work.data_ptr(), splits, *_tail(q, sm_scale))
     return out, lse
+
+
+def key_splits(q) -> int:
+    """The key splits the forward kernel takes for q's shape on its device
+    (a CUDA tensor): more than 1 only where one block per query tile would
+    leave the card part idle."""
+    return _key_splits(q.device.index, *q.shape, _DTYPE_CODE[q.dtype])
+
+
+@functools.lru_cache(maxsize=1024)
+def _key_splits(device_index, b, h, t, dk, dtype_code) -> int:
+    with torch.cuda.device(device_index):
+        n = KERNEL.query("flash_attention_fwd_splits", b, h, t, dk, dtype_code)
+    if n < 1:
+        raise RuntimeError(f"flash_attention_fwd_splits failed: CUDA error {-n}")
+    return n
+
+
+def _check_aligned(name, *xs):
+    if any(x.data_ptr() % 16 for x in xs):  # the kernels copy 16-byte chunks
+        raise ValueError(f"{name}: the [B, H, T, dk] operands must be 16-byte aligned")
 
 
 def _check_bwd(q, k, v, valid, dout, lse, delta):
@@ -150,8 +182,7 @@ def _check_bwd(q, k, v, valid, dout, lse, delta):
     for name, x in (("lse", lse), ("delta", delta)):
         if x.shape != q.shape[:3] or x.dtype != torch.float32:
             raise ValueError(f"flash_attention_bwd: {name} must be float32 {tuple(q.shape[:3])}")
-    if any(x.data_ptr() % 16 for x in (q, k, v, dout)):  # the kernels copy 16-byte chunks
-        raise ValueError("flash_attention_bwd: q, k, v and dout must be 16-byte aligned")
+    _check_aligned("flash_attention_bwd", q, k, v, dout)
 
 
 def flash_attention_bwd_dkv(q, k, v, valid, dout, lse, delta, sm_scale: float

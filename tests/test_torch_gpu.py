@@ -88,9 +88,21 @@ def test_rel_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths):
     assert (out.float() - ref.float()).abs().max().item() <= _rel_attention_tol(ref)
 
 
+# the stencil kernel's tap counts (compiled: 31, 15, 8; any other K at run
+# time: 1, 2, 33), T shorter than K, C not a multiple of the 32-channel
+# blocks, and grids that take 2, 4 and 16 rows a thread on an H100's 132
+# SMs (the last three rows: 16, 4, 16)
+DW_CASES = [
+    (1, 312, 256, 15), (1, 312, 70, 33), (3, 40, 70, 1), (1, 20, 256, 2),
+    (3, 5, 70, 15), (1, 30, 256, 31), (1, 7, 256, 33),
+    (16, 312, 256, 31), (4, 312, 256, 8), (48, 100, 70, 15),
+]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,c,k_size", [(1, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)])
+@pytest.mark.parametrize("b,t,c,k_size", [(1, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)]
+                         + DW_CASES)
 def test_depthwise_kernel_matches_plain(card, dtype, b, t, c, k_size):
     rng = np.random.default_rng(k_size)
     x = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
@@ -182,7 +194,8 @@ def test_rel_attention_backward_matches_plain(card, dtype, rate, b, h, t, dk, le
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,t,c,k_size", [(4, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)])
+@pytest.mark.parametrize("b,t,c,k_size", [(4, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)]
+                         + DW_CASES)
 def test_depthwise_backward_matches_plain(card, dtype, b, t, c, k_size):
     rng = np.random.default_rng(k_size + 1)
     x = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
@@ -411,6 +424,12 @@ FLASH_CASES = [
     (2, 2, 65, 64, [65, 64]),
     (3, 2, 129, 64, [129, 63, 1]),
     (2, 2, 1874, 128, [1874, 1500]),  # d=128: 32-row tiles, two warps per row block
+    # B=1 grids that split the forward's keys over blocks, and ragged tiles
+    (1, 2, 16, 64, [16]),
+    (1, 2, 17, 64, [17]),
+    (1, 2, 31, 64, [31]),
+    (1, 4, 1874, 64, [1405]),  # the 45 s request's frames in a 60 s wide batch
+    (1, 4, 937, 64, [937]),
 ]
 
 
@@ -491,6 +510,36 @@ def test_flash_attention_backward_sharp_softmax(card):
 
 
 @pytest.mark.gpu
+def test_flash_attention_forward_sharp_softmax(card):
+    """q and k at 3x scale (logits of standard deviation ~9): a product that
+    ran on plain TF32 instead of the 3xTF32 split would miss the float32
+    forward tolerance here; the lse against the plain logsumexp too."""
+    rng = np.random.default_rng(3)
+    q, k, v, _, valid = _flash_inputs(rng, 1, 4, 1874, 64, [1874], torch.float32, card, 3.0)
+    out, lse = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+    torch.cuda.synchronize()
+    ref = tfa.flash_attention_plain(q, k, v, valid, 0.125)
+    _, ref_lse = tfa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(), valid.cpu(), 0.125)
+    assert (out - ref).abs().max().item() <= _flash_fwd_tol(ref)
+    torch.testing.assert_close(lse.cpu(), ref_lse, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,t,lengths", [(2, 4, 700, [700, 333]), (1, 4, 1874, [1874])])
+def test_flash_attention_forward_is_deterministic(card, dtype, b, h, t, lengths):
+    """Every output element has one owner (the key splits of a small grid are
+    merged in a fixed order): two calls are bitwise equal in out and lse."""
+    rng = np.random.default_rng(8)
+    q, k, v, _, valid = _flash_inputs(rng, b, h, t, 64, lengths, dtype, card)
+    first = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+    second = tfa.flash_attention_fwd(q, k, v, valid, 0.125)
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse"), first, second):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_backward_is_deterministic(card, dtype):
     """Every gradient element has one owner (no atomics): two calls of each
@@ -523,6 +572,9 @@ def test_flash_wrappers_raise_instead_of_falling_back(card):
         tfa.flash_attention(qt, qt, qt, valid, 1.0)
     with pytest.raises(ValueError, match="different devices"):
         tfa.flash_attention(q, q, q.cpu(), valid, 1.0)
+    with pytest.raises(ValueError, match="16-byte aligned"):  # the kernels copy 16-byte chunks
+        qm = torch.zeros(q.numel() + 1, device=card)[1:].view(q.shape)
+        tfa.flash_attention(qm, qm, qm, valid, 1.0)
 
 
 def _flash_asr_cfg():
