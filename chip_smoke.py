@@ -88,7 +88,11 @@ events), each beside F.scaled_dot_product_attention with the same key mask
 (timed only; the forward's and the backward pair's TFLOP/s and ratio to it
 printed); and
 the rel-pos forward at the long-form length [1, 4, 1874, 64], the
-yardstick beside the flash forward.  Bounds take float32 matrix products
+yardstick beside the flash forward.  The rel-pos entry points are also
+held at logits x3 and with a batch row whose keys are all masked
+([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
+(serving and training shapes, the backward's dp included), and their
+TFLOP/s and key splits are printed.  Bounds take float32 matrix products
 (the attention kernels) at the 3xTF32 rate, 165 TFLOP/s, and other float32
 work at the CUDA cores' 67 TFLOP/s.
 
@@ -246,7 +250,7 @@ def grad_tol(ref: torch.Tensor, dtype) -> float:
     return (1e-4 if dtype == torch.float32 else 2.0 ** -6) * scale + 1e-6
 
 
-def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
+def check_rel_attention(ra, dtype, gen, card, t=312, n_masked=25, plain_launches=20):
     """Serving shapes: B=1, H=4, T=312 (10 s of audio), dk=64, no gradient;
     also T=1874 (60 s), the long-form length, in float32.
 
@@ -274,6 +278,10 @@ def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
             raise AssertionError(f"rel_attention {dtype} {n_valid} valid keys: {err} > {tol}")
         errs[n_valid] = (err, tol)
     kv_valid = torch.ones(b, t, dtype=torch.int32, device="cuda")
+    first, second = (ra.rel_attention_fwd(qu, qv, k, v, p, kv_valid, sm) for _ in range(2))
+    torch.cuda.synchronize()
+    if not all(map(torch.equal, first, second)):
+        raise AssertionError(f"rel_attention_fwd {dtype} B=1 T={t}: a repeat call differs")
     # what the function needs for these inputs: each query row against the
     # valid keys only (a masked key adds exactly 0), the k and v rows of
     # those keys, the T + n - 1 positional rows they index
@@ -284,7 +292,7 @@ def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
     flops = 6.0 * h * t * dk * n.sum().item()  # qu.k, qv.p and probs.v products
     bms, by = bound_ms(n_bytes, flops, dtype, products=True)
     err, tol = max(errs.values())
-    return dict(
+    r = dict(
         err=err, tol=tol,
         ms=graph_time_ms(lambda: ra.rel_attention(qu, qv, k, v, p, kv_valid, sm)),
         plain_ms=graph_time_ms(lambda: ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm),
@@ -292,6 +300,11 @@ def check_rel_attention(ra, dtype, gen, t=312, n_masked=25, plain_launches=20):
         library_ms=None,  # no single PyTorch call computes rel-pos attention
         bound_ms=bms, bound_by=by,
     )
+    print(f"[kernels] rel_attention_fwd serve [{b},{h},{t},{dk}] {str(dtype)[6:]}: "
+          f"{r['ms'] * 1e3:.2f} us ({flops / (r['ms'] * 1e9):.1f} TFLOP/s, {ra.key_splits(qu)} key "
+          f"splits) against the plain version's {r['plain_ms'] * 1e3:.2f} us "
+          f"({r['ms'] / r['plain_ms']:.2f}x) [{card}]")
+    return r
 
 
 def check_dwconv(dc, dtype, k_size, gen, card):
@@ -328,7 +341,7 @@ def check_dwconv(dc, dtype, k_size, gen, card):
     return r
 
 
-def check_rel_attention_train(ra, dtype, gen):
+def check_rel_attention_train(ra, dtype, gen, card):
     """Training shapes (phase 1: B=64, H=4, T=312, dk=64): the forward with
     the saved log-sum-exp and the backward, under autograd, against autograd
     through the plain version with the same hash mask; dropout 0 and 0.1,
@@ -346,26 +359,21 @@ def check_rel_attention_train(ra, dtype, gen):
     errs = {"out": 0.0, "dqu": 0.0, "dqv": 0.0, "dk": 0.0, "dv": 0.0, "dp": 0.0}
     for rate in (0.0, 0.1):
         for valid_name, kv_valid in (("all", full), ("ragged", ragged)):
-            leaves = [x.clone().requires_grad_(True) for x in (qu, qv, k, v, p)]
-            out = ra.rel_attention(*leaves, kv_valid, sm, seed=seed, dropout_rate=rate)
-            grads = torch.autograd.grad(out, leaves, dout)
-            ref = ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm, seed, rate)
-            refs = ra.rel_attention_bwd_plain(qu, qv, k, v, p, kv_valid, dout, sm, seed, rate)
-            torch.cuda.synchronize()
-            parts = [("out", out, ref, rel_attention_tol(ref))]
-            parts += [(n, g, r, grad_tol(r.to(dtype), dtype)) for n, g, r in
-                      zip(("dqu", "dqv", "dk", "dv", "dp"), grads, refs)]
-            line = []
-            for name, got, want, tol in parts:
-                err = max_err(got, want.to(dtype))
-                if not err <= tol:
-                    raise AssertionError(f"rel_attention {dtype} rate {rate} {valid_name}: "
-                                         f"{name} error {err} > {tol}")
+            for name, err in check_rel_grads(ra, dtype, (qu, qv, k, v, p), kv_valid, dout, sm,
+                                             seed, rate, f"dropout {rate} keys {valid_name}"):
                 errs[name] = max(errs[name], err)
-                line.append(f"{name} {err:.2e}/{tol:.1e}")
-            print(f"[kernels] rel_attention train {str(dtype)[6:]} dropout {rate} keys "
-                  f"{valid_name}: max_abs_err/tol " + ", ".join(line))
-            del leaves, out, grads, ref, refs
+    # a repeat call of each entry point is bitwise equal (the forward's key
+    # splits merge in a fixed order; dp is summed from per-block partials in
+    # a fixed order, without atomics)
+    for valid_name, kv_valid in (("all", full), ("ragged", ragged)):
+        args = (qu, qv, k, v, p, kv_valid)
+        fwd1, fwd2 = (ra.rel_attention_fwd(*args, sm, seed, 0.1) for _ in range(2))
+        bwd1, bwd2 = (ra.rel_attention_bwd(*args, *fwd1, dout, sm, seed, 0.1) for _ in range(2))
+        torch.cuda.synchronize()
+        if not all(map(torch.equal, (*fwd1, *bwd1), (*fwd2, *bwd2))):
+            raise AssertionError(f"rel_attention {dtype} keys {valid_name}: a repeat call of "
+                                 "the forward or the backward differs")
+        del fwd1, fwd2, bwd1, bwd2
     rate = 0.1
     out, lse = ra.rel_attention_fwd(qu, qv, k, v, p, full, sm, seed, rate)
     fwd = lambda: ra.rel_attention_fwd(qu, qv, k, v, p, full, sm, seed, rate)  # noqa: E731
@@ -387,7 +395,59 @@ def check_rel_attention_train(ra, dtype, gen):
     bwd_r = dict(err=max(v for n_, v in errs.items() if n_ != "out"), errs=errs,
                  ms=event_time_ms(bwd), plain_ms=event_time_ms(plain_bwd, iters=5),
                  library_ms=None, bound_ms=bwd_bound, bound_by=bwd_by)
+    fwd_rate = 6.0 * h * t * dk * n / (fwd_r["ms"] * 1e9)  # TFLOP/s
+    bwd_rate = 16.0 * h * t * dk * n / (bwd_r["ms"] * 1e9)
+    print(f"[kernels] rel_attention train [{b},{h},{t},{dk}] {str(dtype)[6:]} dropout {rate}: "
+          f"forward {fwd_r['ms'] * 1e3:.2f} us ({fwd_rate:.1f} TFLOP/s, {ra.key_splits(qu)} key "
+          f"splits), backward {bwd_r['ms'] * 1e3:.2f} us ({bwd_rate:.1f} TFLOP/s) [{card}]")
     return fwd_r, bwd_r
+
+
+def check_rel_grads(ra, dtype, inputs, kv_valid, dout, sm, seed, rate, what):
+    """The forward and the backward under autograd against autograd through
+    the plain version with the same hash mask: the output at
+    rel_attention_tol, each gradient at grad_tol; prints and returns the
+    errors."""
+    leaves = [x.clone().requires_grad_(True) for x in inputs]
+    out = ra.rel_attention(*leaves, kv_valid, sm, seed=seed, dropout_rate=rate)
+    grads = torch.autograd.grad(out, leaves, dout)
+    ref = ra.rel_attention_plain(*inputs, kv_valid, sm, seed, rate)
+    refs = ra.rel_attention_bwd_plain(*inputs, kv_valid, dout, sm, seed, rate)
+    torch.cuda.synchronize()
+    parts = [("out", out, ref, rel_attention_tol(ref))]
+    parts += [(n, g, r, grad_tol(r.to(dtype), dtype)) for n, g, r in
+              zip(("dqu", "dqv", "dk", "dv", "dp"), grads, refs)]
+    line, errs = [], []
+    for name, got, want, tol in parts:
+        err = max_err(got, want.to(dtype))
+        if not err <= tol:
+            raise AssertionError(f"rel_attention {dtype} {what}: {name} error {err} > {tol}")
+        errs.append((name, err))
+        line.append(f"{name} {err:.2e}/{tol:.1e}")
+    b, h, t, dk = inputs[0].shape
+    print(f"[kernels] rel_attention [{b},{h},{t},{dk}] {str(dtype)[6:]} {what}: max_abs_err/tol "
+          + ", ".join(line))
+    return errs
+
+
+def check_rel_attention_edges(ra, gen):
+    """Two inputs the training shapes do not reach, at B=2, H=4, T=312, dk=64
+    with dropout 0.1: a sharp softmax (qu and qv at 3x: logits of standard
+    deviation ~4, where plain TF32 products would miss the float32
+    tolerances), and a batch row whose keys are all masked (scores all
+    -1e30: each query averages v over all T keys, as the plain version
+    does, and the masked scores pass no gradient)."""
+    b, h, t, dk = 2, 4, 312, 64
+    for dtype in (torch.float32, torch.bfloat16):
+        mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
+        inputs = [mk(b, h, t, dk) for _ in range(4)] + [mk(h, 2 * t - 1, dk)]
+        dout = mk(b, h, t, dk)
+        none = torch.tensor([[1] * t, [0] * t], dtype=torch.int32, device="cuda")
+        check_rel_grads(ra, dtype, inputs, none, dout, 0.125, 99, 0.1, "batch row 1 all masked")
+        if dtype == torch.float32:
+            inputs = [inputs[0] * 3, inputs[1] * 3] + inputs[2:]
+            full = torch.ones(b, t, dtype=torch.int32, device="cuda")
+            check_rel_grads(ra, dtype, inputs, full, dout, 0.125, 99, 0.1, "logits x3")
 
 
 def check_dwconv_train(dc, dtype, k_size, gen, card):
@@ -754,20 +814,22 @@ def phase_kernels(ra, dc, wk, fa, card):
     results = {}
     # the rel-pos kernel at the long-form length, the yardstick beside the
     # flash forward at the same shape
-    r = check_rel_attention(ra, torch.float32, gen, t=FLASH_T, n_masked=469, plain_launches=5)
+    r = check_rel_attention(ra, torch.float32, gen, card, t=FLASH_T, n_masked=469,
+                            plain_launches=5)
     _print_timing(card, "rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32, r)
     results[("rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32)] = r
+    check_rel_attention_edges(ra, gen)
     for shape, r in check_wkv(wk, gen).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
         _print_timing(card, name, shape, torch.float32, r)
         results[(name, shape, torch.float32)] = r
     for dtype in (torch.float32, torch.bfloat16):
-        cases = [("rel_attention_fwd", "serve B=1 T=312", check_rel_attention(ra, dtype, gen))]
+        cases = [("rel_attention_fwd", "serve B=1 T=312", check_rel_attention(ra, dtype, gen, card))]
         for k_size in (31, 8):
             cases.append(("dwconv1d_fwd", f"serve [1,312,256] K={k_size}",
                           check_dwconv(dc, dtype, k_size, gen, card)))
-        fwd_r, bwd_r = check_rel_attention_train(ra, dtype, gen)
+        fwd_r, bwd_r = check_rel_attention_train(ra, dtype, gen, card)
         cases += [("rel_attention_fwd", "train B=64 T=312 dropout 0.1", fwd_r),
                   ("rel_attention_bwd", "train B=64 T=312 dropout 0.1", bwd_r)]
         for k_size in (31, 8):

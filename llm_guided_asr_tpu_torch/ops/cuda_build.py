@@ -8,8 +8,10 @@ functions (no PyTorch headers, so a build takes seconds, not minutes):
 
 The launcher returns ``cudaGetLastError()``; :meth:`CudaKernel.launch` raises
 when it is non-zero.  Libraries are built at first use into
-``build/kernels/`` at the repository root, named by a hash of the source and
-the flags so that an edited source is never served by a stale library.
+``build/kernels/`` at the repository root, named by a hash of the source, the
+headers it includes from its own directory (``#include "x.cuh"``, followed
+recursively) and the flags, so that an edited source or header is never
+served by a stale library.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -27,6 +30,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 
 def find_nvcc() -> str:
@@ -57,8 +61,25 @@ class CudaKernel:
         self._lib: Optional[ctypes.CDLL] = None
 
     # -- build -----------------------------------------------------------
+    def sources(self) -> List[Path]:
+        """The source and every header it includes with quotes from its own
+        directory, transitively, in the order first met."""
+        found, todo = [], [self.source]
+        while todo:
+            path = todo.pop(0)
+            if path in found:
+                continue
+            found.append(path)
+            for name in _INCLUDE.findall(path.read_text()):
+                header = path.parent / name
+                if header.is_file():
+                    todo.append(header)
+        return found
+
     def library_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        h = hashlib.sha256()
+        for path in self.sources():
+            h.update(path.name.encode() + b"\0" + path.read_bytes())
         h.update(" ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
         return BUILD_DIR / f"lib{self.source.stem}-{h.hexdigest()[:16]}.so"
 

@@ -21,6 +21,7 @@ both, as in the TPU kernel; a row with at least one valid key is exact.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -37,10 +38,11 @@ _DROPOUT_ARGS = [_F, _I, ctypes.c_uint, _F, _I, _P]  # scale, seed, threshold, i
 KERNEL = CudaKernel(
     "rel_attention.cu",
     {
-        "rel_attention_fwd": [_P] * 8 + [_I] * 4 + _DROPOUT_ARGS,
-        "rel_attention_bwd": [_P] * 15 + [_I] * 4 + _DROPOUT_ARGS,
+        "rel_attention_fwd": [_P] * 9 + [_I] * 5 + _DROPOUT_ARGS,
+        "rel_attention_bwd": [_P] * 16 + [_I] * 4 + _DROPOUT_ARGS,
     },
     error_fn="rel_attention_error_string",
+    queries={"rel_attention_fwd_splits": [_I] * 5, "rel_attention_bwd_workspace": [_I] * 5},
 )
 
 
@@ -202,11 +204,33 @@ def _fwd(qu, qv, k, v, p, kv_valid, sm_scale, seed, dropout_rate, want_lse: bool
     if out.numel() == 0:
         return out, lse
     with torch.cuda.device(qu.device):
+        splits = key_splits(qu)
+        # the key splits' partial outputs and (max, sum) pairs, merged by the kernel
+        work = (torch.empty(splits * b * h * t * (dk + 2), dtype=torch.float32, device=qu.device)
+                if splits > 1 else None)
         KERNEL.launch("rel_attention_fwd", qu.data_ptr(), qv.data_ptr(), k.data_ptr(),
                       v.data_ptr(), p.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
-                      None if lse is None else lse.data_ptr(), b, h, t, dk,
+                      None if lse is None else lse.data_ptr(),
+                      None if work is None else work.data_ptr(), splits, b, h, t, dk,
                       *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype))
     return out, lse
+
+
+def key_splits(qu) -> int:
+    """The key splits the forward kernel takes for qu's shape on its device
+    (a CUDA tensor): more than 1 only where one block per query tile would
+    leave the card part idle."""
+    return _query("rel_attention_fwd_splits", qu.device.index, *qu.shape,
+                  _DTYPE_CODE[qu.dtype])
+
+
+@functools.lru_cache(maxsize=1024)
+def _query(name, device_index, b, h, t, dk, dtype_code) -> int:
+    with torch.cuda.device(device_index):
+        n = KERNEL.query(name, b, h, t, dk, dtype_code)
+    if n < 1:
+        raise RuntimeError(f"{name} refused the shape {(b, h, t, dk)} (returned {n})")
+    return n
 
 
 def rel_attention_bwd(qu, qv, k, v, p, kv_valid, out, lse, dout, sm_scale: float, seed=None,
@@ -234,11 +258,15 @@ def rel_attention_bwd(qu, qv, k, v, p, kv_valid, out, lse, dout, sm_scale: float
         return (*grads, dp)
     delta = torch.empty((b, h, t), dtype=torch.float32, device=qu.device)
     with torch.cuda.device(qu.device):
+        # float32 dp partials of every (batch row, head, key tile), summed in a fixed order
+        work = torch.empty(_query("rel_attention_bwd_workspace", qu.device.index, b, h, t, dk,
+                                  _DTYPE_CODE[qu.dtype]),
+                           dtype=torch.float32, device=qu.device)
         KERNEL.launch("rel_attention_bwd", qu.data_ptr(), qv.data_ptr(), k.data_ptr(),
                       v.data_ptr(), p.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
                       lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
-                      *(g.data_ptr() for g in grads), dp.data_ptr(), b, h, t, dk,
-                      *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype))
+                      *(g.data_ptr() for g in grads), dp.data_ptr(), work.data_ptr(), b, h, t,
+                      dk, *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype))
     return (*grads, dp)
 
 

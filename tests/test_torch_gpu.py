@@ -71,6 +71,9 @@ def _rand(rng, *shape, scale=0.3):
     (2, 3, 77, 32, [77, 50]),
     (1, 2, 130, 128, [101]),
     (2, 2, 5, 16, [5, 1]),
+    (2, 4, 100, 36, [100, 71]),  # a head dim padded inside the kernel (144-wide Conformer)
+    (1, 4, 937, 64, [937]),  # B = 1 at 30 s and 60 s of audio: the key splits' grids
+    (1, 4, 1874, 64, [1874]),
 ])
 def test_rel_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths):
     # unit-scale inputs: a peaked softmax, so that a wrong positional term
@@ -165,12 +168,18 @@ def test_conformer_on_the_card_matches_the_cpu(card):
     (2, 3, 77, 32, [77, 50]),
     (1, 2, 130, 128, [101]),
     (2, 2, 5, 16, [5, 1]),
+    (2, 4, 100, 36, [100, 71]),
 ])
 def test_rel_attention_backward_matches_plain(card, dtype, rate, b, h, t, dk, lengths):
     """The kernels under autograd (forward with dropout, then the backward)
     against autograd through the plain version with the same hash mask."""
+    _check_rel_backward(card, dtype, rate, b, h, t, dk, lengths)
+
+
+def _check_rel_backward(card, dtype, rate, b, h, t, dk, lengths, logit_scale=1.0):
     rng = np.random.default_rng(t + dk)
-    qu, qv, k, v = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(4))
+    qu, qv = (_rand(rng, b, h, t, dk, scale=logit_scale).to(card, dtype) for _ in range(2))
+    k, v = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(2))
     p = _rand(rng, h, 2 * t - 1, dk, scale=1.0).to(card, dtype)
     dout = _rand(rng, b, h, t, dk, scale=1.0).to(card, dtype)
     kv_valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
@@ -190,6 +199,60 @@ def test_rel_attention_backward_matches_plain(card, dtype, rate, b, h, t, dk, le
         r = r.to(dtype)
         err = (g.float() - r.float()).abs().max().item()
         assert err <= _grad_tol(r), (name, err, _grad_tol(r))
+
+
+def _rel_inputs(rng, b, h, t, dk, lengths, dtype, card, logit_scale=1.0):
+    qu, qv = (_rand(rng, b, h, t, dk, scale=logit_scale).to(card, dtype) for _ in range(2))
+    k, v, dout = (_rand(rng, b, h, t, dk, scale=1.0).to(card, dtype) for _ in range(3))
+    p = _rand(rng, h, 2 * t - 1, dk, scale=1.0).to(card, dtype)
+    kv_valid = (torch.arange(t)[None] < torch.tensor(lengths)[:, None]).to(card, torch.int32)
+    return qu, qv, k, v, p, kv_valid, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,lengths", [(1, 312, [312]), (2, 312, [312, 250])])
+def test_rel_attention_sharp_softmax(card, b, t, lengths):
+    """qu and qv at 3x scale (logits of standard deviation ~4): a product that
+    ran on plain TF32 instead of the 3xTF32 split would miss the float32
+    forward tolerance by ~300x and the gradients' by ~10x here (the CPU
+    emulation in tests/test_torch_rel_tf32.py)."""
+    rng = np.random.default_rng(33)
+    qu, qv, k, v, p, kv_valid, _ = _rel_inputs(rng, b, 4, t, 64, lengths, torch.float32, card,
+                                               logit_scale=3.0)
+    out = tra.rel_attention(qu, qv, k, v, p, kv_valid, 0.125)
+    ref = tra.rel_attention_plain(qu, qv, k, v, p, kv_valid, 0.125)
+    assert (out - ref).abs().max().item() <= _rel_attention_tol(ref)
+    _check_rel_backward(card, torch.float32, 0.1, b, 4, t, 64, lengths, logit_scale=3.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t", [40, 312])
+def test_rel_attention_batch_row_with_no_valid_key(card, dtype, t):
+    """Every key of the second batch row masked: its scores are all -1e30, so
+    each query averages v over all T keys (dropped by the hash), and the
+    masked scores pass no gradient, as in the plain version."""
+    _check_rel_backward(card, dtype, 0.1, 2, 4, t, 64, [t, 0])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,lengths", [(1, 312, [312]), (1, 937, [937]),
+                                         (3, 130, [130, 77, 0])])
+def test_rel_attention_is_deterministic(card, dtype, b, t, lengths):
+    """Every output element has one owner (the forward's key splits merge in
+    a fixed order; dp is summed from per-block partials in a fixed order, no
+    atomics): two calls of each entry point are bitwise equal."""
+    rng = np.random.default_rng(5)
+    qu, qv, k, v, p, kv_valid, dout = _rel_inputs(rng, b, 4, t, 64, lengths, dtype, card)
+    args = (qu, qv, k, v, p, kv_valid)
+    first = tra.rel_attention_fwd(*args, 0.125, 9, 0.1)
+    second = tra.rel_attention_fwd(*args, 0.125, 9, 0.1)
+    grads = [tra.rel_attention_bwd(*args, *first, dout, 0.125, 9, 0.1) for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, x, y in zip(("out", "lse", "dqu", "dqv", "dk", "dv", "dp"),
+                          (*first, *grads[0]), (*second, *grads[1])):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.gpu

@@ -76,3 +76,21 @@ def test_kernel_build_targets_sm90a_into_the_build_directory(monkeypatch):
     cmd = REL_KERNEL.build_command(lib)
     assert "arch=compute_90a,code=sm_90a" in cmd and str(REL_KERNEL.source) in cmd
     assert REL_KERNEL.source.is_file()
+
+
+def test_library_path_follows_the_headers_a_source_includes(tmp_path):
+    """Two sources share csrc/tensor_core.cuh: a header edit must name a new
+    library, or a stale build would be served."""
+    for name in ("rel_attention.cu", "flash_attention.cu", "tensor_core.cuh"):
+        shutil.copy(REL_KERNEL.source.parent / name, tmp_path / name)
+    kernels = [CudaKernel(str(tmp_path / name), {}, error_fn="x")
+               for name in ("rel_attention.cu", "flash_attention.cu")]
+    assert all(tmp_path / "tensor_core.cuh" in k.sources() for k in kernels)
+    before = [k.library_path() for k in kernels]
+    header = tmp_path / "tensor_core.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [k.library_path() for k in kernels]
+    assert all(a != b for a, b in zip(after, before))
+    assert all(a.parent == BUILD_DIR for a in after)
+    header.write_text(header.read_text()[: -len("\n// edited\n")])
+    assert [k.library_path() for k in kernels] == before
