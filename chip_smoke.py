@@ -76,9 +76,11 @@ prints how long it took):
 
 Phase 2 also holds the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
-and training [16, 25, 512], each timed by CUDA graph; |k| up to ~100; a
-state chained across two calls) and the WKV backward against autograd
-through the plain loop at the training shape; the flash forward at the
+and training [16, 25, 512], each timed by CUDA graph with its chunk count
+printed, each call repeated and bitwise equal; |k| up to ~100; a state
+chained across two calls) and the WKV backward against autograd through
+the plain loop at the training shape; the depthwise backward's repeat
+calls must be bitwise equal (dw included); the flash forward at the
 serving shape [1, 4, 1874, 64] (CUDA graph; its key splits printed) and the
 forward, dK/dV and dQ at the training shape [8, 4, 1874, 64] under autograd
 against autograd through the plain version (all frames valid and ragged,
@@ -458,9 +460,13 @@ def check_dwconv_train(dc, dtype, k_size, gen, card):
     x, dy = (torch.randn(b, t, c, generator=gen, device="cuda").to(dtype) for _ in range(2))
     w = torch.randn(k_size, c, generator=gen, device="cuda").to(dtype)
     dx, dw = dc.depthwise_conv1d_bwd(x, w, dy)
+    dx2, dw2 = dc.depthwise_conv1d_bwd(x, w, dy)
     ref_dx, ref_dw = dc.depthwise_conv1d_bwd_plain(x, w, dy)
     y, ref_y = dc.depthwise_conv1d(x, w), dc.depthwise_conv1d_plain(x, w)
     torch.cuda.synchronize()
+    # dw is summed from per-slab partials in a fixed order (no atomics)
+    if not (torch.equal(dx, dx2) and torch.equal(dw, dw2)):
+        raise AssertionError(f"depthwise bwd {dtype} K={k_size}: a repeat call differs")
     errs = {"dx": max_err(dx, ref_dx), "dw": max_err(dw, ref_dw)}
     for name, ref in (("dx", ref_dx), ("dw", ref_dw)):
         if not errs[name] <= grad_tol(ref, dtype):
@@ -500,7 +506,8 @@ def check_dwconv_train(dc, dtype, k_size, gen, card):
           f"{fwd_r['ms'] * 1e3:.2f} us against F.conv1d's {fwd_r['library_ms'] * 1e3:.2f} us "
           f"({fwd_r['ms'] / fwd_r['library_ms']:.2f}x), backward {bwd_r['ms'] * 1e3:.2f} us "
           f"against autograd's {bwd_r['library_ms'] * 1e3:.2f} us "
-          f"({bwd_r['ms'] / bwd_r['library_ms']:.2f}x) [{card}]")
+          f"({bwd_r['ms'] / bwd_r['library_ms']:.2f}x; dw from {dc.dw_slabs(x, k_size)} slabs "
+          f"a batch row, bitwise repeatable) [{card}]")
     return fwd_r, bwd_r
 
 
@@ -735,11 +742,21 @@ def wkv_fwd_bound(b, t, c):
     return bound_ms(4 * (3 * b * t * c + 2 * c + 6 * b * c), 20.0 * b * t * c, torch.float32)
 
 
-def check_wkv(wk, gen):
-    """The forward at the serving and training shapes, with |k| ~ 30 and a
-    state chained across two calls; the backward at the training shape
-    against autograd through the plain loop (the plain backward's time
-    includes the forward it recomputes)."""
+def check_wkv_repeat(wk, w, u, k, v, state, first, what):
+    """A repeat call of the chunked forward is bitwise equal (the chunk
+    summaries are folded in a fixed order, no atomics)."""
+    y2, st2 = wk.wkv_fwd(w, u, k, v, state)
+    torch.cuda.synchronize()
+    if not (torch.equal(first[0], y2) and all(map(torch.equal, first[1], st2))):
+        raise AssertionError(f"wkv_fwd {what}: a repeat call is not bitwise equal")
+
+
+def check_wkv(wk, gen, card):
+    """The forward at the serving and training shapes (each call repeated
+    and bitwise equal; the chunk count printed beside the time), with
+    |k| ~ 30 and a state chained across two calls; the backward at the
+    training shape against autograd through the plain loop (the plain
+    backward's time includes the forward it recomputes)."""
     results = {}
     for shape, (b, t, c) in WKV_SERVE.items():
         w, u, k, v = wkv_inputs(gen, b, t, c)
@@ -748,14 +765,18 @@ def check_wkv(wk, gen):
         ref_y, ref_st = wk.wkv_scan(w, u, k, v, state)
         torch.cuda.synchronize()
         err = max([wkv_close(y, ref_y)] + [wkv_close(a, r) for a, r in zip(st, ref_st)])
+        check_wkv_repeat(wk, w, u, k, v, state, (y, st), shape)
         bms, by = wkv_fwd_bound(b, t, c)
         results[shape] = dict(
             err=err, ms=graph_time_ms(lambda: wk.wkv_fwd(w, u, k, v, state)),
             plain_ms=graph_time_ms(lambda: wk.wkv_scan(w, u, k, v, state), launches=2, replays=3),
             library_ms=None, bound_ms=bms, bound_by=by)
+        print(f"[kernels] wkv_fwd {shape}: {results[shape]['ms'] * 1e3:.2f} us with "
+              f"{wk.chunks(k)} chunks, bitwise repeatable [{card}]")
     b, t, c = WKV_TRAIN
     w, u, k, v = wkv_inputs(gen, b, t, c)
-    y, _ = wk.wkv_fwd(w, u, k, v)
+    y, st = wk.wkv_fwd(w, u, k, v)
+    check_wkv_repeat(wk, w, u, k, v, None, (y, st), f"train [{b},{t},{c}]")
     errs = {"y": wkv_close(y, wk.wkv_scan(w, u, k, v)[0])}
     wb, ub, kb, vb = wkv_inputs(gen, 3, 40, 100, k_scale=30.0)  # the running max carries it
     yb, stb = wk.wkv_fwd(wb, ub, kb, vb)
@@ -790,6 +811,8 @@ def check_wkv(wk, gen):
         err=max(errs.values()), ms=graph_time_ms(lambda: wk.wkv_fwd(w, u, k, v)),
         plain_ms=event_time_ms(lambda: wk.wkv_scan(w, u, k, v)), library_ms=None,
         bound_ms=bms, bound_by=by)
+    print(f"[kernels] wkv_fwd train [{b},{t},{c}]: {results['train [16,25,512]']['ms'] * 1e3:.2f}"
+          f" us with {wk.chunks(k)} chunks, bitwise repeatable [{card}]")
     # backward: k, v, y, gy in, gk and gv out, w and u in, gw and gu out;
     # 50 operations per (b, t, c) for its two sweeps
     bms, by = bound_ms(4 * (6 * b * t * c + 4 * c), 50.0 * b * t * c, torch.float32)
@@ -819,7 +842,7 @@ def phase_kernels(ra, dc, wk, fa, card):
     _print_timing(card, "rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32, r)
     results[("rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32)] = r
     check_rel_attention_edges(ra, gen)
-    for shape, r in check_wkv(wk, gen).items():
+    for shape, r in check_wkv(wk, gen, card).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
         _print_timing(card, name, shape, torch.float32, r)
@@ -977,8 +1000,15 @@ def device_busy(prof) -> tuple:
 
 
 def print_top(tag, events, n=12):
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:n]:
+    """The n kernels of most device time, then every kernel of the WKV and
+    depthwise sources by name (their shares of a run, top n or not)."""
+    ranked = sorted(events, key=lambda e: -e.self_device_time_total)
+    for e in ranked[:n]:
         print(f"[{tag}]   {e.self_device_time_total / 1e3:8.2f} ms  {e.count:6d}x  {e.key[:90]}")
+    for e in ranked:
+        if any(name in e.key for name in ("wkv_", "dwconv1d_")):
+            print(f"[{tag}]   port kernel {e.self_device_time_total / 1e3:8.3f} ms  "
+                  f"{e.count:6d}x  {e.key[:90]}")
 
 
 def phase_profile(model, wave, wall_s: float, card, tag="profile", sec=REQUEST_SECONDS[0]):

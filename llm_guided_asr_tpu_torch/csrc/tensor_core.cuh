@@ -1,5 +1,6 @@
 // Tensor-core building blocks shared by the attention kernels
-// (flash_attention.cu, rel_attention.cu), for Hopper (sm_90a).
+// (flash_attention.cu, rel_attention.cu), for Hopper (sm_90a); the
+// depthwise kernels (depthwise_conv.cu) take its conversions and cp.async.
 //
 // Every product is a sum of mma.sync m16n8k8 TF32 tiles (A 16x8 row-major,
 // B 8x8 column-major, C 16x8 in f32).  With g = lane / 4 and t = lane % 4 a
@@ -133,6 +134,11 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float quad_max(float v) {

@@ -6,12 +6,16 @@ Layout x [B, T, C], w [K, C]; SAME zero padding with pad_l = (K-1)//2
 forward and backward launch the hand-written kernels of
 ``csrc/depthwise_conv.cu``; on CPU tensors they run
 :func:`depthwise_conv1d_plain` and :func:`depthwise_conv1d_bwd_plain`, the
-JAX package's decomposed VJP.
+JAX package's decomposed VJP.  The backward kernel sums dw from per-slab
+partials (:func:`dw_slabs` slabs of rows per batch row) that it writes to a
+float32 workspace the wrapper allocates, and adds them in a fixed order:
+no atomics, so a repeat call is bitwise equal, dw included.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -25,9 +29,10 @@ KERNEL = CudaKernel(
     "depthwise_conv.cu",
     {
         "dwconv1d_fwd": [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
-        "dwconv1d_bwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p],
+        "dwconv1d_bwd": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     },
     error_fn="dwconv1d_error_string",
+    queries={"dwconv1d_bwd_slabs": [ctypes.c_int] * 4},
 )
 
 
@@ -93,7 +98,7 @@ def depthwise_conv1d_bwd(x: torch.Tensor, w: torch.Tensor,
                          dy: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(dx, dw) of :func:`depthwise_conv1d` for the output gradient ``dy``:
     the plain VJP on CPU tensors, the kernel on CUDA tensors (dw summed in
-    float32, returned in w's type)."""
+    float32 in a fixed order, returned in w's type)."""
     _check(x, w)
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device:
         raise ValueError("depthwise_conv1d_bwd: dy must match x in shape, dtype and device")
@@ -101,14 +106,35 @@ def depthwise_conv1d_bwd(x: torch.Tensor, w: torch.Tensor,
         return depthwise_conv1d_bwd_plain(x, w, dy)
     _check_card(x, w, dy)
     b, t, c = x.shape
+    k_size = w.shape[0]
     dx = torch.empty_like(x)
-    dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
-    if dx.numel() > 0:
-        with torch.cuda.device(x.device):
-            KERNEL.launch("dwconv1d_bwd", dy.data_ptr(), x.data_ptr(), w.data_ptr(),
-                          dx.data_ptr(), dw.data_ptr(), b, t, c, w.shape[0],
-                          _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+    if dx.numel() == 0:
+        return dx, torch.zeros_like(w)
+    dw = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    with torch.cuda.device(x.device):
+        slabs = dw_slabs(x, k_size)
+        # each slab's partial dw, which the kernel sums in a fixed order
+        work = torch.empty(b * slabs * k_size * c, dtype=torch.float32, device=x.device)
+        KERNEL.launch("dwconv1d_bwd", dy.data_ptr(), x.data_ptr(), w.data_ptr(),
+                      dx.data_ptr(), dw.data_ptr(), work.data_ptr(), slabs, b, t, c, k_size,
+                      _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
     return dx, dw.to(w.dtype)
+
+
+def dw_slabs(x: torch.Tensor, k_size: int) -> int:
+    """The slabs of rows a batch row that the backward kernel sums dw over
+    for x's [B, T, C] shape and K = ``k_size`` on x's device (a CUDA
+    tensor); the workspace holds B * slabs partials of [K, C]."""
+    return _dw_slabs(x.device.index, *x.shape, k_size)
+
+
+@functools.lru_cache(maxsize=1024)
+def _dw_slabs(device_index, b, t, c, k_size) -> int:
+    with torch.cuda.device(device_index):
+        n = KERNEL.query("dwconv1d_bwd_slabs", b, t, c, k_size)
+    if n < 1:
+        raise RuntimeError(f"dwconv1d_bwd_slabs failed: CUDA error {-n}")
+    return n
 
 
 class _DepthwiseConv1dFn(torch.autograd.Function):

@@ -17,11 +17,18 @@ plain version on CPU tensors.  :func:`wkv` is the differentiable front
 door (the JAX custom VJP): an autograd function whose forward is
 :func:`wkv_fwd` from the initial state and whose backward is
 :func:`wkv_bwd`.
+
+The forward kernel is a chunked scan: it cuts T into :func:`chunks`
+pieces, scans each from the zero state into a summary kept in a float32
+workspace that the wrapper allocates, folds the summaries in a fixed
+order and rescans each chunk from the state it carried in.  No atomics:
+a repeat call is bitwise equal.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -35,10 +42,11 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel(
     "wkv.cu",
     {
-        "wkv_fwd": [_P] * 11 + [_I] * 3 + [_P],
+        "wkv_fwd": [_P] * 12 + [_I] * 4 + [_P],
         "wkv_bwd": [_P] * 10 + [_I] * 3 + [_P],
     },
     error_fn="wkv_error_string",
+    queries={"wkv_fwd_chunks": [_I] * 3},
 )
 
 
@@ -142,10 +150,30 @@ def _fwd(w, u, k, v, state: Optional[WKVState], want_state: bool):
     ptrs1 = [s.data_ptr() for s in state1] or [None] * 3
     if b * c > 0:
         with torch.cuda.device(k.device):
+            n = chunks(k)
+            # the chunk summaries (a, b, p), which the kernel folds in order
+            work = (torch.empty(3 * b * n * c, dtype=torch.float32, device=k.device)
+                    if n > 1 else None)
             KERNEL.launch("wkv_fwd", w.data_ptr(), u.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                          *ptrs0, y.data_ptr(), *ptrs1, b, t, c,
-                          torch.cuda.current_stream().cuda_stream)
+                          *ptrs0, None if work is None else work.data_ptr(), y.data_ptr(),
+                          *ptrs1, n, b, t, c, torch.cuda.current_stream().cuda_stream)
     return y.to(k.dtype), (tuple(state1) if want_state else None)
+
+
+def chunks(k: torch.Tensor) -> int:
+    """The chunks the forward kernel cuts T into for k's [B, T, C] shape on
+    its device (a CUDA tensor): more than 1 only where one warp per 32
+    channels would leave the card part idle and the chunks stay long."""
+    return _chunks(k.device.index, *k.shape)
+
+
+@functools.lru_cache(maxsize=4096)
+def _chunks(device_index, b, t, c) -> int:
+    with torch.cuda.device(device_index):
+        n = KERNEL.query("wkv_fwd_chunks", b, t, c)
+    if n < 1:
+        raise RuntimeError(f"wkv_fwd_chunks failed: CUDA error {-n}")
+    return n
 
 
 def wkv_bwd(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

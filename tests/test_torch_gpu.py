@@ -258,7 +258,7 @@ def test_rel_attention_is_deterministic(card, dtype, b, t, lengths):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,c,k_size", [(4, 312, 256, 31), (2, 100, 256, 8), (3, 17, 70, 5)]
-                         + DW_CASES)
+                         + DW_CASES + [(64, 312, 256, 31)])  # the last: train-1's shape
 def test_depthwise_backward_matches_plain(card, dtype, b, t, c, k_size):
     rng = np.random.default_rng(k_size + 1)
     x = _rand(rng, b, t, c, scale=1.0).to(card, dtype)
@@ -274,6 +274,21 @@ def test_depthwise_backward_matches_plain(card, dtype, b, t, c, k_size):
     for g, r in ((dx, ref_dx), (dw, ref_dw)):
         assert g.dtype == dtype and g.shape == r.shape
         assert (g.float() - r.float()).abs().max().item() <= _grad_tol(r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,c,k_size", [(64, 312, 256, 31), (64, 312, 256, 8),
+                                          (8, 1874, 256, 31), (3, 17, 70, 5)])
+def test_depthwise_backward_is_deterministic(card, dtype, b, t, c, k_size):
+    """dw is summed from per-slab partials in a fixed order (no atomics) and
+    dx has one owner per element: two calls are bitwise equal."""
+    rng = np.random.default_rng(k_size + 2)
+    x, dy = (_rand(rng, b, t, c, scale=1.0).to(card, dtype) for _ in range(2))
+    w = _rand(rng, k_size, c, scale=1.0).to(card, dtype)
+    (dx1, dw1), (dx2, dw2) = (tdw.depthwise_conv1d_bwd(x, w, dy) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(dx1, dx2) and torch.equal(dw1, dw2)
 
 
 @pytest.mark.gpu
@@ -334,10 +349,22 @@ def _wkv_inputs(rng, b, t, c, k_scale, card):
     (2, 17, 70, 1.0, False),    # C not a multiple of 32
     (1, 1, 33, 1.0, True),      # B = 1, T = 1
     (3, 40, 100, 30.0, True),   # |k| up to ~100: the running maximum carries everything
+    # chunk edges (an H100 cuts [1, T, 512] into 16 chunks for 320 <= T < 640,
+    # [5, T, 512] into 8 for 128 <= T < 256): T a multiple of the chunk
+    # length, one step short of it, one step over it (a last chunk of 6)
+    (1, 1, 512, 1.0, False),
+    (1, 320, 512, 1.0, False),
+    (1, 319, 512, 1.0, True),
+    (1, 321, 512, 30.0, False),
+    (5, 200, 512, 1.0, True),
+    (5, 199, 512, 30.0, False),
+    (1, 2000, 512, 1.0, False),  # the most chunks, 32 of 63 steps
+    (1, 2000, 512, 30.0, True),
 ])
 def test_wkv_kernel_matches_plain(card, b, t, c, k_scale, given_state):
-    """float32, 1e-5: the same formula with expf and IEEE division; only
-    the kernel's fused multiply-adds round differently."""
+    """float32, 1e-5: the same formula with expf and IEEE division; the
+    kernel's fused multiply-adds and its chunked scan (the carried state
+    folded across each earlier chunk) round differently."""
     rng = np.random.default_rng(t + c)
     w, u, k, v = _wkv_inputs(rng, b, t, c, k_scale, card)
     state = None
@@ -351,6 +378,25 @@ def test_wkv_kernel_matches_plain(card, b, t, c, k_scale, given_state):
     torch.testing.assert_close(y, ref_y, rtol=1e-5, atol=1e-5)
     for got, want in zip(st, ref_st):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c,given_state", [
+    (5, 201, 512, False), (1, 313, 512, True), (16, 25, 512, False), (1, 2000, 512, True),
+])
+def test_wkv_forward_is_deterministic(card, b, t, c, given_state):
+    """Every output has one owner and the chunk summaries are folded in a
+    fixed order (no atomics): two calls are bitwise equal in y and the
+    final state."""
+    rng = np.random.default_rng(t)
+    w, u, k, v = _wkv_inputs(rng, b, t, c, 1.0, card)
+    state = twkv.wkv_scan(w, u, *_wkv_inputs(rng, b, 7, c, 1.0, card)[2:])[1] \
+        if given_state else None
+    n = twkv.chunks(k)
+    assert 1 <= n <= 32 and n & (n - 1) == 0 and (n == 1 or -(-t // n) >= 16)
+    (y1, s1), (y2, s2) = (twkv.wkv_fwd(w, u, k, v, state) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and all(map(torch.equal, s1, s2))
 
 
 @pytest.mark.gpu
