@@ -72,14 +72,30 @@ prints how long it took):
               and dropout 0.1, AdamW: 2 warm-up and 5 timed steps (losses
               finite and falling, 12 launches of each flash and depthwise
               entry point per step, no rel-attention), peak memory and one
-              profiled step.
+              profiled step;
+11. golden -- the reference's golden fixtures (tests/parity/
+              golden_conformer.npz, golden_llm_guided.npz, read with numpy
+              through llm_guided_asr_tpu_torch/bin/golden_check.py) at the
+              JAX package's parity tolerances: encoder outputs, CTC and
+              decoder log-probs, beam-10/beam-1 hypotheses and scores, the
+              guided model's loss, cached steps and beam 10; the encoders
+              (2 x 32, head dim 16, conv kernel 7) launch the rel-pos and
+              depthwise forward kernels 6 times each, nothing else; then
+              both kernels on their own at those shapes against their
+              plain versions (1e-5, 1e-4).
+
+``--phase train-1|train-transducer|golden`` builds the kernels and runs that
+phase alone (no kernel table); ``--package-root DIR`` then imports the port
+from another checkout, so that two revisions run one phase in turns.
 
 Phase 2 also holds the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
 and training [16, 25, 512], each timed by CUDA graph with its chunk count
 printed, each call repeated and bitwise equal; |k| up to ~100; a state
 chained across two calls) and the WKV backward against autograd through
-the plain loop at the training shape; the depthwise backward's repeat
+the plain loop at the training shape and at [16, 101, 512] (chunked; also
+with |k| up to ~100), each timed by CUDA graph with its chunk count
+printed and each call repeated and bitwise equal; the depthwise backward's repeat
 calls must be bitwise equal (dw included); the flash forward at the
 serving shape [1, 4, 1874, 64] (CUDA graph; its key splits printed) and the
 forward, dK/dV and dQ at the training shape [8, 4, 1874, 64] under autograd
@@ -106,11 +122,13 @@ status 2 and prints no result.
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -133,6 +151,7 @@ TRANSDUCER_BEAM = 5
 TRD_B, TRD_WARMUP, TRD_STEPS = 16, 2, 5
 WKV_SERVE = {"serve beam-5 [5,201,512]": (5, 201, 512), "serve greedy [1,313,512]": (1, 313, 512)}
 WKV_TRAIN = (16, 25, 512)  # B=16, U+1 = 25 labels, hidden 512
+WKV_BWD_LONG = (16, 101, 512)  # the labels of ~40 s of audio at 24 tokens per 10 s
 ENCODER_FWD = ("rel_attention_fwd", "dwconv1d_fwd")  # one launch per Conformer block
 ENCODER_BWD = ("rel_attention_bwd", "dwconv1d_bwd")
 REL_SHAPE = dict(b=64, h=4, t=312, dk=64)  # phase 1: 10 s of audio, 4 heads of 64
@@ -244,7 +263,7 @@ def rel_attention_tol(ref: torch.Tensor) -> float:
 
 def grad_tol(ref: torch.Tensor, dtype) -> float:
     """Gradients: float32 1e-4 of the largest reference gradient (the order
-    of the sums over up to 312 keys, 64 batch rows and their atomics);
+    of the sums over up to 312 keys and 64 batch rows);
     bfloat16 2**-6 of it, four units in the last place: the stored
     gradients are rounded once and the backward's delta is taken from the
     bfloat16 output."""
@@ -751,12 +770,42 @@ def check_wkv_repeat(wk, w, u, k, v, state, first, what):
         raise AssertionError(f"wkv_fwd {what}: a repeat call is not bitwise equal")
 
 
+def wkv_bwd_bound(b, t, c):
+    """k, v, y, gy in, gk and gv out, w and u in, gw and gu out; 50
+    operations per (b, t, c) for the two sweeps (exponentials and the
+    division counted as one each)."""
+    return bound_ms(4 * (6 * b * t * c + 4 * c), 50.0 * b * t * c, torch.float32)
+
+
+def check_wkv_bwd(wk, w, u, k, v, y, gy, what) -> dict:
+    """The backward against autograd through the plain loop, each gradient
+    within 1e-4 of its largest reference value (float32: the kernel sums
+    over T in another order, across chunks through the fold of their
+    summaries, and gw, gu over the batch in a fixed order of per-(b, chunk)
+    partials); a repeat call bitwise equal (no atomics)."""
+    grads = wk.wkv_bwd(w, u, k, v, y, gy)
+    again = wk.wkv_bwd(w, u, k, v, y, gy)
+    refs = wk.wkv_bwd_plain(w, u, k, v, gy)
+    torch.cuda.synchronize()
+    if not all(map(torch.equal, grads, again)):
+        raise AssertionError(f"wkv_bwd {what}: a repeat call is not bitwise equal")
+    gerrs = {}
+    for name, g, r in zip(("gw", "gu", "gk", "gv"), grads, refs):
+        tol = 1e-4 * r.abs().max().item() + 1e-6
+        gerrs[name] = max_err(g, r)
+        if not gerrs[name] <= tol:
+            raise AssertionError(f"wkv_bwd {what} {name}: {gerrs[name]} > {tol}")
+    return gerrs
+
+
 def check_wkv(wk, gen, card):
     """The forward at the serving and training shapes (each call repeated
     and bitwise equal; the chunk count printed beside the time), with
     |k| ~ 30 and a state chained across two calls; the backward at the
-    training shape against autograd through the plain loop (the plain
-    backward's time includes the forward it recomputes)."""
+    training shape and at the labels of ~40 s of audio [16, 101, 512]
+    (chunked), with |k| ~ 30 at the latter, against autograd through the
+    plain loop (the plain backward's time includes the forward it
+    recomputes), each call repeated and bitwise equal."""
     results = {}
     for shape, (b, t, c) in WKV_SERVE.items():
         w, u, k, v = wkv_inputs(gen, b, t, c)
@@ -788,20 +837,17 @@ def check_wkv(wk, gen, card):
     errs["chained"] = max([wkv_close(torch.cat([y1, y2], 1), ref_y)]
                           + [wkv_close(a, r) for a, r in zip(st2, ref_st)])
     gy = torch.randn(b, t, c, generator=gen, device="cuda")
-    grads = wk.wkv_bwd(w, u, k, v, y, gy)
-    refs = wk.wkv_bwd_plain(w, u, k, v, gy)
-    torch.cuda.synchronize()
-    gerrs = {}
-    for name, g, r in zip(("gw", "gu", "gk", "gv"), grads, refs):
-        # 1e-4 of the largest reference gradient: the order of the sums over
-        # T, and for gw and gu the float32 atomics over B, which change it
-        # from run to run
-        tol = 1e-4 * r.abs().max().item() + 1e-6
-        gerrs[name] = max_err(g, r)
-        if not gerrs[name] <= tol:
-            raise AssertionError(f"wkv_bwd {name}: {gerrs[name]} > {tol}")
+    gerrs = check_wkv_bwd(wk, w, u, k, v, y, gy, "train [16,25,512]")
+    wl, ul, kl, vl = wkv_inputs(gen, *WKV_BWD_LONG, k_scale=30.0)  # |k| up to ~100
+    gerrs_large = check_wkv_bwd(wk, wl, ul, kl, vl, wk.wkv_fwd(wl, ul, kl, vl)[0],
+                                torch.randn_like(kl), "large k [16,101,512]")
+    wl, ul, kl, vl = wkv_inputs(gen, *WKV_BWD_LONG)
+    yl, gyl = wk.wkv_fwd(wl, ul, kl, vl)[0], torch.randn_like(kl)
+    gerrs_long = check_wkv_bwd(wk, wl, ul, kl, vl, yl, gyl, "[16,101,512]")
     print("[kernels] wkv_fwd max_abs_err " + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
-          + "; wkv_bwd max_abs_err " + ", ".join(f"{n} {e:.2e}" for n, e in gerrs.items()))
+          + "; wkv_bwd max_abs_err " + ", ".join(f"{n} {e:.2e}" for n, e in gerrs.items())
+          + "; at [16,101,512] " + ", ".join(f"{n} {e:.2e}" for n, e in gerrs_long.items())
+          + "; with |k| ~ 100 " + ", ".join(f"{n} {e:.2e}" for n, e in gerrs_large.items()))
     # the kernels at the training shape run for a few microseconds, less
     # than a launch from Python takes, so they too are timed by CUDA graph
     # (back-to-back launches between events would time the host); the
@@ -813,14 +859,16 @@ def check_wkv(wk, gen, card):
         bound_ms=bms, bound_by=by)
     print(f"[kernels] wkv_fwd train [{b},{t},{c}]: {results['train [16,25,512]']['ms'] * 1e3:.2f}"
           f" us with {wk.chunks(k)} chunks, bitwise repeatable [{card}]")
-    # backward: k, v, y, gy in, gk and gv out, w and u in, gw and gu out;
-    # 50 operations per (b, t, c) for its two sweeps
-    bms, by = bound_ms(4 * (6 * b * t * c + 4 * c), 50.0 * b * t * c, torch.float32)
-    results["bwd train [16,25,512]"] = dict(
-        err=max(gerrs.values()), errs=gerrs,
-        ms=graph_time_ms(lambda: wk.wkv_bwd(w, u, k, v, y, gy)),
-        plain_ms=event_time_ms(lambda: wk.wkv_bwd_plain(w, u, k, v, gy), iters=5),
-        library_ms=None, bound_ms=bms, bound_by=by)
+    for shape, args, gerr in (("bwd train [16,25,512]", (w, u, k, v, y, gy), gerrs),
+                              ("bwd [16,101,512]", (wl, ul, kl, vl, yl, gyl), gerrs_long)):
+        bms, by = wkv_bwd_bound(*args[2].shape)
+        results[shape] = dict(
+            err=max(gerr.values()), errs=gerr, chunks=wk.bwd_chunks(args[2]),
+            ms=graph_time_ms(lambda: wk.wkv_bwd(*args)),
+            plain_ms=event_time_ms(lambda: wk.wkv_bwd_plain(*args[:4], args[5]), iters=5),
+            library_ms=None, bound_ms=bms, bound_by=by)
+        print(f"[kernels] wkv_bwd {shape[4:]}: {results[shape]['ms'] * 1e3:.2f} us with "
+              f"{results[shape]['chunks']} chunks, bitwise repeatable [{card}]")
     return results
 
 
@@ -1433,10 +1481,107 @@ def phase_train_flash(model, kernels, card):
     return launches, med
 
 
+def phase_golden(kernels, card):
+    """The port against the reference's golden fixtures (tests/parity/) on
+    the card, at the JAX package's parity tolerances: the Conformer
+    CTC/attention model's encoder outputs (13 and 41 frames), CTC and
+    decoder log-probs and beam-10, beam-1 and long-utterance hypotheses, and
+    the LLM-guided model's loss, decoder log-probs, cached steps and
+    beam-10 hypothesis.  Their encoders (2 blocks of 32, head dim 16, conv
+    kernel 7) run the rel-pos and depthwise forward kernels: 3 encoder
+    passes, one launch of each a block."""
+    from llm_guided_asr_tpu_torch.bin import golden_check
+
+    reset_counts(kernels)
+    errs = golden_check.run_all("cuda")
+    torch.cuda.synchronize()
+    launches = counts(kernels)
+    blocks = golden_check.load_fixture("golden_conformer").meta["blocks"]
+    for name, n in launches.items():
+        want = 3 * blocks if name in ENCODER_FWD else 0
+        if n != want:
+            raise AssertionError(f"golden: {name} launched {n} times, expected {want}")
+    print("[golden] every check passed: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; launches {launches} [{card}]")
+    print("[golden] kernels against their plain versions at the fixtures' shapes: "
+          + check_golden_shapes() + f" [{card}]")
+    return launches
+
+
+def check_golden_shapes() -> str:
+    """The two forward kernels on their own at the golden fixtures' shapes
+    (outside the counted run): rel-pos [2, 2, 13, 16] with 11 valid keys
+    in the second row and [1, 2, 41, 16], float32 within 1e-5; depthwise
+    [2, 13, 32] and [1, 41, 32] by [7, 32] within 1e-4."""
+    from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
+    from llm_guided_asr_tpu_torch.ops import rel_attention as ra
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    errs = []
+    for b, t, lens in ((2, 13, (13, 11)), (1, 41, (41,))):
+        h, dk = 2, 16
+        qu, qv, k, v = (mk(b, h, t, dk) for _ in range(4))
+        p, sm = mk(h, 2 * t - 1, dk), 1.0 / math.sqrt(dk)
+        kv_valid = (torch.arange(t, device="cuda")[None] < torch.tensor(lens, device="cuda")[:, None]
+                    ).to(torch.int32)
+        out, _ = ra.rel_attention_fwd(qu, qv, k, v, p, kv_valid, sm)
+        ref = ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm)
+        x, w = mk(b, t, 32), mk(7, 32)
+        y, y_ref = dc.depthwise_conv1d(x, w), dc.depthwise_conv1d_plain(x, w)
+        torch.cuda.synchronize()
+        for name, got, want, tol in (("rel_attention_fwd", out, ref, 1e-5),
+                                     ("dwconv1d_fwd", y, y_ref, 1e-4)):
+            err = max_err(got, want)
+            if not err <= tol:
+                raise AssertionError(f"golden shapes: {name} [{b},{t}]: {err} > {tol}")
+            errs.append(f"{name} [{b},{t}] {err:.2e}")
+    return ", ".join(errs)
+
+
+def run_one_phase(name: str, card: str) -> int:
+    """``--phase``: build the kernels and run one phase that needs nothing of
+    the others (train-1, train-transducer or golden), and print its result;
+    no kernel table.  With ``--package-root`` the port comes from another
+    checkout (an older revision unpacked by ``git archive``) while this
+    script's phase code stays the same, so two revisions run the same
+    phase in turns on one card."""
+    from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
+    from llm_guided_asr_tpu_torch.ops import flash_attention as fa
+    from llm_guided_asr_tpu_torch.ops import rel_attention as ra
+    from llm_guided_asr_tpu_torch.ops import wkv as wk
+
+    phases = {"train-1": lambda: phase_train1(kernels, card),
+              "train-transducer": lambda: phase_train_transducer(build_transducer(), kernels, card),
+              "golden": lambda: phase_golden(kernels, card)}
+    if name not in phases:
+        raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
+    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
+    phase_build(kernels)
+    t0 = time.perf_counter()
+    phases[name]()
+    package = Path(ra.__file__).resolve().parents[2]
+    print(f"[{name}] phase alone took {time.perf_counter() - t0:.1f} s with the port from "
+          f"{package} [{card}]")
+    return 0
+
+
 def main() -> int:
+    ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
+    ap.add_argument("--phase", help="run only this phase: train-1, train-transducer or golden")
+    ap.add_argument("--package-root", type=Path,
+                    help="with --phase: import the port from this checkout instead")
+    args = ap.parse_args()
+    if args.package_root is not None:
+        sys.path.insert(0, str(args.package_root.resolve()))
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available; nothing was run", file=sys.stderr)
         return 2
+    if args.phase is not None:
+        from llm_guided_asr_tpu_torch.utils.device import resolve_device
+
+        resolve_device("cuda")
+        return run_one_phase(args.phase, nvidia_smi_name_power())
     from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
     from llm_guided_asr_tpu_torch.ops import flash_attention as fa
     from llm_guided_asr_tpu_torch.ops import rel_attention as ra
@@ -1482,6 +1627,9 @@ def main() -> int:
     timed("profile-flash", phase_profile, flash_asr, flash_waves[0], wall_60s, card,
           "profile-flash", FLASH_SECONDS[0])
     paths["train-flash"], _ = timed("train-flash", phase_train_flash, flash_asr, kernels, card)
+    del flash_asr
+    torch.cuda.empty_cache()
+    paths["golden"] = timed("golden", phase_golden, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -1523,6 +1671,11 @@ def main() -> int:
             s = timings[(name, serve_shape, f32)]
             row.update(serve_ms=s["ms"], serve_plain_ms=s["plain_ms"],
                        serve_bound_ms=s["bound_ms"], serve_library_ms=s["library_ms"])
+        if name == "wkv_bwd":  # chunked: the labels of ~40 s of audio
+            s = timings[(name, f"[{','.join(map(str, WKV_BWD_LONG))}]", f32)]
+            row.update(chunks=timings[(name, shape, f32)]["chunks"], long_shape=list(WKV_BWD_LONG),
+                       long_ms=s["ms"], long_chunks=s["chunks"], long_plain_ms=s["plain_ms"],
+                       long_bound_ms=s["bound_ms"])
         if name == "rel_attention_fwd":  # the long-form yardstick beside the flash forward
             s = timings[(name, f"serve B=1 T={FLASH_T}", f32)]
             row.update(longform_ms=s["ms"], longform_plain_ms=s["plain_ms"],

@@ -1,20 +1,23 @@
-"""Time the WKV forward and the depthwise backward of this checkout against an
-older revision of their sources, and sweep their grid choices, on one card.
+"""Time the WKV forward and backward and the depthwise backward of this
+checkout against an older revision of their sources, and sweep their grid
+choices, on one card.
 
-    python -m llm_guided_asr_tpu_torch.bin.compare_kernels [--old DIR] [--sweep]
+    python -m llm_guided_asr_tpu_torch.bin.compare_kernels [--old DIR] [--sweep] [--trace]
 
-``--old DIR`` holds ``wkv.cu`` and ``depthwise_conv.cu`` of a revision from
-before the chunked WKV forward and the per-slab dw (their entry points take
-no workspace: ``wkv_fwd(w, u, k, v, aa0, bb0, pp0, y, aa1, bb1, pp1, B, T, C,
-stream)`` and ``dwconv1d_bwd(dy, x, w, dx, dw, B, T, C, K, dtype, stream)``
-with dw zeroed by the caller); e.g. ``git show <rev>:<path> > DIR/<file>``.
-Both builds run on the same inputs in turns (old, new, new, old), each
-timed by CUDA graph (20 calls captured, replayed 10 times), and the new
-results are held against the old ones.  ``--sweep`` times the new kernels
-at every chunk count and slab count from 1 to 32 beside the one the
-grid rule picks.  ``--trace`` runs 10 calls of each new entry point under
-torch.profiler and prints the device time of each kernel inside it.
-Prints one line per shape, with the card's name and power limit.
+``--old DIR`` holds ``wkv.cu`` and ``depthwise_conv.cu`` of a revision with
+the chunked WKV forward and the per-slab dw (whose ``wkv_fwd`` and
+``dwconv1d_bwd`` take the arguments they take now) and the WKV backward
+from before its chunked scan, which takes no workspace: ``wkv_bwd(w, u, k,
+v, y, gy, gw, gu, gk, gv, B, T, C, stream)`` with gw and gu zeroed by the
+caller; e.g. ``git show <rev>:<path> > DIR/<file>``.  Both builds run on
+the same inputs in turns (old, new, new, old), each timed by CUDA graph (20
+calls captured, replayed 10 times), and the new results are held against
+the old ones.  ``--sweep`` times the new kernels at every chunk count and
+slab count from 1 to 32 (the WKV backward's chunks of at most 64 steps)
+beside the one the grid rule picks.  ``--trace`` runs 10 calls of each new
+entry point under torch.profiler and prints the device time of each
+kernel inside it.  Prints one line per shape, with the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -31,6 +34,9 @@ from llm_guided_asr_tpu_torch.ops import wkv as wk
 from llm_guided_asr_tpu_torch.ops.cuda_build import ARCH_FLAGS, NVCC_FLAGS, find_nvcc
 
 WKV_SHAPES = [(5, 201, 512), (1, 313, 512), (16, 25, 512)]
+# train-transducer's labels (U + 1 = 25), and those of ~40 s of audio at
+# its 24 tokens per 10 s
+WKV_BWD_SHAPES = [(16, 25, 512), (16, 101, 512)]
 DW_SHAPES = [(64, 312, 256, 31, torch.float32), (64, 312, 256, 8, torch.float32),
              (64, 312, 256, 31, torch.bfloat16), (64, 312, 256, 8, torch.bfloat16),
              (16, 312, 256, 31, torch.float32), (8, 1874, 256, 31, torch.float32)]
@@ -82,8 +88,9 @@ def build_old(src_dir: Path) -> dict:
         subprocess.run([find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
                         str(src_dir / f"{stem}.cu")], check=True)
         libs[stem] = ctypes.CDLL(str(out))
-    libs["wkv"].wkv_fwd.argtypes = [_P] * 11 + [_I] * 3 + [_P]
-    libs["depthwise_conv"].dwconv1d_bwd.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+    libs["wkv"].wkv_fwd.argtypes = wk.KERNEL.functions["wkv_fwd"]
+    libs["wkv"].wkv_bwd.argtypes = [_P] * 10 + [_I] * 3 + [_P]
+    libs["depthwise_conv"].dwconv1d_bwd.argtypes = dc.KERNEL.functions["dwconv1d_bwd"]
     return libs
 
 
@@ -91,21 +98,29 @@ def stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
-def wkv_new_at(w, u, k, v, y, n):
-    """The new forward from the initial state with ``n`` chunks."""
+def wkv_fwd_at(fn, w, u, k, v, y, n):
+    """The C forward ``fn`` from the initial state with ``n`` chunks."""
     b, t, c = k.shape
     work = torch.empty(3 * b * n * c, device="cuda") if n > 1 else None
-    wk.KERNEL.launch("wkv_fwd", w.data_ptr(), u.data_ptr(), k.data_ptr(), v.data_ptr(),
-                     None, None, None, None if work is None else work.data_ptr(),
-                     y.data_ptr(), None, None, None, n, b, t, c, stream())
+    fn(w.data_ptr(), u.data_ptr(), k.data_ptr(), v.data_ptr(), None, None, None,
+       None if work is None else work.data_ptr(), y.data_ptr(), None, None, None, n, b, t, c,
+       stream())
 
 
-def dw_new_at(x, w, dy, dx, dw, slabs):
+def wkv_bwd_at(w, u, k, v, y, gy, grads, n):
+    """The new backward with ``n`` chunks into ``grads`` = (gw, gu, gk, gv)."""
+    b, t, c = k.shape
+    work = torch.empty(10 * b * n * c, device="cuda")
+    wk.KERNEL.launch("wkv_bwd", w.data_ptr(), u.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     y.data_ptr(), gy.data_ptr(), work.data_ptr(),
+                     *(g.data_ptr() for g in grads), n, b, t, c, stream())
+
+
+def dw_at(fn, x, w, dy, dx, dw, slabs):
     b, t, c = x.shape
     work = torch.empty(b * slabs * w.shape[0] * c, device="cuda")
-    dc.KERNEL.launch("dwconv1d_bwd", dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(),
-                     dw.data_ptr(), work.data_ptr(), slabs, b, t, c, w.shape[0],
-                     dc._DTYPE_CODE[x.dtype], stream())
+    fn(dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
+       work.data_ptr(), slabs, b, t, c, w.shape[0], dc._DTYPE_CODE[x.dtype], stream())
 
 
 def main() -> int:
@@ -121,6 +136,8 @@ def main() -> int:
                           capture_output=True, text=True, check=True).stdout.strip()
     libs = build_old(args.old) if args.old else None
     gen = torch.Generator(device="cuda").manual_seed(0)
+    new_fwd = lambda *a: wk.KERNEL.launch("wkv_fwd", *a)  # noqa: E731
+    new_dw = lambda *a: dc.KERNEL.launch("dwconv1d_bwd", *a)  # noqa: E731
 
     for b, t, c in WKV_SHAPES:
         w = -torch.exp(0.5 * torch.randn(c, generator=gen, device="cuda"))
@@ -131,9 +148,7 @@ def main() -> int:
         line = f"wkv_fwd [{b},{t},{c}] ({wk.chunks(k)} chunks)"
         if libs:
             def old():
-                libs["wkv"].wkv_fwd(w.data_ptr(), u.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                    None, None, None, y.data_ptr(), None, None, None, b, t, c,
-                                    stream())
+                wkv_fwd_at(libs["wkv"].wkv_fwd, w, u, k, v, y, wk.chunks(k))
             times = [graph_us(f) for f in (old, new, new, old)]
             old()
             diff = (new()[0] - y).abs().max().item()
@@ -141,7 +156,7 @@ def main() -> int:
                      f"{times[2]:.2f} us; max |new - old| {diff:.2e}")
         if args.sweep:
             line += "; by chunks " + ", ".join(
-                f"{n}: {graph_us(lambda: wkv_new_at(w, u, k, v, y, n)):.2f}"
+                f"{n}: {graph_us(lambda: wkv_fwd_at(new_fwd, w, u, k, v, y, n)):.2f}"
                 for n in (1, 2, 4, 8, 16, 32))
         if args.trace:
             line += "; traced us per call: new " + kernel_times(new)
@@ -158,10 +173,8 @@ def main() -> int:
                 f"({dc.dw_slabs(x, k_size)} slabs)")
         if libs:
             def old():
-                dw.zero_()
-                libs["depthwise_conv"].dwconv1d_bwd(
-                    dy.data_ptr(), x.data_ptr(), w.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-                    b, t, c, k_size, dc._DTYPE_CODE[dtype], stream())
+                dw_at(libs["depthwise_conv"].dwconv1d_bwd, x, w, dy, dx, dw,
+                      dc.dw_slabs(x, k_size))
             times = [graph_us(f) for f in (old, new, new, old)]
             old()
             ndx, ndw = new()
@@ -172,8 +185,44 @@ def main() -> int:
                      f"dw {dw_err:.2e} of max |dw|")
         if args.sweep:
             line += "; by slabs " + ", ".join(
-                f"{n}: {graph_us(lambda: dw_new_at(x, w, dy, dx, dw, n)):.2f}"
+                f"{n}: {graph_us(lambda: dw_at(new_dw, x, w, dy, dx, dw, n)):.2f}"
                 for n in (1, 2, 4, 8, 16, 32))
+        if args.trace:
+            line += "; traced us per call: new " + kernel_times(new)
+            if libs:
+                line += "; old " + kernel_times(old)
+        print(line + f" [{card}]", flush=True)
+
+    for b, t, c in WKV_BWD_SHAPES:
+        w = -torch.exp(0.5 * torch.randn(c, generator=gen, device="cuda"))
+        u = 0.5 * torch.randn(c, generator=gen, device="cuda")
+        k, v, gy = (torch.randn(b, t, c, generator=gen, device="cuda") for _ in range(3))
+        y = wk.wkv_fwd(w, u, k, v)[0]
+        new = lambda: wk.wkv_bwd(w, u, k, v, y, gy)  # noqa: E731
+        line = f"wkv_bwd [{b},{t},{c}] ({wk.bwd_chunks(k)} chunks)"
+        if libs:
+            grads = [torch.zeros_like(w), torch.zeros_like(u), torch.empty_like(k),
+                     torch.empty_like(v)]
+
+            def old():
+                grads[0].zero_()
+                grads[1].zero_()
+                libs["wkv"].wkv_bwd(w.data_ptr(), u.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                    y.data_ptr(), gy.data_ptr(),
+                                    *(g.data_ptr() for g in grads), b, t, c, stream())
+            times = [graph_us(f) for f in (old, new, new, old)]
+            old()
+            diffs = [(n_ - o).abs().max().item() / o.abs().max().item()
+                     for n_, o in zip(new(), grads)]
+            line += (f": old {times[0]:.2f} / {times[3]:.2f} us, new {times[1]:.2f} / "
+                     f"{times[2]:.2f} us; max |new - old| of max |old|: " + ", ".join(
+                         f"{n_} {d:.2e}" for n_, d in zip(("gw", "gu", "gk", "gv"), diffs)))
+        if args.sweep:
+            grads = [torch.empty_like(w), torch.empty_like(u), torch.empty_like(k),
+                     torch.empty_like(v)]
+            line += "; by chunks " + ", ".join(
+                f"{n}: {graph_us(lambda: wkv_bwd_at(w, u, k, v, y, gy, grads, n)):.2f}"
+                for n in (1, 2, 4, 8, 16, 32) if -(-t // n) <= 64)
         if args.trace:
             line += "; traced us per call: new " + kernel_times(new)
             if libs:

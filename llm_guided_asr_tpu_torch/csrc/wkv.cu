@@ -11,7 +11,9 @@
 //
 // All arithmetic is float32 with the accurate expf (never the fast-math
 // __expf) and IEEE division, so that the forward agrees with the plain
-// loop of ops/wkv.py to about 1e-6.
+// loop of ops/wkv.py to about 1e-6.  The backward's one division,
+// q_t below, is the fast one: its denominator lies in [1, T + 1], where
+// that is within 2 ulp.
 //
 // wkv_fwd replaces the TPU kernel llm_guided_asr_tpu/ops/wkv.py _wkv_kernel
 // (:79, called through wkv_pallas :109).  The TPU kernel keeps a whole
@@ -19,7 +21,8 @@
 // is neither bytes nor operations (at the beam-search shape [5, 201, 512]
 // it moves 6.2 MB, 1.9 us at 3.35 TB/s) but the serial chain of T steps:
 // one thread per (b, c) gives 2,560 threads at beam 5 and 512 at greedy
-// B = 1, for 132 SMs, each waiting on a load and four expf a step.
+// B = 1, for 132 SMs, each waiting on a load and two expf a step (each
+// max-normalized pair of exponentials has one factor e^0 = 1, exp_pair).
 //
 // So the forward is a chunked scan.  Per channel the decay w is a constant,
 // so L steps act on the carried state in closed form: scanned from the zero
@@ -60,28 +63,57 @@
 // pp = -1e38).  The maximum cancels out of every output, since (aa, bb)
 // only matter through aa * e^pp and bb * e^pp, so the kernel differentiates
 // the recurrence in A and B directly and keeps every quantity under a
-// running maximum as the forward does.  One thread per (b, c), two sweeps:
+// running maximum as the forward does.  Per (b, c), two sweeps:
 //
-//   forward sweep: recompute the state; carry dA/dw and dB/dw (normalized
-//     by e^pp as A and B are) and sum gw and gu in registers; store, per
-//     step, q_t = gy[t] / (e1 * bb + e2) and r_t = u + k[t] - max into the
-//     gk and gv buffers, which the reverse sweep overwrites in place;
+//   forward sweep: recompute the state; carry dA/dw and dB/dw (ga, gb,
+//     normalized by e^pp as A and B are) and sum gw and gu; keep, per
+//     step, q_t = gy[t] / (e1 * bb + e2), c_t = q_t * e2 and the step's
+//     maximum p_t;
 //   reverse sweep: carry the adjoint of (A, B) under its own running
 //     maximum and write gk[t] and gv[t].
 //
-// gw and gu are summed over the batch with one float32 atomicAdd per
-// (b, c) into buffers the caller zeroed, so their last bits can change
-// from run to run (B terms in another order).  What bounds it: the serial
-// chain of T steps with only B*C threads, not its bytes (it reads k, v, y,
-// gy and writes gk, gv, 6*B*T*C*4 bytes).
+// What bounds it is the serial chain of 2*T dependent steps, not its bytes
+// (k, v, y, gy in and gk, gv out, 6*B*T*C*4 bytes: 1.5 us at [16, 25, 512]).
+// So the backward is staged and chunked like the forward.  A warp owns
+// one chunk of 32 channels; its loads are issued BWD_G steps ahead through
+// the `prefetched` ring, and c_t, q_t and p_t stay in the warp's shared
+// memory between the sweeps (never a round trip through device memory).
+// T is cut into N chunks (wkv_bwd_chunks: the forward's rule, with chunks
+// of at most BWD_MAX_STEPS steps so that c_t, q_t and p_t fit), and four
+// kernels run in order:
+//
+//   wkv_bwd_summary_kernel: every chunk but the last scans from the zero
+//     state into (a, b, p, ga, gb), ga and gb being d(a, b)/dw;
+//   wkv_bwd_chunk_kernel<false>: every chunk but the first folds those
+//     summaries onto the zero state in order (across chunk i, pp decays
+//     one w per step and the carried ga, gb gain the carried aa, bb once
+//     per step: the L*A term of d(e^(Lw) A)/dw, added step by step as the
+//     scan adds it), sweeps forward, then sweeps backward from the zero
+//     adjoint into a reverse summary (a', b', p'), the adjoint at the
+//     chunk's start from its own steps, under its own maximum p';
+//   wkv_bwd_chunk_kernel<true>: every chunk folds the forward summaries
+//     and sweeps forward (its partial gw, gu), folds the reverse
+//     summaries of the later chunks from the last one down (the adjoint is
+//     linear with decay e^w per step: pp decays one w per step, then the
+//     summary merges in), and sweeps backward writing gk and gv;
+//   wkv_bwd_sum_kernel: gw and gu, the per-(b, chunk) partials added in a
+//     fixed order (batch rows in order, chunks in order within each).
+//
+// N = 1 (the training shape [16, 25, 512]) runs the last two only.  The
+// serial chain becomes about 5*T/N steps plus the folds.  No atomics:
+// every output has one owner and every sum a fixed order, so a repeat call
+// is bitwise equal (tests/test_torch_wkv_bwd.py emulates the association
+// in float32 against jax.vjp of wkv_scan).
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int THREADS = 64;   // wkv_bwd: threads a block, one per (b, c)
 constexpr int FWD_WARPS = 4;  // wkv_fwd: warps a block, one chunk of 32 channels each
-constexpr int WKV_G = 8;      // steps (folds) whose loads are issued together
+constexpr int BWD_WARPS = 2;  // wkv_bwd: warps a block, one chunk of 32 channels each
+constexpr int BWD_MAX_STEPS = 64;  // wkv_bwd: steps a chunk at most (48 KB of shared memory a block)
+constexpr int WKV_G = 8;      // wkv_fwd: steps (folds) whose loads are issued together
+constexpr int BWD_G = 4;      // wkv_bwd: the same (its steps hold more in registers)
 constexpr int MAX_CHUNKS = 32;
 constexpr int MIN_CHUNK = 16;  // steps a chunk at least
 constexpr float MIN_VALUE = -1e38f;
@@ -89,32 +121,45 @@ constexpr float MIN_VALUE = -1e38f;
 struct KV { float k, v; };
 struct Summary { float a, b, p; };
 
-// For i in [0, n): body(i, load(i)), the loads of the next WKV_G items in
-// flight while the current ones are computed.
-template <typename Load, typename Body>
+// For i in [0, n): body(i, load(i)), the loads of the next G items in
+// flight while the current ones are computed.  Whole groups of G run with
+// no branch between their bodies, so the compiler can interleave the
+// independent parts of neighbouring steps.
+template <int G = WKV_G, typename Load, typename Body>
 __device__ __forceinline__ void prefetched(int n, Load load, Body body) {
   using V = decltype(load(0));
-  V cur[WKV_G], nxt[WKV_G];
+  V cur[G], nxt[G];
 #pragma unroll
-  for (int i = 0; i < WKV_G; ++i) cur[i] = i < n ? load(i) : V{};
-  for (int g = 0; g < n; g += WKV_G) {
+  for (int i = 0; i < G; ++i) cur[i] = i < n ? load(i) : V{};
+  const int full = n - n % G;
+  for (int g = 0; g < full; g += G) {
 #pragma unroll
-    for (int i = 0; i < WKV_G; ++i) nxt[i] = g + WKV_G + i < n ? load(g + WKV_G + i) : V{};
+    for (int i = 0; i < G; ++i) nxt[i] = g + G + i < n ? load(g + G + i) : V{};
 #pragma unroll
-    for (int i = 0; i < WKV_G; ++i)
-      if (g + i < n) body(g + i, cur[i]);
+    for (int i = 0; i < G; ++i) body(g + i, cur[i]);
 #pragma unroll
-    for (int i = 0; i < WKV_G; ++i) cur[i] = nxt[i];
+    for (int i = 0; i < G; ++i) cur[i] = nxt[i];
   }
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+    if (full + i < n) body(full + i, cur[i]);
+}
+
+// (e^(a - m), e^(b - m)) for m = max(a, b), with one exponential: the
+// larger argument's factor is e^0 = 1, and b - a = -(a - b) exactly, so
+// both factors are bitwise those of two expf calls.
+__device__ __forceinline__ float2 exp_pair(float a, float b, float& m) {
+  m = fmaxf(a, b);
+  const float e = expf(-fabsf(a - b));
+  return a >= b ? make_float2(1.f, e) : make_float2(e, 1.f);
 }
 
 // The state update of one step (the recurrence's second line).
 __device__ __forceinline__ void advance(float& aa, float& bb, float& pp, float w, KV x) {
-  const float ww = pp + w;
-  const float q = fmaxf(ww, x.k);
-  const float e1 = expf(ww - q), e2 = expf(x.k - q);
-  aa = e1 * aa + e2 * x.v;
-  bb = e1 * bb + e2;
+  float q;
+  const float2 e = exp_pair(pp + w, x.k, q);
+  aa = e.x * aa + e.y * x.v;
+  bb = e.x * bb + e.y;
   pp = q;
 }
 
@@ -123,8 +168,9 @@ __device__ __forceinline__ void advance(float& aa, float& bb, float& pp, float w
 // grid.
 struct Chunk {
   int b, c, j, t0, len;
+  template <int WARPS = FWD_WARPS>
   __device__ bool locate(int B, int T, int C, int chunks) {
-    const int warp = blockIdx.x * FWD_WARPS + threadIdx.x / 32;
+    const int warp = blockIdx.x * WARPS + threadIdx.x / 32;
     const int groups = (C + 31) / 32;
     j = warp % chunks;
     const int col = warp / chunks;
@@ -181,11 +227,9 @@ wkv_fwd_kernel(int B, int T, int C, int chunks, const float* __restrict__ w,
       [&](int i, Summary s) {
         float ww = pp;  // decayed across the chunk's steps one at a time, as the scan does
         for (int n = max(0, min(L, T - i * L)); n > 0; --n) ww += ww_dec;
-        const float q = fmaxf(ww, s.p);
-        const float e1 = expf(ww - q), e2 = expf(s.p - q);
-        aa = e1 * aa + e2 * s.a;
-        bb = e1 * bb + e2 * s.b;
-        pp = q;
+        const float2 e = exp_pair(ww, s.p, pp);
+        aa = e.x * aa + e.y * s.a;
+        bb = e.x * bb + e.y * s.b;
       });
 
   // rescan the chunk from the carried state, writing y
@@ -193,10 +237,9 @@ wkv_fwd_kernel(int B, int T, int C, int chunks, const float* __restrict__ w,
   prefetched(
       ch.len, [&](int i) { return KV{k[base + (size_t)i * C], v[base + (size_t)i * C]}; },
       [&](int i, KV x) {
-        const float ww = uu + x.k;
-        const float q = fmaxf(pp, ww);
-        const float e1 = expf(pp - q), e2 = expf(ww - q);
-        y[base + (size_t)i * C] = (e1 * aa + e2 * x.v) / (e1 * bb + e2);
+        float q;
+        const float2 e = exp_pair(pp, uu + x.k, q);
+        y[base + (size_t)i * C] = (e.x * aa + e.y * x.v) / (e.x * bb + e.y);
         advance(aa, bb, pp, ww_dec, x);
       });
   if (aa1 && ch.j == chunks - 1) {  // the final state is wanted
@@ -206,67 +249,204 @@ wkv_fwd_kernel(int B, int T, int C, int chunks, const float* __restrict__ w,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-wkv_bwd_kernel(int B, int T, int C, const float* __restrict__ w, const float* __restrict__ u,
-               const float* __restrict__ k, const float* __restrict__ v,
-               const float* __restrict__ y, const float* __restrict__ gy,
-               float* __restrict__ gw, float* __restrict__ gu, float* __restrict__ gk,
-               float* __restrict__ gv) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * C) return;
-  const int b = idx / C, c = idx % C;
-  const size_t base = (size_t)b * T * C + c;
-  const float ww_dec = w[c], uu = u[c];
+// The carried state of the backward's forward sweep: (aa, bb, pp) and
+// ga, gb = dA/dw, dB/dw, all under the scale e^pp.
+struct Carry {
+  float aa = 0.f, bb = 0.f, pp = MIN_VALUE, ga = 0.f, gb = 0.f;
+};
+struct Step4 { float k, v, y, g; };
+struct Step6 { float k, v, y, c, q, p; };
 
-  // forward sweep: ga, gb = dA/dw, dB/dw under the state's scale e^pp
-  float aa = 0.f, bb = 0.f, pp = MIN_VALUE, ga = 0.f, gb = 0.f, sw = 0.f, su = 0.f;
-  for (int t = 0; t < T; ++t) {
-    const size_t i = base + (size_t)t * C;
-    const float kk = k[i], vv = v[i], yy = y[i];
-    float ww = uu + kk;
-    float p = fmaxf(pp, ww);
-    float e1 = expf(pp - p), e2 = expf(ww - p);
-    const float qq = gy[i] / (e1 * bb + e2);  // gy / (B + e^(u+k)), times e^p
-    sw += (ga - gb * yy) * e1 * qq;
-    su += (vv - yy) * e2 * qq;
-    gk[i] = qq;
-    gv[i] = ww - p;
-    ww = ww_dec + pp;
-    p = fmaxf(ww, kk);
-    e1 = expf(ww - p);
-    e2 = expf(kk - p);
-    ga = e1 * (aa + ga);
-    gb = e1 * (bb + gb);
-    aa = e1 * aa + e2 * vv;
-    bb = e1 * bb + e2;
-    pp = p;
+// What the reverse sweep needs of a step, kept in shared memory: c_t =
+// gy * e^(u+k) / (B + e^(u+k)), q_t = gy / (B + e^(u+k)) under the scale
+// e^p_t, and p_t.
+struct Kept { float c, q, p; };
+
+// One step of the backward's forward sweep: returns what the reverse sweep
+// keeps and adds the step's terms of gw and gu.  The denominator lies in
+// [1, T + 1] (one of e1, e2 is 1, and bb <= T under the running maximum),
+// so the fast division is within 2 ulp there.
+__device__ __forceinline__ Kept sweep_step(Carry& s, float w, float u, Step4 x, float& sw,
+                                           float& su) {
+  float p;
+  float2 e = exp_pair(s.pp, u + x.k, p);
+  const float q = __fdividef(x.g, e.x * s.bb + e.y);  // gy / (B + e^(u+k)), times e^p
+  sw += (s.ga - s.gb * x.y) * e.x * q;
+  su += (x.v - x.y) * e.y * q;
+  const Kept kept{e.y * q, q, p};
+  float p2;
+  e = exp_pair(w + s.pp, x.k, p2);
+  s.ga = e.x * (s.aa + s.ga);
+  s.gb = e.x * (s.bb + s.gb);
+  s.aa = e.x * s.aa + e.y * x.v;
+  s.bb = e.x * s.bb + e.y;
+  s.pp = p2;
+  return kept;
+}
+
+// Steps a chunk i of `chunks` holds (0 for a chunk past T).
+__device__ __forceinline__ int chunk_steps(int i, int T, int chunks) {
+  const int L = (T + chunks - 1) / chunks;
+  return max(0, min(L, T - i * L));
+}
+
+// The forward summaries of chunks 0 .. j-1 folded onto the zero state, in
+// order: pp decays one w per step of the chunk and ga, gb gain aa, bb once
+// per step, then the summary merges in under the larger maximum.
+__device__ Carry fold_forward(const float* sums, int j, int T, int C, int chunks, float w) {
+  Carry s;
+  prefetched<BWD_G>(
+      j,
+      [&](int i) {
+        const float* x = sums + (size_t)i * 5 * C;
+        return Carry{x[0], x[C], x[2 * C], x[3 * C], x[4 * C]};
+      },
+      [&](int i, Carry x) {
+        float ww = s.pp;
+        for (int n = chunk_steps(i, T, chunks); n > 0; --n) {
+          ww += w;
+          s.ga += s.aa;
+          s.gb += s.bb;
+        }
+        const float2 e = exp_pair(ww, x.pp, s.pp);
+        s.aa = e.x * s.aa + e.y * x.aa;
+        s.bb = e.x * s.bb + e.y * x.bb;
+        s.ga = e.x * s.ga + e.y * x.ga;
+        s.gb = e.x * s.gb + e.y * x.gb;
+      });
+  return s;
+}
+
+__global__ void __launch_bounds__(BWD_WARPS * 32)
+wkv_bwd_summary_kernel(int B, int T, int C, int chunks, const float* __restrict__ w,
+                       const float* __restrict__ k, const float* __restrict__ v,
+                       float* __restrict__ sums) {
+  Chunk ch;
+  if (!ch.locate<BWD_WARPS>(B, T, C, chunks) || ch.j == chunks - 1) return;
+  const size_t base = ((size_t)ch.b * T + ch.t0) * C + ch.c;
+  const float ww_dec = w[ch.c];
+  Carry s;
+  prefetched<BWD_G>(
+      ch.len, [&](int i) { return KV{k[base + (size_t)i * C], v[base + (size_t)i * C]}; },
+      [&](int, KV x) {
+        const float2 e = exp_pair(ww_dec + s.pp, x.k, s.pp);
+        s.ga = e.x * (s.aa + s.ga);
+        s.gb = e.x * (s.bb + s.gb);
+        s.aa = e.x * s.aa + e.y * x.v;
+        s.bb = e.x * s.bb + e.y;
+      });
+  float* out = sums + ((size_t)ch.b * chunks + ch.j) * 5 * C + ch.c;
+  out[0] = s.aa;
+  out[C] = s.bb;
+  out[2 * C] = s.pp;
+  out[3 * C] = s.ga;
+  out[4 * C] = s.gb;
+}
+
+// LAST = false: the reverse summary of every chunk but the first.
+// LAST = true: gk, gv of every chunk and its partial gw, gu.
+// Dynamic shared memory: BWD_WARPS * 3 * L * 32 floats (c_t, q_t, p_t).
+template <bool LAST>
+__global__ void __launch_bounds__(BWD_WARPS * 32)
+wkv_bwd_chunk_kernel(int B, int T, int C, int chunks, const float* __restrict__ w,
+                     const float* __restrict__ u, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ y,
+                     const float* __restrict__ gy, const float* __restrict__ fwd_sums,
+                     float* __restrict__ rev_sums, float* __restrict__ parts,
+                     float* __restrict__ gk, float* __restrict__ gv) {
+  extern __shared__ float kept_all[];
+  Chunk ch;
+  if (!ch.locate<BWD_WARPS>(B, T, C, chunks) || (!LAST && ch.j == 0)) return;
+  const int L = (T + chunks - 1) / chunks;
+  // this lane's c_t, q_t and p_t: three rows of L steps, lanes side by side
+  float* kept = kept_all + (size_t)(threadIdx.x / 32) * 3 * L * 32 + threadIdx.x % 32;
+  const int row = L * 32;
+  const float ww_dec = w[ch.c], uu = u[ch.c];
+  const size_t base = ((size_t)ch.b * T + ch.t0) * C + ch.c;
+
+  // forward sweep from the state carried across chunks 0 .. j-1
+  Carry s = fold_forward(fwd_sums + (size_t)ch.b * chunks * 5 * C + ch.c, ch.j, T, C, chunks,
+                         ww_dec);
+  float sw = 0.f, su = 0.f;
+  prefetched<BWD_G>(
+      ch.len,
+      [&](int i) {
+        const size_t o = base + (size_t)i * C;
+        return Step4{k[o], v[o], y[o], gy[o]};
+      },
+      [&](int i, Step4 x) {
+        const Kept q = sweep_step(s, ww_dec, uu, x, sw, su);
+        kept[i * 32] = q.c;
+        kept[row + i * 32] = q.q;
+        kept[2 * row + i * 32] = q.p;
+      });
+
+  // the adjoint of (A, B) after the chunk's last step
+  float ra = 0.f, rb = 0.f, pa = MIN_VALUE;
+  if (LAST) {
+    const float* rsum = rev_sums + (size_t)ch.b * chunks * 3 * C + ch.c;
+    const int later = chunks - 1 - ch.j;  // chunks j+1 .. chunks-1, the last one first
+    prefetched<BWD_G>(
+        later,
+        [&](int i) {
+          const float* x = rsum + (size_t)(chunks - 1 - i) * 3 * C;
+          return Summary{x[0], x[C], x[2 * C]};
+        },
+        [&](int i, Summary x) {
+          float ww = pa;
+          for (int n = chunk_steps(chunks - 1 - i, T, chunks); n > 0; --n) ww += ww_dec;
+          const float2 e = exp_pair(ww, x.p, pa);
+          ra = e.x * ra + e.y * x.a;
+          rb = e.x * rb + e.y * x.b;
+        });
   }
-  atomicAdd(gw + c, sw);
-  atomicAdd(gu + c, su);
 
-  // reverse sweep: (aa, bb) = the adjoint of (A, B) under the scale e^pp
-  aa = 0.f;
-  bb = 0.f;
-  pp = MIN_VALUE;
-  for (int t = T - 1; t >= 0; --t) {
-    const size_t i = base + (size_t)t * C;
-    const float kk = k[i], vv = v[i], yy = y[i], qq = gk[i], rr = gv[i];
-    float e1 = qq * expf(rr);   // gy * e^(u+k) / (B + e^(u+k))
-    float e2 = expf(kk + pp);   // e^k times the adjoint's scale
-    gk[i] = e1 * (vv - yy) + e2 * (aa * vv + bb);
-    gv[i] = e1 + e2 * aa;
-    const float ww = ww_dec + pp;
-    const float www = rr - uu - kk;  // -log(B + e^(u+k)) up to the forward's scale
-    const float p = fmaxf(ww, www);
-    e1 = expf(ww - p);
-    e2 = qq * expf(www - p);
-    aa = e1 * aa + e2;
-    bb = e1 * bb - e2 * yy;
-    pp = p;
+  // reverse sweep
+  prefetched<BWD_G>(
+      ch.len,
+      [&](int i) {
+        const int t = ch.len - 1 - i;
+        const size_t o = base + (size_t)t * C;
+        return Step6{k[o], v[o], y[o], kept[t * 32], kept[row + t * 32], kept[2 * row + t * 32]};
+      },
+      [&](int i, Step6 x) {
+        if (LAST) {
+          const size_t o = base + (size_t)(ch.len - 1 - i) * C;
+          const float e = expf(x.k + pa);  // e^k times the adjoint's scale
+          gk[o] = x.c * (x.v - x.y) + e * (ra * x.v + rb);
+          gv[o] = x.c + e * ra;
+        }
+        // -p_t: the scale of gy / (B + e^(u+k)) is e^-p_t
+        const float2 e = exp_pair(ww_dec + pa, -x.p, pa);
+        ra = e.x * ra + e.y * x.q;
+        rb = e.x * rb - e.y * x.q * x.y;
+      });
+
+  if (LAST) {
+    float* out = parts + ((size_t)ch.b * chunks + ch.j) * 2 * C + ch.c;
+    out[0] = sw;
+    out[C] = su;
+  } else {
+    float* out = rev_sums + ((size_t)ch.b * chunks + ch.j) * 3 * C + ch.c;
+    out[0] = ra;
+    out[C] = rb;
+    out[2 * C] = pa;
   }
 }
 
-int blocks(int B, int C) { return (B * C + THREADS - 1) / THREADS; }
+// gw (g = 0) and gu (g = 1) of channel c: the partials [B, chunks, 2, C]
+// added batch row by batch row, chunk by chunk.
+__global__ void wkv_bwd_sum_kernel(int B, int C, int chunks, const float* __restrict__ parts,
+                                   float* __restrict__ gw, float* __restrict__ gu) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= 2 * C) return;
+  const int g = idx / C, c = idx % C;
+  const float* x = parts + (size_t)g * C + c;
+  float acc = 0.f;
+  for (int i = 0; i < B * chunks; ++i) acc += x[(size_t)i * 2 * C];
+  (g == 0 ? gw : gu)[c] = acc;
+}
+
 
 int sm_count(int* sms) {
   int dev = 0;
@@ -291,6 +471,14 @@ int wkv_fwd_chunks(int B, int T, int C) {
   int n = 1;
   while (n < MAX_CHUNKS && warps * n < 4L * sms && (T + 2 * n - 1) / (2 * n) >= MIN_CHUNK) n *= 2;
   return n;
+}
+
+// The chunks wkv_bwd cuts T into: wkv_fwd_chunks, or more where a chunk
+// would hold more than BWD_MAX_STEPS steps.  Launches nothing; a negative
+// value is a CUDA error code, negated.
+int wkv_bwd_chunks(int B, int T, int C) {
+  const int n = wkv_fwd_chunks(B, T, C);
+  return n < 1 ? n : max(n, (T + BWD_MAX_STEPS - 1) / BWD_MAX_STEPS);
 }
 
 // y [B, T, C] and the final state (aa1, bb1, pp1) [B, C] from the initial
@@ -327,17 +515,52 @@ int wkv_fwd(const void* w, const void* u, const void* k, const void* v, const vo
 }
 
 // The backward of wkv_fwd from the initial state, for the output gradient
-// gy: gk, gv [B, T, C], and gw, gu [C] summed over the batch into buffers
-// the caller zeroed.  y is wkv_fwd's output.
+// gy: gk, gv [B, T, C], and gw, gu [C] summed over the batch.  y is
+// wkv_fwd's output.  T is cut into `chunks` chunks (more than T is taken
+// as T; at most BWD_MAX_STEPS steps a chunk); work is a float32 workspace
+// of 10 * B * chunks * C words: the forward summaries [B, chunks, 5, C],
+// the reverse ones [B, chunks, 3, C] and the partial gw, gu [B, chunks, 2,
+// C].  B = 0 (or T = 0) writes gw = gu = 0.
 int wkv_bwd(const void* w, const void* u, const void* k, const void* v, const void* y,
-            const void* gy, void* gw, void* gu, void* gk, void* gv, int B, int T, int C,
-            void* stream) {
-  if (B * C == 0) return 0;
-  wkv_bwd_kernel<<<blocks(B, C), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      B, T, C, static_cast<const float*>(w), static_cast<const float*>(u),
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(y), static_cast<const float*>(gy), static_cast<float*>(gw),
-      static_cast<float*>(gu), static_cast<float*>(gk), static_cast<float*>(gv));
+            const void* gy, void* work, void* gw, void* gu, void* gk, void* gv, int chunks,
+            int B, int T, int C, void* stream) {
+  chunks = min(chunks, max(T, 1));
+  if (chunks < 1 || (T + chunks - 1) / chunks > BWD_MAX_STEPS || !work)
+    return (int)cudaErrorInvalidValue;
+  if (C == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* wp = static_cast<const float*>(w);
+  const float* up = static_cast<const float*>(u);
+  const float* kp = static_cast<const float*>(k);
+  const float* vp = static_cast<const float*>(v);
+  float* fwd_sums = static_cast<float*>(work);
+  float* rev_sums = fwd_sums + 5LL * B * chunks * C;
+  float* parts = rev_sums + 3LL * B * chunks * C;
+  if (B > 0) {
+    const int warps = B * ((C + 31) / 32) * chunks;
+    const int grid = (warps + BWD_WARPS - 1) / BWD_WARPS;
+    const int L = (T + chunks - 1) / chunks;
+    const size_t smem = (size_t)BWD_WARPS * 3 * L * 32 * sizeof(float);
+    const float* yp = static_cast<const float*>(y);
+    const float* gyp = static_cast<const float*>(gy);
+    if (chunks > 1) {
+      wkv_bwd_summary_kernel<<<grid, BWD_WARPS * 32, 0, s>>>(B, T, C, chunks, wp, kp, vp,
+                                                              fwd_sums);
+      wkv_bwd_chunk_kernel<false><<<grid, BWD_WARPS * 32, smem, s>>>(
+          B, T, C, chunks, wp, up, kp, vp, yp, gyp, fwd_sums, rev_sums, parts, nullptr,
+          nullptr);
+      const cudaError_t e = cudaGetLastError();
+      if (e != cudaSuccess) return (int)e;
+    }
+    wkv_bwd_chunk_kernel<true><<<grid, BWD_WARPS * 32, smem, s>>>(
+        B, T, C, chunks, wp, up, kp, vp, yp, gyp, fwd_sums, rev_sums, parts,
+        static_cast<float*>(gk), static_cast<float*>(gv));
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+  }
+  wkv_bwd_sum_kernel<<<(2 * C + 255) / 256, 256, 0, s>>>(B, C, chunks, parts,
+                                                         static_cast<float*>(gw),
+                                                         static_cast<float*>(gu));
   return (int)cudaGetLastError();
 }
 

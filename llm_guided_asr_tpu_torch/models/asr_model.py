@@ -75,14 +75,18 @@ def extract_features(model: nn.Module, speech: torch.Tensor, speech_lengths: tor
                      rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """[B, S] waveform -> log-mel -> SpecAug (training mode) -> normalized
     features, for a model whose ``cfg`` has ``frontend``, ``specaug`` and
-    ``normalize`` (and the ``mvn_*`` buffers for global MVN)."""
+    ``normalize`` (and the ``mvn_*`` buffers for global MVN).  With no
+    frontend (None), ``speech`` is already features [B, T, F]."""
     cfg = model.cfg
     f = cfg.frontend
-    feats, feats_lengths = default_frontend(
-        speech, speech_lengths, fs=f.fs, n_fft=f.n_fft, win_length=f.win_length,
-        hop_length=f.hop_length, n_mels=f.n_mels, fmin=f.fmin, fmax=f.fmax,
-        htk=f.htk, center=f.center, window=f.window,
-    )
+    if f is None:
+        feats, feats_lengths = speech, speech_lengths
+    else:
+        feats, feats_lengths = default_frontend(
+            speech, speech_lengths, fs=f.fs, n_fft=f.n_fft, win_length=f.win_length,
+            hop_length=f.hop_length, n_mels=f.n_mels, fmin=f.fmin, fmax=f.fmax,
+            htk=f.htk, center=f.center, window=f.window,
+        )
     if cfg.specaug is not None and model.training:
         if rng is None:
             raise ValueError("SpecAug in training mode needs a StepRNG")

@@ -5,6 +5,11 @@ attention without repeating K/V, and a KV cache for decoding.  Pads may sit
 inside a row: positions default to cumsum(valid)-1 and pads are masked
 from the attention keys.
 
+Weights come from a local Hugging Face checkpoint directory
+(:func:`load_llama_dir`: ``config.json`` and ``model.safetensors``, read by
+:func:`load_safetensors` with the standard library and numpy, no hub
+lookup) through :func:`convert_hf_state_dict`.
+
 Attention follows the JAX module's type promotion: scores and the value
 product run in the common type of q and the keys, so a bfloat16 model that
 attends over a float32 cache computes that attention in float32.
@@ -13,8 +18,11 @@ attends over a float32 cache computes that attention in float32.
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import List, Optional, Tuple, Union
+import struct
+from pathlib import Path
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,6 +56,33 @@ class LlamaConfig:
     @property
     def head_dim(self) -> int:
         return self.hidden_size // self.num_attention_heads
+
+    @classmethod
+    def from_hf_config(cls, hf: Mapping[str, Any]) -> "LlamaConfig":
+        """From a parsed ``config.json`` (Llama or Qwen2)."""
+        rope_scaling = hf.get("rope_scaling") or {}
+        rope_type = rope_scaling.get("rope_type", rope_scaling.get("type"))
+        kw = dict(
+            vocab_size=hf["vocab_size"],
+            hidden_size=hf["hidden_size"],
+            intermediate_size=hf["intermediate_size"],
+            num_hidden_layers=hf["num_hidden_layers"],
+            num_attention_heads=hf["num_attention_heads"],
+            num_key_value_heads=hf.get("num_key_value_heads", hf["num_attention_heads"]),
+            rms_norm_eps=hf["rms_norm_eps"],
+            rope_theta=hf.get("rope_theta", 10000.0),
+            max_position_embeddings=hf["max_position_embeddings"],
+            attention_bias=hf.get("attention_bias", hf.get("model_type") == "qwen2"),
+            tie_word_embeddings=hf.get("tie_word_embeddings", False),
+        )
+        if rope_type == "llama3":
+            kw.update(
+                rope_scaling_factor=rope_scaling["factor"],
+                rope_low_freq_factor=rope_scaling["low_freq_factor"],
+                rope_high_freq_factor=rope_scaling["high_freq_factor"],
+                rope_original_max_position=rope_scaling["original_max_position_embeddings"],
+            )
+        return cls(**kw)
 
 
 def rope_frequencies(cfg: LlamaConfig) -> np.ndarray:
@@ -206,3 +241,86 @@ class LlamaModel(nn.Module):
                                                  layer_cache, cache_write_pos)
             new_cache.append(kv)
         return self.norm(x), new_cache
+
+
+# ---------------------------------------------------------------------------
+# Hugging Face checkpoints
+# ---------------------------------------------------------------------------
+
+# safetensors dtype -> (numpy type the bytes are read as, torch type)
+_SAFETENSORS_TYPES = {
+    "F64": (np.float64, torch.float64), "F32": (np.float32, torch.float32),
+    "F16": (np.float16, torch.float16), "BF16": (np.int16, torch.bfloat16),
+    "I64": (np.int64, torch.int64), "I32": (np.int32, torch.int32),
+    "I16": (np.int16, torch.int16), "I8": (np.int8, torch.int8),
+    "U8": (np.uint8, torch.uint8), "BOOL": (np.bool_, torch.bool),
+}
+
+
+def load_safetensors(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> {name: CPU tensor in the file's type}.
+
+    The format: an 8-byte little-endian header length, a JSON header of
+    ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (and an
+    optional ``__metadata__``), then the raw little-endian bytes.  Read
+    with the standard library and numpy; BF16 is read as 16-bit integers
+    and viewed as torch.bfloat16, bit for bit.
+    """
+    with open(path, "rb") as f:
+        (n_header,) = struct.unpack("<Q", f.read(8))
+        header = json.loads(f.read(n_header))
+        data = f.read()
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        if info["dtype"] not in _SAFETENSORS_TYPES:
+            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which is not read")
+        np_type, torch_type = _SAFETENSORS_TYPES[info["dtype"]]
+        begin, end = info["data_offsets"]
+        arr = np.frombuffer(data, dtype=np.dtype(np_type).newbyteorder("<"),
+                            count=(end - begin) // np.dtype(np_type).itemsize, offset=begin)
+        t = torch.from_numpy(arr.astype(np_type, copy=True)).reshape(info["shape"])
+        out[name] = t.view(torch_type) if torch_type == torch.bfloat16 else t
+    return out
+
+
+def convert_hf_state_dict(state_dict: Mapping[str, Any], cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """A ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` state dict -> the port's
+    :class:`LlamaModel` state dict in float32 (the names of the JAX
+    package's tree joined by dots; torch layouts need no transpose).
+    q/k/v biases are taken where ``cfg.attention_bias`` and the checkpoint
+    has them; ``lm_head.weight`` is returned too where the head is not tied
+    to the embedding (the model itself returns hidden states, so a caller
+    loading it drops that key)."""
+
+    def a(name):
+        w = state_dict[name]
+        return w.float() if isinstance(w, torch.Tensor) else torch.from_numpy(
+            np.asarray(w, dtype=np.float32))
+
+    sd = {"embed_tokens.weight": a("model.embed_tokens.weight"),
+          "norm.weight": a("model.norm.weight")}
+    for i in range(cfg.num_hidden_layers):
+        src, dst = f"model.layers.{i}", f"layers_{i}"
+        for name in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{dst}.{name}.weight"] = a(f"{src}.{name}.weight")
+        for proj in ("gate_proj", "up_proj", "down_proj"):
+            sd[f"{dst}.mlp.{proj}.weight"] = a(f"{src}.mlp.{proj}.weight")
+        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            sd[f"{dst}.self_attn.{proj}.weight"] = a(f"{src}.self_attn.{proj}.weight")
+            bias = f"{src}.self_attn.{proj}.bias"
+            if cfg.attention_bias and bias in state_dict and proj != "o_proj":
+                sd[f"{dst}.self_attn.{proj}.bias"] = a(bias)
+    if not cfg.tie_word_embeddings and "lm_head.weight" in state_dict:
+        sd["lm_head.weight"] = a("lm_head.weight")
+    return sd
+
+
+def load_llama_dir(path: Union[str, Path]) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    """A local checkpoint directory (``config.json`` and
+    ``model.safetensors``) -> (config, :func:`convert_hf_state_dict` of its
+    weights).  No hub lookup: the directory must hold both files."""
+    path = Path(path)
+    cfg = LlamaConfig.from_hf_config(json.loads((path / "config.json").read_text()))
+    return cfg, convert_hf_state_dict(load_safetensors(path / "model.safetensors"), cfg)

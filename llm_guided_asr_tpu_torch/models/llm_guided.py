@@ -55,7 +55,8 @@ class LLMGuidedASRConfig:
     vocab_size: int  # = LLM vocab size
     llm: LlamaConfig
     prompt: PromptTemplate
-    frontend: FrontendConfig = FrontendConfig()
+    # None: the model takes features [B, T, input_size], not waveforms
+    frontend: Optional[FrontendConfig] = FrontendConfig()
     specaug: Optional[SpecAugConfig] = None
     normalize: str = "global_mvn"  # global_mvn | utterance_mvn | none
     encoder_type: str = "conformer"
@@ -66,6 +67,23 @@ class LLMGuidedASRConfig:
     length_normalized_loss: bool = False
     ignore_id: int = -1
     blank_id: int = 0
+    # reference-compat quirk: the reference's training-time first-pass CTC
+    # collapse runs over the whole padded encoder output, so pad frames
+    # can leak tokens into shorter utterances' prompts.  False (the
+    # default) trims to the valid frames; True restores bit-parity with the
+    # reference (tests/parity/golden_llm_guided.npz)
+    first_pass_pad_frames: bool = False
+    # the feature width when ``frontend`` is None (the JAX model reads it
+    # off its input); otherwise the frontend's n_mels
+    input_size: Optional[int] = None
+
+    @property
+    def n_feat(self) -> int:
+        if self.frontend is not None:
+            return self.frontend.n_mels
+        if self.input_size is None:
+            raise ValueError("a model without a frontend needs input_size")
+        return self.input_size
 
     @property
     def sos_id(self) -> int:
@@ -85,7 +103,7 @@ class LLMGuidedASRModel(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         d = cfg.encoder.output_size
-        n_feat = cfg.frontend.n_mels
+        n_feat = cfg.n_feat
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
             self.ctc_head = nn.Linear(d, cfg.vocab_size)
@@ -116,7 +134,8 @@ class LLMGuidedASRModel(nn.Module):
     # ------------------------------------------------------------------
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                rng: Optional[StepRNG] = None):
-        """[B, S] waveform -> ([B, T', D] encoder output, [B] lengths);
+        """[B, S] waveform (or [B, T, input_size] features when the config
+        has no frontend) -> ([B, T', D] encoder output, [B] lengths);
         SpecAug runs in training mode, the encoder always in eval mode."""
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
         return self.encoder(feats, feats_lengths)
@@ -125,9 +144,11 @@ class LLMGuidedASRModel(nn.Module):
         return F.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
 
     def _first_pass_hyp(self, encoder_out, encoder_out_lengths):
-        """Greedy CTC hypothesis in LLM-vocab ids, over the valid frames only
-        (the JAX model's default, first_pass_pad_frames=False)."""
+        """Greedy CTC hypothesis in LLM-vocab ids, over the valid frames, or
+        over every frame with ``first_pass_pad_frames``."""
         cfg = self.cfg
+        if cfg.first_pass_pad_frames:
+            encoder_out_lengths = torch.full_like(encoder_out_lengths, encoder_out.shape[1])
         return ctc_greedy_decode(
             self.ctc_log_softmax(encoder_out), encoder_out_lengths,
             blank_id=cfg.blank_id, pad_id=cfg.prompt.pad_id,

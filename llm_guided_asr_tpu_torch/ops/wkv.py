@@ -21,8 +21,12 @@ door (the JAX custom VJP): an autograd function whose forward is
 The forward kernel is a chunked scan: it cuts T into :func:`chunks`
 pieces, scans each from the zero state into a summary kept in a float32
 workspace that the wrapper allocates, folds the summaries in a fixed
-order and rescans each chunk from the state it carried in.  No atomics:
-a repeat call is bitwise equal.
+order and rescans each chunk from the state it carried in.  The backward
+kernel cuts T into :func:`bwd_chunks` pieces the same way: each chunk
+folds the forward summaries, sweeps forward and then backward from the
+adjoint folded in from the later chunks' reverse summaries; gw and gu are
+per-(batch row, chunk) partials added in a fixed order.  No atomics: a
+repeat call of either is bitwise equal.
 """
 
 from __future__ import annotations
@@ -43,10 +47,10 @@ KERNEL = CudaKernel(
     "wkv.cu",
     {
         "wkv_fwd": [_P] * 12 + [_I] * 4 + [_P],
-        "wkv_bwd": [_P] * 10 + [_I] * 3 + [_P],
+        "wkv_bwd": [_P] * 11 + [_I] * 4 + [_P],
     },
     error_fn="wkv_error_string",
-    queries={"wkv_fwd_chunks": [_I] * 3},
+    queries={"wkv_fwd_chunks": [_I] * 3, "wkv_bwd_chunks": [_I] * 3},
 )
 
 
@@ -90,11 +94,13 @@ def wkv_bwd_plain(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor, v: torch.Te
                   gy: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """(gw, gu, gk, gv) by autograd through :func:`wkv_scan` from the
     initial state (the JAX package's backward, the VJP of the scan)."""
+    if k.shape[1] == 0:  # no step: nothing reaches any input
+        return torch.zeros_like(w), torch.zeros_like(u), torch.zeros_like(k), torch.zeros_like(v)
     with torch.enable_grad():
         leaves = [x.detach().float().requires_grad_(True) for x in (w, u, k, v)]
         y, _ = wkv_scan(*leaves)
         gw, gu, gk, gv = torch.autograd.grad(y, leaves, gy.float(), allow_unused=True,
-                                             materialize_grads=True)  # T = 0: zeros
+                                             materialize_grads=True)  # T = 1: w unused
     return gw, gu, gk.to(k.dtype), gv.to(v.dtype)
 
 
@@ -164,15 +170,21 @@ def chunks(k: torch.Tensor) -> int:
     """The chunks the forward kernel cuts T into for k's [B, T, C] shape on
     its device (a CUDA tensor): more than 1 only where one warp per 32
     channels would leave the card part idle and the chunks stay long."""
-    return _chunks(k.device.index, *k.shape)
+    return _chunks("wkv_fwd_chunks", k.device.index, *k.shape)
+
+
+def bwd_chunks(k: torch.Tensor) -> int:
+    """The chunks the backward kernel cuts T into: the forward's count, or
+    more where a chunk would hold more than 64 steps."""
+    return _chunks("wkv_bwd_chunks", k.device.index, *k.shape)
 
 
 @functools.lru_cache(maxsize=4096)
-def _chunks(device_index, b, t, c) -> int:
+def _chunks(query, device_index, b, t, c) -> int:
     with torch.cuda.device(device_index):
-        n = KERNEL.query("wkv_fwd_chunks", b, t, c)
+        n = KERNEL.query(query, b, t, c)
     if n < 1:
-        raise RuntimeError(f"wkv_fwd_chunks failed: CUDA error {-n}")
+        raise RuntimeError(f"{query} failed: CUDA error {-n}")
     return n
 
 
@@ -181,9 +193,9 @@ def wkv_bwd(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (gw, gu, gk, gv) of y = wkv(w, u, k, v) for the output
     gradient ``gy``: gw and gu [C] float32 summed over the batch, gk and gv
     in k's type.  ``y`` is the forward's output.  On CPU tensors this is
-    :func:`wkv_bwd_plain` (y unused); on CUDA tensors the kernel, whose gw
-    and gu are float32 atomic sums over the batch (their last bits may
-    change from run to run)."""
+    :func:`wkv_bwd_plain` (y unused); on CUDA tensors the kernel, which sums
+    gw and gu over the batch in a fixed order (a repeat call is bitwise
+    equal)."""
     _check(w, u, k, v)
     if y.shape != k.shape or gy.shape != k.shape:
         raise ValueError("wkv_bwd: y and gy must have k's shape")
@@ -192,14 +204,18 @@ def wkv_bwd(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf, vf, yf, gyf = (x.float().contiguous() for x in (k, v, y, gy))
     _check_card(w, u, kf, vf, yf, gyf)
     b, t, c = k.shape
-    gw, gu = torch.zeros_like(w), torch.zeros_like(u)
     gk, gv = torch.empty_like(kf), torch.empty_like(vf)
-    if b * c > 0:
-        with torch.cuda.device(k.device):
-            KERNEL.launch("wkv_bwd", w.data_ptr(), u.data_ptr(), kf.data_ptr(), vf.data_ptr(),
-                          yf.data_ptr(), gyf.data_ptr(), gw.data_ptr(), gu.data_ptr(),
-                          gk.data_ptr(), gv.data_ptr(), b, t, c,
-                          torch.cuda.current_stream().cuda_stream)
+    if b * c == 0:  # nothing to sum
+        return torch.zeros_like(w), torch.zeros_like(u), gk.to(k.dtype), gv.to(v.dtype)
+    gw, gu = torch.empty_like(w), torch.empty_like(u)
+    with torch.cuda.device(k.device):
+        n = bwd_chunks(k)
+        # forward and reverse chunk summaries, then the partial gw, gu
+        work = torch.empty(10 * b * n * c, dtype=torch.float32, device=k.device)
+        KERNEL.launch("wkv_bwd", w.data_ptr(), u.data_ptr(), kf.data_ptr(), vf.data_ptr(),
+                      yf.data_ptr(), gyf.data_ptr(), work.data_ptr(), gw.data_ptr(),
+                      gu.data_ptr(), gk.data_ptr(), gv.data_ptr(), n, b, t, c,
+                      torch.cuda.current_stream().cuda_stream)
     return gw, gu, gk.to(k.dtype), gv.to(v.dtype)
 
 

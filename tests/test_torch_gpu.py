@@ -402,14 +402,20 @@ def test_wkv_forward_is_deterministic(card, b, t, c, given_state):
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,c,k_scale", [
     (16, 25, 512, 1.0),  # training: the prediction network over U + 1 = 25 labels
+    (16, 25, 512, 30.0),
+    (16, 101, 512, 1.0),  # the labels of ~40 s of audio: 4 chunks of 26 steps
+    (16, 101, 512, 30.0),  # |k| up to ~100 across the chunk folds
     (2, 17, 70, 1.0),
     (1, 1, 33, 1.0),
     (3, 30, 40, 30.0),
+    (1, 200, 64, 30.0),  # 8 chunks of 25 steps
+    (1, 2000, 512, 1.0),  # 32 chunks of 63 steps, the longest a chunk may be
 ])
 def test_wkv_backward_matches_autograd(card, b, t, c, k_scale):
     """The backward kernel against autograd through the plain loop: every
-    gradient at 1e-4 of its largest reference value; gw and gu are float32
-    atomic sums over the batch, so their order changes between runs."""
+    gradient at 1e-4 of its largest reference value (the kernel sums over T
+    in another order, across chunks through the fold of their summaries,
+    and gw, gu over the batch from per-(b, chunk) partials)."""
     rng = np.random.default_rng(b + t + c)
     w, u, k, v = _wkv_inputs(rng, b, t, c, k_scale, card)
     gy = _rand(rng, b, t, c, scale=1.0).to(card)
@@ -425,6 +431,34 @@ def test_wkv_backward_matches_autograd(card, b, t, c, k_scale):
         assert g.shape == r.shape and g.dtype == torch.float32, name
         err = (g - r).abs().max().item()
         assert err <= 1e-4 * r.abs().max().item() + 1e-6, (name, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,c", [(16, 25, 512), (16, 101, 512), (5, 201, 512), (1, 1, 33)])
+def test_wkv_backward_is_deterministic(card, b, t, c):
+    """No atomics: gw and gu are per-(b, chunk) partials added in a fixed
+    order, so two calls are bitwise equal; the chunk count is the
+    forward's, with chunks of at most 64 steps."""
+    rng = np.random.default_rng(t + 1)
+    w, u, k, v = _wkv_inputs(rng, b, t, c, 1.0, card)
+    y, gy = twkv.wkv_fwd(w, u, k, v)[0], _rand(rng, b, t, c, scale=1.0).to(card)
+    n = twkv.bwd_chunks(k)
+    assert n >= twkv.chunks(k) and -(-t // n) <= 64
+    before = _counts()
+    first, second = (twkv.wkv_bwd(w, u, k, v, y, gy) for _ in range(2))
+    torch.cuda.synchronize()
+    assert _counts() == {**before, "wkv_bwd": before["wkv_bwd"] + 2}
+    assert all(map(torch.equal, first, second))
+
+
+@pytest.mark.gpu
+def test_wkv_backward_of_no_steps(card):
+    """T = 0: the kernel writes gw = gu = 0 and no gk, gv."""
+    w, u, k, v = _wkv_inputs(np.random.default_rng(0), 2, 0, 8, 1.0, card)
+    gw, gu, gk, gv = twkv.wkv_bwd(w, u, k, v, k, v)
+    torch.cuda.synchronize()
+    assert gk.shape == (2, 0, 8) and gv.shape == (2, 0, 8)
+    assert not gw.any() and not gu.any()
 
 
 @pytest.mark.gpu
@@ -757,3 +791,19 @@ def test_flash_asr_decoding_on_the_card_matches_the_cpu(card):
     assert [ids for ids, _ in out["gpu"]] == [ids for ids, _ in out["cpu"]]
     np.testing.assert_allclose([h.score for _, h in out["gpu"]],
                                [h.score for _, h in out["cpu"]], rtol=1e-4)
+
+
+@pytest.mark.gpu
+def test_golden_fixtures_on_the_card(card):
+    """The reference's golden fixtures (tests/parity/) at the JAX parity
+    tests' tolerances, with the encoders on the rel-pos and depthwise
+    forward kernels at head dim 16 and conv kernel 7: 3 encoder passes of 2
+    blocks, nothing else launched."""
+    from llm_guided_asr_tpu_torch.bin import golden_check
+
+    before = _counts()
+    golden_check.run_all(card)
+    torch.cuda.synchronize()
+    after = _counts()
+    launched = {k: after[k] - before[k] for k in after}
+    assert launched == {k: 6 if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0 for k in after}
