@@ -82,11 +82,31 @@ prints how long it took):
               (2 x 32, head dim 16, conv kernel 7) launch the rel-pos and
               depthwise forward kernels 6 times each, nothing else; then
               both kernels on their own at those shapes against their
-              plain versions (1e-5, 1e-4).
+              plain versions (1e-5, 1e-4); and golden_trained_guided.npz:
+              the 30-utterance tone corpus made again from seed 0 (the
+              int16 wav round trip included), the template split by the
+              port's tokenizer, every utterance decoded at beam 10 from a
+              reference-trained checkpoint: the reference's hypotheses,
+              scores within 5e-3, its CER (one encoder pass of 2 blocks an
+              utterance);
+12. serve-batch -- phase 3's model serving 8 requests in one
+              Speech2Text.batch_call (10.0, 7.3, 4.1, 10.0, 7.3, 4.1, 10.0,
+              7.3 s of phase 3's seeded noise, padded to 10 s: T' = 312
+              with 312, 229 or 129 valid frames a lane; beam 10, the
+              24-token cap): one warm-up and 3 timed batches (median
+              latency and spread, audio seconds per second, peak memory,
+              12 launches of each encoder forward kernel a batch and no
+              backward), the hypotheses' score bookkeeping, one profiled
+              batch's device busy share; then, with a float32 copy of the
+              LLM, each lane of a batch against the same lane decoded
+              alone from the batch's encoder rows (tokens equal, scores
+              within 1e-3; a lane that differs must be a near tie, the two
+              candidates within 1e-4).
 
-``--phase train-1|train-transducer|golden`` builds the kernels and runs that
-phase alone (no kernel table); ``--package-root DIR`` then imports the port
-from another checkout, so that two revisions run one phase in turns.
+``--phase train-1|train-transducer|golden|serve|serve-batch`` builds the
+kernels and runs that phase alone (no kernel table); ``--package-root DIR``
+then imports the port from another checkout, so that two revisions run
+one phase in turns.
 
 Phase 2 also holds the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
@@ -106,7 +126,10 @@ events), each beside F.scaled_dot_product_attention with the same key mask
 (timed only; the forward's and the backward pair's TFLOP/s and ratio to it
 printed); and
 the rel-pos forward at the long-form length [1, 4, 1874, 64], the
-yardstick beside the flash forward.  The rel-pos entry points are also
+yardstick beside the flash forward; and the two encoder forwards at the
+batched serving shapes of phase 12 ([8, 4, 312, 64] with 312, 229, 129,
+312, 229, 129, 312 and 229 valid keys; [8, 312, 256] x [31, 256]), f32,
+CUDA graph.  The rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
 (serving and training shapes, the backward's dp included), and their
@@ -144,6 +167,10 @@ F32_PRODUCT_FLOPS = 495e12 / 3
 
 SR = 16000
 REQUEST_SECONDS = (10.0, 7.3, 4.1)
+# phase 12: one batch of 8 requests of phase 3's lengths, padded to 10 s
+BATCH_SECONDS = (10.0, 7.3, 4.1, 10.0, 7.3, 4.1, 10.0, 7.3)
+BATCH_T, BATCH_LENS = 312, (312, 229, 129, 312, 229, 129, 312, 229)  # encoder frames
+BATCH_ROUNDS = 3
 ROUNDS = 3  # timed runs of each request (phases 3 and 7)
 TRAIN_B, TRAIN_SECONDS, TRAIN_WARMUP, TRAIN_STEPS = 64, 10.0, 2, 10
 GUIDED_B, GUIDED_WARMUP, GUIDED_STEPS = 2, 1, 5
@@ -328,9 +355,41 @@ def check_rel_attention(ra, dtype, gen, card, t=312, n_masked=25, plain_launches
     return r
 
 
-def check_dwconv(dc, dtype, k_size, gen, card):
-    """Serving shape: [1, 312, 256] x [31, 256]; also an even K."""
-    b, t, c = 1, 312, 256
+def check_rel_attention_batch(ra, gen, card):
+    """The batched serving shape of phase 12, float32: [8, 4, 312, 64] with
+    each lane's valid keys; the time and the bound at these inputs (each
+    query row against its lane's valid keys)."""
+    b, h, t, dk = len(BATCH_LENS), 4, BATCH_T, 64
+    mk = lambda *s: torch.randn(*s, generator=gen, device="cuda")  # noqa: E731
+    qu, qv, k, v = (mk(b, h, t, dk) for _ in range(4))
+    p = mk(h, 2 * t - 1, dk)
+    sm = 1.0 / math.sqrt(dk)
+    lens = torch.tensor(BATCH_LENS, device="cuda")
+    kv_valid = (torch.arange(t, device="cuda")[None] < lens[:, None]).to(torch.int32)
+    out = ra.rel_attention(qu, qv, k, v, p, kv_valid, sm)
+    ref = ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm)
+    torch.cuda.synchronize()
+    err, tol = max_err(out, ref), rel_attention_tol(ref)
+    if not err <= tol:
+        raise AssertionError(f"rel_attention serve-batch: {err} > {tol}")
+    n = lens.sum().item()
+    n_bytes = 4 * (3 * b * h * t * dk + 2 * h * dk * n + h * (t + max(BATCH_LENS) - 1) * dk) + 4 * b * t
+    flops = 6.0 * h * t * dk * n
+    bms, by = bound_ms(n_bytes, flops, torch.float32, products=True)
+    r = dict(err=err, tol=tol, ms=graph_time_ms(lambda: ra.rel_attention(qu, qv, k, v, p, kv_valid, sm)),
+             plain_ms=graph_time_ms(lambda: ra.rel_attention_plain(qu, qv, k, v, p, kv_valid, sm),
+                                    launches=5),
+             library_ms=None, bound_ms=bms, bound_by=by)
+    print(f"[kernels] rel_attention_fwd serve-batch [{b},{h},{t},{dk}] lanes {list(BATCH_LENS)}: "
+          f"{r['ms'] * 1e3:.2f} us ({flops / (r['ms'] * 1e9):.1f} TFLOP/s, "
+          f"{ra.key_splits(qu)} key splits) [{card}]")
+    return r
+
+
+def check_dwconv(dc, dtype, k_size, gen, card, b=1):
+    """Serving shape: [1, 312, 256] x [31, 256]; also an even K, and the
+    batched serving shape [8, 312, 256]."""
+    t, c = 312, 256
     x = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
     w = torch.randn(k_size, c, generator=gen, device="cuda").to(dtype)
     y = dc.depthwise_conv1d(x, w)
@@ -356,7 +415,7 @@ def check_dwconv(dc, dtype, k_size, gen, card):
         library_ms=graph_time_ms(lib),
         bound_ms=bms, bound_by=by,
     )
-    print(f"[kernels] dwconv1d_fwd serve [{b},{t},{c}] K={k_size} {str(dtype)[6:]}: "
+    print(f"[kernels] dwconv1d_fwd [{b},{t},{c}] K={k_size} {str(dtype)[6:]}: "
           f"{r['ms'] * 1e3:.2f} us against F.conv1d's {r['library_ms'] * 1e3:.2f} us "
           f"({r['ms'] / r['library_ms']:.2f}x) [{card}]")
     return r
@@ -890,6 +949,12 @@ def phase_kernels(ra, dc, wk, fa, card):
     _print_timing(card, "rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32, r)
     results[("rel_attention_fwd", f"serve B=1 T={FLASH_T}", torch.float32)] = r
     check_rel_attention_edges(ra, gen)
+    for name, shape, r in (
+            ("rel_attention_fwd", "serve-batch", check_rel_attention_batch(ra, gen, card)),
+            ("dwconv1d_fwd", "serve-batch", check_dwconv(dc, torch.float32, 31, gen, card,
+                                                         b=len(BATCH_LENS)))):
+        _print_timing(card, name, f"serve-batch B={len(BATCH_LENS)} T={BATCH_T}", torch.float32, r)
+        results[(name, shape, torch.float32)] = r
     for shape, r in check_wkv(wk, gen, card).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
@@ -965,8 +1030,7 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
     s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
-    rng = np.random.default_rng(0)
-    waves = [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+    waves = request_waves(seconds)
     frames = encoder_frames(model, waves)
     print(f"[{tag}] encoder frames T' of the " + ", ".join(f"{s:.1f}" for s in seconds)
           + " s requests: " + ", ".join(map(str, frames)))
@@ -1004,12 +1068,9 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
         print(f"[{tag}] {sec:.1f} s audio: hyp {len(ids)} tokens, score {hyp.score:.4f} "
               f"{hyp.scores}")
     for ids, hyp in hyps:
-        if not math.isfinite(hyp.score) or not all(0 <= i < model.cfg.vocab_size for i in ids):
+        if not all(0 <= i < model.cfg.vocab_size for i in ids):
             raise AssertionError(f"bad hypothesis: {hyp}")
-        # total = att_weight * decoder + ctc_weight * ctc (penalty 0)
-        want = 0.7 * hyp.scores["decoder"] + 0.3 * hyp.scores["ctc"]
-        if abs(hyp.score - want) > 1e-3 * max(1.0, abs(want)):
-            raise AssertionError(f"score {hyp.score} != weighted parts {want}")
+        check_scores(hyp)
     for i, (ids, _) in enumerate(hyps):
         if ids != hyps[i % len(seconds)][0]:
             raise AssertionError("the same request gave different hypotheses across rounds")
@@ -1039,6 +1100,142 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
     if not (err <= 1e-3 and torch.equal(lens_gpu.cpu(), lens_cpu)):
         raise AssertionError(f"encoder disagrees with the CPU plain path: {err}")
     return launches, waves, float(np.median(lat[seconds[0]]))
+
+
+def request_waves(seconds=REQUEST_SECONDS) -> list:
+    """Phase 3's seeded noise: one waveform per request length."""
+    rng = np.random.default_rng(0)
+    return [(rng.standard_normal(int(s * SR)) * 0.1).astype(np.float32) for s in seconds]
+
+
+def check_scores(hyp) -> None:
+    """Finite, and score = att_weight * decoder + ctc_weight * ctc (0.7 and
+    0.3, penalty 0)."""
+    want = 0.7 * hyp.scores["decoder"] + 0.3 * hyp.scores["ctc"]
+    if not math.isfinite(hyp.score) or abs(hyp.score - want) > 1e-3 * max(1.0, abs(want)):
+        raise AssertionError(f"score {hyp.score} != weighted parts {want}")
+
+
+def phase_serve_batch(model, kernels, card):
+    """Phase 3's model serving 8 ragged requests in one batch_call: one
+    warm-up and BATCH_ROUNDS timed batches, launch counts, score
+    bookkeeping, a profiled batch; then each lane against the same lane
+    decoded alone, with a float32 copy of the LLM."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    by_len = dict(zip(REQUEST_SECONDS, request_waves()))
+    waves = [by_len[s] for s in BATCH_SECONDS]
+    audio_s = sum(BATCH_SECONDS)
+    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    t0 = time.perf_counter()
+    s2t.batch_call(waves)
+    torch.cuda.synchronize()
+    print(f"[serve-batch] warm-up batch of {len(waves)} requests ({audio_s:.1f} s of audio): "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    lat, outs = [], []
+    for _ in range(BATCH_ROUNDS):
+        t0 = time.perf_counter()
+        outs.append(s2t.batch_call(waves))
+        torch.cuda.synchronize()
+        lat.append(time.perf_counter() - t0)
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    ms = sorted(x * 1e3 for x in lat)
+    med = float(np.median(ms))
+    print(f"[serve-batch] B={len(waves)} ({audio_s:.1f} s of audio), {len(ms)} batches: latency "
+          f"median {med:.1f} ms (min {ms[0]:.1f}, max {ms[-1]:.1f}), {audio_s / med * 1e3:.2f} "
+          f"audio s/s at the median; peak memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+    print(f"[serve-batch] kernel launches over {len(ms)} batches: {launches}")
+    n_blocks = model.cfg.encoder.num_blocks
+    for name, n in launches.items():
+        want = n_blocks * len(ms) if name in ENCODER_FWD else 0
+        if n != want:
+            raise AssertionError(f"serve-batch: {name}: {n} launches, expected {want}")
+    for sec, ((ids, hyp),) in zip(BATCH_SECONDS, outs[0]):
+        print(f"[serve-batch] {sec:.1f} s lane: hyp {len(ids)} tokens, score {hyp.score:.4f}")
+    for out in outs:
+        for (ids, hyp), in out:
+            check_scores(hyp)
+            if not all(0 <= i < model.cfg.vocab_size for i in ids):
+                raise AssertionError(f"bad hypothesis: {hyp}")
+        if [r[0][0] for r in out] != [r[0][0] for r in outs[0]]:
+            raise AssertionError("the same batch gave different hypotheses across rounds")
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s2t.batch_call(waves)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev_ms, events = device_busy(prof)
+    print(f"[serve-batch] batch traced (host and card): wall {wall * 1e3:.1f} ms, device busy "
+          f"{dev_ms:.1f} ms = {100 * dev_ms / med:.1f}% of the unprofiled median latency [{card}]")
+    print_top("serve-batch", events)
+    # the PyTorch ops whose kernels take the most device time
+    ops = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[serve-batch]   op {e.key[:40]:40s} {e.self_device_time_total / 1e3:8.2f} ms "
+              f"device, {e.count:6d} calls")
+    check_batch_against_single(model, waves)
+    return launches
+
+
+def check_batch_against_single(model, waves):
+    """A float32 copy of the model (the LLM in float32, so that bf16
+    rounding at another row count decides nothing) decodes the batch, and
+    each lane alone from the batch's own encoder rows (alone through
+    Speech2Text, a 7.3 s request would get 227 encoder frames where the
+    batch gives it 229: sub4_lengths rounds up and clamps to the padded
+    width, as in JAX).  Tokens equal and scores within 1e-3; where a lane
+    differs, the step where it parts and the gap between the two
+    candidates (the lone search's score of its best against that of the
+    batch's best) are printed, and a gap above 1e-4 fails."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import round_up
+    from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
+    from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
+    from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+
+    f32 = LLMGuidedASRModel(model.cfg, llm_dtype=torch.float32, device="cuda")
+    f32.load_state_dict(model.state_dict())
+    f32.eval()
+    cfg = f32.cfg
+    bs = BatchBeamSearch(f32, vocab_size=cfg.vocab_size, sos=cfg.sos_id, eos=cfg.eos_id,
+                         beam_size=10, ctc_weight=0.3, att_scorer=CachedGuidedScorer(f32))
+    n = round_up(max(len(w) for w in waves), 1600)
+    batch = np.zeros((len(waves), n), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, : len(w)] = w
+    with torch.inference_mode():
+        enc, lens = f32.encode(torch.from_numpy(batch).cuda(),
+                               torch.tensor([len(w) for w in waves], device="cuda"))
+    if tuple(lens.tolist()) != BATCH_LENS:
+        raise AssertionError(f"serve-batch encoder frames {lens.tolist()}, expected {BATCH_LENS}")
+    batched = bs.batch_decode(enc, lens, maxlenratio=-24.0, nbest=10)
+    worst = 0.0
+    for b, got in enumerate(batched):
+        alone = bs(enc[b:b + 1], lens[b:b + 1], maxlenratio=-24.0, nbest=10)
+        if got[0].yseq == alone[0].yseq:
+            err = abs(got[0].score - alone[0].score)
+            if err > 1e-3:
+                raise AssertionError(f"serve-batch lane {b}: score {got[0].score}, alone "
+                                     f"{alone[0].score}")
+            worst = max(worst, err)
+            continue
+        step = next(i for i, (x, y) in enumerate(zip(got[0].yseq + [-1], alone[0].yseq + [-1]))
+                    if x != y)
+        mine = [h.score for h in alone if h.yseq == got[0].yseq]
+        gap = alone[0].score - mine[0] if mine else math.inf
+        print(f"[serve-batch] lane {b} differs from its lone decode at token {step}: gap between "
+              f"the two candidates {gap:.3e}")
+        if gap > 1e-4:
+            raise AssertionError(f"serve-batch lane {b}: not a near tie (gap {gap})")
+    print(f"[serve-batch] float32 LLM: each lane's hypothesis equals its lone decode from the "
+          f"batch's encoder rows, score error at most {worst:.2e} (tol 1e-3)")
+    del f32, bs
+    torch.cuda.empty_cache()
 
 
 def device_busy(prof) -> tuple:
@@ -1487,9 +1684,11 @@ def phase_golden(kernels, card):
     CTC/attention model's encoder outputs (13 and 41 frames), CTC and
     decoder log-probs and beam-10, beam-1 and long-utterance hypotheses, and
     the LLM-guided model's loss, decoder log-probs, cached steps and
-    beam-10 hypothesis.  Their encoders (2 blocks of 32, head dim 16, conv
-    kernel 7) run the rel-pos and depthwise forward kernels: 3 encoder
-    passes, one launch of each a block."""
+    beam-10 hypothesis; and the reference-trained guided model's decodes and
+    CER on the 30-utterance tone corpus.  Their encoders (2 blocks of 32,
+    head dim 16, conv kernel 7) run the rel-pos and depthwise forward
+    kernels: 3 encoder passes and one an utterance of the corpus, one
+    launch of each a block."""
     from llm_guided_asr_tpu_torch.bin import golden_check
 
     reset_counts(kernels)
@@ -1497,8 +1696,10 @@ def phase_golden(kernels, card):
     torch.cuda.synchronize()
     launches = counts(kernels)
     blocks = golden_check.load_fixture("golden_conformer").meta["blocks"]
+    trained = golden_check.load_fixture("golden_trained_guided").meta
+    passes = 3 * blocks + (trained["corpus"]["n_train"] + trained["corpus"]["n_valid"]) * trained["blocks"]
     for name, n in launches.items():
-        want = 3 * blocks if name in ENCODER_FWD else 0
+        want = passes if name in ENCODER_FWD else 0
         if n != want:
             raise AssertionError(f"golden: {name} launched {n} times, expected {want}")
     print("[golden] every check passed: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
@@ -1541,7 +1742,8 @@ def check_golden_shapes() -> str:
 
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
-    the others (train-1, train-transducer or golden), and print its result;
+    the others (train-1, train-transducer, golden, serve or serve-batch),
+    and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
     script's phase code stays the same, so two revisions run the same
@@ -1553,7 +1755,9 @@ def run_one_phase(name: str, card: str) -> int:
 
     phases = {"train-1": lambda: phase_train1(kernels, card),
               "train-transducer": lambda: phase_train_transducer(build_transducer(), kernels, card),
-              "golden": lambda: phase_golden(kernels, card)}
+              "golden": lambda: phase_golden(kernels, card),
+              "serve": lambda: phase_serve(build_model(), kernels, card),
+              "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
@@ -1568,7 +1772,8 @@ def run_one_phase(name: str, card: str) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
-    ap.add_argument("--phase", help="run only this phase: train-1, train-transducer or golden")
+    ap.add_argument("--phase", help="run only this phase: train-1, train-transducer, golden, "
+                                    "serve or serve-batch")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -1609,6 +1814,7 @@ def main() -> int:
     paths = {}
     paths["serve"], waves, wall_10s = timed("serve", phase_serve, model, kernels, card)
     timed("profile", phase_profile, model, waves[0], wall_10s, card)
+    paths["serve-batch"] = timed("serve-batch", phase_serve_batch, model, kernels, card)
     paths["train-1"], _ = timed("train-1", phase_train1, kernels, card)
     paths["train-2"], _ = timed("train-2", phase_train2, model, kernels, card)
     del model
@@ -1680,6 +1886,12 @@ def main() -> int:
             s = timings[(name, f"serve B=1 T={FLASH_T}", f32)]
             row.update(longform_ms=s["ms"], longform_plain_ms=s["plain_ms"],
                        longform_bound_ms=s["bound_ms"])
+        if name in ENCODER_FWD:  # phase 12's batched serving shape
+            s = timings[(name, "serve-batch", f32)]
+            row.update(batch_shape=f"B={len(BATCH_LENS)} T={BATCH_T} lanes {list(BATCH_LENS)}",
+                       batch_ms=s["ms"], batch_plain_ms=s["plain_ms"], batch_bound_ms=s["bound_ms"],
+                       batch_library_ms=s["library_ms"], batch_max_abs_err=s["err"],
+                       batch_launches_per_batch=paths["serve-batch"][name] // BATCH_ROUNDS)
         table.append(row)
     print(card)
     print(json.dumps({"kernels": table}))

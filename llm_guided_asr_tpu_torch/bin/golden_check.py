@@ -14,7 +14,16 @@ arrays), its inputs, and its outputs at several levels.  Two are read here:
 - ``golden_llm_guided.npz``: the LLM-guided model with the tiny Llama of
   ``tests/parity/tiny_llm_bpe/`` (loaded by ``load_llama_dir``): the
   equal-length training loss, the teacher-forced guided-decoder log-probs,
-  every cached decoding step's log-probs, and the top beam-10 hypothesis.
+  every cached decoding step's log-probs, and the top beam-10 hypothesis;
+- ``golden_trained_guided.npz``: an LLM-guided model the reference
+  trained on the tone corpus (three characters, each a pure tone), with
+  the tiny Llama frozen: the 30 utterances of the corpus are made again
+  here from seed 0 (:func:`make_tone_corpus`, the int16 wav round trip
+  included), the template ``fix "((HYP))" then reply: `` is split with the
+  port's own reader of the BPE ``tokenizer.json``, and every utterance is
+  decoded at beam 10, ctc_weight 0.3 through the cached guided scorer:
+  hypotheses identical to the reference's, scores within 5e-3, and the
+  corpus CER equal (tests/test_wer_parity_trained_guided.py:137-177).
 
 Each check raises AssertionError on a miss, at the tolerances of the JAX
 package's own parity tests (tests/test_parity_reference.py,
@@ -42,13 +51,15 @@ from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
 from llm_guided_asr_tpu_torch.models.espnet_ingest import params_from_reference
 from llm_guided_asr_tpu_torch.models.llm.llama import load_llama_dir
-from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
+from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate, split_template
 from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRConfig, LLMGuidedASRModel
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.losses import add_sos_eos
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from llm_guided_asr_tpu_torch.text.tokenizers import LLMTokenizer
+from llm_guided_asr_tpu_torch.utils.metrics import error_rate
 
 GOLD = Path(__file__).resolve().parents[2] / "tests" / "parity"
 LLM_DIR = GOLD / "tiny_llm_bpe"
@@ -321,6 +332,107 @@ def check_guided_beam(model: LLMGuidedASRModel, fx: Fixture) -> float:
                            nbest=3)
 
 
+# ---------------------------------------------------------------------------
+# golden_trained_guided.npz (tests/test_wer_parity_trained_guided.py)
+# ---------------------------------------------------------------------------
+
+SR = 16000
+TONES = {"a": 400.0, "b": 900.0, "c": 1900.0}  # tests/test_e2e_tiny.py
+
+
+def _synth(text: str, rng: np.random.Generator) -> np.ndarray:
+    """50 ms of silence, then each character's 150 ms tone and 50 ms of
+    silence; noise of standard deviation 0.01 over all of it."""
+    chunks = [np.zeros(int(0.05 * SR), np.float32)]
+    for ch in text:
+        t = np.arange(int(0.15 * SR)) / SR
+        chunks.append(0.5 * np.sin(2 * np.pi * TONES[ch] * t).astype(np.float32))
+        chunks.append(np.zeros(int(0.05 * SR), np.float32))
+    wav = np.concatenate(chunks)
+    return wav + 0.01 * rng.standard_normal(len(wav)).astype(np.float32)
+
+
+def _wav_round_trip(wav: np.ndarray) -> np.ndarray:
+    """What a 16-bit wav file written and read back holds: clipped, scaled
+    by 32767 and truncated to int16 on the way out, divided by 32768 on
+    the way in."""
+    pcm = (np.clip(wav, -1.0, 1.0) * 32767.0).astype(np.int16)
+    return pcm.astype(np.float32) / 32768.0
+
+
+def make_tone_corpus(n_train: int = 24, n_valid: int = 6, seed: int = 0) -> Dict[str, tuple]:
+    """{uid: (waveform, text)} of the tone corpus, drawn in the order of
+    tests/test_e2e_tiny.py make_corpus: per utterance its length (2-5
+    characters), its characters, then its noise."""
+    rng = np.random.default_rng(seed)
+    chars = list(TONES)
+    out = {}
+    for split, n in (("train", n_train), ("valid", n_valid)):
+        for i in range(n):
+            text = "".join(rng.choice(chars) for _ in range(rng.integers(2, 6)))
+            out[f"{split}_{i:03d}"] = (_wav_round_trip(_synth(text, rng)), text)
+    return out
+
+
+def build_trained_guided(fx: Fixture, device) -> LLMGuidedASRModel:
+    """The reference-trained guided model: the fixture's encoder, CTC head
+    and guided decoder, the tiny Llama, the template split by the port's
+    tokenizer with pad token ``<unk>``; frontend (n_fft 256, hop 128, 23
+    mels) and utterance MVN, float32, eval mode."""
+    meta = fx.meta
+    llm_cfg, llm_sd = load_llama_dir(LLM_DIR)
+    hf = json.loads((LLM_DIR / "config.json").read_text())
+    template = split_template(LLMTokenizer.from_pretrained(LLM_DIR), meta["template"],
+                              bos_token_id=hf["bos_token_id"], eos_token_id=hf["eos_token_id"],
+                              pad_token="<unk>")
+    assert (template.start_of_response_id, template.end_of_response_id) == (meta["sos"], meta["eos"])
+    cfg = LLMGuidedASRConfig(
+        vocab_size=meta["vocab"], llm=llm_cfg, prompt=template,
+        frontend=FrontendConfig(n_fft=meta["n_fft"], hop_length=meta["hop"],
+                                n_mels=meta["n_mels"]),
+        normalize="utterance_mvn", encoder=_encoder_cfg(meta), decoder=_decoder_cfg(meta),
+        ctc_weight=meta["ctc_weight_decode"],
+    )
+    model = LLMGuidedASRModel(cfg, llm_dtype=torch.float32, device=device)
+    sd = params_from_jax(params_from_reference(fx.sd, {**meta, "input_size": meta["n_mels"]}))
+    sd.update({f"llm.{k}": v for k, v in llm_sd.items() if k != "lm_head.weight"})
+    model.load_state_dict(sd)
+    return model.eval()
+
+
+def check_trained_guided(model: LLMGuidedASRModel, fx: Fixture) -> Dict[str, float]:
+    """Every utterance of the tone corpus decoded from its waveform (beam
+    10, ctc_weight 0.3, maxlenratio 0, the cached guided scorer): the
+    hypothesis equal to the reference's, its score within 5e-3, and the
+    corpus CER (characters as LLM ids) equal to the reference's within
+    1e-9.  Returns the largest score error and the CER."""
+    m = fx.meta
+    tok = LLMTokenizer.from_pretrained(LLM_DIR)
+    bs = BatchBeamSearch(model, vocab_size=m["vocab"], sos=m["sos"], eos=m["eos"],
+                         beam_size=m["beam"], ctc_weight=m["ctc_weight_decode"],
+                         att_scorer=CachedGuidedScorer(model))
+    corpus = make_tone_corpus(m["corpus"]["n_train"], m["corpus"]["n_valid"], m["corpus"]["seed"])
+    worst, mismatches, refs, hyps = 0.0, [], [], []
+    for uid in sorted(corpus):
+        wav, text = corpus[uid]
+        with torch.no_grad():
+            enc, enc_lens = model.encode(_on(model, wav[None]), _on(model, [len(wav)]))
+        best = bs(enc, enc_lens, maxlenratio=0.0, nbest=1)[0]
+        inner = [t for t in best.yseq if t not in (m["sos"], m["eos"])]
+        if inner != m["hyps"][uid]:
+            mismatches.append((uid, inner, m["hyps"][uid]))
+        else:
+            err = abs(best.score - m["scores"][uid])
+            assert err <= 5e-3, f"trained guided {uid}: score {best.score}, reference {m['scores'][uid]}"
+            worst = max(worst, err)
+        refs.append(tok.convert_tokens_to_ids(list(text)))
+        hyps.append(inner)
+    assert not mismatches, f"trained guided: {len(mismatches)} hypotheses differ, e.g. {mismatches[:3]}"
+    cer = error_rate(refs, hyps)["err"]
+    assert abs(cer - m["cer"]) <= 1e-9, f"trained guided CER {cer}, reference {m['cer']}"
+    return {"trained_guided_score": worst, "trained_guided_cer": cer}
+
+
 def run_all(device) -> Dict[str, float]:
     """Every check of both fixtures on ``device``; raises on the first miss.
     Returns each check's largest error (score errors for the searches)."""
@@ -337,6 +449,8 @@ def run_all(device) -> Dict[str, float]:
     out["guided_dec_logp"] = check_guided_decoder(guided, fx)
     out["guided_cached_steps"] = check_guided_cached_steps(guided, fx)
     out["guided_score_beam10"] = check_guided_beam(guided, fx)
+    fx = load_fixture("golden_trained_guided")
+    out.update(check_trained_guided(build_trained_guided(fx, device), fx))
     return out
 
 

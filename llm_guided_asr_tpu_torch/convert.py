@@ -14,6 +14,7 @@ alike); only the leaf names and layouts differ (RWKV's [C] leaves
   LayerNorm/BatchNorm scale       -> weight;  Embed embedding -> weight
   batch_stats mean / var          -> running_mean / running_var
   mvn mean / inv_std              -> mvn_mean / mvn_inv_std
+  ctc_map ids / lens              -> ctc_map_ids / ctc_map_lens (int64)
 
 :func:`init_weights` instead draws weights from a seed on the model's own
 device, for runs that have no checkpoint.
@@ -60,8 +61,8 @@ def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
 
 
 def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
-    """flax variables (``params``, ``batch_stats``, ``mvn``; numpy leaves)
-    -> a state dict for the port's module of the same structure."""
+    """flax variables (``params``, ``batch_stats``, ``mvn``, ``ctc_map``;
+    numpy leaves) -> a state dict for the port's module of the same structure."""
     sd: Dict[str, torch.Tensor] = {}
     for path, leaf in _walk(variables.get("params", {})):
         name, arr = _param(path, np.asarray(leaf))
@@ -71,6 +72,8 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
         sd[name] = torch.from_numpy(np.asarray(leaf, dtype=np.float32).copy())
     for path, leaf in _walk(variables.get("mvn", {})):
         sd[_MVN_NAMES[path[-1]]] = torch.from_numpy(np.asarray(leaf, dtype=np.float32).copy())
+    for path, leaf in _walk(variables.get("ctc_map", {})):
+        sd[f"ctc_map_{path[-1]}"] = torch.from_numpy(np.asarray(leaf, dtype=np.int64).copy())
     return sd
 
 

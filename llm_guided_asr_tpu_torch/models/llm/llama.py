@@ -5,10 +5,17 @@ attention without repeating K/V, and a KV cache for decoding.  Pads may sit
 inside a row: positions default to cumsum(valid)-1 and pads are masked
 from the attention keys.
 
+``return_logits`` adds the vocabulary projection: the embedding matrix
+when ``tie_word_embeddings``, else an ``lm_head``, which the model holds
+only when built with ``lm_head=True`` (a caller that reads hidden states
+alone loads no head).
+
 Weights come from a local Hugging Face checkpoint directory
-(:func:`load_llama_dir`: ``config.json`` and ``model.safetensors``, read by
-:func:`load_safetensors` with the standard library and numpy, no hub
-lookup) through :func:`convert_hf_state_dict`.
+(:func:`load_llama_dir`: ``config.json`` and ``model.safetensors``, or the
+shards that ``model.safetensors.index.json`` names; no hub lookup).
+:func:`stream_checkpoint` reads them tensor by tensor with the standard
+library and numpy, so the host holds one tensor at a time, and
+:func:`convert_hf_state_dict` maps the names.
 
 Attention follows the JAX module's type promotion: scores and the value
 product run in the common type of q and the keys, so a bfloat16 model that
@@ -22,7 +29,7 @@ import json
 import math
 import struct
 from pathlib import Path
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -199,7 +206,7 @@ class LlamaModel(nn.Module):
     """Final hidden states (after ``norm``) and per-layer (k, v)."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", lm_head: bool = False):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
@@ -209,6 +216,8 @@ class LlamaModel(nn.Module):
             for i in range(cfg.num_hidden_layers):
                 setattr(self, f"layers_{i}", LlamaBlock(cfg, dtype))
             self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
+            if lm_head and not cfg.tie_word_embeddings:
+                self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
             self.register_buffer("inv_freq", torch.tensor(rope_frequencies(cfg)),
                                  persistent=False)
 
@@ -220,7 +229,10 @@ class LlamaModel(nn.Module):
         cache_valid: Optional[torch.Tensor] = None,  # [B, Tc] validity of cache keys
         positions: Optional[torch.Tensor] = None,  # [B, T]; default cumsum(valid)-1
         cache_write_pos: Optional[int] = None,  # slot of the new token in the cache
+        return_logits: bool = False,
     ):
+        """-> (hidden, per-layer (k, v)), or (hidden, logits, per-layer
+        (k, v)) with ``return_logits``."""
         b, t = input_ids.shape
         if positions is None:
             positions = torch.clamp(torch.cumsum(valid.int(), dim=1) - 1, min=0)
@@ -240,7 +252,16 @@ class LlamaModel(nn.Module):
             x, kv = getattr(self, f"layers_{i}")(x, positions, qk_mask, self.inv_freq,
                                                  layer_cache, cache_write_pos)
             new_cache.append(kv)
-        return self.norm(x), new_cache
+        x = self.norm(x)
+        if return_logits:
+            if self.cfg.tie_word_embeddings:
+                logits = x @ self.embed_tokens.weight.t()
+            elif hasattr(self, "lm_head"):
+                logits = self.lm_head(x)
+            else:
+                raise ValueError("return_logits needs a LlamaModel built with lm_head=True")
+            return x, logits, new_cache
+        return x, new_cache
 
 
 # ---------------------------------------------------------------------------
@@ -257,70 +278,127 @@ _SAFETENSORS_TYPES = {
 }
 
 
-def load_safetensors(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
-    """A ``.safetensors`` file -> {name: CPU tensor in the file's type}.
+def _read_header(f) -> Tuple[Dict[str, Any], int]:
+    """The JSON header of an open ``.safetensors`` file and the offset of
+    its data; ``__metadata__`` dropped."""
+    (n_header,) = struct.unpack("<Q", f.read(8))
+    header = json.loads(f.read(n_header))
+    header.pop("__metadata__", None)
+    return header, 8 + n_header
+
+
+def iter_safetensors(path: Union[str, Path]) -> Iterator[Tuple[str, torch.Tensor]]:
+    """(name, CPU tensor in the file's type) of each tensor of a
+    ``.safetensors`` file, read one at a time.
 
     The format: an 8-byte little-endian header length, a JSON header of
     ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (and an
-    optional ``__metadata__``), then the raw little-endian bytes.  Read
-    with the standard library and numpy; BF16 is read as 16-bit integers
-    and viewed as torch.bfloat16, bit for bit.
+    optional ``__metadata__``), then the raw little-endian bytes.  Each
+    tensor's bytes are read by a seek and one read; BF16 is read as 16-bit
+    integers and viewed as torch.bfloat16, bit for bit.
     """
     with open(path, "rb") as f:
-        (n_header,) = struct.unpack("<Q", f.read(8))
-        header = json.loads(f.read(n_header))
-        data = f.read()
-    out = {}
-    for name, info in header.items():
-        if name == "__metadata__":
-            continue
-        if info["dtype"] not in _SAFETENSORS_TYPES:
-            raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which is not read")
-        np_type, torch_type = _SAFETENSORS_TYPES[info["dtype"]]
-        begin, end = info["data_offsets"]
-        arr = np.frombuffer(data, dtype=np.dtype(np_type).newbyteorder("<"),
-                            count=(end - begin) // np.dtype(np_type).itemsize, offset=begin)
-        t = torch.from_numpy(arr.astype(np_type, copy=True)).reshape(info["shape"])
-        out[name] = t.view(torch_type) if torch_type == torch.bfloat16 else t
+        header, data_start = _read_header(f)
+        for name, info in header.items():
+            if info["dtype"] not in _SAFETENSORS_TYPES:
+                raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which is not read")
+            np_type, torch_type = _SAFETENSORS_TYPES[info["dtype"]]
+            begin, end = info["data_offsets"]
+            f.seek(data_start + begin)
+            arr = np.frombuffer(f.read(end - begin), dtype=np.dtype(np_type).newbyteorder("<"))
+            t = torch.from_numpy(arr.astype(np_type, copy=True)).reshape(info["shape"])
+            yield name, (t.view(torch_type) if torch_type == torch.bfloat16 else t)
+
+
+def load_safetensors(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
+    """A ``.safetensors`` file -> {name: CPU tensor in the file's type}."""
+    return dict(iter_safetensors(path))
+
+
+def checkpoint_files(model_dir: Union[str, Path]) -> List[Path]:
+    """The ``.safetensors`` files of a checkpoint directory: the shards that
+    ``model.safetensors.index.json`` names, in order, or ``model.safetensors``."""
+    model_dir = Path(model_dir)
+    index = model_dir / "model.safetensors.index.json"
+    if index.is_file():
+        weight_map = json.loads(index.read_text())["weight_map"]
+        return [model_dir / f for f in dict.fromkeys(weight_map.values())]
+    single = model_dir / "model.safetensors"
+    if not single.is_file():
+        raise FileNotFoundError(f"no safetensors checkpoint under {model_dir}")
+    return [single]
+
+
+def stream_checkpoint(model_dir: Union[str, Path], cfg: LlamaConfig,
+                      dtype: Optional[torch.dtype] = None,
+                      device: Union[str, torch.device] = "cpu") -> Dict[str, torch.Tensor]:
+    """A Hugging Face checkpoint directory (one file or shards) -> the port's
+    :class:`LlamaModel` state dict, tensor by tensor: each is read, renamed
+    (:func:`hf_to_port_name`), cast to ``dtype`` (default float32) and moved
+    to ``device`` before the next is read, so the host holds one tensor at a
+    time.  No thread: nothing is left running if a read raises."""
+    dtype = torch.float32 if dtype is None else dtype
+    out: Dict[str, torch.Tensor] = {}
+    for path in checkpoint_files(model_dir):
+        for hf_name, t in iter_safetensors(path):
+            name = hf_to_port_name(hf_name, cfg)
+            if name is not None:
+                out[name] = t.to(device=device, dtype=dtype)
     return out
+
+
+def hf_to_port_name(name: str, cfg: LlamaConfig) -> Optional[str]:
+    """A ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` tensor name -> the port's
+    :class:`LlamaModel` name (the JAX tree's path joined by dots), or None
+    for a tensor the model does not hold: q/k/v biases without
+    ``cfg.attention_bias``, ``lm_head.weight`` of a tied head, rotary
+    buffers."""
+    if name == "model.embed_tokens.weight":
+        return "embed_tokens.weight"
+    if name == "model.norm.weight":
+        return "norm.weight"
+    if name == "lm_head.weight":
+        return None if cfg.tie_word_embeddings else name
+    if not name.startswith("model.layers."):
+        return None
+    i, _, tail = name[len("model.layers."):].partition(".")
+    if tail in ("input_layernorm.weight", "post_attention_layernorm.weight"):
+        return f"layers_{i}.{tail}"
+    for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
+        if tail == f"self_attn.{proj}.weight":
+            return f"layers_{i}.{tail}"
+        if tail == f"self_attn.{proj}.bias":
+            return f"layers_{i}.{tail}" if cfg.attention_bias and proj != "o_proj" else None
+    for proj in ("gate_proj", "up_proj", "down_proj"):
+        if tail == f"mlp.{proj}.weight":
+            return f"layers_{i}.{tail}"
+    return None
 
 
 def convert_hf_state_dict(state_dict: Mapping[str, Any], cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
     """A ``LlamaForCausalLM`` / ``Qwen2ForCausalLM`` state dict -> the port's
-    :class:`LlamaModel` state dict in float32 (the names of the JAX
-    package's tree joined by dots; torch layouts need no transpose).
-    q/k/v biases are taken where ``cfg.attention_bias`` and the checkpoint
-    has them; ``lm_head.weight`` is returned too where the head is not tied
-    to the embedding (the model itself returns hidden states, so a caller
-    loading it drops that key)."""
-
-    def a(name):
-        w = state_dict[name]
-        return w.float() if isinstance(w, torch.Tensor) else torch.from_numpy(
-            np.asarray(w, dtype=np.float32))
-
-    sd = {"embed_tokens.weight": a("model.embed_tokens.weight"),
-          "norm.weight": a("model.norm.weight")}
-    for i in range(cfg.num_hidden_layers):
-        src, dst = f"model.layers.{i}", f"layers_{i}"
-        for name in ("input_layernorm", "post_attention_layernorm"):
-            sd[f"{dst}.{name}.weight"] = a(f"{src}.{name}.weight")
-        for proj in ("gate_proj", "up_proj", "down_proj"):
-            sd[f"{dst}.mlp.{proj}.weight"] = a(f"{src}.mlp.{proj}.weight")
-        for proj in ("q_proj", "k_proj", "v_proj", "o_proj"):
-            sd[f"{dst}.self_attn.{proj}.weight"] = a(f"{src}.self_attn.{proj}.weight")
-            bias = f"{src}.self_attn.{proj}.bias"
-            if cfg.attention_bias and bias in state_dict and proj != "o_proj":
-                sd[f"{dst}.self_attn.{proj}.bias"] = a(bias)
-    if not cfg.tie_word_embeddings and "lm_head.weight" in state_dict:
-        sd["lm_head.weight"] = a("lm_head.weight")
+    :class:`LlamaModel` state dict in float32 (names by
+    :func:`hf_to_port_name`; torch layouts need no transpose).
+    ``lm_head.weight`` is kept where the head is not tied to the embedding;
+    a caller whose model has no head drops that key."""
+    sd = {}
+    for hf_name, w in state_dict.items():
+        name = hf_to_port_name(hf_name, cfg)
+        if name is not None:
+            sd[name] = w.float() if isinstance(w, torch.Tensor) else torch.from_numpy(
+                np.asarray(w, dtype=np.float32))
+    for required in ("embed_tokens.weight", "norm.weight"):
+        if required not in sd:
+            raise KeyError(f"the checkpoint has no {required!r}")
     return sd
 
 
-def load_llama_dir(path: Union[str, Path]) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
-    """A local checkpoint directory (``config.json`` and
-    ``model.safetensors``) -> (config, :func:`convert_hf_state_dict` of its
-    weights).  No hub lookup: the directory must hold both files."""
+def load_llama_dir(path: Union[str, Path], dtype: Optional[torch.dtype] = None,
+                   device: Union[str, torch.device] = "cpu"
+                   ) -> Tuple[LlamaConfig, Dict[str, torch.Tensor]]:
+    """A local checkpoint directory (``config.json`` and ``model.safetensors``
+    or its shards) -> (config, state dict streamed by
+    :func:`stream_checkpoint`, float32 by default).  No hub lookup."""
     path = Path(path)
     cfg = LlamaConfig.from_hf_config(json.loads((path / "config.json").read_text()))
-    return cfg, convert_hf_state_dict(load_safetensors(path / "model.safetensors"), cfg)
+    return cfg, stream_checkpoint(path, cfg, dtype, device)

@@ -1,29 +1,40 @@
 """Joint CTC/attention beam search on the device (counterpart of llm_guided_asr_tpu/search/beam_search.py).
 
-Static-shape tensor steps, one Python iteration per output token:
+Static-shape tensor steps over B lanes (utterances) of K hypotheses, one
+Python iteration per output token:
 
-- the attention scorer scores [K, V]; a pre-beam keeps W = int(1.5*K)
+- the attention scorer scores [B, K, V]; a pre-beam keeps W = int(1.5*K)
   candidates per hypothesis, with eos appended as a (W+1)-th candidate so
   that it is always CTC-scored (as espnet does);
 - the CTC prefix scorer rescores the candidates; scores use the absolute
   prefix probability psi: total = base + att_weight*att + ctc_weight*psi +
   penalty, where base is the cumulative non-CTC part;
-- top-K over all candidates first, then the selected eos hypotheses retire
-  into a fixed-size finished buffer (espnet beam_search.py:316 and
-  post_process:500);
-- the loop ends at maxlen or when no alive hypothesis can beat the worst
-  finished one; that test reads one scalar from the device per step.
+- top-K over each lane's candidates first, then the selected eos
+  hypotheses retire into a fixed-size finished buffer (espnet
+  beam_search.py:316 and post_process:500);
+- a lane stops at its maxlen or when none of its alive hypotheses can beat
+  its worst finished one; the loop reads one flag from the device per step
+  (any lane still active) and moves the result to the host once at the end.
+
+``__call__`` decodes one utterance (one lane).  ``batch_decode`` decodes a
+batch in lockstep, as the JAX ``_vmapped_search`` does: one shared step
+counter, per-lane maxlen and minlen, one body per step over [B, K], and the
+search state of a lane that has stopped frozen by the per-lane active mask
+while the scorer caches run on (their rows are never read again).  Each
+lane's result is what a single-utterance call gives.
 
 Weights follow asr_inference.py: decoder 1-ctc_weight, ctc ctc_weight,
 length bonus penalty.  The attention scorer is the stateless full-prefix
 one unless the caller passes another (the LLM-guided model's cached
-scorer).  batch_decode and streaming are not ported yet.
+scorer, the standard decoder's KV-cached one).  Streaming is not ported
+yet.
 """
 
 from __future__ import annotations
 
 from typing import Dict, List, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from llm_guided_asr_tpu_torch.search.ctc_prefix import (
@@ -48,16 +59,16 @@ class Hypothesis(NamedTuple):
 
 class BeamState(NamedTuple):
     step: int
-    alive_tokens: torch.Tensor  # [K, Lmax] (sos at 0)
-    alive_len: torch.Tensor  # [K]
-    alive_score: torch.Tensor  # [K] total (= alive_base + ctc_weight * psi)
-    alive_base: torch.Tensor  # [K] cumulative non-CTC part
-    alive_parts: torch.Tensor  # [K, 4] unweighted (decoder, ctc, lm, length_bonus)
+    alive_tokens: torch.Tensor  # [B, K, Lmax] (sos at 0)
+    alive_len: torch.Tensor  # [B, K]
+    alive_score: torch.Tensor  # [B, K] total (= alive_base + ctc_weight * psi)
+    alive_base: torch.Tensor  # [B, K] cumulative non-CTC part
+    alive_parts: torch.Tensor  # [B, K, 4] unweighted (decoder, ctc, lm, length_bonus)
     ctc: CTCPrefixState
-    fin_tokens: torch.Tensor  # [K, Lmax]
-    fin_len: torch.Tensor  # [K]
-    fin_score: torch.Tensor  # [K]
-    fin_parts: torch.Tensor  # [K, 4]
+    fin_tokens: torch.Tensor  # [B, K, Lmax]
+    fin_len: torch.Tensor  # [B, K]
+    fin_score: torch.Tensor  # [B, K]
+    fin_parts: torch.Tensor  # [B, K, 4]
 
 
 def _top_k(x: torch.Tensor, k: int):
@@ -67,8 +78,26 @@ def _top_k(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+def _freeze(active: torch.Tensor, new, old):
+    """``new`` where the lane is active, else ``old``, for every tensor of a
+    BeamState (the CTC state included)."""
+    def pick(n, o):
+        return torch.where(active.reshape((-1,) + (1,) * (n.dim() - 1)), n, o)
+
+    fields = {}
+    for name, n in new._asdict().items():
+        o = getattr(old, name)
+        if isinstance(n, CTCPrefixState):
+            fields[name] = CTCPrefixState(*(pick(a, b) for a, b in zip(n, o)))
+        elif isinstance(n, torch.Tensor):
+            fields[name] = pick(n, o)
+        else:
+            fields[name] = n
+    return BeamState(**fields)
+
+
 class BatchBeamSearch:
-    """Joint CTC/attention beam search over one utterance."""
+    """Joint CTC/attention beam search over one utterance or a lockstep batch."""
 
     def __init__(
         self,
@@ -97,98 +126,109 @@ class BatchBeamSearch:
         self.blank_id = blank_id
 
     # -- core loop ------------------------------------------------------
-    def _init_carry(self, ctc_logp, enc, enc_len, lmax: int):
-        K, dev = self.K, enc.device
-        first = torch.where(torch.arange(K, device=dev) == 0, 0.0, NEG_INF)
+    def _init_carry(self, ctc_logp, enc, enc_lens, lmax: int, scorer_ctx=None):
+        b, K, dev = enc.shape[0], self.K, enc.device
+        first = torch.where(torch.arange(K, device=dev) == 0, 0.0, NEG_INF)[None].repeat(b, 1)
         init = BeamState(
             step=0,
-            alive_tokens=torch.full((K, lmax), self.sos, dtype=torch.int64, device=dev),
-            alive_len=torch.ones(K, dtype=torch.int64, device=dev),
+            alive_tokens=torch.full((b, K, lmax), self.sos, dtype=torch.int64, device=dev),
+            alive_len=torch.ones((b, K), dtype=torch.int64, device=dev),
             alive_score=first,
             alive_base=first.clone(),
-            alive_parts=torch.zeros((K, 4), device=dev),
-            ctc=ctc_prefix_init(ctc_logp, enc_len, K, self.blank_id),
-            fin_tokens=torch.zeros((K, lmax), dtype=torch.int64, device=dev),
-            fin_len=torch.zeros(K, dtype=torch.int64, device=dev),
-            fin_score=torch.full((K,), NEG_INF, device=dev),
-            fin_parts=torch.zeros((K, 4), device=dev),
+            alive_parts=torch.zeros((b, K, 4), device=dev),
+            ctc=ctc_prefix_init(ctc_logp, enc_lens, K, self.blank_id),
+            fin_tokens=torch.zeros((b, K, lmax), dtype=torch.int64, device=dev),
+            fin_len=torch.zeros((b, K), dtype=torch.int64, device=dev),
+            fin_score=torch.full((b, K), NEG_INF, device=dev),
+            fin_parts=torch.zeros((b, K, 4), device=dev),
         )
-        return init, self.att_scorer.init(enc, enc_len, K, lmax)
+        return init, self.att_scorer.init(enc, enc_lens, K, lmax, ctx=scorer_ctx)
 
     def _ctc_table(self, enc):
-        if self.ctc_weight != 0.0:
-            return self.model.ctc_log_softmax(enc)[0]  # [T, V]
-        return torch.zeros((enc.shape[1], self.vocab_size), device=enc.device)
+        """[B, T, V] CTC log-probs of each lane (zeros, never read, without CTC)."""
+        if self.ctc_weight == 0.0:
+            return torch.zeros((*enc.shape[:2], self.vocab_size), device=enc.device)
+        logp = self.model.ctc_log_softmax(enc)
+        if logp.shape[-1] != self.vocab_size:
+            raise ValueError(
+                f"the CTC head has {logp.shape[-1]} outputs but the search scores "
+                f"{self.vocab_size} tokens: a mixed-vocab CTC cannot score the decoder's "
+                f"candidates (decode it with ctc_weight=0)")
+        return logp
 
-    def _body_core(self, enc, enc_len, minlen: int, ctc_logp, s: BeamState, att_state, step: int):
-        """One beam step at ``step``."""
+    def _body_core(self, enc, enc_lens, minlens, ctc_logp, s: BeamState, att_state, step: int):
+        """One beam step at ``step`` for every lane."""
         K, W = self.K, self.W
-        dev = enc.device
-        lmax = s.alive_tokens.shape[1]
-        # 1. full scorer
+        b, dev = enc.shape[0], enc.device
+        lmax = s.alive_tokens.shape[2]
+        lanes = torch.arange(b, device=dev)[:, None]
+        # 1. full scorer over the B*K rows
         att_logp, att_state = self.att_scorer.step(
-            enc, enc_len, att_state, s.alive_tokens, s.alive_len, step
-        )
+            enc, enc_lens, att_state, s.alive_tokens.reshape(b * K, lmax),
+            s.alive_len.reshape(b * K), step)
+        att_logp = att_logp.reshape(b, K, -1)
         full = self.att_weight * att_logp
         # 2. pre-beam
-        top_full, cand = torch.topk(full, W, dim=1)  # [K, W]
+        top_full, cand = torch.topk(full, W, dim=2)  # [B, K, W]
         if self.ctc_weight != 0.0 and self.eos < self.vocab_size:
             # eos is CTC-scored outside the pre-beam window too: append it
             # as a (W+1)-th candidate, masked when already in the top W
-            has_eos = (cand == self.eos).any(dim=1, keepdim=True)
-            eos_full = torch.where(has_eos, NEG_INF, full[:, self.eos : self.eos + 1])
-            top_full = torch.cat([top_full, eos_full], dim=1)
-            cand = torch.cat([cand, torch.full((K, 1), self.eos, dtype=cand.dtype, device=dev)], dim=1)
+            has_eos = (cand == self.eos).any(dim=2, keepdim=True)
+            eos_full = torch.where(has_eos, NEG_INF, full[..., self.eos : self.eos + 1])
+            top_full = torch.cat([top_full, eos_full], dim=2)
+            cand = torch.cat([cand, torch.full((b, K, 1), self.eos, dtype=cand.dtype, device=dev)],
+                             dim=2)
             W = W + 1
         # 3. CTC prefix rescoring with the absolute prefix score psi
         if self.ctc_weight != 0.0:
-            psi = ctc_prefix_psi(ctc_logp, enc_len, s.ctc, cand,
+            psi = ctc_prefix_psi(ctc_logp, enc_lens, s.ctc, cand,
                                  blank_id=self.blank_id, eos_id=self.eos)
-            cand_score = s.alive_base[:, None] + top_full + self.ctc_weight * psi + self.penalty
+            cand_score = s.alive_base[..., None] + top_full + self.ctc_weight * psi + self.penalty
         else:
-            psi = torch.zeros((K, W), device=dev)
-            cand_score = s.alive_score[:, None] + top_full + self.penalty
+            psi = torch.zeros((b, K, W), device=dev)
+            cand_score = s.alive_score[..., None] + top_full + self.penalty
 
-        # 4. top-K over all candidates, then eos selections retire
-        new_score, flat_idx = _top_k(cand_score.reshape(-1), K)
+        # 4. top-K over each lane's candidates, then eos selections retire
+        new_score, flat_idx = _top_k(cand_score.reshape(b, -1), K)
         parent = torch.div(flat_idx, W, rounding_mode="floor")
-        cidx = flat_idx % W
-        token = cand[parent, cidx]
-        ins = s.alive_len[parent]
-        new_tokens = s.alive_tokens[parent]
-        at_ins = torch.arange(lmax, device=dev)[None, :] == ins[:, None]
-        new_tokens = torch.where(at_ins, token[:, None], new_tokens)
+        token = torch.gather(cand.reshape(b, -1), 1, flat_idx)
+        ins = torch.gather(s.alive_len, 1, parent)
+        new_tokens = s.alive_tokens[lanes, parent]
+        at_ins = torch.arange(lmax, device=dev)[None, None, :] == ins[..., None]
+        new_tokens = torch.where(at_ins, token[..., None], new_tokens)
         new_len = ins + 1
         is_eos_sel = token == self.eos
+        psi_sel = torch.gather(psi.reshape(b, -1), 1, flat_idx)
 
-        zeros = torch.zeros(K, device=dev)
-        new_parts = s.alive_parts[parent] + torch.stack(
-            [att_logp[parent, token], zeros, zeros, torch.ones(K, device=dev)], dim=1
+        zeros = torch.zeros((b, K), device=dev)
+        new_parts = s.alive_parts[lanes, parent] + torch.stack(
+            [att_logp[lanes, parent, token], zeros, zeros, torch.ones((b, K), device=dev)], dim=2
         )
         if self.ctc_weight != 0.0:
-            new_parts[:, 1] = psi[parent, cidx]
+            new_parts[..., 1] = psi_sel
 
-        # finished-buffer merge: eos hyps at/after minlen retire
-        fin_cand = new_score.masked_fill(~(is_eos_sel & (step >= minlen)), NEG_INF)
-        fin_top, fin_idx = _top_k(torch.cat([s.fin_score, fin_cand]), K)
-        fin_tokens = torch.cat([s.fin_tokens, new_tokens])[fin_idx]
-        fin_len = torch.cat([s.fin_len, new_len])[fin_idx]
-        fin_parts = torch.cat([s.fin_parts, new_parts])[fin_idx]
+        # finished-buffer merge: eos hyps at/after the lane's minlen retire
+        fin_cand = new_score.masked_fill(~(is_eos_sel & (step >= minlens[:, None])), NEG_INF)
+        fin_top, fin_idx = _top_k(torch.cat([s.fin_score, fin_cand], dim=1), K)
+        fin_tokens = torch.cat([s.fin_tokens, new_tokens], dim=1)[lanes, fin_idx]
+        fin_len = torch.gather(torch.cat([s.fin_len, new_len], dim=1), 1, fin_idx)
+        fin_parts = torch.cat([s.fin_parts, new_parts], dim=1)[lanes, fin_idx]
 
         # 5. alive beam: eos slots are dead for the rest of the search
         new_score = new_score.masked_fill(is_eos_sel, NEG_INF)
         if self.ctc_weight != 0.0:
-            new_base = (s.alive_base[parent] + top_full[parent, cidx] + self.penalty)
+            new_base = (torch.gather(s.alive_base, 1, parent)
+                        + torch.gather(top_full.reshape(b, -1), 1, flat_idx) + self.penalty)
             new_base = new_base.masked_fill(is_eos_sel, NEG_INF)
-            new_ctc = ctc_prefix_advance(ctc_logp, enc_len, s.ctc, token, parent,
-                                         psi[parent, cidx], blank_id=self.blank_id)
+            new_ctc = ctc_prefix_advance(ctc_logp, enc_lens, s.ctc, token, parent, psi_sel,
+                                         blank_id=self.blank_id)
         else:
             new_base = new_score
             new_ctc = s.ctc._replace(
-                psi=psi[parent, cidx], last=token, r=s.ctc.r[parent],
-                empty=torch.zeros(K, dtype=torch.bool, device=dev),
+                psi=psi_sel, last=token, r=s.ctc.r[lanes, parent],
+                empty=torch.zeros((b, K), dtype=torch.bool, device=dev),
             )
-        att_state = self.att_scorer.select(att_state, parent)
+        att_state = self.att_scorer.select(att_state, (lanes * K + parent).reshape(-1))
         return BeamState(
             step=step + 1,
             alive_tokens=new_tokens,
@@ -203,19 +243,58 @@ class BatchBeamSearch:
             fin_parts=fin_parts,
         ), att_state
 
-    def _finalize(self, final: BeamState):
-        """Merge still-alive hyps (maxlen reached) into the finished ones:
-        append eos, keep the raw score."""
-        lmax = final.alive_tokens.shape[1]
-        at_end = torch.arange(lmax, device=final.alive_tokens.device)[None, :] == final.alive_len[:, None]
+    def _finalize(self, final: BeamState) -> torch.Tensor:
+        """Merge each lane's still-alive hyps (maxlen reached) into its
+        finished ones (eos appended, raw score kept); returns one float64
+        tensor [B, K, Lmax + 6] of (tokens, length, score, 4 parts), exact
+        for every field, so that the result reaches the host in one copy."""
+        b, _, lmax = final.alive_tokens.shape
+        lanes = torch.arange(b, device=final.alive_tokens.device)[:, None]
+        at_end = torch.arange(lmax, device=lanes.device)[None, None, :] == final.alive_len[..., None]
         alive_rows = final.alive_tokens.masked_fill(at_end, self.eos)
-        top, idx = _top_k(torch.cat([final.fin_score, final.alive_score]), self.K)
-        return (
-            torch.cat([final.fin_tokens, alive_rows])[idx],
-            torch.cat([final.fin_len, final.alive_len + 1])[idx],
-            top,
-            torch.cat([final.fin_parts, final.alive_parts])[idx],
-        )
+        top, idx = _top_k(torch.cat([final.fin_score, final.alive_score], dim=1), self.K)
+        tokens = torch.cat([final.fin_tokens, alive_rows], dim=1)[lanes, idx]
+        lens = torch.gather(torch.cat([final.fin_len, final.alive_len + 1], dim=1), 1, idx)
+        parts = torch.cat([final.fin_parts, final.alive_parts], dim=1)[lanes, idx]
+        return torch.cat([tokens.double(), lens[..., None].double(), top[..., None].double(),
+                          parts.double()], dim=2)
+
+    def _search(self, enc, enc_lens, maxlens, minlens, lmax: int, scorer_ctx=None) -> np.ndarray:
+        """The lockstep loop over the lanes; returns _finalize's tensor on the host."""
+        ctc_logp = self._ctc_table(enc)
+        s, att_state = self._init_carry(ctc_logp, enc, enc_lens, lmax, scorer_ctx)
+        limit = torch.clamp(maxlens, max=lmax - 1)
+        while True:
+            viable = s.alive_score.max(dim=1).values > s.fin_score.min(dim=1).values
+            active = (s.step < limit) & viable
+            if not bool(active.any()):  # the one host read of the step
+                break
+            new, att_state = self._body_core(enc, enc_lens, minlens, ctc_logp, s, att_state,
+                                             s.step)
+            s = new if enc.shape[0] == 1 else _freeze(active, new, s)
+        return self._finalize(s).cpu().numpy()
+
+    def _length_bounds(self, enc_lens: torch.Tensor, maxlenratio: float, minlenratio: float):
+        """Per-lane (maxlen, minlen) [B], in float32 as the JAX search
+        computes them: maxlenratio 0 decodes up to the valid frames, < 0 a
+        fixed -maxlenratio tokens, > 0 that ratio of the frames (at least 1)."""
+        if maxlenratio == 0.0:
+            maxlens = enc_lens
+        elif maxlenratio < 0.0:
+            maxlens = torch.full_like(enc_lens, int(-maxlenratio))
+        else:
+            maxlens = torch.clamp((maxlenratio * enc_lens.float()).long(), min=1)
+        return maxlens, (minlenratio * enc_lens.float()).long()
+
+    def _decode(self, encs, enc_lens, maxlenratio, minlenratio, nbest, scorer_ctx=None):
+        enc_lens = enc_lens.reshape(-1).long()
+        maxlens, minlens = self._length_bounds(enc_lens, maxlenratio, minlenratio)
+        out = self._search(encs, enc_lens, maxlens, minlens,
+                           self._lmax(int(encs.shape[1]), maxlenratio), scorer_ctx)
+        lmax = out.shape[2] - 6
+        return [self._to_hyps(lane[:, :lmax].astype(np.int64), lane[:, lmax].astype(np.int64),
+                              lane[:, lmax + 1].astype(np.float32), nbest, lane[:, lmax + 2:])
+                for lane in out]
 
     # -- public API -----------------------------------------------------
     @torch.inference_mode()
@@ -226,25 +305,22 @@ class BatchBeamSearch:
         maxlenratio: float = 0.0,
         minlenratio: float = 0.0,
         nbest: int = 1,
+        scorer_ctx=None,  # per-utterance scorer context (the guided scorer's bias ids)
     ) -> List[Hypothesis]:
-        t_enc = int(enc.shape[1])
-        enc_len = enc_lens[0]
-        n_valid = int(enc_len)
-        if maxlenratio == 0.0:
-            maxlen = n_valid
-        elif maxlenratio < 0.0:
-            maxlen = int(-maxlenratio)
-        else:
-            maxlen = max(1, int(maxlenratio * n_valid))
-        minlen = int(minlenratio * n_valid)
-        lmax = self._lmax(t_enc, maxlenratio)
-        ctc_logp = self._ctc_table(enc)
-        s, att_state = self._init_carry(ctc_logp, enc, enc_len, lmax)
-        limit = min(maxlen, lmax - 1)
-        while s.step < limit and bool(s.alive_score.max() > s.fin_score.min()):
-            s, att_state = self._body_core(enc, enc_len, minlen, ctc_logp, s, att_state, s.step)
-        tokens, lens, scores, parts = (x.cpu() for x in self._finalize(s))
-        return self._to_hyps(tokens, lens, scores, nbest, parts)
+        """Decode one utterance."""
+        return self._decode(enc, enc_lens, maxlenratio, minlenratio, nbest, scorer_ctx)[0]
+
+    @torch.inference_mode()
+    def batch_decode(
+        self,
+        encs: torch.Tensor,  # [B, T, D]
+        enc_lens: torch.Tensor,  # [B]
+        maxlenratio: float = 0.0,
+        minlenratio: float = 0.0,
+        nbest: int = 1,
+    ) -> List[List[Hypothesis]]:
+        """Decode a batch of utterances in one lockstep search."""
+        return self._decode(encs, enc_lens, maxlenratio, minlenratio, nbest)
 
     @staticmethod
     def _lmax(t_enc: int, maxlenratio: float) -> int:
@@ -258,7 +334,7 @@ class BatchBeamSearch:
         return bound + 2
 
     def _to_hyps(self, tokens, lens, scores, nbest: int,
-                 parts: Optional[torch.Tensor] = None) -> List[Hypothesis]:
+                 parts: Optional[np.ndarray] = None) -> List[Hypothesis]:
         out = []
         for k in range(min(nbest, self.K)):
             if float(scores[k]) <= NEG_INF / 2:

@@ -12,7 +12,9 @@ prefix log-probability (Watanabe et al. hybrid CTC/attention):
 
 psi is a reduction over the parent's rows; the T-long recurrences run only
 for the K extensions that survive a beam step (:func:`ctc_prefix_advance`),
-as a log-depth scan in the (logaddexp, +) semiring.
+as a log-depth scan in the (logaddexp, +) semiring.  Every function takes a
+leading lane axis (B utterances decoded in lockstep, each with its own
+valid length); a lane's numbers do not depend on the others.
 """
 
 from __future__ import annotations
@@ -25,69 +27,85 @@ NEG_INF = -1.0e10
 
 
 class CTCPrefixState(NamedTuple):
-    """Per-beam DP state carried across decode steps."""
+    """Per-beam DP state carried across decode steps, for B lanes
+    (utterances) of K hypotheses each."""
 
-    r: torch.Tensor  # [K, T, 2] (r_nb, r_b) of each hyp's prefix
-    psi: torch.Tensor  # [K] prefix score of each hyp
-    last: torch.Tensor  # [K] last token id of each hyp
-    empty: torch.Tensor  # [K] bool: prefix is empty (sos only)
+    r: torch.Tensor  # [B, K, T, 2] (r_nb, r_b) of each hyp's prefix
+    psi: torch.Tensor  # [B, K] prefix score of each hyp
+    last: torch.Tensor  # [B, K] last token id of each hyp
+    empty: torch.Tensor  # [B, K] bool: prefix is empty (sos only)
 
 
-def ctc_prefix_init(logp: torch.Tensor, length, beam: int, blank_id: int = 0) -> CTCPrefixState:
+def _valid_frames(t_max: int, length: torch.Tensor) -> torch.Tensor:
+    """[B, T] mask of each lane's valid frames (length [B])."""
+    return torch.arange(t_max, device=length.device)[None, :] < length[:, None]
+
+
+def ctc_prefix_init(logp: torch.Tensor, length: torch.Tensor, beam: int,
+                    blank_id: int = 0) -> CTCPrefixState:
     """State of the empty prefix, replicated over the beam.
 
-    logp: [T, V] CTC log-softmax of one utterance; length: valid frames.
+    logp: [B, T, V] CTC log-softmax of each lane; length [B]: valid frames.
     """
-    t_max = logp.shape[0]
+    b, t_max = logp.shape[:2]
     dev = logp.device
-    valid = torch.arange(t_max, device=dev) < length
-    xb = logp[:, blank_id]
-    r_b = torch.cumsum(torch.where(valid, xb, torch.zeros_like(xb)), dim=0)
+    valid = _valid_frames(t_max, length)
+    xb = logp[..., blank_id]  # [B, T]
+    r_b = torch.cumsum(torch.where(valid, xb, torch.zeros_like(xb)), dim=1)
     r_b = torch.where(valid, r_b, torch.full_like(r_b, NEG_INF))
     r_nb = torch.full_like(r_b, NEG_INF)
-    r = torch.stack([r_nb, r_b], dim=-1)  # [T, 2]
+    r = torch.stack([r_nb, r_b], dim=-1)  # [B, T, 2]
     return CTCPrefixState(
-        r=r[None].expand(beam, t_max, 2).clone(),
-        psi=torch.zeros(beam, device=dev),
-        last=torch.full((beam,), -1, dtype=torch.int64, device=dev),
-        empty=torch.ones(beam, dtype=torch.bool, device=dev),
+        r=r[:, None].expand(b, beam, t_max, 2).clone(),
+        psi=torch.zeros((b, beam), device=dev),
+        last=torch.full((b, beam), -1, dtype=torch.int64, device=dev),
+        empty=torch.ones((b, beam), dtype=torch.bool, device=dev),
     )
 
 
 def _prefix_rows(state_r: torch.Tensor):
-    """(r_b, logaddexp(r_nb, r_b)) of the parents [K, T]: phi is the first
+    """(r_b, logaddexp(r_nb, r_b)) of the parents [..., T]: phi is the first
     where c repeats last(g), the second otherwise."""
     r_nb, r_b = state_r[..., 0], state_r[..., 1]
     return r_b, torch.logaddexp(r_nb, r_b)
 
 
+def _gather_frames(logp: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """logp [B, T, V] at each lane's tokens [B, N] -> [B, T, N]."""
+    t_max = logp.shape[1]
+    return torch.gather(logp, 2, tokens[:, None, :].expand(-1, t_max, -1))
+
+
 def ctc_prefix_psi(
-    logp: torch.Tensor,  # [T, V]
-    length,  # valid frames (scalar)
-    state: CTCPrefixState,  # beam K
-    cand: torch.Tensor,  # [K, W] candidate token ids
+    logp: torch.Tensor,  # [B, T, V]
+    length: torch.Tensor,  # [B] valid frames
+    state: CTCPrefixState,  # B lanes of K
+    cand: torch.Tensor,  # [B, K, W] candidate token ids
     blank_id: int = 0,
     eos_id: int = -1,
 ) -> torch.Tensor:
-    """Prefix scores psi(g.c) [K, W] without the new DP rows.
+    """Prefix scores psi(g.c) [B, K, W] without the new DP rows.
 
     For c == eos the score is the complete-sequence probability of g; blank
     is never a label, so its score is log-zero.
     """
-    t_max = logp.shape[0]
-    valid = torch.arange(t_max, device=logp.device) < length  # [T]
-    x = logp[:, cand].permute(1, 0, 2)  # [K, T, W]
-    x = x.masked_fill(~valid[None, :, None], NEG_INF)
-    r_b, r_sum = _prefix_rows(state.r)
-    same = (cand == state.last[:, None])[:, None, :]  # [K, 1, W]
-    phi = torch.where(same, r_b[:, :, None], r_sum[:, :, None])  # [K, T, W]
-    psi_0 = torch.where(state.empty[:, None], x[:, 0, :], torch.full_like(x[:, 0, :], NEG_INF))
-    contrib = phi[:, :-1, :] + x[:, 1:, :]  # [K, T-1, W]
-    psi = torch.logaddexp(psi_0, torch.logsumexp(contrib, dim=1))
-    t_last = torch.clamp(torch.as_tensor(length, device=logp.device) - 1, 0, t_max - 1)
-    final_sum = r_sum[:, t_last]  # [K]
+    b, t_max = logp.shape[:2]
+    k, w = cand.shape[1:]
+    valid = _valid_frames(t_max, length)  # [B, T]
+    x = _gather_frames(logp, cand.reshape(b, k * w)).reshape(b, t_max, k, w)
+    x = x.permute(0, 2, 1, 3)  # [B, K, T, W]
+    x = x.masked_fill(~valid[:, None, :, None], NEG_INF)
+    r_b, r_sum = _prefix_rows(state.r)  # [B, K, T]
+    same = (cand == state.last[..., None])[:, :, None, :]  # [B, K, 1, W]
+    phi = torch.where(same, r_b[..., None], r_sum[..., None])  # [B, K, T, W]
+    psi_0 = torch.where(state.empty[..., None], x[:, :, 0, :],
+                        torch.full_like(x[:, :, 0, :], NEG_INF))
+    contrib = phi[:, :, :-1, :] + x[:, :, 1:, :]  # [B, K, T-1, W]
+    psi = torch.logaddexp(psi_0, torch.logsumexp(contrib, dim=2))
+    t_last = torch.clamp(length - 1, 0, t_max - 1)  # [B]
+    final_sum = torch.gather(r_sum, 2, t_last[:, None, None].expand(b, k, 1))  # [B, K, 1]
     if eos_id >= 0:
-        psi = torch.where(cand == eos_id, final_sum[:, None].expand_as(psi), psi)
+        psi = torch.where(cand == eos_id, final_sum.expand_as(psi), psi)
     return psi.masked_fill(cand == blank_id, NEG_INF)
 
 
@@ -112,41 +130,43 @@ def _scan(a: torch.Tensor, b: torch.Tensor):
 
 
 def ctc_prefix_advance(
-    logp: torch.Tensor,  # [T, V]
-    length,  # valid frames (scalar)
-    state: CTCPrefixState,  # beam K (pre-selection)
-    token: torch.Tensor,  # [K'] selected token per new slot
-    parent: torch.Tensor,  # [K'] parent hyp index in 0..K-1
-    psi_new: torch.Tensor,  # [K'] psi of the selected extensions
+    logp: torch.Tensor,  # [B, T, V]
+    length: torch.Tensor,  # [B] valid frames
+    state: CTCPrefixState,  # B lanes of K (pre-selection)
+    token: torch.Tensor,  # [B, K'] selected token per new slot
+    parent: torch.Tensor,  # [B, K'] parent hyp index in 0..K-1
+    psi_new: torch.Tensor,  # [B, K'] psi of the selected extensions
     blank_id: int = 0,
 ) -> CTCPrefixState:
-    """Run the DP recurrence for the K' selected extensions only."""
-    t_max = logp.shape[0]
-    kp = token.shape[0]
+    """Run the DP recurrence for the K' selected extensions of each lane only."""
+    b, t_max = logp.shape[:2]
+    kp = token.shape[1]
     dev = logp.device
-    valid = torch.arange(t_max, device=dev) < length  # [T]
-    r_prev = state.r[parent]  # [K', T, 2]
-    last = state.last[parent]
-    empty = state.empty[parent]
+    valid = _valid_frames(t_max, length)  # [B, T]
+    r_prev = torch.gather(state.r, 1, parent[:, :, None, None].expand(b, kp, t_max, 2))
+    last = torch.gather(state.last, 1, parent)
+    empty = torch.gather(state.empty, 1, parent)
 
-    x = logp[:, token].t().masked_fill(~valid[None, :], NEG_INF)  # [K', T]
-    xb = logp[:, blank_id].masked_fill(~valid, NEG_INF)  # [T]
+    x = _gather_frames(logp, token).transpose(1, 2)  # [B, K', T]
+    x = x.masked_fill(~valid[:, None, :], NEG_INF)
+    xb = logp[..., blank_id].masked_fill(~valid, NEG_INF)  # [B, T]
     r_b_prev, r_sum_prev = _prefix_rows(r_prev)
-    phi = torch.where((token == last)[:, None], r_b_prev, r_sum_prev)  # [K', T]
+    phi = torch.where((token == last)[..., None], r_b_prev, r_sum_prev)  # [B, K', T]
 
-    r_nb_0 = torch.where(empty, x[:, 0], torch.full_like(x[:, 0], NEG_INF))  # [K']
-    r_b_0 = torch.full((kp,), NEG_INF, device=dev)
+    r_nb_0 = torch.where(empty, x[..., 0], torch.full_like(x[..., 0], NEG_INF))  # [B, K']
+    r_b_0 = torch.full((b, kp), NEG_INF, device=dev)
 
-    ca, cb = _scan(x[:, 1:].t(), (phi[:, :-1] + x[:, 1:]).t())  # [T-1, K']
-    r_nb = torch.cat([r_nb_0[None], torch.logaddexp(r_nb_0[None] + ca, cb)], dim=0)  # [T, K']
+    # the scans run over frames, dim 0: [T-1, B, K']
+    ca, cb = _scan(x[..., 1:].permute(2, 0, 1), (phi[..., :-1] + x[..., 1:]).permute(2, 0, 1))
+    r_nb = torch.cat([r_nb_0[None], torch.logaddexp(r_nb_0[None] + ca, cb)], dim=0)  # [T, B, K']
 
-    xb_t = xb[1:, None].expand(t_max - 1, kp)
+    xb_t = xb[:, 1:].t()[:, :, None].expand(t_max - 1, b, kp)
     ca, cb = _scan(xb_t, r_nb[:-1] + xb_t)
     r_b = torch.cat([r_b_0[None], torch.logaddexp(r_b_0[None] + ca, cb)], dim=0)
 
     return CTCPrefixState(
-        r=torch.stack([r_nb.t(), r_b.t()], dim=-1),  # [K', T, 2]
+        r=torch.stack([r_nb.permute(1, 2, 0), r_b.permute(1, 2, 0)], dim=-1),  # [B, K', T, 2]
         psi=psi_new,
         last=token.long(),
-        empty=torch.zeros(kp, dtype=torch.bool, device=dev),
+        empty=torch.zeros((b, kp), dtype=torch.bool, device=dev),
     )

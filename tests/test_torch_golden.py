@@ -215,3 +215,37 @@ def test_first_pass_pad_frames_reads_the_pad_frames(guided):
     short = int(torch.argmin(lens))
     assert lens[short] < enc.shape[1] and every[short] > valid[short]
     assert every[1 - short] == valid[1 - short]
+
+
+# ---------------------------------------------------------------------------
+# golden_trained_guided.npz: the reference-trained guided model on the tone corpus
+
+def test_tone_corpus_matches_the_jax_tests_corpus(tmp_path):
+    """The port's in-memory corpus equals the one tests/test_e2e_tiny.py
+    writes and the JAX package reads back, sample for sample."""
+    import sys
+
+    sys.path.insert(0, str(gc.GOLD.parent))
+    from test_e2e_tiny import make_corpus
+
+    from llm_guided_asr_tpu.data.fileio import read_2columns_text, read_audio
+
+    make_corpus(tmp_path, n_train=24, n_valid=6, seed=0)
+    corpus = gc.make_tone_corpus(24, 6, 0)
+    n = 0
+    for split in ("train", "valid"):
+        texts = read_2columns_text(tmp_path / split / "text")
+        for uid, path in read_2columns_text(tmp_path / split / "wav.scp").items():
+            wav, text = corpus[uid]
+            assert text == texts[uid]
+            np.testing.assert_array_equal(wav, read_audio(path)[1])
+            n += 1
+    assert n == len(corpus) == 30
+
+
+def test_trained_guided_golden_decodes_and_cer():
+    """All 30 utterances at beam 10, ctc_weight 0.3 through the cached
+    guided scorer: the reference's hypotheses, scores within 5e-3, its CER."""
+    fx = gc.load_fixture("golden_trained_guided")
+    errs = gc.check_trained_guided(gc.build_trained_guided(fx, "cpu"), fx)
+    assert errs["trained_guided_cer"] == pytest.approx(fx.meta["cer"], abs=1e-9)

@@ -30,6 +30,11 @@ from llm_guided_asr_tpu_torch.ops import wkv as twkv
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
 
 
+# encoder frames of 10.0, 7.3, 4.1, 10.0, 7.3, 4.1, 10.0 and 7.3 s of audio
+# in one batch padded to 10 s (chip_smoke.py phase 12)
+SERVE_BATCH_LENS = [312, 229, 129, 312, 229, 129, 312, 229]
+
+
 def _rel_attention_tol(ref):
     """float32: the order of the sums; bfloat16: at most one unit in the last
     place of the output, 2**-7 of the largest one."""
@@ -74,6 +79,7 @@ def _rand(rng, *shape, scale=0.3):
     (2, 4, 100, 36, [100, 71]),  # a head dim padded inside the kernel (144-wide Conformer)
     (1, 4, 937, 64, [937]),  # B = 1 at 30 s and 60 s of audio: the key splits' grids
     (1, 4, 1874, 64, [1874]),
+    (8, 4, 312, 64, SERVE_BATCH_LENS),  # Speech2Text.batch_call of 8 ragged requests
 ])
 def test_rel_attention_kernel_matches_plain(card, dtype, b, h, t, dk, lengths):
     # unit-scale inputs: a peaked softmax, so that a wrong positional term
@@ -99,6 +105,7 @@ DW_CASES = [
     (1, 312, 256, 15), (1, 312, 70, 33), (3, 40, 70, 1), (1, 20, 256, 2),
     (3, 5, 70, 15), (1, 30, 256, 31), (1, 7, 256, 33),
     (16, 312, 256, 31), (4, 312, 256, 8), (48, 100, 70, 15),
+    (8, 312, 256, 31),  # the batched serving shape
 ]
 
 
@@ -798,7 +805,8 @@ def test_golden_fixtures_on_the_card(card):
     """The reference's golden fixtures (tests/parity/) at the JAX parity
     tests' tolerances, with the encoders on the rel-pos and depthwise
     forward kernels at head dim 16 and conv kernel 7: 3 encoder passes of 2
-    blocks, nothing else launched."""
+    blocks for the random-weight fixtures and one per utterance of the
+    30-utterance tone corpus (golden_trained_guided), nothing else launched."""
     from llm_guided_asr_tpu_torch.bin import golden_check
 
     before = _counts()
@@ -806,4 +814,55 @@ def test_golden_fixtures_on_the_card(card):
     torch.cuda.synchronize()
     after = _counts()
     launched = {k: after[k] - before[k] for k in after}
-    assert launched == {k: 6 if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0 for k in after}
+    want = 2 * (3 + 30)
+    assert launched == {k: want if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0
+                        for k in after}
+
+
+@pytest.mark.gpu
+def test_batched_guided_decoding_on_the_card_matches_single(card):
+    """A tiny float32 LLM-guided model on the card: Speech2Text.batch_call of
+    three ragged requests (one encode: one launch of each encoder forward
+    kernel a block) and each lane decoded alone from the same encoder rows
+    give the same tokens, scores within 1e-4."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.models import llm_guided as tlg
+    from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
+    from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
+
+    cfg = tlg.LLMGuidedASRConfig(
+        vocab_size=50, llm=LlamaConfig(vocab_size=50, hidden_size=32, intermediate_size=48,
+                                       num_hidden_layers=2, num_attention_heads=4,
+                                       num_key_value_heads=2),
+        prompt=PromptTemplate(prefix_ids=(2, 3, 4), suffix_ids=(5, 6), start_of_response_id=7,
+                              end_of_response_id=7, pad_id=0),
+        frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=23), normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=32, attention_heads=2, linear_units=64,
+                                      num_blocks=2, macaron_style=True, cnn_module_kernel=7),
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=64, num_blocks=2),
+        ctc_weight=0.3)
+    model = init_weights(tlg.LLMGuidedASRModel(cfg, llm_dtype=torch.float32, device=card), 0)
+    with torch.no_grad():
+        for prm in model.parameters():
+            prm.mul_(20.0)  # peaked distributions: hypotheses of several tokens
+    rng = np.random.default_rng(3)
+    waves = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in (9600, 6400, 3200)]
+    s2t = Speech2Text(model.eval(), ctc_weight=0.3, beam_size=4, nbest=2, maxlenratio=-8.0)
+    before = _counts()
+    batched = s2t.batch_call(waves)
+    torch.cuda.synchronize()
+    after = _counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0 for k in after}
+    batch = np.zeros((3, 9600), np.float32)
+    for i, w in enumerate(waves):
+        batch[i, : len(w)] = w
+    with torch.no_grad():
+        enc, lens = model.encode(torch.from_numpy(batch).to(card),
+                                 torch.tensor([len(w) for w in waves], device=card))
+    for b, got in enumerate(batched):
+        alone = s2t.beam(enc[b:b + 1], lens[b:b + 1], maxlenratio=-8.0, nbest=2)
+        assert [ids for ids, _ in got] == [[t for t in h.yseq if t != 7] for h in alone]
+        np.testing.assert_allclose([h.score for _, h in got], [h.score for h in alone],
+                                   atol=1e-4)
+    assert any(len(r[0][0]) > 2 for r in batched)

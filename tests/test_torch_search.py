@@ -40,18 +40,21 @@ def test_greedy_and_prompt_packing_match_jax():
 
 
 def test_ctc_prefix_scoring_matches_jax():
+    """One lane (the port's functions take a leading lane axis) against the
+    JAX functions of one utterance."""
     rng = np.random.default_rng(2)
     t_max, k = 21, 3
     logp = np.asarray(jax.nn.log_softmax(jnp.asarray(rng.standard_normal((t_max, 11)) * 2), -1))
     length = jnp.asarray(17)
+    t_logp, t_len = torch.from_numpy(np.array(logp))[None], torch.tensor([17])
     j_state = jcp.ctc_prefix_init(jnp.asarray(logp), length, k)
-    t_state = tcp.ctc_prefix_init(torch.from_numpy(np.array(logp)), torch.tensor(17), k)
+    t_state = tcp.ctc_prefix_init(t_logp, t_len, k)
     for step in range(3):
         cand = rng.integers(0, 11, (k, 5)).astype(np.int32)
         cand[:, -1] = 10  # eos
         j_psi = jcp.ctc_prefix_psi(jnp.asarray(logp), length, j_state, jnp.asarray(cand), eos_id=10)
-        t_psi = tcp.ctc_prefix_psi(torch.from_numpy(np.array(logp)), torch.tensor(17), t_state,
-                                   torch.from_numpy(cand).long(), eos_id=10)
+        t_psi = tcp.ctc_prefix_psi(t_logp, t_len, t_state, torch.from_numpy(cand).long()[None],
+                                   eos_id=10)[0]
         np.testing.assert_allclose(t_psi.numpy(), np.asarray(j_psi), rtol=1e-5, atol=1e-4)
         parent = np.array([0, 0, 1]) if step else np.zeros(k, np.int64)
         cidx = np.array([1, 2, 0])
@@ -59,9 +62,9 @@ def test_ctc_prefix_scoring_matches_jax():
         token[token == 0] = 3  # a label, not blank
         j_state = jcp.ctc_prefix_advance(jnp.asarray(logp), length, j_state, jnp.asarray(token),
                                          jnp.asarray(parent), j_psi[parent, cidx])
-        t_state = tcp.ctc_prefix_advance(torch.from_numpy(np.array(logp)), torch.tensor(17),
-                                         t_state, torch.from_numpy(token).long(),
-                                         torch.from_numpy(parent), t_psi[parent, cidx])
+        t_state = tcp.ctc_prefix_advance(t_logp, t_len, t_state,
+                                         torch.from_numpy(token).long()[None],
+                                         torch.from_numpy(parent)[None], t_psi[parent, cidx][None])
         valid = np.arange(t_max) < 17  # rows past the length are never read
-        np.testing.assert_allclose(t_state.r.numpy()[:, valid], np.asarray(j_state.r)[:, valid],
+        np.testing.assert_allclose(t_state.r.numpy()[0][:, valid], np.asarray(j_state.r)[:, valid],
                                    rtol=1e-5, atol=1e-3)
