@@ -82,13 +82,17 @@ prints how long it took):
               (2 x 32, head dim 16, conv kernel 7) launch the rel-pos and
               depthwise forward kernels 6 times each, nothing else; then
               both kernels on their own at those shapes against their
-              plain versions (1e-5, 1e-4); and golden_trained_guided.npz:
+              plain versions (1e-5, 1e-4); golden_trained_guided.npz:
               the 30-utterance tone corpus made again from seed 0 (the
               int16 wav round trip included), the template split by the
               port's tokenizer, every utterance decoded at beam 10 from a
               reference-trained checkpoint: the reference's hypotheses,
               scores within 5e-3, its CER (one encoder pass of 2 blocks an
-              utterance);
+              utterance); and golden_trained.npz at its three operating
+              points: the corpus at beam 5 offline and with the
+              reference-trained TransformerLM at lm_weight 0.3 (hypotheses,
+              scores within 5e-3, CER), and 8 utterances through the
+              resumable search in 3 cuts (the offline hypotheses);
 12. serve-batch -- phase 3's model serving 8 requests in one
               Speech2Text.batch_call (10.0, 7.3, 4.1, 10.0, 7.3, 4.1, 10.0,
               7.3 s of phase 3's seeded noise, padded to 10 s: T' = 312
@@ -101,12 +105,37 @@ prints how long it took):
               LLM, each lane of a batch against the same lane decoded
               alone from the batch's encoder rows (tokens equal, scores
               within 1e-3; a lane that differs must be a near tie, the two
-              candidates within 1e-4).
+              candidates within 1e-4);
+13. serve-lm -- phase 5's CTC/attention ASRModel (vocab 5000, Conformer
+              12x256, decoder 6x256, float32, seed 0) served with shallow
+              fusion: a TransformerLM at the widths of ESPnet's LibriSpeech
+              recipe (train_lm_transformer2.yaml: embed 128, att 512, 8
+              heads, 2048 units, 16 layers, sinusoidal; seed 0) at
+              lm_weight 0.6, phase 3's requests at beam 10, ctc_weight 0.3
+              and the 24-token cap: one warm-up and 3 timed runs of each
+              (median, min, max, RTFx), peak memory, 12 launches of each
+              encoder forward a request and no backward, the scores'
+              bookkeeping with the LM part, one profiled request (busy
+              share, top kernels, the LM's share of the device time), and
+              the card's LM log-probs against the CPU (1e-4);
+14. serve-stream -- a streaming ASRModel (contextual-block Conformer at
+              the widths of ESPnet's AISHELL streaming Conformer: 12x256,
+              4 heads, 2048 units, cnn kernel 15, block 40; global MVN
+              with seeded statistics; decoder 6x256; vocab 5000; seed 0)
+              fed the 10 s request in 1 s chunks through
+              Speech2TextStreaming (beam 10, ctc_weight 0.3, the 24-token
+              cap): each chunk's latency and the last one's, 12 depthwise
+              launches a block and no rel-pos launch, the streamed encoder
+              rows against the offline encode (1e-5), the final hypothesis
+              equal to the offline decode (its score gap held to the JAX
+              test's 0.5: the stream keeps only the blank row of the
+              carried CTC state) and to the same resumable search replayed
+              over the offline rows with the stream's cuts (score 1e-4).
 
-``--phase train-1|train-transducer|golden|serve|serve-batch`` builds the
-kernels and runs that phase alone (no kernel table); ``--package-root DIR``
-then imports the port from another checkout, so that two revisions run
-one phase in turns.
+``--phase train-1|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream``
+builds the kernels and runs that phase alone (no kernel table);
+``--package-root DIR`` then imports the port from another checkout, so that
+two revisions run one phase in turns.
 
 Phase 2 also holds the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
@@ -129,7 +158,8 @@ the rel-pos forward at the long-form length [1, 4, 1874, 64], the
 yardstick beside the flash forward; and the two encoder forwards at the
 batched serving shapes of phase 12 ([8, 4, 312, 64] with 312, 229, 129,
 312, 229, 129, 312 and 229 valid keys; [8, 312, 256] x [31, 256]), f32,
-CUDA graph.  The rel-pos entry points are also
+CUDA graph, and the depthwise forward at the streaming encoder's block
+[1, 40, 256] x [15, 256] (phase 14), f32, CUDA graph.  The rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
 (serving and training shapes, the backward's dp included), and their
@@ -190,6 +220,15 @@ FLASH_T = 1874  # encoder frames of 60 s of audio (hop 128, x4 subsampling)
 FLASH_SERVE = (1, 4, FLASH_T, 64)
 FLASH_TRAIN = (FLASH_B, 4, FLASH_T, 64)
 FLASH_FWD = ("flash_attention_fwd", "dwconv1d_fwd")
+# phase 13 (serve-lm): the TransformerLM of ESPnet's LibriSpeech recipe
+# (egs2/librispeech/asr1/conf/tuning/train_lm_transformer2.yaml)
+LM_CONF = dict(embed_unit=128, att_unit=512, head=8, unit=2048, layer=16)
+LM_WEIGHT = 0.6
+# phase 14 (serve-stream): ESPnet's AISHELL streaming Conformer
+# (egs2/aishell/asr1/conf/tuning/train_asr_streaming_conformer.yaml)
+STREAM_BLOCK, STREAM_KERNEL, STREAM_CHUNK = 40, 15, 16000
+STREAM_DW_SHAPE = f"serve-stream [1,{STREAM_BLOCK},256] K={STREAM_KERNEL}"
+STREAM_FWD = ("dwconv1d_fwd",)
 FLASH_BWD = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq", "dwconv1d_bwd")
 
 
@@ -386,10 +425,11 @@ def check_rel_attention_batch(ra, gen, card):
     return r
 
 
-def check_dwconv(dc, dtype, k_size, gen, card, b=1):
-    """Serving shape: [1, 312, 256] x [31, 256]; also an even K, and the
-    batched serving shape [8, 312, 256]."""
-    t, c = 312, 256
+def check_dwconv(dc, dtype, k_size, gen, card, b=1, t=312):
+    """Serving shape: [1, 312, 256] x [31, 256]; also an even K, the
+    batched serving shape [8, 312, 256] and the streaming encoder's block
+    [1, 40, 256] x [15, 256]."""
+    c = 256
     x = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
     w = torch.randn(k_size, c, generator=gen, device="cuda").to(dtype)
     y = dc.depthwise_conv1d(x, w)
@@ -955,6 +995,9 @@ def phase_kernels(ra, dc, wk, fa, card):
                                                          b=len(BATCH_LENS)))):
         _print_timing(card, name, f"serve-batch B={len(BATCH_LENS)} T={BATCH_T}", torch.float32, r)
         results[(name, shape, torch.float32)] = r
+    r = check_dwconv(dc, torch.float32, STREAM_KERNEL, gen, card, t=STREAM_BLOCK)
+    _print_timing(card, "dwconv1d_fwd", STREAM_DW_SHAPE, torch.float32, r)
+    results[("dwconv1d_fwd", STREAM_DW_SHAPE, torch.float32)] = r
     for shape, r in check_wkv(wk, gen, card).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
@@ -1684,11 +1727,13 @@ def phase_golden(kernels, card):
     CTC/attention model's encoder outputs (13 and 41 frames), CTC and
     decoder log-probs and beam-10, beam-1 and long-utterance hypotheses, and
     the LLM-guided model's loss, decoder log-probs, cached steps and
-    beam-10 hypothesis; and the reference-trained guided model's decodes and
-    CER on the 30-utterance tone corpus.  Their encoders (2 blocks of 32,
-    head dim 16, conv kernel 7) run the rel-pos and depthwise forward
-    kernels: 3 encoder passes and one an utterance of the corpus, one
-    launch of each a block."""
+    beam-10 hypothesis; the reference-trained guided model's decodes and
+    CER on the 30-utterance tone corpus; and the reference-trained plain
+    model at its three operating points (offline beam 5, LM fusion with the
+    reference-trained TransformerLM, the streamed search over 8
+    utterances).  Their encoders (2 blocks of 32, head dim 16, conv kernel
+    7) run the rel-pos and depthwise forward kernels: 3 encoder passes and
+    one an utterance a decode, one launch of each a block."""
     from llm_guided_asr_tpu_torch.bin import golden_check
 
     reset_counts(kernels)
@@ -1698,6 +1743,10 @@ def phase_golden(kernels, card):
     blocks = golden_check.load_fixture("golden_conformer").meta["blocks"]
     trained = golden_check.load_fixture("golden_trained_guided").meta
     passes = 3 * blocks + (trained["corpus"]["n_train"] + trained["corpus"]["n_valid"]) * trained["blocks"]
+    # golden_trained: the corpus offline and with the LM, 8 utterances streamed
+    plain = golden_check.load_fixture("golden_trained").meta
+    n_utts = plain["corpus"]["n_train"] + plain["corpus"]["n_valid"]
+    passes += (2 * n_utts + golden_check.N_STREAMED) * plain["blocks"]
     for name, n in launches.items():
         want = passes if name in ENCODER_FWD else 0
         if n != want:
@@ -1740,9 +1789,270 @@ def check_golden_shapes() -> str:
     return ", ".join(errs)
 
 
+def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", **encoder):
+    """The CTC/attention ASRModel of phase 5 (bench.py build_flagship: vocab
+    5000, Conformer 12 x 256 with 4 heads, decoder 6 x 256) for serving,
+    float32 with TF32 off, weights from seed 0; ``encoder`` overrides the
+    encoder's fields."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+    from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
+    from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+
+    enc = {**dict(output_size=256, attention_heads=4, linear_units=1024, num_blocks=12,
+                  macaron_style=True, use_cnn_module=True, cnn_module_kernel=31), **encoder}
+    cfg = ASRModelConfig(
+        vocab_size=5000, frontend=FrontendConfig(), normalize=normalize,
+        encoder_type=encoder_type, encoder=ConformerConfig(**enc),
+        decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
+        ctc_weight=0.3,
+    )
+    return init_weights(ASRModel(cfg, device="cuda"), seed=0).eval()
+
+
+def phase_serve_lm(kernels, card):
+    """Phase 5's ASRModel served with shallow fusion: a TransformerLM at the
+    widths of ESPnet's LibriSpeech recipe (embed 128, att 512, 8 heads,
+    2048 units, 16 layers, vocab 5000, sinusoidal positions; weights from
+    seed 0), lm_weight 0.6, beam 10, ctc_weight 0.3, the 24-token cap: one
+    warm-up request of each length, then each ROUNDS times; the launch
+    counts (12 of each encoder forward a request, no backward), peak memory,
+    one profiled 10 s request (busy share, top kernels, the LM's share of
+    the device time), and the card's LM log-probs against the CPU plain
+    path on one prefix batch (1e-4)."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.lm import TransformerLM, TransformerLMConfig, make_lm_score_fn
+
+    model = build_serve_asr()
+    lm = init_weights(TransformerLM(TransformerLMConfig(vocab_size=5000, dropout_rate=0.0,
+                                                        **LM_CONF), device="cuda"), seed=0).eval()
+    n_lm = sum(p.numel() for p in lm.parameters())
+    print(f"[serve-lm] ASRModel {sum(p.numel() for p in model.parameters())} parameters, "
+          f"TransformerLM {n_lm} parameters ({LM_CONF}), lm_weight {LM_WEIGHT}")
+    score = make_lm_score_fn(lm)
+
+    def lm_score(tokens, lengths):
+        with record_function("lm_score"):
+            return score(tokens, lengths)
+
+    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0, lm=lm_score,
+                      lm_weight=LM_WEIGHT)
+    waves = request_waves()
+    for sec, wave in zip(REQUEST_SECONDS, waves):
+        t0 = time.perf_counter()
+        s2t(wave)
+        torch.cuda.synchronize()
+        print(f"[serve-lm] warm-up request, {sec:.1f} s audio: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    lat = {sec: [] for sec in REQUEST_SECONDS}
+    hyps = []
+    for _ in range(ROUNDS):
+        for sec, wave in zip(REQUEST_SECONDS, waves):
+            t0 = time.perf_counter()
+            (ids, hyp), = s2t(wave)
+            torch.cuda.synchronize()
+            lat[sec].append(time.perf_counter() - t0)
+            hyps.append((ids, hyp))
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    for sec in REQUEST_SECONDS:
+        ms = sorted(x * 1e3 for x in lat[sec])
+        med = float(np.median(ms))
+        print(f"[serve-lm] {sec:.1f} s audio, {len(ms)} runs: latency median {med:.1f} ms "
+              f"(min {ms[0]:.1f}, max {ms[-1]:.1f}), RTFx at the median {sec / med * 1e3:.2f} "
+              f"[{card}]")
+    print(f"[serve-lm] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
+    for i, (ids, hyp) in enumerate(hyps):
+        want = 0.7 * hyp.scores["decoder"] + 0.3 * hyp.scores["ctc"] + LM_WEIGHT * hyp.scores["lm"]
+        if not (math.isfinite(hyp.score) and abs(hyp.score - want) <= 1e-3 * max(1.0, abs(want))):
+            raise AssertionError(f"serve-lm: score {hyp.score} != weighted parts {want}")
+        if not all(0 <= t < 5000 for t in ids) or ids != hyps[i % len(REQUEST_SECONDS)][0]:
+            raise AssertionError(f"serve-lm: bad or unsteady hypothesis {hyp}")
+    for sec, (ids, hyp) in zip(REQUEST_SECONDS, hyps):
+        print(f"[serve-lm] {sec:.1f} s audio: hyp {len(ids)} tokens, score {hyp.score:.4f} "
+              f"{hyp.scores}")
+    n_req = len(hyps)
+    print(f"[serve-lm] kernel launches over {n_req} requests: {launches}")
+    for name, n in launches.items():
+        want = model.cfg.encoder.num_blocks * n_req if name in ENCODER_FWD else 0
+        if n != want:
+            raise AssertionError(f"serve-lm: {name}: {n} launches, expected {want}")
+    med10 = float(np.median(lat[REQUEST_SECONDS[0]])) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        s2t(waves[0])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the LM's range is also a span on the card's timeline (first to last
+    # kernel, gaps included): it is left out of the busy sum, and the LM's
+    # device time is its kernels' time, read from the host-side range
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key != "lm_score"]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    lm_ev = [e for e in prof.key_averages()
+             if e.key == "lm_score" and e.device_type == torch.autograd.DeviceType.CPU]
+    lm_ms = lm_ev[0].device_time_total / 1e3 if lm_ev else float("nan")
+    print(f"[serve-lm] {REQUEST_SECONDS[0]} s request traced (host and card): wall "
+          f"{wall * 1e3:.1f} ms, device busy {dev_ms:.1f} ms = {100 * dev_ms / med10:.1f}% of the "
+          f"unprofiled median latency; the LM's kernels {lm_ms:.1f} ms = "
+          f"{100 * lm_ms / max(dev_ms, 1e-9):.1f}% of the device time "
+          f"({lm_ev[0].count if lm_ev else 0} LM calls) [{card}]")
+    print_top("serve-lm", events)
+
+    # the card's LM against the plain path on the CPU, one prefix batch
+    rng = np.random.default_rng(5)
+    tokens = torch.from_numpy(rng.integers(0, 5000, (10, 26)))
+    lens = torch.from_numpy(rng.integers(1, 27, 10))
+    with torch.inference_mode():
+        got = score(tokens.cuda(), lens.cuda()).cpu()
+        want = make_lm_score_fn(copy.deepcopy(lm).cpu())(tokens, lens)
+    err = (got - want).abs().max().item()
+    print(f"[serve-lm] LM log-probs card vs CPU, [10, 26] prefixes: max_abs_err {err:.3e} "
+          f"(tol 1e-4)")
+    if not err <= 1e-4:
+        raise AssertionError(f"serve-lm: the card's LM disagrees with the CPU: {err}")
+    return launches
+
+
+def phase_serve_stream(kernels, card):
+    """A streaming ASRModel (contextual-block Conformer at the widths of
+    ESPnet's AISHELL streaming Conformer: 12 x 256, 4 heads, 2048 units,
+    cnn kernel 15, block 40; global MVN with seeded statistics; decoder
+    6 x 256 with 2048 units; vocab 5000; weights from seed 0) fed phase
+    3's 10 s request in 1 s chunks through Speech2TextStreaming (beam 10,
+    ctc_weight 0.3, the 24-token cap), once to warm up and ROUNDS times
+    timed: each chunk's latency and the last one's; 12 depthwise launches
+    a completed block and no rel-pos launch; the streamed encoder rows
+    against an offline encode (1e-5); the final hypothesis against the
+    offline decode (equal tokens; the score gap printed and held to the
+    JAX test's 0.5: the streamed search keeps only the blank row of the
+    carried CTC state) and against the same resumable search replayed over
+    the offline encoder's rows with the stream's own cuts and budgets
+    (score within 1e-4)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference_streaming import Speech2TextStreaming
+
+    model = build_serve_asr(encoder_type="contextual_block_conformer", normalize="global_mvn",
+                            linear_units=2048, cnn_module_kernel=STREAM_KERNEL,
+                            block_size=STREAM_BLOCK)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        model.mvn_mean.copy_(torch.randn(80, generator=gen, device="cuda") * 0.5 - 8.0)
+        model.mvn_inv_std.copy_(1.0 / (0.5 + torch.rand(80, generator=gen, device="cuda")))
+    print("[serve-stream] AISHELL streaming Conformer widths; the recipe's hop_size 16 and "
+          "look_ahead 16 have no counterpart in the JAX encoder (context: mean-pooled blocks)")
+    kw = dict(beam_size=10, ctc_weight=0.3, maxlenratio=-24.0)
+    st = Speech2TextStreaming(model, chunk_samples=STREAM_CHUNK, **kw)
+    wave = request_waves()[0]
+    sec = REQUEST_SECONDS[0]
+
+    steps = []  # (old, new, maxlen, minlen) of each resumed search, for the replay
+    stream_step = st.beam.stream_step
+
+    def logged_step(enc_buf, old, new, maxlen, minlen, carry, ctc_logp):
+        steps.append((int(old), int(new), int(maxlen), int(minlen)))
+        return stream_step(enc_buf, old, new, maxlen, minlen, carry, ctc_logp)
+
+    st.beam.stream_step = logged_step
+
+    def stream_once():
+        st.reset()
+        steps.clear()
+        chunk_ms, out = [], None
+        for start in range(0, len(wave), STREAM_CHUNK):
+            t0 = time.perf_counter()
+            out = st(wave[start: start + STREAM_CHUNK], is_final=start + STREAM_CHUNK >= len(wave))
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        return chunk_ms, out
+
+    stream_once()  # warm-up
+    reset_counts(kernels)
+    runs = [stream_once() for _ in range(ROUNDS)]
+    launches = counts(kernels)
+    mids = sorted(ms for chunk_ms, _ in runs for ms in chunk_ms[:-1])
+    finals = sorted(chunk_ms[-1] for chunk_ms, _ in runs)
+    print(f"[serve-stream] {sec:.1f} s request in {len(runs[0][0])} chunks of "
+          f"{STREAM_CHUNK / SR:.1f} s, {ROUNDS} runs: chunk latency median "
+          f"{float(np.median(mids)):.1f} ms (max {mids[-1]:.1f}); the last chunk (to the final "
+          f"hypothesis) median {float(np.median(finals)):.1f} ms (max {finals[-1]:.1f}) [{card}]")
+    # the offline encode of the request padded by one bucket of 1600 zeros (as
+    # a wider batch pads it): alone, 10 s fill their 1251 feature frames
+    # exactly and the subsampling's width clamps the length to 312, while
+    # the stream's last sub-frame reads zero frames past the end (313)
+    with torch.inference_mode():
+        speech = torch.from_numpy(np.pad(wave, (0, 1600))[None]).cuda()
+        enc, enc_lens = model.encode(speech, torch.tensor([len(wave)], device="cuda"))
+    n_frames = int(enc_lens[0])
+    blocks = -(-n_frames // STREAM_BLOCK)
+    print(f"[serve-stream] kernel launches over {ROUNDS} streamed requests ({n_frames} encoder "
+          f"frames, {blocks} blocks each): {launches}")
+    for name, n in launches.items():
+        want = model.cfg.encoder.num_blocks * blocks * ROUNDS if name in STREAM_FWD else 0
+        if n != want:
+            raise AssertionError(f"serve-stream: {name}: {n} launches, expected {want}")
+
+    # the stream once more, kept after the last chunk: its encoder rows and
+    # final hypothesis against the offline encode and decode
+    st.reset()
+    steps.clear()
+    for start in range(0, len(wave), STREAM_CHUNK):
+        st._buffer = np.concatenate([st._buffer, wave[start: start + STREAM_CHUNK]])
+        with torch.inference_mode():
+            st._advance(start + STREAM_CHUNK >= len(wave))
+    st_rows = st._enc[: st._sub_done]
+    hyp = st.beam.stream_hyps(st._carry)[0]
+    ids = [t for t in hyp.yseq if t not in (model.cfg.sos_id, model.cfg.eos_id)]
+    if ids != runs[-1][1][0][0]:
+        raise AssertionError("serve-stream: the same request streamed to another hypothesis")
+    if st._sub_done != n_frames:
+        raise AssertionError(f"serve-stream: {st._sub_done} streamed frames, offline {n_frames}")
+    enc_err = (st_rows - enc[0, :n_frames]).abs().max().item()
+    off_hyp = st.beam(enc, enc_lens, maxlenratio=-24.0)[0]
+    off_ids = [t for t in off_hyp.yseq if t not in (model.cfg.sos_id, model.cfg.eos_id)]
+    gap = abs(hyp.score - off_hyp.score)
+    print(f"[serve-stream] streamed encoder rows vs offline encode: max_abs_err {enc_err:.3e} "
+          f"(tol 1e-5); final hypothesis {len(ids)} tokens, score {hyp.score:.4f}; offline "
+          f"{len(off_ids)} tokens, score {off_hyp.score:.4f} (gap {gap:.4e})")
+    if not enc_err <= 1e-5:
+        raise AssertionError(f"serve-stream: streamed encoder rows differ: {enc_err}")
+    if ids != off_ids or not gap <= 0.5:
+        raise AssertionError(f"serve-stream: streamed {ids} ({hyp.score}) != offline {off_ids} "
+                             f"({off_hyp.score})")
+    # the resumable search replayed over the offline rows with the stream's cuts
+    beam = st.beam
+    with torch.inference_mode():
+        ctc = model.ctc_log_softmax(enc)[0, :n_frames]
+        cap = st._cap
+        enc_buf = torch.zeros(1, cap, enc.shape[2], device="cuda")
+        ctc_buf = torch.zeros(cap, ctc.shape[1], device="cuda")
+        carry = None
+        for old, new, maxlen, minlen in steps:
+            enc_buf[0, :new], ctc_buf[:new] = enc[0, :new], ctc[:new]
+            if carry is None:
+                carry = beam.stream_start(ctc_buf, enc_buf, new, cap + 2)
+            carry = stream_step(enc_buf, old, new, maxlen, minlen, carry, ctc_buf)
+        replay = beam.stream_hyps(carry)[0]
+    r_ids = [t for t in replay.yseq if t not in (model.cfg.sos_id, model.cfg.eos_id)]
+    r_err = abs(replay.score - hyp.score)
+    print(f"[serve-stream] the stream's {len(steps)} resumed searches replayed over the offline "
+          f"rows: score error {r_err:.3e} (tol 1e-4), tokens equal {r_ids == ids} [{card}]")
+    if r_ids != ids or not r_err <= 1e-4:
+        raise AssertionError(f"serve-stream: replay {r_ids} ({replay.score}) != stream {ids}")
+    return launches
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
-    the others (train-1, train-transducer, golden, serve or serve-batch),
+    the others (train-1, train-transducer, golden, serve, serve-batch,
+    serve-lm or serve-stream),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -1757,7 +2067,9 @@ def run_one_phase(name: str, card: str) -> int:
               "train-transducer": lambda: phase_train_transducer(build_transducer(), kernels, card),
               "golden": lambda: phase_golden(kernels, card),
               "serve": lambda: phase_serve(build_model(), kernels, card),
-              "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card)}
+              "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card),
+              "serve-lm": lambda: phase_serve_lm(kernels, card),
+              "serve-stream": lambda: phase_serve_stream(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
@@ -1773,7 +2085,7 @@ def run_one_phase(name: str, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--phase", help="run only this phase: train-1, train-transducer, golden, "
-                                    "serve or serve-batch")
+                                    "serve, serve-batch, serve-lm or serve-stream")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -1836,6 +2148,9 @@ def main() -> int:
     del flash_asr
     torch.cuda.empty_cache()
     paths["golden"] = timed("golden", phase_golden, kernels, card)
+    paths["serve-lm"] = timed("serve-lm", phase_serve_lm, kernels, card)
+    torch.cuda.empty_cache()
+    paths["serve-stream"] = timed("serve-stream", phase_serve_stream, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -1886,6 +2201,11 @@ def main() -> int:
             s = timings[(name, f"serve B=1 T={FLASH_T}", f32)]
             row.update(longform_ms=s["ms"], longform_plain_ms=s["plain_ms"],
                        longform_bound_ms=s["bound_ms"])
+        if name == "dwconv1d_fwd":  # phase 14's streaming block, one launch a block a layer
+            s = timings[(name, STREAM_DW_SHAPE, f32)]
+            row.update(stream_shape=STREAM_DW_SHAPE, stream_ms=s["ms"],
+                       stream_plain_ms=s["plain_ms"], stream_bound_ms=s["bound_ms"],
+                       stream_library_ms=s["library_ms"], stream_max_abs_err=s["err"])
         if name in ENCODER_FWD:  # phase 12's batched serving shape
             s = timings[(name, "serve-batch", f32)]
             row.update(batch_shape=f"B={len(BATCH_LENS)} T={BATCH_T} lanes {list(BATCH_LENS)}",

@@ -11,6 +11,12 @@ layer is not ported yet).  A call pads the waveform to a multiple of
   full-prefix scorer, or with the per-beam KV cache of
   search/cached_decoder.py when ``use_cached_decoder``; the greedy CTC
   decode when ``beam_size <= 1`` and ``ctc_weight == 1.0``;
+- shallow fusion (asr_inference.py:184-196): ``lm`` is a language model
+  of models/lm.py (its ESPnetLanguageModel or the bare LM) or a score
+  function (tokens [N, L], lengths [N]) -> log-probs [N, V], such as the
+  dense n-gram's; the search adds it with ``lm_weight``.  The JAX
+  ``lm_train_config``/``lm_file`` arguments need the task layer, which is
+  not ported yet;
 - a transducer (a model with ``joint_full``): the fixed-expansion beam
   search when ``beam_size > 1``, the greedy decode when it is 1.
 
@@ -26,11 +32,13 @@ Hypothesis) as in the JAX package when the LLM's tokenizer is given
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
+from llm_guided_asr_tpu_torch.models.lm import make_lm_score_fn
 from llm_guided_asr_tpu_torch.models.transducer import transducer_greedy_decode
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch, Hypothesis
 from llm_guided_asr_tpu_torch.search.cached_decoder import CachedDecoderScorer
@@ -66,11 +74,17 @@ class Speech2Text:
         transducer_search: str = "default",
         use_cached_decoder: bool = False,
         tokenizer: Optional[HuggingFaceTokenizer] = None,
+        lm: Optional[Union[nn.Module, Callable]] = None,
+        lm_weight: float = 1.0,
+        pre_beam_ratio: float = 1.5,
     ):
         """``tokenizer``: the LLM's (text/tokenizers.py); results then carry
         text and tokens, and biasing words can be tokenized.
         ``use_cached_decoder``: the standard decoder scores with its per-beam
-        KV cache instead of recomputing the prefix (opt in, as in JAX)."""
+        KV cache instead of recomputing the prefix (opt in, as in JAX).
+        ``lm``, ``lm_weight``: shallow fusion (the weight is 0 without an
+        LM); ``pre_beam_ratio``: the pre-beam keeps int(ratio * beam)
+        candidates a hypothesis."""
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.maxlenratio = maxlenratio
@@ -83,6 +97,9 @@ class Speech2Text:
         self.tokenizer = tokenizer
         self.converter = (None if tokenizer is None
                           else HuggingFaceTokenIDConverter(tokenizer.tokenizer))
+        if isinstance(lm, nn.Module):
+            lm = make_lm_score_fn(getattr(lm, "lm", lm))
+        self.lm_weight = lm_weight if lm is not None else 0.0
         cfg = model.cfg
         if self.is_transducer:
             if transducer_search not in TRANSDUCER_SEARCHES:
@@ -103,7 +120,8 @@ class Speech2Text:
             self.beam = BatchBeamSearch(
                 model, vocab_size=cfg.vocab_size, sos=cfg.sos_id, eos=cfg.eos_id,
                 beam_size=max(beam_size, 1), ctc_weight=ctc_weight, penalty=penalty,
-                blank_id=cfg.blank_id, att_scorer=att_scorer,
+                lm_score_fn=lm, lm_weight=self.lm_weight, blank_id=cfg.blank_id,
+                pre_beam_ratio=pre_beam_ratio, att_scorer=att_scorer,
             )
 
     def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:

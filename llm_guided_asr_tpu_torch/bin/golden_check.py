@@ -23,7 +23,18 @@ arrays), its inputs, and its outputs at several levels.  Two are read here:
   port's own reader of the BPE ``tokenizer.json``, and every utterance is
   decoded at beam 10, ctc_weight 0.3 through the cached guided scorer:
   hypotheses identical to the reference's, scores within 5e-3, and the
-  corpus CER equal (tests/test_wer_parity_trained_guided.py:137-177).
+  corpus CER equal (tests/test_wer_parity_trained_guided.py:137-177);
+- ``golden_trained.npz``: a plain CTC/attention model (vocab 6, Conformer
+  2 x 32, kernel 7, utterance MVN, decoder 2 x 32) the reference trained
+  on the same corpus, at the checkpoint's three operating points
+  (tests/test_wer_parity_reference.py): offline beam 5, ctc_weight 0.3,
+  the stateless scorer; shallow fusion with the reference-trained
+  TransformerLM of ``golden_trained_lm.npz`` (embed 16, att 32, 2 heads,
+  units 64, 2 layers, sinusoidal) at lm_weight 0.3 -- both with
+  hypotheses identical, scores within 5e-3 and the CER within 1e-9 --
+  and the resumable streaming search fed the offline encoder output of
+  the first 8 utterances in 3 cuts, whose hypotheses must equal the
+  offline ones.
 
 Each check raises AssertionError on a miss, at the tolerances of the JAX
 package's own parity tests (tests/test_parity_reference.py,
@@ -49,7 +60,11 @@ import torch.nn.functional as F
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
-from llm_guided_asr_tpu_torch.models.espnet_ingest import params_from_reference
+from llm_guided_asr_tpu_torch.models.espnet_ingest import (
+    params_from_reference,
+    transformer_lm_params,
+)
+from llm_guided_asr_tpu_torch.models.lm import TransformerLM, TransformerLMConfig, make_lm_score_fn
 from llm_guided_asr_tpu_torch.models.llm.llama import load_llama_dir
 from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate, split_template
 from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRConfig, LLMGuidedASRModel
@@ -433,6 +448,139 @@ def check_trained_guided(model: LLMGuidedASRModel, fx: Fixture) -> Dict[str, flo
     return {"trained_guided_score": worst, "trained_guided_cer": cer}
 
 
+# ---------------------------------------------------------------------------
+# golden_trained.npz, golden_trained_lm.npz (tests/test_wer_parity_reference.py)
+# ---------------------------------------------------------------------------
+
+TONE_TOKENS = ["<blank>", "<unk>", "a", "b", "c", "<sos/eos>"]  # tests/test_e2e_tiny.py
+N_STREAMED = 8  # utterances of the streamed check, as the JAX test takes
+
+
+def build_trained(fx: Fixture, device) -> ASRModel:
+    """The reference-trained CTC/attention model: frontend (n_fft 256, hop
+    128, 23 mels), utterance MVN, the fixture's encoder, decoder and CTC
+    head, float32, eval mode."""
+    meta = fx.meta
+    cfg = ASRModelConfig(
+        vocab_size=meta["vocab"],
+        frontend=FrontendConfig(n_fft=meta["n_fft"], hop_length=meta["hop"],
+                                n_mels=meta["n_mels"]),
+        normalize="utterance_mvn", encoder=_encoder_cfg(meta), decoder=_decoder_cfg(meta),
+        ctc_weight=meta["ctc_weight_decode"],
+    )
+    model = ASRModel(cfg, device=device)
+    model.load_state_dict(params_from_jax(
+        params_from_reference(fx.sd, {**meta, "input_size": meta["n_mels"]})))
+    return model.eval()
+
+
+def build_trained_lm(lm_meta: Dict, vocab: int, device) -> TransformerLM:
+    """The reference-trained TransformerLM of ``golden_trained_lm.npz``."""
+    npz = np.load(GOLD / "golden_trained_lm.npz")
+    sd = {k[3:]: npz[k] for k in npz.files if k.startswith("lm_")}
+    cfg = TransformerLMConfig(vocab_size=vocab, pos_enc="sinusoidal",
+                              embed_unit=lm_meta["embed_unit"], att_unit=lm_meta["att_unit"],
+                              head=lm_meta["head"], unit=lm_meta["unit"], layer=lm_meta["layer"],
+                              dropout_rate=0.0)
+    lm = TransformerLM(cfg, device=device)
+    lm.load_state_dict(params_from_jax({"params": transformer_lm_params(sd, cfg.layer)}))
+    return lm.eval()
+
+
+def trained_search(model: ASRModel, meta: Dict, lm=None, lm_weight: float = 0.0
+                   ) -> BatchBeamSearch:
+    return BatchBeamSearch(model, vocab_size=meta["vocab"], sos=meta["sos"], eos=meta["eos"],
+                           beam_size=meta["beam"], ctc_weight=meta["ctc_weight_decode"],
+                           lm_score_fn=None if lm is None else make_lm_score_fn(lm),
+                           lm_weight=lm_weight)
+
+
+def check_trained(model: ASRModel, meta: Dict, want: Dict, corpus: Dict, tag: str,
+                  lm=None, lm_weight: float = 0.0) -> Dict[str, float]:
+    """Every utterance of the tone corpus decoded from its waveform (beam
+    5, ctc_weight 0.3, maxlenratio 0, the stateless scorer; with ``lm``
+    shallow fusion at ``lm_weight``): the hypotheses of ``want`` token for
+    token, scores within 5e-3, the corpus CER within 1e-9."""
+    bs = trained_search(model, meta, lm, lm_weight)
+    worst, mismatches, refs, hyps = 0.0, [], [], []
+    for uid in sorted(corpus):
+        wav, text = corpus[uid]
+        with torch.no_grad():
+            enc, enc_lens = model.encode(_on(model, wav[None]), _on(model, [len(wav)]))
+        best = bs(enc, enc_lens, maxlenratio=0.0, nbest=1)[0]
+        inner = [t for t in best.yseq if t not in (meta["sos"], meta["eos"])]
+        if inner != want["hyps"][uid]:
+            mismatches.append((uid, inner, want["hyps"][uid]))
+        else:
+            err = abs(best.score - want["scores"][uid])
+            assert err <= 5e-3, f"{tag} {uid}: score {best.score}, reference {want['scores'][uid]}"
+            worst = max(worst, err)
+        refs.append([TONE_TOKENS.index(c) for c in text])
+        hyps.append(inner)
+    assert not mismatches, f"{tag}: {len(mismatches)} hypotheses differ, e.g. {mismatches[:3]}"
+    cer = error_rate(refs, hyps)["err"]
+    assert abs(cer - want["cer"]) <= 1e-9, f"{tag} CER {cer}, reference {want['cer']}"
+    return {f"{tag}_score": worst, f"{tag}_cer": cer}
+
+
+def check_trained_streaming(model: ASRModel, meta: Dict, corpus: Dict) -> int:
+    """The resumable search over the first 8 utterances: each one's offline
+    encoder output fed in 3 cuts (t/3, 2t/3, t), the buffers at full width
+    with the rows past the cut zeroed; between cuts the token budget is the
+    CTC-greedy count over the frames of the previous cut (the trusted
+    region), at the last cut the valid frames.  The hypotheses must equal
+    the offline golden ones (tests/test_wer_parity_reference.py:221-295).
+    Returns the number of utterances checked."""
+    bs = trained_search(model, meta)
+    mismatches = []
+    uids = sorted(corpus)[:N_STREAMED]
+    for uid in uids:
+        wav, _ = corpus[uid]
+        with torch.no_grad():
+            enc, enc_lens = model.encode(_on(model, wav[None]), _on(model, [len(wav)]))
+            ctc_logp = model.ctc_log_softmax(enc)[0]  # [T, V]
+        t, width = int(enc_lens[0]), enc.shape[1]
+        rows = torch.arange(width, device=enc.device)
+        cuts = [max(t // 3, 1), max(2 * t // 3, 2), t]
+        carry, prev = None, 0
+        for ci, cut in enumerate(cuts):
+            enc_buf = enc.masked_fill(~(rows < cut)[None, :, None], 0.0)
+            ctc_buf = ctc_logp.masked_fill(~(rows < cut)[:, None], 0.0)
+            if carry is None:
+                carry, prev = bs.stream_start(ctc_buf, enc_buf, cut, width), cut
+                continue
+            if ci == len(cuts) - 1:
+                maxlen = cut
+            else:
+                am = ctc_logp[:prev].argmax(-1).cpu().numpy()
+                col = am[np.concatenate([[True], am[1:] != am[:-1]])] if prev else np.zeros(0)
+                maxlen = min(int((col != bs.blank_id).sum()), cut)
+            carry = bs.stream_step(enc_buf, prev, cut, maxlen, 0, carry, ctc_buf)
+            prev = cut
+        hyp = bs.stream_hyps(carry, nbest=1)[0]
+        inner = [i for i in hyp.yseq if i not in (meta["sos"], meta["eos"])]
+        if inner != meta["hyps"][uid]:
+            mismatches.append((uid, inner, meta["hyps"][uid]))
+    assert not mismatches, f"streamed golden_trained: {mismatches}"
+    return len(uids)
+
+
+def run_trained(device) -> Dict[str, float]:
+    """The three operating points of the reference's trained checkpoint."""
+    fx = load_fixture("golden_trained")
+    meta = fx.meta
+    model = build_trained(fx, device)
+    c = meta["corpus"]
+    corpus = make_tone_corpus(c["n_train"], c["n_valid"], c["seed"])
+    out = check_trained(model, meta, meta, corpus, "trained")
+    lm_meta = json.loads((GOLD / "golden_trained_lm.json").read_text())
+    lm = build_trained_lm(lm_meta, meta["vocab"], device)
+    out.update(check_trained(model, meta, lm_meta, corpus, "trained_lm", lm,
+                             lm_meta["lm_weight"]))
+    out["trained_streamed_utterances"] = float(check_trained_streaming(model, meta, corpus))
+    return out
+
+
 def run_all(device) -> Dict[str, float]:
     """Every check of both fixtures on ``device``; raises on the first miss.
     Returns each check's largest error (score errors for the searches)."""
@@ -451,6 +599,7 @@ def run_all(device) -> Dict[str, float]:
     out["guided_score_beam10"] = check_guided_beam(guided, fx)
     fx = load_fixture("golden_trained_guided")
     out.update(check_trained_guided(build_trained_guided(fx, device), fx))
+    out.update(run_trained(device))
     return out
 
 

@@ -5,8 +5,13 @@ a torch name by joining it with dots (``encoder/block_0/conv_module/norm``
 -> ``encoder.block_0.conv_module.norm``, ``decoder/embed`` ->
 ``decoder.embed``, ``decoder/block_0/att/key`` -> ``decoder.block_0.att.key``,
 for the LLM-guided model, the CTC/attention ASRModel and the transducer
-alike); only the leaf names and layouts differ (RWKV's [C] leaves
-``mu_*``, ``time_decay`` and ``time_first`` keep their names):
+alike, and for the language models of models/lm.py: ``lm/block_0/norm1``
+-> ``lm.block_0.norm1`` under ESPnetLanguageModel, and a recurrent LM's
+per-gate Dense modules ``rnn_0/if`` (LSTM: ``ii``..``io`` without bias,
+``hi``..``ho`` with it; GRU: ``ir`` ``iz`` ``in`` ``hn`` with it, ``hr``
+``hz`` without) -> ``rnn_0.if``); only the leaf names and layouts differ
+(RWKV's [C] leaves ``mu_*``, ``time_decay`` and ``time_first`` keep their
+names):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW

@@ -63,6 +63,8 @@ class ConformerConfig:
     # True: zero pad frames before the depthwise conv (batch-width
     # invariant); False: convolve pads as the reference does
     pad_safe_conv: bool = True
+    # the contextual-block (streaming) encoder only: sub-frames a block
+    block_size: int = 40
 
 
 _ACTIVATIONS = {"swish": F.silu, "relu": torch.relu, "gelu": F.gelu, "hardtanh": F.hardtanh}
@@ -225,7 +227,13 @@ class ConformerEncoder(nn.Module):
 
 def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda") -> nn.Module:
-    """Encoder registry; the port has the Conformer so far."""
+    """Encoder registry: the Conformer and the contextual-block
+    (streaming) Conformer of models/streaming.py so far."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
+    if encoder_type == "contextual_block_conformer":
+        from llm_guided_asr_tpu_torch.models.streaming import ContextualBlockConformerEncoder
+
+        return ContextualBlockConformerEncoder(cfg, input_size, block_size=cfg.block_size,
+                                               device=device)
     raise NotImplementedError(f"encoder type {encoder_type!r} is not ported yet")

@@ -20,7 +20,9 @@ Layout rules:
 
 :func:`params_from_reference` is the front door for a whole model's state
 dict whose keys carry the reference's ``enc.``, ``dec.`` and ``ctc.``
-prefixes (the golden fixtures' ``sd_*`` arrays, tests/parity/).
+prefixes (the golden fixtures' ``sd_*`` arrays, tests/parity/);
+:func:`transformer_lm_params` reads a reference TransformerLM's state dict
+(``golden_trained_lm.npz``'s ``lm_*`` arrays).
 """
 
 from __future__ import annotations
@@ -166,6 +168,33 @@ def transformer_decoder_params(
             "norm1": _ln(sd, f"{r}.norm1"),
             "norm2": _ln(sd, f"{r}.norm2"),
             "norm3": _ln(sd, f"{r}.norm3"),
+        }
+    return params
+
+
+def transformer_lm_params(sd: Dict[str, np.ndarray], num_blocks: int) -> Dict:
+    """Reference TransformerLM state dict (the ``lm_*`` arrays) -> params of
+    models/lm.py TransformerLM.
+
+    Torch layout (espnet2/lm/transformer_lm.py): embed (Embedding) -> the
+    encoder with input_layer='linear' (encoder.embed.0 Linear, encoder.embed.1
+    LayerNorm, then ReLU and the positional encoding) -> encoder.encoders.N
+    pre-norm blocks -> encoder.after_norm -> the decoder Linear head.
+    """
+    params: Dict = {
+        "embed": {"embedding": np.asarray(sd["embed.weight"])},
+        "input_proj": _lin(sd, "encoder.embed.0"),
+        "input_norm": _ln(sd, "encoder.embed.1"),
+        "after_norm": _ln(sd, "encoder.after_norm"),
+        "output": _lin(sd, "decoder"),
+    }
+    for i in range(num_blocks):
+        r = f"encoder.encoders.{i}"
+        params[f"block_{i}"] = {
+            "self_attn": _mha(sd, f"{r}.self_attn"),
+            "feed_forward": _ffn(sd, f"{r}.feed_forward"),
+            "norm1": _ln(sd, f"{r}.norm1"),
+            "norm2": _ln(sd, f"{r}.norm2"),
         }
     return params
 

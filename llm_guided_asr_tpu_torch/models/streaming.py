@@ -1,0 +1,170 @@
+"""Streaming encoder: the contextual-block Conformer (counterpart of
+llm_guided_asr_tpu/models/streaming.py).
+
+espnet2/asr/encoder/contextual_block_conformer_encoder.py cuts the signal
+into fixed blocks of ``block_size`` sub-frames; each layer's
+self-attention sees [a carried context vector | the current block] only,
+and each block leaves a new context vector for the next one.  Outputs so
+depend on past blocks alone, and :meth:`ContextualBlockConformerEncoder.
+encode_chunk` encodes new frames incrementally with the carried per-layer
+contexts, equal to the offline pass.
+
+The port follows the JAX package's documented deviation from the
+reference: the context starts at zero in every layer and becomes the
+masked mean of each block's output (a block without a valid frame keeps
+the old one), instead of the reference's learned positional context.
+
+The conv module is block-local: its depthwise conv (ops/depthwise_conv.py,
+``dwconv1d_fwd`` on the card) sees one block at a time, zero-padded at the
+block's edges, with a LayerNorm after it; the blocks run one after the
+other, since attention reads the carried context, so a layer launches the
+depthwise kernel once a block.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from llm_guided_asr_tpu_torch.models.conformer import (
+    _ACTIVATIONS,
+    ConformerConfig,
+    ConvolutionModule,
+)
+from llm_guided_asr_tpu_torch.models.transformer import (
+    Conv2dSubsampling,
+    LayerNorm,
+    MultiHeadedAttention,
+    PositionalEncoding,
+    PositionwiseFeedForward,
+    sinusoidal_pos_enc,
+    sub4_lengths,
+)
+from llm_guided_asr_tpu_torch.utils.device import resolve_device
+from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG
+
+PE_MAX_LEN = 5000  # the JAX PositionalEncoding's table; encode_chunk clips to it
+
+
+class ContextualBlockLayer(nn.Module):
+    """One Conformer layer run block by block with a carried context token."""
+
+    def __init__(self, cfg: ConformerConfig):
+        super().__init__()
+        d = cfg.output_size
+        act = _ACTIVATIONS[cfg.activation_type]
+        self.cfg = cfg
+        self.self_attn = MultiHeadedAttention(d, cfg.attention_heads, cfg.attention_dropout_rate)
+        if cfg.macaron_style:
+            self.feed_forward_macaron = PositionwiseFeedForward(d, cfg.linear_units, act,
+                                                                cfg.dropout_rate)
+            self.norm_ff_macaron = LayerNorm(d)
+        self.feed_forward = PositionwiseFeedForward(d, cfg.linear_units, act, cfg.dropout_rate)
+        if cfg.use_cnn_module:
+            self.conv_module = ConvolutionModule(d, cfg.cnn_module_kernel, "layer_norm", act,
+                                                 mask_pads=True)
+            self.norm_conv = LayerNorm(d)
+        self.norm_mha = LayerNorm(d)
+        self.norm_ff = LayerNorm(d)
+        self.norm_final = LayerNorm(d)
+
+    def block_step(self, ctx, x, valid, rng: Optional[StepRNG] = None):
+        """ctx [B, D], x [B, S, D], valid [B, S] -> (next context, output)."""
+        cfg = self.cfg
+        if cfg.macaron_style:
+            x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x), rng)
+        h = self.norm_mha(x)
+        kv = torch.cat([ctx[:, None, :], h], dim=1)  # [B, S+1, D]
+        kv_valid = torch.cat([torch.ones_like(valid[:, :1]), valid], dim=1)
+        x = x + self.self_attn(h, kv, kv, kv_valid[:, None, :], rng=rng)
+        if cfg.use_cnn_module:
+            x = x + self.conv_module(self.norm_conv(x), valid)
+        x = x + (0.5 if cfg.macaron_style else 1.0) * self.feed_forward(self.norm_ff(x), rng)
+        x = self.norm_final(x).masked_fill(~valid[..., None], 0.0)
+        # the next context: the masked mean of this block's output
+        denom = torch.clamp(valid.sum(dim=1, keepdim=True), min=1).to(x.dtype)
+        new_ctx = x.sum(dim=1) / denom
+        return torch.where(valid.any(dim=1, keepdim=True), new_ctx, ctx), x
+
+    def forward(self, blocks, block_valid, ctx0, rng: Optional[StepRNG] = None):
+        """blocks [B, N, S, D], block_valid [B, N, S], ctx0 [B, D] ->
+        (blocks out, the last context)."""
+        ctx, outs = ctx0, []
+        for bi in range(blocks.shape[1]):
+            ctx, y = self.block_step(ctx, blocks[:, bi], block_valid[:, bi], rng)
+            outs.append(y)
+        return torch.stack(outs, dim=1), ctx
+
+
+class ContextualBlockConformerEncoder(nn.Module):
+    """[B, T, F] features -> ([B, T', D], [B] lengths), block-causal."""
+
+    def __init__(self, cfg: ConformerConfig, input_size: int, block_size: int = 40,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        if cfg.input_layer != "conv2d":
+            raise NotImplementedError(f"input_layer={cfg.input_layer!r} is not ported yet")
+        self.cfg = cfg
+        self.block_size = block_size
+        with torch.device(resolve_device(device)):
+            self.embed = Conv2dSubsampling(input_size, cfg.output_size)
+            self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
+            for i in range(cfg.num_blocks):
+                setattr(self, f"layer_{i}", ContextualBlockLayer(cfg))
+            if cfg.normalize_before:
+                self.after_norm = LayerNorm(cfg.output_size)
+
+    def _layers(self):
+        return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_blocks)]
+
+    def forward(self, feats, feats_lengths,
+                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = self.pos_enc(self.embed(feats), rng=rng)
+        out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
+        b, t, d = x.shape
+        s = self.block_size
+        n = -(-t // s)
+        x = torch.nn.functional.pad(x, (0, 0, 0, n * s - t))
+        blocks = x.reshape(b, n, s, d)
+        bvalid = make_valid_mask(out_lengths, n * s).reshape(b, n, s)
+        for layer in self._layers():
+            # a fresh zero context per layer: context flows forward within a
+            # layer only (layer i's last context would leak future blocks)
+            blocks, _ = layer(blocks, bvalid, x.new_zeros(b, d), rng)
+        x = blocks.reshape(b, n * s, d)[:, :t]
+        if self.cfg.normalize_before:
+            x = self.after_norm(x)
+        return x.masked_fill(~make_valid_mask(out_lengths, t)[..., None], 0.0), out_lengths
+
+    def encode_chunk(self, feats: torch.Tensor, ctxs: torch.Tensor, pos_offset: int,
+                     n_valid: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Incremental encode of m sub-frames (m a multiple of block_size):
+        feats [B, 4m + 6, F] must start at input frame 4 * pos_offset, so
+        that the subsampling windows tile as in the offline pass (sub-frame
+        i reads input frames [4i, 4i + 6]); ctxs [num_blocks, B, D] are the
+        carried contexts; the first ``n_valid`` sub-frames are valid.  The
+        positions are pos_offset + [0, m), clipped to the 5000-row table
+        as the JAX function clips them.  Returns ([B, m, D], new ctxs)."""
+        x = self.embed(feats)  # [B, m, D]: VALID convs over 4m + 6 frames
+        b, m, d = x.shape
+        s = self.block_size
+        if m % s != 0:
+            raise ValueError(f"chunk produces {m} sub-frames, not a multiple of block_size {s}")
+        pe = torch.from_numpy(sinusoidal_pos_enc(PE_MAX_LEN, d)).to(device=x.device, dtype=x.dtype)
+        pos = torch.clamp(pos_offset + torch.arange(m, device=x.device), 0, PE_MAX_LEN - 1)
+        x = x * math.sqrt(d) + pe[pos][None]
+        valid = torch.arange(m, device=x.device) < n_valid
+        blocks = x.reshape(b, m // s, s, d)
+        bvalid = valid.reshape(1, m // s, s).expand(b, m // s, s)
+        new_ctxs = []
+        for i, layer in enumerate(self._layers()):
+            blocks, ctx = layer(blocks, bvalid, ctxs[i])
+            new_ctxs.append(ctx)
+        x = blocks.reshape(b, m, d)
+        if self.cfg.normalize_before:
+            x = self.after_norm(x)
+        return x.masked_fill(~valid[None, :, None], 0.0), torch.stack(new_ctxs)

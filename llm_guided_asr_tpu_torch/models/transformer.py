@@ -258,6 +258,28 @@ def sub4_lengths(lengths: torch.Tensor, t: Optional[int] = None) -> torch.Tensor
     return out
 
 
+class TransformerEncoderLayer(nn.Module):
+    """Pre-norm transformer encoder layer (encoder_layer.py, normalize_before):
+    self-attention, then the feed-forward, each a residual branch."""
+
+    def __init__(self, d_model: int, num_heads: int, linear_units: int,
+                 dropout_rate: float = 0.1, attention_dropout_rate: float = 0.0):
+        super().__init__()
+        self.norm1 = LayerNorm(d_model)
+        self.self_attn = MultiHeadedAttention(d_model, num_heads, attention_dropout_rate)
+        self.norm2 = LayerNorm(d_model)
+        self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
+                                                    dropout_rate=dropout_rate)
+        self.dropout_rate = dropout_rate
+
+    def forward(self, x, mask, rng: Optional[StepRNG] = None):
+        """x [B, T, D]; mask [B, T, T] or [B, 1, T], True = attend."""
+        rate = active_rate(self, self.dropout_rate)
+        h = self.norm1(x)
+        x = x + dropout(self.self_attn(h, h, h, mask, rng=rng), rate, rng)
+        return x + dropout(self.feed_forward(self.norm2(x), rng), rate, rng)
+
+
 class DecoderLayer(nn.Module):
     """Pre-norm transformer decoder layer (decoder_layer.py): self-attn, src-attn, FFN."""
 

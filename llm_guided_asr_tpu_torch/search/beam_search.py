@@ -3,12 +3,14 @@
 Static-shape tensor steps over B lanes (utterances) of K hypotheses, one
 Python iteration per output token:
 
-- the attention scorer scores [B, K, V]; a pre-beam keeps W = int(1.5*K)
-  candidates per hypothesis, with eos appended as a (W+1)-th candidate so
-  that it is always CTC-scored (as espnet does);
+- the full scorers score [B, K, V]: the attention decoder and, for shallow
+  fusion, a language model (``lm_score_fn``, weighted by ``lm_weight``);
+  a pre-beam keeps the W = int(pre_beam_ratio*K) best candidates of
+  att_weight*att + lm_weight*lm per hypothesis, with eos appended as a
+  (W+1)-th candidate so that it is always CTC-scored (as espnet does);
 - the CTC prefix scorer rescores the candidates; scores use the absolute
-  prefix probability psi: total = base + att_weight*att + ctc_weight*psi +
-  penalty, where base is the cumulative non-CTC part;
+  prefix probability psi: total = base + att_weight*att + lm_weight*lm +
+  ctc_weight*psi + penalty, where base is the cumulative non-CTC part;
 - top-K over each lane's candidates first, then the selected eos
   hypotheses retire into a fixed-size finished buffer (espnet
   beam_search.py:316 and post_process:500);
@@ -24,15 +26,20 @@ while the scorer caches run on (their rows are never read again).  Each
 lane's result is what a single-utterance call gives.
 
 Weights follow asr_inference.py: decoder 1-ctc_weight, ctc ctc_weight,
-length bonus penalty.  The attention scorer is the stateless full-prefix
-one unless the caller passes another (the LLM-guided model's cached
-scorer, the standard decoder's KV-cached one).  Streaming is not ported
-yet.
+lm lm_weight, length bonus penalty.  The attention scorer is the stateless
+full-prefix one unless the caller passes another (the LLM-guided model's
+cached scorer, the standard decoder's KV-cached one).
+
+Streaming (``stream_start``, ``stream_step``, ``stream_hyps``; the
+batch_beam_search_online analog) resumes one utterance's search as its
+encoder buffer grows: the alive hypotheses' CTC rows are extended over the
+new frames (ctc_prefix_extend) and the loop goes on from its step with a
+larger frame budget; no token is decoded again.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, NamedTuple, Optional
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,13 +47,13 @@ import torch
 from llm_guided_asr_tpu_torch.search.ctc_prefix import (
     CTCPrefixState,
     ctc_prefix_advance,
+    ctc_prefix_extend,
     ctc_prefix_init,
     ctc_prefix_psi,
 )
 from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 
 NEG_INF = -1.0e10
-PRE_BEAM_RATIO = 1.5  # espnet beam_search.py:105
 
 
 class Hypothesis(NamedTuple):
@@ -108,9 +115,16 @@ class BatchBeamSearch:
         beam_size: int = 10,
         ctc_weight: float = 0.5,
         penalty: float = 0.0,
+        lm_score_fn: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None,
+        lm_weight: float = 0.0,
         blank_id: int = 0,
+        pre_beam_ratio: float = 1.5,
         att_scorer=None,
     ):
+        """``lm_score_fn``: (tokens [N, L], lengths [N]) -> log-probs [N, V]
+        of the next token (models/lm.py ``make_lm_score_fn``, the dense
+        n-gram's ``make_score_fn``), added to the full score with
+        ``lm_weight``."""
         self.model = model
         self.att_scorer = att_scorer or StatelessAttScorer(model)
         self.vocab_size = vocab_size
@@ -119,11 +133,17 @@ class BatchBeamSearch:
         # espnet clamps the beam to the vocabulary, and the pre-beam width
         # is int(ratio * K) capped at it (beam_search.py:105)
         self.K = min(beam_size, vocab_size)
-        self.W = max(1, min(vocab_size, int(PRE_BEAM_RATIO * self.K)))
+        self.W = max(1, min(vocab_size, int(pre_beam_ratio * self.K)))
         self.ctc_weight = float(ctc_weight)
         self.att_weight = 1.0 - float(ctc_weight)
         self.penalty = float(penalty)
+        self.lm_score_fn = lm_score_fn
+        self.lm_weight = float(lm_weight)
         self.blank_id = blank_id
+
+    @property
+    def _use_lm(self) -> bool:
+        return self.lm_score_fn is not None and self.lm_weight != 0.0
 
     # -- core loop ------------------------------------------------------
     def _init_carry(self, ctc_logp, enc, enc_lens, lmax: int, scorer_ctx=None):
@@ -162,12 +182,15 @@ class BatchBeamSearch:
         b, dev = enc.shape[0], enc.device
         lmax = s.alive_tokens.shape[2]
         lanes = torch.arange(b, device=dev)[:, None]
-        # 1. full scorer over the B*K rows
-        att_logp, att_state = self.att_scorer.step(
-            enc, enc_lens, att_state, s.alive_tokens.reshape(b * K, lmax),
-            s.alive_len.reshape(b * K), step)
+        # 1. full scorers over the B*K rows
+        rows, row_lens = s.alive_tokens.reshape(b * K, lmax), s.alive_len.reshape(b * K)
+        att_logp, att_state = self.att_scorer.step(enc, enc_lens, att_state, rows, row_lens, step)
         att_logp = att_logp.reshape(b, K, -1)
         full = self.att_weight * att_logp
+        lm_logp = None
+        if self._use_lm:
+            lm_logp = self.lm_score_fn(rows, row_lens).reshape(b, K, -1)
+            full = full + self.lm_weight * lm_logp
         # 2. pre-beam
         top_full, cand = torch.topk(full, W, dim=2)  # [B, K, W]
         if self.ctc_weight != 0.0 and self.eos < self.vocab_size:
@@ -201,8 +224,9 @@ class BatchBeamSearch:
         psi_sel = torch.gather(psi.reshape(b, -1), 1, flat_idx)
 
         zeros = torch.zeros((b, K), device=dev)
+        lm_part = lm_logp[lanes, parent, token] if lm_logp is not None else zeros
         new_parts = s.alive_parts[lanes, parent] + torch.stack(
-            [att_logp[lanes, parent, token], zeros, zeros, torch.ones((b, K), device=dev)], dim=2
+            [att_logp[lanes, parent, token], zeros, lm_part, torch.ones((b, K), device=dev)], dim=2
         )
         if self.ctc_weight != 0.0:
             new_parts[..., 1] = psi_sel
@@ -259,11 +283,12 @@ class BatchBeamSearch:
         return torch.cat([tokens.double(), lens[..., None].double(), top[..., None].double(),
                           parts.double()], dim=2)
 
-    def _search(self, enc, enc_lens, maxlens, minlens, lmax: int, scorer_ctx=None) -> np.ndarray:
-        """The lockstep loop over the lanes; returns _finalize's tensor on the host."""
-        ctc_logp = self._ctc_table(enc)
-        s, att_state = self._init_carry(ctc_logp, enc, enc_lens, lmax, scorer_ctx)
-        limit = torch.clamp(maxlens, max=lmax - 1)
+    def _run_loop(self, enc, enc_lens, maxlens, minlens, carry, ctc_logp):
+        """Steps of the lockstep loop from ``carry`` (BeamState, scorer
+        state) while a lane is active: below its maxlen (and lmax - 1) with
+        an alive hypothesis that beats its worst finished one."""
+        s, att_state = carry
+        limit = torch.clamp(maxlens, max=s.alive_tokens.shape[2] - 1)
         while True:
             viable = s.alive_score.max(dim=1).values > s.fin_score.min(dim=1).values
             active = (s.step < limit) & viable
@@ -272,6 +297,13 @@ class BatchBeamSearch:
             new, att_state = self._body_core(enc, enc_lens, minlens, ctc_logp, s, att_state,
                                              s.step)
             s = new if enc.shape[0] == 1 else _freeze(active, new, s)
+        return s, att_state
+
+    def _search(self, enc, enc_lens, maxlens, minlens, lmax: int, scorer_ctx=None) -> np.ndarray:
+        """The lockstep loop over the lanes; returns _finalize's tensor on the host."""
+        ctc_logp = self._ctc_table(enc)
+        carry = self._init_carry(ctc_logp, enc, enc_lens, lmax, scorer_ctx)
+        s, _ = self._run_loop(enc, enc_lens, maxlens, minlens, carry, ctc_logp)
         return self._finalize(s).cpu().numpy()
 
     def _length_bounds(self, enc_lens: torch.Tensor, maxlenratio: float, minlenratio: float):
@@ -291,10 +323,50 @@ class BatchBeamSearch:
         maxlens, minlens = self._length_bounds(enc_lens, maxlenratio, minlenratio)
         out = self._search(encs, enc_lens, maxlens, minlens,
                            self._lmax(int(encs.shape[1]), maxlenratio), scorer_ctx)
+        return self._lanes_to_hyps(out, nbest)
+
+    def _lanes_to_hyps(self, out: np.ndarray, nbest: int) -> List[List[Hypothesis]]:
+        """_finalize's [B, K, Lmax + 6] host array -> each lane's hypotheses."""
         lmax = out.shape[2] - 6
         return [self._to_hyps(lane[:, :lmax].astype(np.int64), lane[:, lmax].astype(np.int64),
                               lane[:, lmax + 1].astype(np.float32), nbest, lane[:, lmax + 2:])
                 for lane in out]
+
+    # -- streaming continuation (batch_beam_search_online analog) --------
+    # One utterance (one lane).  The JAX package's _sync_stream_weights
+    # only drops jit caches when the weights object is swapped; the port
+    # compiles nothing, so it has no counterpart.
+    @staticmethod
+    def _one_lane(x) -> torch.Tensor:
+        return torch.as_tensor(x).reshape(1).long()
+
+    @torch.inference_mode()
+    def stream_start(self, ctc_logp: torch.Tensor, enc_buf: torch.Tensor, enc_len, lmax: int,
+                     scorer_ctx=None) -> Tuple[BeamState, Dict]:
+        """The initial resumable carry over a partly filled encoder buffer:
+        ctc_logp [T, V] and enc_buf [1, T, D] are the buffers at their full
+        capacity T, enc_len the frames filled so far."""
+        enc_len = self._one_lane(enc_len).to(enc_buf.device)
+        return self._init_carry(ctc_logp[None], enc_buf, enc_len, lmax, scorer_ctx)
+
+    @torch.inference_mode()
+    def stream_step(self, enc_buf: torch.Tensor, enc_len_old, enc_len_new, maxlen, minlen,
+                    carry, ctc_logp: torch.Tensor):
+        """Extend the CTC rows over frames [enc_len_old, enc_len_new), then
+        go on with the search up to ``maxlen`` tokens; returns the carry."""
+        dev = enc_buf.device
+        old, new = self._one_lane(enc_len_old).to(dev), self._one_lane(enc_len_new).to(dev)
+        state, att_state = carry
+        if self.ctc_weight != 0.0:
+            state = state._replace(ctc=ctc_prefix_extend(state.ctc, ctc_logp[None], old, new,
+                                                         self.blank_id))
+        return self._run_loop(enc_buf, new, self._one_lane(maxlen).to(dev),
+                              self._one_lane(minlen).to(dev), (state, att_state), ctc_logp[None])
+
+    @torch.inference_mode()
+    def stream_hyps(self, carry, nbest: int = 1) -> List[Hypothesis]:
+        """The best hypotheses (partial or final) of a resumable carry."""
+        return self._lanes_to_hyps(self._finalize(carry[0]).cpu().numpy(), nbest)[0]
 
     # -- public API -----------------------------------------------------
     @torch.inference_mode()
@@ -344,6 +416,8 @@ class BatchBeamSearch:
                 breakdown = {"decoder": float(parts[k, 0])}
                 if self.ctc_weight != 0.0:
                     breakdown["ctc"] = float(parts[k, 1])
+                if self._use_lm:
+                    breakdown["lm"] = float(parts[k, 2])
                 if self.penalty != 0.0:
                     breakdown["length_bonus"] = float(parts[k, 3])
             out.append(Hypothesis(

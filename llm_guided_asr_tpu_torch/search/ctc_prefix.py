@@ -170,3 +170,37 @@ def ctc_prefix_advance(
         last=token.long(),
         empty=torch.zeros((b, kp), dtype=torch.bool, device=dev),
     )
+
+
+def ctc_prefix_extend(
+    state: CTCPrefixState,  # B lanes of K, rows computed over old_len frames
+    logp: torch.Tensor,  # [B, T, V] CTC log-softmax (rows >= new_len unused)
+    old_len: torch.Tensor,  # [B] frames the state was computed over
+    new_len: torch.Tensor,  # [B] frames available now
+    blank_id: int = 0,
+) -> CTCPrefixState:
+    """Streaming extension of the alive hypotheses' DP rows over the new
+    frames [old_len, new_len) (CTCPrefixScoreTH.extend_state,
+    ctc_prefix_score.py:244-270): only the blank row goes on, r_b[t] =
+    r_b[t-1] + x[t, blank]; r_nb is log-zero there (paths that emit the
+    prefix's last label inside the new frames are not carried; the JAX
+    package makes the same approximation).  psi, last and empty stay.
+
+    The running sum is a cumulative sum over the row with zeros off the
+    new frames, as in the JAX function; the two cumsums associate their
+    additions differently, so the rows agree to float32 rounding.
+    """
+    t_max = logp.shape[1]
+    tpos = torch.arange(t_max, device=logp.device)[None, :]
+    ext = (tpos >= old_len[:, None]) & (tpos < new_len[:, None])  # [B, T]
+    xb = torch.where(ext, logp[..., blank_id], torch.zeros_like(logp[..., blank_id]))
+    cum = torch.cumsum(xb, dim=1)  # [B, T]
+    b, k = state.psi.shape
+    base_idx = torch.clamp(old_len - 1, 0, t_max - 1)
+    base = torch.gather(state.r[..., 1], 2, base_idx[:, None, None].expand(b, k, 1))[..., 0]
+    # nothing processed yet: the blank row starts from log(1) = 0, not r_b[0]
+    base = torch.where((old_len > 0)[:, None], base, torch.zeros_like(base))  # [B, K]
+    ext = ext[:, None, :]
+    r_nb = state.r[..., 0].masked_fill(ext, NEG_INF)
+    r_b = torch.where(ext, base[..., None] + cum[:, None, :], state.r[..., 1])
+    return state._replace(r=torch.stack([r_nb, r_b], dim=-1))

@@ -249,3 +249,51 @@ def test_trained_guided_golden_decodes_and_cer():
     fx = gc.load_fixture("golden_trained_guided")
     errs = gc.check_trained_guided(gc.build_trained_guided(fx, "cpu"), fx)
     assert errs["trained_guided_cer"] == pytest.approx(fx.meta["cer"], abs=1e-9)
+
+
+@pytest.fixture(scope="module")
+def trained():
+    """The reference-trained CTC/attention model of golden_trained.npz and
+    the tone corpus (tests/test_wer_parity_reference.py)."""
+    fx = gc.load_fixture("golden_trained")
+    c = fx.meta["corpus"]
+    return gc.build_trained(fx, "cpu"), fx.meta, gc.make_tone_corpus(c["n_train"], c["n_valid"],
+                                                                      c["seed"])
+
+
+def test_trained_golden_offline_decodes_and_cer(trained):
+    """All 30 utterances at beam 5, ctc_weight 0.3 with the stateless
+    scorer: the reference's hypotheses, scores within 5e-3, its CER."""
+    model, meta, corpus = trained
+    errs = gc.check_trained(model, meta, meta, corpus, "trained")
+    assert errs["trained_cer"] == pytest.approx(meta["cer"], abs=1e-9)
+
+
+def test_trained_lm_golden_decodes_and_cer(trained):
+    """Shallow fusion with the reference-trained TransformerLM at lm_weight
+    0.3: the reference's hypotheses, scores within 5e-3, its CER."""
+    model, meta, corpus = trained
+    lm_meta = gc.json.loads((gc.GOLD / "golden_trained_lm.json").read_text())
+    lm = gc.build_trained_lm(lm_meta, meta["vocab"], "cpu")
+    errs = gc.check_trained(model, meta, lm_meta, corpus, "trained_lm", lm, lm_meta["lm_weight"])
+    assert errs["trained_lm_cer"] == pytest.approx(lm_meta["cer"], abs=1e-9)
+
+
+def test_trained_streamed_golden_hypotheses(trained):
+    """The resumable search over 3 cuts of the first 8 utterances gives the
+    offline golden hypotheses."""
+    assert gc.check_trained_streaming(*trained) == 8
+
+
+def test_lm_ingest_matches_the_jax_ingest():
+    """The reference TransformerLM's lm_* arrays through both packages'
+    name maps, array for array, every array used."""
+    npz = np.load(gc.GOLD / "golden_trained_lm.npz")
+    sd = {k[3:]: npz[k] for k in npz.files if k.startswith("lm_")}
+    layers = gc.json.loads((gc.GOLD / "golden_trained_lm.json").read_text())["layer"]
+    got = _flat(tingest.transformer_lm_params(sd, layers))
+    want = _flat(jingest.transformer_lm_params(sd, layers))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]), key
+    assert sum(v.size for v in got.values()) == sum(v.size for v in sd.values())

@@ -106,6 +106,7 @@ DW_CASES = [
     (3, 5, 70, 15), (1, 30, 256, 31), (1, 7, 256, 33),
     (16, 312, 256, 31), (4, 312, 256, 8), (48, 100, 70, 15),
     (8, 312, 256, 31),  # the batched serving shape
+    (1, 40, 256, 15),  # the streaming encoder's block (serve-stream)
 ]
 
 
@@ -805,8 +806,10 @@ def test_golden_fixtures_on_the_card(card):
     """The reference's golden fixtures (tests/parity/) at the JAX parity
     tests' tolerances, with the encoders on the rel-pos and depthwise
     forward kernels at head dim 16 and conv kernel 7: 3 encoder passes of 2
-    blocks for the random-weight fixtures and one per utterance of the
-    30-utterance tone corpus (golden_trained_guided), nothing else launched."""
+    blocks for the random-weight fixtures, one per utterance of the
+    30-utterance tone corpus for golden_trained_guided, and for
+    golden_trained one per utterance offline, one with the LM and one for
+    each of the 8 streamed utterances; nothing else launched."""
     from llm_guided_asr_tpu_torch.bin import golden_check
 
     before = _counts()
@@ -814,7 +817,7 @@ def test_golden_fixtures_on_the_card(card):
     torch.cuda.synchronize()
     after = _counts()
     launched = {k: after[k] - before[k] for k in after}
-    want = 2 * (3 + 30)
+    want = 2 * (3 + 30 + 30 + 30 + golden_check.N_STREAMED)
     assert launched == {k: want if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0
                         for k in after}
 
@@ -866,3 +869,62 @@ def test_batched_guided_decoding_on_the_card_matches_single(card):
         np.testing.assert_allclose([h.score for _, h in got], [h.score for h in alone],
                                    atol=1e-4)
     assert any(len(r[0][0]) > 2 for r in batched)
+
+
+@pytest.mark.gpu
+def test_transformer_lm_on_the_card_matches_the_cpu(card):
+    """The LM's score function (the beam search's full scorer) over a batch
+    of prefixes: the card (cuBLAS, float32 with TF32 off) against the CPU,
+    1e-4."""
+    from llm_guided_asr_tpu_torch.models.lm import (
+        TransformerLM,
+        TransformerLMConfig,
+        make_lm_score_fn,
+    )
+
+    cfg = TransformerLMConfig(vocab_size=500, embed_unit=32, att_unit=64, head=4, unit=128,
+                              layer=2, dropout_rate=0.0)
+    cpu = init_weights(TransformerLM(cfg, device="cpu"), 0).eval()
+    gpu = TransformerLM(cfg, device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(4)
+    tokens = torch.from_numpy(rng.integers(0, 500, (10, 26)))
+    lens = torch.from_numpy(rng.integers(1, 27, 10))
+    with torch.no_grad():
+        want = make_lm_score_fn(cpu)(tokens, lens)
+        got = make_lm_score_fn(gpu)(tokens.to(card), lens.to(card))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_streamed_encoder_on_the_card_matches_the_offline_encoder(card):
+    """The contextual-block Conformer fed block by block (encode_chunk with
+    the carried contexts) equals its offline pass on the card (1e-5); one
+    depthwise launch a block a layer and no rel-pos launch; and the card
+    against the CPU (1e-4)."""
+    cfg = tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                num_blocks=2, macaron_style=True, cnn_module_kernel=15,
+                                block_size=8)
+    torch.manual_seed(0)
+    cpu = tconf.make_encoder("contextual_block_conformer", cfg, 40, device="cpu").eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.1)
+    gpu = tconf.make_encoder("contextual_block_conformer", cfg, 40, device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    feats = _rand(np.random.default_rng(5), 1, 4 * 24 + 6, 40, scale=1.0)
+    before = _counts()
+    with torch.no_grad():
+        offline, _ = gpu(feats.to(card), torch.tensor([feats.shape[1]], device=card))
+        torch.cuda.synchronize()
+        after = _counts()
+        ctxs, rows = torch.zeros(2, 1, 64, device=card), []
+        for blk in range(3):
+            chunk = feats[:, 32 * blk: 32 * (blk + 1) + 6].to(card)
+            out, ctxs = gpu.encode_chunk(chunk, ctxs, 8 * blk, 8)
+            rows.append(out)
+        want_cpu, _ = cpu(feats, torch.tensor([feats.shape[1]]))
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 2 * 3 if k == "dwconv1d_fwd" else 0 for k in after}  # 24 sub-frames: 3 blocks
+    torch.testing.assert_close(torch.cat(rows, 1), offline[:, :24], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(offline.cpu(), want_cpu, rtol=1e-4, atol=1e-4)
