@@ -132,7 +132,34 @@ prints how long it took):
               carried CTC state) and to the same resumable search replayed
               over the offline rows with the stream's cuts (score 1e-4).
 
-``--phase train-1|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream``
+15. train-run -- Trainer.run (runs right after phase 6, while phase 3's
+              model is resident).  Part 1: phase 5's model trained from
+              160 int16 wav files of seeded noise (6-10 s; text_int of 2.4
+              tokens a second from 1..4998) written to a temporary
+              directory, 128 train and 32 validate, through the ported
+              data path (ESPnetDataset, the sorted sampler at B=32, speech
+              padded to a multiple of 1600 samples, SequenceIterFactory):
+              accum_grad 2 (64 utterances an update), AdamW lr 1e-3 with
+              warmuplr over 6 updates, 2-best by valid acc and valid loss,
+              greedy-CTC error on validation, a probe every 2 microbatches;
+              run A trains 2 epochs and resumes to 3, run B trains 3; each
+              run's launch counts (12 of each encoder forward a train
+              microbatch and 24 a validation batch, 12 of each backward a
+              train microbatch), finite stats, per-epoch wall time and
+              audio seconds per second, the probes' grad, optimizer and
+              iterator times, each save's seconds and bytes and peak
+              memory; the epoch files pruned to the union of both
+              criteria's best two and the latest, the best links, the
+              2-best average against the float64 mean; A's update count
+              and epochs equal B's, its epoch-3 stats within tolerance.
+              Part 2: phase 6's freezing on phase 3's model, 1 epoch of 2
+              microbatches (B=2 x 10 s) and 1 validation batch with
+              exclude_prefixes ("params/llm",): no file holds an llm key,
+              1epoch.pth's bytes, frozen weights bit-identical, and
+              load_partial into a freshly built model restores every
+              non-LLM tensor.
+
+``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream``
 builds the kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
@@ -1375,17 +1402,16 @@ def run_steps(tag, step, batch, n_warmup, n_steps, kernels, card):
     return all_stats, med, launches
 
 
-def phase_train1(kernels, card):
-    """The flagship CTC/attention model (bench.py build_flagship) trained
-    at B=64 x 10 s, float32 with TF32 off, SpecAug and attention dropout."""
+def build_train1():
+    """Phase 5's model: the flagship CTC/attention ASRModel (bench.py
+    build_flagship) in float32 with SpecAug and attention dropout 0.1,
+    weights from seed 0."""
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
     from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
     from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
     from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
-    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
-    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 
     cfg = ASRModelConfig(
         vocab_size=5000, frontend=FrontendConfig(), normalize="utterance_mvn",
@@ -1396,10 +1422,20 @@ def phase_train1(kernels, card):
         decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
         ctc_weight=0.3,
     )
+    return init_weights(ASRModel(cfg, device="cuda"), seed=0)
+
+
+def phase_train1(kernels, card):
+    """The flagship CTC/attention model (bench.py build_flagship) trained
+    at B=64 x 10 s, float32 with TF32 off, SpecAug and attention dropout."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
     print("[train-1] flagship as bench.py build_flagship, with two deviations from the JAX "
           "defaults: specaug=SpecAugConfig() (JAX default None) and "
           "attention_dropout_rate=0.1 (JAX default 0.0), so that the kernels' dropout runs")
-    model = init_weights(ASRModel(cfg, device="cuda"), seed=0)
+    model = build_train1()
+    cfg = model.cfg
     n_params = sum(p.numel() for p in model.parameters())
     state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
     step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
@@ -1486,6 +1522,314 @@ def phase_train2(model, kernels, card):
     print(f"[train-2] frozen parameters and running statistics bit-identical after "
           f"{GUIDED_WARMUP + GUIDED_STEPS + 1} steps")
     return launches, med
+
+
+# phase 15 (train-run): Trainer.run from a wav corpus on disk
+RUN_UTTS, RUN_TRAIN, RUN_B, RUN_TOKENS_PER_S = 160, 128, 32, 2.4
+RUN_CRITERIA = (("valid", "acc", "max"), ("valid", "loss", "min"))
+RUN_TIME_KEYS = ("time", "iter_time", "grad_time", "optim_step_time", "train_step_time")
+# epoch-3 losses of a resumed run against an uninterrupted one, relative:
+# two uninterrupted runs part by 1e-6 to 3e-6 on an H100 (F.ctc_loss's
+# backward sums in no fixed order), a resume that loses its optimizer
+# state by ~1e-1 and one that draws epoch 1's masks by ~2e-4; the smoke
+# plants both faults and checks that they fail the limit
+RUN_RESUME_RTOL = 2e-5
+
+
+def write_run_corpus(root: Path, seed: int = 0) -> dict:
+    """RUN_UTTS int16 wav files of seeded noise, 6-10 s, and a text_int file
+    of 2.4 tokens a second drawn from 1..4998; the first RUN_TRAIN
+    utterances train, the rest validate.  Returns each split's (wav.scp,
+    text) paths and audio seconds."""
+    from llm_guided_asr_tpu_torch.data.fileio import write_wav
+
+    rng = np.random.default_rng(seed)
+    splits = {}
+    for split, ids in (("train", range(RUN_TRAIN)), ("valid", range(RUN_TRAIN, RUN_UTTS))):
+        wav, text, seconds = [], [], 0.0
+        for i in ids:
+            n = int(rng.integers(6 * SR, 10 * SR + 1))
+            path = root / f"utt{i:03d}.wav"
+            write_wav(path, SR, (rng.standard_normal(n) * 0.1).astype(np.float32))
+            tokens = rng.integers(1, 4999, max(1, round(RUN_TOKENS_PER_S * n / SR)))
+            wav.append(f"utt{i:03d} {path}")
+            text.append(f"utt{i:03d} " + " ".join(map(str, tokens)))
+            seconds += n / SR
+        (root / f"{split}.scp").write_text("\n".join(wav) + "\n")
+        (root / f"{split}.text").write_text("\n".join(text) + "\n")
+        splits[split] = (root / f"{split}.scp", root / f"{split}.text", seconds)
+    return splits
+
+
+def run_iter_factory(scp: Path, text: Path):
+    """The ported data path: ESPnetDataset (sound + text_int), the sorted
+    sampler at RUN_B, speech padded to a multiple of 1600 samples."""
+    from llm_guided_asr_tpu_torch.data.dataset import CommonCollateFn, ESPnetDataset
+    from llm_guided_asr_tpu_torch.data.iterator import SequenceIterFactory
+    from llm_guided_asr_tpu_torch.data.samplers import build_batch_sampler
+
+    data = ESPnetDataset([(str(scp), "speech", "sound"), (str(text), "text", "text_int")])
+    lengths = {u: data.peek_length(u) for u in data.keys}
+    batches = build_batch_sampler("sorted", data.keys, lengths, batch_size=RUN_B)
+    collate = CommonCollateFn(pad_multiples={"speech": 1600})
+    return SequenceIterFactory(data, batches, collate, seed=0, device="cuda"), len(batches)
+
+
+def check_run_files(out: Path, reporter, tag: str):
+    """{n}epoch.pth pruned to the union of each criterion's best two and
+    the latest; checkpoint.pth; the best links; valid.acc.ave_2best.pth
+    equal to the float64 mean of the two best-acc epochs (1e-6)."""
+    from llm_guided_asr_tpu_torch.train.checkpoint import load
+
+    keep = {reporter.epoch}
+    for phase, key, mode in RUN_CRITERIA:
+        keep.update(reporter.sort_epochs(phase, key, mode)[:2])
+    have = {int(p.name[: -len("epoch.pth")]) for p in out.glob("*epoch.pth")}
+    if have != keep or not (out / "checkpoint.pth").is_file():
+        raise AssertionError(f"{tag}: epoch files {sorted(have)}, expected {sorted(keep)}")
+    for phase, key, mode in RUN_CRITERIA:
+        best = reporter.get_best_epoch(phase, key, mode)
+        link = out / f"{phase}.{key}.best.pth"
+        if not link.is_symlink() or link.resolve().name != f"{best}epoch.pth":
+            raise AssertionError(f"{tag}: {link.name} does not name epoch {best}")
+    best2 = reporter.sort_epochs("valid", "acc", "max")[:2]
+    ave = load(out / "valid.acc.ave_2best.pth")
+    parts = [load(out / f"{e}epoch.pth") for e in best2]
+    err = max(float((ave[k].double() - (parts[0][k].double() + parts[1][k].double()) / 2)
+                    .abs().max()) for k in ave)
+    if not err <= 1e-6 or ave.keys() != parts[0].keys():
+        raise AssertionError(f"{tag}: the average of epochs {best2} is {err} off")
+    print(f"[train-run] {tag}: epoch files {sorted(have)}, best by acc {best2[0]}, by loss "
+          f"{reporter.get_best_epoch('valid', 'loss', 'min')}; valid.acc.ave_2best.pth = mean "
+          f"of epochs {best2} within {err:.2e} (tol 1e-6)")
+
+
+def phase_train_run(kernels, card, guided=None):
+    """Phase 15: Trainer.run.  Part 1: phase 5's model trained from a wav
+    corpus on disk through the ported data path, accum_grad 2, three epochs
+    run as 2 + a resume to 3 (run A) and uninterrupted (run B).  Part 2:
+    phase 2 on the guided model (``guided``, else built here) with the LLM
+    left out of every checkpoint file."""
+    import shutil
+    import tempfile
+
+    import llm_guided_asr_tpu_torch.train.trainer as trainer_mod
+    from llm_guided_asr_tpu_torch.train.checkpoint import load, load_partial
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer, path_prefix_mask
+    from llm_guided_asr_tpu_torch.train.reporter import Reporter
+    from llm_guided_asr_tpu_torch.train.trainer import Trainer, TrainerOptions
+
+    with tempfile.TemporaryDirectory(prefix="train-run-") as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        splits = write_run_corpus(root)
+        train_iter, n_train = run_iter_factory(*splits["train"][:2])
+        valid_iter, n_valid = run_iter_factory(*splits["valid"][:2])
+        train_secs = splits["train"][2]
+        print(f"[train-run] corpus: {RUN_TRAIN} + {RUN_UTTS - RUN_TRAIN} wav files, "
+              f"{train_secs:.1f} + {splits['valid'][2]:.1f} s of audio, written in "
+              f"{time.perf_counter() - t0:.1f} s; {n_train} train microbatches of {RUN_B} and "
+              f"{n_valid} validation batch an epoch")
+
+        def run(name, out, max_epoch, resume):
+            model = build_train1()
+            blocks = model.cfg.encoder.num_blocks
+            fwd_epoch = blocks * (n_train + 2 * n_valid)  # report_ctc_er encodes valid twice
+            bwd_epoch = blocks * n_train
+            tx = build_optimizer("adamw", {"lr": 1e-3}, scheduler="warmuplr",
+                                 scheduler_conf={"warmup_steps": 6})
+            opts = TrainerOptions(max_epoch=max_epoch, accum_grad=2, keep_nbest_models=2,
+                                  best_model_criterion=RUN_CRITERIA, report_ctc_er=True,
+                                  log_interval=2, resume=resume, seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts(kernels)
+            t_run = time.perf_counter()
+            state = Trainer.run(model, tx, train_iter, valid_iter, out, opts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t_run
+            launches = counts(kernels)
+            reporter = Reporter.load(out / "reporter.json")
+            epochs = max_epoch - (2 if resume else 0)
+            tag = f"run {name}"
+            for name, n in launches.items():
+                want = {"rel_attention_fwd": fwd_epoch, "dwconv1d_fwd": fwd_epoch,
+                        "rel_attention_bwd": bwd_epoch, "dwconv1d_bwd": bwd_epoch}.get(name, 0)
+                if n != want * epochs:
+                    raise AssertionError(f"train-run {tag}: {name} launched {n} times in "
+                                         f"{epochs} epochs, expected {want * epochs}")
+            first = max_epoch - epochs + 1
+            for e in range(first, max_epoch + 1):
+                st = reporter.stats[e]
+                for phase in ("train", "valid"):
+                    bad = {k: v for k, v in st[phase].items() if not math.isfinite(v)}
+                    if bad:
+                        raise AssertionError(f"train-run {tag}: epoch {e} {phase} {bad}")
+                tr = st["train"]
+                i = 2 * (e - first)  # two saves an epoch
+                wall_e = tr["time"] + st["valid"]["time"] + sum(
+                    sec for _, sec, _ in state.saves[i:i + 2])
+                print(f"[train-run] {tag} epoch {e}: wall {wall_e:.2f} s (train, valid, saves); "
+                      f"train {tr['time']:.2f} s = "
+                      f"{train_secs / tr['time']:.1f} audio s/s, probes grad_time "
+                      f"{tr['grad_time'] * 1e3:.1f} ms, optim_step_time "
+                      f"{tr['optim_step_time'] * 1e3:.1f} ms, iter_time "
+                      f"{tr['iter_time'] * 1e3:.1f} ms; loss {tr['loss']!r}; valid "
+                      f"{st['valid']['time']:.2f} s, loss {st['valid']['loss']!r}, acc "
+                      f"{st['valid']['acc']:.5f}, cer_ctc {st['valid']['cer_ctc']:.2f} [{card}]")
+            for name, sec, size in state.saves:
+                print(f"[train-run] {tag} saved {name}: {sec:.3f} s, {size} bytes "
+                      f"({size / 2**20:.1f} MiB) [{card}]")
+            peak = torch.cuda.max_memory_allocated()
+            print(f"[train-run] {tag}: {epochs} epochs in {wall:.1f} s, {state.step} updates, "
+                  f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB) [{card}]")
+            print(f"[train-run] {tag} kernel launches: {launches} (per epoch: {fwd_epoch} of "
+                  f"each forward, {bwd_epoch} of each backward)")
+            return model, state, reporter, launches
+
+        run("A", root / "a", 2, False)
+        # faults planted in the resume, by attribute: (owner, name, stand-in)
+        real_seed = trainer_mod.epoch_seed
+        faults = {"optimizer state dropped": (torch.optim.AdamW, "load_state_dict",
+                                              lambda self, state_dict: None),
+                  "epoch 1's masks": (trainer_mod, "epoch_seed",
+                                      lambda seed, epoch: real_seed(seed, 1))}
+        for i in range(len(faults)):
+            shutil.copytree(root / "a", root / f"fault{i}", symlinks=True)
+        model_a, state_a, rep_a, _ = run("A resumed", root / "a", 3, True)
+        model_b, state_b, rep_b, launches = run("B", root / "b", 3, False)
+        # a second uninterrupted run: how far two runs part on this card
+        model_c, _, _, _ = run("C", root / "c", 3, False)
+        check_run_files(root / "a", rep_a, "run A")
+        check_run_files(root / "b", rep_b, "run B")
+        if state_a.step != state_b.step or not sorted(rep_a.stats) == sorted(rep_b.stats) == [
+                1, 2, 3]:
+            raise AssertionError(f"train-run: resumed {state_a.step} updates, epochs "
+                                 f"{sorted(rep_a.stats)}; uninterrupted {state_b.step}, "
+                                 f"{sorted(rep_b.stats)}")
+        # F.ctc_loss's CUDA backward (and cuDNN's convolution backward) sum
+        # in no fixed order, so the runs' weights part at float32 rounding
+        # and drift over 6 updates: the losses are held to RUN_RESUME_RTOL,
+        # acc and cer_ctc to one of the ~600 validation tokens (on this
+        # noise corpus the greedy CTC output is all blank and both stay put)
+        n_tokens = sum(len(line.split()) - 1 for line in
+                       splits["valid"][1].read_text().splitlines())
+        tols = {"acc": 1 / n_tokens, "cer_ctc": 100 / n_tokens}
+
+        def epoch3_gap(rep):
+            """(largest relative loss gap to run B, discrete stats out of
+            their tolerance) at epoch 3."""
+            rel, off = 0.0, []
+            for phase in ("train", "valid"):
+                for k, v in rep_b.stats[3][phase].items():
+                    if k in RUN_TIME_KEYS or k == "iterations":
+                        continue
+                    a = rep.stats[3][phase][k]
+                    if k in tols:
+                        off += [f"{phase} {k} {a} vs {v}"] if not abs(a - v) <= tols[k] else []
+                    else:
+                        rel = max(rel, abs(a - v) / abs(v))
+            return rel, off
+
+        rel_a, off_a = epoch3_gap(rep_a)
+        if not rel_a <= RUN_RESUME_RTOL or off_a:
+            raise AssertionError(f"train-run: epoch 3 resumed vs B: losses {rel_a:.3e} relative "
+                                 f"(limit {RUN_RESUME_RTOL:g}), {off_a}")
+        # the limit's power: each planted fault must fail it
+        rel_faults = []
+        for i, (fault, (owner, attr, stand_in)) in enumerate(faults.items()):
+            real = getattr(owner, attr)
+            setattr(owner, attr, stand_in)
+            try:
+                _, _, rep_f, _ = run(f"fault ({fault})", root / f"fault{i}", 3, True)
+            finally:
+                setattr(owner, attr, real)
+            rel_f, off_f = epoch3_gap(rep_f)
+            if not rel_f > RUN_RESUME_RTOL:
+                raise AssertionError(f"train-run: a resume with {fault} passes the limit: "
+                                     f"losses {rel_f:.3e} relative")
+            rel_faults.append(f"{fault} {rel_f:.3e}")
+        rel_c, _ = epoch3_gap(Reporter.load(root / "c" / "reporter.json"))
+
+        def max_diff(m1, m2):
+            return max(float((x - y).abs().max()) for x, y in
+                       zip(m1.state_dict().values(), m2.state_dict().values()))
+
+        print(f"[train-run] resume: {state_a.step} updates and epochs {sorted(rep_a.stats)} as "
+              f"the uninterrupted run; epoch-3 losses {rel_a:.3e} relative to run B (limit "
+              f"{RUN_RESUME_RTOL:g}; run C {rel_c:.3e}; planted faults, which must fail it: "
+              f"{', '.join(rel_faults)}), acc within {tols['acc']:.2e}, cer_ctc within "
+              f"{tols['cer_ctc']:.3f}; largest parameter difference "
+              f"{max_diff(model_a, model_b):.3e} resumed vs B, "
+              f"{max_diff(model_c, model_b):.3e} between the uninterrupted runs B and C [{card}]")
+        del model_a, model_b, model_c
+        torch.cuda.empty_cache()
+
+        # ---- part 2: phase 2 through the same loop ----
+        model = guided if guided is not None else build_model()
+        frozen = path_prefix_mask(model, ["encoder", "ctc_head", "llm"])
+        snapshot = {n: p.detach().clone() for n, p in model.named_parameters() if n in frozen}
+        rng = np.random.default_rng(15)
+        samples = int(TRAIN_SECONDS * SR)
+        batches = [{
+            "speech": torch.from_numpy((rng.standard_normal((GUIDED_B, samples)) * 0.1)
+                                       .astype(np.float32)).cuda(),
+            "speech_lengths": torch.full((GUIDED_B,), samples, device="cuda"),
+            "text": torch.from_numpy(rng.integers(100, 5000, (GUIDED_B, 16))).cuda(),
+            "text_lengths": torch.full((GUIDED_B,), 16, device="cuda"),
+        } for _ in range(3)]
+        out = root / "guided"
+        reset_counts(kernels)
+        t_run = time.perf_counter()
+        state = Trainer.run(model, build_optimizer("adamw", {"lr": 1e-3}, freeze_mask=frozen),
+                            lambda e: batches[:2], lambda e: batches[2:], out,
+                            TrainerOptions(max_epoch=1, log_interval=1,
+                                           exclude_prefixes=("params/llm",)))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_run
+        guided_launches = counts(kernels)
+        for name, n in guided_launches.items():
+            want = model.cfg.encoder.num_blocks * 3 if name in ENCODER_FWD else 0
+            if n != want:
+                raise AssertionError(f"train-run guided: {name} launched {n} times, expected "
+                                     f"{want}")
+        loss = Reporter.load(out / "reporter.json").stats[1]["train"]["loss"]
+        if not math.isfinite(loss) or state.step != 2:
+            raise AssertionError(f"train-run guided: loss {loss}, {state.step} updates")
+        for path in sorted(out.glob("*.pth")):
+            obj = load(path)
+            keys = obj["model"] if "model" in obj else obj
+            if not keys or any(k == "llm" or k.startswith("llm.") for k in keys):
+                raise AssertionError(f"train-run guided: {path.name} holds an llm key")
+        epoch_bytes = (out / "1epoch.pth").stat().st_size
+        llm_bytes = sum(p.numel() * p.element_size() for n, p in model.named_parameters()
+                        if n.startswith("llm."))
+        if not epoch_bytes < llm_bytes / 4:
+            raise AssertionError(f"train-run guided: 1epoch.pth {epoch_bytes} bytes")
+        moved = [n for n, p in model.named_parameters() if n in frozen
+                 and not torch.equal(p, snapshot[n])]
+        if moved:
+            raise AssertionError(f"train-run guided: frozen weights moved: {moved[:5]}")
+        del snapshot
+        fresh = build_model()
+        missing = load_partial(fresh, out / "1epoch.pth")
+        want_sd, got_sd = model.state_dict(), fresh.state_dict()
+        wrong = [k for k in want_sd if not k.startswith("llm.")
+                 and not torch.equal(want_sd[k], got_sd[k])]
+        if wrong or not all(k.startswith("llm.") for k in missing):
+            raise AssertionError(f"train-run guided: load_partial left {wrong[:5]}, missing "
+                                 f"{[k for k in missing if not k.startswith('llm.')][:5]}")
+        del fresh
+        torch.cuda.empty_cache()
+        for name, sec, size in state.saves:
+            print(f"[train-run] guided saved {name}: {sec:.3f} s, {size} bytes "
+                  f"({size / 2**20:.1f} MiB) [{card}]")
+        print(f"[train-run] guided: 1 epoch of 2 microbatches (B={GUIDED_B} x {TRAIN_SECONDS} "
+              f"s) and 1 validation batch in {wall:.1f} s, loss {loss:.4f}; no file holds an "
+              f"llm key; 1epoch.pth {epoch_bytes} bytes against the LLM's {llm_bytes}; frozen "
+              f"weights bit-identical; load_partial restored every non-LLM tensor into a "
+              f"fresh model; launches {guided_launches} [{card}]")
+    return launches
 
 
 def build_transducer():
@@ -2051,8 +2395,8 @@ def phase_serve_stream(kernels, card):
 
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
-    the others (train-1, train-transducer, golden, serve, serve-batch,
-    serve-lm or serve-stream),
+    the others (train-1, train-run, train-transducer, golden, serve,
+    serve-batch, serve-lm or serve-stream),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -2064,6 +2408,7 @@ def run_one_phase(name: str, card: str) -> int:
     from llm_guided_asr_tpu_torch.ops import wkv as wk
 
     phases = {"train-1": lambda: phase_train1(kernels, card),
+              "train-run": lambda: phase_train_run(kernels, card),
               "train-transducer": lambda: phase_train_transducer(build_transducer(), kernels, card),
               "golden": lambda: phase_golden(kernels, card),
               "serve": lambda: phase_serve(build_model(), kernels, card),
@@ -2084,8 +2429,8 @@ def run_one_phase(name: str, card: str) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
-    ap.add_argument("--phase", help="run only this phase: train-1, train-transducer, golden, "
-                                    "serve, serve-batch, serve-lm or serve-stream")
+    ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
+                                    "golden, serve, serve-batch, serve-lm or serve-stream")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -2129,6 +2474,7 @@ def main() -> int:
     paths["serve-batch"] = timed("serve-batch", phase_serve_batch, model, kernels, card)
     paths["train-1"], _ = timed("train-1", phase_train1, kernels, card)
     paths["train-2"], _ = timed("train-2", phase_train2, model, kernels, card)
+    paths["train-run"] = timed("train-run", phase_train_run, kernels, card, model)
     del model
     torch.cuda.empty_cache()
     transducer = build_transducer()

@@ -1,0 +1,170 @@
+"""Dataset and padded-bucket collate (the port's own copy of
+llm_guided_asr_tpu/data/dataset.py).
+
+Rebuild of espnet2/train/dataset.py:437 (ESPnetDataset + DATA_TYPES) and
+espnet2/train/collate_fn.py:11 (CommonCollateFn: float pad 0.0, int pad
+-1).  The collate pads the batch maxima up to configurable bucket multiples
+(speech samples, feature frames, token counts), so that sorted-length
+batching yields a small closed set of shapes.  The data types are sound,
+npy, text_int, csv_int and text_float; kaldi_ark and text (with the
+tokenizing CommonPreprocessor) raise NotImplementedError until the ark
+reader and the text tokenizers are ported (ROADMAP Queue 1 item 4).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+from llm_guided_asr_tpu_torch.data.fileio import (
+    NOT_PORTED,
+    NpyScpReader,
+    SoundScpReader,
+    load_num_sequence_text,
+    peek_audio_length,
+)
+from llm_guided_asr_tpu_torch.utils.config import normalize_triples
+
+
+class _SoundAdapter:
+    def __init__(self, path):
+        self.reader = SoundScpReader(path)
+
+    def __getitem__(self, key):
+        rate, wav = self.reader[key]
+        return wav
+
+    def peek_length(self, key):
+        """Header-only sample count (None -> caller must load)."""
+        return peek_audio_length(self.reader.data[key])
+
+    def keys(self):
+        return self.reader.keys()
+
+    def __len__(self):
+        return len(self.reader)
+
+
+class _IntSeqAdapter:
+    def __init__(self, path, loader_type="text_int"):
+        self.data = load_num_sequence_text(path, loader_type)
+
+    def __getitem__(self, key):
+        return self.data[key]
+
+    def keys(self):
+        return self.data.keys()
+
+    def __len__(self):
+        return len(self.data)
+
+
+def _not_ported(what):
+    def adapter(path):
+        raise NotImplementedError(f"data type {what!r} {NOT_PORTED}: {path}")
+
+    return adapter
+
+
+DATA_TYPES: Dict[str, Callable] = {
+    "sound": _SoundAdapter,
+    "kaldi_ark": _not_ported("kaldi_ark"),
+    "npy": NpyScpReader,
+    "text": _not_ported("text"),
+    "text_int": lambda p: _IntSeqAdapter(p, "text_int"),
+    "csv_int": lambda p: _IntSeqAdapter(p, "csv_int"),
+    "text_float": lambda p: _IntSeqAdapter(p, "text_float"),
+}
+
+
+class ESPnetDataset:
+    """uid -> {name: array}; built from (path, name, type) triples
+    (dataset.py:437)."""
+
+    def __init__(
+        self,
+        path_name_type_list: Sequence[Tuple[str, str, str]],
+        preprocess: Optional[Callable[[str, Dict], Dict]] = None,
+    ):
+        self.loaders = {}
+        for path, name, typ in normalize_triples(path_name_type_list):
+            if typ not in DATA_TYPES:
+                raise ValueError(f"unknown data type {typ!r}; known: {sorted(DATA_TYPES)}")
+            self.loaders[name] = DATA_TYPES[typ](path)
+        self.preprocess = preprocess
+        keys = None
+        for name, loader in self.loaders.items():
+            ks = set(loader.keys())
+            keys = ks if keys is None else keys & ks
+        self.keys: List[str] = sorted(keys or [])
+        if not self.keys:
+            raise RuntimeError("dataset has no common utterance ids")
+
+    def __len__(self):
+        return len(self.keys)
+
+    def __getitem__(self, uid: str) -> Dict[str, np.ndarray]:
+        data = {name: loader[uid] for name, loader in self.loaders.items()}
+        if self.preprocess is not None:
+            data = self.preprocess(uid, data)
+        return data
+
+    def peek_length(self, uid: str) -> int:
+        """Length of the primary (first) stream, header-only when possible
+        (the no-shape-file fallback of the batch samplers)."""
+        first = next(iter(self.loaders.values()))
+        if hasattr(first, "peek_length"):
+            n = first.peek_length(uid)
+            if n is not None:
+                return int(n)
+        item = self[uid]
+        return int(np.asarray(next(iter(item.values()))).shape[0])
+
+
+def round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass
+class CommonCollateFn:
+    """Pad a list of {name: array} into a static-shape batch dict.
+
+    float arrays pad with ``float_pad_value`` (0.0) into float32, int arrays
+    with ``int_pad_value`` (-1) into int32 (collate_fn.py:11); per-name
+    ``<name>_lengths`` vectors (int32) are added, and ``_uids`` and
+    ``_nvalid`` (the rows before ``batch_size_multiple`` padding).
+    ``pad_multiples`` maps name -> bucket multiple.
+    """
+
+    float_pad_value: float = 0.0
+    int_pad_value: int = -1
+    pad_multiples: Optional[Dict[str, int]] = None
+    batch_size_multiple: int = 1
+
+    def __call__(self, items: Sequence[Tuple[str, Dict[str, np.ndarray]]]) -> Dict:
+        uids = [u for u, _ in items]
+        names = list(items[0][1].keys())
+        batch: Dict[str, np.ndarray] = {}
+        b = len(items)
+        b_pad = round_up(b, self.batch_size_multiple)
+        for name in names:
+            arrays = [np.asarray(d[name]) for _, d in items]
+            lengths = np.array([a.shape[0] for a in arrays], dtype=np.int32)
+            maxlen = int(lengths.max())
+            mult = (self.pad_multiples or {}).get(name, 1)
+            maxlen = round_up(max(maxlen, 1), mult)
+            is_int = np.issubdtype(arrays[0].dtype, np.integer)
+            pad_val = self.int_pad_value if is_int else self.float_pad_value
+            dtype = np.int32 if is_int else np.float32
+            out = np.full((b_pad, maxlen) + arrays[0].shape[1:], pad_val, dtype=dtype)
+            for i, a in enumerate(arrays):
+                out[i, : a.shape[0]] = a
+            full_lengths = np.zeros((b_pad,), np.int32)
+            full_lengths[:b] = lengths
+            batch[name] = out
+            batch[f"{name}_lengths"] = full_lengths
+        batch["_uids"] = uids
+        batch["_nvalid"] = b
+        return batch

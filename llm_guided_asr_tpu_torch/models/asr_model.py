@@ -2,7 +2,8 @@
 
 frontend -> SpecAug (training) -> normalize -> Conformer -> {CTC head,
 transformer decoder}; loss = ctc_weight * CTC + (1 - ctc_weight) *
-label-smoothed attention CE.  ``forward`` returns ``(loss, stats,
+label-smoothed attention CE, where CTC may mix in intermediate CTC over
+chosen encoder blocks (``interctc_weight``).  ``forward`` returns ``(loss, stats,
 weight)``: stats is a dict of float32 scalars, weight the batch size.
 sos = eos = vocab_size - 1, blank 0, ignore_id -1, as in the reference.
 
@@ -55,6 +56,9 @@ class ASRModelConfig:
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
     ctc_weight: float = 0.5
     ctc_type: str = "builtin"  # builtin | builtin2; brctc is not ported
+    # intermediate CTC over the encoder.interctc_layer_idx taps, through the
+    # shared CTC head: loss_ctc = (1 - w) * ctc + w * mean(inter ctc)
+    interctc_weight: float = 0.0
     lsm_weight: float = 0.0
     length_normalized_loss: bool = False
     ignore_id: int = -1
@@ -112,6 +116,9 @@ class ASRModel(nn.Module):
             raise NotImplementedError("a model without the default frontend is not ported yet")
         if cfg.ctc_type not in ("builtin", "builtin2"):
             raise NotImplementedError(f"ctc_type={cfg.ctc_type!r} is not ported yet")
+        if cfg.encoder.interctc_layer_idx and cfg.encoder_type != "conformer":
+            raise NotImplementedError(f"intermediate CTC with encoder_type="
+                                      f"{cfg.encoder_type!r} is not ported yet")
         dev = resolve_device(device)
         self.cfg = cfg
         d = cfg.encoder.output_size
@@ -132,6 +139,16 @@ class ASRModel(nn.Module):
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
         return self.encoder(feats, feats_lengths, rng)
 
+    def encode_with_intermediates(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                                  rng: Optional[StepRNG] = None
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """``encode`` plus the intermediate-CTC taps (empty without
+        ``encoder.interctc_layer_idx``)."""
+        if not self.cfg.encoder.interctc_layer_idx:
+            return (*self.encode(speech, speech_lengths, rng), ())
+        feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
+        return self.encoder.forward_with_intermediates(feats, feats_lengths, rng)
+
     def ctc_logits(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc_head(encoder_out)
 
@@ -148,7 +165,7 @@ class ASRModel(nn.Module):
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
         """text [B, L] padded with ignore_id -> (loss, stats, weight)."""
         cfg = self.cfg
-        enc_out, enc_lens = self.encode(speech, speech_lengths, rng)
+        enc_out, enc_lens, taps = self.encode_with_intermediates(speech, speech_lengths, rng)
         stats: Dict[str, torch.Tensor] = {}
         zero = torch.zeros((), dtype=torch.float32, device=enc_out.device)
         loss_ctc = loss_att = zero
@@ -156,6 +173,11 @@ class ASRModel(nn.Module):
             loss_ctc = ctc_loss(self.ctc_logits(enc_out), enc_lens, text, text_lengths,
                                 cfg.blank_id)
             stats["loss_ctc"] = loss_ctc
+            if cfg.interctc_weight > 0.0 and taps:
+                inter = torch.stack([ctc_loss(self.ctc_logits(h), enc_lens, text, text_lengths,
+                                              cfg.blank_id) for h in taps]).mean()
+                stats["loss_interctc"] = inter
+                loss_ctc = (1 - cfg.interctc_weight) * loss_ctc + cfg.interctc_weight * inter
         if cfg.ctc_weight < 1.0:
             ys_in, ys_out = add_sos_eos(text, text_lengths, cfg.sos_id, cfg.eos_id, cfg.ignore_id)
             dec_logits = self.decoder_logits(enc_out, enc_lens, ys_in, text_lengths + 1, rng)

@@ -63,6 +63,7 @@ class ConformerConfig:
     # True: zero pad frames before the depthwise conv (batch-width
     # invariant); False: convolve pads as the reference does
     pad_safe_conv: bool = True
+    interctc_layer_idx: Tuple[int, ...] = ()  # 1-based blocks tapped for intermediate CTC
     # the contextual-block (streaming) encoder only: sub-frames a block
     block_size: int = 40
 
@@ -211,6 +212,13 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, feats, feats_lengths,
                 rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, lengths, _ = self.forward_with_intermediates(feats, feats_lengths, rng)
+        return x, lengths
+
+    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """As ``forward``, plus the outputs of the ``interctc_layer_idx``
+        blocks (1-based), pad frames zeroed (the intermediate-CTC taps)."""
         x = self.embed(feats)
         out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
         if self.cfg.pos_enc_layer_type == "rel_pos":
@@ -218,11 +226,14 @@ class ConformerEncoder(nn.Module):
         else:
             x, pos_emb = self.pos_enc(x, rng=rng), None
         valid = make_valid_mask(out_lengths, x.shape[1])
+        taps = []
         for i in range(self.cfg.num_blocks):
             x = getattr(self, f"block_{i}")(x, pos_emb, valid, rng)
+            if i + 1 in self.cfg.interctc_layer_idx:
+                taps.append(x.masked_fill(~valid[..., None], 0.0))
         if self.cfg.normalize_before:
             x = self.after_norm(x)
-        return x.masked_fill(~valid[..., None], 0.0), out_lengths
+        return x.masked_fill(~valid[..., None], 0.0), out_lengths, tuple(taps)
 
 
 def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,

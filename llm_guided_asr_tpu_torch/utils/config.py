@@ -1,5 +1,5 @@
 """Config helpers (counterpart of llm_guided_asr_tpu/utils/config.py, the
-parts the port needs: token lists and conf-dict filtering)."""
+parts the port needs: token lists, conf-dict filtering and data triples)."""
 
 from __future__ import annotations
 
@@ -30,3 +30,27 @@ def filter_known_fields(cls, d: dict, where: str = "") -> dict:
         logger.warning(f"ignoring unknown {where or cls.__name__} key(s): {unknown} "
                        f"(known: {sorted(known)})")
     return {k: v for k, v in d.items() if k in known}
+
+
+def normalize_triples(value) -> List[tuple]:
+    """data_path_and_name_and_type entries -> [(path, name, type), ...].
+
+    Accepts YAML lists of 3-lists and the reference's CLI form
+    'path,name,type' (possibly a single string or a list of strings)."""
+    if value is None:
+        return []
+    if isinstance(value, str):
+        value = [value]
+    out = []
+    for item in value:
+        if isinstance(item, str):
+            parts = item.split(",")
+            if len(parts) != 3:
+                raise ValueError(f"expected 'path,name,type', got {item!r}")
+            out.append(tuple(p.strip() for p in parts))
+        else:
+            t = tuple(item)
+            if len(t) != 3:
+                raise ValueError(f"expected a (path, name, type) triple, got {item!r}")
+            out.append(t)
+    return out

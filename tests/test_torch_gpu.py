@@ -928,3 +928,90 @@ def test_streamed_encoder_on_the_card_matches_the_offline_encoder(card):
         k: 2 * 3 if k == "dwconv1d_fwd" else 0 for k in after}  # 24 sub-frames: 3 blocks
     torch.testing.assert_close(torch.cat(rows, 1), offline[:, :24], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(offline.cpu(), want_cpu, rtol=1e-4, atol=1e-4)
+
+
+OPTAX_OPTIMIZERS = ("sgd", "adadelta", "adagrad", "rmsprop", "radam", "lamb", "adafactor",
+                    "lion")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", OPTAX_OPTIMIZERS)
+def test_optax_optimizer_update_on_the_card_matches_the_cpu(card, name):
+    """Eight updates (clip 5, warmuplr, radam past its rectification) of
+    the same seeded gradients on the card and on the CPU; a 128 x 160 leaf
+    makes adafactor factor.  float32: only the order of the reductions
+    (norms, adafactor's means) differs: 1e-5 relative, 1e-6 absolute."""
+    from llm_guided_asr_tpu_torch.train.trainer import apply_update
+
+    rng = np.random.default_rng(0)
+    shapes = {"a": (128, 160), "b": (7, 5), "c": (11,)}
+    values = {k: _rand(rng, *s, scale=0.5) for k, s in shapes.items()}
+    grads = [{k: _rand(rng, *s, scale=0.5) for k, s in shapes.items()} for _ in range(8)]
+    conf = {"lr": 1.0 if name == "adadelta" else 1e-2}
+    conf.update({"sgd": {"momentum": 0.9, "nesterov": True, "weight_decay": 0.01},
+                 "rmsprop": {"momentum": 0.9}, "lamb": {"weight_decay": 0.01},
+                 "lion": {"weight_decay": 0.01}}.get(name, {}))
+    out = {}
+    for dev in ("cpu", card):
+        model = torch.nn.Module()
+        for k, v in values.items():
+            setattr(model, k, torch.nn.Parameter(v.clone().to(dev)))
+        state = init_train_state(model, build_optimizer(
+            name, dict(conf), scheduler="warmuplr", scheduler_conf={"warmup_steps": 3}))
+        for g in grads:
+            for k, p in model.named_parameters():
+                p.grad = g[k].to(dev)
+            assert apply_update(state)
+        out[str(dev)] = {k: p.detach().cpu() for k, p in model.named_parameters()}
+    for k in shapes:
+        torch.testing.assert_close(out["cuda"][k], out["cpu"][k], rtol=1e-5, atol=1e-6,
+                                   msg=f"{name} {k}")
+
+
+@pytest.mark.gpu
+def test_trainer_run_on_the_card_matches_the_cpu(card, tmp_path):
+    """A tiny ASRModel (2 x 64, dropout 0, intermediate CTC on block 1)
+    trained by Trainer.run for 2 epochs of 3 microbatches at accum_grad 2
+    on both devices from the same weights: every reporter stat but the
+    timings within 1e-3 relative (F.ctc_loss's CUDA backward sums in no
+    fixed order; four Adam updates), the weights within 1e-4."""
+    from llm_guided_asr_tpu_torch.train.reporter import Reporter
+    from llm_guided_asr_tpu_torch.train.trainer import Trainer, TrainerOptions
+
+    cfg = ASRModelConfig(
+        vocab_size=30, frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=40),
+        normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=1, linear_units=128,
+                                      num_blocks=2, macaron_style=True, cnn_module_kernel=15,
+                                      dropout_rate=0.0, positional_dropout_rate=0.0,
+                                      interctc_layer_idx=(1,)),
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=128, num_blocks=2,
+                                         dropout_rate=0.0, positional_dropout_rate=0.0),
+        ctc_weight=0.3, interctc_weight=0.3)
+    rng = np.random.default_rng(2)
+    batches = [{"speech": _rand(rng, 3, 20000, scale=0.1),
+                "speech_lengths": torch.tensor([20000, 16000, 9000]),
+                "text": torch.from_numpy(rng.integers(1, 29, (3, 6))),
+                "text_lengths": torch.tensor([6, 4, 5])} for _ in range(4)]
+    cpu = init_weights(ASRModel(cfg, device="cpu"), seed=0)
+    gpu = ASRModel(cfg, device=card)
+    gpu.load_state_dict(cpu.state_dict())
+    stats = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        on = [{k: v.to(dev) for k, v in b.items()} for b in batches]
+        Trainer.run(model, build_optimizer("adam", {"lr": 1e-3, "eps": 1e-3}),
+                    lambda e: on[:3], lambda e: on[3:], tmp_path / name,
+                    TrainerOptions(max_epoch=2, accum_grad=2, log_interval=2,
+                                   keep_nbest_models=1))
+        stats[name] = Reporter.load(tmp_path / name / "reporter.json").stats
+    timing = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}
+    for e in (1, 2):
+        for phase in ("train", "valid"):
+            for k, v in stats["cpu"][e][phase].items():
+                if k not in timing:
+                    np.testing.assert_allclose(stats["gpu"][e][phase][k], v, rtol=1e-3,
+                                               err_msg=f"{e} {phase} {k}")
+    want = cpu.state_dict()
+    for name, got in gpu.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-4, msg=name)

@@ -24,7 +24,8 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "transformers", "tokenizers", "sa
              "llm_guided_asr_tpu"}
 # modules that hold their own copies of JAX-package code the port may not import
 OWN_COPIES = ("text/tokenizers.py", "utils/config.py", "utils/metrics.py",
-              "search/cached_decoder.py", "models/llm/prompt.py")
+              "search/cached_decoder.py", "models/llm/prompt.py", "train/reporter.py",
+              "data/fileio.py", "data/samplers.py", "data/dataset.py", "data/iterator.py")
 
 
 def _imported_roots(path: Path):
