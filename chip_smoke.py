@@ -158,9 +158,34 @@ prints how long it took):
               1epoch.pth's bytes, frozen weights bit-identical, and
               load_partial into a freshly built model restores every
               non-LLM tensor.
+16. asr-cli -- the task and CLI layer, driven only through the CLIs'
+              main(argv) in a temporary directory.  A: phase 15's corpus
+              with its text as words (w0002..w4998, a 5,000-entry word
+              token list), a YAML config written by the port's dump_yaml
+              at build_train1's widths (global MVN, SpecAug, adamw,
+              warmuplr, sorted batches of 32, 2 epochs, 2-best, device
+              null = the card): asr_train --collect_stats (every frame
+              counted), asr_train (12 launches of each encoder entry point
+              a train microbatch and of each forward a validation batch),
+              the model's names and shapes against build_train1()'s,
+              asr_inference at beam 10, ctc_weight 0.3, the 24-token cap on
+              the 32 valid utterances (12 forward launches each, every
+              utterance written, the scores' bookkeeping, the hypotheses
+              equal to Speech2Text(config.yaml, checkpoint)'s, scores
+              within 1e-4), score.  B: model llm_guided_asr over
+              tests/parity/tiny_llm_bpe with part A's encoder by init_param,
+              frozen (no backward launch, its weights unchanged), 1 epoch
+              of letter texts, no llm tensor in any .pth, a beam-10 decode
+              of 2 utterances with the cached guided scorer.  C: lm_train
+              at LM_CONF's widths for 1 epoch of part A's text,
+              lm_calc_perplexity (finite), and part A's model decoding 2
+              utterances with --lm_train_config/--lm_file at lm_weight 0.3
+              (the LM part in each score).  Prints collect_stats seconds,
+              each epoch's wall time and train audio s/s, each save's
+              seconds and bytes, and the RTF and RTFx of the CLI's rtf file.
 
-``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream``
-builds the kernels and runs that phase alone (no kernel table);
+``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
+asr-cli`` builds the kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
@@ -1099,7 +1124,7 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
     (phase 9) take the same beam-10 search and the same checks."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
-    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
     waves = request_waves(seconds)
     frames = encoder_frames(model, waves)
     print(f"[{tag}] encoder frames T' of the " + ", ".join(f"{s:.1f}" for s in seconds)
@@ -1198,7 +1223,7 @@ def phase_serve_batch(model, kernels, card):
     by_len = dict(zip(REQUEST_SECONDS, request_waves()))
     waves = [by_len[s] for s in BATCH_SECONDS]
     audio_s = sum(BATCH_SECONDS)
-    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
     t0 = time.perf_counter()
     s2t.batch_call(waves)
     torch.cuda.synchronize()
@@ -1335,7 +1360,7 @@ def phase_profile(model, wave, wall_s: float, card, tag="profile", sec=REQUEST_S
 
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
-    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
     speech = torch.from_numpy(wave[None]).cuda()
     n = torch.tensor([wave.shape[0]], device="cuda")
     t_enc = []
@@ -1870,7 +1895,7 @@ def phase_serve_transducer(model, waves, kernels, card):
 
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
-    s2t = Speech2Text(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM)
+    s2t = Speech2Text.from_model(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM)
     n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
     frames = encoder_frames(model, waves)
     for sec, wave in zip(REQUEST_SECONDS, waves):
@@ -1916,7 +1941,7 @@ def phase_serve_transducer(model, waves, kernels, card):
     print(f"[serve-transducer] torch.cuda.max_memory_allocated: {peak} bytes "
           f"({peak / 2**30:.2f} GiB)")
 
-    greedy = Speech2Text(model, beam_size=1)
+    greedy = Speech2Text.from_model(model, beam_size=1)
     reset_counts(kernels)
     t0 = time.perf_counter()
     (ids, _), = greedy(waves[0])
@@ -2185,8 +2210,8 @@ def phase_serve_lm(kernels, card):
         with record_function("lm_score"):
             return score(tokens, lengths)
 
-    s2t = Speech2Text(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0, lm=lm_score,
-                      lm_weight=LM_WEIGHT)
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0,
+                                 lm=lm_score, lm_weight=LM_WEIGHT)
     waves = request_waves()
     for sec, wave in zip(REQUEST_SECONDS, waves):
         t0 = time.perf_counter()
@@ -2393,10 +2418,290 @@ def phase_serve_stream(kernels, card):
     return launches
 
 
+CLI_TEMPLATE = 'fix "((HYP))" -> "'
+CLI_DECODE = ["--beam_size", "10", "--ctc_weight", "0.3", "--maxlenratio", "-24"]
+
+
+def cli_config(root: Path, splits: dict, **over) -> dict:
+    """Part A's task config: build_train1's widths (Conformer 12x256, 4
+    heads, 1024 units, kernel 31, macaron, attention dropout 0.1; decoder
+    6x256, 4 heads, 2048 units; ctc_weight 0.3), the default frontend,
+    SpecAug, global MVN, a 5,000-entry word token list, AdamW with warmuplr,
+    sorted batches of 32, 2 epochs, 2-best; ``device: null`` (the card)."""
+    cfg = {
+        "token_type": "word", "token_list": str(root / "tokens.txt"),
+        "specaug": "specaug", "normalize": "global_mvn",
+        "encoder": "conformer",
+        "encoder_conf": {"output_size": 256, "attention_heads": 4, "linear_units": 1024,
+                         "num_blocks": 12, "macaron_style": True, "use_cnn_module": True,
+                         "cnn_module_kernel": 31, "attention_dropout_rate": 0.1},
+        "decoder": "transformer",
+        "decoder_conf": {"attention_heads": 4, "linear_units": 2048, "num_blocks": 6},
+        "model_conf": {"ctc_weight": 0.3},
+        "optim": "adamw", "optim_conf": {"lr": 1.0e-3},
+        "scheduler": "warmuplr", "scheduler_conf": {"warmup_steps": 6},
+        "batch_type": "sorted", "batch_size": RUN_B, "max_epoch": 2, "keep_nbest_models": 2,
+        "log_interval": 2, "seed": 0, "device": None,
+        "train_data_path_and_name_and_type": [[str(splits["train"][0]), "speech", "sound"],
+                                              [str(splits["train"][1]), "text", "text"]],
+        "valid_data_path_and_name_and_type": [[str(splits["valid"][0]), "speech", "sound"],
+                                              [str(splits["valid"][1]), "text", "text"]],
+    }
+    cfg.update(over)
+    return cfg
+
+
+def cli_launch_check(tag: str, launches: dict, fwd: int, bwd: int):
+    for name, n in launches.items():
+        want = {"rel_attention_fwd": fwd, "dwconv1d_fwd": fwd, "rel_attention_bwd": bwd,
+                "dwconv1d_bwd": bwd}.get(name, 0)
+        if n != want:
+            raise AssertionError(f"asr-cli {tag}: {name} launched {n} times, expected {want}")
+
+
+def read_scores(d: Path) -> dict:
+    """1best_recog/score* files -> {file: {uid: float}}."""
+    return {p.name: {u: float(v) for u, v in (line.split() for line in p.read_text().splitlines())}
+            for p in sorted((d / "1best_recog").glob("score*"))}
+
+
+def check_cli_scores(tag: str, d: Path, lm_weight: float = 0.0) -> dict:
+    """Every hypothesis's score = 0.7 decoder + 0.3 ctc [+ lm_weight lm]."""
+    sc = read_scores(d)
+    for uid, total in sc["score"].items():
+        want = 0.7 * sc["score_decoder"][uid] + 0.3 * sc["score_ctc"][uid]
+        if lm_weight:
+            want += lm_weight * sc["score_lm"][uid]
+        if not (math.isfinite(total) and abs(total - want) <= 1e-3 * max(1.0, abs(want))):
+            raise AssertionError(f"asr-cli {tag}: {uid} score {total} != weighted parts {want}")
+    return sc
+
+
+def read_rtf(d: Path) -> dict:
+    return {k: float(v) for k, v in (line.split() for line in (d / "rtf").read_text().splitlines())}
+
+
+def phase_asr_cli(kernels, card):
+    """Phase 16: the task and CLI layer on the card, driven only through the
+    CLIs' main(argv) in process, in a temporary directory.  A: phase 15's
+    corpus with word text, collect_stats, 2 epochs of the flagship from a
+    YAML config, a beam-10 decode of the valid split, scoring.  B: the
+    LLM-guided config (tests/parity/tiny_llm_bpe) with part A's encoder by
+    init_param, frozen, 1 epoch and a beam-10 decode of 2 utterances.  C: a
+    TransformerLM at LM_CONF's widths for 1 epoch, its perplexity, and part
+    A's model decoded with it (lm_weight 0.3)."""
+    import tempfile
+
+    from llm_guided_asr_tpu_torch.bin import (
+        asr_inference,
+        asr_train,
+        lm_calc_perplexity,
+        lm_train,
+        score,
+    )
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_wav
+    from llm_guided_asr_tpu_torch.tasks.asr import ASRTask
+    from llm_guided_asr_tpu_torch.train.checkpoint import load
+    from llm_guided_asr_tpu_torch.train.reporter import Reporter
+    from llm_guided_asr_tpu_torch.utils.config import dump_yaml
+
+    total = {}
+
+    def run(tag, fn, *args):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = counts(kernels)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        return out, sec, launches
+
+    with tempfile.TemporaryDirectory(prefix="asr-cli-") as tmp:
+        root = Path(tmp)
+        # ---- A: the flagship through the CLIs ----
+        splits = write_run_corpus(root)
+        for split in ("train", "valid"):  # text_int -> words w0002..w4998 (w0001: <unk>)
+            lines = splits[split][1].read_text().splitlines()
+            (root / f"{split}.words").write_text("".join(
+                u + " " + " ".join(f"w{int(t):04d}" for t in rest.split()) + "\n"
+                for u, rest in (line.split(maxsplit=1) for line in lines)))
+            splits[split] = (splits[split][0], root / f"{split}.words", splits[split][2])
+        tokens = ["<blank>", "<unk>"] + [f"w{i:04d}" for i in range(2, 4999)] + ["<sos/eos>"]
+        (root / "tokens.txt").write_text("\n".join(tokens) + "\n")
+        dump_yaml(cli_config(root, splits), root / "train.yaml")
+        stats_dir, exp = root / "stats", root / "exp"
+        _, sec, launches = run("collect", asr_train.main, [
+            "--config", str(root / "train.yaml"), "--collect_stats", "true",
+            "--output_dir", str(stats_dir)])
+        npz = np.load(stats_dir / "train" / "feats_stats.npz")
+        want_frames = sum(len(read_wav(p)[1]) // 128 + 1 for p in
+                          read_2columns_text(splits["train"][0]).values())
+        if int(npz["count"]) != want_frames or not np.isfinite(npz["sum_square"]).all():
+            raise AssertionError(f"asr-cli: feats_stats counts {int(npz['count'])} frames, "
+                                 f"expected {want_frames}")
+        cli_launch_check("collect_stats", launches, 0, 0)
+        print(f"[asr-cli] A collect_stats: {RUN_UTTS} utterances in {sec:.2f} s, "
+              f"{want_frames} train frames counted [{card}]")
+        state, sec, launches = run("train", asr_train.main, [
+            "--config", str(root / "train.yaml"), "--output_dir", str(exp),
+            "--normalize_conf", f"stats_file={stats_dir / 'train' / 'feats_stats.npz'}"])
+        n_train, n_valid, blocks = RUN_TRAIN // RUN_B, -(-(RUN_UTTS - RUN_TRAIN) // RUN_B), 12
+        cli_launch_check("A train", launches, 2 * blocks * (n_train + n_valid),
+                         2 * blocks * n_train)
+        reporter = Reporter.load(exp / "reporter.json")
+        for e in (1, 2):
+            st = reporter.stats[e]
+            bad = {f"{ph} {k}": v for ph in ("train", "valid") for k, v in st[ph].items()
+                   if not math.isfinite(v)}
+            if bad:
+                raise AssertionError(f"asr-cli A: epoch {e}: {bad}")
+            saves = sum(s for _, s, _ in state.saves[2 * (e - 1):2 * e])
+            wall = st["train"]["time"] + st["valid"]["time"] + saves
+            print(f"[asr-cli] A epoch {e}: wall {wall:.2f} s (train, valid, saves); train "
+                  f"{st['train']['time']:.2f} s = "
+                  f"{splits['train'][2] / st['train']['time']:.1f} audio s/s; loss "
+                  f"{st['train']['loss']!r}, valid loss {st['valid']['loss']!r} [{card}]")
+        for name, s_, size in state.saves:
+            print(f"[asr-cli] A saved {name}: {s_:.3f} s, {size} bytes [{card}]")
+        print(f"[asr-cli] A train: 2 epochs in {sec:.1f} s, {state.step} updates; launches "
+              f"{launches} [{card}]")
+        ave = exp / "valid.loss.ave_2best.pth"
+        model, _ = ASRTask.build_model_from_file(exp / "config.yaml", ave)
+        want = {k: tuple(v.shape) for k, v in build_train1().state_dict().items()}
+        got = {k: tuple(v.shape) for k, v in model.state_dict().items()
+               if k not in ("mvn_mean", "mvn_inv_std")}
+        if got != want:
+            raise AssertionError(f"asr-cli A: parameters differ from build_train1(): "
+                                 f"{sorted(set(got) ^ set(want))[:5]}")
+        del model
+        dec = root / "decode"
+        _, sec, launches = run("decode", asr_inference.main, [
+            "--asr_train_config", str(exp / "config.yaml"), "--asr_model_file", str(ave),
+            "--data_path_and_name_and_type", f"{splits['valid'][0]},speech,sound",
+            "--output_dir", str(dec)] + CLI_DECODE)
+        n_dec = RUN_UTTS - RUN_TRAIN
+        cli_launch_check("A decode", launches, blocks * n_dec, 0)
+        sc = check_cli_scores("A", dec)
+        hyp_tokens = read_2columns_text(dec / "1best_recog" / "token")
+        if sorted(sc["score"]) != sorted(read_2columns_text(splits["valid"][0])):
+            raise AssertionError("asr-cli A: 1best_recog misses utterances")
+        s2t = Speech2Text(exp / "config.yaml", ave, ctc_weight=0.3, beam_size=10,
+                          maxlenratio=-24.0)
+        gap = 0.0
+        for uid, path in read_2columns_text(splits["valid"][0]).items():
+            text, toks, ids, hyp = s2t(read_wav(path)[1])[0]
+            gap = max(gap, abs(hyp.score - sc["score"][uid]))
+            if " ".join(toks) != hyp_tokens.get(uid, "") or not gap <= 1e-4:
+                raise AssertionError(f"asr-cli A: {uid}: Speech2Text(config.yaml, checkpoint) "
+                                     f"gives {toks} {hyp.score}, the CLI wrote "
+                                     f"{hyp_tokens.get(uid)} {sc['score'][uid]}")
+        del s2t
+        rtf = read_rtf(dec)
+        result = score.main(["--ref", str(splits["valid"][1]),
+                             "--hyp", str(dec / "1best_recog" / "text"),
+                             "--output_dir", str(root / "score")])
+        print(f"[asr-cli] A decode: {n_dec} utterances, {rtf['audio_s']:.1f} s of audio in "
+              f"{rtf['decode_s']:.2f} s: RTF {rtf['RTF']:.4f}, RTFx {rtf['RTFx']:.2f}; the CLI's "
+              f"hypotheses = Speech2Text(config.yaml, checkpoint)'s (scores within {gap:.1e}, "
+              f"tol 1e-4); WER {result['err']:.2f} (noise corpus) [{card}]")
+
+        # ---- B: the LLM-guided config through the CLIs ----
+        llm_dir = Path(__file__).resolve().parent / "tests" / "parity" / "tiny_llm_bpe"
+        rng = np.random.default_rng(16)
+        letters = list("abcdefghijklmnopqrstuvwxyz")
+        for split in ("train", "valid"):
+            uids = list(read_2columns_text(splits[split][0]))
+            (root / f"{split}.letters").write_text("".join(
+                f"{u} {''.join(rng.choice(letters) for _ in range(rng.integers(4, 12)))}\n"
+                for u in uids))
+        two = root / "valid2.scp"
+        two.write_text("".join(splits["valid"][0].read_text().splitlines(keepends=True)[:2]))
+        gcfg = cli_config(
+            root, splits, model="llm_guided_asr", llm="llama", token_type="hugging_face",
+            token_list=None, max_epoch=1, keep_nbest_models=1,
+            llm_conf={"model_name_or_path": str(llm_dir), "template_prompt": CLI_TEMPLATE,
+                      "pad_token": "<pad>"},
+            normalize_conf={"stats_file": str(stats_dir / "train" / "feats_stats.npz")},
+            init_param=[f"{ave}:encoder:encoder"], freeze_param=["encoder"],
+            train_data_path_and_name_and_type=[[str(splits["train"][0]), "speech", "sound"],
+                                               [str(root / "train.letters"), "text", "text"]],
+            valid_data_path_and_name_and_type=[[str(splits["valid"][0]), "speech", "sound"],
+                                               [str(root / "valid.letters"), "text", "text"]])
+        dump_yaml(gcfg, root / "guided.yaml")
+        gexp = root / "gexp"
+        gstate, sec, launches = run("guided", asr_train.main, [
+            "--config", str(root / "guided.yaml"), "--output_dir", str(gexp)])
+        cli_launch_check("B train", launches, blocks * (n_train + n_valid), 0)
+        gst = Reporter.load(gexp / "reporter.json").stats[1]
+        if not all(math.isfinite(gst[ph]["loss"]) for ph in ("train", "valid")):
+            raise AssertionError(f"asr-cli B: losses {gst}")
+        for path in sorted(gexp.glob("*.pth")):
+            obj = load(path)
+            keys = obj["model"] if "model" in obj else obj
+            if not keys or any(k == "llm" or k.startswith("llm.") for k in keys):
+                raise AssertionError(f"asr-cli B: {path.name} holds an llm tensor")
+        enc_a, enc_b = load(ave), load(gexp / "valid.loss.ave_1best.pth")
+        moved = [k for k in enc_a if k.startswith("encoder.") and not torch.equal(enc_a[k],
+                                                                                   enc_b[k])]
+        if moved:
+            raise AssertionError(f"asr-cli B: the frozen encoder moved: {moved[:5]}")
+        gdec = root / "gdecode"
+        _, dsec, dlaunch = run("guided decode", asr_inference.main, [
+            "--asr_train_config", str(gexp / "config.yaml"),
+            "--asr_model_file", str(gexp / "valid.loss.ave_1best.pth"),
+            "--data_path_and_name_and_type", f"{two},speech,sound",
+            "--output_dir", str(gdec)] + CLI_DECODE)
+        cli_launch_check("B decode", dlaunch, blocks * 2, 0)
+        gsc = check_cli_scores("B", gdec)
+        print(f"[asr-cli] B guided: 1 epoch with part A's encoder frozen in {sec:.1f} s, loss "
+              f"{gst['train']['loss']:.4f}, valid {gst['valid']['loss']:.4f}; no .pth holds an "
+              f"llm tensor; 2 utterances decoded at beam 10 (cached guided scorer) in "
+              f"{dsec:.2f} s, RTFx {read_rtf(gdec)['RTFx']:.2f}, scores "
+              f"{list(gsc['score'].values())} [{card}]")
+
+        # ---- C: the LM through the CLIs ----
+        lm_yaml = root / "lm.yaml"
+        dump_yaml({"token_type": "word", "token_list": str(root / "tokens.txt"),
+                   "lm": "transformer", "lm_conf": {**LM_CONF, "dropout_rate": 0.0},
+                   "optim": "adamw", "optim_conf": {"lr": 1.0e-3}, "max_epoch": 1,
+                   "keep_nbest_models": 1, "batch_size": 64,
+                   "train_data_path_and_name_and_type": [[str(splits["train"][1]), "text",
+                                                          "text"]],
+                   "valid_data_path_and_name_and_type": [[str(splits["valid"][1]), "text",
+                                                          "text"]]}, lm_yaml)
+        lexp = root / "lmexp"
+        lstate, sec, _ = run("lm train", lm_train.main,
+                             ["--config", str(lm_yaml), "--output_dir", str(lexp)])
+        lm_file = lexp / "valid.loss.ave_1best.pth"
+        ppl, psec, _ = run("perplexity", lm_calc_perplexity.main, [
+            "--train_config", str(lexp / "config.yaml"), "--model_file", str(lm_file),
+            "--data_path_and_name_and_type", f"{splits['valid'][1]},text,text"])
+        if not math.isfinite(ppl):
+            raise AssertionError(f"asr-cli C: perplexity {ppl}")
+        ldec = root / "ldecode"
+        _, dsec, dlaunch = run("lm decode", asr_inference.main, [
+            "--asr_train_config", str(exp / "config.yaml"), "--asr_model_file", str(ave),
+            "--data_path_and_name_and_type", f"{two},speech,sound", "--output_dir", str(ldec),
+            "--lm_train_config", str(lexp / "config.yaml"), "--lm_file", str(lm_file),
+            "--lm_weight", "0.3"] + CLI_DECODE)
+        cli_launch_check("C decode", dlaunch, blocks * 2, 0)
+        lsc = check_cli_scores("C", ldec, lm_weight=0.3)
+        print(f"[asr-cli] C LM ({LM_CONF}): 1 epoch in {sec:.1f} s, {lstate.step} updates; "
+              f"valid perplexity {ppl:.2f} in {psec:.2f} s; 2 utterances decoded with "
+              f"lm_weight 0.3 in {dsec:.2f} s, RTFx {read_rtf(ldec)['RTFx']:.2f}, LM parts "
+              f"{list(lsc['score_lm'].values())} [{card}]")
+    print(f"[asr-cli] kernel launches over the phase: {total}")
+    return total
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
-    serve-batch, serve-lm or serve-stream),
+    serve-batch, serve-lm, serve-stream or asr-cli),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -2414,7 +2719,8 @@ def run_one_phase(name: str, card: str) -> int:
               "serve": lambda: phase_serve(build_model(), kernels, card),
               "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card),
               "serve-lm": lambda: phase_serve_lm(kernels, card),
-              "serve-stream": lambda: phase_serve_stream(kernels, card)}
+              "serve-stream": lambda: phase_serve_stream(kernels, card),
+              "asr-cli": lambda: phase_asr_cli(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
@@ -2430,7 +2736,8 @@ def run_one_phase(name: str, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
-                                    "golden, serve, serve-batch, serve-lm or serve-stream")
+                                    "golden, serve, serve-batch, serve-lm, serve-stream or "
+                                    "asr-cli")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -2497,6 +2804,8 @@ def main() -> int:
     paths["serve-lm"] = timed("serve-lm", phase_serve_lm, kernels, card)
     torch.cuda.empty_cache()
     paths["serve-stream"] = timed("serve-stream", phase_serve_stream, kernels, card)
+    torch.cuda.empty_cache()
+    paths["asr-cli"] = timed("asr-cli", phase_asr_cli, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 

@@ -1,8 +1,19 @@
-"""Speech2Text (counterpart of llm_guided_asr_tpu/bin/asr_inference.py).
+#!/usr/bin/env python3
+"""Speech2Text inference API + CLI (counterpart of llm_guided_asr_tpu/bin/asr_inference.py).
 
-Built from a model whose weights are already loaded (the config.yaml task
-layer is not ported yet).  A call pads the waveform to a multiple of
-``speech_pad_multiple`` samples, encodes it and searches:
+Rebuild of espnet2/bin/asr_inference.py (Speech2Text:89, inference():710).
+``Speech2Text(asr_train_config, asr_model_file, ...)`` rebuilds the model
+from an experiment directory of either package (tasks/asr.py
+``ASRTask.build_model_from_file``: the port's ``.pth`` or the JAX package's
+``.msgpack``) with the JAX defaults (``ctc_weight`` 0.5, ``beam_size``
+10), builds the tokenizer and token converter of the config, and returns
+(text, tokens, token_ids, Hypothesis) a result.  ``Speech2Text.from_model``
+takes a model whose weights are already loaded (ctc_weight 0.3 unless
+given); its results are (token_ids, Hypothesis) pairs, or the 4-tuples
+when a tokenizer is given.
+
+A call pads the waveform to a multiple of ``speech_pad_multiple`` samples,
+encodes it and searches:
 
 - the LLM-guided model (a model with ``decode_prefix``): the beam search
   with the cached guided scorer; ``biasing_words`` are tokenized with the
@@ -11,33 +22,33 @@ layer is not ported yet).  A call pads the waveform to a multiple of
   full-prefix scorer, or with the per-beam KV cache of
   search/cached_decoder.py when ``use_cached_decoder``; the greedy CTC
   decode when ``beam_size <= 1`` and ``ctc_weight == 1.0``;
-- shallow fusion (asr_inference.py:184-196): ``lm`` is a language model
-  of models/lm.py (its ESPnetLanguageModel or the bare LM) or a score
-  function (tokens [N, L], lengths [N]) -> log-probs [N, V], such as the
-  dense n-gram's; the search adds it with ``lm_weight``.  The JAX
-  ``lm_train_config``/``lm_file`` arguments need the task layer, which is
-  not ported yet;
+- shallow fusion (asr_inference.py:184-196): ``lm_train_config`` and
+  ``lm_file`` (tasks/lm.py ``LMTask``), or an ``lm`` object (a language
+  model of models/lm.py or a score function (tokens [N, L], lengths [N])
+  -> log-probs [N, V]); the search adds it with ``lm_weight``;
 - a transducer (a model with ``joint_full``): the fixed-expansion beam
   search when ``beam_size > 1``, the greedy decode when it is 1.
 
 ``batch_call`` decodes several requests in one encode and one lockstep
 beam search (``BatchBeamSearch.batch_decode``); it decodes them one by one
 where the JAX package does: for a transducer and for a model without a
-beam search.
-
-Results are (token_ids, Hypothesis) pairs, or (text, tokens, token_ids,
-Hypothesis) as in the JAX package when the LLM's tokenizer is given
-(text/tokenizers.py ``HuggingFaceTokenizer``).
+beam search.  :func:`inference` writes ``1best_recog/{text,token,score,
+score_*}`` and the ``rtf`` file; :func:`main` is the command line.
 """
 
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Sequence, Union
+import logging
+import sys
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from llm_guided_asr_tpu_torch.data.fileio import DatadirWriter, SoundScpReader, read_2columns_text
 from llm_guided_asr_tpu_torch.models.lm import make_lm_score_fn
 from llm_guided_asr_tpu_torch.models.transducer import transducer_greedy_decode
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch, Hypothesis
@@ -49,6 +60,9 @@ from llm_guided_asr_tpu_torch.text.tokenizers import (
     HuggingFaceTokenIDConverter,
     HuggingFaceTokenizer,
 )
+from llm_guided_asr_tpu_torch.utils.config import build_config, normalize_triples
+
+logger = logging.getLogger(__name__)
 
 TRANSDUCER_SEARCHES = ("default", "alsd", "tsd", "nsc", "mbg")
 
@@ -58,33 +72,62 @@ def round_up(n: int, multiple: int) -> int:
 
 
 class Speech2Text:
-    """callable: speech waveform -> list of (token_ids, Hypothesis), or of
-    (text, tokens, token_ids, Hypothesis) with a tokenizer."""
+    """callable: speech waveform -> list of (text, tokens, token_ids,
+    Hypothesis); from a model object without a tokenizer, of (token_ids,
+    Hypothesis)."""
 
     def __init__(
         self,
-        model,
-        ctc_weight: float = 0.3,
+        asr_train_config: Optional[Union[str, Path]] = None,
+        asr_model_file: Optional[Union[str, Path]] = None,
+        token_type: Optional[str] = None,
+        bpemodel: Optional[str] = None,
+        lm_train_config: Optional[Union[str, Path]] = None,
+        lm_file: Optional[Union[str, Path]] = None,
+        lm_weight: float = 1.0,
+        ctc_weight: float = 0.5,
         beam_size: int = 10,
         penalty: float = 0.0,
         maxlenratio: float = 0.0,
         minlenratio: float = 0.0,
         nbest: int = 1,
         speech_pad_multiple: int = 1600,
-        transducer_search: str = "default",
         use_cached_decoder: bool = False,
+        transducer_search: str = "default",
+        device: Union[str, torch.device] = "cuda",
+        *,
+        model: Optional[nn.Module] = None,
         tokenizer: Optional[HuggingFaceTokenizer] = None,
         lm: Optional[Union[nn.Module, Callable]] = None,
-        lm_weight: float = 1.0,
         pre_beam_ratio: float = 1.5,
     ):
-        """``tokenizer``: the LLM's (text/tokenizers.py); results then carry
-        text and tokens, and biasing words can be tokenized.
-        ``use_cached_decoder``: the standard decoder scores with its per-beam
-        KV cache instead of recomputing the prefix (opt in, as in JAX).
-        ``lm``, ``lm_weight``: shallow fusion (the weight is 0 without an
-        LM); ``pre_beam_ratio``: the pre-beam keeps int(ratio * beam)
-        candidates a hypothesis."""
+        """From files: ``asr_train_config`` (config.yaml) and
+        ``asr_model_file`` (.pth or .msgpack) on ``device``; ``token_type``
+        and ``bpemodel`` override the config's.  From a model object:
+        ``model`` (its own device), with an optional LLM ``tokenizer``.  ``use_cached_decoder``: the
+        standard decoder scores with its per-beam KV cache (opt in, as in
+        JAX).  ``lm_train_config``/``lm_file`` or ``lm``, ``lm_weight``:
+        shallow fusion (the weight is 0 without an LM); ``pre_beam_ratio``:
+        the pre-beam keeps int(ratio * beam) candidates a hypothesis."""
+        if isinstance(asr_train_config, nn.Module):
+            raise TypeError("a model object goes to Speech2Text.from_model(model, ...)")
+        self.config = None
+        if model is None:
+            if asr_train_config is None:
+                raise ValueError("Speech2Text needs asr_train_config (or from_model)")
+            from llm_guided_asr_tpu_torch.tasks.asr import ASRTask, build_text_converter
+
+            model, self.config = ASRTask.build_model_from_file(asr_train_config,
+                                                               asr_model_file, device)
+            tc_config = dict(self.config)
+            if token_type:
+                tc_config["token_type"] = token_type
+            if bpemodel:
+                tc_config["bpemodel"] = bpemodel
+            tokenizer, converter = build_text_converter(tc_config)
+        else:
+            converter = (None if tokenizer is None
+                         else HuggingFaceTokenIDConverter(tokenizer.tokenizer))
         self.model = model.eval()
         self.device = next(model.parameters()).device
         self.maxlenratio = maxlenratio
@@ -92,11 +135,15 @@ class Speech2Text:
         self.nbest = nbest
         self.speech_pad_multiple = speech_pad_multiple
         self.beam_size = beam_size
+        self.ctc_weight = ctc_weight
         self.is_transducer = hasattr(model, "joint_full")
         self.beam = None
         self.tokenizer = tokenizer
-        self.converter = (None if tokenizer is None
-                          else HuggingFaceTokenIDConverter(tokenizer.tokenizer))
+        self.converter = converter
+        if lm_train_config is not None:
+            from llm_guided_asr_tpu_torch.tasks.lm import LMTask
+
+            lm, _ = LMTask.build_model_from_file(lm_train_config, lm_file, self.device)
         if isinstance(lm, nn.Module):
             lm = make_lm_score_fn(getattr(lm, "lm", lm))
         self.lm_weight = lm_weight if lm is not None else 0.0
@@ -105,8 +152,8 @@ class Speech2Text:
             if transducer_search not in TRANSDUCER_SEARCHES:
                 raise ValueError(f"transducer_search={transducer_search!r}")
             if transducer_search != "default":
-                raise NotImplementedError(
-                    f"transducer_search={transducer_search!r} is not ported yet")
+                raise NotImplementedError(f"transducer_search={transducer_search!r} is not "
+                                          f"ported yet (ROADMAP Queue 1 item 5)")
         elif beam_size > 1 or ctc_weight < 1.0:
             # the guided model scores with its shared-prefix KV cache, any
             # other attention model with the stateless full-prefix scorer or,
@@ -124,6 +171,14 @@ class Speech2Text:
                 pre_beam_ratio=pre_beam_ratio, att_scorer=att_scorer,
             )
 
+    @classmethod
+    def from_model(cls, model: nn.Module, ctc_weight: float = 0.3, beam_size: int = 10,
+                   tokenizer: Optional[HuggingFaceTokenizer] = None, **kwargs) -> "Speech2Text":
+        """A recognizer over a model whose weights are loaded (the in-memory
+        form; ``ctc_weight`` 0.3 by default, the guided recipe's)."""
+        return cls(model=model, ctc_weight=ctc_weight, beam_size=beam_size,
+                   tokenizer=tokenizer, **kwargs)
+
     def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:
         if self.beam_size > 1:
             return transducer_beam_decode(self.model, enc, enc_lens, beam_size=self.beam_size,
@@ -139,7 +194,7 @@ class Speech2Text:
         scorer = self.beam.att_scorer if self.beam is not None else None
         if not isinstance(scorer, CachedGuidedScorer) or not words:
             return None
-        if self.tokenizer is None:
+        if not isinstance(self.tokenizer, HuggingFaceTokenizer):
             raise ValueError("biasing words need the LLM tokenizer (tokenizer=HuggingFaceTokenizer)")
         llm_tok = self.tokenizer.tokenizer
         ids = llm_tok(", ".join(words))["input_ids"]
@@ -205,3 +260,127 @@ class Speech2Text:
         per_utt = self.beam.batch_decode(enc, enc_lens, maxlenratio=self.maxlenratio,
                                          minlenratio=self.minlenratio, nbest=self.nbest)
         return [self._results(hyps) for hyps in per_utt]
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def inference(output_dir: Union[str, Path],
+              data_path_and_name_and_type: Sequence[Tuple[str, str, str]],
+              asr_train_config: Union[str, Path],
+              asr_model_file: Optional[Union[str, Path]] = None,
+              biasing_words_file: Optional[Union[str, Path]] = None,
+              batch_size: int = 1, **kwargs) -> Speech2Text:
+    """Decode a wav.scp into ``<output_dir>/1best_recog/{text,token,score,
+    score_*}`` and write ``<output_dir>/rtf`` (asr_inference.py
+    inference():710; ``biasing_words_file`` gives each utterance its
+    biasing words, asr_inference_new.py:844-855).  ``batch_size > 1``
+    decodes length-sorted batches with ``batch_call``.  Returns the
+    recognizer."""
+    s2t = Speech2Text(asr_train_config, asr_model_file, **kwargs)
+    bias_table = {}
+    if biasing_words_file:
+        bias_table = {k: v.split() for k, v in read_2columns_text(biasing_words_file).items()}
+    wav_path = next((p for p, name, _ in data_path_and_name_and_type if name == "speech"), None)
+    if wav_path is None:
+        raise ValueError("need a ('<wav.scp>', 'speech', 'sound') triple")
+    reader = SoundScpReader(wav_path)
+
+    def write_result(writer, uid, results):
+        text, tokens, ids, hyp = results[0]
+        writer["text"][uid] = text
+        writer["token"][uid] = " ".join(tokens)
+        writer["score"][uid] = str(float(hyp.score))
+        for name, val in (hyp.scores or {}).items():
+            writer[f"score_{name}"][uid] = str(float(val))
+
+    total_audio_s, total_decode_s = 0.0, 0.0
+    with DatadirWriter(Path(output_dir) / "1best_recog") as writer:
+        if batch_size > 1 and not bias_table:
+            # length-sorted batches share padded shapes
+            uids = sorted(reader.keys())
+            wavs = {u: reader[u] for u in uids}
+            uids.sort(key=lambda u: len(wavs[u][1]))
+            for i in range(0, len(uids), batch_size):
+                chunk = uids[i : i + batch_size]
+                t0 = time.perf_counter()
+                per_utt = s2t.batch_call([wavs[u][1] for u in chunk])
+                _sync(s2t.device)
+                total_decode_s += time.perf_counter() - t0
+                total_audio_s += sum(len(wavs[u][1]) / float(wavs[u][0]) for u in chunk)
+                for uid, results in zip(chunk, per_utt):
+                    write_result(writer, uid, results)
+        else:
+            for uid in reader.keys():
+                rate, wav = reader[uid]
+                t0 = time.perf_counter()
+                results = s2t(wav, biasing_words=bias_table.get(uid))
+                _sync(s2t.device)
+                total_decode_s += time.perf_counter() - t0
+                total_audio_s += len(wav) / float(rate)
+                write_result(writer, uid, results)
+    # the first call's warm-up is included, as in the JAX package
+    if total_decode_s > 0:
+        rtf = total_decode_s / max(total_audio_s, 1e-9)
+        (Path(output_dir) / "rtf").write_text(
+            f"decode_s {total_decode_s:.3f}\naudio_s {total_audio_s:.3f}\n"
+            f"RTF {rtf:.4f}\nRTFx {1.0 / max(rtf, 1e-9):.2f}\n")
+        logger.info(f"decode RTF={rtf:.4f} (RTFx={1.0 / max(rtf, 1e-9):.1f})")
+    logger.info(f"decoded {len(reader)} utterances -> {output_dir}")
+    return s2t
+
+
+INFERENCE_DEFAULTS = {
+    "output_dir": "decode",
+    "data_path_and_name_and_type": [],
+    "asr_train_config": None,
+    "asr_model_file": None,
+    "lm_train_config": None,
+    "lm_file": None,
+    "lm_weight": 1.0,
+    "ctc_weight": 0.5,
+    "beam_size": 10,
+    "penalty": 0.0,
+    "maxlenratio": 0.0,
+    "minlenratio": 0.0,
+    "nbest": 1,
+    "batch_size": 1,
+    "biasing_words_file": None,
+    "use_cached_decoder": False,
+    "transducer_search": "default",
+    "device": "cuda",
+}
+
+
+def main(cmd=None) -> Speech2Text:
+    """``--asr_train_config exp/config.yaml --asr_model_file exp/x.pth
+    --data_path_and_name_and_type wav.scp,speech,sound --output_dir d``;
+    ``--device cpu`` runs on the CPU (the card otherwise)."""
+    config = build_config(cmd if cmd is not None else sys.argv[1:], INFERENCE_DEFAULTS)
+    logging.basicConfig(level=logging.INFO)
+    return inference(
+        config["output_dir"],
+        normalize_triples(config["data_path_and_name_and_type"]),
+        config["asr_train_config"],
+        config.get("asr_model_file"),
+        biasing_words_file=config.get("biasing_words_file"),
+        batch_size=int(config.get("batch_size", 1)),
+        lm_train_config=config.get("lm_train_config"),
+        lm_file=config.get("lm_file"),
+        lm_weight=float(config.get("lm_weight", 1.0)),
+        ctc_weight=float(config.get("ctc_weight", 0.5)),
+        beam_size=int(config.get("beam_size", 10)),
+        penalty=float(config.get("penalty", 0.0)),
+        maxlenratio=float(config.get("maxlenratio", 0.0)),
+        minlenratio=float(config.get("minlenratio", 0.0)),
+        nbest=int(config.get("nbest", 1)),
+        use_cached_decoder=bool(config.get("use_cached_decoder", False)),
+        transducer_search=config.get("transducer_search", "default"),
+        device=config.get("device") or "cuda",
+    )
+
+
+if __name__ == "__main__":
+    main()

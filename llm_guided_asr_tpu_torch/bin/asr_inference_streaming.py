@@ -46,7 +46,7 @@ class Speech2TextStreaming:
 
     def __init__(self, model, chunk_samples: int = 16000, lookahead_blocks: int = 1, **kwargs):
         """``kwargs`` go to Speech2Text (beam_size, ctc_weight, lm, ...)."""
-        self.s2t = Speech2Text(model, **kwargs)
+        self.s2t = Speech2Text.from_model(model, **kwargs)
         self.chunk_samples = chunk_samples
         self.lookahead_blocks = lookahead_blocks
         cfg = model.cfg

@@ -1,0 +1,44 @@
+#!/usr/bin/env python3
+"""Multi-task training CLI (counterpart of llm_guided_asr_tpu/bin/train.py):
+``--task asr|lm``.  The JAX package's other tasks (st and the generic
+model zoo) raise: ROADMAP Queue 1 items 9 and 12."""
+
+
+def main(cmd=None):
+    import sys
+
+    args = list(cmd if cmd is not None else sys.argv[1:])
+    task = None
+    for i, a in enumerate(args):
+        if a == "--task" and i + 1 < len(args):
+            task = args[i + 1]
+        elif a.startswith("--task="):
+            task = a.split("=", 1)[1]
+    if task == "asr":
+        from llm_guided_asr_tpu_torch.tasks.asr import ASRTask
+
+        return ASRTask.main(_strip_task(args))
+    if task == "lm":
+        from llm_guided_asr_tpu_torch.tasks.lm import LMTask
+
+        return LMTask.main(_strip_task(args))
+    item = "9" if task == "st" else "12"
+    raise NotImplementedError(f"--task {task} is not ported yet (ROADMAP Queue 1 item {item})")
+
+
+def _strip_task(args):
+    out = []
+    i = 0
+    while i < len(args):
+        if args[i] == "--task":
+            i += 2
+        elif args[i].startswith("--task="):
+            i += 1
+        else:
+            out.append(args[i])
+            i += 1
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -82,6 +82,31 @@ def params_from_jax(variables: Mapping) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def params_from_msgpack(path) -> Dict[str, torch.Tensor]:
+    """A JAX package ``.msgpack`` file of model variables (``{n}epoch``,
+    ``ave_{n}best``) -> :func:`params_from_jax` of its tree; bfloat16
+    leaves widen to float32 exactly, as numpy does them in params_from_jax.
+    A collection the port has no home for raises, naming it."""
+    from llm_guided_asr_tpu_torch.train.checkpoint import read_msgpack
+
+    tree = read_msgpack(path)
+    if not isinstance(tree, Mapping):
+        raise ValueError(f"{path}: not a tree of model variables")
+    unknown = sorted(set(tree) - {"params", "batch_stats", "mvn", "ctc_map"})
+    if unknown:
+        raise KeyError(f"{path}: variable collection(s) {unknown} have no counterpart in "
+                       f"the port (known: params, batch_stats, mvn, ctc_map)")
+
+    def widen(t):
+        if isinstance(t, Mapping):
+            return {k: widen(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor):
+            return t.float().numpy()
+        return t
+
+    return params_from_jax(widen(tree))
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every weight from ``seed`` on the model's device.

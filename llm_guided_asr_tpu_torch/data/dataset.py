@@ -1,14 +1,15 @@
 """Dataset and padded-bucket collate (the port's own copy of
 llm_guided_asr_tpu/data/dataset.py).
 
-Rebuild of espnet2/train/dataset.py:437 (ESPnetDataset + DATA_TYPES) and
+Rebuild of espnet2/train/dataset.py:437 (ESPnetDataset + DATA_TYPES),
+espnet2/train/preprocessor.py:137 (CommonPreprocessor) and
 espnet2/train/collate_fn.py:11 (CommonCollateFn: float pad 0.0, int pad
 -1).  The collate pads the batch maxima up to configurable bucket multiples
 (speech samples, feature frames, token counts), so that sorted-length
 batching yields a small closed set of shapes.  The data types are sound,
-npy, text_int, csv_int and text_float; kaldi_ark and text (with the
-tokenizing CommonPreprocessor) raise NotImplementedError until the ark
-reader and the text tokenizers are ported (ROADMAP Queue 1 item 4).
+npy, text (tokenized by the CommonPreprocessor), text_int, csv_int and
+text_float; kaldi_ark raises NotImplementedError until the ark reader is
+ported (ROADMAP Queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ from llm_guided_asr_tpu_torch.data.fileio import (
     SoundScpReader,
     load_num_sequence_text,
     peek_audio_length,
+    read_2columns_text,
 )
 from llm_guided_asr_tpu_torch.utils.config import normalize_triples
 
@@ -45,6 +47,23 @@ class _SoundAdapter:
 
     def __len__(self):
         return len(self.reader)
+
+
+class _TextAdapter:
+    def __init__(self, path):
+        self.data = read_2columns_text(path)
+
+    def __getitem__(self, key):
+        return self.data[key]
+
+    def peek_length(self, key):
+        return len(self.data[key])
+
+    def keys(self):
+        return self.data.keys()
+
+    def __len__(self):
+        return len(self.data)
 
 
 class _IntSeqAdapter:
@@ -72,7 +91,7 @@ DATA_TYPES: Dict[str, Callable] = {
     "sound": _SoundAdapter,
     "kaldi_ark": _not_ported("kaldi_ark"),
     "npy": NpyScpReader,
-    "text": _not_ported("text"),
+    "text": _TextAdapter,
     "text_int": lambda p: _IntSeqAdapter(p, "text_int"),
     "csv_int": lambda p: _IntSeqAdapter(p, "csv_int"),
     "text_float": lambda p: _IntSeqAdapter(p, "text_float"),
@@ -121,6 +140,38 @@ class ESPnetDataset:
                 return int(n)
         item = self[uid]
         return int(np.asarray(next(iter(item.values()))).shape[0])
+
+
+class CommonPreprocessor:
+    """Tokenize text fields to int ids (preprocessor.py:137, minus wav aug).
+
+    Every name in ``text_names`` is tokenized; ``field_tokenizers`` maps a
+    name to its own (tokenizer, converter), as the mixed-vocab ``ctc_text``
+    stream has; ``cleaner`` (a TextCleaner) runs first."""
+
+    def __init__(self, tokenizer=None, token_id_converter=None, text_name: str = "text",
+                 text_names: Optional[Sequence[str]] = None,
+                 field_tokenizers: Optional[Dict[str, Tuple]] = None, cleaner=None):
+        self.tokenizer = tokenizer
+        self.converter = token_id_converter
+        self.cleaner = cleaner
+        self.text_names = (tuple(text_names) if text_names else
+                           (text_name, "src_text", "bias_words", "text_prev", "text_ctc",
+                            "ctc_text", "text_spk2", "text_spk3", "text_spk4"))
+        self.field_tokenizers = dict(field_tokenizers or {})
+
+    def __call__(self, uid: str, data: Dict) -> Dict:
+        out = dict(data)
+        for name in self.text_names:
+            if name in out and isinstance(out[name], str):
+                tok, conv = self.field_tokenizers.get(name, (self.tokenizer, self.converter))
+                if tok is None or conv is None:
+                    raise RuntimeError("text present but no tokenizer configured")
+                if self.cleaner is not None:
+                    out[name] = self.cleaner(out[name])
+                out[name] = np.array(conv.tokens2ids(tok.text2tokens(out[name])),
+                                     dtype=np.int64)
+        return out
 
 
 def round_up(x: int, multiple: int) -> int:

@@ -1,5 +1,10 @@
-"""Tokenizers and token-id conversion (counterpart of llm_guided_asr_tpu/text/tokenizers.py,
-the Hugging Face half and the token-list converter).
+"""Tokenizers and token-id conversion (counterpart of llm_guided_asr_tpu/text/tokenizers.py).
+
+Rebuild of espnet2/text/: char_tokenizer.py, word_tokenizer.py,
+hugging_face_tokenizer.py, token_id_converter.py,
+hugging_face_token_id_converter.py, build_tokenizer.py.  ``bpe``
+(sentencepiece) raises, as in the JAX package, which has no sentencepiece
+either.
 
 The JAX package wraps ``transformers.AutoTokenizer``; the port reads the
 checkpoint directory's ``tokenizer.json``, ``tokenizer_config.json`` and
@@ -139,6 +144,10 @@ class LLMTokenizer:
         """The model's vocabulary, added tokens not counted."""
         return len(self.vocab)
 
+    def __len__(self) -> int:
+        """The vocabulary with the added tokens (``len(AutoTokenizer)``)."""
+        return len(set(self.vocab) | set(self.added))
+
     def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
         """A token (or a list of them) -> id(s); an unknown token -> unk."""
         if isinstance(tokens, str):
@@ -220,7 +229,58 @@ class LLMTokenizer:
         return self.convert_tokens_to_string(t for t in tokens if t is not None)
 
 
-class HuggingFaceTokenizer:
+class AbsTokenizer:
+    def text2tokens(self, line: str) -> List[str]:
+        raise NotImplementedError
+
+    def tokens2text(self, tokens: Iterable[str]) -> str:
+        raise NotImplementedError
+
+
+class CharTokenizer(AbsTokenizer):
+    """espnet2/text/char_tokenizer.py: one token a character, ' ' as
+    ``space_symbol``, non-linguistic symbols kept whole (or removed)."""
+
+    def __init__(self, non_linguistic_symbols: Optional[Iterable[str]] = None,
+                 space_symbol: str = "<space>", remove_non_linguistic_symbols: bool = False):
+        self.space_symbol = space_symbol
+        self.non_linguistic_symbols = set(non_linguistic_symbols or [])
+        self.remove_non_linguistic_symbols = remove_non_linguistic_symbols
+
+    def text2tokens(self, line: str) -> List[str]:
+        tokens = []
+        while line:
+            for sym in self.non_linguistic_symbols:
+                if line.startswith(sym):
+                    if not self.remove_non_linguistic_symbols:
+                        tokens.append(sym)
+                    line = line[len(sym):]
+                    break
+            else:
+                ch = line[0]
+                tokens.append(self.space_symbol if ch == " " else ch)
+                line = line[1:]
+        return tokens
+
+    def tokens2text(self, tokens: Iterable[str]) -> str:
+        return "".join(" " if t == self.space_symbol else t for t in tokens)
+
+
+class WordTokenizer(AbsTokenizer):
+    """espnet2/text/word_tokenizer.py: split on ``delimiter`` (white space
+    when None)."""
+
+    def __init__(self, delimiter: Optional[str] = None):
+        self.delimiter = delimiter
+
+    def text2tokens(self, line: str) -> List[str]:
+        return line.split(self.delimiter)
+
+    def tokens2text(self, tokens: Iterable[str]) -> str:
+        return (self.delimiter or " ").join(tokens)
+
+
+class HuggingFaceTokenizer(AbsTokenizer):
     """text <-> tokens with an LLM's tokenizer (hugging_face_tokenizer.py),
     read from a local directory on first use."""
 
@@ -283,3 +343,27 @@ class HuggingFaceTokenIDConverter:
 
     def tokens2ids(self, tokens: Iterable[str]) -> List[int]:
         return self.tokenizer.convert_tokens_to_ids(list(tokens))
+
+
+def build_tokenizer(token_type: str, bpemodel: Optional[str] = None,
+                    non_linguistic_symbols: Optional[Iterable[str]] = None,
+                    space_symbol: str = "<space>", delimiter: Optional[str] = None,
+                    g2p: Optional[str] = None) -> AbsTokenizer:
+    """espnet2/text/build_tokenizer.py dispatch."""
+    if token_type == "char":
+        return CharTokenizer(non_linguistic_symbols, space_symbol)
+    if token_type == "word":
+        return WordTokenizer(delimiter)
+    if token_type in ("hugging_face", "whisper"):
+        if bpemodel is None:
+            raise ValueError(f"token_type={token_type} requires bpemodel (a local tokenizer "
+                             f"directory)")
+        return HuggingFaceTokenizer(bpemodel)
+    if token_type == "phn":
+        from llm_guided_asr_tpu_torch.text.phoneme import PhonemeTokenizer
+
+        return PhonemeTokenizer(g2p or "rule_en", non_linguistic_symbols)
+    if token_type == "bpe":
+        raise NotImplementedError("sentencepiece is not available in this environment; "
+                                  "use token_type=hugging_face or char")
+    raise ValueError(f"unknown token_type: {token_type}")

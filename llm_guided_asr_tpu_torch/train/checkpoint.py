@@ -14,6 +14,13 @@ main_funcs/average_nbest_models.py:14), in ESPnet's own ``.pth`` files
   epochs' floating tensors (the decode artifact, e.g.
   valid.acc.ave_10best.pth).
 
+Reading also takes the JAX package's flax ``.msgpack`` files (its
+``{n}epoch.msgpack`` and ``ave_{n}best.msgpack``): :func:`read_msgpack` is
+the port's own reader of flax's msgpack encoding (maps, arrays, strings,
+numbers and flax's ndarray, scalar and complex ext types, and its chunked
+arrays), and :func:`load` maps such a tree to the port's state-dict names
+(convert.params_from_msgpack).  The port writes ``.pth`` only.
+
 ``exclude_prefixes`` leaves subtrees out of every file: the frozen LLM
 (trainer.py:408-417 strips decoder.llm.*).  The JAX spelling the tasks pass
 (``"params/llm"``) is accepted: a leading ``params/`` is dropped and the
@@ -25,10 +32,12 @@ from __future__ import annotations
 
 import logging
 import os
+import struct
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -79,7 +88,119 @@ def save(path: os.PathLike, obj: Dict) -> int:
     return path.stat().st_size
 
 
+# ---------------------------------------------------------------------------
+# flax msgpack (flax.serialization.msgpack_restore's format)
+# ---------------------------------------------------------------------------
+
+_EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
+
+
+class _MsgpackReader:
+    def __init__(self, data: bytes, where: str):
+        self.data, self.pos, self.where = memoryview(data), 0, where
+
+    def take(self, n: int) -> memoryview:
+        if self.pos + n > len(self.data):
+            raise ValueError(f"{self.where}: truncated msgpack data")
+        out = self.data[self.pos:self.pos + n]
+        self.pos += n
+        return out
+
+    def unpack(self, fmt: str):
+        return struct.unpack(">" + fmt, self.take(struct.calcsize(">" + fmt)))[0]
+
+    def value(self) -> Any:
+        b = self.take(1)[0]
+        if b <= 0x7F:
+            return b
+        if b >= 0xE0:
+            return b - 0x100
+        if 0x80 <= b <= 0x8F:
+            return self.map(b & 0x0F)
+        if 0x90 <= b <= 0x9F:
+            return [self.value() for _ in range(b & 0x0F)]
+        if 0xA0 <= b <= 0xBF:
+            return str(self.take(b & 0x1F), "utf-8")
+        simple = {0xC0: None, 0xC2: False, 0xC3: True}
+        if b in simple:
+            return simple[b]
+        fixed = {0xCA: "f", 0xCB: "d", 0xCC: "B", 0xCD: "H", 0xCE: "I", 0xCF: "Q",
+                 0xD0: "b", 0xD1: "h", 0xD2: "i", 0xD3: "q"}
+        if b in fixed:
+            return self.unpack(fixed[b])
+        sizes = {0: "B", 1: "H", 2: "I"}
+        if 0xC4 <= b <= 0xC6:  # bin 8/16/32
+            return bytes(self.take(self.unpack(sizes[b - 0xC4])))
+        if 0xD9 <= b <= 0xDB:  # str 8/16/32
+            return str(self.take(self.unpack(sizes[b - 0xD9])), "utf-8")
+        if b in (0xDC, 0xDD):
+            return [self.value() for _ in range(self.unpack("H" if b == 0xDC else "I"))]
+        if b in (0xDE, 0xDF):
+            return self.map(self.unpack("H" if b == 0xDE else "I"))
+        if 0xD4 <= b <= 0xD8:  # fixext 1/2/4/8/16
+            code = self.unpack("b")
+            return self.ext(code, bytes(self.take(1 << (b - 0xD4))))
+        if 0xC7 <= b <= 0xC9:  # ext 8/16/32
+            n = self.unpack(sizes[b - 0xC7])
+            code = self.unpack("b")
+            return self.ext(code, bytes(self.take(n)))
+        raise ValueError(f"{self.where}: msgpack type byte 0x{b:02x} is not supported")
+
+    def map(self, n: int) -> dict:
+        out = {}
+        for _ in range(n):
+            k = self.value()
+            out[k] = self.value()
+        return out
+
+    def ext(self, code: int, payload: bytes):
+        if code == _EXT_COMPLEX:
+            re_, im = _MsgpackReader(payload, self.where).value()
+            return complex(re_, im)
+        if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+            raise ValueError(f"{self.where}: msgpack ext type {code} is not a flax type")
+        shape, dtype, buf = _MsgpackReader(payload, self.where).value()
+        dtype = dtype.decode() if isinstance(dtype, bytes) else dtype
+        if dtype == "bfloat16":
+            arr = torch.from_numpy(np.frombuffer(buf, np.uint16).reshape(shape).copy())
+            arr = arr.view(torch.bfloat16)
+            return arr if code == _EXT_NDARRAY else arr.reshape(())
+        arr = np.frombuffer(buf, np.dtype(dtype)).reshape(shape).copy()
+        return arr if code == _EXT_NDARRAY else arr[()]
+
+
+def _unchunk(tree):
+    """flax's chunked form of an array above 2**30 bytes -> the array."""
+    if isinstance(tree, dict):
+        if "__msgpack_chunked_array__" in tree:
+            shape = tuple(tree["shape"][str(i)] for i in range(len(tree["shape"])))
+            chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+            if isinstance(chunks[0], torch.Tensor):
+                return torch.cat(chunks).reshape(shape)
+            return np.concatenate(chunks).reshape(shape)
+        return {k: _unchunk(v) for k, v in tree.items()}
+    return tree
+
+
+def read_msgpack(path: os.PathLike) -> Any:
+    """A flax ``.msgpack`` file -> its tree: dicts, numpy arrays (bfloat16
+    leaves as torch.bfloat16 tensors: numpy has no bfloat16), Python
+    scalars and strings, as flax.serialization.msgpack_restore gives it."""
+    data = Path(path).read_bytes()
+    reader = _MsgpackReader(data, str(path))
+    tree = reader.value()
+    if reader.pos != len(data):
+        raise ValueError(f"{path}: {len(data) - reader.pos} bytes after the msgpack value")
+    return _unchunk(tree)
+
+
 def load(path: os.PathLike) -> Dict:
+    """A state dict from a ``.pth`` file, or from a JAX package ``.msgpack``
+    file (mapped to the port's names by convert.params_from_msgpack)."""
+    if Path(path).suffix == ".msgpack":
+        from llm_guided_asr_tpu_torch.convert import params_from_msgpack
+
+        return params_from_msgpack(path)
     return torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -202,7 +202,8 @@ class OptaxOptimizer(torch.optim.Optimizer):
 
 
 def _add_decayed(grads, params, wd):
-    """optax.add_decayed_weights: g + wd * p (a new list)."""
+    """optax.add_decayed_weights: g + wd * p (new tensors; without decay the
+    gradients themselves, which the caller must not write into)."""
     return torch._foreach_add(grads, params, alpha=wd) if wd else list(grads)
 
 
@@ -227,10 +228,9 @@ class SGD(OptaxOptimizer):
             trace = [s["trace"] for s in states]
             torch._foreach_mul_(trace, mom)
             torch._foreach_add_(trace, g)  # t = g + momentum * t
-            g = torch._foreach_add(g, trace, alpha=mom) if group["nesterov"] else \
-                torch._foreach_mul(trace, 1.0)
-        torch._foreach_mul_(g, -group["lr"])
-        return g
+            g = torch._foreach_add(g, trace, alpha=mom) if group["nesterov"] else trace
+        # out of place: g may be the gradients (optax's update is functional)
+        return torch._foreach_mul(g, -group["lr"])
 
 
 class Adadelta(OptaxOptimizer):

@@ -128,8 +128,14 @@ def init_train_state(model: nn.Module, tx: OptimizerSpec) -> TrainState:
     return TrainState(tx.init(model), tx)
 
 
-def _args(batch: Mapping, batch_args: BatchArgs) -> tuple:
-    return batch_args(batch) if callable(batch_args) else tuple(batch[k] for k in batch_args)
+def _call(model: nn.Module, batch: Mapping, batch_args: BatchArgs, **kw):
+    """The model on a batch: ``batch_args`` names its positional inputs, or
+    maps the batch to a tuple of them or to a dict of keyword inputs (the
+    guided model's ``bias_words``/``ctc_text`` follow its ``rng``)."""
+    args = batch_args(batch) if callable(batch_args) else tuple(batch[k] for k in batch_args)
+    if isinstance(args, Mapping):
+        return model(**args, **kw)
+    return model(*args, **kw)
 
 
 def apply_update(state: TrainState) -> bool:
@@ -197,7 +203,7 @@ def make_grad_step(model: nn.Module, generator: torch.Generator, accum_grad: int
     def grad_step(batch: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, torch.Tensor],
                                                                torch.Tensor]:
         model.train()
-        loss, stats, weight = model(*_args(batch, batch_args), rng=StepRNG(generator, device))
+        loss, stats, weight = _call(model, batch, batch_args, rng=StepRNG(generator, device))
         (loss / accum_grad).backward()
         return {k: v.detach() for k, v in stats.items()}, weight
 
@@ -244,7 +250,7 @@ def make_valid_step(model: nn.Module, batch_args: BatchArgs = BATCH_ARGS):
     @torch.no_grad()
     def valid_step(batch: Mapping[str, torch.Tensor]) -> Tuple[Dict[str, float], float]:
         model.eval()
-        _, stats, weight = model(*_args(batch, batch_args))
+        _, stats, weight = _call(model, batch, batch_args)
         keys = list(stats)
         values = torch.stack([stats[k].float() for k in keys]
                              + [torch.as_tensor(weight, dtype=torch.float32)]).tolist()

@@ -166,14 +166,14 @@ def test_batch_call_matches_single_calls(asr):
     rng = np.random.default_rng(12)
     waves = [rng.standard_normal(n).astype(np.float32) for n in (2600, 2048, 1000)]
     for kw in (dict(beam_size=3), dict(beam_size=3, use_cached_decoder=True)):
-        s2t = Speech2Text(tmodel, ctc_weight=0.3, nbest=2, **kw)
+        s2t = Speech2Text.from_model(tmodel, ctc_weight=0.3, nbest=2, **kw)
         assert isinstance(s2t.beam.att_scorer, CachedDecoderScorer) == ("use_cached_decoder" in kw)
         for got, wave in zip(s2t.batch_call(waves), waves):
             want = s2t(wave)
             assert [ids for ids, _ in got] == [ids for ids, _ in want]
             np.testing.assert_allclose([h.score for _, h in got], [h.score for _, h in want],
                                        atol=1e-4)
-    greedy = Speech2Text(tmodel, ctc_weight=1.0, beam_size=1)
+    greedy = Speech2Text.from_model(tmodel, ctc_weight=1.0, beam_size=1)
     assert greedy.beam is None and greedy.batch_call(waves[:2]) == [greedy(w) for w in waves[:2]]
 
 

@@ -182,7 +182,7 @@ def test_beam4_speech2text_matches_jax_stateless_scorer():
     enc, enc_lens = _j_encode(jmodel, variables, speech)
     j_hyps = JBeamSearch(jmodel, variables, vocab_size=VOCAB, sos=SOS, eos=EOS, beam_size=4,
                          ctc_weight=0.3)(enc, enc_lens, maxlenratio=-8.0, nbest=4)
-    s2t = Speech2Text(tmodel, ctc_weight=0.3, beam_size=4, nbest=4, maxlenratio=-8.0)
+    s2t = Speech2Text.from_model(tmodel, ctc_weight=0.3, beam_size=4, nbest=4, maxlenratio=-8.0)
     assert isinstance(s2t.beam.att_scorer, StatelessAttScorer)
     out = s2t(speech)
     assert len(out) == len(j_hyps) == 4 and any(ids for ids, _ in out)
@@ -203,7 +203,7 @@ def test_greedy_ctc_dispatch_matches_jax():
     enc, enc_lens = _j_encode(jmodel, variables, speech)
     logp = jax.jit(functools.partial(jmodel.apply, method=jmodel.ctc_log_softmax))(variables, enc)
     tokens, n = j_greedy(logp, enc_lens, blank_id=0)
-    s2t = Speech2Text(tmodel, ctc_weight=1.0, beam_size=1)
+    s2t = Speech2Text.from_model(tmodel, ctc_weight=1.0, beam_size=1)
     assert s2t.beam is None
     (ids, hyp), = s2t(speech)
     assert hyp.yseq == np.asarray(tokens)[0, : int(n[0])].tolist() and len(ids) > 0

@@ -794,7 +794,8 @@ def test_flash_asr_decoding_on_the_card_matches_the_cpu(card):
         for name, model in (("cpu", cpu), ("gpu", gpu)):
             dev = next(model.parameters()).device
             enc[name] = model.encode(speech.to(dev), torch.tensor([24000], device=dev))[0].cpu()
-            out[name] = Speech2Text(model, beam_size=3, nbest=3, maxlenratio=-8.0)(speech[0].numpy())
+            out[name] = Speech2Text.from_model(model, beam_size=3, nbest=3,
+                                               maxlenratio=-8.0)(speech[0].numpy())
     torch.testing.assert_close(enc["gpu"], enc["cpu"], rtol=1e-4, atol=1e-4)
     assert [ids for ids, _ in out["gpu"]] == [ids for ids, _ in out["cpu"]]
     np.testing.assert_allclose([h.score for _, h in out["gpu"]],
@@ -850,7 +851,8 @@ def test_batched_guided_decoding_on_the_card_matches_single(card):
             prm.mul_(20.0)  # peaked distributions: hypotheses of several tokens
     rng = np.random.default_rng(3)
     waves = [(rng.standard_normal(n) * 0.1).astype(np.float32) for n in (9600, 6400, 3200)]
-    s2t = Speech2Text(model.eval(), ctc_weight=0.3, beam_size=4, nbest=2, maxlenratio=-8.0)
+    s2t = Speech2Text.from_model(model.eval(), ctc_weight=0.3, beam_size=4, nbest=2,
+                                 maxlenratio=-8.0)
     before = _counts()
     batched = s2t.batch_call(waves)
     torch.cuda.synchronize()
@@ -1015,3 +1017,173 @@ def test_trainer_run_on_the_card_matches_the_cpu(card, tmp_path):
     want = cpu.state_dict()
     for name, got in gpu.state_dict().items():
         torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-4, msg=name)
+
+
+# ---- the task and CLI layer on the card (chip_smoke.py phase 16 at tiny widths) ----
+
+CLI_ENC = {"output_size": 64, "attention_heads": 1, "linear_units": 128, "num_blocks": 2,
+           "macaron_style": True, "cnn_module_kernel": 15, "dropout_rate": 0.0,
+           "positional_dropout_rate": 0.0}
+CLI_DEC = {"attention_heads": 2, "linear_units": 128, "num_blocks": 2, "dropout_rate": 0.0,
+           "positional_dropout_rate": 0.0}
+CLI_TIMING = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}
+
+
+@pytest.fixture(scope="module")
+def cli_corpus(tmp_path_factory):
+    """6 + 2 wav files of seeded noise (0.5-1.2 s) with letter texts, a char
+    token list, and the tiny CTC/attention config."""
+    from llm_guided_asr_tpu_torch.data.fileio import write_wav
+    from llm_guided_asr_tpu_torch.utils.config import dump_yaml
+
+    root = tmp_path_factory.mktemp("cli")
+    rng = np.random.default_rng(16)
+    for split, n in (("train", 6), ("valid", 2)):
+        with open(root / f"{split}.scp", "w") as scp, open(root / f"{split}.txt", "w") as txt:
+            for i in range(n):
+                path = root / f"{split}{i}.wav"
+                write_wav(path, 16000, (rng.standard_normal(int(rng.integers(8000, 19200)))
+                                        * 0.1).astype(np.float32))
+                scp.write(f"{split}{i} {path}\n")
+                txt.write(f"{split}{i} {''.join(rng.choice(list('abcde'), 4))}\n")
+    (root / "tokens.txt").write_text("\n".join(["<blank>", "<unk>", *"abcde", "<sos/eos>"]))
+    config = {
+        "token_list": str(root / "tokens.txt"),
+        "frontend_conf": {"n_fft": 256, "hop_length": 128, "n_mels": 40},
+        "encoder_conf": CLI_ENC, "decoder_conf": CLI_DEC, "model_conf": {"ctc_weight": 0.3},
+        "optim": "adam", "optim_conf": {"lr": 1.0e-3, "eps": 1.0e-3},
+        "batch_type": "sorted", "batch_size": 3, "max_epoch": 1, "keep_nbest_models": 1,
+        "train_data_path_and_name_and_type": [[str(root / "train.scp"), "speech", "sound"],
+                                              [str(root / "train.txt"), "text", "text"]],
+        "valid_data_path_and_name_and_type": [[str(root / "valid.scp"), "speech", "sound"],
+                                              [str(root / "valid.txt"), "text", "text"]],
+    }
+    dump_yaml(config, root / "train.yaml")
+    return root
+
+
+def _cli_decode(root, exp, model_file, out, device, *extra):
+    from llm_guided_asr_tpu_torch.bin import asr_inference
+
+    asr_inference.main(["--asr_train_config", str(exp / "config.yaml"), "--asr_model_file",
+                        str(model_file), "--data_path_and_name_and_type",
+                        f"{root / 'valid.scp'},speech,sound", "--output_dir", str(out),
+                        "--device", device, "--beam_size", "4", "--ctc_weight", "0.3",
+                        "--maxlenratio", "-8"]
+                       + list(extra))
+    from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text
+
+    return {name: read_2columns_text(out / "1best_recog" / name)
+            for name in ("token", "score", "score_decoder", "score_ctc")}
+
+
+def _cli_same_decodes(got, want, tol=1e-3):
+    assert got["token"] == want["token"]
+    for name in ("score", "score_decoder", "score_ctc"):
+        for uid, v in want[name].items():
+            assert abs(float(got[name][uid]) - float(v)) <= tol, (name, uid)
+
+
+@pytest.mark.gpu
+def test_asr_cli_on_the_card_matches_the_cpu(card, cli_corpus, tmp_path):
+    """Part A at tiny widths: collect_stats on both devices (rtol 1e-4), one
+    epoch of asr_train from the same init_param file on both (reporter
+    stats within 1e-3 relative; 2 forward launches of each encoder kernel a
+    microbatch and a validation batch, 2 backward a microbatch), and the
+    CPU run's checkpoint decoded by asr_inference on both devices (tokens
+    equal, scores within 1e-3)."""
+    from llm_guided_asr_tpu_torch.bin import asr_train
+    from llm_guided_asr_tpu_torch.tasks.asr import ASRTask, build_model, init_model_variables
+    from llm_guided_asr_tpu_torch.train.reporter import Reporter
+    from llm_guided_asr_tpu_torch.utils.config import load_yaml
+
+    root = cli_corpus
+    for dev in ("cpu", "cuda"):
+        asr_train.main(["--config", str(root / "train.yaml"), "--collect_stats", "true",
+                        "--output_dir", str(tmp_path / f"stats_{dev}"), "--device", dev])
+    for k in ("count", "sum", "sum_square"):
+        np.testing.assert_allclose(np.load(tmp_path / "stats_cuda/train/feats_stats.npz")[k],
+                                   np.load(tmp_path / "stats_cpu/train/feats_stats.npz")[k],
+                                   rtol=1e-4, err_msg=k)
+    stats_file = tmp_path / "stats_cpu" / "train" / "feats_stats.npz"
+    config = {**ASRTask.get_default_config(), **load_yaml(root / "train.yaml")}
+    init = init_model_variables(build_model(config, "cpu"), config)
+    torch.save(init.state_dict(), tmp_path / "init.pth")
+    stats = {}
+    for dev in ("cpu", "cuda"):
+        tra.KERNEL.reset_launches()
+        tdw.KERNEL.reset_launches()
+        asr_train.main(["--config", str(root / "train.yaml"), "--output_dir",
+                        str(tmp_path / dev), "--device", dev, "--normalize_conf",
+                        f"stats_file={stats_file}", "--init_param",
+                        f"[{tmp_path / 'init.pth'}]"])
+        stats[dev] = Reporter.load(tmp_path / dev / "reporter.json").stats[1]
+        if dev == "cuda":
+            c = _counts()  # 2 train microbatches and 1 validation batch, 2 blocks
+            assert (c["rel_attention_fwd"], c["dwconv1d_fwd"]) == (6, 6), c
+            assert (c["rel_attention_bwd"], c["dwconv1d_bwd"]) == (4, 4), c
+    for phase in ("train", "valid"):
+        for k, v in stats["cpu"][phase].items():
+            if k not in CLI_TIMING:
+                np.testing.assert_allclose(stats["cuda"][phase][k], v, rtol=1e-3,
+                                           err_msg=f"{phase} {k}")
+    ckpt = tmp_path / "cpu" / "valid.loss.ave_1best.pth"
+    want = _cli_decode(root, tmp_path / "cpu", ckpt, tmp_path / "dec_cpu", "cpu")
+    got = _cli_decode(root, tmp_path / "cpu", ckpt, tmp_path / "dec_cuda", "cuda")
+    _cli_same_decodes(got, want)
+
+
+@pytest.mark.gpu
+def test_guided_and_lm_clis_on_the_card(card, cli_corpus, tmp_path):
+    """Parts B and C at tiny widths: the guided config over
+    tests/parity/tiny_llm_bpe trained one epoch on the card (no LLM tensor
+    in any .pth) and decoded on both devices; a tiny TransformerLM trained
+    on the card, its perplexity on both devices (1e-4 relative), and a
+    decode with it at lm_weight 0.3 (score = 0.7 decoder + 0.3 ctc + 0.3 lm)."""
+    from pathlib import Path
+
+    from llm_guided_asr_tpu_torch.bin import asr_train, lm_calc_perplexity, lm_train
+    from llm_guided_asr_tpu_torch.train.checkpoint import load
+    from llm_guided_asr_tpu_torch.utils.config import dump_yaml, load_yaml
+
+    root = cli_corpus
+    llm_dir = Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe"
+    guided = {**load_yaml(root / "train.yaml"), "model": "llm_guided_asr",
+              "token_type": "hugging_face", "token_list": None, "normalize": "utterance_mvn",
+              "llm_conf": {"model_name_or_path": str(llm_dir),
+                           "template_prompt": 'fix "((HYP))" -> "', "pad_token": "<pad>"}}
+    dump_yaml(guided, tmp_path / "guided.yaml")
+    asr_train.main(["--config", str(tmp_path / "guided.yaml"), "--output_dir",
+                    str(tmp_path / "g")])
+    for path in (tmp_path / "g").glob("*.pth"):
+        obj = load(path)
+        assert not any(k.startswith("llm.") for k in obj.get("model", obj)), path
+    ckpt = tmp_path / "g" / "valid.loss.ave_1best.pth"
+    _cli_same_decodes(_cli_decode(root, tmp_path / "g", ckpt, tmp_path / "gd_cuda", "cuda"),
+                      _cli_decode(root, tmp_path / "g", ckpt, tmp_path / "gd_cpu", "cpu"))
+
+    dump_yaml({"token_list": str(root / "tokens.txt"), "lm": "transformer",
+               "lm_conf": {"embed_unit": 16, "att_unit": 32, "head": 2, "unit": 32, "layer": 2,
+                           "dropout_rate": 0.0}, "max_epoch": 1, "keep_nbest_models": 1,
+               "train_data_path_and_name_and_type": [[str(root / "train.txt"), "text", "text"]],
+               "valid_data_path_and_name_and_type": [[str(root / "valid.txt"), "text", "text"]]},
+              tmp_path / "lm.yaml")
+    lm_train.main(["--config", str(tmp_path / "lm.yaml"), "--output_dir", str(tmp_path / "lm")])
+    lm_file = tmp_path / "lm" / "valid.loss.ave_1best.pth"
+    ppl = {dev: lm_calc_perplexity.main([
+        "--train_config", str(tmp_path / "lm" / "config.yaml"), "--model_file", str(lm_file),
+        "--data_path_and_name_and_type", f"{root / 'valid.txt'},text,text", "--device", dev])
+        for dev in ("cpu", "cuda")}
+    assert math.isfinite(ppl["cuda"]) and abs(ppl["cuda"] - ppl["cpu"]) <= 1e-4 * ppl["cpu"]
+    asr_train.main(["--config", str(root / "train.yaml"), "--output_dir", str(tmp_path / "a")])
+    got = _cli_decode(root, tmp_path / "a", tmp_path / "a" / "valid.loss.ave_1best.pth",
+                      tmp_path / "ld", "cuda", "--lm_train_config",
+                      str(tmp_path / "lm" / "config.yaml"), "--lm_file", str(lm_file),
+                      "--lm_weight", "0.3")
+    from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text
+
+    lm_part = read_2columns_text(tmp_path / "ld" / "1best_recog" / "score_lm")
+    for uid, total in got["score"].items():
+        want = (0.7 * float(got["score_decoder"][uid]) + 0.3 * float(got["score_ctc"][uid])
+                + 0.3 * float(lm_part[uid]))
+        assert abs(float(total) - want) <= 1e-3 * max(1.0, abs(want)), uid

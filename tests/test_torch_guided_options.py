@@ -211,7 +211,7 @@ def test_biased_beam_and_speech2text_switching(biased):
     wave = (rng.standard_normal(N) * 0.1).astype(np.float32)
     tok = HuggingFaceTokenizer(BPE_DIR)
     kw = dict(ctc_weight=0.3, beam_size=3, maxlenratio=-5.0, nbest=2, tokenizer=tok)
-    s2t = Speech2Text(tmodel, **kw)
+    s2t = Speech2Text.from_model(tmodel, **kw)
     ctx = s2t.make_bias_ctx(["abc", "cab"])
     assert ctx[0].shape == (1, 64) and int(ctx[1][0]) == len(
         LLMTokenizer.from_pretrained(BPE_DIR)("abc, cab")["input_ids"])
@@ -236,7 +236,7 @@ def test_biased_beam_and_speech2text_switching(biased):
     calls = [["abc", "cab"], ["b"], None, ["abc", "cab"]]
     results = [s2t(wave, biasing_words=w) for w in calls]
     for words, got in zip(calls, results):
-        want = Speech2Text(tmodel, **kw)(wave, biasing_words=words)
+        want = Speech2Text.from_model(tmodel, **kw)(wave, biasing_words=words)
         assert [(r[0], r[2], r[3].yseq, r[3].score) for r in got] == \
             [(r[0], r[2], r[3].yseq, r[3].score) for r in want]
     text, tokens, ids, hyp = results[0][0]

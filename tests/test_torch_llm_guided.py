@@ -170,7 +170,8 @@ def test_speech2text_matches_jax(models):
     padded[:, :N_SAMPLES] = speech
     p_enc, p_lens = _j_encode(jmodel, variables, padded, np.array([N_SAMPLES], np.int32))
     j_best = j_bs(p_enc, p_lens, maxlenratio=-6.0)[0]
-    (ids, t_best), = Speech2Text(tmodel, ctc_weight=0.3, beam_size=3, maxlenratio=-6.0)(speech[0])
+    (ids, t_best), = Speech2Text.from_model(tmodel, ctc_weight=0.3, beam_size=3,
+                                            maxlenratio=-6.0)(speech[0])
     assert t_best.yseq == j_best.yseq
     assert ids == [i for i in j_best.yseq if i != SOS]
     np.testing.assert_allclose(t_best.score, j_best.score, atol=1e-3)

@@ -134,9 +134,10 @@ def test_speech2text_with_lm_matches_jax(asr, tmp_path_factory):
     want = j_bs(enc, enc_lens, nbest=2, maxlenratio=-6.0)
     wrapped = tlm.ESPnetLanguageModel(tmodel_lm, V)
     for lm in (wrapped, tmodel_lm, tlm.make_lm_score_fn(tmodel_lm)):
-        s2t = Speech2Text(tmodel, ctc_weight=0.3, beam_size=3, nbest=2, maxlenratio=-6.0, lm=lm,
+        s2t = Speech2Text.from_model(tmodel, ctc_weight=0.3, beam_size=3, nbest=2,
+                                     maxlenratio=-6.0, lm=lm,
                           lm_weight=LM_WEIGHT, pre_beam_ratio=2.0)
         got = s2t(wave)
         assert [ids for ids, _ in got] == [[t for t in h.yseq if t != 7] for h in want]
         _same([h for _, h in got], want)
-    assert Speech2Text(tmodel, ctc_weight=0.3, beam_size=3).lm_weight == 0.0
+    assert Speech2Text.from_model(tmodel, ctc_weight=0.3, beam_size=3).lm_weight == 0.0

@@ -165,6 +165,27 @@ def test_plateau_scale_multiplies_the_update_as_optax_scale():
                                        atol=ATOL, err_msg=f"{name} {k}")
 
 
+@pytest.mark.parametrize("name", sorted(CONF))
+def test_an_update_leaves_the_gradients_as_they_were(name):
+    """The update reads the gradients and writes nothing into them, as
+    optax's functional update does.  SGD without momentum or decay once
+    scaled them by -lr in place; in this file's tests the gradients are
+    numpy arrays that JAX, dispatching asynchronously, may still be reading
+    (on the CPU ``jnp.asarray`` aliases the buffer), so the JAX side of a
+    comparison could see -lr * g under load."""
+    for conf in (dict(CONF[name]), {}):
+        values, (g,) = _values(), _grads(1)
+        want = {k: v.copy() for k, v in g.items()}
+        model = Leaves(values)
+        state = ttrainer.init_train_state(model, toptim.build_optimizer(
+            name, {"lr": 0.5, **conf}, grad_clip=None))
+        for k, p in model.named_parameters():
+            p.grad = torch.from_numpy(g[k])
+        assert ttrainer.apply_update(state)
+        for k in g:
+            np.testing.assert_array_equal(g[k], want[k], err_msg=f"{name} {conf} {k}")
+
+
 def test_plateau_controller_and_replay_match_jax():
     history = list(np.random.default_rng(3).uniform(0.5, 2.0, 20)) + [0.4] * 6
     for conf in ({"factor": 0.5, "patience": 1}, {"factor": 0.1, "patience": 0,

@@ -21,11 +21,14 @@ PORT_FILES = sorted(Path(llm_guided_asr_tpu_torch.__file__).parent.rglob("*.py")
     REPO / "chip_smoke.py", REPO / "tests" / "test_torch_gpu.py"
 ]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "transformers", "tokenizers", "safetensors",
-             "llm_guided_asr_tpu"}
+             "llm_guided_asr_tpu", "yaml", "msgpack", "ml_dtypes"}
 # modules that hold their own copies of JAX-package code the port may not import
 OWN_COPIES = ("text/tokenizers.py", "utils/config.py", "utils/metrics.py",
               "search/cached_decoder.py", "models/llm/prompt.py", "train/reporter.py",
-              "data/fileio.py", "data/samplers.py", "data/dataset.py", "data/iterator.py")
+              "data/fileio.py", "data/samplers.py", "data/dataset.py", "data/iterator.py",
+              "text/cleaner.py", "text/phoneme.py", "train/checkpoint.py", "tasks/asr.py",
+              "tasks/lm.py", "bin/score.py", "bin/tokenize_text.py", "bin/asr_pipeline.py",
+              "ez/__init__.py")
 
 
 def _imported_roots(path: Path):

@@ -241,7 +241,7 @@ def test_speech2text_streaming_matches_jax(monkeypatch):
     assert tst._sub_done == int(lens[0])
     np.testing.assert_allclose(tst._enc[: tst._sub_done].numpy(), enc[0, : tst._sub_done].numpy(),
                                **TOL)
-    offline = Speech2Text(tmodel, speech_pad_multiple=1600, **beam_kw)(wave)[0]
+    offline = Speech2Text.from_model(tmodel, speech_pad_multiple=1600, **beam_kw)(wave)[0]
     assert offline[0] == got[-1][0][0]
 
     import dataclasses

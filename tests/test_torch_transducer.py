@@ -201,14 +201,14 @@ def test_speech2text_dispatches_a_transducer():
                                          torch.tensor([1500]))
         greedy_tok, greedy_n = ttd.transducer_greedy_decode(tmodel, enc, lens)
         beam = transducer_beam_decode(tmodel, enc, lens, beam_size=3)
-    (ids, hyp), = Speech2Text(tmodel, beam_size=1)(wave)
+    (ids, hyp), = Speech2Text.from_model(tmodel, beam_size=1)(wave)
     assert hyp.yseq == greedy_tok[0, : greedy_n[0]].tolist()
     assert ids == [i for i in hyp.yseq if i != VOCAB - 1]  # sos = eos = V-1 dropped, as in JAX
-    (ids, hyp), = Speech2Text(tmodel, beam_size=3)(wave)
+    (ids, hyp), = Speech2Text.from_model(tmodel, beam_size=3)(wave)
     assert hyp.yseq == beam[0].yseq and hyp.score == pytest.approx(beam[0].score)
     for search in ("alsd", "tsd", "nsc", "mbg"):
         with pytest.raises(NotImplementedError, match=search):
-            Speech2Text(tmodel, transducer_search=search)
+            Speech2Text.from_model(tmodel, transducer_search=search)
     for decoder_type in ("rnn", "mega"):
         with pytest.raises(NotImplementedError, match=decoder_type):
             ttd.TransducerModel(_configs(decoder_type)[1], device="cpu")
