@@ -93,6 +93,9 @@ prints how long it took):
               reference-trained TransformerLM at lm_weight 0.3 (hypotheses,
               scores within 5e-3, CER), and 8 utterances through the
               resumable search in 3 cuts (the offline hypotheses);
+              golden_transducer.npz: the reference LSTM transducer's tsd,
+              tsd3 and nsc 4-best lists from its encoder rows (tokens
+              equal, scores within 1e-4; no kernel runs);
 12. serve-batch -- phase 3's model serving 8 requests in one
               Speech2Text.batch_call (10.0, 7.3, 4.1, 10.0, 7.3, 4.1, 10.0,
               7.3 s of phase 3's seeded noise, padded to 10 s: T' = 312
@@ -184,12 +187,46 @@ prints how long it took):
               each epoch's wall time and train audio s/s, each save's
               seconds and bytes, and the RTF and RTFx of the CLI's rtf file.
 
+17. serve-transducer-rnn -- phase 7's transducer with the LSTM prediction
+              network of the JAX config's widths (embed 256, hidden 256, one
+              layer; one launch of the LSTM recurrence kernel over the whole
+              label prefix a call), seed 0, served at beam 5 through
+              Speech2Text: the default search on the 3 requests, and alsd,
+              tsd (max_sym_exp 2) and nsc (nstep 2, prefix_alpha 4) on the
+              10 s request, each once to warm up and 3 times timed (median,
+              min, max latency and RTFx; 12 launches of each encoder
+              forward a request, one lstm_fwd a prediction-network call,
+              nothing else); the card's LSTM and joint networks against the
+              CPU plain path (1e-4); each search's 5-best against the same
+              search on the CPU from the first 64 of the card's encoder rows
+              of the 4.1 s request (tokens equal, scores within 1e-3, a
+              differing entry only as a near tie within 1e-4); the 4.1 s
+              request's tsd profiled (busy share, top kernels, one
+              recurrence kernel a prediction-network call);
+18. train-transducer-mb -- that model with big blanks of 2, 4 and 8 frames
+              (the top 3 ids, sigma 0.05) trained as phase 8 trains (2
+              warm-up, 5 timed steps, the multi-blank loss; 12 launches of
+              each encoder entry point and one of each LSTM entry point a
+              step, peak memory, audio s/s, one profiled step), its mbg
+              decode of the 10 s request against the CPU from the card's
+              encoder rows (tokens equal); then the MEGA transducer (hidden
+              256, 4 blocks, qk 64, 4 EMA heads, FFN 512) trained 2 + 3
+              steps (finite, falling) and its prediction network on the
+              card against the CPU at 301 positions, the rfft path (1e-4).
+
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
-asr-cli`` builds the kernels and runs that phase alone (no kernel table);
+asr-cli|serve-transducer-rnn|train-transducer-mb`` builds the kernels and runs that phase
+alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
-Phase 2 also holds the WKV forward against its plain loop at the
+Phase 2 also holds the LSTM recurrence kernels (csrc/lstm.cu, phases
+17-18's prediction network) against the plain loop: the forward at the
+beam-5 prefix [5, 201, 256] and the training labels [16, 25, 256], the
+backward and the autograd function's gradients at the latter, each call
+repeated and bitwise equal, timed by CUDA events beside the loop and
+cuDNN's torch.lstm of the same function (the yardstick only).  It holds
+the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
 and training [16, 25, 512], each timed by CUDA graph with its chunk count
 printed, each call repeated and bitwise equal; |k| up to ~100; a state
@@ -233,6 +270,7 @@ import math
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -257,7 +295,15 @@ ROUNDS = 3  # timed runs of each request (phases 3 and 7)
 TRAIN_B, TRAIN_SECONDS, TRAIN_WARMUP, TRAIN_STEPS = 64, 10.0, 2, 10
 GUIDED_B, GUIDED_WARMUP, GUIDED_STEPS = 2, 1, 5
 TRANSDUCER_BEAM = 5
+MB_DURATIONS = (2, 4, 8)  # phase 18's big blanks (Xu et al. 2023)
+# phase 17's CPU checks search the first CHECK_FRAMES encoder rows of the
+# 4.1 s request (the CPU's searches, not the card's, set the phase's time)
+CHECK_FRAMES = 64
 TRD_B, TRD_WARMUP, TRD_STEPS = 16, 2, 5
+# the LSTM recurrence of phases 17-18: the beam-5 prefix (200 labels after
+# the blank) and the training labels (U + 1 = 25), hidden 256
+LSTM_SERVE = (TRANSDUCER_BEAM, 201, 256)
+LSTM_TRAIN = (TRD_B, 25, 256)
 WKV_SERVE = {"serve beam-5 [5,201,512]": (5, 201, 512), "serve greedy [1,313,512]": (1, 313, 512)}
 WKV_TRAIN = (16, 25, 512)  # B=16, U+1 = 25 labels, hidden 512
 WKV_BWD_LONG = (16, 101, 512)  # the labels of ~40 s of audio at 24 tokens per 10 s
@@ -716,6 +762,8 @@ def flash_bounds(q, valid, with_lse: bool = True) -> dict:
 
 
 FLASH_LIBRARY = "jax/experimental/pallas/ops/tpu/flash_attention.py"
+# the JAX transducer's LSTM: flax's nn.RNN over OptimizedLSTMCell
+LSTM_SCAN = "llm_guided_asr_tpu/models/transducer.py:104"
 
 # the library yardsticks are checked only to compute the same function (a
 # lost mask or scale is an O(1) error), not to any kernel's tolerance: their
@@ -1023,6 +1071,106 @@ def check_wkv(wk, gen, card):
     return results
 
 
+def lstm_inputs(gen, b, t, h):
+    xi = 0.5 * torch.randn(b, t, 4 * h, generator=gen, device="cuda")
+    w = torch.randn(4 * h, h, generator=gen, device="cuda") / math.sqrt(h)
+    bias = 0.1 * torch.randn(4 * h, generator=gen, device="cuda")
+    return xi, w, bias
+
+
+def lstm_bound(b, t, h, bwd=False):
+    """Forward: xi, W_hh and the bias in, h out; backward: dy, the saved
+    gates and cells and W_hh in, da out.  Operations: the [B, H] x [H, 4H]
+    product of every step (2 x 4H x H a row) and ~10 per gate element."""
+    elems = b * t * h
+    n_bytes = 4 * ((9 if bwd else 5) * elems + 4 * h * h + (0 if bwd else 4 * h))
+    return bound_ms(n_bytes, 8.0 * elems * h + 40.0 * elems, torch.float32)
+
+
+def library_lstm(xi, w, bias):
+    """The same function of xi by one cuDNN call: torch.lstm with W_ih the
+    identity (timed as the yardstick only; the port never calls it)."""
+    b, _, g4 = xi.shape
+    h0 = xi.new_zeros(1, b, g4 // 4)
+    eye = torch.eye(g4, device=xi.device)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="RNN module weights are not part")
+        return torch.lstm(xi, (h0, h0), [eye, w, torch.zeros_like(bias), bias], True, 1, 0.0,
+                          torch.is_grad_enabled(), False, True)[0]
+
+
+def check_lstm(lk, gen, card):
+    """The forward at phase 17's beam-5 shape and phase 18's training shape,
+    and the backward at the latter, against the plain loop (the forward
+    within 1e-5 abs + 1e-5 rel: float32, the products summed in another
+    order; the backward's da and the autograd function's gradients of xi,
+    W_hh and the bias within 1e-4 of their largest reference value),
+    each call repeated and bitwise equal; timed by CUDA events beside the
+    plain loop and cuDNN's torch.lstm of the same function."""
+    results = {}
+    for shape, (b, t, h) in (("serve beam-5 [5,201,256]", LSTM_SERVE),
+                             ("train [16,25,256]", LSTM_TRAIN)):
+        xi, w, bias = lstm_inputs(gen, b, t, h)
+        y = lk.lstm_fwd(xi, w, bias)[0]
+        again = lk.lstm_fwd(xi, w, bias)[0]
+        ref = lk.lstm_recurrence_plain(xi, w, bias)
+        lib = library_lstm(xi, w, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"lstm_fwd {shape}: a repeat call is not bitwise equal")
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+        bms, by = lstm_bound(b, t, h)
+        results[("lstm_fwd", shape)] = dict(
+            err=max_err(y, ref), ms=event_time_ms(lambda: lk.lstm_fwd(xi, w, bias)),
+            plain_ms=event_time_ms(lambda: lk.lstm_recurrence_plain(xi, w, bias), iters=3),
+            library_ms=event_time_ms(lambda: library_lstm(xi, w, bias)),
+            bound_ms=bms, bound_by=by)
+        print(f"[kernels] lstm_fwd {shape}: one launch of {(h + 7) // 8} blocks, bitwise "
+              f"repeatable; cuDNN's torch.lstm of the same function differs by "
+              f"{max_err(lib, ref):.2e} [{card}]")
+    b, t, h = LSTM_TRAIN
+    xi, w, bias = lstm_inputs(gen, b, t, h)
+    dy = torch.randn(b, t, h, generator=gen, device="cuda")
+    _, gates, cells = lk.lstm_fwd(xi, w, bias, save=True)
+    da = lk.lstm_bwd(dy, gates, cells, w)
+    again = lk.lstm_bwd(dy, gates, cells, w)
+    with torch.enable_grad():
+        leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+        refs = torch.autograd.grad(lk.lstm_recurrence_plain(*leaves), leaves, dy)
+        kern = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+        grads = torch.autograd.grad(lk.lstm_recurrence(*kern), kern, dy)
+        lib_in = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+        lib_out = library_lstm(*lib_in)
+    torch.cuda.synchronize()
+    if not torch.equal(da, again):
+        raise AssertionError("lstm_bwd: a repeat call is not bitwise equal")
+    errs = {}
+    for name, g, r in (("da", da, refs[0]), ("d_xi", grads[0], refs[0]),
+                       ("d_w_hh", grads[1], refs[1]), ("d_bias", grads[2], refs[2])):
+        errs[name] = max_err(g, r)
+        tol = 1e-4 * r.abs().max().item() + 1e-6
+        if not errs[name] <= tol:
+            raise AssertionError(f"lstm_bwd {name}: {errs[name]} > {tol}")
+
+    def plain_backward():
+        with torch.enable_grad():
+            leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+            torch.autograd.grad(lk.lstm_recurrence_plain(*leaves), leaves, dy)
+
+    bms, by = lstm_bound(b, t, h, bwd=True)
+    results[("lstm_bwd", "train [16,25,256]")] = dict(
+        err=max(errs.values()), errs=errs,
+        ms=event_time_ms(lambda: lk.lstm_bwd(dy, gates, cells, w)),
+        plain_ms=event_time_ms(plain_backward, iters=3),
+        library_ms=event_time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy,
+                                                             retain_graph=True)),
+        bound_ms=bms, bound_by=by)
+    print("[kernels] lstm_bwd train [16,25,256] max_abs_err " + ", ".join(
+        f"{n} {e:.2e}" for n, e in errs.items()) + f", bitwise repeatable (plain: autograd "
+        f"through the loop with its forward; library: cuDNN's backward alone) [{card}]")
+    return results
+
+
 def _print_timing(card, name, shape, dtype, r):
     lib = "none (no one PyTorch call)" if r["library_ms"] is None else \
         f"{r['library_ms'] * 1e3:.2f} us"
@@ -1031,9 +1179,12 @@ def _print_timing(card, name, shape, dtype, r):
           f"bound {r['bound_ms'] * 1e3:.3f} us ({r['bound_by']}) [{card}]")
 
 
-def phase_kernels(ra, dc, wk, fa, card):
+def phase_kernels(ra, dc, wk, fa, lk, card):
     gen = torch.Generator(device="cuda").manual_seed(0)
     results = {}
+    for (name, shape), r in check_lstm(lk, gen, card).items():
+        _print_timing(card, name, shape, torch.float32, r)
+        results[(name, shape, torch.float32)] = r
     # the rel-pos kernel at the long-form length, the yardstick beside the
     # flash forward at the same shape
     r = check_rel_attention(ra, torch.float32, gen, card, t=FLASH_T, n_masked=469,
@@ -1863,16 +2014,21 @@ def build_transducer():
     dropout 0.1 (training mode only), the reference RWKVDecoder's defaults
     (block_size 512, 4 blocks), joint 256, aux CTC 0.3; float32."""
     from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
+
+    return init_weights(TransducerModel(build_transducer_config(), device="cuda"), seed=0)
+
+
+def build_transducer_config():
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
     from llm_guided_asr_tpu_torch.models.transducer import (
         TransducerDecoderConfig,
-        TransducerModel,
         TransducerModelConfig,
     )
     from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
     from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 
-    cfg = TransducerModelConfig(
+    return TransducerModelConfig(
         vocab_size=5000, frontend=FrontendConfig(), normalize="utterance_mvn",
         specaug=SpecAugConfig(),
         encoder=ConformerConfig(output_size=256, attention_heads=4, linear_units=1024,
@@ -1883,7 +2039,6 @@ def build_transducer():
                                         num_layers=4),
         joint_size=256, aux_ctc_weight=0.3,
     )
-    return init_weights(TransducerModel(cfg, device="cuda"), seed=0)
 
 
 def phase_serve_transducer(model, waves, kernels, card):
@@ -1989,9 +2144,12 @@ def phase_serve_transducer(model, waves, kernels, card):
     return total
 
 
-def phase_train_transducer(model, kernels, card):
+def phase_train_transducer(model, kernels, card, tag="train-transducer", n_warmup=TRD_WARMUP,
+                           n_steps=TRD_STEPS, profiled=True):
     """The transducer trained at B=16 x 10 s, float32 with TF32 off,
-    SpecAug and dropout 0.1, AdamW lr 1e-3."""
+    SpecAug and dropout 0.1, AdamW lr 1e-3: losses finite and falling, 12
+    launches of each encoder entry point a step and one of each WKV
+    (RWKV) or LSTM entry point a prediction-network block or layer."""
     from llm_guided_asr_tpu_torch.train.optim import build_optimizer
     from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 
@@ -2007,25 +2165,288 @@ def phase_train_transducer(model, kernels, card):
         "text_lengths": torch.full((TRD_B,), 24, device="cuda"),
     }
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"[train-transducer] {n_params} parameters, batch {TRD_B} x {TRAIN_SECONDS} s, text "
+    dec = model.cfg.decoder
+    print(f"[{tag}] {n_params} parameters, {dec.decoder_type} prediction network "
+          f"{dec.num_layers} x {dec.hidden_size}, multi-blank durations "
+          f"{model.cfg.multi_blank_durations}, batch {TRD_B} x {TRAIN_SECONDS} s, text "
           f"[{TRD_B}, 24]; joint lattice [{TRD_B}, T', 25, {model.cfg.vocab_size}] float32")
-    all_stats, med, launches = run_steps("train-transducer", step, batch, TRD_WARMUP, TRD_STEPS,
-                                         kernels, card)
+    all_stats, med, launches = run_steps(tag, step, batch, n_warmup, n_steps, kernels, card)
     losses = [s["loss"] for s in all_stats]
     if not np.mean(losses[-3:]) < losses[0]:
-        raise AssertionError(f"train-transducer: loss did not fall: {losses}")
-    n_blocks, n_layers = model.cfg.encoder.num_blocks, model.cfg.decoder.num_layers
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    n_blocks = model.cfg.encoder.num_blocks
     for name, n in launches.items():
-        want = (n_layers if name.startswith("wkv") else n_blocks) * TRD_STEPS
-        if name.startswith("flash"):
-            want = 0
+        if name.startswith("wkv"):
+            want = dec.num_layers * n_steps if dec.decoder_type == "rwkv" else 0
+        elif name.startswith("lstm"):  # one recurrence a layer a step
+            want = dec.num_layers * n_steps if dec.decoder_type == "rnn" else 0
+        else:
+            want = 0 if name.startswith("flash") else n_blocks * n_steps
         if n != want:
-            raise AssertionError(f"train-transducer: {name} launched {n} times in {TRD_STEPS} "
-                                 f"steps, expected {want}")
-    print(f"[train-transducer] audio seconds per second at the median: "
+            raise AssertionError(f"{tag}: {name} launched {n} times in {n_steps} steps, "
+                                 f"expected {want}")
+    print(f"[{tag}] audio seconds per second at the median: "
           f"{TRD_B * TRAIN_SECONDS / (med / 1e3):.1f} [{card}]")
-    profile_step("train-transducer", step, batch, med)
+    if profiled:
+        profile_step(tag, step, batch, med)
     return launches, med
+
+
+def build_transducer_lstm(decoder_type="rnn", multi_blank=False):
+    """build_transducer's model with another prediction network: the LSTM at
+    the JAX config's widths (embed 256, hidden 256, 1 layer) or MEGA
+    (hidden 256, 4 blocks as the RWKV network's depth, the JAX defaults: qk
+    64, 4 EMA heads, the simple bias, FFN 2 x hidden), dropout 0.1; with
+    ``multi_blank``, big blanks of 2, 4 and 8 frames at the default ids
+    (the top 3 of the 5000) and sigma 0.05 (Xu et al. 2023)."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.transducer import TransducerDecoderConfig, TransducerModel
+
+    base = build_transducer_config()
+    if decoder_type == "rnn":
+        dec = TransducerDecoderConfig(decoder_type="rnn", embed_size=256, hidden_size=256,
+                                      num_layers=1, dropout_rate=0.1)
+    else:
+        dec = TransducerDecoderConfig(decoder_type="mega", hidden_size=256, num_layers=4,
+                                      dropout_rate=0.1)
+    cfg = dataclasses.replace(base, decoder=dec,
+                              multi_blank_durations=MB_DURATIONS if multi_blank else ())
+    return init_weights(TransducerModel(cfg, device="cuda"), seed=0)
+
+
+def check_nbest(tag, got, want) -> float:
+    """Two n-best lists of one search from the same encoder rows (card and
+    CPU): entry by entry, equal tokens with scores within 1e-3, or a near
+    tie (the two entries' scores within 1e-4, as phase 12 rules); returns
+    the largest score error of the equal entries."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} hypotheses on the card, {len(want)} on the CPU")
+    worst = 0.0
+    for k, (g, w) in enumerate(zip(got, want)):
+        err = abs(g.score - w.score)
+        if g.yseq == w.yseq:
+            if not err <= 1e-3:
+                raise AssertionError(f"{tag} entry {k}: score {g.score} on the card, {w.score} "
+                                     f"on the CPU")
+            worst = max(worst, err)
+        elif err <= 1e-4:
+            print(f"[{tag}] entry {k} differs from the CPU's: a near tie, scores {err:.2e} apart")
+        else:
+            raise AssertionError(f"{tag} entry {k}: {g.yseq} ({g.score}) on the card, {w.yseq} "
+                                 f"({w.score}) on the CPU")
+    return worst
+
+
+def phase_serve_transducer_rnn(model, waves, kernels, card):
+    """The LSTM transducer served at beam 5 through Speech2Text: the
+    default search on the three requests, alsd, tsd (max_sym_exp 2) and
+    nsc (nstep 2, prefix_alpha 4) on the 10 s one, each request once to
+    warm up and then ``ROUNDS`` times timed, with 12 launches of
+    each encoder forward a request, one lstm_fwd launch a prediction-network
+    call and nothing else; the card's prediction and joint networks against
+    the CPU plain path; each search's n-best from the first
+    ``CHECK_FRAMES`` encoder rows of the 4.1 s request against the same
+    search on the CPU from those rows; and the 4.1 s request's tsd
+    profiled: one recurrence kernel a prediction-network call."""
+    import copy
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import TRANSDUCER_BEAMS, Speech2Text
+
+    tag = "serve-transducer-rnn"
+    t_start = time.perf_counter()
+    n_blocks = model.cfg.encoder.num_blocks
+    frames = encoder_frames(model.eval(), waves)
+    want = dict.fromkeys(counts(kernels), 0)
+    want.update(rel_attention_fwd=n_blocks, dwconv1d_fwd=n_blocks)
+    total = dict.fromkeys(want, 0)
+    calls = []  # prediction-network calls: one lstm_fwd launch each (one layer)
+    hook = model.decoder.register_forward_hook(lambda *_: calls.append(1))
+    torch.cuda.reset_peak_memory_stats()
+    for search in ("default", "alsd", "tsd", "nsc"):
+        n_req = len(waves) if search == "default" else 1
+        s2t = Speech2Text.from_model(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM,
+                                     transducer_search=search)
+        requests = list(zip(REQUEST_SECONDS, waves, frames))[:n_req]
+        for sec, wave, _ in requests:
+            t0 = time.perf_counter()
+            s2t(wave)
+            torch.cuda.synchronize()
+            print(f"[{tag}] {search} warm-up request, {sec:.1f} s audio: "
+                  f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+        lat = {sec: [] for sec, _, _ in requests}
+        labels, n_calls = {}, {}
+        for _ in range(ROUNDS):
+            for sec, wave, _ in requests:
+                reset_counts(kernels)
+                calls.clear()
+                t0 = time.perf_counter()
+                out = s2t(wave)
+                torch.cuda.synchronize()
+                lat[sec].append(time.perf_counter() - t0)
+                launches = counts(kernels)
+                if launches != dict(want, lstm_fwd=len(calls)) or not calls:
+                    raise AssertionError(f"{tag} {search} {sec} s: launches {launches}, "
+                                         f"{len(calls)} prediction-network calls")
+                total = {k: total[k] + n for k, n in launches.items()}
+                scores = [h.score for _, h in out]
+                if not (all(math.isfinite(x) for x in scores)
+                        and all(0 < i < model.cfg.vocab_size for ids, _ in out for i in ids)):
+                    raise AssertionError(f"{tag} {search} {sec} s: bad hypotheses {scores}")
+                # default and alsd sort by the reported (normalized) score;
+                # tsd and nsc report raw scores sorted by the normalized one
+                if search in ("default", "alsd") and scores != sorted(scores, reverse=True):
+                    raise AssertionError(f"{tag} {search} {sec} s: scores out of order {scores}")
+                labels[sec] = sorted(len(h.yseq) for _, h in out)
+                n_calls[search, sec] = len(calls)
+        for sec, _, n_frames in requests:
+            ms = sorted(x * 1e3 for x in lat[sec])
+            med = float(np.median(ms))
+            print(f"[{tag}] {search}, {sec:.1f} s audio ({n_frames} frames), {len(ms)} runs, "
+                  f"beam {TRANSDUCER_BEAM}: latency median {med:.1f} ms (min {ms[0]:.1f}, max "
+                  f"{ms[-1]:.1f}), RTFx at the median {sec / med * 1e3:.2f}; "
+                  f"{n_calls[search, sec]} prediction-network calls (lstm_fwd launches) a "
+                  f"request; n-best label counts {labels[sec]} [{card}]")
+    hook.remove()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[{tag}] launches per request: rel_attention_fwd {n_blocks}, dwconv1d_fwd {n_blocks}, "
+          f"lstm_fwd one a prediction-network call, nothing else; over all timed requests "
+          f"{total}; peak memory {peak} bytes "
+          f"({peak / 2**30:.2f} GiB); timed serving took {time.perf_counter() - t_start:.1f} s "
+          f"[{card}]")
+
+    # the card's prediction and joint networks against the CPU plain path
+    t0 = time.perf_counter()
+    cpu = copy.deepcopy(model).cpu().eval()
+    gen = torch.Generator().manual_seed(7)
+    tokens = torch.randint(1, model.cfg.vocab_size, (TRANSDUCER_BEAM, 200), generator=gen)
+    wave = waves[-1]
+    with torch.inference_mode():
+        enc, lens = model.encode(torch.from_numpy(wave[None]).cuda(),
+                                 torch.tensor([wave.shape[0]], device="cuda"))
+        g = model.decode_labels(tokens.cuda())
+        logits = model.joint_step(enc[0, :TRANSDUCER_BEAM, None, :], g)
+        ref_g = cpu.decode_labels(tokens)
+        ref_logits = cpu.joint_step(enc[0, :TRANSDUCER_BEAM, None, :].cpu(), ref_g)
+    errs = (max_err(g.cpu(), ref_g), max_err(logits.cpu(), ref_logits))
+    print(f"[{tag}] LSTM decode_labels [5, 201, 256] and joint_step [5, 201, 5000], card vs CPU "
+          f"plain path: max_abs_err {errs[0]:.3e} and {errs[1]:.3e} (tol 1e-4)")
+    if not max(errs) <= 1e-4:
+        raise AssertionError(f"{tag}: card and CPU disagree: {errs}")
+    sec = REQUEST_SECONDS[-1]
+    n_check = min(CHECK_FRAMES, enc.shape[1])
+    rows, n_rows = enc[:, :n_check], torch.tensor([n_check], device="cuda")
+    for search, fn in TRANSDUCER_BEAMS.items():
+        with torch.inference_mode():
+            got = fn(model, rows, n_rows, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM)
+            ref = fn(cpu, rows.cpu(), n_rows.cpu(), beam_size=TRANSDUCER_BEAM,
+                     nbest=TRANSDUCER_BEAM)
+        worst = check_nbest(f"{tag} {search}", got, ref)
+        print(f"[{tag}] {search} from the first {n_check} encoder rows of the {sec:.1f} s "
+              f"request: the card's {len(got)}-best equals the CPU's (largest score error "
+              f"{worst:.2e}, tol 1e-3); label counts {[len(h.yseq) for h in got]}")
+    del cpu
+    print(f"[{tag}] the checks against the CPU took {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    calls = []
+    hook = model.decoder.register_forward_hook(lambda *_: calls.append(1))
+    s2t = Speech2Text.from_model(model, beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM,
+                                 transducer_search="tsd")
+    s2t(wave)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    n_calls = len(calls)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s2t(wave)
+        torch.cuda.synchronize()
+    hook.remove()
+    dev_ms, events = device_busy(prof)
+    n_kernels = sum(e.count for e in events)
+    rec = [e for e in events if "lstm_fwd_kernel" in e.key]
+    rec_n, rec_ms = sum(e.count for e in rec), sum(e.self_device_time_total for e in rec) / 1e3
+    if rec_n != n_calls:
+        raise AssertionError(f"{tag}: {rec_n} recurrence kernels for {n_calls} calls")
+    print(f"[{tag}] tsd {sec:.1f} s request: {wall_s * 1e3:.1f} ms unprofiled; traced (card "
+          f"only): device busy {dev_ms:.1f} ms = {100 * dev_ms / 1e3 / wall_s:.1f}% of it; "
+          f"{n_calls} prediction-network calls, each one launch of the recurrence kernel over "
+          f"the [{TRANSDUCER_BEAM}, {min(200, enc.shape[1] + 1) + 1}] prefix ({rec_n} launches, "
+          f"{rec_ms:.1f} ms); {n_kernels} device kernels and copies in all "
+          f"({n_kernels / max(n_calls, 1):.1f} a call); profile and its summary took "
+          f"{time.perf_counter() - t0:.1f} s")
+    print_top(tag, events)
+    return total
+
+
+def phase_train_transducer_mb(waves, kernels, card):
+    """The multi-blank LSTM transducer trained as phase 8 trains it, its
+    mbg decode of the 10 s request against the CPU from the card's encoder
+    rows; then the MEGA transducer, 2 warm-up and 3 timed steps, and its
+    prediction network on the card against the CPU at 301 positions (the
+    rfft path)."""
+    import copy
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.search.transducer_extra import transducer_multiblank_greedy
+
+    tag = "train-transducer-mb"
+    model = build_transducer_lstm("rnn", multi_blank=True)
+    launches, _ = phase_train_transducer(model, kernels, card, tag)
+    model.eval()
+    cfg = model.cfg
+    s2t = Speech2Text.from_model(model, beam_size=1, transducer_search="mbg")
+    s2t(waves[0])
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    calls = []
+    hook = model.decoder.register_forward_hook(lambda *_: calls.append(1))
+    t0 = time.perf_counter()
+    (ids, hyp), = s2t(waves[0])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    hook.remove()
+    mbg_launches = counts(kernels)
+    want = dict.fromkeys(mbg_launches, 0)
+    want.update(rel_attention_fwd=cfg.encoder.num_blocks, dwconv1d_fwd=cfg.encoder.num_blocks,
+                lstm_fwd=len(calls))
+    if mbg_launches != want or not calls:
+        raise AssertionError(f"{tag} mbg: launches {mbg_launches}, {len(calls)} calls")
+    with torch.inference_mode():
+        enc, lens = model.encode(torch.from_numpy(waves[0][None]).cuda(),
+                                 torch.tensor([waves[0].shape[0]], device="cuda"))
+        ref = transducer_multiblank_greedy(copy.deepcopy(model).cpu(), enc.cpu(), lens.cpu(),
+                                           cfg.big_blank_ids, cfg.multi_blank_durations)[0]
+    if hyp.yseq != ref.yseq or not abs(hyp.score - ref.score) <= 1e-3:
+        raise AssertionError(f"{tag} mbg: card {hyp.yseq} ({hyp.score}), CPU {ref.yseq} "
+                             f"({ref.score})")
+    print(f"[{tag}] mbg (big blanks {cfg.big_blank_ids} of {cfg.multi_blank_durations} frames) "
+          f"of the 10.0 s request after training: {dt * 1e3:.1f} ms, {len(hyp.yseq)} labels, "
+          f"equal to the CPU's from the card's encoder rows (score {hyp.score:.4f} vs "
+          f"{ref.score:.4f}); {len(calls)} prediction-network calls; launches {mbg_launches} "
+          f"[{card}]")
+    del model, s2t
+    torch.cuda.empty_cache()
+
+    mega = build_transducer_lstm("mega")
+    mega_launches, _ = phase_train_transducer(mega, kernels, card, "train-transducer-mega",
+                                              n_warmup=2, n_steps=3, profiled=False)
+    mega.eval()
+    labels = torch.randint(1, cfg.vocab_size, (TRANSDUCER_BEAM, 300),
+                           generator=torch.Generator().manual_seed(8))
+    with torch.inference_mode():
+        got = mega.decode_labels(labels.cuda())
+        want = copy.deepcopy(mega.decoder).cpu()(labels)
+    err = max_err(got.cpu(), want)
+    print(f"[train-transducer-mega] MEGA decode_labels [5, 301, 256] (rfft path) card vs CPU "
+          f"plain path: max_abs_err {err:.3e} (tol 1e-4) [{card}]")
+    if not err <= 1e-4:
+        raise AssertionError(f"train-transducer-mega: card and CPU disagree: {err}")
+    del mega
+    torch.cuda.empty_cache()
+    return {k: launches[k] + mega_launches[k] + mbg_launches[k] for k in launches}
 
 
 def build_flash_asr():
@@ -2102,7 +2523,9 @@ def phase_golden(kernels, card):
     reference-trained TransformerLM, the streamed search over 8
     utterances).  Their encoders (2 blocks of 32, head dim 16, conv kernel
     7) run the rel-pos and depthwise forward kernels: 3 encoder passes and
-    one an utterance a decode, one launch of each a block."""
+    one an utterance a decode, one launch of each a block; and the
+    reference LSTM transducer's tsd, tsd3 and nsc searches, one LSTM
+    recurrence launch a prediction-network call."""
     from llm_guided_asr_tpu_torch.bin import golden_check
 
     reset_counts(kernels)
@@ -2116,8 +2539,13 @@ def phase_golden(kernels, card):
     plain = golden_check.load_fixture("golden_trained").meta
     n_utts = plain["corpus"]["n_train"] + plain["corpus"]["n_valid"]
     passes += (2 * n_utts + golden_check.N_STREAMED) * plain["blocks"]
+    # golden_transducer: per frame, tsd calls its one-layer LSTM max_sym_exp
+    # times, nsc nstep + 2 times (the prefix search and nstep + 1 rounds)
+    tr = golden_check.load_fixture("golden_transducer").meta
+    lstm_calls = sum(tr["t"] * (c["max_sym_exp"] if c["search_type"] == "tsd" else c["nstep"] + 2)
+                     for c in tr["configs"].values() if c["search_type"] in ("tsd", "nsc"))
     for name, n in launches.items():
-        want = passes if name in ENCODER_FWD else 0
+        want = passes if name in ENCODER_FWD else (lstm_calls if name == "lstm_fwd" else 0)
         if n != want:
             raise AssertionError(f"golden: {name} launched {n} times, expected {want}")
     print("[golden] every check passed: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
@@ -2701,7 +3129,8 @@ def phase_asr_cli(kernels, card):
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
-    serve-batch, serve-lm, serve-stream or asr-cli),
+    serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn or
+    train-transducer-mb),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -2709,12 +3138,17 @@ def run_one_phase(name: str, card: str) -> int:
     phase in turns on one card."""
     from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
     from llm_guided_asr_tpu_torch.ops import flash_attention as fa
+    from llm_guided_asr_tpu_torch.ops import lstm as lk
     from llm_guided_asr_tpu_torch.ops import rel_attention as ra
     from llm_guided_asr_tpu_torch.ops import wkv as wk
 
     phases = {"train-1": lambda: phase_train1(kernels, card),
               "train-run": lambda: phase_train_run(kernels, card),
               "train-transducer": lambda: phase_train_transducer(build_transducer(), kernels, card),
+              "serve-transducer-rnn": lambda: phase_serve_transducer_rnn(
+                  build_transducer_lstm(), request_waves(), kernels, card),
+              "train-transducer-mb": lambda: phase_train_transducer_mb(request_waves(), kernels,
+                                                                       card),
               "golden": lambda: phase_golden(kernels, card),
               "serve": lambda: phase_serve(build_model(), kernels, card),
               "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card),
@@ -2723,7 +3157,7 @@ def run_one_phase(name: str, card: str) -> int:
               "asr-cli": lambda: phase_asr_cli(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
-    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
+    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
     phase_build(kernels)
     t0 = time.perf_counter()
     phases[name]()
@@ -2736,8 +3170,8 @@ def run_one_phase(name: str, card: str) -> int:
 def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
-                                    "golden, serve, serve-batch, serve-lm, serve-stream or "
-                                    "asr-cli")
+                                    "golden, serve, serve-batch, serve-lm, serve-stream, "
+                                    "asr-cli, serve-transducer-rnn or train-transducer-mb")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -2753,6 +3187,7 @@ def main() -> int:
         return run_one_phase(args.phase, nvidia_smi_name_power())
     from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
     from llm_guided_asr_tpu_torch.ops import flash_attention as fa
+    from llm_guided_asr_tpu_torch.ops import lstm as lk
     from llm_guided_asr_tpu_torch.ops import rel_attention as ra
     from llm_guided_asr_tpu_torch.ops import wkv as wk
     from llm_guided_asr_tpu_torch.utils.device import resolve_device
@@ -2762,7 +3197,7 @@ def main() -> int:
     print(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}; {card}")
     t_start = time.perf_counter()
-    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL]
+    kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
     phases = {}
 
     def timed(name, fn, *args):
@@ -2773,7 +3208,7 @@ def main() -> int:
         return out
 
     timed("build", phase_build, kernels)
-    timings = timed("kernels", phase_kernels, ra, dc, wk, fa, card)
+    timings = timed("kernels", phase_kernels, ra, dc, wk, fa, lk, card)
     model = build_model()
     paths = {}
     paths["serve"], waves, wall_10s = timed("serve", phase_serve, model, kernels, card)
@@ -2791,6 +3226,13 @@ def main() -> int:
                                          kernels, card)
     del transducer
     torch.cuda.empty_cache()
+    lstm = build_transducer_lstm()
+    paths["serve-transducer-rnn"] = timed("serve-transducer-rnn", phase_serve_transducer_rnn,
+                                          lstm, waves, kernels, card)
+    del lstm
+    torch.cuda.empty_cache()
+    paths["train-transducer-mb"] = timed("train-transducer-mb", phase_train_transducer_mb, waves,
+                                         kernels, card)
     flash_asr = build_flash_asr()
     paths["serve-flash"], flash_waves, wall_60s = timed(
         "serve-flash", phase_serve, flash_asr, kernels, card, "serve-flash", FLASH_SECONDS,
@@ -2825,6 +3267,10 @@ def main() -> int:
          "llm_guided_asr_tpu/ops/wkv.py:79", "serve-transducer"),
         ("wkv_bwd", "train [16,25,512]", None, wk.KERNEL,
          "llm_guided_asr_tpu/ops/wkv.py:179", "train-transducer"),
+        ("lstm_fwd", "train [16,25,256]", "serve beam-5 [5,201,256]", lk.KERNEL,
+         LSTM_SCAN + " (a lax.scan; no Pallas kernel)", "serve-transducer-rnn"),
+        ("lstm_bwd", "train [16,25,256]", None, lk.KERNEL,
+         LSTM_SCAN + " (the scan's VJP; no Pallas kernel)", "train-transducer-mb"),
         ("flash_attention_fwd", f"train [{FLASH_B},4,{FLASH_T},64]", f"serve [1,4,{FLASH_T},64]",
          fa.KERNEL, FLASH_LIBRARY + ":331 (_flash_attention_kernel), called at "
          "llm_guided_asr_tpu/models/transformer.py:490", "train-flash"),

@@ -26,8 +26,10 @@ encodes it and searches:
   ``lm_file`` (tasks/lm.py ``LMTask``), or an ``lm`` object (a language
   model of models/lm.py or a score function (tokens [N, L], lengths [N])
   -> log-probs [N, V]); the search adds it with ``lm_weight``;
-- a transducer (a model with ``joint_full``): the fixed-expansion beam
-  search when ``beam_size > 1``, the greedy decode when it is 1.
+- a transducer (a model with ``joint_full``): with ``beam_size > 1`` the
+  ``transducer_search`` (``default``: the fixed-expansion beam; ``alsd``,
+  ``tsd``, ``nsc``), the greedy decode when it is 1, and ``mbg`` (the
+  multi-blank greedy over the model's big blanks) at any beam size.
 
 ``batch_call`` decodes several requests in one encode and one lockstep
 beam search (``BatchBeamSearch.batch_decode``); it decodes them one by one
@@ -55,7 +57,15 @@ from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch, Hypothe
 from llm_guided_asr_tpu_torch.search.cached_decoder import CachedDecoderScorer
 from llm_guided_asr_tpu_torch.search.greedy import ctc_greedy_decode
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
-from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
+from llm_guided_asr_tpu_torch.search.transducer_beam import (
+    transducer_alsd_decode,
+    transducer_beam_decode,
+)
+from llm_guided_asr_tpu_torch.search.transducer_extra import (
+    transducer_multiblank_greedy,
+    transducer_nsc_decode,
+    transducer_tsd_decode,
+)
 from llm_guided_asr_tpu_torch.text.tokenizers import (
     HuggingFaceTokenIDConverter,
     HuggingFaceTokenizer,
@@ -64,7 +74,9 @@ from llm_guided_asr_tpu_torch.utils.config import build_config, normalize_triple
 
 logger = logging.getLogger(__name__)
 
-TRANSDUCER_SEARCHES = ("default", "alsd", "tsd", "nsc", "mbg")
+TRANSDUCER_BEAMS = {"default": transducer_beam_decode, "alsd": transducer_alsd_decode,
+                    "tsd": transducer_tsd_decode, "nsc": transducer_nsc_decode}
+TRANSDUCER_SEARCHES = tuple(TRANSDUCER_BEAMS) + ("mbg",)
 
 
 def round_up(n: int, multiple: int) -> int:
@@ -150,10 +162,9 @@ class Speech2Text:
         cfg = model.cfg
         if self.is_transducer:
             if transducer_search not in TRANSDUCER_SEARCHES:
-                raise ValueError(f"transducer_search={transducer_search!r}")
-            if transducer_search != "default":
-                raise NotImplementedError(f"transducer_search={transducer_search!r} is not "
-                                          f"ported yet (ROADMAP Queue 1 item 5)")
+                raise ValueError(f"transducer_search={transducer_search!r}; expected one of "
+                                 f"{TRANSDUCER_SEARCHES}")
+            self.transducer_search = transducer_search
         elif beam_size > 1 or ctc_weight < 1.0:
             # the guided model scores with its shared-prefix KV cache, any
             # other attention model with the stateless full-prefix scorer or,
@@ -180,9 +191,13 @@ class Speech2Text:
                    tokenizer=tokenizer, **kwargs)
 
     def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:
+        cfg = self.model.cfg
+        if self.transducer_search == "mbg":
+            return transducer_multiblank_greedy(self.model, enc, enc_lens, cfg.big_blank_ids,
+                                                cfg.multi_blank_durations)
         if self.beam_size > 1:
-            return transducer_beam_decode(self.model, enc, enc_lens, beam_size=self.beam_size,
-                                          nbest=self.nbest)
+            return TRANSDUCER_BEAMS[self.transducer_search](
+                self.model, enc, enc_lens, beam_size=self.beam_size, nbest=self.nbest)
         tokens, n = transducer_greedy_decode(self.model, enc, enc_lens)
         return [Hypothesis(yseq=tokens[0, : int(n[0])].tolist(), score=0.0, scores={})]
 

@@ -4,7 +4,7 @@
 
 The fixtures in ``tests/parity/`` were exported from the reference (ESPnet)
 on torch CPU: a tiny random-weight model's torch state dict (the ``sd_*``
-arrays), its inputs, and its outputs at several levels.  Two are read here:
+arrays), its inputs, and its outputs at several levels.  These are read here:
 
 - ``golden_conformer.npz``: a CTC/attention model (Conformer 2 x 32, 2
   heads, kernel 7; transformer decoder 2 x 32; vocab 12): the encoder
@@ -34,7 +34,15 @@ arrays), its inputs, and its outputs at several levels.  Two are read here:
   hypotheses identical, scores within 5e-3 and the CER within 1e-9 --
   and the resumable streaming search fed the offline encoder output of
   the first 8 utterances in 3 cuts, whose hypotheses must equal the
-  offline ones.
+  offline ones;
+- ``golden_transducer.npz``: the reference's LSTM prediction network
+  (hidden 12, one layer) and joint network (joint 14, vocab 11) with an
+  encoder output of 8 frames x 16: its time-synchronous searches
+  (``tsd``: max_sym_exp 2, ``tsd3``: 3) and N-step constrained search
+  (``nsc``: nstep 2, prefix_alpha 2) at beam 4, every entry of the 4-best
+  list with identical tokens and a score within 1e-4 (the fixture's
+  ``default`` and ``maes`` results are not the JAX package's searches,
+  which the port follows).
 
 Each check raises AssertionError on a miss, at the tolerances of the JAX
 package's own parity tests (tests/test_parity_reference.py,
@@ -43,7 +51,8 @@ weights go through ``models.espnet_ingest.params_from_reference`` and
 ``convert.params_from_jax``; both models run with ``pad_safe_conv=False``
 (the reference convolves pad frames) and float32.  On the card the
 encoder runs the hand-written ``rel_attention_fwd`` (head dim 16) and
-``dwconv1d_fwd`` (K = 7) kernels.
+``dwconv1d_fwd`` (K = 7) kernels, and the transducer's LSTM the
+``lstm_fwd`` recurrence kernel.
 """
 
 from __future__ import annotations
@@ -62,17 +71,27 @@ from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
 from llm_guided_asr_tpu_torch.models.espnet_ingest import (
     params_from_reference,
+    transducer_params,
     transformer_lm_params,
 )
 from llm_guided_asr_tpu_torch.models.lm import TransformerLM, TransformerLMConfig, make_lm_score_fn
 from llm_guided_asr_tpu_torch.models.llm.llama import load_llama_dir
 from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate, split_template
 from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRConfig, LLMGuidedASRModel
+from llm_guided_asr_tpu_torch.models.transducer import (
+    TransducerDecoderConfig,
+    TransducerModel,
+    TransducerModelConfig,
+)
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.losses import add_sos_eos
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from llm_guided_asr_tpu_torch.search.transducer_extra import (
+    transducer_nsc_decode,
+    transducer_tsd_decode,
+)
 from llm_guided_asr_tpu_torch.text.tokenizers import LLMTokenizer
 from llm_guided_asr_tpu_torch.utils.metrics import error_rate
 
@@ -581,6 +600,67 @@ def run_trained(device) -> Dict[str, float]:
     return out
 
 
+TRANSDUCER_SCORE_TOL = 1e-4
+
+
+def build_transducer(fx: Fixture, device) -> TransducerModel:
+    """The transducer with the fixture's LSTM prediction network and joint
+    network, in eval mode; it takes the fixture's encoder output, so its
+    encoder (one small Conformer block, features of the encoder's width)
+    keeps its initial weights and never runs."""
+    meta = fx.meta
+    cfg = TransducerModelConfig(
+        vocab_size=meta["vocab"], frontend=None, normalize="none", input_size=meta["enc_dim"],
+        encoder=ConformerConfig(output_size=meta["enc_dim"], attention_heads=2, linear_units=16,
+                                num_blocks=1),
+        decoder=TransducerDecoderConfig(decoder_type="rnn", embed_size=meta["hidden"],
+                                        hidden_size=meta["hidden"], num_layers=1),
+        joint_size=meta["joint"],
+    )
+    model = TransducerModel(cfg, device=device)
+    part = lambda prefix: {k[len(prefix):]: v for k, v in fx.sd.items()  # noqa: E731
+                           if k.startswith(prefix)}
+    sd = params_from_jax({"params": transducer_params(part("dec."), part("joint."))})
+    missing, unexpected = model.load_state_dict(sd, strict=False)
+    if unexpected or any(not k.startswith("encoder.") for k in missing):
+        raise AssertionError(f"golden_transducer weights: missing {missing}, "
+                             f"unexpected {unexpected}")
+    return model.eval()
+
+
+def run_transducer(device) -> Dict[str, float]:
+    """``golden_transducer``'s tsd, tsd3 and nsc 4-best lists, each entry's
+    tokens identical and its score within TRANSDUCER_SCORE_TOL; returns
+    each search's largest score error."""
+    fx = load_fixture("golden_transducer")
+    meta = fx.meta
+    model = build_transducer(fx, device)
+    enc = _on(model, fx.arrays["enc_out"][None])
+    enc_lens = torch.tensor([meta["t"]], device=enc.device)
+    out = {}
+    with torch.inference_mode():
+        for name, conf in meta["configs"].items():
+            if conf["search_type"] == "tsd":
+                hyps = transducer_tsd_decode(model, enc, enc_lens, beam_size=meta["beam"],
+                                             max_sym_exp=conf["max_sym_exp"], nbest=meta["beam"])
+            elif conf["search_type"] == "nsc":
+                hyps = transducer_nsc_decode(model, enc, enc_lens, beam_size=meta["beam"],
+                                             nstep=conf["nstep"],
+                                             prefix_alpha=conf["prefix_alpha"],
+                                             nbest=meta["beam"])
+            else:
+                continue
+            want = meta["results"][name]
+            got = [(h.yseq, h.score) for h in hyps]
+            if [g[0] for g in got] != [w["yseq"] for w in want]:
+                raise AssertionError(f"golden_transducer {name}: {got} != {want}")
+            out[f"transducer_{name}"] = err = max(abs(g[1] - w["score"])
+                                                  for g, w in zip(got, want))
+            if not err <= TRANSDUCER_SCORE_TOL:
+                raise AssertionError(f"golden_transducer {name}: scores {got} vs {want}")
+    return out
+
+
 def run_all(device) -> Dict[str, float]:
     """Every check of both fixtures on ``device``; raises on the first miss.
     Returns each check's largest error (score errors for the searches)."""
@@ -600,6 +680,7 @@ def run_all(device) -> Dict[str, float]:
     fx = load_fixture("golden_trained_guided")
     out.update(check_trained_guided(build_trained_guided(fx, device), fx))
     out.update(run_trained(device))
+    out.update(run_transducer(device))
     return out
 
 

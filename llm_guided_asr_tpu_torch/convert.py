@@ -9,9 +9,14 @@ alike, and for the language models of models/lm.py: ``lm/block_0/norm1``
 -> ``lm.block_0.norm1`` under ESPnetLanguageModel, and a recurrent LM's
 per-gate Dense modules ``rnn_0/if`` (LSTM: ``ii``..``io`` without bias,
 ``hi``..``ho`` with it; GRU: ``ir`` ``iz`` ``in`` ``hn`` with it, ``hr``
-``hz`` without) -> ``rnn_0.if``); only the leaf names and layouts differ
-(RWKV's [C] leaves ``mu_*``, ``time_decay`` and ``time_first`` keep their
-names):
+``hz`` without) -> ``rnn_0.if``, and the transducer's LSTM cells, which
+flax names ``decoder/OptimizedLSTMCell_{i}/ii`` .. ``ho`` ->
+``decoder.OptimizedLSTMCell_0.ii``); only the leaf names and layouts
+differ (RWKV's [C] leaves ``mu_*``, ``time_decay`` and ``time_first``, and
+MEGA's EMA matrices ``damping_factor`` .. ``kernel_projection_matrix``
+[D, N], ``residual_weight``, ``qk_weight``, ``qk_bias``,
+``relative_position_bias`` and the rotary ``alpha``/``beta`` keep their
+names and layouts):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW
@@ -114,7 +119,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     The rule of the JAX benchmark's host_init_variables: biases, running
     means and the rel-pos biases 0; norm scales (LayerNorm, RMSNorm, the
     masked batch norm) and running variances 1; every other weight (dense,
-    conv, depthwise conv, the decoders' token embeddings) N(0, 0.02).
+    conv, depthwise conv, the decoders' token embeddings, the LSTM gates,
+    RWKV's and MEGA's named leaves) N(0, 0.02).
     """
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -22,7 +22,8 @@ Layout rules:
 dict whose keys carry the reference's ``enc.``, ``dec.`` and ``ctc.``
 prefixes (the golden fixtures' ``sd_*`` arrays, tests/parity/);
 :func:`transformer_lm_params` reads a reference TransformerLM's state dict
-(``golden_trained_lm.npz``'s ``lm_*`` arrays).
+(``golden_trained_lm.npz``'s ``lm_*`` arrays); :func:`transducer_params`
+the LSTM prediction network and joint network of ``golden_transducer.npz``.
 """
 
 from __future__ import annotations
@@ -201,6 +202,36 @@ def transformer_lm_params(sd: Dict[str, np.ndarray], num_blocks: int) -> Dict:
 
 def ctc_head_params(sd: Dict[str, np.ndarray], prefix: str = "ctc_lo") -> Dict:
     return _lin(sd, prefix)
+
+
+def transducer_params(dec_sd: Dict[str, np.ndarray], joint_sd: Dict[str, np.ndarray],
+                      num_layers: int = 1) -> Dict:
+    """The reference's TransducerDecoder (LSTM) and JointNetwork -> the
+    transducer's ``decoder`` and ``joint`` params.
+
+    torch's LSTM packs the gates [i; f; g; o] into weight_ih/hh [4H, *]
+    with two biases; flax's OptimizedLSTMCell keeps per-gate Denses (``ii``
+    .. ``io`` input kernels without bias, ``hi`` .. ``ho`` hidden kernels
+    with bias = bias_ih + bias_hh), under the name flax gives the cell,
+    ``OptimizedLSTMCell_{layer}``."""
+    params: Dict = {
+        "decoder": {"embed": {"embedding": np.asarray(dec_sd["embed.weight"])}},
+        "joint": {name: _lin(joint_sd, name) for name in ("lin_enc", "lin_dec", "lin_out")},
+    }
+    for layer in range(num_layers):
+        w_ih = np.asarray(dec_sd[f"decoder.{layer}.weight_ih_l0"])  # [4H, E]
+        w_hh = np.asarray(dec_sd[f"decoder.{layer}.weight_hh_l0"])  # [4H, H]
+        bias = (np.asarray(dec_sd[f"decoder.{layer}.bias_ih_l0"])
+                + np.asarray(dec_sd[f"decoder.{layer}.bias_hh_l0"]))
+        hdim = w_hh.shape[1]
+        cell: Dict = {}
+        for gi, gate in enumerate(("i", "f", "g", "o")):
+            rows = slice(gi * hdim, (gi + 1) * hdim)
+            cell[f"i{gate}"] = {"kernel": np.ascontiguousarray(w_ih[rows].T)}
+            cell[f"h{gate}"] = {"kernel": np.ascontiguousarray(w_hh[rows].T),
+                                "bias": np.asarray(bias[rows])}
+        params["decoder"][f"OptimizedLSTMCell_{layer}"] = cell
+    return params
 
 
 def llm_guided_decoder_params(

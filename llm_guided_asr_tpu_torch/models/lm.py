@@ -32,6 +32,7 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     PositionalEncoding,
     TransformerEncoderLayer,
 )
+from llm_guided_asr_tpu_torch.ops.lstm import lstm_recurrence
 from llm_guided_asr_tpu_torch.utils.config import filter_known_fields
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import causal_attn_mask, make_valid_mask
@@ -108,31 +109,41 @@ class SequentialRNNLMConfig:
 
 class LSTMCell(nn.Module):
     """flax ``OptimizedLSTMCell``: gates i, f, g, o; input Linears ``ii``
-    ``if`` ``ig`` ``io`` without bias, hidden ones ``hi`` ``hf`` ``hg``
-    ``ho`` with it; c' = f c + i g, h' = o tanh(c')."""
+    ``if`` ``ig`` ``io`` (``in_features`` -> ``features``) without bias,
+    hidden ones ``hi`` ``hf`` ``hg`` ``ho`` with it; c' = f c + i g,
+    h' = o tanh(c')."""
 
     gates = ("i", "f", "g", "o")
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, in_features: Optional[int] = None):
         super().__init__()
         for g in self.gates:
-            self.add_module(f"i{g}", nn.Linear(features, features, bias=False))
+            self.add_module(f"i{g}", nn.Linear(in_features or features, features, bias=False))
             self.add_module(f"h{g}", nn.Linear(features, features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, L, H] -> [B, L, H] over every position from a zero state."""
-        w_i = torch.cat([getattr(self, f"i{g}").weight for g in self.gates])  # [4H, H]
+    def stacked(self) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """(W_ih [4H, in], W_hh [4H, H], bias [4H]): the per-gate matrices
+        stacked in the gate order i, f, g, o; the trainable tensors stay
+        the per-gate Linears."""
+        w_i = torch.cat([getattr(self, f"i{g}").weight for g in self.gates])
         w_h = torch.cat([getattr(self, f"h{g}").weight for g in self.gates])
         b_h = torch.cat([getattr(self, f"h{g}").bias for g in self.gates])
-        xi = x @ w_i.t()  # [B, L, 4H]
-        h = c = x.new_zeros(x.shape[0], x.shape[2])
-        out = []
-        for t in range(x.shape[1]):
-            i, f, g, o = ((h @ w_h.t() + b_h) + xi[:, t]).chunk(4, dim=-1)
-            c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-            h = torch.sigmoid(o) * torch.tanh(c)
-            out.append(h)
-        return torch.stack(out, dim=1)
+        return w_i, w_h, b_h
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """[B, L, in] -> [B, L, H] over every position from a zero state."""
+        return lstm_stack([self], x)
+
+
+def lstm_stack(cells: List[LSTMCell], x: torch.Tensor) -> torch.Tensor:
+    """Stacked LSTM cells over [B, L, in] from a zero state -> the last
+    layer's outputs [B, L, H]: per layer, one GEMM of the input projections
+    and one fused recurrence over the whole sequence (ops/lstm.py: one
+    kernel launch on the card)."""
+    for cell in cells:
+        w_i, w_h, b_h = cell.stacked()
+        x = lstm_recurrence(x @ w_i.t(), w_h, b_h)
+    return x
 
 
 class GRUCell(nn.Module):

@@ -1,12 +1,13 @@
 """Transducer ASR (counterpart of llm_guided_asr_tpu/models/transducer.py).
 
-frontend -> SpecAug (training) -> normalize -> Conformer -> joint network
-tanh(W_enc h_t + W_dec g_u) -> vocab over the prediction network's outputs
-g (stateless embedding or RWKV, models/rwkv.py); loss = RNN-T
-(ops/rnnt.py) + aux_ctc_weight * CTC on the encoder.  ``forward`` takes
-the same ``rng`` as ASRModel, so that train/trainer.py's fused step drives
-it unchanged.  The LSTM and MEGA prediction networks and the multi-blank
-loss are not ported yet.
+frontend (or features as they are, ``frontend=None``) -> SpecAug
+(training) -> normalize -> Conformer -> joint network tanh(W_enc h_t +
+W_dec g_u) -> vocab over the prediction network's outputs g (a stateless
+embedding, an LSTM, RWKV in models/rwkv.py or MEGA in
+models/mega_decoder.py); loss = RNN-T (ops/rnnt.py; the multi-blank loss
+when ``multi_blank_durations`` is set) + aux_ctc_weight * CTC on the
+encoder.  ``forward`` takes the same ``rng`` as ASRModel, so that
+train/trainer.py's fused step drives it unchanged.
 """
 
 from __future__ import annotations
@@ -19,10 +20,12 @@ from torch import nn
 
 from llm_guided_asr_tpu_torch.models.asr_model import extract_features
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_encoder
+from llm_guided_asr_tpu_torch.models.lm import LSTMCell, lstm_stack
+from llm_guided_asr_tpu_torch.models.mega_decoder import MEGADecoder
 from llm_guided_asr_tpu_torch.models.rwkv import RWKVDecoder
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.losses import ctc_loss
-from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss
+from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss, rnnt_loss_multi_blank
 from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -31,14 +34,22 @@ from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 @dataclasses.dataclass(frozen=True)
 class TransducerDecoderConfig:
-    """The fields of the JAX TransducerDecoderConfig that the ported
-    prediction networks read."""
+    """The fields of the JAX TransducerDecoderConfig that the prediction
+    networks read (``context_size`` is read by neither package)."""
 
-    decoder_type: str = "stateless"  # stateless | rwkv (rnn and mega are not ported yet)
+    decoder_type: str = "stateless"  # stateless | rnn | rwkv | mega
     embed_size: int = 256
     hidden_size: int = 256
     num_layers: int = 1
     dropout_rate: float = 0.0
+    mega_qk_size: int = 64
+    mega_v_size: int = 0  # 0 -> 2 * hidden_size
+    mega_num_heads: int = 4
+    mega_rel_pos_bias: str = "simple"  # simple | rotary
+    mega_max_positions: int = 2048  # positional-bias span (raises past it)
+    mega_ffn_size: int = 0  # 0 -> 2 * hidden_size
+    mega_att_dropout_rate: Optional[float] = None  # None -> dropout_rate
+    mega_ema_dropout_rate: Optional[float] = None
 
 
 class StatelessDecoder(nn.Module):
@@ -62,6 +73,34 @@ class StatelessDecoder(nn.Module):
         return x
 
 
+class RNNDecoder(nn.Module):
+    """asr_transducer/decoder/rnn_decoder.py: [B, U] -> [B, U+1, H], an
+    embedding of the labels after the blank context 0, dropout, then
+    ``num_layers`` LSTM cells laid out as flax's ``OptimizedLSTMCell_{i}``
+    (the names flax gives the cells that ``nn.RNN`` wraps), run as one
+    fused recurrence over the whole sequence (models/lm.py lstm_stack)."""
+
+    def __init__(self, vocab_size: int, cfg: TransducerDecoderConfig):
+        super().__init__()
+        self.vocab_size = vocab_size
+        self.cfg = cfg
+        self.embed = nn.Embedding(vocab_size, cfg.embed_size)
+        for i in range(cfg.num_layers):
+            self.add_module(f"OptimizedLSTMCell_{i}", LSTMCell(
+                cfg.hidden_size, cfg.embed_size if i == 0 else cfg.hidden_size))
+
+    def forward(self, labels: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
+        y = torch.cat([torch.zeros_like(labels[:, :1]), labels], dim=1)
+        x = self.embed(y.clamp(0, self.vocab_size - 1))
+        x = dropout(x, active_rate(self, self.cfg.dropout_rate), rng)
+        cells = [getattr(self, f"OptimizedLSTMCell_{i}") for i in range(self.cfg.num_layers)]
+        return lstm_stack(cells, x)
+
+
+DECODERS = {"stateless": StatelessDecoder, "rnn": RNNDecoder, "rwkv": RWKVDecoder,
+            "mega": MEGADecoder}
+
+
 class JointNetwork(nn.Module):
     """asr_transducer/joint_network.py: tanh(W_enc h + W_dec g) -> vocab."""
 
@@ -78,11 +117,12 @@ class JointNetwork(nn.Module):
 
 @dataclasses.dataclass(frozen=True)
 class TransducerModelConfig:
-    """The fields of the JAX TransducerModelConfig that the port reads (the
-    multi-blank ones are not ported yet)."""
+    """The fields of the JAX TransducerModelConfig that the port reads, plus
+    ``input_size``: the feature width when ``frontend`` is None (the JAX
+    model reads it off its input)."""
 
     vocab_size: int
-    frontend: FrontendConfig = FrontendConfig()
+    frontend: Optional[FrontendConfig] = FrontendConfig()
     specaug: Optional[SpecAugConfig] = None
     normalize: str = "global_mvn"
     encoder_type: str = "conformer"
@@ -91,6 +131,27 @@ class TransducerModelConfig:
     joint_size: int = 256
     aux_ctc_weight: float = 0.0
     blank_id: int = 0
+    # multi-blank transducer (Xu et al. 2023): "big blank" outputs that each
+    # cover several frames; ids and durations align index-wise, the ids
+    # default to the top of the vocabulary; sigma under-normalizes the logits
+    multi_blank_durations: Tuple[int, ...] = ()
+    multi_blank_ids: Tuple[int, ...] = ()
+    multi_blank_sigma: float = 0.05
+    input_size: Optional[int] = None
+
+    @property
+    def big_blank_ids(self) -> Tuple[int, ...]:
+        """The big blanks' ids: ``multi_blank_ids`` or V-1, V-2, ..."""
+        return self.multi_blank_ids or tuple(
+            self.vocab_size - 1 - i for i in range(len(self.multi_blank_durations)))
+
+    @property
+    def n_feat(self) -> int:
+        if self.frontend is not None:
+            return self.frontend.n_mels
+        if self.input_size is None:
+            raise ValueError("a transducer without a frontend needs input_size")
+        return self.input_size
 
     @property
     def sos_id(self) -> int:  # interface parity with ASRModelConfig
@@ -108,31 +169,32 @@ class TransducerModel(nn.Module):
     def __init__(self, cfg: TransducerModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
         dec_type = cfg.decoder.decoder_type
-        if dec_type in ("rnn", "mega"):
-            raise NotImplementedError(
-                f"decoder_type={dec_type!r} is not ported yet (a later slice of the port)")
-        if dec_type not in ("stateless", "rwkv"):
-            raise ValueError(dec_type)
-        if cfg.frontend is None:
-            raise NotImplementedError("a model without the default frontend is not ported yet")
+        if dec_type not in DECODERS:
+            raise ValueError(f"decoder_type={dec_type!r}; expected one of {sorted(DECODERS)}")
+        if len(cfg.big_blank_ids) != len(cfg.multi_blank_durations):
+            raise ValueError(f"multi_blank_ids {cfg.multi_blank_ids} and multi_blank_durations "
+                             f"{cfg.multi_blank_durations} differ in length")
         dev = resolve_device(device)
         self.cfg = cfg
         d = cfg.encoder.output_size
-        n_feat = cfg.frontend.n_mels
+        n_feat = cfg.n_feat
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
-            decoder_cls = RWKVDecoder if dec_type == "rwkv" else StatelessDecoder
-            self.decoder = decoder_cls(cfg.vocab_size, cfg.decoder)
+            self.decoder = DECODERS[dec_type](cfg.vocab_size, cfg.decoder)
             self.joint = JointNetwork(cfg.vocab_size, d, cfg.decoder.hidden_size, cfg.joint_size)
             if cfg.aux_ctc_weight > 0:
                 self.ctc_head = nn.Linear(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
-                self.register_buffer("mvn_mean", torch.zeros(n_feat))
-                self.register_buffer("mvn_inv_std", torch.ones(n_feat))
+                # one statistic per feature; the JAX model keeps a single
+                # one (broadcast) when it has no frontend
+                n_mvn = n_feat if cfg.frontend is not None else 1
+                self.register_buffer("mvn_mean", torch.zeros(n_mvn))
+                self.register_buffer("mvn_inv_std", torch.ones(n_mvn))
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, S] waveform -> ([B, T', D] encoder output, [B] lengths)."""
+        """[B, S] waveform (or [B, T, input_size] features without a
+        frontend) -> ([B, T', D] encoder output, [B] lengths)."""
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
         return self.encoder(feats, feats_lengths, rng)
 
@@ -151,14 +213,20 @@ class TransducerModel(nn.Module):
     def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor, text: torch.Tensor,
                 text_lengths: torch.Tensor, rng: Optional[StepRNG] = None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor], torch.Tensor]:
-        """text [B, U] padded with ignore_id -> (loss, stats, weight)."""
+        """text [B, U] padded with -1 -> (loss, stats, weight)."""
         cfg = self.cfg
         enc, enc_lens = self.encode(speech, speech_lengths, rng)
         # the decoder and the RNN-T loss see 0 for pads; the CTC the raw text
         labels = torch.where(make_valid_mask(text_lengths, text.shape[1]), text, 0)
         dec = self.decoder(labels, rng)  # [B, U+1, H]
         logits = self.joint_full(enc, dec)
-        loss_rnnt = rnnt_loss(logits, labels, enc_lens, text_lengths, cfg.blank_id)
+        if cfg.multi_blank_durations:
+            loss_rnnt = rnnt_loss_multi_blank(
+                logits, labels, enc_lens, text_lengths, cfg.blank_id,
+                big_blank_ids=cfg.big_blank_ids, big_blank_durations=cfg.multi_blank_durations,
+                sigma=cfg.multi_blank_sigma)
+        else:
+            loss_rnnt = rnnt_loss(logits, labels, enc_lens, text_lengths, cfg.blank_id)
         stats = {"loss_rnnt": loss_rnnt}
         loss = loss_rnnt
         if cfg.aux_ctc_weight > 0:

@@ -8,7 +8,7 @@ emitted candidates go on.  All K hypotheses are fixed-shape tensors; the
 prediction network is recomputed over the whole label prefix (capped at
 ``u_max``) in every round.  Both top-k steps break ties towards the lower
 index, as lax.top_k does, and the final order is a stable sort.
-``transducer_alsd_decode`` is not ported yet.
+``transducer_alsd_decode`` is the alignment-length synchronous search.
 """
 
 from __future__ import annotations
@@ -71,6 +71,68 @@ def transducer_beam_decode(model, enc: torch.Tensor, enc_lens: torch.Tensor, bea
     final = score / (n + 1) if score_norm else score
     order = torch.argsort(-final, stable=True)
     tk, nn, ss = tokens[order].tolist(), n[order].tolist(), final[order].tolist()
+    out = [Hypothesis(yseq=tk[k][: nn[k]], score=ss[k], scores={})
+           for k in range(min(nbest, K)) if ss[k] > NEG_INF / 2]
+    return out or [Hypothesis(yseq=[], score=ss[0], scores={})]
+
+
+def transducer_alsd_decode(model, enc: torch.Tensor, enc_lens: torch.Tensor, beam_size: int = 5,
+                           u_max: int = 50, nbest: int = 1,
+                           score_norm: bool = True) -> List[Hypothesis]:
+    """Alignment-length synchronous decoding (Saon et al. 2020;
+    beam_search_transducer.py align_length_sync_decoding) of one utterance.
+
+    One loop over the alignment length i = t + u: every live hypothesis
+    sits at its own frame t = i - u; a blank advances t, a label u, so
+    hypotheses of different lengths compete in one top-K.  A blank that
+    crosses the last frame retires the hypothesis into a finished buffer,
+    merged by a top-K over its K entries and the K new ones.  The token
+    table is min(u_max, T) + 1 wide.  Past i = enc_len + min(u_max, T) no
+    hypothesis is live and nothing changes, so the loop stops there.
+    Scores are normalized as in :func:`transducer_beam_decode`."""
+    t_max = enc.shape[1]
+    K = beam_size
+    blank = model.cfg.blank_id
+    dev = enc.device
+    enc_len = int(enc_lens[0])
+    um = min(u_max, t_max)
+    width = um + 1
+    rows = torch.arange(K, device=dev)
+    pos = torch.arange(width, device=dev)
+    blank_col = torch.tensor([blank], device=dev)
+
+    tokens = torch.zeros((K, width), dtype=torch.long, device=dev)
+    u = torch.zeros(K, dtype=torch.long, device=dev)
+    score = torch.where(rows == 0, 0.0, NEG_INF)
+    fin_tokens, fin_u = tokens.clone(), u.clone()
+    fin_score = torch.full((K,), NEG_INF, device=dev)
+    for i in range(min(t_max + um, enc_len + um)):
+        t = i - u  # [K] each hypothesis's frame
+        live = (t >= 0) & (t < enc_len) & (score > NEG_INF / 2)
+        g = model.decode_labels(tokens)[rows, u]
+        logits = model.joint_step(enc[0, t.clamp(0, t_max - 1)], g)
+        logp = F.log_softmax(logits.float(), dim=-1)
+        blank_score = torch.where(live, score + logp[:, blank], NEG_INF)
+        final = live & (t + 1 >= enc_len)
+        fin_score, fi = _top_k(torch.cat([fin_score, torch.where(final, blank_score, NEG_INF)]),
+                               K)
+        fin_tokens = torch.cat([fin_tokens, tokens])[fi]
+        fin_u = torch.cat([fin_u, u])[fi]
+        w = min(K, logp.shape[-1] - 1)
+        top_lp, top_id = _top_k(logp.index_fill(1, blank_col, NEG_INF), w)
+        emit = torch.where((live & (u < width - 1))[:, None], score[:, None] + top_lp, NEG_INF)
+        best, idx = _top_k(torch.cat([torch.where(final, NEG_INF, blank_score),
+                                      emit.reshape(-1)]), K)
+        is_blank = idx < K
+        parent = torch.where(is_blank, idx, (idx - K) // w)
+        new_token = top_id[parent, (idx - K).clamp(0, K * w - 1) % w]
+        tokens = torch.where(~is_blank[:, None] & (pos[None, :] == u[parent][:, None]),
+                             new_token[:, None], tokens[parent])
+        u = torch.where(is_blank, u[parent], (u[parent] + 1).clamp(max=width - 1))
+        score = best
+    final_score = fin_score / (fin_u + 1) if score_norm else fin_score
+    order = torch.argsort(-final_score, stable=True)
+    tk, nn, ss = fin_tokens[order].tolist(), fin_u[order].tolist(), final_score[order].tolist()
     out = [Hypothesis(yseq=tk[k][: nn[k]], score=ss[k], scores={})
            for k in range(min(nbest, K)) if ss[k] > NEG_INF / 2]
     return out or [Hypothesis(yseq=[], score=ss[0], scores={})]

@@ -153,7 +153,6 @@ ITEM_BRCTC = "ROADMAP Queue 1 item 8"
 ITEM_CHOICES = "ROADMAP Queue 1 item 10"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
-ITEM_TRANSDUCER = "ROADMAP Queue 1 item 5"
 
 JAX_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                 "contextual_block_conformer", "whisper_style", "longformer",
@@ -174,11 +173,7 @@ _JAX_ONLY_FIELDS = {
                      "ss_d_state": 64, "ss_prenorm": True, "ss_norm": "layer",
                      "ss_residual": "residual", "ss_pool": "", "ss_pool_stride": 1,
                      "ss_ff_expand": 2, "ss_bidirectional": True, "ss_drop_path": 0.0},
-    "transducer decoder_conf": {"context_size": 256, "mega_qk_size": 64, "mega_v_size": 0,
-                                "mega_num_heads": 4, "mega_rel_pos_bias": "simple",
-                                "mega_max_positions": 2048, "mega_ffn_size": 0,
-                                "mega_att_dropout_rate": None,
-                                "mega_ema_dropout_rate": None},
+    "transducer decoder_conf": {"context_size": 256},
 }
 
 
@@ -293,8 +288,10 @@ def build_model_config(config: Dict[str, Any]) -> ASRModelConfig:
 
 
 def build_transducer_config(config: Dict[str, Any]):
-    """The transducer's config (``model: transducer``): the stateless and
-    RWKV prediction networks."""
+    """The transducer's config (``model: transducer``): every prediction
+    network (stateless, rnn, rwkv, mega) and the multi-blank loss
+    (``model_conf.transducer_multi_blank_durations``, ``multi_blank_ids``,
+    ``transducer_multi_blank_sigma``)."""
     from llm_guided_asr_tpu_torch.models.transducer import (
         TransducerDecoderConfig,
         TransducerModelConfig,
@@ -303,18 +300,12 @@ def build_transducer_config(config: Dict[str, Any]):
     _check_unported_asr_choices(config)
     encoder_type, encoder = _encoder_config(config)
     model_conf = dict(config.get("model_conf", {}) or {})
-    for key in ("transducer_multi_blank_durations", "multi_blank_ids"):
-        if model_conf.get(key):
-            raise NotImplementedError(f"model_conf.{key} (multi-blank transducer) is not "
-                                      f"ported yet ({ITEM_TRANSDUCER})")
     dec = port_fields(TransducerDecoderConfig, config.get("decoder_conf"), "decoder_conf",
                       "transducer decoder_conf")
-    if dec.get("decoder_type", "stateless") not in ("stateless", "rwkv"):
-        raise NotImplementedError(f"transducer decoder_type={dec['decoder_type']!r} is not "
-                                  f"ported yet ({ITEM_TRANSDUCER})")
+    frontend = _frontend_config(config)
     return TransducerModelConfig(
         vocab_size=_vocab_size(config),
-        frontend=_frontend_config(config),
+        frontend=frontend,
         specaug=_specaug_config(config),
         normalize=config.get("normalize") or "none",
         encoder_type=encoder_type,
@@ -322,6 +313,10 @@ def build_transducer_config(config: Dict[str, Any]):
         decoder=TransducerDecoderConfig(**dec),
         joint_size=int(model_conf.get("joint_size", 256)),
         aux_ctc_weight=float(model_conf.get("aux_ctc_weight", 0.0)),
+        multi_blank_durations=tuple(model_conf.get("transducer_multi_blank_durations") or ()),
+        multi_blank_ids=tuple(model_conf.get("multi_blank_ids") or ()),
+        multi_blank_sigma=float(model_conf.get("transducer_multi_blank_sigma", 0.05)),
+        input_size=None if frontend is not None else int(config.get("input_size") or 80),
     )
 
 

@@ -297,3 +297,25 @@ def test_lm_ingest_matches_the_jax_ingest():
     for key in want:
         assert got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]), key
     assert sum(v.size for v in got.values()) == sum(v.size for v in sd.values())
+
+
+def test_transducer_golden_searches():
+    """golden_transducer through golden_check.run_transducer: tsd, tsd3 and
+    nsc, every entry of the 4-best lists (tokens equal, scores within
+    1e-4), from the port's own ingest of the reference's LSTM weights."""
+    errs = gc.run_transducer("cpu")
+    assert set(errs) == {"transducer_tsd", "transducer_tsd3", "transducer_nsc"}
+    assert max(errs.values()) <= gc.TRANSDUCER_SCORE_TOL
+
+
+def test_transducer_ingest_matches_the_jax_ingest():
+    """The reference's LSTM decoder and joint network through both packages'
+    name maps, array for array."""
+    sd = gc.load_fixture("golden_transducer").sd
+    part = lambda prefix: {k[len(prefix):]: v for k, v in sd.items()  # noqa: E731
+                           if k.startswith(prefix)}
+    got = _flat(tingest.transducer_params(part("dec."), part("joint.")))
+    want = _flat(jingest.transducer_params(part("dec."), part("joint.")))
+    assert sorted(got) == sorted(want)
+    for key in want:
+        assert got[key].dtype == want[key].dtype and np.array_equal(got[key], want[key]), key

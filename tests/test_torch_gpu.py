@@ -562,6 +562,172 @@ def test_transducer_decoding_on_the_card_matches_the_cpu(card):
                                [h.score for h in out["cpu"][1]], rtol=1e-4)
 
 
+# the LSTM recurrence: phase 17's beam-5 prefix, phase 18's training
+# labels, a width that leaves the last block part empty (the golden
+# transducer's 12), one step, and a batch the wrapper cuts into launches
+LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 1024)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h", LSTM_CASES)
+def test_lstm_kernels_match_plain(card, b, t, h):
+    """The forward against the plain loop (1e-5 abs + rel), the backward
+    and the autograd function's gradients against autograd through the
+    loop (1e-4 of the largest), repeat calls bitwise equal."""
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    rng = np.random.default_rng(b * t + h)
+    xi = _rand(rng, b, t, 4 * h, scale=0.5).to(card)
+    w = _rand(rng, 4 * h, h, scale=1.0 / math.sqrt(h)).to(card)
+    bias = _rand(rng, 4 * h, scale=0.1).to(card)
+    dy = _rand(rng, b, t, h, scale=1.0).to(card)
+    before = dict(tl.KERNEL.launches)
+    y, gates, cells = tl.lstm_fwd(xi, w, bias, save=True)
+    again = tl.lstm_fwd(xi, w, bias)[0]
+    da = tl.lstm_bwd(dy, gates, cells, w)
+    torch.cuda.synchronize()
+    fwd_calls, bwd_calls = (-(-b // tl.max_rows(h, xi.device.index, bwd)) for bwd in (0, 1))
+    assert tl.KERNEL.launches == {"lstm_fwd": before["lstm_fwd"] + 2 * fwd_calls,
+                                  "lstm_bwd": before["lstm_bwd"] + bwd_calls}
+    assert torch.equal(y, again) and torch.equal(da, tl.lstm_bwd(dy, gates, cells, w))
+    ref = tl.lstm_recurrence_plain(xi, w, bias)
+    torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+    leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+    refs = torch.autograd.grad(tl.lstm_recurrence_plain(*leaves), leaves, dy)
+    kern = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+    grads = torch.autograd.grad(tl.lstm_recurrence(*kern), kern, dy)
+    torch.testing.assert_close(da, refs[0], rtol=0, atol=_grad_tol(refs[0]))
+    for name, g, r in zip(("xi", "w_hh", "bias"), grads, refs):
+        torch.testing.assert_close(g, r, rtol=0, atol=_grad_tol(r), msg=name)
+
+
+@pytest.mark.gpu
+def test_lstm_wrappers_raise_instead_of_falling_back(card):
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    xi = torch.zeros(2, 3, 32, device=card)
+    w, bias = torch.zeros(32, 8, device=card), torch.zeros(32, device=card)
+    with pytest.raises(ValueError, match="devices"):
+        tl.lstm_fwd(xi, w.cpu(), bias)
+    with pytest.raises(ValueError, match="float32"):
+        tl.lstm_fwd(xi.double(), w.double(), bias.double())
+    with pytest.raises(ValueError, match="CUDA"):
+        tl.lstm_bwd(torch.zeros(2, 3, 8), torch.zeros(2, 3, 32), torch.zeros(2, 3, 8),
+                    torch.zeros(32, 8))
+
+
+def _decoder_cfg(decoder_type):
+    from llm_guided_asr_tpu_torch.models import transducer as ttd
+
+    if decoder_type == "rnn":
+        return ttd.TransducerDecoderConfig(decoder_type="rnn", embed_size=48, hidden_size=64,
+                                           num_layers=2)
+    return ttd.TransducerDecoderConfig(decoder_type="mega", hidden_size=64, num_layers=2,
+                                       mega_qk_size=32, mega_rel_pos_bias="rotary")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("decoder_type", ["rnn", "mega"])
+@pytest.mark.parametrize("length", [40, 300])
+def test_prediction_networks_on_the_card_match_the_cpu(card, decoder_type, length):
+    """The LSTM (one recurrence kernel a layer, forward and backward) and
+    MEGA (Toeplitz at 41 positions, rfft past 256) prediction networks:
+    outputs at 1e-4, every parameter's gradient at 1e-4 of the largest."""
+    from llm_guided_asr_tpu_torch.models.transducer import DECODERS
+    from llm_guided_asr_tpu_torch.utils.device import resolve_device
+
+    cfg = _decoder_cfg(decoder_type)
+    cpu = init_weights(DECODERS[decoder_type](30, cfg), seed=1)
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.mul_(10.0)
+    # as a model's constructor does: float32 products in full precision
+    gpu = DECODERS[decoder_type](30, cfg).to(resolve_device(card))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(length)
+    labels = torch.from_numpy(rng.integers(0, 30, (5, length)))
+    proj = _rand(rng, 5, length + 1, 64, scale=1.0)
+    outs = {}
+    for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, card)):
+        out = model.eval()(labels.to(dev))
+        (out * proj.to(dev)).sum().backward()
+        outs[name] = out.detach().cpu()
+    torch.testing.assert_close(outs["gpu"], outs["cpu"], rtol=0, atol=1e-4)
+    grads = dict(cpu.named_parameters())
+    for name, prm in gpu.named_parameters():
+        want = grads[name].grad
+        torch.testing.assert_close(prm.grad.cpu(), want, rtol=0, atol=_grad_tol(want), msg=name)
+
+
+@pytest.mark.gpu
+def test_multi_blank_loss_on_the_card_matches_the_cpu(card):
+    """The multi-blank loss with big blanks of 2, 4 and 8 frames at a
+    training-like lattice [4, 60, 13, 40]: the loss at 1e-5, the logits'
+    gradient at 1e-4 of the largest."""
+    from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss_multi_blank
+
+    rng = np.random.default_rng(5)
+    logits = _rand(rng, 4, 60, 13, 40, scale=1.0)
+    labels = torch.from_numpy(rng.integers(1, 37, (4, 12)))
+    tl, ul = torch.tensor([60, 55, 31, 9]), torch.tensor([12, 10, 12, 3])
+    out = {}
+    for name, dev in (("cpu", "cpu"), ("gpu", card)):
+        x = logits.detach().to(dev).requires_grad_(True)
+        loss = rnnt_loss_multi_blank(x, labels.to(dev), tl.to(dev), ul.to(dev), 0,
+                                     (39, 38, 37), (2, 4, 8), 0.05)
+        loss.backward()
+        out[name] = (float(loss.detach()), x.grad.cpu())
+    np.testing.assert_allclose(out["gpu"][0], out["cpu"][0], rtol=1e-5)
+    torch.testing.assert_close(out["gpu"][1], out["cpu"][1], rtol=0,
+                               atol=_grad_tol(out["cpu"][1]))
+
+
+@pytest.mark.gpu
+def test_transducer_searches_on_the_card_match_the_cpu(card):
+    """An LSTM transducer with two big blanks: every search of
+    Speech2Text's transducer_search on the card against the CPU from the
+    same encoder rows (tokens equal, scores at 1e-4)."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import TRANSDUCER_BEAMS
+    from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
+    from llm_guided_asr_tpu_torch.search.transducer_extra import transducer_multiblank_greedy
+
+    cfg = dataclasses.replace(_transducer_cfg(), decoder=_decoder_cfg("rnn"),
+                              multi_blank_durations=(2, 4))
+    cpu = TransducerModel(cfg, device="cpu").eval()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.3)
+    gpu = TransducerModel(cfg, device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    speech = _rand(np.random.default_rng(3), 1, 16000, scale=0.1)
+    with torch.no_grad():
+        enc, lens = gpu.encode(speech.to(card), torch.tensor([16000], device=card))
+    out = {}
+    with torch.inference_mode():
+        for name, model, dev in (("cpu", cpu, "cpu"), ("gpu", gpu, card)):
+            e, n = enc.to(dev), lens.to(dev)
+            out[name] = {s: fn(model, e, n, beam_size=3, nbest=3)
+                         for s, fn in TRANSDUCER_BEAMS.items()}
+            out[name]["mbg"] = transducer_multiblank_greedy(model, e, n, cfg.big_blank_ids,
+                                                            cfg.multi_blank_durations)
+    for search, hyps in out["gpu"].items():
+        want = out["cpu"][search]
+        assert [h.yseq for h in hyps] == [h.yseq for h in want], search
+        np.testing.assert_allclose([h.score for h in hyps], [h.score for h in want], rtol=1e-4,
+                                   err_msg=search)
+
+
+@pytest.mark.gpu
+def test_golden_transducer_on_the_card(card):
+    """golden_transducer's tsd, tsd3 and nsc 4-best lists on the card."""
+    from llm_guided_asr_tpu_torch.bin import golden_check
+
+    errs = golden_check.run_transducer(card)
+    assert max(errs.values()) <= golden_check.TRANSDUCER_SCORE_TOL
+
+
 # the flash attention kernels: head dims 64, 128 and 256, T not a multiple
 # of the 32-row tiles, rows with pads, a batch row of pads only
 FLASH_CASES = [
