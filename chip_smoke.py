@@ -214,9 +214,36 @@ prints how long it took):
               steps (finite, falling) and its prediction network on the
               card against the CPU at 301 positions, the rfft path (1e-4).
 
+19. serve-st -- phase 3's model as the LLM-guided ST model (source
+              vocabulary the LLM's, an extra ASR decoder at the guided
+              decoder's widths), served through Speech2Translation at the
+              JAX defaults (beam 5, ctc_weight 0, 48-token cap, the
+              full-prefix scorer) on the 10.0, 7.3 and 4.1 s requests at
+              B=1: one warm-up each, 3 timed runs (median, min, max, RTFx),
+              12 launches of each encoder forward a request, peak memory,
+              the 10 s request profiled (busy share), the 5-best sorted
+              and finite, the card's encoder against the CPU plain path
+              (1e-3);
+20. train-st -- that model trained at B=8 x 10 s by the fused step
+              (SpecAug, AdamW; asr_weight 0.3, mtlalpha 0.5, lsm_weight
+              0.1; the LLM frozen and bit-identical after): 1 warm-up and
+              5 timed steps, 12 launches of each encoder entry point a
+              step, audio s/s, peak memory, one profiled step, the loss
+              falling;
+21. recipe-io -- the first 24 utterances of phase 15's corpus as 16-bit flac
+              (read equal to their wavs bitwise), 4 of their feature
+              matrices as Kaldi ark FM (bitwise) and CM (within the
+              format's quantization bound) through the kaldi_ark data
+              type; st_train and st_inference through the CLIs over the
+              byte-level fixture tokenizer and its tiny LLM; asr_pipeline
+              stages 3-15 with --decode_nj 2 (two asr_inference processes)
+              writing the text of a --decode_nj 1 decode, and
+              Speech2Text.from_packed decoding as the experiment directory
+              does.
+
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
-asr-cli|serve-transducer-rnn|train-transducer-mb`` builds the kernels and runs that phase
-alone (no kernel table);
+asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io`` builds the
+kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
@@ -1229,12 +1256,13 @@ def phase_kernels(ra, dc, wk, fa, lk, card):
     return results
 
 
-def build_model():
-    from llm_guided_asr_tpu_torch.convert import init_weights
+def serve_parts() -> dict:
+    """Phase 3's model parts (bench.py:447-512): the Llama-3.2-1B dims, the
+    prompt template's ids, the Conformer 12x256 and the 6x256 guided
+    decoder."""
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
     from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
     from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
-    from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRConfig, LLMGuidedASRModel
     from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
     from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 
@@ -1246,7 +1274,7 @@ def build_model():
         rope_scaling_factor=32.0, rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,
         rope_original_max_position=8192,
     )
-    cfg = LLMGuidedASRConfig(
+    return dict(
         vocab_size=llm.vocab_size, llm=llm,
         prompt=PromptTemplate(prefix_ids=tuple(range(2, 50)), suffix_ids=tuple(range(50, 66)),
                               start_of_response_id=70, end_of_response_id=70, pad_id=0),
@@ -1255,8 +1283,14 @@ def build_model():
                                 num_blocks=12, macaron_style=True, use_cnn_module=True,
                                 cnn_module_kernel=31),
         decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
-        ctc_weight=0.3,
     )
+
+
+def build_model():
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRConfig, LLMGuidedASRModel
+
+    cfg = LLMGuidedASRConfig(ctc_weight=0.3, **serve_parts())
     model = LLMGuidedASRModel(cfg, llm_dtype=torch.bfloat16, device="cuda")
     return init_weights(model, seed=0).eval()
 
@@ -1328,24 +1362,29 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
             raise AssertionError(f"{name}: {n} launches, expected {want}")
     print(f"[{tag}] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
-    # the card's encoder (CUDA kernels) against the plain path on the CPU
+    check_encoder_on_cpu(tag, model, waves[-1], seconds[-1])
+    return launches, waves, float(np.median(lat[seconds[0]]))
+
+
+def check_encoder_on_cpu(tag, model, wave, sec):
+    """The card's encoder (CUDA kernels) against the plain path on the CPU
+    (the model's frontend and utterance MVN, then a CPU copy of its
+    encoder): max_abs_err within 1e-3."""
     import copy
 
-    wave = waves[-1]
+    from llm_guided_asr_tpu_torch.ops.frontend import default_frontend, utterance_mvn
+
     speech, n = torch.from_numpy(wave[None]), torch.tensor([wave.shape[0]])
     with torch.inference_mode():
         enc_gpu, lens_gpu = model.encode(speech.cuda(), n.cuda())
         cpu_model = copy.deepcopy(model.encoder).cpu()
-        from llm_guided_asr_tpu_torch.ops.frontend import default_frontend, utterance_mvn
-
         feats, flens = default_frontend(speech, n)
         enc_cpu, lens_cpu = cpu_model(utterance_mvn(feats, flens), flens)
     err = (enc_gpu.cpu() - enc_cpu).abs().max().item()
-    print(f"[{tag}] encoder card vs CPU plain path, {seconds[-1]} s: max_abs_err "
+    print(f"[{tag}] encoder card vs CPU plain path, {sec} s: max_abs_err "
           f"{err:.3e} (tol 1e-3)")
     if not (err <= 1e-3 and torch.equal(lens_gpu.cpu(), lens_cpu)):
         raise AssertionError(f"encoder disagrees with the CPU plain path: {err}")
-    return launches, waves, float(np.median(lat[seconds[0]]))
 
 
 def request_waves(seconds=REQUEST_SECONDS) -> list:
@@ -1712,16 +1751,18 @@ RUN_TIME_KEYS = ("time", "iter_time", "grad_time", "optim_step_time", "train_ste
 RUN_RESUME_RTOL = 2e-5
 
 
-def write_run_corpus(root: Path, seed: int = 0) -> dict:
+def write_run_corpus(root: Path, seed: int = 0, n_utts: int = RUN_UTTS,
+                     n_train: int = RUN_TRAIN) -> dict:
     """RUN_UTTS int16 wav files of seeded noise, 6-10 s, and a text_int file
     of 2.4 tokens a second drawn from 1..4998; the first RUN_TRAIN
-    utterances train, the rest validate.  Returns each split's (wav.scp,
-    text) paths and audio seconds."""
+    utterances train, the rest validate (``n_utts``/``n_train`` take the
+    first of them only).  Returns each split's (wav.scp, text) paths and
+    audio seconds."""
     from llm_guided_asr_tpu_torch.data.fileio import write_wav
 
     rng = np.random.default_rng(seed)
     splits = {}
-    for split, ids in (("train", range(RUN_TRAIN)), ("valid", range(RUN_TRAIN, RUN_UTTS))):
+    for split, ids in (("train", range(n_train)), ("valid", range(n_train, n_utts))):
         wav, text, seconds = [], [], 0.0
         for i in ids:
             n = int(rng.integers(6 * SR, 10 * SR + 1))
@@ -3126,11 +3167,379 @@ def phase_asr_cli(kernels, card):
     return total
 
 
+# phases 19-21: LLM-guided speech translation and the recipe inputs
+ST_B, ST_WARMUP, ST_STEPS = 8, 1, 5
+ST_SRC_LEN, ST_TGT_LEN = 24, 16  # source and translation tokens of a 10 s utterance
+RECIPE_UTTS, RECIPE_TRAIN = 24, 16  # the first of phase 15's utterances, flac
+RECIPE_LLM = Path(__file__).resolve().parent / "tests" / "parity" / "tiny_llm_bytelevel"
+RECIPE_WORDS = ("hello", "world", "speech", "model", "guided", "large", "language", "the",
+                "numbers", "translate", "café", "zwölf")
+
+
+def build_st():
+    """Phase 3's model as LLMGuidedSTModel: the same Conformer, guided
+    decoder and Llama-3.2-1B dims (bf16), its source vocabulary the LLM's
+    (tasks/st.py:96), an extra ASR decoder at the guided decoder's widths,
+    SpecAug for phase 20; asr_weight 0.3, mtlalpha 0.5, lsm_weight 0.1;
+    weights from seed 0."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.llm_guided_st import LLMGuidedSTConfig, LLMGuidedSTModel
+    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
+
+    parts = serve_parts()
+    cfg = LLMGuidedSTConfig(src_vocab_size=parts["vocab_size"], specaug=SpecAugConfig(),
+                            extra_asr_decoder=parts["decoder"], asr_weight=0.3, mtlalpha=0.5,
+                            lsm_weight=0.1, **parts)
+    model = LLMGuidedSTModel(cfg, llm_dtype=torch.bfloat16, device="cuda")
+    return init_weights(model, seed=0).eval()
+
+
+def phase_serve_st(model, kernels, card):
+    """Phase 19: the ST model serving the 10.0, 7.3 and 4.1 s requests at
+    B=1 through Speech2Translation at its JAX defaults (beam 5, ctc_weight
+    0, the 48-token cap, the full-prefix scorer): one warm-up each, then
+    ROUNDS timed runs; 12 launches of each encoder forward a request; the
+    5-best sorted and finite; the 10 s request profiled; the encoder on the
+    card against the CPU plain path (1e-3)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_guided_asr_tpu_torch.bin.st_inference import Speech2Translation
+
+    s2tr = Speech2Translation.from_model(model, nbest=5)
+    waves = request_waves()
+    for sec, wave in zip(REQUEST_SECONDS, waves):
+        t0 = time.perf_counter()
+        s2tr(wave)
+        torch.cuda.synchronize()
+        print(f"[serve-st] warm-up request, {sec:.1f} s audio: "
+              f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kernels)
+    lat = {sec: [] for sec in REQUEST_SECONDS}
+    results = []
+    for _ in range(ROUNDS):
+        for sec, wave in zip(REQUEST_SECONDS, waves):
+            t0 = time.perf_counter()
+            nbest = s2tr(wave)
+            torch.cuda.synchronize()
+            lat[sec].append(time.perf_counter() - t0)
+            results.append(nbest)
+    launches = counts(kernels)
+    peak = torch.cuda.max_memory_allocated()
+    for sec in REQUEST_SECONDS:
+        ms = sorted(x * 1e3 for x in lat[sec])
+        med = float(np.median(ms))
+        print(f"[serve-st] {sec:.1f} s audio, {len(ms)} runs: latency median {med:.1f} ms "
+              f"(min {ms[0]:.1f}, max {ms[-1]:.1f}), RTFx at the median "
+              f"{sec / med * 1e3:.2f} [{card}]")
+    for sec, nbest in zip(REQUEST_SECONDS, results):
+        scores = [h.score for _, h in nbest]
+        print(f"[serve-st] {sec:.1f} s audio: {len(nbest)}-best of "
+              f"{[len(ids) for ids, _ in nbest]} tokens, scores {[round(x, 4) for x in scores]}")
+    for nbest in results:
+        scores = [h.score for _, h in nbest]
+        if not (len(nbest) == 5 and all(math.isfinite(x) for x in scores)
+                and scores == sorted(scores, reverse=True)):
+            raise AssertionError(f"serve-st: n-best not 5 finite sorted scores: {scores}")
+        if not all(0 <= i < model.cfg.vocab_size for ids, _ in nbest for i in ids):
+            raise AssertionError("serve-st: a hypothesis id outside the vocabulary")
+    for i, nbest in enumerate(results):
+        if [ids for ids, _ in nbest] != [ids for ids, _ in results[i % len(REQUEST_SECONDS)]]:
+            raise AssertionError("serve-st: the same request gave different hypotheses")
+    n_req = len(results)
+    n_blocks = model.cfg.encoder.num_blocks
+    print(f"[serve-st] kernel launches over {n_req} requests: {launches}; a request: "
+          + ", ".join(f"{k} {v / n_req:g}" for k, v in launches.items()))
+    for name, n in launches.items():
+        want = n_blocks * n_req if name in ENCODER_FWD else 0
+        if n != want:
+            raise AssertionError(f"serve-st: {name}: {n} launches, expected {want}")
+    print(f"[serve-st] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
+    wall_10s = float(np.median(lat[REQUEST_SECONDS[0]]))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s2tr(waves[0])
+        torch.cuda.synchronize()
+    dev_ms, events = device_busy(prof)
+    print(f"[serve-st] {REQUEST_SECONDS[0]} s request traced (card only): device busy "
+          f"{dev_ms:.1f} ms = {100 * dev_ms / 1e3 / wall_10s:.1f}% of the unprofiled median "
+          f"latency [{card}]")
+    print_top("serve-st", events)
+    check_encoder_on_cpu("serve-st", model, waves[-1], REQUEST_SECONDS[-1])
+    return launches
+
+
+def phase_train_st(model, kernels, card):
+    """Phase 20: the ST model trained by make_fused_train_step at B=8 x
+    10 s (translation [8, 16], source [8, 24] in LLM ids), SpecAug, AdamW
+    (lr 1e-3) as phase 6; encoder, CTC head, guided decoder and extra ASR
+    decoder trainable, the LLM frozen and bit-identical after; 12 launches
+    of each encoder entry point a step; the loss falling."""
+    from llm_guided_asr_tpu_torch.tasks.st import ST_BATCH_ARGS
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer, path_prefix_mask
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    frozen = path_prefix_mask(model, ["llm"])
+    snapshot = {n: p.detach().clone() for n, p in model.named_parameters() if n in frozen}
+    state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}, freeze_mask=frozen))
+    print(f"[train-st] {len(frozen)} frozen LLM tensors, "
+          f"{sum(p.numel() for p in state.params)} trainable parameters")
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(2), ST_BATCH_ARGS)
+    samples = int(TRAIN_SECONDS * SR)
+    rng = np.random.default_rng(2)
+    top = min(5000, model.cfg.vocab_size)
+    batch = {
+        "speech": torch.from_numpy((rng.standard_normal((ST_B, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((ST_B,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(100, top, (ST_B, ST_TGT_LEN))).cuda(),
+        "text_lengths": torch.full((ST_B,), ST_TGT_LEN, device="cuda"),
+        "src_text": torch.from_numpy(rng.integers(100, top, (ST_B, ST_SRC_LEN))).cuda(),
+        "src_text_lengths": torch.full((ST_B,), ST_SRC_LEN, device="cuda"),
+    }
+    all_stats, med, launches = run_steps("train-st", step, batch, ST_WARMUP, ST_STEPS, kernels,
+                                         card)
+    losses = [s["loss"] for s in all_stats]
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train-st: loss did not fall: {losses}")
+    if not all(k in all_stats[-1] for k in ("loss_st_att", "loss_asr_ctc", "loss_asr_att")):
+        raise AssertionError(f"train-st: stats {sorted(all_stats[-1])}")
+    n_blocks = model.cfg.encoder.num_blocks
+    for name, n in launches.items():
+        want = n_blocks * ST_STEPS if name in ENCODER_FWD + ENCODER_BWD else 0
+        if n != want:
+            raise AssertionError(f"train-st: {name} launched {n} times in {ST_STEPS} steps, "
+                                 f"expected {want}")
+    print(f"[train-st] audio seconds per second at the median: "
+          f"{ST_B * TRAIN_SECONDS / (med / 1e3):.1f} [{card}]")
+    profile_step("train-st", step, batch, med)
+    moved = [n for n, p in model.named_parameters() if n in frozen
+             and not torch.equal(p, snapshot[n])]
+    if moved:
+        raise AssertionError(f"train-st: frozen LLM weights moved: {moved[:5]}")
+    print(f"[train-st] the LLM bit-identical after {ST_WARMUP + ST_STEPS + 1} steps")
+    model.eval()
+    return launches, med
+
+
+def _int16_flac(src: Path, dst: Path, subframe: str) -> np.ndarray:
+    """The int16 samples of a wav file written as 16-bit flac (exact: the
+    writer rounds x * 32767 of the ints over 32767); returns the samples
+    as read_wav gives them."""
+    from scipy.io import wavfile
+
+    from llm_guided_asr_tpu_torch.data.fileio import read_wav
+    from llm_guided_asr_tpu_torch.data.flac import write_flac
+
+    rate, ints = wavfile.read(str(src))
+    write_flac(dst, rate, ints.astype(np.float64) / 32767.0, subframe=subframe)
+    return read_wav(src)[1]
+
+
+def cm_bound(x: np.ndarray) -> float:
+    """The CM format's error bound for ``x``: each column's largest
+    quantization step over two (its 0/25/75/100 % quantiles split into 64,
+    128 and 63 steps), plus the 16-bit header quantiles' rounding."""
+    cols = np.sort(x, axis=0)
+    r = cols.shape[0]
+    q = np.stack([cols[0], cols[r // 4], cols[(3 * r) // 4], cols[-1]])
+    step = np.maximum.reduce([(q[1] - q[0]) / 64, (q[2] - q[1]) / 128, (q[3] - q[2]) / 63])
+    return float(step.max() / 2 + 4 * (x.max() - x.min()) / 65535)
+
+
+def phase_recipe_io(kernels, card):
+    """Phase 21: the recipe inputs on the card.  A: the first RECIPE_UTTS
+    utterances of phase 15's corpus as 16-bit flac (verbatim subframes,
+    every sixth with the order-2 fixed predictor and rice residuals), each
+    read equal to its wav bitwise;
+    their log-mel features as a Kaldi ark of FM and one of CM matrices,
+    read through the kaldi_ark data type (FM bitwise, CM within its
+    quantization bound).  B: st_train (1 epoch, the byte-level fixture's
+    tokenizer and tiny LLM, a 2x256 Conformer) and st_inference over the
+    flac wav.scp.  C: asr_pipeline stages 3-15 over the flac data dirs
+    with --decode_nj 2 (two asr_inference processes), the text equal to a
+    --decode_nj 1 decode; Speech2Text.from_packed equal to
+    Speech2Text(config.yaml, checkpoint)."""
+    import tempfile
+
+    from llm_guided_asr_tpu_torch.bin import asr_pipeline, st_inference, st_train
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.data.dataset import ESPnetDataset
+    from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_audio
+    from llm_guided_asr_tpu_torch.data.kaldi_ark import KaldiArkWriter, write_compressed_matrix
+    from llm_guided_asr_tpu_torch.ops.frontend import default_frontend
+    from llm_guided_asr_tpu_torch.train.checkpoint import load
+    from llm_guided_asr_tpu_torch.utils.config import dump_yaml
+
+    total = {}
+
+    def timed(tag, fn, *args):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = counts(kernels)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        print(f"[recipe-io] {tag}: {sec:.1f} s, launches {launches} [{card}]")
+        return out, sec, launches
+
+    with tempfile.TemporaryDirectory(prefix="recipe-io-") as tmp:
+        root = Path(tmp)
+        # ---- A: flac and Kaldi ark ----
+        splits = write_run_corpus(root, n_utts=RECIPE_UTTS, n_train=RECIPE_TRAIN)
+        rng = np.random.default_rng(21)
+        data = {}
+        t0 = time.perf_counter()
+        n_samples = 0
+        for split, (scp, _, _) in splits.items():
+            d = root / "data" / split
+            d.mkdir(parents=True)
+            lines, texts, src = [], [], []
+            for i, (uid, path) in enumerate(read_2columns_text(scp).items()):
+                flac = d / f"{uid}.flac"
+                want = _int16_flac(Path(path), flac, "fixed" if i % 6 == 0 else "verbatim")
+                got = read_audio(str(flac))[1]
+                n_samples += want.shape[0]
+                if got.dtype != want.dtype or not np.array_equal(got, want):
+                    raise AssertionError(f"recipe-io: {flac.name} differs from its wav")
+                words = [RECIPE_WORDS[j] for j in rng.integers(0, len(RECIPE_WORDS), 4)]
+                lines.append(f"{uid} {flac}")
+                src.append(f"{uid} {' '.join(words)}")
+                texts.append(f"{uid} {' '.join(reversed(words))}")
+            for name, rows in (("wav.scp", lines), ("text", src), ("text.tgt", texts)):
+                (d / name).write_text("\n".join(rows) + "\n")
+            data[split] = d
+        print(f"[recipe-io] {RECIPE_UTTS} utterances as 16-bit flac ({n_samples / SR:.1f} s of "
+              f"audio), each read equal to its wav bitwise; write and read "
+              f"{time.perf_counter() - t0:.1f} s [{card}]")
+        feats = {}
+        for uid, path in list(read_2columns_text(data["valid"] / "wav.scp").items())[:4]:
+            wave = torch.from_numpy(read_audio(path)[1][None])
+            f, n = default_frontend(wave, torch.tensor([wave.shape[1]]))
+            feats[uid] = f[0, : int(n[0])].numpy()
+            np.save(root / f"{uid}.npy", feats[uid])
+        with KaldiArkWriter(root / "fm.ark", root / "fm.scp") as w:
+            for uid, x in feats.items():
+                w[uid] = np.load(root / f"{uid}.npy")
+        with open(root / "cm.ark", "wb") as f:
+            offsets = {uid: write_compressed_matrix(f, np.load(root / f"{uid}.npy"), uid)
+                       for uid in feats}
+        (root / "cm.scp").write_text("".join(f"{u} {root / 'cm.ark'}:{o}\n"
+                                             for u, o in offsets.items()))
+        for kind in ("fm", "cm"):
+            ds = ESPnetDataset([(str(root / f"{kind}.scp"), "feats", "kaldi_ark")])
+            for uid, x in feats.items():
+                got = ds[uid]["feats"]
+                if ds.peek_length(uid) != x.shape[0] or got.shape != x.shape:
+                    raise AssertionError(f"recipe-io: {kind} {uid} shape {got.shape}")
+                err, bound = float(np.abs(got - x).max()), cm_bound(x)
+                if (kind == "fm" and not np.array_equal(got, x)) or err > bound:
+                    raise AssertionError(f"recipe-io: {kind} {uid} error {err} > {bound}")
+            print(f"[recipe-io] Kaldi ark {kind.upper()}: {len(feats)} feature matrices "
+                  f"[T, 80] read through the kaldi_ark data type "
+                  + ("bitwise equal to the npy" if kind == "fm" else
+                     f"within the CM bound (largest error {err:.3e}, bound {bound:.3e})"))
+
+        # ---- B: ST through the CLIs ----
+        st_cfg = {
+            "llm_conf": {"model_name_or_path": str(RECIPE_LLM), "template_prompt":
+                         "fix ((HYP)) -> \"", "dtype": "float32"},
+            "bpemodel": str(RECIPE_LLM), "normalize": "utterance_mvn", "specaug": "specaug",
+            "encoder_conf": {"output_size": 256, "attention_heads": 4, "linear_units": 1024,
+                             "num_blocks": 2, "cnn_module_kernel": 31},
+            "decoder_conf": {"attention_heads": 4, "linear_units": 1024, "num_blocks": 2},
+            "extra_asr_decoder_conf": {"attention_heads": 4, "linear_units": 1024,
+                                       "num_blocks": 1},
+            "model_conf": {"asr_weight": 0.3, "mtlalpha": 0.5, "lsm_weight": 0.1},
+            "optim": "adamw", "optim_conf": {"lr": 1.0e-3}, "scheduler": None,
+            "batch_type": "sorted", "batch_size": 8, "max_epoch": 1, "keep_nbest_models": 1,
+            "device": None,
+            "train_data_path_and_name_and_type": [
+                [str(data["train"] / "wav.scp"), "speech", "sound"],
+                [str(data["train"] / "text.tgt"), "text", "text"],
+                [str(data["train"] / "text"), "src_text", "text"]],
+            "valid_data_path_and_name_and_type": [
+                [str(data["valid"] / "wav.scp"), "speech", "sound"],
+                [str(data["valid"] / "text.tgt"), "text", "text"],
+                [str(data["valid"] / "text"), "src_text", "text"]],
+        }
+        dump_yaml(st_cfg, root / "st.yaml")
+        exp = root / "exp_st"
+        _, sec, launches = timed("st_train", st_train.main,
+                                 ["--config", str(root / "st.yaml"), "--output_dir", str(exp)])
+        n_steps = RECIPE_TRAIN // 8
+        for name in ENCODER_FWD + ENCODER_BWD:
+            if launches[name] < 2 * n_steps:
+                raise AssertionError(f"recipe-io st_train: {name} {launches[name]}")
+        ckpt = next(exp.glob("valid.*.ave_*best.pth"), None) or exp / "latest.pth"
+        saved = load(ckpt)
+        if any(k.startswith("llm.") for k in saved) or not any(
+                k.startswith("extra_asr_decoder.") for k in saved):
+            raise AssertionError(f"recipe-io: {ckpt.name} holds the LLM or lacks the ASR decoder")
+        _, sec, launches = timed("st_inference", st_inference.main, [
+            "--train_config", str(exp / "config.yaml"), "--model_file", str(ckpt),
+            "--wav_scp", str(data["valid"] / "wav.scp"), "--output_dir", str(root / "st_dec")])
+        out = read_2columns_text(root / "st_dec" / "1best_recog" / "score")
+        n_valid = RECIPE_UTTS - RECIPE_TRAIN
+        if len(out) != n_valid or not all(math.isfinite(float(v)) for v in out.values()):
+            raise AssertionError(f"recipe-io st_inference: {out}")
+        if launches["rel_attention_fwd"] != 2 * n_valid:
+            raise AssertionError(f"recipe-io st_inference: {launches}")
+        print(f"[recipe-io] st_inference: {n_valid} utterances translated (beam 5, 48-token "
+              f"cap), e.g. {read_2columns_text(root / 'st_dec' / '1best_recog' / 'text')}"[:300])
+
+        # ---- C: the pipeline with array jobs, pack and from_packed ----
+        asr_cfg = {"encoder_conf": st_cfg["encoder_conf"], "normalize": "global_mvn",
+                   "decoder_conf": {"attention_heads": 4, "linear_units": 1024, "num_blocks": 1},
+                   "optim": "adamw", "optim_conf": {"lr": 1.0e-3}, "scheduler": None,
+                   "batch_type": "sorted", "batch_size": 8, "max_epoch": 1,
+                   "keep_nbest_models": 1}
+        dump_yaml(asr_cfg, root / "asr.yaml")
+        pexp = root / "exp_asr"
+        common = ["--config", str(root / "asr.yaml"), "--train_dir", str(data["train"]),
+                  "--valid_dir", str(data["valid"]), "--expdir", str(pexp), "--device", "cuda",
+                  "--beam_size", "4", "--min_samples", "0", "--max_samples", "1000000"]
+        result, sec, _ = timed("asr_pipeline stages 3-15, --decode_nj 2", asr_pipeline.main,
+                               common + ["--stage", "3", "--stop_stage", "15", "--decode_nj", "2"])
+        dec = pexp / "decode" / "valid"
+        two = (dec / "1best_recog" / "text").read_text()
+        logs = sorted(p.name for p in (dec / "log").iterdir())
+        if logs != ["decode.1.log", "decode.2.log"] or len(two.splitlines()) != n_valid:
+            raise AssertionError(f"recipe-io: decode jobs {logs}, {len(two.splitlines())} lines")
+        dec.rename(pexp / "decode" / "valid_nj2")
+        _, sec1, _ = timed("asr_pipeline stage 12, --decode_nj 1", asr_pipeline.main,
+                           common + ["--stage", "12", "--stop_stage", "12", "--decode_nj", "1"])
+        if (dec / "1best_recog" / "text").read_text() != two:
+            raise AssertionError("recipe-io: --decode_nj 2 text differs from --decode_nj 1")
+        print(f"[recipe-io] --decode_nj 2 wrote the text of --decode_nj 1 ({n_valid} "
+              f"utterances); stage 13: {json.dumps(result)}")
+        for name in ("asr_model.zip", "README.md"):
+            if not (pexp / "pack" / name).is_file():
+                raise AssertionError(f"recipe-io: stage 14-15 wrote no {name}")
+        model_file = next((pexp / "train").glob("valid.*.ave_*best.pth"), None) or \
+            pexp / "train" / "latest.pth"
+        packed = Speech2Text.from_packed(pexp / "pack" / "asr_model.zip",
+                                         workdir=str(root / "unpacked"), beam_size=4)
+        direct = Speech2Text(pexp / "train" / "config.yaml", model_file, beam_size=4)
+        for uid, path in list(read_2columns_text(data["valid"] / "wav.scp").items())[:3]:
+            wave = read_audio(path)[1]
+            (a_text, a_tok, _, a_hyp), = packed(wave)
+            (b_text, b_tok, _, b_hyp), = direct(wave)
+            if (a_text, a_tok) != (b_text, b_tok) or not abs(a_hyp.score - b_hyp.score) <= \
+                    1e-4 * max(1.0, abs(b_hyp.score)):
+                raise AssertionError(f"recipe-io: from_packed {uid} differs")
+        print(f"[recipe-io] Speech2Text.from_packed decodes 3 utterances as "
+              f"Speech2Text(config.yaml, {model_file.name}) does [{card}]")
+    return total
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
-    serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn or
-    train-transducer-mb),
+    serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn,
+    train-transducer-mb, serve-st, train-st or recipe-io),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -3154,7 +3563,10 @@ def run_one_phase(name: str, card: str) -> int:
               "serve-batch": lambda: phase_serve_batch(build_model(), kernels, card),
               "serve-lm": lambda: phase_serve_lm(kernels, card),
               "serve-stream": lambda: phase_serve_stream(kernels, card),
-              "asr-cli": lambda: phase_asr_cli(kernels, card)}
+              "asr-cli": lambda: phase_asr_cli(kernels, card),
+              "serve-st": lambda: phase_serve_st(build_st(), kernels, card),
+              "train-st": lambda: phase_train_st(build_st(), kernels, card),
+              "recipe-io": lambda: phase_recipe_io(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
@@ -3171,7 +3583,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Smoke run of the PyTorch/CUDA port on one card.")
     ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
                                     "golden, serve, serve-batch, serve-lm, serve-stream, "
-                                    "asr-cli, serve-transducer-rnn or train-transducer-mb")
+                                    "asr-cli, serve-transducer-rnn, train-transducer-mb, "
+                                    "serve-st, train-st or recipe-io")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -3248,6 +3661,13 @@ def main() -> int:
     paths["serve-stream"] = timed("serve-stream", phase_serve_stream, kernels, card)
     torch.cuda.empty_cache()
     paths["asr-cli"] = timed("asr-cli", phase_asr_cli, kernels, card)
+    torch.cuda.empty_cache()
+    st = build_st()
+    paths["serve-st"] = timed("serve-st", phase_serve_st, st, kernels, card)
+    paths["train-st"], _ = timed("train-st", phase_train_st, st, kernels, card)
+    del st
+    torch.cuda.empty_cache()
+    paths["recipe-io"] = timed("recipe-io", phase_recipe_io, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 

@@ -10,7 +10,8 @@ from an experiment directory of either package (tasks/asr.py
 (text, tokens, token_ids, Hypothesis) a result.  ``Speech2Text.from_model``
 takes a model whose weights are already loaded (ctc_weight 0.3 unless
 given); its results are (token_ids, Hypothesis) pairs, or the 4-tuples
-when a tokenizer is given.
+when a tokenizer is given.  ``Speech2Text.from_packed(archive)`` reads a
+bin/pack.py archive.
 
 A call pads the waveform to a multiple of ``speech_pad_multiple`` samples,
 encodes it and searches:
@@ -81,6 +82,33 @@ TRANSDUCER_SEARCHES = tuple(TRANSDUCER_BEAMS) + ("mbg",)
 
 def round_up(n: int, multiple: int) -> int:
     return -(-n // multiple) * multiple
+
+
+def encode_request(model: nn.Module, speech: np.ndarray, pad_multiple: int,
+                   device: torch.device):
+    """One waveform padded with zeros to a multiple of ``pad_multiple``
+    samples, then ``model.encode`` -> (enc [1, T', D], lengths [1])."""
+    speech = np.asarray(speech, np.float32)
+    n = speech.shape[0]
+    padded = np.zeros((round_up(max(n, 1), pad_multiple),), np.float32)
+    padded[:n] = speech
+    return model.encode(torch.from_numpy(padded[None]).to(device), torch.tensor([n], device=device))
+
+
+def format_results(hyps: List[Hypothesis], nbest: int, special: Sequence[int],
+                   tokenizer=None, converter=None) -> list:
+    """The first ``nbest`` hypotheses without the ``special`` ids (sos,
+    eos): (token_ids, Hypothesis) each, or (text, tokens, token_ids,
+    Hypothesis) with a tokenizer."""
+    out = []
+    for h in hyps[:nbest]:
+        ids = [i for i in h.yseq if i not in special]
+        if tokenizer is None:
+            out.append((ids, h))
+        else:
+            tokens = converter.ids2tokens(ids)
+            out.append((tokenizer.tokens2text(tokens), tokens, ids, h))
+    return out
 
 
 class Speech2Text:
@@ -190,6 +218,19 @@ class Speech2Text:
         return cls(model=model, ctc_weight=ctc_weight, beam_size=beam_size,
                    tokenizer=tokenizer, **kwargs)
 
+    @classmethod
+    def from_packed(cls, archive: Union[str, Path], workdir: Optional[str] = None,
+                    **kwargs) -> "Speech2Text":
+        """From a bin/pack.py archive (the from_pretrained analog): unpacked
+        into ``workdir`` (a new temporary directory by default)."""
+        import tempfile
+
+        from llm_guided_asr_tpu_torch.bin.pack import unpack
+
+        workdir = workdir or tempfile.mkdtemp(prefix="s2t_packed_")
+        files = unpack(archive, workdir)
+        return cls(files["asr_train_config"], files.get("asr_model_file"), **kwargs)
+
     def _transducer_search(self, enc, enc_lens) -> List[Hypothesis]:
         cfg = self.model.cfg
         if self.transducer_search == "mbg":
@@ -222,29 +263,14 @@ class Speech2Text:
                 torch.tensor([min(len(ids), w)], device=self.device))
 
     def _results(self, hyps: List[Hypothesis]) -> list:
-        special = (self.model.cfg.sos_id, self.model.cfg.eos_id)
-        out = []
-        for h in hyps[: self.nbest]:
-            ids = [i for i in h.yseq if i not in special]
-            if self.tokenizer is None:
-                out.append((ids, h))
-            else:
-                tokens = self.converter.ids2tokens(ids)
-                out.append((self.tokenizer.tokens2text(tokens), tokens, ids, h))
-        return out
+        return format_results(hyps, self.nbest, (self.model.cfg.sos_id, self.model.cfg.eos_id),
+                              self.tokenizer, self.converter)
 
     @torch.inference_mode()
     def __call__(self, speech: np.ndarray, biasing_words: Optional[Sequence[str]] = None) -> list:
         """Decode one utterance (asr_inference.py Speech2Text.__call__:491)."""
         bias_ctx = self.make_bias_ctx(biasing_words)
-        speech = np.asarray(speech, np.float32)
-        n = speech.shape[0]
-        padded = np.zeros((round_up(max(n, 1), self.speech_pad_multiple),), np.float32)
-        padded[:n] = speech
-        enc, enc_lens = self.model.encode(
-            torch.from_numpy(padded[None]).to(self.device),
-            torch.tensor([n], device=self.device),
-        )
+        enc, enc_lens = encode_request(self.model, speech, self.speech_pad_multiple, self.device)
         if self.is_transducer:
             hyps = self._transducer_search(enc, enc_lens)
         elif self.beam is not None:

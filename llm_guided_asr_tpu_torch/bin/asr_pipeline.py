@@ -14,29 +14,37 @@ process, keeping the reference's stage numbering:
   stage 9   n-gram ARPA (asr.sh:1179; --use_ngram true)
   stage 10  collect stats (asr.sh:1189)
   stage 11  ASR training (asr.sh:1308)
-  stage 12  decoding (asr.sh:1480; shallow-fuses the stage-7 LM when trained)
+  stage 12  decoding (asr.sh:1480; shallow-fuses the stage-7 LM when trained);
+            with --decode_nj N the valid/test wav.scp is split into N shards
+            (bin/split_scps.py) decoded as an array job of asr_inference
+            processes through utils/job.py (--cmd_backend local|stdout|
+            slurm|sge|ssh, --cmd_conf <queue.conf>) and merged
   stage 13  scoring + per-utterance alignment report (asr.sh:1621)
+  stage 14  pack the model bundle (asr.sh:1727, bin/pack.py)
+  stage 15  the model-zoo export artifact (asr.sh:1760): the bundle and a
+            model card; nothing is uploaded
 
 Not ported yet, and raising when asked for: stage 2 (speed perturbation
-needs ops/augment.py, ROADMAP Queue 1 item 12), stages 14-15 (``pack``,
-ROADMAP Queue 1 item 4), ``--decode_nj`` above 1 and a ``--cmd_backend``
-other than local (utils/job.py, ROADMAP Queue 1 item 4).
+needs ops/augment.py, ROADMAP Queue 1 item 12).
 
     python -m llm_guided_asr_tpu_torch.bin.asr_pipeline --config conf/train.yaml \
         --train_dir data/train --valid_dir data/valid --test_dir data/test \
-        --expdir exp/run1 --stage 3 --stop_stage 13 [--device cpu]
+        --expdir exp/run1 --stage 3 --stop_stage 15 [--decode_nj 4] [--device cpu]
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import os
 import sys
 from pathlib import Path
 from typing import Dict, Optional
 
+from llm_guided_asr_tpu_torch.bin.split_scps import split_scps
 from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_audio
 from llm_guided_asr_tpu_torch.text.tokenizers import CharTokenizer
+from llm_guided_asr_tpu_torch.utils.job import JobOptions, JobRunner
 
 logger = logging.getLogger(__name__)
 
@@ -150,17 +158,68 @@ def _model_file(exp: Path) -> Path:
     return next(exp.glob("valid.*.ave_*best.pth"), None) or exp / "latest.pth"
 
 
-def _check_unported(cfg, stage: int, stop: int):
+def _check_options(cfg):
+    """Options that cannot run raise before any stage writes a file."""
     if cfg.get("speed_perturb"):
         raise NotImplementedError("--speed_perturb (stage 2) needs ops/augment.py, which is "
                                   "not ported yet (ROADMAP Queue 1 item 12)")
-    if stop >= 14:
-        raise NotImplementedError("stages 14-15 (pack and the model-zoo export) are not "
-                                  "ported yet (ROADMAP Queue 1 item 4)")
-    if int(cfg.get("decode_nj", 1)) > 1 or str(cfg.get("cmd_backend", "local")) != "local":
-        raise NotImplementedError("--decode_nj > 1 and --cmd_backend other than local need "
-                                  "utils/job.py, which is not ported yet (ROADMAP Queue 1 "
-                                  "item 4)")
+    if int(cfg.get("decode_nj", 1)) < 1:
+        raise ValueError(f"--decode_nj must be >= 1, not {cfg['decode_nj']}")
+    JobRunner(str(cfg.get("cmd_backend", "local")), conf=cfg.get("cmd_conf"))
+
+
+def decode_jobs(cfg, nj: int, wav_scp: Path, dec_dir: Path, train_config: Path,
+                model_file: Path, fusion: Dict):
+    """Stage 12 as an array job (asr.sh:1480): ``wav_scp`` split into
+    ``nj`` shards, each decoded by an asr_inference process (JOB is its
+    index) through the ``--cmd_backend`` runner, their 1best_recog text,
+    token and score merged in key order.  On the card a local runner takes
+    one job at a time (each process builds its model on the device)."""
+    shard_dir = dec_dir / "split"
+    split_scps([str(wav_scp)], nj, str(shard_dir))
+    args = [sys.executable, "-m", "llm_guided_asr_tpu_torch.bin.asr_inference",
+            "--output_dir", str(dec_dir / "jobJOB"),
+            "--data_path_and_name_and_type", f"{shard_dir}/wav.scp.JOB,speech,sound",
+            "--asr_train_config", str(train_config), "--asr_model_file", str(model_file),
+            "--beam_size", str(cfg["beam_size"]), "--ctc_weight", str(cfg["ctc_weight"]),
+            "--nbest", str(cfg["nbest"])]
+    if cfg.get("device"):
+        args += ["--device", str(cfg["device"])]
+    for k, v in fusion.items():
+        args += [f"--{k}", str(v)]
+    runner = JobRunner(str(cfg.get("cmd_backend", "local")), conf=cfg.get("cmd_conf"))
+    seq = str(cfg.get("device")) != "cpu" and runner.backend in ("local", "stdout")
+    package_root = str(Path(__file__).resolve().parents[2])
+    env = {"PYTHONPATH": os.pathsep.join(p for p in (package_root, os.environ.get("PYTHONPATH"))
+                                         if p)}
+    rc = runner.run(args, str(dec_dir / "log" / "decode.JOB.log"), array=(1, nj),
+                    options=JobOptions(max_jobs_run=1 if seq else None, extra_env=env))
+    if rc:
+        raise RuntimeError(f"decode jobs failed rc={rc} (logs: {dec_dir}/log)")
+    merged = dec_dir / "1best_recog"
+    merged.mkdir(parents=True, exist_ok=True)
+    for name in ("text", "token", "score"):
+        lines = []
+        for j in range(1, nj + 1):
+            f = dec_dir / f"job{j}" / "1best_recog" / name
+            if f.exists():
+                lines += f.read_text().splitlines()
+        (merged / name).write_text("\n".join(sorted(lines)) + ("\n" if lines else ""))
+
+
+def write_model_card(expdir: Path, test_split: str, stage: int, stop: int) -> Path:
+    """Stage 15's model card beside the stage-14 bundle (the upload
+    artifact of asr.sh:1760; there is no network to upload it)."""
+    card = expdir / "pack" / "README.md"
+    card.parent.mkdir(parents=True, exist_ok=True)
+    lines = ["---", "tags: [automatic-speech-recognition, llm-guided-asr-tpu-torch]", "---", "",
+             f"# {expdir.name}", "",
+             f"Trained with llm_guided_asr_tpu_torch (asr_pipeline stages {stage}-{stop}).", ""]
+    res = expdir / "score" / test_split / "result.txt"
+    if res.exists():
+        lines += ["## Results", "", "```", res.read_text().strip()[:2000], "```"]
+    card.write_text("\n".join(lines) + "\n")
+    return card
 
 
 def main(cmd=None) -> Optional[dict]:
@@ -185,7 +244,7 @@ def main(cmd=None) -> Optional[dict]:
     cfg["config"] = train_config
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(levelname)s %(message)s")
     stage, stop = int(cfg["stage"]), int(cfg["stop_stage"])
-    _check_unported(cfg, stage, stop)
+    _check_options(cfg)
     expdir = Path(cfg["expdir"])
     work = expdir / "data"
     token_file = expdir / "tokens.txt"
@@ -272,11 +331,16 @@ def main(cmd=None) -> Optional[dict]:
             fusion = dict(lm_train_config=str(lm_exp / "config.yaml"),
                           lm_file=str(_model_file(lm_exp)),
                           lm_weight=float(cfg.get("lm_weight", 0.3)))
-        inference(str(expdir / "decode" / test_split),
-                  [(str(work / test_split / "wav.scp"), "speech", "sound")],
-                  str(train_exp / "config.yaml"), str(_model_file(train_exp)),
-                  beam_size=int(cfg["beam_size"]), ctc_weight=float(cfg["ctc_weight"]),
-                  nbest=int(cfg["nbest"]), device=cfg.get("device") or "cuda", **fusion)
+        nj = int(cfg.get("decode_nj", 1))
+        if nj <= 1:
+            inference(str(expdir / "decode" / test_split),
+                      [(str(work / test_split / "wav.scp"), "speech", "sound")],
+                      str(train_exp / "config.yaml"), str(_model_file(train_exp)),
+                      beam_size=int(cfg["beam_size"]), ctc_weight=float(cfg["ctc_weight"]),
+                      nbest=int(cfg["nbest"]), device=cfg.get("device") or "cuda", **fusion)
+        else:
+            decode_jobs(cfg, nj, work / test_split / "wav.scp", expdir / "decode" / test_split,
+                        train_exp / "config.yaml", _model_file(train_exp), fusion)
     result = None
     if stage <= 13 <= stop:
         from llm_guided_asr_tpu_torch.bin.score import score
@@ -287,6 +351,17 @@ def main(cmd=None) -> Optional[dict]:
                        token_type="char" if cfg["token_type"] == "char" else "word")
         logger.info(f"stage13 [{test_split}]: {result['metric']}={result['err']:.2f}")
         print(json.dumps(result))
+    if stage <= 14 <= stop:
+        from llm_guided_asr_tpu_torch.bin.pack import pack
+
+        stats = stats_dir / "train" / "feats_stats.npz"
+        bundle = pack(str(expdir / "pack" / "asr_model.zip"), str(train_exp / "config.yaml"),
+                      str(_model_file(train_exp)),
+                      stats_file=str(stats) if stats.exists() else None)
+        logger.info(f"stage14: packed -> {bundle}")
+    if stage <= 15 <= stop:
+        card = write_model_card(expdir, test_split, stage, stop)
+        logger.info(f"stage15: export artifact ready under {card.parent} (nothing is uploaded)")
     return result
 
 

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Multi-task training CLI (counterpart of llm_guided_asr_tpu/bin/train.py):
-``--task asr|lm``.  The JAX package's other tasks (st and the generic
-model zoo) raise: ROADMAP Queue 1 items 9 and 12."""
+``--task asr|lm|st``.  The JAX package's other tasks (the generic model
+zoo) raise: ROADMAP Queue 1 item 12."""
 
 
 def main(cmd=None):
@@ -22,8 +22,11 @@ def main(cmd=None):
         from llm_guided_asr_tpu_torch.tasks.lm import LMTask
 
         return LMTask.main(_strip_task(args))
-    item = "9" if task == "st" else "12"
-    raise NotImplementedError(f"--task {task} is not ported yet (ROADMAP Queue 1 item {item})")
+    if task == "st":
+        from llm_guided_asr_tpu_torch.tasks.st import STTask
+
+        return STTask.main(_strip_task(args))
+    raise NotImplementedError(f"--task {task} is not ported yet (ROADMAP Queue 1 item 12)")
 
 
 def _strip_task(args):

@@ -7,9 +7,8 @@ espnet2/train/collate_fn.py:11 (CommonCollateFn: float pad 0.0, int pad
 -1).  The collate pads the batch maxima up to configurable bucket multiples
 (speech samples, feature frames, token counts), so that sorted-length
 batching yields a small closed set of shapes.  The data types are sound,
-npy, text (tokenized by the CommonPreprocessor), text_int, csv_int and
-text_float; kaldi_ark raises NotImplementedError until the ark reader is
-ported (ROADMAP Queue 1 item 4).
+kaldi_ark (data/kaldi_ark.py), npy, text (tokenized by the
+CommonPreprocessor), text_int, csv_int and text_float.
 """
 
 from __future__ import annotations
@@ -20,7 +19,6 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from llm_guided_asr_tpu_torch.data.fileio import (
-    NOT_PORTED,
     NpyScpReader,
     SoundScpReader,
     load_num_sequence_text,
@@ -80,16 +78,15 @@ class _IntSeqAdapter:
         return len(self.data)
 
 
-def _not_ported(what):
-    def adapter(path):
-        raise NotImplementedError(f"data type {what!r} {NOT_PORTED}: {path}")
+def _kaldi_ark_adapter(path):
+    from llm_guided_asr_tpu_torch.data.kaldi_ark import KaldiScpReader
 
-    return adapter
+    return KaldiScpReader(path)
 
 
 DATA_TYPES: Dict[str, Callable] = {
     "sound": _SoundAdapter,
-    "kaldi_ark": _not_ported("kaldi_ark"),
+    "kaldi_ark": _kaldi_ark_adapter,
     "npy": NpyScpReader,
     "text": _TextAdapter,
     "text_int": lambda p: _IntSeqAdapter(p, "text_int"),

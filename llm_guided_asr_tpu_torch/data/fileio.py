@@ -2,11 +2,12 @@
 (the port's own copy of llm_guided_asr_tpu/data/fileio.py).
 
 Rebuild of espnet2/fileio/ (read_text.py, sound_scp.py, npy_scp.py,
-datadir_writer.py).  Audio loading covers wav/pcm (scipy.io.wavfile) and
-pipe-style wav.scp commands ('cmd ... |' entries, run via subprocess like
-kaldiio).  flac and Kaldi ark-embedded wave data ('file.ark:offset') raise
-NotImplementedError: their decoders are not ported yet (ROADMAP Queue 1
-item 4).
+datadir_writer.py).  Audio loading covers wav/pcm (scipy.io.wavfile), flac
+(the self-contained decoder of data/flac.py), pipe-style wav.scp commands
+('cmd ... |' entries, run via subprocess like kaldiio, whose output may be
+RIFF or flac) and Kaldi ark-embedded wave data ('file.ark:offset', a RIFF
+or flac stream at the offset): the reference's sound_scp.py + kaldiio
+surface.
 """
 
 from __future__ import annotations
@@ -19,9 +20,6 @@ from pathlib import Path
 from typing import Dict, Optional, Tuple, Union
 
 import numpy as np
-
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 item 4)"
-
 
 def read_2columns_text(path: Union[Path, str]) -> Dict[str, str]:
     """'uttid value...' lines -> {uttid: value} (fileio/read_text.py)."""
@@ -77,31 +75,46 @@ def _split_offset(rx: str) -> Tuple[str, int]:
     return rx, 0
 
 
-def read_audio(rx: str, dtype=np.float32) -> Tuple[int, np.ndarray]:
-    """Resolve one wav.scp entry: a wav path or a 'cmd |' pipe that writes
-    a RIFF stream (sound_scp.py + kaldiio's pipe handling in
-    espnet2/train/dataset.py:49)."""
+def _decode_stream(payload_or_file) -> Tuple[int, np.ndarray]:
+    """A RIFF or flac stream (bytes, or a file at its start) -> (rate,
+    float32 array)."""
     from scipy.io import wavfile
 
+    from llm_guided_asr_tpu_torch.data.flac import read_flac
+
+    if isinstance(payload_or_file, (bytes, bytearray)):
+        if payload_or_file[:4] == b"fLaC":
+            return read_flac(payload_or_file)
+        payload_or_file = io.BytesIO(payload_or_file)
+    else:
+        head = payload_or_file.read(8)
+        if head[:4] == b"fLaC":
+            return read_flac(head + payload_or_file.read())
+        # the RIFF's own bytes: scipy's chunk loop compares file positions
+        # with the RIFF size, which fails for a stream at an ark offset
+        size = struct.unpack("<I", head[4:8])[0] if len(head) == 8 else 0
+        payload_or_file = io.BytesIO(head + payload_or_file.read(size))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        rate, arr = wavfile.read(payload_or_file)
+    return rate, _to_float(arr)
+
+
+def read_audio(rx: str, dtype=np.float32) -> Tuple[int, np.ndarray]:
+    """Resolve one wav.scp entry: a wav or flac path, a 'cmd |' pipe that
+    writes a RIFF or flac stream, or 'file.ark:offset' (sound_scp.py +
+    kaldiio's pipe and offset handling in espnet2/train/dataset.py:49)."""
     if rx.rstrip().endswith("|"):
         proc = subprocess.run(rx.rstrip().rstrip("|"), shell=True, capture_output=True)
         if proc.returncode != 0:
             raise RuntimeError(f"wav.scp pipe command failed ({proc.returncode}): {rx!r}\n"
                                f"{proc.stderr.decode(errors='replace')[:500]}")
-        if proc.stdout[:4] == b"fLaC":
-            raise NotImplementedError(f"flac audio from a pipe {NOT_PORTED}: {rx!r}")
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            rate, arr = wavfile.read(io.BytesIO(proc.stdout))
-        return rate, _to_float(arr).astype(dtype)
+        rate, arr = _decode_stream(proc.stdout)
+        return rate, arr.astype(dtype)
     path, offset = _split_offset(rx)
-    if offset:
-        raise NotImplementedError(f"Kaldi ark audio ('file.ark:offset') {NOT_PORTED}: {rx!r}")
     with open(path, "rb") as f:
-        magic = f.read(4)
-    if magic == b"fLaC":
-        raise NotImplementedError(f"flac audio {NOT_PORTED}: {rx!r}")
-    rate, arr = read_wav(path)
+        f.seek(offset)
+        rate, arr = _decode_stream(f)
     return rate, arr.astype(dtype)
 
 
@@ -131,18 +144,28 @@ def _peek_wav_samples(f) -> Optional[int]:
 
 
 def peek_audio_length(rx: str) -> Optional[int]:
-    """Sample count of a wav.scp entry from its RIFF header alone; None
-    when only a full read can tell (pipes, anything but a wav file)."""
+    """Sample count of a wav.scp entry from its header alone (RIFF, or
+    flac STREAMINFO; at the offset of an ark entry); None when only a full
+    read can tell (pipes)."""
     if rx.rstrip().endswith("|"):
         return None
     path, offset = _split_offset(rx)
-    if offset:
-        return None
     try:
         with open(path, "rb") as f:
-            return _peek_wav_samples(f)
-    except OSError:
+            f.seek(offset)
+            magic = f.read(4)
+            if magic == b"fLaC":
+                f.read(4)  # the metadata block header
+                body = f.read(34)  # STREAMINFO is always first, 34 bytes
+                hi = struct.unpack(">I", body[10:14])[0]
+                total = (hi & 0xF) << 32 | struct.unpack(">I", body[14:18])[0]
+                return total or None
+            if magic == b"RIFF":
+                f.seek(offset)
+                return _peek_wav_samples(f)
+    except (OSError, struct.error):
         return None
+    return None
 
 
 def read_wav(path: Union[Path, str]) -> Tuple[int, np.ndarray]:

@@ -3,7 +3,8 @@ llm_guided_asr_tpu/ez/__init__.py; espnetez analog).
 
 Bring an in-memory dataset (uid -> {"speech": array or wav path, "text":
 str}) and a config dict; the Trainer wires tokenization, batching and the
-training runtime of the ASR and LM tasks:
+training runtime of the ASR, LM and ST tasks (ST items also carry
+"src_text"):
 
     import llm_guided_asr_tpu_torch.ez as ez
     trainer = ez.Trainer(task="asr", config=cfg, train_dataset=d1,
@@ -12,8 +13,9 @@ training runtime of the ASR and LM tasks:
     trainer.train()
 
 ``config["device"]`` picks the device (null: the card).  The JAX
-package's st and generic-domain tasks raise (ROADMAP Queue 1 items 9 and
-12).
+package's generic-domain tasks raise (ROADMAP Queue 1 item 12).  The
+``st`` task trains the ST model of tasks/st.py; the JAX ez.Trainer merges
+the ST defaults but builds the ASR task's model.
 """
 
 from __future__ import annotations
@@ -57,17 +59,16 @@ class Trainer:
                  train_dataset: Union[ESPnetEZDataset, Mapping],
                  valid_dataset: Union[ESPnetEZDataset, Mapping],
                  output_dir: Union[str, Path]):
-        if task == "st":
-            raise NotImplementedError("task st is not ported yet (ROADMAP Queue 1 item 9)")
-        if task not in ("asr", "lm"):
+        if task not in ("asr", "lm", "st"):
             raise NotImplementedError(f"task {task!r} is not ported yet (the JAX package's "
                                       f"generic tasks: ROADMAP Queue 1 item 12)")
         from llm_guided_asr_tpu_torch.tasks.asr import ASRTask, build_preprocess_fn
         from llm_guided_asr_tpu_torch.tasks.lm import LMTask
+        from llm_guided_asr_tpu_torch.tasks.st import STTask
 
         self.task = task
         self.output_dir = Path(output_dir)
-        base = LMTask if task == "lm" else ASRTask
+        base = {"lm": LMTask, "st": STTask}.get(task, ASRTask)
         self.config = {**base.get_default_config(), **config,
                        "output_dir": str(self.output_dir)}
         has_text = self.config.get("token_list") or self.config.get("token_type") == "hugging_face"
@@ -145,16 +146,28 @@ class Trainer:
         dump_yaml({k: v for k, v in cfg.items() if not k.startswith("_")},
                   self.output_dir / "config.yaml")
         seed = int(cfg.get("seed", 0))
+        exclude = ("params/llm",) if cfg.get("model") == "llm_guided_asr" else ()
         if self.task == "lm":
             model = init_weights(build_lm(cfg, self.device), seed)
             batch_args = ("text", "text_lengths")
+        elif self.task == "st":
+            # the ST model of tasks/st.py (the JAX ez.Trainer builds the
+            # ASR task's model from the ST defaults instead)
+            from llm_guided_asr_tpu_torch.tasks.st import (
+                ST_BATCH_ARGS,
+                build_st_model,
+                init_st_variables,
+            )
+
+            model = init_st_variables(build_st_model(cfg, self.device), cfg, seed)
+            batch_args, exclude = ST_BATCH_ARGS, ("params/llm",)
         else:
             model = init_model_variables(build_model(cfg, self.device), cfg, seed)
             if cfg.get("init_param"):
                 apply_init_param(model, cfg["init_param"])
             batch_args = ("speech", "speech_lengths", "text", "text_lengths")
         freeze = [translate_param_path(f) for f in (cfg.get("freeze_param") or [])]
-        if cfg.get("model") == "llm_guided_asr" and "llm" not in freeze:
+        if cfg.get("model") in ("llm_guided_asr", "llm_guided_st") and "llm" not in freeze:
             freeze.append("llm")
         tx = build_optimizer(cfg.get("optim", "adam"), cfg.get("optim_conf"),
                              cfg.get("scheduler"), cfg.get("scheduler_conf"),
@@ -169,7 +182,7 @@ class Trainer:
             best_model_criterion=[tuple(c) for c in cfg.get("best_model_criterion")],
             resume=bool(cfg.get("resume", False)),
             seed=seed,
-            exclude_prefixes=("params/llm",) if cfg.get("model") == "llm_guided_asr" else (),
+            exclude_prefixes=exclude,
             batch_args=batch_args,
         )
         return CoreTrainer.run(model, tx, self._iter_factory(self.train_dataset, True),

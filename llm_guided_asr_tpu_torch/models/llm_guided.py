@@ -121,6 +121,11 @@ class LLMGuidedASRConfig:
         return self.input_size
 
     @property
+    def ctc_dim(self) -> int:
+        """The CTC head's outputs."""
+        return self.ctc_vocab_size or self.vocab_size
+
+    @property
     def sos_id(self) -> int:
         return self.prompt.start_of_response_id
 
@@ -141,7 +146,7 @@ class LLMGuidedASRModel(nn.Module):
         self.cfg = cfg
         d = cfg.encoder.output_size
         n_feat = cfg.n_feat
-        ctc_dim = cfg.ctc_vocab_size or cfg.vocab_size
+        ctc_dim = cfg.ctc_dim
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
             self.ctc_head = nn.Linear(d, ctc_dim)
@@ -386,7 +391,7 @@ class LLMGuidedASRModel(nn.Module):
 _LLM_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.bfloat16, "float32": torch.float32}
 
 
-def _llm_dtype(llm_conf: Dict[str, Any]) -> torch.dtype:
+def llm_dtype(llm_conf: Dict[str, Any]) -> torch.dtype:
     return _LLM_DTYPES[llm_conf.get("dtype", "float32")]
 
 
@@ -394,19 +399,10 @@ def _conf(config: Dict[str, Any], key: str) -> Dict[str, Any]:
     return dict(config.get(key, {}) or {})
 
 
-def build_llm_guided_model(config: Dict[str, Any],
-                           device: Union[str, torch.device] = "cuda") -> LLMGuidedASRModel:
-    """The model of a task config.  ``llm_conf.model_name_or_path`` names a
-    local checkpoint directory (its config.json and tokenizer.json give the
-    LLM's size and the prompt template); the LLM's weights are loaded
-    separately by :func:`load_llm_params` (frozen weights live in no
-    checkpoint).  With a ``ctc_token_list`` the CTC head has that
-    vocabulary and the CTC map buffers are filled here."""
-    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
-    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
-
-    llm_conf = _conf(config, "llm_conf")
-    spec = _resolve_llm_spec(llm_conf)
+def guided_fields(config: Dict[str, Any]) -> Dict[str, Any]:
+    """The config fields that the guided ASR and ST models share, read from
+    a task config: frontend, SpecAug, normalization, encoder, guided
+    decoder and ``input_size``."""
     frontend = None
     if config.get("frontend", "default") not in (None, "none") and config.get("input_size") is None:
         fe = filter_known_fields(FrontendConfig, _conf(config, "frontend_conf"), "frontend_conf")
@@ -421,11 +417,7 @@ def build_llm_guided_model(config: Dict[str, Any],
             if sa.get(k) is not None:
                 sa[k] = tuple(sa[k])
         specaug = SpecAugConfig(**sa)
-    model_conf = _conf(config, "model_conf")
-    cfg = LLMGuidedASRConfig(
-        vocab_size=spec["llm_config"].vocab_size,
-        llm=spec["llm_config"],
-        prompt=spec["template"],
+    return dict(
         frontend=frontend,
         specaug=specaug,
         normalize=config.get("normalize") or "none",
@@ -434,16 +426,35 @@ def build_llm_guided_model(config: Dict[str, Any],
             ConformerConfig, _conf(config, "encoder_conf"), "encoder_conf")),
         decoder=TransformerDecoderConfig(**filter_known_fields(
             TransformerDecoderConfig, _conf(config, "decoder_conf"), "decoder_conf")),
+        input_size=config.get("input_size"),
+    )
+
+
+def build_llm_guided_model(config: Dict[str, Any],
+                           device: Union[str, torch.device] = "cuda") -> LLMGuidedASRModel:
+    """The model of a task config.  ``llm_conf.model_name_or_path`` names a
+    local checkpoint directory (its config.json and tokenizer.json give the
+    LLM's size and the prompt template); the LLM's weights are loaded
+    separately by :func:`load_llm_params` (frozen weights live in no
+    checkpoint).  With a ``ctc_token_list`` the CTC head has that
+    vocabulary and the CTC map buffers are filled here."""
+    llm_conf = _conf(config, "llm_conf")
+    spec = resolve_llm_spec(llm_conf)
+    model_conf = _conf(config, "model_conf")
+    cfg = LLMGuidedASRConfig(
+        vocab_size=spec["llm_config"].vocab_size,
+        llm=spec["llm_config"],
+        prompt=spec["template"],
         ctc_weight=float(model_conf.get("ctc_weight", 0.3)),
         lsm_weight=float(model_conf.get("lsm_weight", 0.0)),
         length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),
-        input_size=config.get("input_size"),
         ctc_vocab_size=(len(read_token_list(config["ctc_token_list"]))
                         if config.get("ctc_token_list") else None),
         ctc_map_width=int(model_conf.get("ctc_map_width", 8)),
         llm_score_mode=str(model_conf.get("llm_score_mode", "hidden")),
+        **guided_fields(config),
     )
-    model = LLMGuidedASRModel(cfg, llm_dtype=_llm_dtype(llm_conf), device=device)
+    model = LLMGuidedASRModel(cfg, llm_dtype=llm_dtype(llm_conf), device=device)
     if cfg.ctc_vocab_size:
         table = build_ctc_map_variables(config)
         with torch.no_grad():
@@ -456,7 +467,7 @@ def build_ctc_map_variables(config: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     """The CTC-vocab -> LLM-ids table of a mixed-vocab config:
     ``{"ids": [Vc, ctc_map_width], "lens": [Vc]}`` (int64, on the CPU)."""
     tokens = read_token_list(config["ctc_token_list"])
-    spec = _resolve_llm_spec(_conf(config, "llm_conf"))
+    spec = resolve_llm_spec(_conf(config, "llm_conf"))
     width = int(_conf(config, "model_conf").get("ctc_map_width", 8))
     ids, lens = build_ctc_to_llm_map(tokens, spec["tokenizer"], max_expand=width)
     return {"ids": torch.from_numpy(ids).long(), "lens": torch.from_numpy(lens).long()}
@@ -465,7 +476,7 @@ def build_ctc_map_variables(config: Dict[str, Any]) -> Dict[str, torch.Tensor]:
 _LLM_SPEC_CACHE: Dict[str, Dict] = {}
 
 
-def _resolve_llm_spec(llm_conf: Dict[str, Any]) -> Dict:
+def resolve_llm_spec(llm_conf: Dict[str, Any]) -> Dict:
     """The configured LLM's config, tokenizer and prompt template, read from
     its local directory (cached by name and template)."""
     name = str(llm_conf["model_name_or_path"])
@@ -501,10 +512,10 @@ def load_llm_params(config: Dict[str, Any], model: Optional[LLMGuidedASRModel] =
     the device before the next is read.  With ``model`` they are loaded into
     it (on its device) as well.  Returns the LLM state dict."""
     llm_conf = _conf(config, "llm_conf")
-    spec = _resolve_llm_spec(llm_conf)
+    spec = resolve_llm_spec(llm_conf)
     if device is None:
         device = next(model.parameters()).device if model is not None else "cuda"
-    params = stream_checkpoint(spec["path"], spec["llm_config"], dtype=_llm_dtype(llm_conf),
+    params = stream_checkpoint(spec["path"], spec["llm_config"], dtype=llm_dtype(llm_conf),
                                device=resolve_device(device))
     logger.info(f"streamed frozen LLM weights from {spec['path']}")
     if model is not None:

@@ -9,37 +9,43 @@ either.
 The JAX package wraps ``transformers.AutoTokenizer``; the port reads the
 checkpoint directory's ``tokenizer.json``, ``tokenizer_config.json`` and
 ``special_tokens_map.json`` itself (:class:`LLMTokenizer`), with the
-standard library only.  It reads exactly the kinds the repository holds
-and computes what ``AutoTokenizer`` computes for them, token for token:
+standard library only, and computes what ``AutoTokenizer`` computes, token
+for token and id for id, for the kinds that Llama-2 (a ``Prepend``/
+``Replace`` normalizer or a ``Metaspace`` pre-tokenizer, byte fallback),
+Llama-3 (a ``Split`` regex and ``ByteLevel``, ``ignore_merges``, a
+template post-processor) and Qwen-2.5 (``NFC``, the same split with single
+digits) ship, and for plain BPE and WordLevel files.  The pipeline's
+pieces are in text/hf_pipeline.py; every type they do not read raises
+``NotImplementedError`` naming it, so nothing is tokenized differently in
+silence.
 
-- a ``BPE`` model with rank-ordered merges (no dropout, no subword prefix
-  or suffix, no byte fallback), no normalizer and no pre-tokenizer;
-- a ``WordLevel`` model behind a ``Split("", "isolated")`` pre-tokenizer
-  (one piece per character).
-
-Added and special tokens are matched in the raw text first (leftmost,
-longest); the text between them goes through the pre-tokenizer and the
-model.  Without a decoder, ``decode`` joins the tokens with spaces, as the
-``tokenizers`` library does.  Every other model, normalizer,
-pre-tokenizer, post-processor or decoder type raises
-``NotImplementedError`` naming it: nothing is tokenized differently in
-silence.  Byte-level (Llama-3) and Metaspace (Llama-2) files are among
-those not read yet.
+What the ``transformers`` classes add on top of the file is copied too:
+the special tokens' defaults of ``PreTrainedTokenizerFast``,
+``LlamaTokenizerFast`` and ``Qwen2TokenizerFast`` (and their slow names),
+special tokens of the config that the file lacks registered as added
+tokens, a lone ``ByteLevel`` pre-tokenizer's ``add_prefix_space`` set from
+the config, ``LlamaTokenizerFast`` rebuilding its post-processor from
+``add_bos_token``/``add_eos_token``, and ``clean_up_tokenization_spaces``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple, Union
 
+from llm_guided_asr_tpu_torch.text import hf_pipeline as hp
+
 _SPECIAL_NAMES = ("bos_token", "eos_token", "pad_token", "unk_token")
-
-
-def _unsupported(what: str, value) -> NotImplementedError:
-    return NotImplementedError(f"tokenizer.json {what} {value!r} is not supported by the port's "
-                               f"tokenizer (BPE without pre-tokenizer, or WordLevel with "
-                               f"Split('', 'isolated'))")
+# the special tokens' defaults of each class's __init__ (transformers 4.57)
+_CLASS_DEFAULTS = {
+    "PreTrainedTokenizerFast": {},
+    "LlamaTokenizerFast": {"unk_token": "<unk>", "bos_token": "<s>", "eos_token": "</s>"},
+    "Qwen2TokenizerFast": {"unk_token": "<|endoftext|>", "eos_token": "<|endoftext|>",
+                           "pad_token": "<|endoftext|>"},
+}
+_CLASS_ALIASES = {"LlamaTokenizer": "LlamaTokenizerFast", "Qwen2Tokenizer": "Qwen2TokenizerFast"}
 
 
 def _token_content(entry) -> Optional[str]:
@@ -50,58 +56,96 @@ def _token_content(entry) -> Optional[str]:
     return entry
 
 
+def clean_up_tokenization(text: str) -> str:
+    """transformers' ``clean_up_tokenization``: spaces before punctuation
+    and English contractions removed."""
+    for old, new in ((" .", "."), (" ?", "?"), (" !", "!"), (" ,", ","), (" ' ", "'"),
+                     (" n't", "n't"), (" 'm", "'m"), (" 's", "'s"), (" 've", "'ve"),
+                     (" 're", "'re")):
+        text = text.replace(old, new)
+    return text
+
+
 class LLMTokenizer:
     """A Hugging Face fast tokenizer read from its directory; the methods
     the JAX package's callers use of ``AutoTokenizer``."""
 
     def __init__(self, tokenizer_json: Dict, config: Dict):
-        cls = config.get("tokenizer_class", "PreTrainedTokenizerFast")
-        if cls != "PreTrainedTokenizerFast":
-            raise _unsupported("tokenizer_class", cls)
+        cls = config.get("tokenizer_class") or "PreTrainedTokenizerFast"
+        cls = _CLASS_ALIASES.get(cls, cls)
+        if cls not in _CLASS_DEFAULTS:
+            raise hp.unsupported("tokenizer_class", cls)
+        if config.get("split_special_tokens"):
+            raise hp.unsupported("tokenizer_config split_special_tokens", True)
         model = tokenizer_json.get("model") or {}
-        self.model_type = model.get("type")
-        if self.model_type not in ("BPE", "WordLevel"):
-            raise _unsupported("model type", self.model_type)
-        for key in ("normalizer", "post_processor", "decoder"):
-            if tokenizer_json.get(key) is not None:
-                raise _unsupported(key, tokenizer_json[key].get("type"))
-        pre = tokenizer_json.get("pre_tokenizer")
-        if self.model_type == "BPE":
-            if pre is not None:
-                raise _unsupported("pre_tokenizer", pre.get("type"))
-            for key in ("dropout", "continuing_subword_prefix", "end_of_word_suffix"):
-                if model.get(key) is not None:
-                    raise _unsupported(f"BPE {key}", model[key])
-            for key in ("byte_fallback", "fuse_unk", "ignore_merges"):
-                if model.get(key):
-                    raise _unsupported(f"BPE {key}", model[key])
-            merges = [tuple(m.split(" ")) if isinstance(m, str) else tuple(m)
-                      for m in model.get("merges", [])]
-            self.merge_rank = {pair: rank for rank, pair in enumerate(merges)}
-        else:
-            split = {"type": "Split", "pattern": {"String": ""}, "behavior": "Isolated",
-                     "invert": False}
-            if pre is None or any(pre.get(k) != v for k, v in split.items()):
-                raise _unsupported("pre_tokenizer", pre)
-            self.merge_rank = {}
+        self.model = hp.build_model(model)
         self.vocab: Dict[str, int] = dict(model["vocab"])
-        self.model_unk = model.get("unk_token")
+        self.normalizer = hp.build_normalizer(tokenizer_json.get("normalizer"))
+        if cls == "LlamaTokenizerFast" and config.get("add_prefix_space") is not None:
+            raise hp.unsupported("tokenizer_config add_prefix_space (a rebuild from the "
+                                 "sentencepiece model)", config["add_prefix_space"])
+        pre = tokenizer_json.get("pre_tokenizer")
+        if pre is not None and pre.get("type") == "ByteLevel":
+            # PreTrainedTokenizerFast.__init__ sets a lone ByteLevel's
+            # add_prefix_space to the config's (False by default)
+            pre = {**pre, "add_prefix_space": bool(config.get("add_prefix_space", False))}
+        self.pre_tokenizer = hp.build_pre_tokenizer(pre)
+        self.decoder = hp.build_decoder(tokenizer_json.get("decoder"))
+        self.clean_up_spaces = bool(config.get("clean_up_tokenization_spaces", False))
+
         self.added: Dict[str, int] = {}
         self.special_ids = set()
         for tok in tokenizer_json.get("added_tokens", []):
             if tok.get("lstrip") or tok.get("rstrip") or tok.get("single_word"):
-                raise _unsupported("added token flags of", tok["content"])
+                raise hp.unsupported("added token flags of", tok["content"])
+            if tok.get("normalized") and self.normalizer is not None:
+                raise hp.unsupported("normalized added token", tok["content"])
             self.added[tok["content"]] = tok["id"]
             if tok.get("special"):
                 self.special_ids.add(tok["id"])
+        specials = dict(_CLASS_DEFAULTS[cls])
+        for name in _SPECIAL_NAMES:
+            if name in config:
+                specials[name] = _token_content(config[name])
+        for name in _SPECIAL_NAMES:
+            setattr(self, name, specials.get(name))
+        extra = [_token_content(t) for t in config.get("additional_special_tokens") or []]
+        # special tokens the file lacks become added tokens (the model's id
+        # where the vocabulary has them, else the next free one)
+        for content in [specials.get(n) for n in _SPECIAL_NAMES] + extra:
+            if content is None or content in self.added:
+                self._mark_special(content)
+                continue
+            tid = self.vocab.get(content, len(self))
+            self.added[content] = tid
+            self.special_ids.add(tid)
+        # what convert_ids_to_tokens skips: the config's special tokens
+        # (decode skips the file's special added tokens instead)
+        self.all_special_ids = {self._token_id(c) for c in
+                                [specials.get(n) for n in _SPECIAL_NAMES] + extra
+                                if c is not None} - {None}
         self.id_to_token: Dict[int, str] = {i: t for t, i in self.vocab.items()}
         self.id_to_token.update({i: t for t, i in self.added.items()})
-        # longest first: the leftmost-longest match of the added vocabulary
-        self._added_by_length = sorted(self.added, key=len, reverse=True)
-        if config.get("clean_up_tokenization_spaces"):
-            raise _unsupported("tokenizer_config clean_up_tokenization_spaces", True)
-        for name in _SPECIAL_NAMES:
-            setattr(self, name, _token_content(config.get(name)))
+        self._added_re = (re.compile("|".join(re.escape(t) for t in sorted(
+            self.added, key=len, reverse=True))) if self.added else None)
+
+        post = tokenizer_json.get("post_processor")
+        if cls == "LlamaTokenizerFast":
+            # LlamaTokenizerFast.update_post_processor
+            single = []
+            if config.get("add_bos_token", True):
+                single.append((self.bos_token, self.bos_token_id))
+            single.append(("$A", None))
+            if config.get("add_eos_token", False):
+                single.append((self.eos_token, self.eos_token_id))
+            if any(t is None for t, _ in single):
+                raise ValueError("add_bos_token/add_eos_token set but the token is None")
+            post = hp.template_processing(single)
+        self.post_processor = hp.build_post_processor(post)
+
+    def _mark_special(self, content: Optional[str]) -> None:
+        if content is not None and content in self.added:
+            self.special_ids.add(self.added[content])
 
     @classmethod
     def from_pretrained(cls, path: Union[str, Path]) -> "LLMTokenizer":
@@ -157,76 +201,64 @@ class LLMTokenizer:
 
     def convert_ids_to_tokens(self, ids: Union[int, Sequence[int]],
                               skip_special_tokens: bool = False):
-        """An id (or a list) -> token(s); None for an id outside the vocabulary."""
+        """An id (or a list) -> token(s); None for an id outside the
+        vocabulary.  ``skip_special_tokens`` drops the config's special
+        tokens, as transformers does."""
         if not hasattr(ids, "__iter__"):
             return self.id_to_token.get(int(ids))
         return [self.id_to_token.get(int(i)) for i in ids
-                if not (skip_special_tokens and int(i) in self.special_ids)]
+                if not (skip_special_tokens and int(i) in self.all_special_ids)]
 
     # -- text -> tokens -----------------------------------------------------
-    def _split_added(self, text: str) -> List[Tuple[str, bool]]:
-        """(piece, is an added token) in order: added tokens matched leftmost,
-        longest first, before the model sees the text."""
-        out: List[Tuple[str, bool]] = []
-        start = pos = 0
-        while pos < len(text):
-            match = next((t for t in self._added_by_length if text.startswith(t, pos)), None)
-            if match is None:
-                pos += 1
-                continue
-            if pos > start:
-                out.append((text[start:pos], False))
-            out.append((match, True))
-            pos = start = pos + len(match)
+    def _split_added(self, text: str) -> List[Tuple[str, bool, int]]:
+        """(piece, is an added token, start offset) in order: added tokens
+        matched leftmost, longest first, before the normalizer sees the
+        text."""
+        if self._added_re is None:
+            return [(text, False, 0)] if text else []
+        out, start = [], 0
+        for m in self._added_re.finditer(text):
+            if m.start() > start:
+                out.append((text[start:m.start()], False, start))
+            out.append((m.group(), True, m.start()))
+            start = m.end()
         if start < len(text):
-            out.append((text[start:], False))
+            out.append((text[start:], False, start))
         return out
-
-    def _bpe(self, word: str) -> List[str]:
-        """Characters (unknown ones as the unk token), then merges applied
-        lowest rank first, leftmost first among equal ranks."""
-        symbols = [ch if ch in self.vocab else self._unk_piece(ch) for ch in word]
-        while len(symbols) > 1:
-            best = None
-            for i in range(len(symbols) - 1):
-                rank = self.merge_rank.get((symbols[i], symbols[i + 1]))
-                if rank is not None and (best is None or rank < best[0]):
-                    best = (rank, i)
-            if best is None:
-                break
-            i = best[1]
-            symbols[i:i + 2] = [symbols[i] + symbols[i + 1]]
-        return symbols
-
-    def _unk_piece(self, piece: str) -> str:
-        if self.model_unk is None or self.model_unk not in self.vocab:
-            raise ValueError(f"{piece!r} is not in the vocabulary and the model has no unk token")
-        return self.model_unk
 
     def tokenize(self, text: str) -> List[str]:
         out: List[str] = []
-        for piece, is_added in self._split_added(text):
+        for piece, is_added, offset in self._split_added(text):
             if is_added:
                 out.append(piece)
-            elif self.model_type == "BPE":
-                out.extend(self._bpe(piece))
-            else:  # WordLevel over one-character pieces
-                out.extend(ch if ch in self.vocab else self._unk_piece(ch) for ch in piece)
+                continue
+            if self.normalizer is not None:
+                piece = self.normalizer(piece)
+            for word, _ in self.pre_tokenizer([(piece, offset == 0)] if piece else []):
+                out.extend(self.model(word))
         return out
 
     def __call__(self, text: str, add_special_tokens: bool = True) -> Dict[str, List[int]]:
-        """``{"input_ids": [...]}``.  No post-processor is read, so
-        ``add_special_tokens`` adds nothing, as for these files in
-        transformers."""
-        return {"input_ids": self.convert_tokens_to_ids(self.tokenize(text))}
+        """``{"input_ids": [...]}``, the post-processor's special tokens
+        added with ``add_special_tokens``."""
+        ids = self.convert_tokens_to_ids(self.tokenize(text))
+        if add_special_tokens:
+            ids = self.post_processor(ids)
+        return {"input_ids": ids}
 
     # -- ids -> text ----------------------------------------------------
     def convert_tokens_to_string(self, tokens: Iterable[str]) -> str:
-        return " ".join(tokens)
+        tokens = list(tokens)
+        if self.decoder is None:
+            return " ".join(tokens)
+        return "".join(self.decoder(tokens))
 
     def decode(self, ids: Iterable[int], skip_special_tokens: bool = False) -> str:
-        tokens = self.convert_ids_to_tokens([int(i) for i in ids], skip_special_tokens)
-        return self.convert_tokens_to_string(t for t in tokens if t is not None)
+        """``skip_special_tokens`` drops the added tokens marked special."""
+        tokens = [self.id_to_token.get(int(i)) for i in ids
+                  if not (skip_special_tokens and int(i) in self.special_ids)]
+        text = self.convert_tokens_to_string(t for t in tokens if t is not None)
+        return clean_up_tokenization(text) if self.clean_up_spaces else text
 
 
 class AbsTokenizer:

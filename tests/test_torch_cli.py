@@ -8,6 +8,7 @@ batched branch and the asr_inference_new shim."""
 
 import json
 import shutil
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -112,12 +113,17 @@ def test_pipeline_stages_3_to_13_run_in_the_port(data, tmp_path):
     assert (exp / "train" / "valid.loss.ave_1best.pth").is_file()
 
 
-@pytest.mark.parametrize("flag, item", [(["--speed_perturb", "0.9,1.0,1.1"], "12"),
-                                        (["--stop_stage", "14"], "4"),
-                                        (["--decode_nj", "2"], "4"),
-                                        (["--cmd_backend", "slurm"], "4")])
-def test_pipeline_options_not_ported_raise(data, tmp_path, flag, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP Queue 1 item {item}"):
+@pytest.mark.parametrize("flag, error, match", [
+    (["--speed_perturb", "0.9,1.0,1.1"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (["--cmd_backend", "bogus"], ValueError, "unknown cmd backend"),
+    (["--decode_nj", "0"], ValueError, "decode_nj"),
+    (["--cmd_backend", "slurm", "--cmd_conf", "missing/slurm.conf"], FileNotFoundError,
+     "slurm.conf")])
+def test_pipeline_options_not_ported_raise(data, tmp_path, flag, error, match):
+    """Stage 2 is not ported; a bad job option fails before any stage
+    writes a file (stages 14-15 and the array jobs run since they were
+    ported: tests/test_torch_recipe_io.py)."""
+    with pytest.raises(error, match=match):
         asr_pipeline.main(["--train_dir", str(data / "train"), "--valid_dir",
                            str(data / "valid"), "--expdir", str(tmp_path)] + flag)
     assert not (tmp_path / "data").exists()
@@ -154,8 +160,14 @@ def test_ez_trainer_and_batched_inference(data, tmp_path):
     for d in ("batch", "new"):
         assert (tmp_path / d / "1best_recog" / "text").read_bytes() == \
             (tmp_path / "one" / "1best_recog" / "text").read_bytes(), d
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        ez.Trainer("st", cfg, {}, {}, tmp_path)
+    llm = str(Path(__file__).resolve().parent / "parity" / "tiny_llm_bytelevel")
+    st_cfg = {**{k: v for k, v in cfg.items() if k != "token_list"}, "bpemodel": llm,
+              "llm_conf": {"model_name_or_path": llm, "template_prompt": "fix ((HYP)) -> ",
+                           "dtype": "float32"}}
+    st = ez.Trainer("st", st_cfg, {}, {}, tmp_path)
+    assert st.config["model"] == "llm_guided_st" and st.config["token_type"] == "hugging_face"
+    with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        ez.Trainer("enh", cfg, {}, {}, tmp_path)
     shutil.rmtree(tmp_path / "exp")
 
 

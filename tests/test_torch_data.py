@@ -91,17 +91,31 @@ def test_fileio_readers_match_jax(corpus, tmp_path):
 
 
 def test_unported_formats_raise(corpus, tmp_path):
-    flac = tmp_path / "x.flac"
-    flac.write_bytes(b"fLaC" + bytes(40))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tfileio.read_audio(str(flac))
+    """The formats this test once found refused: a flac file, Kaldi ark
+    audio at 'file.ark:offset' and the kaldi_ark data type read as the JAX
+    readers read them (tests/test_torch_recipe_io.py holds every payload);
+    a broken flac stream still raises in both."""
+    from llm_guided_asr_tpu.data.flac import write_flac
+    from llm_guided_asr_tpu.data.kaldi_ark import KaldiArkWriter
+
+    wave = np.random.default_rng(3).uniform(-0.5, 0.5, 4000).astype(np.float32)
+    write_flac(tmp_path / "x.flac", 16000, wave)
+    got, want = tfileio.read_audio(str(tmp_path / "x.flac")), jfileio.read_audio(
+        str(tmp_path / "x.flac"))
+    assert got[0] == want[0] == 16000 and np.array_equal(got[1], want[1])
     ark = tmp_path / "x.ark"
-    ark.write_bytes(bytes(64))
-    with pytest.raises(NotImplementedError, match="Kaldi ark"):
-        tfileio.read_audio(f"{ark}:8")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        tdataset.ESPnetDataset([(str(corpus / "text"), "text", "kaldi_ark")])
-    # the text data type is ported: it reads the raw text
+    ark.write_bytes(b"utt1 " + (tmp_path / "x.flac").read_bytes())
+    assert np.array_equal(tfileio.read_audio(f"{ark}:5")[1], want[1])
+    assert tfileio.peek_audio_length(f"{ark}:5") == 4000
+    with KaldiArkWriter(tmp_path / "f.ark", tmp_path / "f.scp") as w:
+        w["utt000"] = np.arange(12, dtype=np.float32).reshape(3, 4)
+    ds = tdataset.ESPnetDataset([(str(tmp_path / "f.scp"), "feats", "kaldi_ark")])
+    assert np.array_equal(ds["utt000"]["feats"], np.arange(12, dtype=np.float32).reshape(3, 4))
+    (tmp_path / "bad.flac").write_bytes(b"fLaC" + bytes(40))
+    for reader in (tfileio.read_audio, jfileio.read_audio):
+        with pytest.raises((ValueError, IndexError)):
+            reader(str(tmp_path / "bad.flac"))
+    # the text data type reads the raw text
     ds = tdataset.ESPnetDataset([(str(corpus / "text"), "text", "text")])
     assert all(isinstance(ds[u]["text"], str) for u in ds.keys)
 

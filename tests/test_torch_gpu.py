@@ -1353,3 +1353,63 @@ def test_guided_and_lm_clis_on_the_card(card, cli_corpus, tmp_path):
         want = (0.7 * float(got["score_decoder"][uid]) + 0.3 * float(got["score_ctc"][uid])
                 + 0.3 * float(lm_part[uid]))
         assert abs(float(total) - want) <= 1e-3 * max(1.0, abs(want)), uid
+
+
+@pytest.mark.gpu
+def test_st_model_on_the_card_matches_the_cpu(card):
+    """The LLM-guided ST model (a tiny LLM, source vocabulary the LLM's,
+    an extra ASR decoder) on the card against the CPU plain path: the loss
+    and every stats term (rtol 1e-4), every trainable gradient (1e-4 of
+    the largest), and Speech2Translation's 3-best (tokens equal, scores
+    1e-4); the rel-pos and depthwise kernels launch on the card."""
+    from llm_guided_asr_tpu_torch.bin.st_inference import Speech2Translation
+    from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
+    from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
+    from llm_guided_asr_tpu_torch.models.llm_guided_st import LLMGuidedSTConfig, LLMGuidedSTModel
+    from llm_guided_asr_tpu_torch.tasks.st import ST_BATCH_ARGS
+
+    dec = TransformerDecoderConfig(attention_heads=2, linear_units=64, num_blocks=2,
+                                   dropout_rate=0.0)
+    cfg = LLMGuidedSTConfig(
+        vocab_size=300, src_vocab_size=300,
+        llm=LlamaConfig(vocab_size=300, hidden_size=32, intermediate_size=48,
+                        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2),
+        prompt=PromptTemplate(prefix_ids=(2, 3, 4), suffix_ids=(5, 6), start_of_response_id=7,
+                              end_of_response_id=7, pad_id=0),
+        frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=23), normalize="utterance_mvn",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                      num_blocks=2, cnn_module_kernel=15),
+        decoder=dec, extra_asr_decoder=dec, lsm_weight=0.1)
+    cpu = init_weights(LLMGuidedSTModel(cfg, llm_dtype=torch.float32, device="cpu"), 3).eval()
+    gpu = LLMGuidedSTModel(cfg, llm_dtype=torch.float32, device=card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(9)
+    batch = {"speech": _rand(rng, 2, 12000, scale=0.1), "speech_lengths": torch.tensor([12000, 8000]),
+             "text": torch.from_numpy(rng.integers(10, 300, (2, 5))),
+             "text_lengths": torch.tensor([5, 3]),
+             "src_text": torch.from_numpy(rng.integers(10, 300, (2, 7))),
+             "src_text_lengths": torch.tensor([7, 4])}
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        model.zero_grad(set_to_none=True)
+        loss, stats, _ = model(*(batch[k].to(dev) for k in ST_BATCH_ARGS))
+        loss.backward()
+        out[name] = ({k: float(v) for k, v in stats.items()},
+                     {n: p.grad.cpu() for n, p in model.named_parameters() if p.grad is not None})
+    for k, v in out["cpu"][0].items():
+        assert abs(out["gpu"][0][k] - v) <= 1e-4 * max(1.0, abs(v)), k
+    assert out["gpu"][1].keys() == out["cpu"][1].keys()
+    assert not any(n.startswith("llm.") for n in out["cpu"][1])
+    for n, ref in out["cpu"][1].items():
+        torch.testing.assert_close(out["gpu"][1][n], ref, rtol=0, atol=_grad_tol(ref), msg=n)
+    before = _counts()
+    wave = batch["speech"][0].numpy()
+    got = {name: Speech2Translation.from_model(model, beam_size=3, nbest=3, maxlenratio=-12.0)(wave)
+           for name, model in (("cpu", cpu), ("gpu", gpu))}
+    after = _counts()
+    assert after["rel_attention_fwd"] - before["rel_attention_fwd"] == 2
+    assert after["dwconv1d_fwd"] - before["dwconv1d_fwd"] == 2
+    assert [ids for ids, _ in got["gpu"]] == [ids for ids, _ in got["cpu"]]
+    np.testing.assert_allclose([h.score for _, h in got["gpu"]],
+                               [h.score for _, h in got["cpu"]], rtol=1e-4, atol=1e-4)

@@ -10,6 +10,7 @@ import types
 from pathlib import Path
 
 import pytest
+import torch
 
 import llm_guided_asr_tpu_torch
 from llm_guided_asr_tpu_torch.ops.cuda_build import BUILD_DIR, CudaKernel
@@ -28,7 +29,9 @@ OWN_COPIES = ("text/tokenizers.py", "utils/config.py", "utils/metrics.py",
               "data/fileio.py", "data/samplers.py", "data/dataset.py", "data/iterator.py",
               "text/cleaner.py", "text/phoneme.py", "train/checkpoint.py", "tasks/asr.py",
               "tasks/lm.py", "bin/score.py", "bin/tokenize_text.py", "bin/asr_pipeline.py",
-              "ez/__init__.py")
+              "ez/__init__.py", "data/flac.py", "data/kaldi_ark.py", "utils/job.py",
+              "bin/pack.py", "bin/split_scps.py", "tasks/st.py", "bin/st_inference.py",
+              "bin/st_train.py", "models/llm_guided_st.py", "text/hf_pipeline.py")
 
 
 def _imported_roots(path: Path):
@@ -108,3 +111,30 @@ def test_library_path_follows_the_headers_a_source_includes(tmp_path):
     assert all(a.parent == BUILD_DIR for a in after)
     header.write_text(header.read_text()[: -len("\n// edited\n")])
     assert [k.library_path() for k in kernels] == before
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="the refusal needs a machine without a card")
+def test_st_entry_points_default_to_the_card(tmp_path):
+    """The ST task, its CLIs and Speech2Translation take the card unless
+    told device cpu, and raise on a machine without one (no CPU fallback),
+    before any file is written."""
+    from llm_guided_asr_tpu_torch.bin import st_inference, st_train
+    from llm_guided_asr_tpu_torch.bin.st_inference import Speech2Translation
+    from llm_guided_asr_tpu_torch.tasks.st import build_st_model
+    from llm_guided_asr_tpu_torch.utils.config import dump_yaml
+
+    llm = str(REPO / "tests" / "parity" / "tiny_llm_bytelevel")
+    config = {"llm_conf": {"model_name_or_path": llm, "template_prompt": "fix ((HYP)) ->"},
+              "device": None}
+    dump_yaml(config, tmp_path / "config.yaml")
+    calls = [lambda: build_st_model(config),
+             lambda: Speech2Translation(tmp_path / "config.yaml"),
+             lambda: st_inference.main(["--train_config", str(tmp_path / "config.yaml"),
+                                        "--wav_scp", str(tmp_path / "wav.scp"),
+                                        "--output_dir", str(tmp_path / "dec")]),
+             lambda: st_train.main(["--config", str(tmp_path / "config.yaml"),
+                                    "--output_dir", str(tmp_path / "exp")])]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert not (tmp_path / "dec").exists() and not (tmp_path / "exp").exists()

@@ -1,7 +1,8 @@
 """The port's reader of tokenizer.json against transformers.AutoTokenizer,
 token for token, on both tiny LLM directories the repository's tests use:
 the BPE one of tests/parity/tiny_llm_bpe/ and the char-level WordLevel one
-that make_tiny_llm_dir writes.  An unsupported tokenizer.json raises."""
+that make_tiny_llm_dir writes.  An unsupported tokenizer.json raises
+(tests/test_torch_llm_tokenizers.py holds the LLM kinds)."""
 
 import json
 import shutil
@@ -87,10 +88,10 @@ def test_token_converters(dirs, tmp_path):
 @pytest.mark.parametrize("edit,what", [
     (lambda t: t["model"].update(type="Unigram"), "Unigram"),
     (lambda t: t.update(normalizer={"type": "NFKC"}), "NFKC"),
-    (lambda t: t.update(pre_tokenizer={"type": "ByteLevel", "add_prefix_space": False}), "ByteLevel"),
-    (lambda t: t.update(decoder={"type": "Metaspace"}), "Metaspace"),
-    (lambda t: t.update(post_processor={"type": "TemplateProcessing"}), "TemplateProcessing"),
-    (lambda t: t["model"].update(byte_fallback=True), "byte_fallback"),
+    (lambda t: t.update(normalizer={"type": "ByteLevel"}), "ByteLevel"),
+    (lambda t: t.update(decoder={"type": "WordPiece", "prefix": "##"}), "WordPiece"),
+    (lambda t: t.update(post_processor={"type": "RobertaProcessing"}), "RobertaProcessing"),
+    (lambda t: t["model"].update(dropout=0.1), "dropout"),
     (lambda t: t["added_tokens"][0].update(lstrip=True), "added token"),
 ])
 def test_unsupported_tokenizer_json_raises(tmp_path, edit, what):
@@ -104,15 +105,20 @@ def test_unsupported_tokenizer_json_raises(tmp_path, edit, what):
 
 
 def test_cleaned_up_decoding_is_not_read(tmp_path):
-    """transformers would rewrite the decoded text (" ," -> ","); the port
-    does not, so it refuses such a file rather than decode differently."""
+    """With clean_up_tokenization_spaces transformers rewrites the decoded
+    text (" ," -> ","); the port's decode does the same."""
     for name in ("tokenizer.json", "special_tokens_map.json"):
         shutil.copy(BPE_DIR / name, tmp_path / name)
     config = json.loads((BPE_DIR / "tokenizer_config.json").read_text())
     (tmp_path / "tokenizer_config.json").write_text(
         json.dumps({**config, "clean_up_tokenization_spaces": True}))
-    with pytest.raises(NotImplementedError, match="clean_up_tokenization_spaces"):
-        LLMTokenizer.from_pretrained(tmp_path)
+    hf = AutoTokenizer.from_pretrained(tmp_path)
+    port = LLMTokenizer.from_pretrained(tmp_path)
+    for text in ("abc , cab . bb ? a ! c", "a n't b 's c 've 're 'm"):
+        ids = hf(text)["input_ids"]
+        assert port.decode(ids) == hf.decode(ids)
+    ids = hf("abc , cab . bb")["input_ids"]
+    assert port.decode(ids) != port.convert_tokens_to_string(port.convert_ids_to_tokens(ids))
 
 
 def test_no_local_tokenizer_raises(tmp_path):
