@@ -240,9 +240,26 @@ prints how long it took):
               writing the text of a --decode_nj 1 decode, and
               Speech2Text.from_packed decoding as the experiment directory
               does.
+22. serve-ebf -- a CTC/attention ASRModel with the E-Branchformer of
+              ESPnet's LibriSpeech-100 recipe (12 x 256, 4 heads, 1024
+              units for the FFNs and the cgMLP, cgMLP kernel 31; the merge
+              conv's kernel 3 as JAX fixes it; decoder 6 x 256, vocab
+              5000) served as phase 3 serves (12 rel-pos and 12 depthwise
+              forward launches a request at C = 512, the encoder against
+              the CPU), one request profiled; the Branchformer at the same
+              widths and the Transformer encoder (2048 units, abs
+              positions, no kernel) serve one 10 s request each against
+              the CPU plain path.
+23. train-ebf -- that model trained as phase 5 trains (B=64 x 10 s,
+              SpecAug, attention dropout 0.1, AdamW): 12 launches of each
+              encoder entry point a step, one step profiled; then the
+              Bayes-risk CTC (risk 0.1) on the batch's CTC logits
+              [64, 312, 5000], loss and logits gradient on the card
+              against the CPU, timed beside the builtin CTC.
 
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
-asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io`` builds the
+asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io|serve-ebf|
+train-ebf`` builds the
 kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
@@ -274,8 +291,11 @@ the rel-pos forward at the long-form length [1, 4, 1874, 64], the
 yardstick beside the flash forward; and the two encoder forwards at the
 batched serving shapes of phase 12 ([8, 4, 312, 64] with 312, 229, 129,
 312, 229, 129, 312 and 229 valid keys; [8, 312, 256] x [31, 256]), f32,
-CUDA graph, and the depthwise forward at the streaming encoder's block
-[1, 40, 256] x [15, 256] (phase 14), f32, CUDA graph.  The rel-pos entry points are also
+CUDA graph, the depthwise forward at the streaming encoder's block
+[1, 40, 256] x [15, 256] (phase 14), f32, CUDA graph, and the depthwise
+forward and backward at the E-Branchformer cgMLP's 512 channels
+([1, 312, 512] and [64, 312, 512] x [31, 512], phases 22-23), f32.  The
+rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
 (serving and training shapes, the backward's dp included), and their
@@ -355,6 +375,22 @@ STREAM_BLOCK, STREAM_KERNEL, STREAM_CHUNK = 40, 15, 16000
 STREAM_DW_SHAPE = f"serve-stream [1,{STREAM_BLOCK},256] K={STREAM_KERNEL}"
 STREAM_FWD = ("dwconv1d_fwd",)
 FLASH_BWD = ("flash_attention_bwd_dkv", "flash_attention_bwd_dq", "dwconv1d_bwd")
+# phases 22-23 (serve-ebf, train-ebf): the E-Branchformer of ESPnet's
+# LibriSpeech-100 recipe (egs2/librispeech_100/asr1/conf/tuning/
+# train_asr_e_branchformer_size256_mlp1024_linear1024_e12_mactrue_edrop0.0_ddrop0.0.yaml):
+# 12 blocks of 256, 4 heads, 1024 units for the FFNs and the cgMLP (JAX has
+# one field for both), cgMLP kernel 31; the merge conv's kernel is fixed at 3
+EBF_KERNEL = 31
+EBF_ENCODER = dict(output_size=256, attention_heads=4, linear_units=1024, num_blocks=12,
+                   cnn_module_kernel=EBF_KERNEL)
+# the recipe's Transformer baseline widths (2048 units, abs positions)
+TRANSFORMER_ENCODER = dict(output_size=256, attention_heads=4, linear_units=2048, num_blocks=12,
+                           pos_enc_layer_type="abs_pos", selfattention_layer_type="selfattn")
+CGMLP_C = EBF_ENCODER["linear_units"] // 2
+CGMLP_SERVE = f"serve-ebf [1,312,{CGMLP_C}] K={EBF_KERNEL}"
+CGMLP_TRAIN = (TRAIN_B, 312, CGMLP_C)
+CGMLP_TRAIN_SHAPE = f"train-ebf [{TRAIN_B},312,{CGMLP_C}] K={EBF_KERNEL}"
+BRCTC_RISK = 0.1
 
 
 def nvidia_smi_name_power() -> str:
@@ -550,11 +586,11 @@ def check_rel_attention_batch(ra, gen, card):
     return r
 
 
-def check_dwconv(dc, dtype, k_size, gen, card, b=1, t=312):
+def check_dwconv(dc, dtype, k_size, gen, card, b=1, t=312, c=256):
     """Serving shape: [1, 312, 256] x [31, 256]; also an even K, the
-    batched serving shape [8, 312, 256] and the streaming encoder's block
-    [1, 40, 256] x [15, 256]."""
-    c = 256
+    batched serving shape [8, 312, 256], the streaming encoder's block
+    [1, 40, 256] x [15, 256] and the E-Branchformer cgMLP's [1, 312, 512]
+    x [31, 512]."""
     x = torch.randn(b, t, c, generator=gen, device="cuda").to(dtype)
     w = torch.randn(k_size, c, generator=gen, device="cuda").to(dtype)
     y = dc.depthwise_conv1d(x, w)
@@ -695,11 +731,12 @@ def check_rel_attention_edges(ra, gen):
             check_rel_grads(ra, dtype, inputs, full, dout, 0.125, 99, 0.1, "logits x3")
 
 
-def check_dwconv_train(dc, dtype, k_size, gen, card):
-    """Training shape [64, 312, 256] x [K, 256]: the backward against the
-    plain VJP, and the forward; the library yardstick of the backward is
-    autograd's backward of F.conv1d(groups=C) (timed only)."""
-    b, t, c = DW_SHAPE
+def check_dwconv_train(dc, dtype, k_size, gen, card, shape=DW_SHAPE):
+    """Training shape [64, 312, 256] x [K, 256] (train-ebf's cgMLP:
+    [64, 312, 512] x [31, 512]): the backward against the plain VJP, and
+    the forward; the library yardstick of the backward is autograd's
+    backward of F.conv1d(groups=C) (timed only)."""
+    b, t, c = shape
     x, dy = (torch.randn(b, t, c, generator=gen, device="cuda").to(dtype) for _ in range(2))
     w = torch.randn(k_size, c, generator=gen, device="cuda").to(dtype)
     dx, dw = dc.depthwise_conv1d_bwd(x, w, dy)
@@ -1228,6 +1265,16 @@ def phase_kernels(ra, dc, wk, fa, lk, card):
     r = check_dwconv(dc, torch.float32, STREAM_KERNEL, gen, card, t=STREAM_BLOCK)
     _print_timing(card, "dwconv1d_fwd", STREAM_DW_SHAPE, torch.float32, r)
     results[("dwconv1d_fwd", STREAM_DW_SHAPE, torch.float32)] = r
+    # the E-Branchformer cgMLP's channels (linear_units / 2 = 512), serve-ebf
+    # and train-ebf
+    cases = [("dwconv1d_fwd", CGMLP_SERVE, check_dwconv(dc, torch.float32, EBF_KERNEL, gen, card,
+                                                         c=CGMLP_C))]
+    fwd_r, bwd_r = check_dwconv_train(dc, torch.float32, EBF_KERNEL, gen, card, shape=CGMLP_TRAIN)
+    cases += [("dwconv1d_fwd", CGMLP_TRAIN_SHAPE, fwd_r),
+              ("dwconv1d_bwd", CGMLP_TRAIN_SHAPE, bwd_r)]
+    for name, shape, r in cases:
+        _print_timing(card, name, shape, torch.float32, r)
+        results[(name, shape, torch.float32)] = r
     for shape, r in check_wkv(wk, gen, card).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
@@ -1564,7 +1611,7 @@ def phase_profile(model, wave, wall_s: float, card, tag="profile", sec=REQUEST_S
     enc_ms = sorted(x * 1e3 for x in t_enc)
     med_enc = float(np.median(enc_ms))
     print(f"[{tag}] {sec} s request, median latency {wall_s * 1e3:.1f} ms, of "
-          f"which encode (frontend + Conformer) median {med_enc:.1f} ms (min {enc_ms[0]:.1f}, "
+          f"which encode (frontend + encoder) median {med_enc:.1f} ms (min {enc_ms[0]:.1f}, "
           f"max {enc_ms[-1]:.1f}, {len(enc_ms)} runs); first pass and search "
           f"{wall_s * 1e3 - med_enc:.1f} ms [{card}]")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -3535,11 +3582,186 @@ def phase_recipe_io(kernels, card):
     return total
 
 
+def serve_one(tag, model, wave, kernels, card, encoder_fwd):
+    """One warm-up and one timed request through Speech2Text (beam 10,
+    ctc_weight 0.3, the 24-token cap): its latency, the score bookkeeping,
+    one launch of each ``encoder_fwd`` entry point a block and none of any
+    other, and the card's encoder against the CPU plain path on it."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    s2t(wave)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    t0 = time.perf_counter()
+    (ids, hyp), = s2t(wave)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = counts(kernels)
+    sec = wave.shape[0] / SR
+    check_scores(hyp)
+    print(f"[{tag}] {sec:.1f} s audio, one run after one warm-up: {ms:.1f} ms, RTFx "
+          f"{sec / ms * 1e3:.2f}; hyp {len(ids)} tokens, score {hyp.score:.4f} [{card}]")
+    print(f"[{tag}] kernel launches over 1 request: {launches}")
+    for name, n in launches.items():
+        want = model.cfg.encoder.num_blocks if name in encoder_fwd else 0
+        if n != want:
+            raise AssertionError(f"{tag}: {name}: {n} launches, expected {want}")
+    check_encoder_on_cpu(tag, model, wave, sec)
+    return launches
+
+
+def phase_serve_ebf(kernels, card):
+    """Phase 22: a CTC/attention ASRModel with the E-Branchformer of
+    ESPnet's LibriSpeech-100 recipe (EBF_ENCODER; decoder 6 x 256 with 2048
+    units, vocab 5000, ctc_weight 0.3; float32, TF32 off, weights from seed
+    0) served as phase 3 serves (phase_serve: phase 3's requests at beam 10,
+    one warm-up each, 3 timed runs each; 12 rel-pos and 12 depthwise
+    forward launches a request, no backward; peak memory; the card's
+    encoder against the CPU on the 4.1 s request), one request profiled;
+    then the Branchformer at the same widths and the Transformer encoder
+    (2048 units, abs positions; no kernel) serve one 10 s request each,
+    held against the CPU plain path with their launch counts."""
+    print("[serve-ebf] E-Branchformer 12 x 256 (4 heads, 1024 units for the FFNs and the "
+          "cgMLP, cgMLP kernel 31, rel_pos), as ESPnet's LibriSpeech-100 recipe, except the "
+          "merge conv's kernel: 3, fixed in JAX (llm_guided_asr_tpu/models/branchformer.py:65), "
+          "where the recipe sets 31")
+    model = build_serve_asr("e_branchformer", **EBF_ENCODER)
+    print(f"[serve-ebf] ASRModel {sum(p.numel() for p in model.parameters())} parameters")
+    launches, waves, wall_10s = phase_serve(model, kernels, card, "serve-ebf")
+    phase_profile(model, waves[0], wall_10s, card, "profile-ebf")
+    del model
+    torch.cuda.empty_cache()
+    for tag, encoder_type, enc, fwd in (("serve-bf", "branchformer", EBF_ENCODER, ENCODER_FWD),
+                                        ("serve-tf", "transformer", TRANSFORMER_ENCODER, ())):
+        model = build_serve_asr(encoder_type, **enc)
+        print(f"[{tag}] ASRModel with the {encoder_type} encoder {enc}: "
+              f"{sum(p.numel() for p in model.parameters())} parameters")
+        serve_one(tag, model, waves[0], kernels, card, fwd)
+        del model
+        torch.cuda.empty_cache()
+    return launches
+
+
+def build_train_ebf():
+    """Phase 23's model: phase 22's E-Branchformer ASRModel trained as
+    train-1 trains (SpecAug, attention dropout 0.1), weights from seed 0."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+    from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
+    from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
+
+    cfg = ASRModelConfig(
+        vocab_size=5000, frontend=FrontendConfig(), normalize="utterance_mvn",
+        specaug=SpecAugConfig(), encoder_type="e_branchformer",
+        encoder=ConformerConfig(**EBF_ENCODER, attention_dropout_rate=0.1),
+        decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
+        ctc_weight=0.3,
+    )
+    return init_weights(ASRModel(cfg, device="cuda"), seed=0)
+
+
+def phase_train_ebf(kernels, card):
+    """Phase 23: the E-Branchformer ASRModel trained at B=64 x 10 s (seeded
+    noise, 24 seeded token ids an utterance), AdamW, the fused step, 2
+    warm-up and 10 timed steps: losses finite and falling, 12 launches of
+    each encoder entry point a step, peak memory, audio s/s, one profiled
+    step; then the Bayes-risk CTC (risk BRCTC_RISK) on the batch's CTC
+    logits [64, 312, 5000] on the card against the CPU, timed beside the
+    builtin CTC."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    model = build_train_ebf()
+    n_params = sum(p.numel() for p in model.parameters())
+    state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+    samples = int(TRAIN_SECONDS * SR)
+    rng = np.random.default_rng(4)
+    batch = {
+        "speech": torch.from_numpy((rng.standard_normal((TRAIN_B, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((TRAIN_B,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(1, 4999, (TRAIN_B, 24))).cuda(),
+        "text_lengths": torch.full((TRAIN_B,), 24, device="cuda"),
+    }
+    print(f"[train-ebf] {n_params} parameters, batch {TRAIN_B} x {TRAIN_SECONDS} s, "
+          f"text [{TRAIN_B}, 24]")
+    all_stats, med, launches = run_steps("train-ebf", step, batch, TRAIN_WARMUP, TRAIN_STEPS,
+                                         kernels, card)
+    losses = [s["loss"] for s in all_stats]
+    if not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"train-ebf: loss did not fall: {losses}")
+    for name, n in launches.items():
+        want = model.cfg.encoder.num_blocks * TRAIN_STEPS if name in ENCODER_FWD + ENCODER_BWD \
+            else 0
+        if n != want:
+            raise AssertionError(f"train-ebf: {name} launched {n} times in {TRAIN_STEPS} steps, "
+                                 f"expected {want}")
+    print(f"[train-ebf] audio seconds per second at the median: "
+          f"{TRAIN_B * TRAIN_SECONDS / (med / 1e3):.1f} [{card}]")
+    profile_step("train-ebf", step, batch, med)
+    check_brctc(model, batch, card)
+    return launches, med
+
+
+def check_brctc(model, batch, card):
+    """The Bayes-risk CTC's per-example loss and logits gradient on the card
+    against the same computation on the CPU, on the CTC logits of the batch
+    (eval-mode encode): loss rtol 1e-5; the gradient within twice the
+    builtin CTC's own card-vs-CPU difference on the same logits plus 1e-5,
+    the CPU tests' tolerance against JAX (both run
+    F.ctc_loss's lattice in float32 log space, where -log P ~ T log V
+    ~ 2,600 rounds the posteriors by ~1e-4 at this length, 312 frames;
+    the tiny CPU tests hold it to JAX at 1e-5 over 30 frames).  Then its
+    forward and backward timed beside the builtin CTC's on the same
+    logits, CUDA events."""
+    from llm_guided_asr_tpu_torch.ops.losses import ctc_loss_per_example
+
+    model.eval()
+    with torch.no_grad():
+        enc, enc_lens = model.encode(batch["speech"], batch["speech_lengths"])
+        logits = model.ctc_logits(enc)
+    model.train()
+    text, text_lens = batch["text"], batch["text_lengths"]
+
+    def loss_and_grad(x, lens, labels, label_lens, risk):
+        x = x.detach().requires_grad_(True)
+        per_ex = ctc_loss_per_example(x, lens, labels, label_lens, time_risk=risk)
+        per_ex.sum().backward()
+        return per_ex.detach(), x.grad
+
+    cpu_args = (enc_lens.cpu(), text.cpu(), text_lens.cpu())
+    got = loss_and_grad(logits, enc_lens, text, text_lens, BRCTC_RISK)
+    want = loss_and_grad(logits.cpu(), *cpu_args, BRCTC_RISK)
+    loss_err = ((got[0].cpu() - want[0]).abs() / want[0].abs().clamp(min=1.0)).max().item()
+    grad_err = (got[1].cpu() - want[1]).abs().max().item()
+    builtin = loss_and_grad(logits, enc_lens, text, text_lens, 0.0)
+    builtin_err = (builtin[1].cpu() - loss_and_grad(logits.cpu(), *cpu_args, 0.0)[1]).abs().max()
+    grad_tol = 2.0 * builtin_err.item() + 1e-5
+    print(f"[train-ebf] brctc (risk {BRCTC_RISK}) at {list(logits.shape)}: loss card vs CPU "
+          f"max rel err {loss_err:.3e} (tol 1e-5), logits gradient max_abs_err {grad_err:.3e} "
+          f"(tol {grad_tol:.3e}: the builtin CTC's own card-vs-CPU gradient max_abs_err "
+          f"{builtin_err.item():.3e}, x2, + 1e-5); mean loss {float(got[0].mean()):.4f} against the "
+          f"builtin CTC's {float(builtin[0].mean()):.4f}")
+    if not (loss_err <= 1e-5 and grad_err <= grad_tol):
+        raise AssertionError(f"brctc on the card disagrees with the CPU: {loss_err}, {grad_err}")
+    if not torch.all(got[0] > builtin[0]):
+        raise AssertionError("brctc: the delay risk did not raise every example's loss")
+    ms = {risk: event_time_ms(lambda: loss_and_grad(logits, enc_lens, text, text_lens, risk),
+                              iters=5, warmup=1) for risk in (0.0, BRCTC_RISK)}
+    print(f"[train-ebf] CTC loss + backward at {list(logits.shape)}: brctc {ms[BRCTC_RISK]:.3f} "
+          f"ms, builtin F.ctc_loss {ms[0.0]:.3f} ms ({ms[BRCTC_RISK] / ms[0.0]:.2f}x) [{card}]")
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
     serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn,
-    train-transducer-mb, serve-st, train-st or recipe-io),
+    train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf or
+    train-ebf),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -3566,7 +3788,9 @@ def run_one_phase(name: str, card: str) -> int:
               "asr-cli": lambda: phase_asr_cli(kernels, card),
               "serve-st": lambda: phase_serve_st(build_st(), kernels, card),
               "train-st": lambda: phase_train_st(build_st(), kernels, card),
-              "recipe-io": lambda: phase_recipe_io(kernels, card)}
+              "recipe-io": lambda: phase_recipe_io(kernels, card),
+              "serve-ebf": lambda: phase_serve_ebf(kernels, card),
+              "train-ebf": lambda: phase_train_ebf(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
@@ -3584,7 +3808,7 @@ def main() -> int:
     ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
                                     "golden, serve, serve-batch, serve-lm, serve-stream, "
                                     "asr-cli, serve-transducer-rnn, train-transducer-mb, "
-                                    "serve-st, train-st or recipe-io")
+                                    "serve-st, train-st, recipe-io, serve-ebf or train-ebf")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -3668,6 +3892,9 @@ def main() -> int:
     del st
     torch.cuda.empty_cache()
     paths["recipe-io"] = timed("recipe-io", phase_recipe_io, kernels, card)
+    torch.cuda.empty_cache()
+    paths["serve-ebf"] = timed("serve-ebf", phase_serve_ebf, kernels, card)
+    paths["train-ebf"], _ = timed("train-ebf", phase_train_ebf, kernels, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -3727,6 +3954,17 @@ def main() -> int:
             row.update(stream_shape=STREAM_DW_SHAPE, stream_ms=s["ms"],
                        stream_plain_ms=s["plain_ms"], stream_bound_ms=s["bound_ms"],
                        stream_library_ms=s["library_ms"], stream_max_abs_err=s["err"])
+        if name in ("dwconv1d_fwd", "dwconv1d_bwd"):  # the E-Branchformer cgMLP's 512 channels
+            shapes = {"train": CGMLP_TRAIN_SHAPE}
+            if name == "dwconv1d_fwd":
+                shapes["serve"] = CGMLP_SERVE
+            for key, cg_shape in shapes.items():
+                s = timings[(name, cg_shape, f32)]
+                row.update({f"cgmlp_{key}_shape": cg_shape, f"cgmlp_{key}_ms": s["ms"],
+                            f"cgmlp_{key}_plain_ms": s["plain_ms"],
+                            f"cgmlp_{key}_bound_ms": s["bound_ms"],
+                            f"cgmlp_{key}_library_ms": s["library_ms"],
+                            f"cgmlp_{key}_max_abs_err": s["err"]})
         if name in ENCODER_FWD:  # phase 12's batched serving shape
             s = timings[(name, "serve-batch", f32)]
             row.update(batch_shape=f"B={len(BATCH_LENS)} T={BATCH_T} lanes {list(BATCH_LENS)}",

@@ -117,7 +117,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Fill every weight from ``seed`` on the model's device.
 
     The rule of the JAX benchmark's host_init_variables: biases, running
-    means and the rel-pos biases 0; norm scales (LayerNorm, RMSNorm, the
+    means, the rel-pos biases and the Branchformer's ``branch_weights``
+    (zeros at flax's init) 0; norm scales (LayerNorm, RMSNorm, the
     masked batch norm) and running variances 1; every other weight (dense,
     conv, depthwise conv, the decoders' token embeddings, the LSTM gates,
     RWKV's and MEGA's named leaves) N(0, 0.02).
@@ -127,7 +128,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     norms = (nn.LayerNorm, RMSNorm, MaskedBatchNorm)
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
-            if name == "bias" or name.startswith("pos_bias"):
+            if name in ("bias", "branch_weights") or name.startswith("pos_bias"):
                 p.zero_()
             elif isinstance(module, norms):
                 p.fill_(1.0)

@@ -1,16 +1,19 @@
 """Hybrid CTC/attention ASR model (counterpart of llm_guided_asr_tpu/models/asr_model.py).
 
-frontend -> SpecAug (training) -> normalize -> Conformer -> {CTC head,
+frontend -> SpecAug (training) -> normalize -> encoder -> {CTC head,
 transformer decoder}; loss = ctc_weight * CTC + (1 - ctc_weight) *
 label-smoothed attention CE, where CTC may mix in intermediate CTC over
-chosen encoder blocks (``interctc_weight``).  ``forward`` returns ``(loss, stats,
+chosen Conformer blocks (``interctc_weight``; the other encoders give no
+taps, so the term is absent, as in JAX) and ``ctc_type: brctc`` charges
+the final CTC (not the intermediate ones) the Bayes-risk delay
+``brctc_risk_factor``.  ``forward`` returns ``(loss, stats,
 weight)``: stats is a dict of float32 scalars, weight the batch size.
 sos = eos = vocab_size - 1, blank 0, ignore_id -1, as in the reference.
 
-This is phase 1 of the fork's two-phase training.  Only the flagship's
-choices are ported: the Conformer encoder, the transformer decoder, the
-default log-mel frontend, utterance or global MVN, and SpecAug; every
-other choice raises NotImplementedError.
+This is phase 1 of the fork's two-phase training.  Ported: the encoders
+of models/conformer.py make_encoder, the transformer decoder, the default
+log-mel frontend, utterance or global MVN, and SpecAug; every other choice
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -55,7 +58,8 @@ class ASRModelConfig:
     decoder_type: str = "transformer"
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
     ctc_weight: float = 0.5
-    ctc_type: str = "builtin"  # builtin | builtin2; brctc is not ported
+    ctc_type: str = "builtin"  # builtin | builtin2 | brctc
+    brctc_risk_factor: float = 0.0  # the delay risk of brctc (ops/losses.py BayesRiskCTC)
     # intermediate CTC over the encoder.interctc_layer_idx taps, through the
     # shared CTC head: loss_ctc = (1 - w) * ctc + w * mean(inter ctc)
     interctc_weight: float = 0.0
@@ -114,17 +118,14 @@ class ASRModel(nn.Module):
             raise NotImplementedError(f"decoder_type={cfg.decoder_type!r} is not ported yet")
         if cfg.frontend is None:
             raise NotImplementedError("a model without the default frontend is not ported yet")
-        if cfg.ctc_type not in ("builtin", "builtin2"):
-            raise NotImplementedError(f"ctc_type={cfg.ctc_type!r} is not ported yet")
-        if cfg.encoder.interctc_layer_idx and cfg.encoder_type != "conformer":
-            raise NotImplementedError(f"intermediate CTC with encoder_type="
-                                      f"{cfg.encoder_type!r} is not ported yet")
+        if cfg.ctc_type not in ("builtin", "builtin2", "brctc"):
+            raise ValueError(f"ctc_type={cfg.ctc_type!r}; known: builtin, builtin2, brctc")
         dev = resolve_device(device)
         self.cfg = cfg
-        d = cfg.encoder.output_size
         n_feat = cfg.frontend.n_mels
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
+            d = self.encoder.output_size
             if cfg.ctc_weight < 1.0:
                 self.decoder = TransformerDecoder(cfg.vocab_size, cfg.decoder, d)
             if cfg.ctc_weight > 0.0:
@@ -170,8 +171,9 @@ class ASRModel(nn.Module):
         zero = torch.zeros((), dtype=torch.float32, device=enc_out.device)
         loss_ctc = loss_att = zero
         if cfg.ctc_weight > 0.0:
+            risk = cfg.brctc_risk_factor if cfg.ctc_type == "brctc" else 0.0
             loss_ctc = ctc_loss(self.ctc_logits(enc_out), enc_lens, text, text_lengths,
-                                cfg.blank_id)
+                                cfg.blank_id, time_risk=risk)
             stats["loss_ctc"] = loss_ctc
             if cfg.interctc_weight > 0.0 and taps:
                 inter = torch.stack([ctc_loss(self.ctc_logits(h), enc_lens, text, text_lengths,

@@ -1,7 +1,10 @@
-"""Conformer encoder (counterpart of llm_guided_asr_tpu/models/conformer.py).
+"""Conformer and Transformer encoders (counterpart of llm_guided_asr_tpu/models/conformer.py).
 
-conv2d x4 subsampling -> positional encoding -> N blocks of
-[0.5*FFN (macaron) -> MHSA -> conv module -> FFN -> LN].  The self-attention
+Input layer (``conv2d`` x4 subsampling, ``linear`` or ``none``) ->
+positional encoding -> N blocks of [0.5*FFN (macaron) -> MHSA -> conv
+module -> FFN -> LN].  Under ``none`` the blocks take the features' width,
+as flax infers it; every encoder reports the width it gives in
+``output_size``.  The self-attention
 is ``selfattention_layer_type``: ``rel_selfattn`` (Transformer-XL, over the
 ``rel_pos`` table), ``flash`` (the long-form encoder: flash attention over
 the valid frames, usually with ``abs_pos``) or ``selfattn`` (dense MHA with
@@ -31,6 +34,7 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     PositionwiseFeedForward,
     RelPositionalEncoding,
     RelPositionMultiHeadedAttention,
+    TransformerEncoderLayer,
     sub4_lengths,
 )
 from llm_guided_asr_tpu_torch.ops.depthwise_conv import depthwise_conv1d
@@ -42,7 +46,7 @@ from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 @dataclasses.dataclass(frozen=True)
 class ConformerConfig:
-    """The fields of the JAX ConformerConfig that the Conformer reads."""
+    """The fields of the JAX ConformerConfig that the port's encoders read."""
 
     output_size: int = 256
     attention_heads: int = 4
@@ -68,7 +72,12 @@ class ConformerConfig:
     block_size: int = 40
 
 
-_ACTIVATIONS = {"swish": F.silu, "relu": torch.relu, "gelu": F.gelu, "hardtanh": F.hardtanh}
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.gelu's default: the tanh approximation, not the exact erf GELU."""
+    return F.gelu(x, approximate="tanh")
+
+
+_ACTIVATIONS = {"swish": F.silu, "relu": torch.relu, "gelu": gelu_tanh, "hardtanh": F.hardtanh}
 _ATTENTIONS = {"rel_selfattn": RelPositionMultiHeadedAttention, "flash": FlashSelfAttention,
                "selfattn": MultiHeadedAttention}
 
@@ -138,13 +147,12 @@ class ConvolutionModule(nn.Module):
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, cfg: ConformerConfig):
+    def __init__(self, cfg: ConformerConfig, d: int):
         super().__init__()
         attn_type = _ATTENTIONS.get(cfg.selfattention_layer_type)
         if attn_type is None:
             raise ValueError(f"selfattention_layer_type={cfg.selfattention_layer_type!r}; "
                              f"expected one of {sorted(_ATTENTIONS)}")
-        d = cfg.output_size
         act = _ACTIVATIONS[cfg.activation_type]
         self.cfg = cfg
         if cfg.macaron_style:
@@ -185,14 +193,39 @@ class ConformerBlock(nn.Module):
         return x
 
 
+INPUT_LAYERS = ("conv2d", "linear", "none")
+
+
+def input_layer(kind: str, input_size: int, output_size: int) -> Tuple[Optional[nn.Module], int]:
+    """The encoder's input layer (``embed``) and the width it gives the
+    blocks: ``conv2d`` x4 subsampling or ``linear`` (one Dense) to
+    ``output_size``; ``none`` keeps the features' width."""
+    if kind == "conv2d":
+        return Conv2dSubsampling(input_size, output_size), output_size
+    if kind == "linear":
+        return nn.Linear(input_size, output_size), output_size
+    if kind == "none":
+        return None, input_size
+    raise ValueError(f"input_layer={kind!r}; expected one of {INPUT_LAYERS}")
+
+
+def embed_features(encoder: nn.Module, feats: torch.Tensor, feats_lengths: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``encoder.embed`` over the features and the lengths it gives."""
+    if encoder.embed is None:
+        return feats, feats_lengths
+    x = encoder.embed(feats)
+    if encoder.cfg.input_layer == "conv2d":
+        return x, sub4_lengths(feats_lengths, feats.shape[1])
+    return x, feats_lengths
+
+
 class ConformerEncoder(nn.Module):
     """[B, T, F] features -> ([B, T', D] encoded, [B] lengths)."""
 
     def __init__(self, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.input_layer != "conv2d":
-            raise NotImplementedError(f"input_layer={cfg.input_layer!r} is not ported yet")
         if cfg.pos_enc_layer_type not in ("rel_pos", "abs_pos"):
             raise ValueError(f"pos_enc_layer_type={cfg.pos_enc_layer_type!r}")
         if cfg.selfattention_layer_type == "rel_selfattn" and cfg.pos_enc_layer_type != "rel_pos":
@@ -200,15 +233,16 @@ class ConformerEncoder(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device(dev):
-            self.embed = Conv2dSubsampling(input_size, cfg.output_size)
+            self.embed, d = input_layer(cfg.input_layer, input_size, cfg.output_size)
+            self.output_size = d
             if cfg.pos_enc_layer_type == "rel_pos":
                 self.pos_enc = RelPositionalEncoding(cfg.positional_dropout_rate)
             else:
                 self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
             for i in range(cfg.num_blocks):
-                setattr(self, f"block_{i}", ConformerBlock(cfg))
+                setattr(self, f"block_{i}", ConformerBlock(cfg, d))
             if cfg.normalize_before:
-                self.after_norm = LayerNorm(cfg.output_size)
+                self.after_norm = LayerNorm(d)
 
     def forward(self, feats, feats_lengths,
                 rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,8 +253,7 @@ class ConformerEncoder(nn.Module):
                                    ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
         """As ``forward``, plus the outputs of the ``interctc_layer_idx``
         blocks (1-based), pad frames zeroed (the intermediate-CTC taps)."""
-        x = self.embed(feats)
-        out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
+        x, out_lengths = embed_features(self, feats, feats_lengths)
         if self.cfg.pos_enc_layer_type == "rel_pos":
             x, pos_emb = self.pos_enc(x, rng)
         else:
@@ -236,12 +269,62 @@ class ConformerEncoder(nn.Module):
         return x.masked_fill(~valid[..., None], 0.0), out_lengths, tuple(taps)
 
 
+class TransformerEncoder(nn.Module):
+    """Plain transformer encoder (conformer.py TransformerEncoder; espnet2
+    transformer_encoder.py): input layer -> abs positional encoding -> N
+    pre-norm TransformerEncoderLayers (dense MHA, relu FFN) -> ``after_norm``
+    when ``normalize_before``.  It runs no hand-written kernel."""
+
+    def __init__(self, cfg: ConformerConfig, input_size: int,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        with torch.device(dev):
+            self.embed, d = input_layer(cfg.input_layer, input_size, cfg.output_size)
+            self.output_size = d
+            self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
+            for i in range(cfg.num_blocks):
+                setattr(self, f"block_{i}", TransformerEncoderLayer(
+                    d, cfg.attention_heads, cfg.linear_units, cfg.dropout_rate,
+                    cfg.attention_dropout_rate))
+            if cfg.normalize_before:
+                self.after_norm = LayerNorm(d)
+
+    def forward(self, feats, feats_lengths,
+                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x, out_lengths = embed_features(self, feats, feats_lengths)
+        x = self.pos_enc(x, rng=rng)
+        valid = make_valid_mask(out_lengths, x.shape[1])
+        for i in range(self.cfg.num_blocks):
+            x = getattr(self, f"block_{i}")(x, valid[:, None, :], rng)
+        if self.cfg.normalize_before:
+            x = self.after_norm(x)
+        return x.masked_fill(~valid[..., None], 0.0), out_lengths
+
+    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None):
+        """``forward`` and no taps: the JAX encoder gives none, so
+        ``interctc_weight`` adds no term."""
+        return (*self.forward(feats, feats_lengths, rng), ())
+
+
 def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda") -> nn.Module:
-    """Encoder registry: the Conformer and the contextual-block
-    (streaming) Conformer of models/streaming.py so far."""
+    """Encoder registry: the Conformer, the Transformer, the
+    E-Branchformer and Branchformer of models/branchformer.py and the
+    contextual-block (streaming) Conformer of models/streaming.py so far."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
+    if encoder_type == "transformer":
+        return TransformerEncoder(cfg, input_size, device=device)
+    if encoder_type in ("e_branchformer", "branchformer"):
+        from llm_guided_asr_tpu_torch.models.branchformer import (
+            BranchformerEncoder,
+            EBranchformerEncoder,
+        )
+
+        cls = EBranchformerEncoder if encoder_type == "e_branchformer" else BranchformerEncoder
+        return cls(cfg, input_size, device=device)
     if encoder_type == "contextual_block_conformer":
         from llm_guided_asr_tpu_torch.models.streaming import ContextualBlockConformerEncoder
 

@@ -144,12 +144,16 @@ class LLMGuidedASRModel(nn.Module):
             raise ValueError(f"llm_score_mode={cfg.llm_score_mode!r}, not one of {SCORE_MODES}")
         dev = resolve_device(device)
         self.cfg = cfg
+        # the guided decoder is encoder.output_size wide, as in JAX; the
+        # encoder's own width (n_feat under input_layer none) feeds the CTC
+        # head and the decoder's cross-attention
         d = cfg.encoder.output_size
         n_feat = cfg.n_feat
         ctc_dim = cfg.ctc_dim
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
-            self.ctc_head = nn.Linear(d, ctc_dim)
+            d_enc = self.encoder.output_size
+            self.ctc_head = nn.Linear(d_enc, ctc_dim)
             if cfg.ctc_vocab_size:
                 self.register_buffer("ctc_map_ids", torch.zeros((ctc_dim, cfg.ctc_map_width),
                                                                 dtype=torch.int64))
@@ -157,7 +161,7 @@ class LLMGuidedASRModel(nn.Module):
             self.llm = LlamaModel(cfg.llm, dtype=llm_dtype, device=dev,
                                   lm_head=cfg.llm_score_mode == "log_softmax")
             self.embed = nn.Linear(cfg.llm.hidden_size, d)
-            for i, layer in enumerate(decoder_layers(cfg.decoder, d)):
+            for i, layer in enumerate(decoder_layers(cfg.decoder, d, d_enc)):
                 setattr(self, f"block_{i}", layer)
             # a bare flax nn.LayerNorm in the JAX model: epsilon 1e-6
             self.after_norm = nn.LayerNorm(d, eps=1e-6)

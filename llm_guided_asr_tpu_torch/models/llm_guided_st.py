@@ -124,7 +124,7 @@ class LLMGuidedSTModel(LLMGuidedASRModel):
         if cfg.extra_asr_decoder is not None:
             with torch.device(self.ctc_head.weight.device):
                 self.extra_asr_decoder = TransformerDecoder(
-                    cfg.src_vocab_size, cfg.extra_asr_decoder, cfg.encoder.output_size)
+                    cfg.src_vocab_size, cfg.extra_asr_decoder, self.encoder.output_size)
 
     def _first_pass_hyp(self, encoder_out, encoder_out_lengths):
         """The source-vocab greedy CTC hypothesis, used as LLM ids."""

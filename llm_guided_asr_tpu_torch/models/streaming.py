@@ -110,6 +110,7 @@ class ContextualBlockConformerEncoder(nn.Module):
             raise NotImplementedError(f"input_layer={cfg.input_layer!r} is not ported yet")
         self.cfg = cfg
         self.block_size = block_size
+        self.output_size = cfg.output_size
         with torch.device(resolve_device(device)):
             self.embed = Conv2dSubsampling(input_size, cfg.output_size)
             self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
@@ -117,6 +118,11 @@ class ContextualBlockConformerEncoder(nn.Module):
                 setattr(self, f"layer_{i}", ContextualBlockLayer(cfg))
             if cfg.normalize_before:
                 self.after_norm = LayerNorm(cfg.output_size)
+
+    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None):
+        """``forward`` and no taps: the JAX encoder gives none, so
+        ``interctc_weight`` adds no term."""
+        return (*self.forward(feats, feats_lengths, rng), ())
 
     def _layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_blocks)]

@@ -176,10 +176,10 @@ class TransducerModel(nn.Module):
                              f"{cfg.multi_blank_durations} differ in length")
         dev = resolve_device(device)
         self.cfg = cfg
-        d = cfg.encoder.output_size
         n_feat = cfg.n_feat
         with torch.device(dev):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
+            d = self.encoder.output_size
             self.decoder = DECODERS[dec_type](cfg.vocab_size, cfg.decoder)
             self.joint = JointNetwork(cfg.vocab_size, d, cfg.decoder.hidden_size, cfg.joint_size)
             if cfg.aux_ctc_weight > 0:

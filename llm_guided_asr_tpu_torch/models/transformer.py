@@ -79,14 +79,16 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 class MultiHeadedAttention(nn.Module):
-    """Standard MHA (attention.py MultiHeadedAttention)."""
+    """Standard MHA (attention.py MultiHeadedAttention); keys and values
+    may come ``kv_dim`` wide (flax infers the Dense inputs)."""
 
-    def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
+    def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0,
+                 kv_dim: Optional[int] = None):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
         self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
+        self.linear_k = nn.Linear(kv_dim or d_model, d_model)
+        self.linear_v = nn.Linear(kv_dim or d_model, d_model)
         self.linear_out = nn.Linear(d_model, d_model)
         self.dropout_rate = dropout_rate  # on the attention probabilities
 
@@ -281,16 +283,18 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """Pre-norm transformer decoder layer (decoder_layer.py): self-attn, src-attn, FFN."""
+    """Pre-norm transformer decoder layer (decoder_layer.py): self-attn,
+    src-attn over a memory ``memory_dim`` wide (default ``d_model``), FFN."""
 
     def __init__(self, d_model: int, num_heads: int, linear_units: int,
                  dropout_rate: float = 0.1, self_attention_dropout_rate: float = 0.0,
-                 src_attention_dropout_rate: float = 0.0):
+                 src_attention_dropout_rate: float = 0.0, memory_dim: Optional[int] = None):
         super().__init__()
         self.norm1 = LayerNorm(d_model)
         self.self_attn = MultiHeadedAttention(d_model, num_heads, self_attention_dropout_rate)
         self.norm2 = LayerNorm(d_model)
-        self.src_attn = MultiHeadedAttention(d_model, num_heads, src_attention_dropout_rate)
+        self.src_attn = MultiHeadedAttention(d_model, num_heads, src_attention_dropout_rate,
+                                             kv_dim=memory_dim)
         self.norm3 = LayerNorm(d_model)
         self.feed_forward = PositionwiseFeedForward(d_model, linear_units,
                                                     dropout_rate=dropout_rate)

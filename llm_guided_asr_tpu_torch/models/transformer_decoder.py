@@ -2,9 +2,10 @@
 
 Token embedding * sqrt(d) + sinusoidal positions, N pre-norm decoder
 layers with causal self-attention and cross-attention over the encoder
-output, a final LayerNorm and the vocabulary projection.  The LLM-guided
-model builds its guided decoder's blocks from the same config.  Not
-ported: ``tie_input_output`` and the lightconv/dynamicconv variants.
+output, a final LayerNorm and the vocabulary projection (with
+``tie_input_output``, the embedding table transposed, no bias).  The
+LLM-guided model builds its guided decoder's blocks from the same
+config.  Not ported: the lightconv/dynamicconv variants.
 """
 
 from __future__ import annotations
@@ -38,11 +39,13 @@ class TransformerDecoderConfig:
     tie_input_output: bool = False
 
 
-def decoder_layers(cfg: TransformerDecoderConfig, d_model: int) -> list:
-    """The config's ``num_blocks`` pre-norm decoder layers."""
+def decoder_layers(cfg: TransformerDecoderConfig, d_model: int,
+                   memory_dim: Optional[int] = None) -> list:
+    """The config's ``num_blocks`` pre-norm decoder layers over a memory
+    ``memory_dim`` wide (default ``d_model``)."""
     return [DecoderLayer(d_model, cfg.attention_heads, cfg.linear_units, cfg.dropout_rate,
-                         cfg.self_attention_dropout_rate, cfg.src_attention_dropout_rate)
-            for _ in range(cfg.num_blocks)]
+                         cfg.self_attention_dropout_rate, cfg.src_attention_dropout_rate,
+                         memory_dim) for _ in range(cfg.num_blocks)]
 
 
 class TransformerDecoder(nn.Module):
@@ -50,8 +53,6 @@ class TransformerDecoder(nn.Module):
 
     def __init__(self, vocab_size: int, cfg: TransformerDecoderConfig, d_model: int):
         super().__init__()
-        if cfg.tie_input_output:
-            raise NotImplementedError("tie_input_output is not ported yet")
         self.cfg = cfg
         self.embed = nn.Embedding(vocab_size, d_model)
         self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
@@ -59,7 +60,7 @@ class TransformerDecoder(nn.Module):
             setattr(self, f"block_{i}", layer)
         if cfg.normalize_before:
             self.after_norm = LayerNorm(d_model)
-        if cfg.use_output_layer:
+        if cfg.use_output_layer and not cfg.tie_input_output:
             self.output_layer = nn.Linear(d_model, vocab_size)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
@@ -78,4 +79,8 @@ class TransformerDecoder(nn.Module):
             x = self.after_norm(x)
         if only_last:
             x = x[torch.arange(x.shape[0], device=x.device), ys_in_lengths - 1]
-        return self.output_layer(x) if cfg.use_output_layer else x
+        if not cfg.use_output_layer:
+            return x
+        if cfg.tie_input_output:  # flax embed.attend
+            return x @ self.embed.weight.t()
+        return self.output_layer(x)

@@ -3,6 +3,9 @@
 CTC is ``torch.nn.functional.ctc_loss`` on float32 log-probabilities (the
 JAX package's forward-backward CTC, ops/ctc_fb.py, is plain XLA and no
 TPU kernel); an infeasible example counts 0 and takes no gradient.  The
+Bayes-risk CTC (``time_risk`` != 0, ``ctc_type: brctc``) runs the same
+lattice over emissions tilted by a delay risk, with JAX's gradient
+(:class:`BayesRiskCTC`).  The
 label-smoothing loss is the KL divergence of torch's KLDivLoss, entropy
 term included, over the batch size or the token count.  All reductions
 run in float32.
@@ -24,15 +27,66 @@ def ctc_loss_per_example(logits: torch.Tensor, logit_lengths: torch.Tensor,
                          blank_id: int = 0, time_risk: float = 0.0) -> torch.Tensor:
     """Per-example CTC negative log-likelihood [B] from [B, T, V]
     pre-softmax logits; non-finite examples (infeasible alignments) are 0
-    and take no gradient."""
-    if time_risk > 0.0:
-        raise NotImplementedError("the Bayes-risk CTC (time_risk > 0, brctc) is not ported yet")
+    and take no gradient.  ``time_risk`` != 0: the Bayes-risk CTC."""
     label_valid = make_valid_mask(label_lengths, labels.shape[1])
     labels = torch.where(label_valid, labels, 0).long()
+    if time_risk != 0.0:
+        return BayesRiskCTC.apply(logits, logit_lengths.long(), labels, label_lengths.long(),
+                                  blank_id, float(time_risk))
     logp = F.log_softmax(logits.float(), dim=-1)
     per_ex = F.ctc_loss(logp.transpose(0, 1), labels, logit_lengths.long(), label_lengths.long(),
                         blank=blank_id, reduction="none", zero_infinity=True)
     return torch.where(torch.isfinite(per_ex), per_ex, 0.0)
+
+
+class BayesRiskCTC(torch.autograd.Function):
+    """Bayes-risk CTC (ops/ctc_fb.py ``_fb`` with ``time_risk``): every
+    token state at frame t is charged ``time_risk * t / max(len, 1)``, and
+    the loss is the CTC lattice's -log P over those tilted emissions.  The
+    tilt is the same for every non-blank entry of a frame, so it is the
+    builtin lattice over log-probs whose non-blank entries are lowered by
+    it (a label equal to the blank would go untilted here, where JAX tilts
+    it).
+
+    The gradient to the logits is JAX's custom VJP: softmax minus the
+    tilted posterior, zero on frames past the length and for infeasible
+    examples.  Autograd through F.ctc_loss on the tilted log-probs would
+    be wrong: its backward returns exp(input) - posterior, which is the
+    gradient only when each row of the input sums to one in probability.
+    So the posterior is recovered from that backward (exp(input) minus
+    it), and the forward computes the gradient once and saves it.  The
+    softmax is scaled by the posterior's mass at each frame, 1 in exact
+    arithmetic, as the builtin CTC's autograd through log_softmax scales
+    it: that keeps the float32 rounding of -log P, common to a frame's
+    posteriors, out of the gradient."""
+
+    @staticmethod
+    def forward(ctx, logits, logit_lengths, labels, label_lengths, blank_id: int,
+                time_risk: float):
+        lp = F.log_softmax(logits.detach().float(), dim=-1)  # [B, T, V]
+        b, t_max, v = lp.shape
+        frames = torch.arange(t_max, device=lp.device, dtype=torch.float32)
+        risk = time_risk * frames[None, :] / torch.clamp(logit_lengths.float(), min=1.0)[:, None]
+        token = torch.ones(v, dtype=torch.bool, device=lp.device)
+        token[blank_id] = False
+        tilted = (lp - risk[..., None] * token).requires_grad_(True)
+        with torch.enable_grad():
+            nll = F.ctc_loss(tilted.transpose(0, 1), labels, logit_lengths, label_lengths,
+                             blank=blank_id, reduction="none", zero_infinity=False)
+            g_in, = torch.autograd.grad(nll.sum(), tilted)
+        feasible = torch.isfinite(nll)
+        posterior = tilted.detach().exp() - g_in
+        grad = lp.exp() * posterior.sum(dim=-1, keepdim=True) - posterior
+        t_valid = torch.arange(t_max, device=lp.device)[None, :] < logit_lengths[:, None]
+        keep = (t_valid & feasible[:, None])[..., None]
+        ctx.save_for_backward(torch.where(keep, grad, 0.0))
+        ctx.logits_dtype = logits.dtype
+        return torch.where(feasible, nll.detach(), 0.0)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        grad, = ctx.saved_tensors
+        return (grad * g_out[:, None, None]).to(ctx.logits_dtype), None, None, None, None, None
 
 
 def ctc_loss(logits: torch.Tensor, logit_lengths: torch.Tensor, labels: torch.Tensor,

@@ -35,6 +35,10 @@ class CachedDecoderScorer:
 
     def __init__(self, model, num_heads: int, num_blocks: int):
         cfg = model.cfg.decoder
+        if cfg.tie_input_output:
+            # the JAX scorer reads an output_layer that a tied decoder lacks
+            raise ValueError("the cached decoder does not serve tie_input_output; "
+                             "use the stateless scorer (use_cached_decoder false)")
         if not (cfg.normalize_before and cfg.use_output_layer):
             raise NotImplementedError("the cached decoder needs normalize_before and an output layer")
         self.decoder = model.decoder

@@ -149,7 +149,6 @@ ASR_DEFAULTS: Dict[str, Any] = {
 
 # the JAX package's choices the port does not have yet, by ROADMAP item
 ITEM_BF16 = "ROADMAP Queue 1 item 7"
-ITEM_BRCTC = "ROADMAP Queue 1 item 8"
 ITEM_CHOICES = "ROADMAP Queue 1 item 10"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
@@ -158,7 +157,8 @@ JAX_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                 "contextual_block_conformer", "whisper_style", "longformer",
                 "multiconvformer", "rnn", "vgg_rnn", "avhubert", "s4",
                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
-PORT_ENCODERS = ("conformer", "contextual_block_conformer")
+PORT_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
+                 "contextual_block_conformer")
 JAX_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv", "hugging_face")
 JAX_MODELS = ("espnet", "llm_guided_asr", "maskctc", "transducer")
 
@@ -253,9 +253,7 @@ def _check_unported_asr_choices(config: Dict[str, Any]):
         if config.get(key):
             raise NotImplementedError(f"{key}={config[key]!r} is not ported yet ({ITEM_CHOICES})")
     ctc_type = (config.get("ctc_conf") or {}).get("ctc_type", "builtin")
-    if ctc_type == "brctc":
-        raise NotImplementedError(f"ctc_type=brctc is not ported yet ({ITEM_BRCTC})")
-    if ctc_type not in ("builtin", "builtin2"):
+    if ctc_type not in ("builtin", "builtin2", "brctc"):
         raise ValueError(f"unknown ctc_type {ctc_type!r}; known: builtin, builtin2, brctc")
 
 
@@ -281,6 +279,7 @@ def build_model_config(config: Dict[str, Any]) -> ASRModelConfig:
             TransformerDecoderConfig, config.get("decoder_conf"), "decoder_conf")),
         ctc_weight=float(model_conf.get("ctc_weight", 0.5)),
         ctc_type=(config.get("ctc_conf") or {}).get("ctc_type", "builtin"),
+        brctc_risk_factor=float((config.get("ctc_conf") or {}).get("brctc_risk_factor", 0.0)),
         interctc_weight=float(model_conf.get("interctc_weight", 0.0)),
         lsm_weight=float(model_conf.get("lsm_weight", 0.0)),
         length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),

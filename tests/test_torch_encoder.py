@@ -32,10 +32,15 @@ def _randomize_batch_stats(variables, rng):
     return {**variables, "batch_stats": stats}
 
 
-@pytest.mark.parametrize("pad_safe_conv", [True, False])
-def test_conformer_encoder_matches_jax(pad_safe_conv):
+@pytest.mark.parametrize("pad_safe_conv,activation_type",
+                         [(True, "swish"), (False, "swish"), (True, "gelu")],
+                         ids=["True", "False", "True-gelu"])
+def test_conformer_encoder_matches_jax(pad_safe_conv, activation_type):
+    """gelu is jax.nn.gelu's default, the tanh approximation (the exact erf
+    GELU misses this tolerance by ~4x)."""
     cfg_kw = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
-                  macaron_style=True, cnn_module_kernel=7, pad_safe_conv=pad_safe_conv)
+                  macaron_style=True, cnn_module_kernel=7, pad_safe_conv=pad_safe_conv,
+                  activation_type=activation_type)
     rng = np.random.default_rng(0)
     feats = rng.standard_normal((3, 57, 20)).astype(np.float32)
     lengths = np.array([57, 40, 23], np.int32)

@@ -107,6 +107,7 @@ DW_CASES = [
     (16, 312, 256, 31), (4, 312, 256, 8), (48, 100, 70, 15),
     (8, 312, 256, 31),  # the batched serving shape
     (1, 40, 256, 15),  # the streaming encoder's block (serve-stream)
+    (1, 312, 512, 31), (64, 312, 512, 31),  # the E-Branchformer's cgMLP (serve-ebf, train-ebf)
 ]
 
 
@@ -1413,3 +1414,71 @@ def test_st_model_on_the_card_matches_the_cpu(card):
     assert [ids for ids, _ in got["gpu"]] == [ids for ids, _ in got["cpu"]]
     np.testing.assert_allclose([h.score for _, h in got["gpu"]],
                                [h.score for _, h in got["cpu"]], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_ebranchformer_on_the_card_matches_the_cpu(card):
+    """Two E-Branchformer blocks with mixed lengths, forward and backward:
+    the card (kernels) against the CPU (plain versions), one launch of each
+    encoder kernel entry point per block."""
+    from llm_guided_asr_tpu_torch.models.branchformer import EBranchformerEncoder
+
+    cfg = tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=256,
+                                num_blocks=2, cnn_module_kernel=31, dropout_rate=0.0,
+                                positional_dropout_rate=0.0)
+    torch.manual_seed(0)
+    cpu = EBranchformerEncoder(cfg, 40, device="cpu").train()
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.1)
+    gpu = EBranchformerEncoder(cfg, 40, device=card).train()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(0)
+    feats = _rand(rng, 3, 157, 40, scale=1.0)
+    lengths = torch.tensor([157, 120, 61])
+    r = _rand(rng, 3, 38, 64, scale=1.0)
+    grads = {}
+    before = _counts()
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        out, lens = model(feats.to(dev), lengths.to(dev))
+        (out * r.to(dev)).sum().backward()
+        grads[name] = (out.detach().cpu(), lens.cpu(),
+                       {n: q.grad.cpu() for n, q in model.named_parameters()})
+    torch.cuda.synchronize()
+    assert _counts() == {**before, **{k: before[k] + 2 for k in (
+        "rel_attention_fwd", "rel_attention_bwd", "dwconv1d_fwd", "dwconv1d_bwd")}}
+    assert torch.equal(grads["gpu"][1], grads["cpu"][1])
+    torch.testing.assert_close(grads["gpu"][0], grads["cpu"][0], rtol=1e-4, atol=1e-4)
+    for n, ref in grads["cpu"][2].items():
+        torch.testing.assert_close(grads["gpu"][2][n], ref, rtol=0, atol=_grad_tol(ref), msg=n)
+
+
+@pytest.mark.gpu
+def test_brctc_on_the_card_matches_the_cpu(card):
+    """The Bayes-risk CTC (risk 0.1) at a ragged batch with an infeasible
+    example: loss and logits gradient on the card against the CPU, the
+    gradient within twice the builtin CTC's own card-vs-CPU difference
+    plus 1e-5 (F.ctc_loss's float32 log-space lattice rounds the
+    posteriors on both paths, by more the longer the input)."""
+    from llm_guided_asr_tpu_torch.ops.losses import ctc_loss_per_example
+
+    rng = np.random.default_rng(3)
+    logits = _rand(rng, 4, 120, 50, scale=2.0)
+    lengths = torch.tensor([120, 97, 60, 3])
+    labels = torch.from_numpy(rng.integers(1, 50, (4, 30)))
+    labels[3, :3] = torch.tensor([2, 2, 3])
+    label_lengths = torch.tensor([30, 22, 17, 3])
+    out = {}
+    for risk in (0.1, 0.0):
+        for dev in ("cpu", card):
+            x = logits.to(dev).detach().requires_grad_(True)
+            per_ex = ctc_loss_per_example(x, lengths.to(dev), labels.to(dev),
+                                          label_lengths.to(dev), time_risk=risk)
+            per_ex.sum().backward()
+            out[(risk, str(dev))] = (per_ex.detach().cpu(), x.grad.cpu())
+    got, want = out[(0.1, "cuda")], out[(0.1, "cpu")]
+    assert float(got[0][3]) == 0.0 and not got[1][3].any()
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
+    builtin_err = (out[(0.0, "cuda")][1] - out[(0.0, "cpu")][1]).abs().max().item()
+    assert (got[1] - want[1]).abs().max().item() <= 2.0 * builtin_err + 1e-5

@@ -147,8 +147,15 @@ def test_ctc_loss_and_gradient_match_jax():
     np.testing.assert_allclose(float(t_loss.detach()), float(j_loss), rtol=1e-4)
     np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad), rtol=1e-4, atol=1e-5)
     assert np.all(t_grad.numpy()[2] == 0.0)  # the infeasible example takes no gradient
-    with pytest.raises(NotImplementedError):
-        tlosses.ctc_loss(T(logits), T(ll), T(labels), T(lab_l), time_risk=0.5)
+    # the Bayes-risk CTC (brctc) is ported: its loss and gradient match too
+    j_loss, j_grad = jax.value_and_grad(jlosses.ctc_loss)(
+        jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l),
+        time_risk=0.5)
+    lt = T(logits).requires_grad_(True)
+    t_loss = tlosses.ctc_loss(lt, T(ll), T(labels), T(lab_l), time_risk=0.5)
+    (t_grad,) = torch.autograd.grad(t_loss, lt)
+    np.testing.assert_allclose(float(t_loss.detach()), float(j_loss), rtol=1e-4)
+    np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad), rtol=1e-4, atol=1e-5)
 
 
 @pytest.mark.parametrize("smoothing", [0.0, 0.1])
