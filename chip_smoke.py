@@ -294,7 +294,13 @@ batched serving shapes of phase 12 ([8, 4, 312, 64] with 312, 229, 129,
 CUDA graph, the depthwise forward at the streaming encoder's block
 [1, 40, 256] x [15, 256] (phase 14), f32, CUDA graph, and the depthwise
 forward and backward at the E-Branchformer cgMLP's 512 channels
-([1, 312, 512] and [64, 312, 512] x [31, 512], phases 22-23), f32.  The
+([1, 312, 512] and [64, 312, 512] x [31, 512], phases 22-23), f32; the
+MultiConvformer's depthwise convs (K = 7 and 23 on 512 channels, the merge
+conv's K = 31 on 2048; the forward at B=1, the forward and backward at
+B=16 and 64) and the LSTM recurrence at the RNN encoders' 320 units (the
+forward at [1, 312, 320] and [1, 1251, 320], forward and backward at
+[16, 312, 320], [16, 1251, 320] and [64, 312, 320], launches a call
+printed), phases 26-27, f32.  The
 rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
@@ -391,6 +397,59 @@ CGMLP_SERVE = f"serve-ebf [1,312,{CGMLP_C}] K={EBF_KERNEL}"
 CGMLP_TRAIN = (TRAIN_B, 312, CGMLP_C)
 CGMLP_TRAIN_SHAPE = f"train-ebf [{TRAIN_B},312,{CGMLP_C}] K={EBF_KERNEL}"
 BRCTC_RISK = 0.1
+# phases 24-25 (serve-dec, train-dec): train-1's Conformer ASRModel with each
+# decoder of this slice, in the JAX config mapping (decoder_conf holds the
+# TransformerDecoderConfig fields; models/asr_model.py make_decoder)
+NEW_DECODERS = {
+    # ESPnet's RNNDecoder default: one LSTM layer of 320 (JAX: hidden =
+    # linear_units, layers = num_blocks; embed min(D, 256), att_dim D)
+    "rnn": dict(num_blocks=1, linear_units=320),
+    # ESPnet's LightweightConvolution/DynamicConvolutionTransformerDecoder
+    # defaults: 6 blocks, 4 heads, 2048 units, kernel 11 (JAX fixes 11)
+    "lightconv": dict(num_blocks=6, attention_heads=4, linear_units=2048),
+    "dynamicconv": dict(num_blocks=6, attention_heads=4, linear_units=2048),
+    # 6 blocks; JAX fixes d_state 16 and the diag kernel
+    "s4": dict(num_blocks=6, attention_heads=4, linear_units=2048),
+}
+DEC_ROUNDS = 2  # timed runs of each request a decoder (phase 24)
+DEC_B, DEC_WARMUP, DEC_STEPS = 64, 1, 3  # phase 25
+GRAD_B = 2  # phase 25's card-vs-CPU gradients
+# phases 26-27 (serve-enc, train-enc): the encoders of this slice with the
+# 6 x 256 Transformer decoder (its width follows the encoder's)
+NEW_ENCODERS = {
+    # ESPnet's LibriSpeech-100 MultiConvformer: 12 x 256, 4 heads, 1024
+    # units (FFNs and the cgMLP), kernels 7/15/23/31, merge 31, rel_pos, macaron
+    "multiconvformer": dict(output_size=256, attention_heads=4, linear_units=1024,
+                            num_blocks=12, multicgmlp_kernel_sizes=(7, 15, 23, 31)),
+    # ESPnet VGGRNNEncoder's / RNNEncoder's defaults: 4 bidirectional LSTM
+    # layers of 320 (elayers 4, eunits = eprojs 320)
+    "vgg_rnn": dict(output_size=320, num_blocks=4),
+    "rnn": dict(output_size=320, num_blocks=4),
+    # ESPnet's LongformerEncoder widths at 12 x 256 (2048 units), window 64
+    "longformer": dict(output_size=256, attention_heads=4, linear_units=2048, num_blocks=12,
+                       pos_enc_layer_type="abs_pos", selfattention_layer_type="selfattn"),
+    # Whisper base's encoder widths: 6 blocks of 512, 8 heads, 2048 units, 80 mels
+    "whisper_style": dict(output_size=512, attention_heads=8, linear_units=2048, num_blocks=6,
+                          pos_enc_layer_type="abs_pos", selfattention_layer_type="selfattn"),
+    # 12 x 256 with the ss_* defaults (s4 NPLR + ff a block, d_state 64,
+    # pre-norm LayerNorm, residual, bidirectional, no pooling)
+    "s4": dict(output_size=256, attention_heads=4, num_blocks=12,
+               pos_enc_layer_type="abs_pos", selfattention_layer_type="selfattn"),
+}
+ENC_B, ENC_WARMUP, ENC_STEPS = 16, 1, 2  # phase 27: 3 steps an encoder
+MCF_KERNELS = (7, 15, 23, 31)
+MCF_C = NEW_ENCODERS["multiconvformer"]["linear_units"] // 2  # 512: the cgMLP's gate
+MCF_MERGE_C = MCF_C * len(MCF_KERNELS)  # 2048: the merge conv's channels
+# the shapes phases 26-27 give the depthwise kernels (serving B=1, training
+# B=ENC_B) and the training batch of train-1 (B=64)
+MCF_DW = [(7, MCF_C), (23, MCF_C), (31, MCF_MERGE_C)]  # (K, C): K = 15 and 31 at 512 as in 22-23
+# the LSTM recurrence at the RNN encoders' 320 units: 10 s of audio is 1251
+# frames (hop 128), 312 after VGG2L
+RNN_H, RNN_T, VGG_T = 320, 1251, 312
+LSTM_ENC_SERVE = [(1, VGG_T, RNN_H), (1, RNN_T, RNN_H)]
+LSTM_ENC_TRAIN = [(ENC_B, VGG_T, RNN_H), (ENC_B, RNN_T, RNN_H), (64, VGG_T, RNN_H)]
+MCF_SHAPES = {f"[{b},312,{c}] K={k}" for k, c in MCF_DW for b in (1, ENC_B, 64)}
+LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN}
 
 
 def nvidia_smi_name_power() -> str:
@@ -1235,6 +1294,93 @@ def check_lstm(lk, gen, card):
     return results
 
 
+def check_lstm_encoder(lk, gen, card):
+    """The LSTM recurrence at the (VGG-)RNN encoders' shapes (phases 26-27:
+    320 units over 312 frames after VGG2L, 1251 without it): the forward
+    at the serving shapes, the forward and the backward at the training
+    shapes (B = ENC_B, and train-1's B = 64, which the backward cuts into
+    launches), each against the plain loop at check_lstm's tolerances,
+    repeated and bitwise equal, its launch count printed; timed by CUDA
+    events beside cuDNN's torch.lstm and the loop (one call of the loop,
+    already warm from the check: a yardstick only)."""
+    results = {}
+    for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN:
+        shape = f"[{b},{t},{h}]"
+        xi, w, bias = lstm_inputs(gen, b, t, h)
+        lk.KERNEL.reset_launches()
+        y = lk.lstm_fwd(xi, w, bias)[0]
+        n_fwd = lk.KERNEL.launches["lstm_fwd"]
+        again = lk.lstm_fwd(xi, w, bias)[0]
+        ref = lk.lstm_recurrence_plain(xi, w, bias)
+        torch.cuda.synchronize()
+        if not torch.equal(y, again):
+            raise AssertionError(f"lstm_fwd {shape}: a repeat call is not bitwise equal")
+        torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
+        bms, by = lstm_bound(b, t, h)
+        results[("lstm_fwd", shape)] = dict(
+            err=max_err(y, ref), ms=event_time_ms(lambda: lk.lstm_fwd(xi, w, bias), iters=5),
+            plain_ms=event_time_ms(lambda: lk.lstm_recurrence_plain(xi, w, bias), iters=1,
+                                   warmup=0),
+            library_ms=event_time_ms(lambda: library_lstm(xi, w, bias), iters=5),
+            bound_ms=bms, bound_by=by, launches_per_call=n_fwd)
+        if (b, t, h) in LSTM_ENC_SERVE:
+            continue
+        dy = torch.randn(b, t, h, generator=gen, device="cuda")
+        _, gates, cells = lk.lstm_fwd(xi, w, bias, save=True)
+        lk.KERNEL.reset_launches()
+        da = lk.lstm_bwd(dy, gates, cells, w)
+        n_bwd = lk.KERNEL.launches["lstm_bwd"]
+        with torch.enable_grad():
+            leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+            refs = torch.autograd.grad(lk.lstm_recurrence_plain(*leaves), leaves, dy)
+            lib_in = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+            lib_out = library_lstm(*lib_in)
+        torch.cuda.synchronize()
+        if not torch.equal(da, lk.lstm_bwd(dy, gates, cells, w)):
+            raise AssertionError(f"lstm_bwd {shape}: a repeat call is not bitwise equal")
+        err = max_err(da, refs[0])
+        tol = 1e-4 * refs[0].abs().max().item() + 1e-6
+        if not err <= tol:
+            raise AssertionError(f"lstm_bwd {shape}: da {err} > {tol}")
+
+        def plain_backward():
+            with torch.enable_grad():
+                leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
+                torch.autograd.grad(lk.lstm_recurrence_plain(*leaves), leaves, dy)
+
+        bms, by = lstm_bound(b, t, h, bwd=True)
+        results[("lstm_bwd", shape)] = dict(
+            err=err, ms=event_time_ms(lambda: lk.lstm_bwd(dy, gates, cells, w), iters=5),
+            plain_ms=event_time_ms(plain_backward, iters=1, warmup=0),
+            library_ms=event_time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy,
+                                                                 retain_graph=True), iters=5),
+            bound_ms=bms, bound_by=by, launches_per_call=n_bwd)
+        print(f"[kernels] lstm {shape}: lstm_fwd {n_fwd} launch(es), lstm_bwd {n_bwd} "
+              f"launch(es) a call (at most {lk.max_rows(h, 0, False)} rows a forward launch, "
+              f"{lk.max_rows(h, 0, True)} a backward one), bitwise repeatable [{card}]")
+    return results
+
+
+def check_multiconv_dwconv(dc, gen, card):
+    """The depthwise kernels at the MultiConvformer's shapes (phases 26-27):
+    K = 7 and 23 (compiled since this slice; the runtime-K path lost to
+    autograd's backward at B = 64) on the 512-channel gate and the merge
+    conv's K = 31 on 2048 channels, the forward at B = 1 and the
+    forward and backward at B = ENC_B and train-1's B = 64, against the
+    plain versions and beside F.conv1d (check_dwconv, check_dwconv_train)."""
+    results = {}
+    for k_size, c in MCF_DW:
+        shape = f"[1,312,{c}] K={k_size}"
+        results[("dwconv1d_fwd", shape)] = check_dwconv(dc, torch.float32, k_size, gen, card, c=c)
+        for b in (ENC_B, 64):
+            shape = f"[{b},312,{c}] K={k_size}"
+            fwd_r, bwd_r = check_dwconv_train(dc, torch.float32, k_size, gen, card,
+                                              shape=(b, 312, c))
+            results[("dwconv1d_fwd", shape)] = fwd_r
+            results[("dwconv1d_bwd", shape)] = bwd_r
+    return results
+
+
 def _print_timing(card, name, shape, dtype, r):
     lib = "none (no one PyTorch call)" if r["library_ms"] is None else \
         f"{r['library_ms'] * 1e3:.2f} us"
@@ -1275,6 +1421,13 @@ def phase_kernels(ra, dc, wk, fa, lk, card):
     for name, shape, r in cases:
         _print_timing(card, name, shape, torch.float32, r)
         results[(name, shape, torch.float32)] = r
+    # this slice's shapes: the MultiConvformer's depthwise convs and the RNN
+    # encoders' LSTM recurrence (phases 26-27)
+    for (name, shape), r in {**check_multiconv_dwconv(dc, gen, card),
+                             **check_lstm_encoder(lk, gen, card)}.items():
+        _print_timing(card, name, shape, torch.float32, r)
+        results[(name, shape, torch.float32)] = r
+    torch.cuda.empty_cache()
     for shape, r in check_wkv(wk, gen, card).items():
         name = "wkv_bwd" if shape.startswith("bwd") else "wkv_fwd"
         shape = shape.removeprefix("bwd ")
@@ -1349,11 +1502,13 @@ def encoder_frames(model, waves) -> list:
                                  torch.tensor([w.shape[0]], device="cuda"))[1][0]) for w in waves]
 
 
-def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, encoder_fwd=ENCODER_FWD):
-    """Serve every request ``ROUNDS`` times, after one warm-up at each
+def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, encoder_fwd=ENCODER_FWD,
+                rounds=ROUNDS, encoder_tol=1e-3):
+    """Serve every request ``rounds`` times, after one warm-up at each
     length; returns the launch counts, the waveforms and the first length's
-    median latency.  The guided model (phase 3) and the flash ASRModel
-    (phase 9) take the same beam-10 search and the same checks."""
+    median latency.  The guided model (phase 3), the flash ASRModel
+    (phase 9) and the decoders of phase 24 take the same beam-10 search and
+    the same checks."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
     s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
@@ -1374,7 +1529,7 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
     reset_counts(kernels)
     lat = {sec: [] for sec in seconds}
     hyps = []
-    for _ in range(ROUNDS):
+    for _ in range(rounds):
         for sec, wave in zip(seconds, waves):
             t0 = time.perf_counter()
             (ids, hyp), = s2t(wave)
@@ -1409,14 +1564,14 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
             raise AssertionError(f"{name}: {n} launches, expected {want}")
     print(f"[{tag}] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
-    check_encoder_on_cpu(tag, model, waves[-1], seconds[-1])
+    check_encoder_on_cpu(tag, model, waves[-1], seconds[-1], encoder_tol)
     return launches, waves, float(np.median(lat[seconds[0]]))
 
 
-def check_encoder_on_cpu(tag, model, wave, sec):
+def check_encoder_on_cpu(tag, model, wave, sec, tol=1e-3):
     """The card's encoder (CUDA kernels) against the plain path on the CPU
     (the model's frontend and utterance MVN, then a CPU copy of its
-    encoder): max_abs_err within 1e-3."""
+    encoder): max_abs_err within ``tol``."""
     import copy
 
     from llm_guided_asr_tpu_torch.ops.frontend import default_frontend, utterance_mvn
@@ -1429,8 +1584,8 @@ def check_encoder_on_cpu(tag, model, wave, sec):
         enc_cpu, lens_cpu = cpu_model(utterance_mvn(feats, flens), flens)
     err = (enc_gpu.cpu() - enc_cpu).abs().max().item()
     print(f"[{tag}] encoder card vs CPU plain path, {sec} s: max_abs_err "
-          f"{err:.3e} (tol 1e-3)")
-    if not (err <= 1e-3 and torch.equal(lens_gpu.cpu(), lens_cpu)):
+          f"{err:.3e} (tol {tol:g})")
+    if not (err <= tol and torch.equal(lens_gpu.cpu(), lens_cpu)):
         raise AssertionError(f"encoder disagrees with the CPU plain path: {err}")
 
 
@@ -2674,26 +2829,35 @@ def check_golden_shapes() -> str:
     return ", ".join(errs)
 
 
-def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", **encoder):
+def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", decoder_type="transformer",
+                    decoder=None, train=False, **encoder):
     """The CTC/attention ASRModel of phase 5 (bench.py build_flagship: vocab
     5000, Conformer 12 x 256 with 4 heads, decoder 6 x 256) for serving,
     float32 with TF32 off, weights from seed 0; ``encoder`` overrides the
-    encoder's fields."""
+    encoder's fields, ``decoder`` the decoder's (of ``decoder_type``).
+    ``train``: SpecAug and attention dropout 0.1 as train-1 trains, in
+    training mode."""
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
     from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
     from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+    from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 
     enc = {**dict(output_size=256, attention_heads=4, linear_units=1024, num_blocks=12,
                   macaron_style=True, use_cnn_module=True, cnn_module_kernel=31), **encoder}
+    if train:
+        enc["attention_dropout_rate"] = 0.1
+    dec = {**dict(attention_heads=4, linear_units=2048, num_blocks=6), **(decoder or {})}
     cfg = ASRModelConfig(
         vocab_size=5000, frontend=FrontendConfig(), normalize=normalize,
+        specaug=SpecAugConfig() if train else None,
         encoder_type=encoder_type, encoder=ConformerConfig(**enc),
-        decoder=TransformerDecoderConfig(attention_heads=4, linear_units=2048, num_blocks=6),
+        decoder_type=decoder_type, decoder=TransformerDecoderConfig(**dec),
         ctc_weight=0.3,
     )
-    return init_weights(ASRModel(cfg, device="cuda"), seed=0).eval()
+    model = init_weights(ASRModel(cfg, device="cuda"), seed=0)
+    return model.train() if train else model.eval()
 
 
 def phase_serve_lm(kernels, card):
@@ -3582,11 +3746,12 @@ def phase_recipe_io(kernels, card):
     return total
 
 
-def serve_one(tag, model, wave, kernels, card, encoder_fwd):
+def serve_one(tag, model, wave, kernels, card, encoder_fwd, expected=None, encoder_tol=1e-3):
     """One warm-up and one timed request through Speech2Text (beam 10,
     ctc_weight 0.3, the 24-token cap): its latency, the score bookkeeping,
-    one launch of each ``encoder_fwd`` entry point a block and none of any
-    other, and the card's encoder against the CPU plain path on it."""
+    one launch of each ``encoder_fwd`` entry point a block (or the counts
+    of ``expected``) and none of any other, and the card's encoder against
+    the CPU plain path on it."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
     s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
@@ -3605,9 +3770,11 @@ def serve_one(tag, model, wave, kernels, card, encoder_fwd):
     print(f"[{tag}] kernel launches over 1 request: {launches}")
     for name, n in launches.items():
         want = model.cfg.encoder.num_blocks if name in encoder_fwd else 0
+        if expected is not None:
+            want = expected.get(name, 0)
         if n != want:
             raise AssertionError(f"{tag}: {name}: {n} launches, expected {want}")
-    check_encoder_on_cpu(tag, model, wave, sec)
+    check_encoder_on_cpu(tag, model, wave, sec, encoder_tol)
     return launches
 
 
@@ -3756,12 +3923,289 @@ def check_brctc(model, batch, card):
           f"ms, builtin F.ctc_loss {ms[0.0]:.3f} ms ({ms[BRCTC_RISK] / ms[0.0]:.2f}x) [{card}]")
 
 
+def check_decoder_on_cpu(tag, model, wave, card):
+    """The 10-best of one request on the card against the same search on a
+    CPU copy of the model from the card's encoder rows (check_nbest: tokens
+    equal, scores within 1e-3, a differing entry only as a near tie), then
+    the decoder's teacher-forced logits over those 10 hypotheses, card
+    against the CPU plain path (1e-4)."""
+    import copy
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    decode = dict(ctc_weight=0.3, beam_size=10, maxlenratio=-24.0, nbest=10)
+    cpu_model = copy.deepcopy(model).cpu()
+    with torch.inference_mode():
+        speech, n = torch.from_numpy(wave[None]).cuda(), torch.tensor([wave.shape[0]]).cuda()
+        enc, lens = model.encode(speech, n)
+        got = Speech2Text.from_model(model, **decode).beam(enc, lens, maxlenratio=-24.0, nbest=10)
+        want = Speech2Text.from_model(cpu_model, **decode).beam(enc.cpu(), lens.cpu(),
+                                                                maxlenratio=-24.0, nbest=10)
+        worst = check_nbest(tag, got, want)
+        ys_lens = torch.tensor([len(h.yseq) - 1 for h in got])
+        ys = torch.zeros(len(got), int(ys_lens.max()), dtype=torch.long)
+        for i, h in enumerate(got):
+            ys[i, : ys_lens[i]] = torch.tensor(h.yseq[:-1])
+        rows = enc.expand(len(got), -1, -1)
+        card_logits = model.decoder_logits(rows, lens.expand(len(got)), ys.cuda(), ys_lens.cuda())
+        cpu_logits = cpu_model.decoder_logits(rows.cpu(), lens.cpu().expand(len(got)), ys,
+                                              ys_lens)
+    valid = (torch.arange(ys.shape[1])[None] < ys_lens[:, None])[..., None]
+    err = ((card_logits.cpu() - cpu_logits) * valid).abs().max().item()
+    print(f"[{tag}] 10-best on the card equal to the CPU's from the card's encoder rows (score "
+          f"max err {worst:.2e}); decoder logits [{len(got)}, {ys.shape[1]}, "
+          f"{cpu_logits.shape[-1]}] card vs CPU plain path: max_abs_err {err:.3e} (tol 1e-4) "
+          f"[{card}]")
+    if not err <= 1e-4:
+        raise AssertionError(f"{tag}: decoder logits disagree with the CPU: {err}")
+
+
+def add_counts(total: dict, launches: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in launches.items()}
+
+
+def phase_serve_dec(kernels, card):
+    """Phase 24: train-1's Conformer ASRModel (12 x 256, vocab 5000, weights
+    from seed 0) with each decoder of NEW_DECODERS, served as phase 3
+    serves (phase 3's requests at beam 10, ctc_weight 0.3, the 24-token cap;
+    the rnn and s4 decoders rescore the whole prefix every step through the
+    stateless scorer, as every non-Transformer decoder does): one warm-up
+    each, DEC_ROUNDS timed runs each (median, min, max, RTFx), 12 launches
+    of each encoder forward a request and none of anything else, peak
+    memory, the encoder against the CPU (1e-4), the 10 s request profiled
+    (busy share), and check_decoder_on_cpu on the 4.1 s request."""
+    total = {}
+    for kind, dec in NEW_DECODERS.items():
+        tag = f"serve-{kind}"
+        model = build_serve_asr(decoder_type=kind, decoder=dec)
+        n_dec = sum(p.numel() for p in model.decoder.parameters())
+        print(f"[{tag}] ASRModel with the {kind} decoder {dec}: "
+              f"{sum(p.numel() for p in model.parameters())} parameters, {n_dec} in the decoder")
+        launches, waves, wall_10s = phase_serve(model, kernels, card, tag, rounds=DEC_ROUNDS,
+                                                encoder_tol=1e-4)
+        t0 = time.perf_counter()
+        phase_profile(model, waves[0], wall_10s, card, f"profile-{kind}")
+        t1 = time.perf_counter()
+        check_decoder_on_cpu(tag, model, waves[-1], card)
+        print(f"[{tag}] the profile took {t1 - t0:.1f} s, the checks against the CPU "
+              f"{time.perf_counter() - t1:.1f} s")
+        total = add_counts(total, launches)
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def train_batch(b, seed=4):
+    """b x 10 s of seeded noise with 24 seeded token ids an utterance."""
+    samples = int(TRAIN_SECONDS * SR)
+    rng = np.random.default_rng(seed)
+    return {
+        "speech": torch.from_numpy((rng.standard_normal((b, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((b,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(1, 4999, (b, 24))).cuda(),
+        "text_lengths": torch.full((b,), 24, device="cuda"),
+    }
+
+
+def check_grads_on_cpu(tag, model, card):
+    """The B = GRAD_B gradients in eval mode (no SpecAug or dropout; running
+    batch statistics), the card against a CPU copy (plain paths).  The
+    whole model: the loss within 1e-5 relative and the gradient within
+    1e-3 of its norm (float32 sums through the 12-block Conformer, cuDNN's
+    weight gradient of the subsampling conv over ~49 k products an element
+    among them, part by up to ~2e-4 of it).  The decoder, from the same
+    encoder rows (the card's) through the attention loss: each gradient
+    within 1e-4 of its largest CPU value (+ 1e-6), the kernels' own
+    gradient tolerance.  From each device's own rows (printed, not held)
+    a decoder's gradient can move by orders more than the rows differ:
+    a ReLU gate of its feed-forward layers whose pre-activation lies
+    within float32 rounding of 0 opens on one device and not on the other
+    (bin/relu_gates.py finds such gates on the CPU alone, float32 against
+    float64); the gates that differ between the devices are counted."""
+    import copy
+
+    from llm_guided_asr_tpu_torch.models.transformer import PositionwiseFeedForward
+    from llm_guided_asr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss
+
+    batch = train_batch(GRAD_B, seed=5)
+    cpu_model = copy.deepcopy(model).cpu().eval()
+    model.eval()
+    args = ("speech", "speech_lengths", "text", "text_lengths")
+    losses, grads, gates = {}, {}, {}
+    for name, m, dev in (("card", model, "cuda"), ("cpu", cpu_model, "cpu")):
+        gates[name] = []
+        hooks = [f.w_1.register_forward_hook(
+                     lambda mod, i, out, z=gates[name]: z.append(out.detach().cpu()))
+                 for f in m.decoder.modules() if isinstance(f, PositionwiseFeedForward)]
+        m.zero_grad(set_to_none=True)
+        loss, _, _ = m(*(batch[k].to(dev) for k in args))
+        loss.backward()
+        for h in hooks:
+            h.remove()
+        losses[name] = loss.item()
+        grads[name] = {n: q.grad.cpu() for n, q in m.named_parameters()}
+    flipped = [z[(z > 0) != (c > 0)] for z, c in zip(gates["cpu"], gates["card"])]
+    n_flipped = sum(f.numel() for f in flipped)
+    n_gates = sum(z.numel() for z in gates["cpu"])
+    z_flipped = max((f.abs().max().item() for f in flipped if f.numel()), default=0.0)
+    loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    sq = [(float(((grads["card"][n] - g).double() ** 2).sum()), float((g.double() ** 2).sum()))
+          for n, g in grads["cpu"].items()]
+    norm_err = (sum(d for d, _ in sq) / sum(r for _, r in sq)) ** 0.5
+    cfg = model.cfg
+    with torch.no_grad():
+        enc, enc_lens = model.encode(batch["speech"], batch["speech_lengths"])
+    ys_in, ys_out = add_sos_eos(batch["text"], batch["text_lengths"], cfg.sos_id, cfg.eos_id,
+                                cfg.ignore_id)
+    dec = {}
+    for name, m, dev in (("card", model, "cuda"), ("cpu", cpu_model, "cpu")):
+        m.zero_grad(set_to_none=True)
+        logits = m.decoder_logits(enc.to(dev), enc_lens.to(dev), ys_in.to(dev),
+                                  (batch["text_lengths"] + 1).to(dev))
+        label_smoothing_loss(logits, ys_out.to(dev), cfg.lsm_weight, cfg.ignore_id,
+                             cfg.length_normalized_loss).backward()
+        dec[name] = {n: q.grad.cpu() for n, q in m.decoder.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    model.train()
+    def closest(got, want):
+        """(largest ratio of difference to tolerance, its tensor)."""
+        return max(((got[n] - ref).abs().max().item() / (1e-4 * ref.abs().max().item() + 1e-6), n)
+                   for n, ref in want.items())
+
+    worst, worst_name = closest(dec["card"], dec["cpu"])
+    own, own_name = closest({n: g for n, g in grads["card"].items() if n.startswith("decoder.")},
+                            {n: g for n, g in grads["cpu"].items() if n.startswith("decoder.")})
+    print(f"[{tag}] B={GRAD_B} loss {losses['cpu']:.5f}, card vs CPU rel err {loss_err:.2e} (tol "
+          f"1e-5); the whole gradient within {norm_err:.2e} of its norm (tol 1e-3); from the "
+          f"card's encoder rows the {len(dec['cpu'])} decoder gradients within {worst:.2f} of "
+          f"their tolerance, 1e-4 of each one's largest value + 1e-6 (closest: {worst_name}); "
+          f"from each device's own rows {own:.2f} of it ({own_name}), {n_flipped} of the "
+          f"decoder's {n_gates} ReLU gates on the other side of 0 on the card (CPU |z| <= "
+          f"{z_flipped:.1e}) [{card}]")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"{tag}: loss on the card differs from the CPU's: {loss_err}")
+    if not norm_err <= 1e-3:
+        raise AssertionError(f"{tag}: the gradient on the card differs from the CPU's by "
+                             f"{norm_err} of its norm")
+    if not worst <= 1.0:
+        raise AssertionError(f"{tag}: the decoder gradient of {worst_name} on the card differs "
+                             f"from the CPU's by {worst:.2f} times its tolerance")
+
+
+def train_model(tag, model, b, n_warmup, n_steps, kernels, card, expected):
+    """The fused AdamW step on ``b`` x 10 s: warm-up and timed steps
+    (run_steps), losses finite and (over the steps) falling, and the
+    launches of the timed steps equal to ``expected`` per step."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+    batch = train_batch(b)
+    print(f"[{tag}] {sum(p.numel() for p in model.parameters())} parameters, batch {b} x "
+          f"{TRAIN_SECONDS} s, text [{b}, 24]")
+    all_stats, med, launches = run_steps(tag, step, batch, n_warmup, n_steps, kernels, card)
+    losses = [s["loss"] for s in all_stats]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"{tag}: loss did not fall: {losses}")
+    for name, n in launches.items():
+        if n != expected.get(name, 0) * n_steps:
+            raise AssertionError(f"{tag}: {name} launched {n} times in {n_steps} steps, "
+                                 f"expected {expected.get(name, 0)} a step")
+    print(f"[{tag}] launches a step: { {k: v // n_steps for k, v in launches.items() if v} }; "
+          f"audio seconds per second at the median: {b * TRAIN_SECONDS / (med / 1e3):.1f} "
+          f"[{card}]")
+    return launches, med
+
+
+def phase_train_dec(kernels, card):
+    """Phase 25: each model of phase 24 trained as train-1 trains (SpecAug,
+    attention dropout 0.1, AdamW, B = DEC_B x 10 s, text [B, 24]), DEC_WARMUP
+    warm-up and DEC_STEPS timed steps: finite, falling losses, 12 launches
+    of each encoder entry point a step (the decoders launch none); before
+    them check_grads_on_cpu at B = GRAD_B on the weights drawn from seed 0
+    (after the steps the weights, and so the gradients' float32 rounding,
+    differ from run to run: the card's training is not bitwise
+    repeatable)."""
+    total = {}
+    blocks = 12
+    for kind, dec in NEW_DECODERS.items():
+        tag = f"train-{kind}"
+        model = build_serve_asr(decoder_type=kind, decoder=dec, train=True)
+        check_grads_on_cpu(tag, model, card)
+        launches, _ = train_model(tag, model, DEC_B, DEC_WARMUP, DEC_STEPS, kernels, card,
+                                  {k: blocks for k in ENCODER_FWD + ENCODER_BWD})
+        total = add_counts(total, launches)
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def encoder_launches(kind, train=False) -> dict:
+    """The kernel launches of one 10 s request (or one training step at
+    ENC_B) through the encoder ``kind`` of NEW_ENCODERS: the
+    MultiConvformer one rel-pos and five depthwise launches a block (each
+    way in training); the (VGG-)RNN encoders one LSTM launch a direction a
+    layer (each way); the others none."""
+    enc = NEW_ENCODERS[kind]
+    names = ENCODER_FWD + (ENCODER_BWD if train else ())
+    if kind == "multiconvformer":
+        per = {"rel_attention_fwd": 1, "rel_attention_bwd": 1,
+               "dwconv1d_fwd": len(MCF_KERNELS) + 1, "dwconv1d_bwd": len(MCF_KERNELS) + 1}
+        return {k: per[k] * enc["num_blocks"] for k in names}
+    if kind in ("rnn", "vgg_rnn"):
+        return {k: 2 * enc["num_blocks"] for k in ("lstm_fwd", "lstm_bwd")[: 2 if train else 1]}
+    return {}
+
+
+def phase_serve_enc(kernels, card):
+    """Phase 26: an ASRModel (vocab 5000, the 6 x 256 Transformer decoder,
+    weights from seed 0) over each encoder of NEW_ENCODERS serves one
+    warm-up and one timed 10 s request at beam 10 (serve_one: latency,
+    the score bookkeeping, the launches of encoder_launches and nothing
+    else, the encoder against the CPU plain path within 1e-4)."""
+    total = {}
+    wave = request_waves()[0]
+    for kind, enc in NEW_ENCODERS.items():
+        tag = f"serve-{kind}"
+        model = build_serve_asr(kind, **enc)
+        frames = encoder_frames(model, [wave])[0]
+        print(f"[{tag}] ASRModel with the {kind} encoder {enc}: "
+              f"{sum(p.numel() for p in model.parameters())} parameters, "
+              f"{sum(p.numel() for p in model.encoder.parameters())} in the encoder; "
+              f"T' = {frames} for {REQUEST_SECONDS[0]} s")
+        launches = serve_one(tag, model, wave, kernels, card, (),
+                             expected=encoder_launches(kind), encoder_tol=1e-4)
+        total = add_counts(total, launches)
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_enc(kernels, card):
+    """Phase 27: each model of phase 26 trained with SpecAug, attention
+    dropout 0.1 and AdamW at B = ENC_B x 10 s: ENC_WARMUP warm-up and
+    ENC_STEPS timed steps, finite and falling losses, the launches of
+    encoder_launches(train=True) a step."""
+    total = {}
+    for kind, enc in NEW_ENCODERS.items():
+        tag = f"train-{kind}"
+        model = build_serve_asr(kind, train=True, **enc)
+        launches, _ = train_model(tag, model, ENC_B, ENC_WARMUP, ENC_STEPS, kernels, card,
+                                  encoder_launches(kind, train=True))
+        total = add_counts(total, launches)
+        del model
+        torch.cuda.empty_cache()
+    return total
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
     serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn,
-    train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf or
-    train-ebf),
+    train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf,
+    train-ebf, serve-dec, train-dec, serve-enc or train-enc),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -3790,7 +4234,11 @@ def run_one_phase(name: str, card: str) -> int:
               "train-st": lambda: phase_train_st(build_st(), kernels, card),
               "recipe-io": lambda: phase_recipe_io(kernels, card),
               "serve-ebf": lambda: phase_serve_ebf(kernels, card),
-              "train-ebf": lambda: phase_train_ebf(kernels, card)}
+              "train-ebf": lambda: phase_train_ebf(kernels, card),
+              "serve-dec": lambda: phase_serve_dec(kernels, card),
+              "train-dec": lambda: phase_train_dec(kernels, card),
+              "serve-enc": lambda: phase_serve_enc(kernels, card),
+              "train-enc": lambda: phase_train_enc(kernels, card)}
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
@@ -3808,7 +4256,8 @@ def main() -> int:
     ap.add_argument("--phase", help="run only this phase: train-1, train-run, train-transducer, "
                                     "golden, serve, serve-batch, serve-lm, serve-stream, "
                                     "asr-cli, serve-transducer-rnn, train-transducer-mb, "
-                                    "serve-st, train-st, recipe-io, serve-ebf or train-ebf")
+                                    "serve-st, train-st, recipe-io, serve-ebf, train-ebf, "
+                                    "serve-dec, train-dec, serve-enc or train-enc")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -3895,6 +4344,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve-ebf"] = timed("serve-ebf", phase_serve_ebf, kernels, card)
     paths["train-ebf"], _ = timed("train-ebf", phase_train_ebf, kernels, card)
+    torch.cuda.empty_cache()
+    for name, fn in (("serve-dec", phase_serve_dec), ("train-dec", phase_train_dec),
+                     ("serve-enc", phase_serve_enc), ("train-enc", phase_train_enc)):
+        paths[name] = timed(name, fn, kernels, card)
+        torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -3965,6 +4419,15 @@ def main() -> int:
                             f"cgmlp_{key}_bound_ms": s["bound_ms"],
                             f"cgmlp_{key}_library_ms": s["library_ms"],
                             f"cgmlp_{key}_max_abs_err": s["err"]})
+        # this slice's shapes (phases 26-27): the MultiConvformer's depthwise
+        # convs, the RNN encoders' LSTM recurrence
+        more = [key[1] for key in timings if key[0] == name and key[2] == f32
+                and (key[1] in MCF_SHAPES or key[1] in LSTM_ENC_SHAPES)]
+        if more:
+            row["more_shapes"] = [
+                {"shape": m, **{k: timings[(name, m, f32)].get(k) for k in (
+                    "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "err",
+                    "launches_per_call")}} for m in more]
         if name in ENCODER_FWD:  # phase 12's batched serving shape
             s = timings[(name, "serve-batch", f32)]
             row.update(batch_shape=f"B={len(BATCH_LENS)} T={BATCH_T} lanes {list(BATCH_LENS)}",

@@ -4,15 +4,17 @@ choices, on one card.
 
     python -m llm_guided_asr_tpu_torch.bin.compare_kernels [--old DIR] [--sweep] [--trace]
 
-``--old DIR`` holds ``wkv.cu`` and ``depthwise_conv.cu`` of a revision with
-the chunked WKV forward and the per-slab dw (whose ``wkv_fwd`` and
-``dwconv1d_bwd`` take the arguments they take now) and the WKV backward
-from before its chunked scan, which takes no workspace: ``wkv_bwd(w, u, k,
-v, y, gy, gw, gu, gk, gv, B, T, C, stream)`` with gw and gu zeroed by the
-caller; e.g. ``git show <rev>:<path> > DIR/<file>``.  Both builds run on
-the same inputs in turns (old, new, new, old), each timed by CUDA graph (20
-calls captured, replayed 10 times), and the new results are held against
-the old ones.  ``--sweep`` times the new kernels at every chunk count and
+``--old DIR`` holds ``wkv.cu`` and/or ``depthwise_conv.cu`` of an older
+revision, and only the sources it holds are compared: a ``depthwise_conv.cu``
+with the per-slab dw (whose ``dwconv1d_fwd`` and ``dwconv1d_bwd`` take the
+arguments they take now), a ``wkv.cu`` with the chunked WKV forward and the
+WKV backward from before its chunked scan, which takes no workspace:
+``wkv_bwd(w, u, k, v, y, gy, gw, gu, gk, gv, B, T, C, stream)`` with gw and
+gu zeroed by the caller; e.g. ``git show <rev>:<path> > DIR/<file>``.  Both
+builds run on the same inputs in turns (old, new, new, old), each timed by
+CUDA graph (20 calls captured, replayed 10 times), and the new results are
+held against the old ones; the depthwise shapes time the forward that
+way too.  ``--sweep`` times the new kernels at every chunk count and
 slab count from 1 to 32 (the WKV backward's chunks of at most 64 steps)
 beside the one the grid rule picks.  ``--trace`` runs 10 calls of each new
 entry point under torch.profiler and prints the device time of each
@@ -39,7 +41,10 @@ WKV_SHAPES = [(5, 201, 512), (1, 313, 512), (16, 25, 512)]
 WKV_BWD_SHAPES = [(16, 25, 512), (16, 101, 512)]
 DW_SHAPES = [(64, 312, 256, 31, torch.float32), (64, 312, 256, 8, torch.float32),
              (64, 312, 256, 31, torch.bfloat16), (64, 312, 256, 8, torch.bfloat16),
-             (16, 312, 256, 31, torch.float32), (8, 1874, 256, 31, torch.float32)]
+             (16, 312, 256, 31, torch.float32), (8, 1874, 256, 31, torch.float32),
+             # the MultiConvformer's cgMLP taps (K = 7 and 23 at 512 channels)
+             (64, 312, 512, 7, torch.float32), (64, 312, 512, 23, torch.float32),
+             (16, 312, 512, 7, torch.float32), (16, 312, 512, 23, torch.float32)]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -82,15 +87,21 @@ def kernel_times(fn, calls: int = 10) -> str:
 
 
 def build_old(src_dir: Path) -> dict:
+    """The older sources ``src_dir`` holds, built and loaded: {stem: CDLL}."""
     libs = {}
     for stem in ("wkv", "depthwise_conv"):
+        if not (src_dir / f"{stem}.cu").exists():
+            continue
         out = src_dir / f"lib{stem}_old.so"
         subprocess.run([find_nvcc(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(out),
                         str(src_dir / f"{stem}.cu")], check=True)
         libs[stem] = ctypes.CDLL(str(out))
-    libs["wkv"].wkv_fwd.argtypes = wk.KERNEL.functions["wkv_fwd"]
-    libs["wkv"].wkv_bwd.argtypes = [_P] * 10 + [_I] * 3 + [_P]
-    libs["depthwise_conv"].dwconv1d_bwd.argtypes = dc.KERNEL.functions["dwconv1d_bwd"]
+    if "wkv" in libs:
+        libs["wkv"].wkv_fwd.argtypes = wk.KERNEL.functions["wkv_fwd"]
+        libs["wkv"].wkv_bwd.argtypes = [_P] * 10 + [_I] * 3 + [_P]
+    if "depthwise_conv" in libs:
+        for name in ("dwconv1d_fwd", "dwconv1d_bwd"):
+            getattr(libs["depthwise_conv"], name).argtypes = dc.KERNEL.functions[name]
     return libs
 
 
@@ -134,7 +145,7 @@ def main() -> int:
         raise SystemExit("compare_kernels needs a CUDA card")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip()
-    libs = build_old(args.old) if args.old else None
+    libs = build_old(args.old) if args.old else {}
     gen = torch.Generator(device="cuda").manual_seed(0)
     new_fwd = lambda *a: wk.KERNEL.launch("wkv_fwd", *a)  # noqa: E731
     new_dw = lambda *a: dc.KERNEL.launch("dwconv1d_bwd", *a)  # noqa: E731
@@ -146,7 +157,7 @@ def main() -> int:
         y = torch.empty_like(k)
         new = lambda: wk.wkv_fwd(w, u, k, v)  # noqa: E731
         line = f"wkv_fwd [{b},{t},{c}] ({wk.chunks(k)} chunks)"
-        if libs:
+        if "wkv" in libs:
             def old():
                 wkv_fwd_at(libs["wkv"].wkv_fwd, w, u, k, v, y, wk.chunks(k))
             times = [graph_us(f) for f in (old, new, new, old)]
@@ -160,7 +171,7 @@ def main() -> int:
                 for n in (1, 2, 4, 8, 16, 32))
         if args.trace:
             line += "; traced us per call: new " + kernel_times(new)
-            if libs:
+            if "wkv" in libs:
                 line += "; old " + kernel_times(old)
         print(line + f" [{card}]", flush=True)
 
@@ -171,7 +182,20 @@ def main() -> int:
         new = lambda: dc.depthwise_conv1d_bwd(x, w, dy)  # noqa: E731
         line = (f"dwconv1d_bwd [{b},{t},{c}] K={k_size} {str(dtype)[6:]} "
                 f"({dc.dw_slabs(x, k_size)} slabs)")
-        if libs:
+        if "depthwise_conv" in libs:
+            y = torch.empty_like(x)
+
+            def old_fwd():
+                libs["depthwise_conv"].dwconv1d_fwd(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                                                    b, t, c, k_size, dc._DTYPE_CODE[dtype],
+                                                    stream())
+
+            def new_fwd():
+                return dc.depthwise_conv1d(x, w)
+            fwd_times = [graph_us(f) for f in (old_fwd, new_fwd, new_fwd, old_fwd)]
+            old_fwd()
+            y_err = (new_fwd().float() - y.float()).abs().max().item()
+
             def old():
                 dw_at(libs["depthwise_conv"].dwconv1d_bwd, x, w, dy, dx, dw,
                       dc.dw_slabs(x, k_size))
@@ -182,14 +206,16 @@ def main() -> int:
             dw_err = (ndw.float() - dw).abs().max().item() / dw.abs().max().item()
             line += (f": old {times[0]:.2f} / {times[3]:.2f} us, new {times[1]:.2f} / "
                      f"{times[2]:.2f} us; max |new - old| dx {dx_err:.2e}, "
-                     f"dw {dw_err:.2e} of max |dw|")
+                     f"dw {dw_err:.2e} of max |dw|; dwconv1d_fwd old {fwd_times[0]:.2f} / "
+                     f"{fwd_times[3]:.2f} us, new {fwd_times[1]:.2f} / {fwd_times[2]:.2f} us, "
+                     f"max |new - old| {y_err:.2e}")
         if args.sweep:
             line += "; by slabs " + ", ".join(
                 f"{n}: {graph_us(lambda: dw_at(new_dw, x, w, dy, dx, dw, n)):.2f}"
                 for n in (1, 2, 4, 8, 16, 32))
         if args.trace:
             line += "; traced us per call: new " + kernel_times(new)
-            if libs:
+            if "depthwise_conv" in libs:
                 line += "; old " + kernel_times(old)
         print(line + f" [{card}]", flush=True)
 
@@ -200,7 +226,7 @@ def main() -> int:
         y = wk.wkv_fwd(w, u, k, v)[0]
         new = lambda: wk.wkv_bwd(w, u, k, v, y, gy)  # noqa: E731
         line = f"wkv_bwd [{b},{t},{c}] ({wk.bwd_chunks(k)} chunks)"
-        if libs:
+        if "wkv" in libs:
             grads = [torch.zeros_like(w), torch.zeros_like(u), torch.empty_like(k),
                      torch.empty_like(v)]
 
@@ -225,7 +251,7 @@ def main() -> int:
                 for n in (1, 2, 4, 8, 16, 32) if -(-t // n) <= 64)
         if args.trace:
             line += "; traced us per call: new " + kernel_times(new)
-            if libs:
+            if "wkv" in libs:
                 line += "; old " + kernel_times(old)
         print(line + f" [{card}]", flush=True)
     return 0

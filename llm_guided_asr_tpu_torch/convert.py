@@ -15,12 +15,20 @@ flax names ``decoder/OptimizedLSTMCell_{i}/ii`` .. ``ho`` ->
 differ (RWKV's [C] leaves ``mu_*``, ``time_decay`` and ``time_first``, and
 MEGA's EMA matrices ``damping_factor`` .. ``kernel_projection_matrix``
 [D, N], ``residual_weight``, ``qk_weight``, ``qk_bias``,
-``relative_position_bias`` and the rotary ``alpha``/``beta`` keep their
-names and layouts):
+``relative_position_bias`` and the rotary ``alpha``/``beta``, the S4
+layers' ``log_dt``, ``log_a_re``, ``a_im``, ``log_neg_re``, ``lam_im``,
+``d`` and their complex ``c``, ``p``, ``b`` stored as a trailing (real,
+imag) pair, the lightconv decoder's ``conv_weight`` and the affine
+residual's ``affine`` keep their names and layouts; the (VGG-)RNN
+encoder's LSTM cells are flax's auto-named ``OptimizedLSTMCell_{j}``, the
+RNN decoder's ``cell/lstm_{i}``):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW
-  depthwise kernel [K, 1, C]      -> DepthwiseConv1d weight [K, C]
+  depthwise kernel [K, 1, C]      -> DepthwiseConv1d weight [K, C] (also a
+                                     conv of one input channel: the RNN
+                                     decoder's ``att_conv``)
+  1-D conv kernel [K, i, o]       -> Conv1d weight [o, i, K] (Whisper's stems)
   LayerNorm/BatchNorm scale       -> weight;  Embed embedding -> weight
   batch_stats mean / var          -> running_mean / running_var
   mvn mean / inv_std              -> mvn_mean / mvn_inv_std
@@ -62,6 +70,8 @@ def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
             arr = arr.transpose(3, 2, 0, 1)
         elif arr.ndim == 3 and arr.shape[1] == 1:
             arr = arr[:, 0, :]
+        elif arr.ndim == 3:
+            arr = arr.transpose(2, 1, 0)
         else:
             raise ValueError(f"unexpected kernel shape {arr.shape} at {'/'.join(path)}")
         leaf = "weight"
@@ -121,7 +131,8 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     (zeros at flax's init) 0; norm scales (LayerNorm, RMSNorm, the
     masked batch norm) and running variances 1; every other weight (dense,
     conv, depthwise conv, the decoders' token embeddings, the LSTM gates,
-    RWKV's and MEGA's named leaves) N(0, 0.02).
+    RWKV's, MEGA's and the S4 layers' named leaves, the lightconv weights)
+    N(0, 0.02).
     """
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)

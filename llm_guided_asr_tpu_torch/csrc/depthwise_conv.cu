@@ -28,8 +28,9 @@
 // the R accumulators are independent FMA chains, and a thread loads each
 // tap's weight once and R+K-1 inputs for its R outputs (overlapping windows
 // of neighbouring row groups meet in L1).  K is a template for the
-// configs' kernel sizes (31, 15, 8), so the tap loop unrolls and every load
-// issues at once; any other K runs the same kernel with a runtime K.  R is
+// configs' kernel sizes (31, 23, 15, 8, 7: the Conformers' and the
+// MultiConvformer's), so the tap loop unrolls and every load issues at
+// once; any other K runs the same kernel with a runtime K.  R is
 // chosen from the grid: the most of 16, 4 and 2 rows a thread that still
 // gives two blocks an SM (16 at the training shapes; 2 at B = 1 serving,
 // [1, 312, 256]: 312 blocks of 4 warps, where one chain of 16 x 31 FMAs a
@@ -291,8 +292,10 @@ int launch_stencil_rows(const void* x, const void* w, void* y, int B, int T_len,
   auto run = [&](auto kernel) { kernel<<<grid, SC * SG, 0, stream>>>(xp, wp, yp, T_len, C, K); };
   switch (K) {
     case 31: run(dwconv1d_stencil_kernel<T, FLIP, 31, R>); break;
+    case 23: run(dwconv1d_stencil_kernel<T, FLIP, 23, R>); break;
     case 15: run(dwconv1d_stencil_kernel<T, FLIP, 15, R>); break;
     case 8: run(dwconv1d_stencil_kernel<T, FLIP, 8, R>); break;
+    case 7: run(dwconv1d_stencil_kernel<T, FLIP, 7, R>); break;
     default: run(dwconv1d_stencil_kernel<T, FLIP, 0, R>);
   }
   return (int)cudaGetLastError();
@@ -332,10 +335,14 @@ int launch_bwd(const void* dy, const void* x, const void* w, void* dx, void* dw,
   };
   if (aligned && K == 31) {
     run(dwconv1d_dw_kernel<T, 31>);
+  } else if (aligned && K == 23) {
+    run(dwconv1d_dw_kernel<T, 23>);
   } else if (aligned && K == 15) {
     run(dwconv1d_dw_kernel<T, 15>);
   } else if (aligned && K == 8) {
     run(dwconv1d_dw_kernel<T, 8>);
+  } else if (aligned && K == 7) {
+    run(dwconv1d_dw_kernel<T, 7>);
   } else {
     parts = B * slabs;
     dwconv1d_dw_taps_kernel<T><<<(parts * groups + DW_WARPS - 1) / DW_WARPS, DW_WARPS * 32, 0,

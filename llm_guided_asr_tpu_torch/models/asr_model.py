@@ -11,9 +11,10 @@ weight)``: stats is a dict of float32 scalars, weight the batch size.
 sos = eos = vocab_size - 1, blank 0, ignore_id -1, as in the reference.
 
 This is phase 1 of the fork's two-phase training.  Ported: the encoders
-of models/conformer.py make_encoder, the transformer decoder, the default
-log-mel frontend, utterance or global MVN, and SpecAug; every other choice
-raises NotImplementedError.
+of models/conformer.py make_encoder, the decoders of :func:`make_decoder`
+(transformer, rnn, s4, lightconv, dynamicconv), the default log-mel
+frontend, utterance or global MVN, and SpecAug; every other choice raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -25,8 +26,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_encoder
+from llm_guided_asr_tpu_torch.models.conformer import (
+    ConformerConfig,
+    ConformerEncoder,
+    make_encoder,
+)
+from llm_guided_asr_tpu_torch.models.rnn_decoder import RNNDecoder, RNNDecoderConfig
+from llm_guided_asr_tpu_torch.models.s4_decoder import S4Decoder, S4DecoderConfig
 from llm_guided_asr_tpu_torch.models.transformer_decoder import (
+    ConvTransformerDecoder,
     TransformerDecoder,
     TransformerDecoderConfig,
 )
@@ -108,14 +116,42 @@ def extract_features(model: nn.Module, speech: torch.Tensor, speech_lengths: tor
     return feats, feats_lengths
 
 
+def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module:
+    """The attention decoder of ``cfg.decoder_type`` over an encoder ``d``
+    wide, with the JAX model's config mapping (models/asr_model.py:98-161):
+    ``rnn`` takes hidden = ``decoder.linear_units``, layers =
+    ``num_blocks``, embed_dim = min(D, 256) and att_dim = D; ``s4`` takes
+    d_model = D, ``max(num_blocks, 1)`` layers, d_state 16 and the ``diag``
+    kernel; D is ``encoder.output_size``.  Each keeps the
+    ``(enc, enc_lens, ys_in, ys_in_lens, rng, only_last)`` contract."""
+    kind, dec, vocab = cfg.decoder_type, cfg.decoder, cfg.vocab_size
+    if kind == "transformer":
+        return TransformerDecoder(vocab, dec, d)
+    if kind in ("lightconv", "dynamicconv"):
+        return ConvTransformerDecoder(vocab, dec, d, dynamic=kind == "dynamicconv",
+                                      device=device)
+    if kind == "rnn":
+        width = cfg.encoder.output_size
+        return RNNDecoder(RNNDecoderConfig(vocab_size=vocab, hidden=dec.linear_units,
+                                           layers=max(dec.num_blocks, 1),
+                                           embed_dim=min(width, 256), att_dim=width),
+                          d, device=device)
+    if kind == "s4":
+        return S4Decoder(S4DecoderConfig(vocab_size=vocab, d_model=cfg.encoder.output_size,
+                                         n_layers=max(dec.num_blocks, 1),
+                                         attention_heads=dec.attention_heads,
+                                         linear_units=dec.linear_units,
+                                         dropout_rate=dec.dropout_rate),
+                         enc_dim=d, device=device)
+    raise NotImplementedError(f"decoder_type={kind!r} is not ported yet")
+
+
 class ASRModel(nn.Module):
     """The CTC/attention model, float32.  ``.train()`` turns on dropout,
     SpecAug and batch statistics; the forward then needs a StepRNG."""
 
     def __init__(self, cfg: ASRModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.decoder_type != "transformer":
-            raise NotImplementedError(f"decoder_type={cfg.decoder_type!r} is not ported yet")
         if cfg.frontend is None:
             raise NotImplementedError("a model without the default frontend is not ported yet")
         if cfg.ctc_type not in ("builtin", "builtin2", "brctc"):
@@ -127,7 +163,7 @@ class ASRModel(nn.Module):
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
             d = self.encoder.output_size
             if cfg.ctc_weight < 1.0:
-                self.decoder = TransformerDecoder(cfg.vocab_size, cfg.decoder, d)
+                self.decoder = make_decoder(cfg, d, dev)
             if cfg.ctc_weight > 0.0:
                 self.ctc_head = nn.Linear(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
@@ -144,8 +180,9 @@ class ASRModel(nn.Module):
                                   rng: Optional[StepRNG] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
         """``encode`` plus the intermediate-CTC taps (empty without
-        ``encoder.interctc_layer_idx``)."""
-        if not self.cfg.encoder.interctc_layer_idx:
+        ``encoder.interctc_layer_idx``).  Only the Conformer gives taps; with
+        any other encoder ``interctc_weight`` adds no term, as in JAX."""
+        if not (self.cfg.encoder.interctc_layer_idx and isinstance(self.encoder, ConformerEncoder)):
             return (*self.encode(speech, speech_lengths, rng), ())
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
         return self.encoder.forward_with_intermediates(feats, feats_lengths, rng)

@@ -188,11 +188,6 @@ class EBranchformerEncoder(nn.Module):
             x = getattr(self, f"block_{i}")(x, pos_emb, valid, rng)
         return x.masked_fill(~valid[..., None], 0.0), out_lengths
 
-    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None):
-        """``forward`` and no taps: the JAX encoder gives none, so
-        ``interctc_weight`` adds no term."""
-        return (*self.forward(feats, feats_lengths, rng), ())
-
 
 class BranchformerEncoder(EBranchformerEncoder):
     block_type = BranchformerBlock

@@ -70,6 +70,36 @@ class ConformerConfig:
     interctc_layer_idx: Tuple[int, ...] = ()  # 1-based blocks tapped for intermediate CTC
     # the contextual-block (streaming) encoder only: sub-frames a block
     block_size: int = 40
+    # the MultiConvformer only: the cgMLP's depthwise kernel sizes
+    multicgmlp_kernel_sizes: Tuple[int, ...] = (7, 15, 23, 31)
+    # the S4 encoder only (models/state_spaces.py): the layer cycle of a
+    # block group, the SSM state size, the norm and its position, the
+    # residual function, the pooling between groups, the FFN expansion,
+    # the anticausal kernel and stochastic depth
+    ss_layers: Tuple[str, ...] = ("s4", "ff")  # s4 | s4d | ff | mha
+    ss_d_state: int = 64
+    ss_prenorm: bool = True
+    ss_norm: str = "layer"  # layer | batch | none
+    ss_residual: str = "residual"  # residual | affine | feedforward | highway | decay
+    ss_pool: str = ""  # '' (none) | sample | avg | linear
+    ss_pool_stride: int = 1
+    ss_ff_expand: int = 2
+    ss_bidirectional: bool = True
+    ss_drop_path: float = 0.0
+
+
+def encoder_conf_values(conf: dict) -> dict:
+    """The sequence fields of an ``encoder_conf`` as the config holds them:
+    tuples, and ``ss_layers`` also from one comma-separated string (as the
+    JAX ConformerConfig.from_dict reads it)."""
+    conf = dict(conf)
+    for k in ("interctc_layer_idx", "multicgmlp_kernel_sizes"):
+        if conf.get(k) is not None:
+            conf[k] = tuple(conf[k])
+    ss = conf.get("ss_layers")
+    if ss is not None:
+        conf["ss_layers"] = tuple(x.strip() for x in (ss.split(",") if isinstance(ss, str) else ss))
+    return conf
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -209,6 +239,12 @@ def input_layer(kind: str, input_size: int, output_size: int) -> Tuple[Optional[
     raise ValueError(f"input_layer={kind!r}; expected one of {INPUT_LAYERS}")
 
 
+def refuse_no_input_layer(cfg: ConformerConfig) -> None:
+    """The encoders whose JAX module knows only ``conv2d`` and ``linear``."""
+    if cfg.input_layer == "none":
+        raise ValueError("input_layer='none'; this encoder takes conv2d or linear")
+
+
 def embed_features(encoder: nn.Module, feats: torch.Tensor, feats_lengths: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``encoder.embed`` over the features and the lengths it gives."""
@@ -273,7 +309,11 @@ class TransformerEncoder(nn.Module):
     """Plain transformer encoder (conformer.py TransformerEncoder; espnet2
     transformer_encoder.py): input layer -> abs positional encoding -> N
     pre-norm TransformerEncoderLayers (dense MHA, relu FFN) -> ``after_norm``
-    when ``normalize_before``.  It runs no hand-written kernel."""
+    when ``normalize_before``.  With ``attention_window`` set, the
+    attention also masks the keys farther than that many frames.  It runs
+    no hand-written kernel."""
+
+    attention_window: Optional[int] = None
 
     def __init__(self, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda"):
@@ -296,27 +336,103 @@ class TransformerEncoder(nn.Module):
         x, out_lengths = embed_features(self, feats, feats_lengths)
         x = self.pos_enc(x, rng=rng)
         valid = make_valid_mask(out_lengths, x.shape[1])
+        mask = valid[:, None, :]
+        if self.attention_window is not None:
+            pos = torch.arange(x.shape[1], device=x.device)
+            mask = mask & ((pos[:, None] - pos[None, :]).abs() <= self.attention_window)[None]
         for i in range(self.cfg.num_blocks):
-            x = getattr(self, f"block_{i}")(x, valid[:, None, :], rng)
+            x = getattr(self, f"block_{i}")(x, mask, rng)
         if self.cfg.normalize_before:
             x = self.after_norm(x)
         return x.masked_fill(~valid[..., None], 0.0), out_lengths
 
-    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None):
-        """``forward`` and no taps: the JAX encoder gives none, so
-        ``interctc_weight`` adds no term."""
-        return (*self.forward(feats, feats_lengths, rng), ())
+
+class LongformerEncoder(TransformerEncoder):
+    """Sliding-window self-attention encoder (conformer.py LongformerEncoder;
+    espnet2 longformer_encoder.py): the input layer (``conv2d`` or
+    ``linear``), abs positions, then N pre-norm TransformerEncoderLayers
+    whose dense attention masks the keys farther than ``attention_window``
+    frames (fixed at 64 after subsampling, as in JAX) besides the pads,
+    ``after_norm`` when ``normalize_before``.  It runs no hand-written
+    kernel."""
+
+    attention_window = 64
+
+    def __init__(self, cfg: ConformerConfig, input_size: int,
+                 device: Union[str, torch.device] = "cuda"):
+        refuse_no_input_layer(cfg)
+        super().__init__(cfg, input_size, device=device)
+
+
+class SameConv1d(nn.Module):
+    """flax ``nn.Conv(C_out, (K,), strides=(s,), padding="SAME")`` over
+    [B, T, C_in]: weight [C_out, C_in, K] (Conv1d's layout), bias.  SAME
+    pads explicitly as flax does: ceil(T/s) outputs, the total padding
+    split with the odd frame on the right (at stride 2 and K = 3: (0, 1)
+    for an even T, (1, 1) for an odd one)."""
+
+    def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int = 1):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.zeros(c_out, c_in, kernel_size))
+        self.bias = nn.Parameter(torch.zeros(c_out))
+
+    def forward(self, x):
+        t, k, s = x.shape[1], self.weight.shape[2], self.stride
+        total = max((-(-t // s) - 1) * s + k - t, 0)
+        xp = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
+        return F.conv1d(xp, self.weight, self.bias, stride=s).transpose(1, 2)
+
+
+class WhisperStyleEncoder(nn.Module):
+    """Whisper-architecture encoder (conformer.py WhisperStyleEncoder):
+    ``conv1`` (K = 3) and GELU, ``conv2`` (K = 3, stride 2) and GELU (the
+    tanh form) over the features, lengths (T + 1) // 2, sinusoidal
+    positions, N pre-norm TransformerEncoderLayers, ``after_norm``.  The
+    input layer is its own (``input_layer`` is not read).  It runs no
+    hand-written kernel."""
+
+    def __init__(self, cfg: ConformerConfig, input_size: int,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        self.cfg = cfg
+        self.output_size = d = cfg.output_size
+        with torch.device(resolve_device(device)):
+            self.conv1 = SameConv1d(input_size, d, 3)
+            self.conv2 = SameConv1d(d, d, 3, stride=2)
+            self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
+            for i in range(cfg.num_blocks):
+                setattr(self, f"block_{i}", TransformerEncoderLayer(
+                    d, cfg.attention_heads, cfg.linear_units, cfg.dropout_rate,
+                    cfg.attention_dropout_rate))
+            self.after_norm = LayerNorm(d)
+
+    def forward(self, feats, feats_lengths,
+                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = gelu_tanh(self.conv2(gelu_tanh(self.conv1(feats))))
+        out_lengths = torch.div(feats_lengths + 1, 2, rounding_mode="floor")
+        x = self.pos_enc(x, rng=rng)
+        valid = make_valid_mask(out_lengths, x.shape[1])
+        for i in range(self.cfg.num_blocks):
+            x = getattr(self, f"block_{i}")(x, valid[:, None, :], rng)
+        return self.after_norm(x).masked_fill(~valid[..., None], 0.0), out_lengths
 
 
 def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
                  device: Union[str, torch.device] = "cuda") -> nn.Module:
-    """Encoder registry: the Conformer, the Transformer, the
-    E-Branchformer and Branchformer of models/branchformer.py and the
-    contextual-block (streaming) Conformer of models/streaming.py so far."""
+    """Encoder registry: the Conformer, the Transformer, Longformer and
+    Whisper-style encoders here, the E-Branchformer and Branchformer of
+    models/branchformer.py, the contextual-block (streaming) Conformer of
+    models/streaming.py, the MultiConvformer and (VGG-)RNN encoders of
+    models/extra_encoders.py and the S4 encoder of models/state_spaces.py."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
     if encoder_type == "transformer":
         return TransformerEncoder(cfg, input_size, device=device)
+    if encoder_type == "longformer":
+        return LongformerEncoder(cfg, input_size, device=device)
+    if encoder_type == "whisper_style":
+        return WhisperStyleEncoder(cfg, input_size, device=device)
     if encoder_type in ("e_branchformer", "branchformer"):
         from llm_guided_asr_tpu_torch.models.branchformer import (
             BranchformerEncoder,
@@ -330,4 +446,16 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
 
         return ContextualBlockConformerEncoder(cfg, input_size, block_size=cfg.block_size,
                                                device=device)
+    if encoder_type == "multiconvformer":
+        from llm_guided_asr_tpu_torch.models.extra_encoders import MultiConvformerEncoder
+
+        return MultiConvformerEncoder(cfg, input_size, device=device)
+    if encoder_type in ("rnn", "vgg_rnn"):
+        from llm_guided_asr_tpu_torch.models.extra_encoders import RNNEncoder
+
+        return RNNEncoder(cfg, input_size, use_vgg=encoder_type == "vgg_rnn", device=device)
+    if encoder_type == "s4":
+        from llm_guided_asr_tpu_torch.models.state_spaces import S4Encoder
+
+        return S4Encoder(cfg, input_size, device=device)
     raise NotImplementedError(f"encoder type {encoder_type!r} is not ported yet")

@@ -44,7 +44,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.asr_model import extract_features
-from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_encoder
+from llm_guided_asr_tpu_torch.models.conformer import (
+    ConformerConfig,
+    encoder_conf_values,
+    make_encoder,
+)
 from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel, stream_checkpoint
 from llm_guided_asr_tpu_torch.models.llm.prompt import (
     PromptTemplate,
@@ -426,8 +430,8 @@ def guided_fields(config: Dict[str, Any]) -> Dict[str, Any]:
         specaug=specaug,
         normalize=config.get("normalize") or "none",
         encoder_type=config.get("encoder", "conformer"),
-        encoder=ConformerConfig(**filter_known_fields(
-            ConformerConfig, _conf(config, "encoder_conf"), "encoder_conf")),
+        encoder=ConformerConfig(**encoder_conf_values(filter_known_fields(
+            ConformerConfig, _conf(config, "encoder_conf"), "encoder_conf"))),
         decoder=TransformerDecoderConfig(**filter_known_fields(
             TransformerDecoderConfig, _conf(config, "decoder_conf"), "decoder_conf")),
         input_size=config.get("input_size"),

@@ -119,11 +119,6 @@ class ContextualBlockConformerEncoder(nn.Module):
             if cfg.normalize_before:
                 self.after_norm = LayerNorm(cfg.output_size)
 
-    def forward_with_intermediates(self, feats, feats_lengths, rng: Optional[StepRNG] = None):
-        """``forward`` and no taps: the JAX encoder gives none, so
-        ``interctc_weight`` adds no term."""
-        return (*self.forward(feats, feats_lengths, rng), ())
-
     def _layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_blocks)]
 

@@ -5,24 +5,33 @@ layers with causal self-attention and cross-attention over the encoder
 output, a final LayerNorm and the vocabulary projection (with
 ``tie_input_output``, the embedding table transposed, no bias).  The
 LLM-guided model builds its guided decoder's blocks from the same
-config.  Not ported: the lightconv/dynamicconv variants.
+config.
+
+:class:`ConvTransformerDecoder` is the ``lightconv``/``dynamicconv``
+decoder (the JAX module's ``_CausalConvAttn`` :118 and
+``ConvTransformerDecoder`` :162): its blocks put a causal lightweight or
+dynamic convolution where the self-attention was.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Union
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.transformer import (
     DecoderLayer,
     LayerNorm,
+    MultiHeadedAttention,
     PositionalEncoding,
+    PositionwiseFeedForward,
 )
+from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import causal_attn_mask, make_valid_mask
-from llm_guided_asr_tpu_torch.utils.rng import StepRNG
+from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,3 +93,93 @@ class TransformerDecoder(nn.Module):
         if cfg.tie_input_output:  # flax embed.attend
             return x @ self.embed.weight.t()
         return self.output_layer(x)
+
+
+class CausalConvAttn(nn.Module):
+    """The causal lightweight or dynamic convolution sublayer: ``in_proj``
+    to 2D and GLU (v = a * sigmoid(g)), then over the window of the
+    ``kernel_size`` positions ending at each position (zeros before the
+    first) a per-head weighted sum, then ``out_proj``.  The light weights
+    are the softmax over the taps of ``conv_weight`` [heads, K], shared by
+    every position; the dynamic ones the per-head softmax of
+    ``weight_proj(v)`` (of the GLU output, as in JAX)."""
+
+    def __init__(self, d: int, heads: int, kernel_size: int, dynamic: bool):
+        super().__init__()
+        self.heads, self.kernel_size, self.dynamic = heads, kernel_size, dynamic
+        self.in_proj = nn.Linear(d, 2 * d)
+        if dynamic:
+            self.weight_proj = nn.Linear(d, heads * kernel_size)
+        else:
+            self.conv_weight = nn.Parameter(torch.zeros(heads, kernel_size))
+        self.out_proj = nn.Linear(d, d)
+
+    def forward(self, x):
+        b, length, d = x.shape
+        k, h = self.kernel_size, self.heads
+        a, g = self.in_proj(x).chunk(2, dim=-1)
+        v = a * torch.sigmoid(g)
+        # [B, L, D, K] windows; tap K-1 is the position itself
+        win = F.pad(v, (0, 0, k - 1, 0)).unfold(1, k, 1).reshape(b, length, h, d // h, k)
+        if self.dynamic:
+            w = torch.softmax(self.weight_proj(v).reshape(b, length, h, k), dim=-1)
+            out = torch.einsum("blhgk,blhk->blhg", win, w)
+        else:
+            w = torch.softmax(self.conv_weight.float(), dim=-1).to(v.dtype)
+            out = torch.einsum("blhgk,hk->blhg", win, w)
+        return self.out_proj(out.reshape(b, length, d))
+
+
+class ConvTransformerDecoder(nn.Module):
+    """The ``lightconv`` (``dynamic=False``) and ``dynamicconv`` decoders:
+    embedding * sqrt(d) + sinusoidal positions, pads zeroed, then per block
+    pre-norm residual branches ``block_{i}_conv`` (CausalConvAttn),
+    ``block_{i}_src_attn`` (dense MHA over the memory) and ``block_{i}_ff``,
+    then ``after_norm`` and ``output_layer``.  No ``tie_input_output``."""
+
+    def __init__(self, vocab_size: int, cfg: TransformerDecoderConfig, d_model: int,
+                 dynamic: bool = False, kernel_size: int = 11,
+                 device: Union[str, torch.device] = "cuda"):
+        super().__init__()
+        if cfg.tie_input_output:
+            raise ValueError("the lightconv/dynamicconv decoders have no tie_input_output")
+        self.cfg = cfg
+        with torch.device(resolve_device(device)):
+            self.embed = nn.Embedding(vocab_size, d_model)
+            self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
+            for i in range(cfg.num_blocks):
+                for name, module in (
+                        ("norm1", LayerNorm(d_model)),
+                        ("conv", CausalConvAttn(d_model, cfg.attention_heads, kernel_size,
+                                                dynamic)),
+                        ("norm2", LayerNorm(d_model)),
+                        ("src_attn", MultiHeadedAttention(d_model, cfg.attention_heads,
+                                                          cfg.src_attention_dropout_rate)),
+                        ("norm3", LayerNorm(d_model)),
+                        ("ff", PositionwiseFeedForward(d_model, cfg.linear_units,
+                                                       dropout_rate=cfg.dropout_rate))):
+                    setattr(self, f"block_{i}_{name}", module)
+            if cfg.normalize_before:
+                self.after_norm = LayerNorm(d_model)
+            if cfg.use_output_layer:
+                self.output_layer = nn.Linear(d_model, vocab_size)
+
+    def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
+                ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,
+                only_last: bool = False) -> torch.Tensor:
+        cfg = self.cfg
+        rate = active_rate(self, cfg.dropout_rate)
+        x = self.pos_enc(self.embed(ys_in), rng=rng)
+        x = x.masked_fill(~make_valid_mask(ys_in_lengths, ys_in.shape[1])[..., None], 0.0)
+        memory_mask = make_valid_mask(memory_lengths, memory.shape[1])[:, None, :]
+        for i in range(cfg.num_blocks):
+            block = lambda name: getattr(self, f"block_{i}_{name}")  # noqa: E731
+            x = x + dropout(block("conv")(block("norm1")(x)), rate, rng)
+            h = block("norm2")(x)
+            x = x + dropout(block("src_attn")(h, memory, memory, memory_mask, rng=rng), rate, rng)
+            x = x + dropout(block("ff")(block("norm3")(x), rng), rate, rng)
+        if cfg.normalize_before:
+            x = self.after_norm(x)
+        if only_last:
+            x = x[torch.arange(x.shape[0], device=x.device), ys_in_lengths - 1]
+        return self.output_layer(x) if cfg.use_output_layer else x

@@ -35,6 +35,13 @@ class CachedDecoderScorer:
 
     def __init__(self, model, num_heads: int, num_blocks: int):
         cfg = model.cfg.decoder
+        kind = getattr(model.cfg, "decoder_type", "transformer")
+        if kind != "transformer":
+            # the JAX scorer indexes the decoder's params by block_{i}/src_attn,
+            # which the other decoders lack: a KeyError at its first decode
+            raise ValueError(f"the cached decoder serves the transformer decoder only, not "
+                             f"decoder_type={kind!r}; use the stateless scorer "
+                             f"(use_cached_decoder false)")
         if cfg.tie_input_output:
             # the JAX scorer reads an output_layer that a tied decoder lacks
             raise ValueError("the cached decoder does not serve tie_input_output; "

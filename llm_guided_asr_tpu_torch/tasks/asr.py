@@ -38,7 +38,7 @@ from llm_guided_asr_tpu_torch.data.fileio import read_shape_file, write_shape_fi
 from llm_guided_asr_tpu_torch.data.iterator import SequenceIterFactory
 from llm_guided_asr_tpu_torch.data.samplers import build_batch_sampler
 from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
-from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
+from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, encoder_conf_values
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, default_frontend
 from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
@@ -149,7 +149,7 @@ ASR_DEFAULTS: Dict[str, Any] = {
 
 # the JAX package's choices the port does not have yet, by ROADMAP item
 ITEM_BF16 = "ROADMAP Queue 1 item 7"
-ITEM_CHOICES = "ROADMAP Queue 1 item 10"
+ITEM_CHOICES = "ROADMAP Queue 1 item 10d"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
 
@@ -158,8 +158,10 @@ JAX_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                 "multiconvformer", "rnn", "vgg_rnn", "avhubert", "s4",
                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
 PORT_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
-                 "contextual_block_conformer")
+                 "contextual_block_conformer", "whisper_style", "longformer",
+                 "multiconvformer", "rnn", "vgg_rnn", "s4")
 JAX_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv", "hugging_face")
+PORT_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv")
 JAX_MODELS = ("espnet", "llm_guided_asr", "maskctc", "transducer")
 
 # fields of the JAX config dataclasses that the port's do not have, with the
@@ -168,11 +170,7 @@ _JAX_ONLY_FIELDS = {
     "frontend_conf": {"use_wpe": False, "wpe_taps": 5, "wpe_delay": 3, "wpe_iterations": 2,
                       "use_beamformer": False, "mask_units": 64, "ref_channel": 0,
                       "fused": (), "proj_dim": 100, "type": "default"},
-    "encoder_conf": {"rel_pos_type": "latest", "model_name_or_path": None,
-                     "multicgmlp_kernel_sizes": (7, 15, 23, 31), "ss_layers": ("s4", "ff"),
-                     "ss_d_state": 64, "ss_prenorm": True, "ss_norm": "layer",
-                     "ss_residual": "residual", "ss_pool": "", "ss_pool_stride": 1,
-                     "ss_ff_expand": 2, "ss_bidirectional": True, "ss_drop_path": 0.0},
+    "encoder_conf": {"rel_pos_type": "latest", "model_name_or_path": None},
     "transducer decoder_conf": {"context_size": 256},
 }
 
@@ -236,9 +234,7 @@ def _encoder_config(config: Dict[str, Any]) -> Tuple[str, ConformerConfig]:
     if encoder_type not in PORT_ENCODERS:
         raise NotImplementedError(f"encoder={encoder_type!r} is not ported yet ({ITEM_CHOICES})")
     enc = port_fields(ConformerConfig, config.get("encoder_conf"), "encoder_conf")
-    if enc.get("interctc_layer_idx") is not None:
-        enc["interctc_layer_idx"] = tuple(enc["interctc_layer_idx"])
-    return encoder_type, ConformerConfig(**enc)
+    return encoder_type, ConformerConfig(**encoder_conf_values(enc))
 
 
 def _vocab_size(config: Dict[str, Any]) -> int:
@@ -264,7 +260,7 @@ def build_model_config(config: Dict[str, Any]) -> ASRModelConfig:
     decoder_type = config.get("decoder", "transformer")
     if decoder_type not in JAX_DECODERS:
         raise ValueError(f"unknown decoder {decoder_type!r}; known: {JAX_DECODERS}")
-    if decoder_type != "transformer":
+    if decoder_type not in PORT_DECODERS:
         raise NotImplementedError(f"decoder={decoder_type!r} is not ported yet ({ITEM_CHOICES})")
     model_conf = dict(config.get("model_conf", {}) or {})
     return ASRModelConfig(

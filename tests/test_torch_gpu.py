@@ -108,6 +108,10 @@ DW_CASES = [
     (8, 312, 256, 31),  # the batched serving shape
     (1, 40, 256, 15),  # the streaming encoder's block (serve-stream)
     (1, 312, 512, 31), (64, 312, 512, 31),  # the E-Branchformer's cgMLP (serve-ebf, train-ebf)
+    # the MultiConvformer's cgMLP: the runtime-K taps at 512 channels and the
+    # merge conv at 2048 (serve-enc, train-enc)
+    (1, 312, 512, 7), (64, 312, 512, 7), (1, 312, 512, 23), (64, 312, 512, 23),
+    (1, 312, 2048, 31), (64, 312, 2048, 31),
 ]
 
 
@@ -566,7 +570,10 @@ def test_transducer_decoding_on_the_card_matches_the_cpu(card):
 # the LSTM recurrence: phase 17's beam-5 prefix, phase 18's training
 # labels, a width that leaves the last block part empty (the golden
 # transducer's 12), one step, and a batch the wrapper cuts into launches
-LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 1024)]
+LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 1024),
+              # the (VGG-)RNN encoder's 320 units: after VGG2L (10 s: 250
+              # frames) at B = 1 and 64, and without it (1000 frames)
+              (1, 250, 320), (64, 250, 320), (1, 1000, 320)]
 
 
 @pytest.mark.gpu
@@ -1482,3 +1489,113 @@ def test_brctc_on_the_card_matches_the_cpu(card):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4)
     builtin_err = (out[(0.0, "cuda")][1] - out[(0.0, "cpu")][1]).abs().max().item()
     assert (got[1] - want[1]).abs().max().item() <= 2.0 * builtin_err + 1e-5
+
+
+def _card_vs_cpu(card, build, feats, lengths, r_shape, train=True):
+    """A module built by ``build(device)`` on the CPU (weights N(0, 0.1))
+    and on the card with the same weights: outputs, lengths and, when
+    ``train``, every gradient of sum(out * r); returns the launch counts
+    the card's pass added."""
+    torch.manual_seed(0)
+    cpu = build("cpu").train(train)
+    with torch.no_grad():
+        for prm in cpu.parameters():
+            prm.normal_(0.0, 0.1)
+    gpu = build(card).train(train)
+    gpu.load_state_dict(cpu.state_dict())
+    r = _rand(np.random.default_rng(1), *r_shape, scale=1.0)
+    got = {}
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        before = {**_counts(), **tl.KERNEL.launches}
+        with torch.set_grad_enabled(train):
+            out = model(*(x.to(dev) for x in feats))
+            out, lens = out if isinstance(out, tuple) else (out, lengths)
+            if train:
+                (out * r.to(dev)).sum().backward()
+        torch.cuda.synchronize()
+        after = {**_counts(), **tl.KERNEL.launches}
+        got[name] = (out.detach().cpu(), lens.cpu(), {k: after[k] - before[k] for k in after},
+                     {n: q.grad.cpu() for n, q in model.named_parameters()} if train else {})
+    assert not any(got["cpu"][2].values())
+    assert torch.equal(got["gpu"][1], got["cpu"][1])
+    torch.testing.assert_close(got["gpu"][0], got["cpu"][0], rtol=1e-4, atol=1e-4)
+    for n, ref in got["cpu"][3].items():
+        torch.testing.assert_close(got["gpu"][3][n], ref, rtol=0, atol=_grad_tol(ref), msg=n)
+    return got["gpu"][2]
+
+
+# encoder type -> (encoder_conf beyond the common one, the launches of one
+# training forward and backward over 2 blocks)
+NEW_ENCODERS = {
+    "multiconvformer": ({}, {"rel_attention_fwd": 2, "rel_attention_bwd": 2,
+                             "dwconv1d_fwd": 10, "dwconv1d_bwd": 10}),
+    "vgg_rnn": ({}, {"lstm_fwd": 4, "lstm_bwd": 4}),
+    "rnn": ({}, {"lstm_fwd": 4, "lstm_bwd": 4}),
+    "longformer": ({}, {}),
+    "whisper_style": ({}, {}),
+    # layer norms: behind a batch norm a bias's gradient cancels down to
+    # its own float32 rounding, which no element-wise check at 1e-4 of its
+    # largest value holds
+    "s4": (dict(ss_layers=("s4", "s4d", "mha", "ff"), ss_d_state=16), {}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(NEW_ENCODERS))
+def test_new_encoders_on_the_card_match_the_cpu(card, kind):
+    """Each encoder of this slice, 2 blocks with mixed lengths, forward and
+    backward: the card (kernels, cuFFT, cuDNN's convs) against the CPU
+    (plain versions), and the kernel launches of the card's pass (the
+    MultiConvformer: one rel-pos and five depthwise launches a block each
+    way; the (VGG-)RNN encoder: one LSTM launch a direction a layer each
+    way)."""
+    over, launches = NEW_ENCODERS[kind]
+    cfg = tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=256,
+                                num_blocks=2, dropout_rate=0.0, positional_dropout_rate=0.0,
+                                **over)
+    rng = np.random.default_rng(0)
+    feats, lengths = _rand(rng, 3, 157, 40, scale=1.0), torch.tensor([157, 120, 61])
+    build = lambda dev: tconf.make_encoder(kind, cfg, 40, device=dev)  # noqa: E731
+    t_out = build("cpu")(feats, lengths)[0].shape[1]
+    counts = _card_vs_cpu(card, build, (feats, lengths), lengths, (3, t_out, 64))
+    assert {k: v for k, v in counts.items() if v} == launches
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["rnn", "s4", "lightconv", "dynamicconv"])
+def test_new_decoders_on_the_card_match_the_cpu(card, kind):
+    """Each decoder of this slice inside an ASRModel (2 blocks, the JAX
+    config mapping), teacher-forced logits and every gradient, card
+    against the CPU; the logits at the last position (``only_last``) in
+    eval."""
+    cfg = ASRModelConfig(
+        vocab_size=50, frontend=FrontendConfig(n_mels=40), normalize="utterance_mvn",
+        encoder_type="transformer",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                      num_blocks=1, pos_enc_layer_type="abs_pos",
+                                      dropout_rate=0.0, positional_dropout_rate=0.0),
+        decoder_type=kind,
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=96, num_blocks=2,
+                                         dropout_rate=0.0, positional_dropout_rate=0.0))
+    rng = np.random.default_rng(2)
+    enc = _rand(rng, 3, 40, 64, scale=1.0)
+    enc_lens = torch.tensor([40, 31, 12])
+    ys = torch.from_numpy(rng.integers(0, 50, (3, 9)))
+    ys_lens = torch.tensor([9, 5, 1])
+    args = (enc, enc_lens, ys, ys_lens)
+    build = lambda dev: ASRModel(cfg, device=dev).decoder  # noqa: E731
+    counts = _card_vs_cpu(card, build, args, ys_lens, (3, 9, 50))
+    assert not any(counts.values())
+    _card_vs_cpu(card, lambda dev: _OnlyLast(build(dev)), args, ys_lens, (3, 50), train=False)
+
+
+class _OnlyLast(torch.nn.Module):
+    def __init__(self, decoder):
+        super().__init__()
+        self.decoder = decoder
+
+    def forward(self, *args):
+        return self.decoder(*args, only_last=True)
