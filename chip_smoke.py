@@ -264,12 +264,14 @@ kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
-Phase 2 also holds the LSTM recurrence kernels (csrc/lstm.cu, phases
-17-18's prediction network) against the plain loop: the forward at the
-beam-5 prefix [5, 201, 256] and the training labels [16, 25, 256], the
-backward and the autograd function's gradients at the latter, each call
-repeated and bitwise equal, timed by CUDA events beside the loop and
-cuDNN's torch.lstm of the same function (the yardstick only).  It holds
+Phase 2 also holds the LSTM recurrence kernels (csrc/lstm.cu: one launch
+a call, a thread-block cluster a row group; phases 17-18's prediction
+network) against the plain loop: the forward at the beam-5 prefix
+[5, 201, 256] and the training labels [16, 25, 256], the backward and the
+autograd function's gradients at the latter, each call repeated and
+bitwise equal, timed by CUDA events beside the loop and cuDNN's
+torch.lstm of the same function (the yardstick only), with each call's
+launch count, cluster shape and microseconds a step printed.  It holds
 the WKV forward against its plain loop at the
 transducer's shapes (beam-5 serving [5, 201, 512], greedy [1, 313, 512]
 and training [16, 25, 512], each timed by CUDA graph with its chunk count
@@ -299,8 +301,9 @@ MultiConvformer's depthwise convs (K = 7 and 23 on 512 channels, the merge
 conv's K = 31 on 2048; the forward at B=1, the forward and backward at
 B=16 and 64) and the LSTM recurrence at the RNN encoders' 320 units (the
 forward at [1, 312, 320] and [1, 1251, 320], forward and backward at
-[16, 312, 320], [16, 1251, 320] and [64, 312, 320], launches a call
-printed), phases 26-27, f32.  The
+[16, 312, 320], [16, 1251, 320] and [64, 312, 320]; W_hh in shared
+memory) and at ESPnet's LSTM LM unit 650 ([16, 100, 650], forward and
+backward; W_hh read from L2), phases 26-27, f32.  The
 rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
@@ -334,8 +337,8 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # float32-accurate matrix products on the tensor cores: 3xTF32 (each operand
 # split into two TF32 parts, three TF32 products) at 495 TFLOP/s of TF32.
-# The bound of the attention kernels' float32 products; elementwise and
-# recurrent work (depthwise, WKV) keeps the 67 TFLOP/s CUDA-core rate.
+# The bound of the attention and LSTM kernels' float32 products; elementwise
+# and recurrent work (depthwise, WKV) keeps the 67 TFLOP/s CUDA-core rate.
 F32_PRODUCT_FLOPS = 495e12 / 3
 
 SR = 16000
@@ -448,8 +451,11 @@ MCF_DW = [(7, MCF_C), (23, MCF_C), (31, MCF_MERGE_C)]  # (K, C): K = 15 and 31 a
 RNN_H, RNN_T, VGG_T = 320, 1251, 312
 LSTM_ENC_SERVE = [(1, VGG_T, RNN_H), (1, RNN_T, RNN_H)]
 LSTM_ENC_TRAIN = [(ENC_B, VGG_T, RNN_H), (ENC_B, RNN_T, RNN_H), (64, VGG_T, RNN_H)]
+# the other side of the kernels' width choice (W_hh read from L2 above 320
+# units): ESPnet SequentialRNNLM's default unit, 16 sentences of 100 tokens
+LSTM_WIDE = [(16, 100, 650)]
 MCF_SHAPES = {f"[{b},312,{c}] K={k}" for k, c in MCF_DW for b in (1, ENC_B, 64)}
-LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN}
+LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE}
 
 
 def nvidia_smi_name_power() -> str:
@@ -1204,10 +1210,25 @@ def lstm_inputs(gen, b, t, h):
 def lstm_bound(b, t, h, bwd=False):
     """Forward: xi, W_hh and the bias in, h out; backward: dy, the saved
     gates and cells and W_hh in, da out.  Operations: the [B, H] x [H, 4H]
-    product of every step (2 x 4H x H a row) and ~10 per gate element."""
+    product of every step (2 x 4H x H a row) at the 3xTF32 rate of the
+    kernels' tensor cores, and ~10 per gate element at the CUDA cores'."""
     elems = b * t * h
     n_bytes = 4 * ((9 if bwd else 5) * elems + 4 * h * h + (0 if bwd else 4 * h))
-    return bound_ms(n_bytes, 8.0 * elems * h + 40.0 * elems, torch.float32)
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (8.0 * elems * h / F32_PRODUCT_FLOPS + 40.0 * elems / PEAK_FLOPS[torch.float32]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def lstm_plan_text(lk, x, backward=False):
+    """The launch plan of a call on x [B, L, ·] (ops/lstm.py launch_plan)."""
+    b, t = x.shape[:2]
+    h = x.shape[2] if backward else x.shape[2] // 4
+    p = lk.plan_for(b, h, backward, x.device)
+    return (f"{p.groups} cluster(s) of {p.cluster} CTAs x {p.rows} rows, {p.units} units a "
+            f"CTA, W_hh {'read from L2' if p.streamed else 'in shared memory'}, "
+            f"{p.smem_bytes} B of shared memory a CTA, "
+            f"{lk.max_active_clusters(h, backward, x.device.index)} one-tile clusters "
+            f"of this width fit the card at once")
 
 
 def library_lstm(xi, w, bias):
@@ -1234,7 +1255,9 @@ def check_lstm(lk, gen, card):
     for shape, (b, t, h) in (("serve beam-5 [5,201,256]", LSTM_SERVE),
                              ("train [16,25,256]", LSTM_TRAIN)):
         xi, w, bias = lstm_inputs(gen, b, t, h)
+        lk.KERNEL.reset_launches()
         y = lk.lstm_fwd(xi, w, bias)[0]
+        n_fwd = lk.KERNEL.launches["lstm_fwd"]
         again = lk.lstm_fwd(xi, w, bias)[0]
         ref = lk.lstm_recurrence_plain(xi, w, bias)
         lib = library_lstm(xi, w, bias)
@@ -1248,14 +1271,17 @@ def check_lstm(lk, gen, card):
             plain_ms=event_time_ms(lambda: lk.lstm_recurrence_plain(xi, w, bias), iters=3),
             library_ms=event_time_ms(lambda: library_lstm(xi, w, bias)),
             bound_ms=bms, bound_by=by)
-        print(f"[kernels] lstm_fwd {shape}: one launch of {(h + 7) // 8} blocks, bitwise "
-              f"repeatable; cuDNN's torch.lstm of the same function differs by "
-              f"{max_err(lib, ref):.2e} [{card}]")
+        print(f"[kernels] lstm_fwd {shape}: {n_fwd} launch(es) a call, "
+              f"{lstm_plan_text(lk, xi)}; {results[('lstm_fwd', shape)]['ms'] * 1e3 / t:.3f} us "
+              f"a step, bitwise repeatable; cuDNN's torch.lstm of the same function differs "
+              f"by {max_err(lib, ref):.2e} [{card}]")
     b, t, h = LSTM_TRAIN
     xi, w, bias = lstm_inputs(gen, b, t, h)
     dy = torch.randn(b, t, h, generator=gen, device="cuda")
     _, gates, cells = lk.lstm_fwd(xi, w, bias, save=True)
+    lk.KERNEL.reset_launches()
     da = lk.lstm_bwd(dy, gates, cells, w)
+    n_bwd = lk.KERNEL.launches["lstm_bwd"]
     again = lk.lstm_bwd(dy, gates, cells, w)
     with torch.enable_grad():
         leaves = [x.clone().requires_grad_(True) for x in (xi, w, bias)]
@@ -1289,22 +1315,25 @@ def check_lstm(lk, gen, card):
                                                              retain_graph=True)),
         bound_ms=bms, bound_by=by)
     print("[kernels] lstm_bwd train [16,25,256] max_abs_err " + ", ".join(
-        f"{n} {e:.2e}" for n, e in errs.items()) + f", bitwise repeatable (plain: autograd "
-        f"through the loop with its forward; library: cuDNN's backward alone) [{card}]")
+        f"{n} {e:.2e}" for n, e in errs.items()) + f", bitwise repeatable; {n_bwd} launch(es) "
+        f"a call, {lstm_plan_text(lk, dy, True)}; "
+        f"{results[('lstm_bwd', 'train [16,25,256]')]['ms'] * 1e3 / t:.3f} us a step (plain: "
+        f"autograd through the loop with its forward; library: cuDNN's backward alone) [{card}]")
     return results
 
 
 def check_lstm_encoder(lk, gen, card):
     """The LSTM recurrence at the (VGG-)RNN encoders' shapes (phases 26-27:
-    320 units over 312 frames after VGG2L, 1251 without it): the forward
-    at the serving shapes, the forward and the backward at the training
-    shapes (B = ENC_B, and train-1's B = 64, which the backward cuts into
-    launches), each against the plain loop at check_lstm's tolerances,
-    repeated and bitwise equal, its launch count printed; timed by CUDA
-    events beside cuDNN's torch.lstm and the loop (one call of the loop,
-    already warm from the check: a yardstick only)."""
+    320 units over 312 frames after VGG2L, 1251 without it; W_hh in
+    shared memory) and at the LSTM LM's 650 units (W_hh read from L2): the
+    forward at the serving shapes, the forward and the backward at the
+    training shapes (B = ENC_B, train-1's B = 64, the LM's 16), each
+    against the plain loop at check_lstm's tolerances, repeated and bitwise
+    equal, its launch count, cluster shape and microseconds a step printed;
+    timed by CUDA events beside cuDNN's torch.lstm and the loop (one call of
+    the loop, already warm from the check: a yardstick only)."""
     results = {}
-    for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN:
+    for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE:
         shape = f"[{b},{t},{h}]"
         xi, w, bias = lstm_inputs(gen, b, t, h)
         lk.KERNEL.reset_launches()
@@ -1323,6 +1352,9 @@ def check_lstm_encoder(lk, gen, card):
                                    warmup=0),
             library_ms=event_time_ms(lambda: library_lstm(xi, w, bias), iters=5),
             bound_ms=bms, bound_by=by, launches_per_call=n_fwd)
+        print(f"[kernels] lstm_fwd {shape}: {n_fwd} launch(es) a call, "
+              f"{lstm_plan_text(lk, xi)}; "
+              f"{results[('lstm_fwd', shape)]['ms'] * 1e3 / t:.3f} us a step [{card}]")
         if (b, t, h) in LSTM_ENC_SERVE:
             continue
         dy = torch.randn(b, t, h, generator=gen, device="cuda")
@@ -1355,9 +1387,10 @@ def check_lstm_encoder(lk, gen, card):
             library_ms=event_time_ms(lambda: torch.autograd.grad(lib_out, lib_in, dy,
                                                                  retain_graph=True), iters=5),
             bound_ms=bms, bound_by=by, launches_per_call=n_bwd)
-        print(f"[kernels] lstm {shape}: lstm_fwd {n_fwd} launch(es), lstm_bwd {n_bwd} "
-              f"launch(es) a call (at most {lk.max_rows(h, 0, False)} rows a forward launch, "
-              f"{lk.max_rows(h, 0, True)} a backward one), bitwise repeatable [{card}]")
+        print(f"[kernels] lstm_bwd {shape}: {n_bwd} launch(es) a call, "
+              f"{lstm_plan_text(lk, dy, True)}; "
+              f"{results[('lstm_bwd', shape)]['ms'] * 1e3 / t:.3f} us a step, bitwise "
+              f"repeatable [{card}]")
     return results
 
 
@@ -1421,8 +1454,8 @@ def phase_kernels(ra, dc, wk, fa, lk, card):
     for name, shape, r in cases:
         _print_timing(card, name, shape, torch.float32, r)
         results[(name, shape, torch.float32)] = r
-    # this slice's shapes: the MultiConvformer's depthwise convs and the RNN
-    # encoders' LSTM recurrence (phases 26-27)
+    # the MultiConvformer's depthwise convs and the RNN encoders' LSTM
+    # recurrence (phases 26-27), and the recurrence at the LSTM LM's width
     for (name, shape), r in {**check_multiconv_dwconv(dc, gen, card),
                              **check_lstm_encoder(lk, gen, card)}.items():
         _print_timing(card, name, shape, torch.float32, r)
@@ -4164,9 +4197,15 @@ def phase_serve_enc(kernels, card):
     weights from seed 0) over each encoder of NEW_ENCODERS serves one
     warm-up and one timed 10 s request at beam 10 (serve_one: latency,
     the score bookkeeping, the launches of encoder_launches and nothing
-    else, the encoder against the CPU plain path within 1e-4)."""
+    else, the encoder against the CPU plain path within 1e-4), then one
+    encode of it traced (card only): the device's time, which the host's
+    spread does not hide, and the LSTM kernels' share of it."""
+    from torch.profiler import ProfilerActivity, profile
+
     total = {}
     wave = request_waves()[0]
+    speech = torch.from_numpy(wave[None]).cuda()
+    n = torch.tensor([wave.shape[0]], device="cuda")
     for kind, enc in NEW_ENCODERS.items():
         tag = f"serve-{kind}"
         model = build_serve_asr(kind, **enc)
@@ -4178,6 +4217,15 @@ def phase_serve_enc(kernels, card):
         launches = serve_one(tag, model, wave, kernels, card, (),
                              expected=encoder_launches(kind), encoder_tol=1e-4)
         total = add_counts(total, launches)
+        with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+            model.encode(speech, n)
+            torch.cuda.synchronize()
+        dev_ms, events = device_busy(prof)
+        lstm = [e for e in events if "lstm_" in e.key]
+        print(f"[{tag}] encode traced (card only): device busy {dev_ms:.3f} ms, of which "
+              f"the LSTM kernels {sum(e.self_device_time_total for e in lstm) / 1e3:.3f} ms "
+              f"over {sum(e.count for e in lstm)} traced launches of "
+              f"{launches.get('lstm_fwd', 0)} [{card}]")
         del model
         torch.cuda.empty_cache()
     return total

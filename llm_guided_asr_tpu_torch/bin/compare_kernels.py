@@ -1,11 +1,17 @@
-"""Time the WKV forward and backward and the depthwise backward of this
-checkout against an older revision of their sources, and sweep their grid
-choices, on one card.
+"""Time the WKV forward and backward, the depthwise backward and the LSTM
+recurrence of this checkout against an older revision of their sources,
+and sweep their grid choices, on one card.
 
     python -m llm_guided_asr_tpu_torch.bin.compare_kernels [--old DIR] [--sweep] [--trace]
 
-``--old DIR`` holds ``wkv.cu`` and/or ``depthwise_conv.cu`` of an older
-revision, and only the sources it holds are compared: a ``depthwise_conv.cu``
+``--old DIR`` holds ``wkv.cu``, ``depthwise_conv.cu`` and/or ``lstm.cu`` of an
+older revision, and only the sources it holds are compared: an ``lstm.cu``
+with the cooperative-grid recurrence (``lstm_fwd(xi, w_hh, bias, y, gates,
+cells, hbuf, bar, B, L, H, stream)``, ``lstm_bwd(dy, gates, cells, w_hh,
+da, bar, B, L, H, stream)`` and ``lstm_max_rows``), run as its wrapper ran
+it (rows cut into launches of at most ``lstm_max_rows`` within 200 KB of
+shared memory, a zeroed barrier and an h buffer a launch), timed by CUDA
+events (5 calls) at the LSTM shapes of the kernel table; a ``depthwise_conv.cu``
 with the per-slab dw (whose ``dwconv1d_fwd`` and ``dwconv1d_bwd`` take the
 arguments they take now), a ``wkv.cu`` with the chunked WKV forward and the
 WKV backward from before its chunked scan, which takes no workspace:
@@ -32,6 +38,7 @@ from pathlib import Path
 import torch
 
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as dc
+from llm_guided_asr_tpu_torch.ops import lstm as lk
 from llm_guided_asr_tpu_torch.ops import wkv as wk
 from llm_guided_asr_tpu_torch.ops.cuda_build import ARCH_FLAGS, NVCC_FLAGS, find_nvcc
 
@@ -45,6 +52,13 @@ DW_SHAPES = [(64, 312, 256, 31, torch.float32), (64, 312, 256, 8, torch.float32)
              # the MultiConvformer's cgMLP taps (K = 7 and 23 at 512 channels)
              (64, 312, 512, 7, torch.float32), (64, 312, 512, 23, torch.float32),
              (16, 312, 512, 7, torch.float32), (16, 312, 512, 23, torch.float32)]
+# (B, L, H, backward too): the LSTM shapes of the kernel table (the
+# transducer's beam-5 prefix and training labels, the RNN encoders' 320
+# units) and the LSTM LM's 650 units
+LSTM_SHAPES = [(5, 201, 256, False), (16, 25, 256, True), (1, 312, 320, False),
+               (1, 1251, 320, False), (16, 312, 320, True), (16, 1251, 320, True),
+               (64, 312, 320, True), (16, 100, 650, True)]
+OLD_LSTM_SMEM = 200 * 1024  # the shared memory the older wrapper let a launch take
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -86,10 +100,23 @@ def kernel_times(fn, calls: int = 10) -> str:
                      for e in sorted(events, key=lambda e: -e.self_device_time_total))
 
 
+def event_us(fn, calls: int = 5) -> float:
+    """Device time per call of work long enough to hide its launches."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
 def build_old(src_dir: Path) -> dict:
     """The older sources ``src_dir`` holds, built and loaded: {stem: CDLL}."""
     libs = {}
-    for stem in ("wkv", "depthwise_conv"):
+    for stem in ("wkv", "depthwise_conv", "lstm"):
         if not (src_dir / f"{stem}.cu").exists():
             continue
         out = src_dir / f"lib{stem}_old.so"
@@ -102,6 +129,10 @@ def build_old(src_dir: Path) -> dict:
     if "depthwise_conv" in libs:
         for name in ("dwconv1d_fwd", "dwconv1d_bwd"):
             getattr(libs["depthwise_conv"], name).argtypes = dc.KERNEL.functions[name]
+    if "lstm" in libs:
+        libs["lstm"].lstm_fwd.argtypes = [_P] * 8 + [_I] * 3 + [_P]
+        libs["lstm"].lstm_bwd.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+        libs["lstm"].lstm_max_rows.argtypes = [_I] * 3
     return libs
 
 
@@ -134,10 +165,67 @@ def dw_at(fn, x, w, dy, dx, dw, slabs):
        work.data_ptr(), slabs, b, t, c, w.shape[0], dc._DTYPE_CODE[x.dtype], stream())
 
 
+def old_lstm(lib, backward: bool, b: int, h: int, launch) -> int:
+    """The older wrapper's launches: rows cut into launches of at most
+    ``lstm_max_rows``, each ``launch(r0, r1, bar, hbuf)`` with a zeroed
+    barrier (and an h buffer for the forward); returns the launch count."""
+    rows = lib.lstm_max_rows(h, OLD_LSTM_SMEM, int(backward))
+    for r0 in range(0, b, rows):
+        r1 = min(b, r0 + rows)
+        bar = torch.zeros(2, dtype=torch.int32, device="cuda")
+        hbuf = None if backward else torch.empty(2 * (r1 - r0) * h, device="cuda")
+        code = launch(r0, r1, bar, hbuf)
+        if code != 0:
+            raise RuntimeError(f"the older lstm launch failed: CUDA error {code}")
+    return -(-b // rows)
+
+
+def compare_lstm(lib, gen, card: str) -> None:
+    """The LSTM recurrence, new against old in turns on the same inputs."""
+    for b, t, h, backward in LSTM_SHAPES:
+        xi = 0.5 * torch.randn(b, t, 4 * h, generator=gen, device="cuda")
+        w = torch.randn(4 * h, h, generator=gen, device="cuda") / h ** 0.5
+        bias = 0.1 * torch.randn(4 * h, generator=gen, device="cuda")
+        dy = torch.randn(b, t, h, generator=gen, device="cuda")
+        y_new, gates, cells = lk.lstm_fwd(xi, w, bias, save=True)
+        y_old, da_old = torch.empty_like(y_new), torch.empty_like(gates)
+
+        def old_fwd():
+            return old_lstm(lib, False, b, h, lambda r0, r1, bar, hbuf: lib.lstm_fwd(
+                xi[r0:r1].data_ptr(), w.data_ptr(), bias.data_ptr(), y_old[r0:r1].data_ptr(),
+                None, None, hbuf.data_ptr(), bar.data_ptr(), r1 - r0, t, h, stream()))
+
+        def old_bwd():
+            return old_lstm(lib, True, b, h, lambda r0, r1, bar, hbuf: lib.lstm_bwd(
+                dy[r0:r1].data_ptr(), gates[r0:r1].data_ptr(), cells[r0:r1].data_ptr(),
+                w.data_ptr(), da_old[r0:r1].data_ptr(), bar.data_ptr(), r1 - r0, t, h, stream()))
+
+        def new_fwd():
+            return lk.lstm_fwd(xi, w, bias)[0]
+
+        def new_bwd():
+            return lk.lstm_bwd(dy, gates, cells, w)
+
+        p = lk.plan_for(b, h, False, xi.device)
+        cases = [("lstm_fwd", old_fwd, new_fwd, y_old, p)]
+        if backward:
+            cases.append(("lstm_bwd", old_bwd, new_bwd, da_old, lk.plan_for(b, h, True, xi.device)))
+        for name, old, new, out_old, plan in cases:
+            times = [event_us(f) for f in (old, new, new, old)]
+            n_old = old()
+            diff = (new() - out_old).abs().max().item()
+            print(f"{name} [{b},{t},{h}]: old {times[0]:.2f} / {times[3]:.2f} us ({n_old} "
+                  f"launch(es)), new {times[1]:.2f} / {times[2]:.2f} us (one launch: "
+                  f"{plan.groups} x {plan.cluster} CTAs, {plan.rows} rows a cluster, W_hh "
+                  f"{'from L2' if plan.streamed else 'in shared memory'}); us a step old "
+                  f"{(times[0] + times[3]) / 2 / t:.3f}, new {(times[1] + times[2]) / 2 / t:.3f}; "
+                  f"max |new - old| {diff:.2e} [{card}]", flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--old", type=Path,
-                    help="directory with the older wkv.cu and depthwise_conv.cu")
+                    help="directory with the older wkv.cu, depthwise_conv.cu or lstm.cu")
     ap.add_argument("--sweep", action="store_true", help="time every chunk and slab count")
     ap.add_argument("--trace", action="store_true", help="device time of each kernel, traced")
     args = ap.parse_args()
@@ -149,7 +237,8 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     new_fwd = lambda *a: wk.KERNEL.launch("wkv_fwd", *a)  # noqa: E731
     new_dw = lambda *a: dc.KERNEL.launch("dwconv1d_bwd", *a)  # noqa: E731
-
+    if "lstm" in libs:
+        compare_lstm(libs["lstm"], gen, card)
     for b, t, c in WKV_SHAPES:
         w = -torch.exp(0.5 * torch.randn(c, generator=gen, device="cuda"))
         u = 0.5 * torch.randn(c, generator=gen, device="cuda")

@@ -7,6 +7,7 @@ has only PyTorch:
     python -m pytest --noconftest -p no:cacheprovider -q tests/test_torch_gpu.py
 """
 
+import ctypes
 import math
 
 import numpy as np
@@ -568,12 +569,18 @@ def test_transducer_decoding_on_the_card_matches_the_cpu(card):
 
 
 # the LSTM recurrence: phase 17's beam-5 prefix, phase 18's training
-# labels, a width that leaves the last block part empty (the golden
-# transducer's 12), one step, and a batch the wrapper cuts into launches
+# labels, a width that leaves the last CTA's slice part empty (the golden
+# transducer's 12), one step, and 200 rows at 1024 units (two tiles a
+# cluster would not fit: groups run in waves)
 LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 1024),
               # the (VGG-)RNN encoder's 320 units: after VGG2L (10 s: 250
               # frames) at B = 1 and 64, and without it (1000 frames)
-              (1, 250, 320), (64, 250, 320), (1, 1000, 320)]
+              (1, 250, 320), (64, 250, 320), (1, 1000, 320),
+              # the encoders' training shapes of the kernel table (10 s: 312
+              # frames after VGG2L; B = 64 takes two tiles a cluster)
+              (16, 312, 320), (64, 312, 320),
+              # ESPnet's LSTM LM unit, W_hh read from L2
+              (16, 50, 650)]
 
 
 @pytest.mark.gpu
@@ -581,7 +588,8 @@ LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 102
 def test_lstm_kernels_match_plain(card, b, t, h):
     """The forward against the plain loop (1e-5 abs + rel), the backward
     and the autograd function's gradients against autograd through the
-    loop (1e-4 of the largest), repeat calls bitwise equal."""
+    loop (1e-4 of the largest), repeat calls bitwise equal; one launch a
+    call."""
     from llm_guided_asr_tpu_torch.ops import lstm as tl
 
     rng = np.random.default_rng(b * t + h)
@@ -594,9 +602,8 @@ def test_lstm_kernels_match_plain(card, b, t, h):
     again = tl.lstm_fwd(xi, w, bias)[0]
     da = tl.lstm_bwd(dy, gates, cells, w)
     torch.cuda.synchronize()
-    fwd_calls, bwd_calls = (-(-b // tl.max_rows(h, xi.device.index, bwd)) for bwd in (0, 1))
-    assert tl.KERNEL.launches == {"lstm_fwd": before["lstm_fwd"] + 2 * fwd_calls,
-                                  "lstm_bwd": before["lstm_bwd"] + bwd_calls}
+    assert tl.KERNEL.launches == {"lstm_fwd": before["lstm_fwd"] + 2,
+                                  "lstm_bwd": before["lstm_bwd"] + 1}
     assert torch.equal(y, again) and torch.equal(da, tl.lstm_bwd(dy, gates, cells, w))
     ref = tl.lstm_recurrence_plain(xi, w, bias)
     torch.testing.assert_close(y, ref, rtol=1e-5, atol=1e-5)
@@ -607,6 +614,55 @@ def test_lstm_kernels_match_plain(card, b, t, h):
     torch.testing.assert_close(da, refs[0], rtol=0, atol=_grad_tol(refs[0]))
     for name, g, r in zip(("xi", "w_hh", "bias"), grads, refs):
         torch.testing.assert_close(g, r, rtol=0, atol=_grad_tol(r), msg=name)
+
+
+def _fill_shared_kernel():
+    from pathlib import Path
+
+    from llm_guided_asr_tpu_torch.ops.cuda_build import CudaKernel
+
+    word, n, ptr = ctypes.c_uint, ctypes.c_int, ctypes.c_void_p
+    return CudaKernel(str(Path(__file__).resolve().with_name("cuda") / "fill_shared.cu"),
+                      {"fill_shared": [word, n, ptr], "count_shared": [word, n, ptr, ptr]},
+                      error_fn="fill_shared_error_string")
+
+
+# widths whose last CTAs' slices lie part or all past H: the golden
+# transducer's 12 (2 CTAs of 8 units) and ESPnet's LSTM LM's 650 (16 of 44)
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,h", [(3, 9, 12), (16, 50, 650)])
+def test_lstm_kernels_read_no_stale_shared_memory(card, b, t, h):
+    """NaN left in every word of every SM's shared memory just before each
+    launch changes no bit of the outputs: the kernels read only shared
+    memory they wrote.  The fill is first shown to reach a later kernel."""
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    rng = np.random.default_rng(b * t + h)
+    xi = _rand(rng, b, t, 4 * h, scale=0.5).to(card)
+    w = _rand(rng, 4 * h, h, scale=1.0 / math.sqrt(h)).to(card)
+    bias = _rand(rng, 4 * h, scale=0.1).to(card)
+    dy = _rand(rng, b, t, h, scale=1.0).to(card)
+    y, gates, cells = tl.lstm_fwd(xi, w, bias, save=True)
+    da = tl.lstm_bwd(dy, gates, cells, w)
+    fill, nan = _fill_shared_kernel(), 0x7FC00000
+    blocks = torch.cuda.get_device_properties(card).multi_processor_count  # one a SM
+    count = torch.zeros(1, dtype=torch.int64, device=card)
+
+    def poison():
+        with torch.cuda.device(card):
+            fill.launch("fill_shared", nan, blocks, torch.cuda.current_stream().cuda_stream)
+
+    poison()
+    with torch.cuda.device(card):
+        fill.launch("count_shared", nan, blocks, count.data_ptr(),
+                    torch.cuda.current_stream().cuda_stream)
+    assert count.item() == blocks * 232448 // 4
+    poison()
+    y2, gates2, cells2 = tl.lstm_fwd(xi, w, bias, save=True)
+    poison()
+    da2 = tl.lstm_bwd(dy, gates, cells, w)
+    for got, want in ((y2, y), (gates2, gates), (cells2, cells), (da2, da)):
+        assert torch.equal(got, want)
 
 
 @pytest.mark.gpu
