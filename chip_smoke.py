@@ -257,9 +257,41 @@ prints how long it took):
               [64, 312, 5000], loss and logits gradient on the card
               against the CPU, timed beside the builtin CTC.
 
+28. serve-ssl -- ``frontend: ssl``: a frozen HuBERT-Base trunk (facebook/
+              hubert-base-ls960's widths: 12 x 768, 12 heads, 3,072 units,
+              7 x 512 conv channels, group norm, post-norm; weights from
+              seed 1, written by this script as a local config.json +
+              model.safetensors directory and read back through ASRTask)
+              feeding train-1's Conformer (12 x 256, conv2d input over the
+              768-dim features: T' = 124 for 10 s) and the 6 x 256 decoder,
+              vocab 5000, served as phase 3 serves (beam 10, ctc_weight 0.3;
+              12 launches of each encoder forward a request); the SSL
+              features (1e-4) and encoder rows (1e-3) against the CPU, the
+              10-best from the card's encoder rows against the CPU's search
+              (scores 1e-4), one request traced;
+29. train-ssl -- that model trained with SpecAug and attention dropout 0.1,
+              AdamW (weight decay 0.01), B=8 x 10 s: the B=2 loss against
+              the CPU (1e-5), 1 warm-up and 5 timed steps (finite, falling;
+              12 launches of each encoder entry point a step), the frozen
+              trunk's weights decayed as optax's AdamW leaves them (JAX
+              freezes it by stop_gradient alone), one step traced;
+30. serve-hf -- hubert_hf and wav2vec2_hf (wav2vec2-base-960h's widths) on
+              the raw waveform, whisper_hf (whisper-base's encoder: 6 x 512,
+              8 heads, 2,048 units, 80 mels, 1,500 positions), the sliding
+              window + sinc pre-encoder + Conformer + length adaptor,
+              Conformer + the BERT-base post-encoder (12 x 768), Conformer +
+              the hugging_face decoder at Llama-3.2-1B's widths in float32
+              (as ASRTask builds it; its 10-best of the 4.1 s request, 6
+              tokens, from the card's encoder rows against the CPU's search,
+              scores 1e-4): each one 10 s request at beam 10 (launches, the
+              encoder against the CPU) and one B=2 AdamW step.
+The kernel table of phase 2 also holds rows 1-4 at the SSL Conformer's
+shapes: [1, 4, 124, 64] and [8, 4, 124, 64] (with the backward), the
+depthwise [1, 124, 256] and [8, 124, 256] (with the backward).
+
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
 asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io|serve-ebf|
-train-ebf`` builds the
+train-ebf|serve-dec|train-dec|serve-enc|train-enc|serve-ssl|train-ssl|serve-hf`` builds the
 kernels and runs that phase alone (no kernel table);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
@@ -325,6 +357,7 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -455,6 +488,32 @@ LSTM_ENC_TRAIN = [(ENC_B, VGG_T, RNN_H), (ENC_B, RNN_T, RNN_H), (64, VGG_T, RNN_
 # units): ESPnet SequentialRNNLM's default unit, 16 sentences of 100 tokens
 LSTM_WIDE = [(16, 100, 650)]
 MCF_SHAPES = {f"[{b},312,{c}] K={k}" for k, c in MCF_DW for b in (1, ENC_B, 64)}
+# phases 28-30 (serve-ssl, train-ssl, serve-hf): the pretrained Hugging Face
+# choices.  The SSL frontend is HuBERT-Base at facebook/hubert-base-ls960's
+# config.json widths (W2VConfig's defaults: 12 x 768, 12 heads, 3,072 units,
+# 7 x 512 conv channels, group norm, post-norm); 10 s of audio is 499 of its
+# 50 Hz frames, 124 after the Conformer's conv2d subsampling
+SSL_T = 124
+SSL_B, SSL_WARMUP, SSL_STEPS = 8, 1, 5
+SSL_SHAPES = {f"serve-ssl [1,4,{SSL_T},64]", f"train-ssl [{SSL_B},4,{SSL_T},64] dropout 0.1",
+              f"serve-ssl [1,{SSL_T},256] K=31", f"train-ssl [{SSL_B},{SSL_T},256] K=31"}
+# train-1's Conformer and decoder, ESPnet's recipe widths (bench.py build_flagship)
+SSL_ENCODER = dict(output_size=256, attention_heads=4, linear_units=1024, num_blocks=12,
+                   macaron_style=True, use_cnn_module=True, cnn_module_kernel=31)
+SSL_DECODER = dict(attention_heads=4, linear_units=2048, num_blocks=6)
+# openai/whisper-base's encoder (config.json): 6 x 512, 8 heads, 2,048 units,
+# 80 mels, 1,500 positions
+WHISPER_BASE = dict(d_model=512, encoder_layers=6, encoder_attention_heads=8,
+                    encoder_ffn_dim=2048, num_mel_bins=80, max_source_positions=1500)
+# bert-base-uncased (config.json): 12 x 768, 12 heads, 3,072 units
+BERT_BASE = dict(model_type="bert", hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
+                 intermediate_size=3072, vocab_size=30522, max_position_embeddings=512,
+                 type_vocab_size=2, layer_norm_eps=1e-12, pad_token_id=0)
+HF_LLM_LAYERS = 16  # Llama-3.2-1B's depth for the hugging_face decoder
+# the hugging_face decoder's 10-best held against the CPU's search: its
+# stateless scorer runs the 1B LM over the whole prompt each step, which
+# the CPU takes seconds for
+HF_LLM_NBEST_TOKENS = 6
 LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE}
 
 
@@ -687,14 +746,15 @@ def check_dwconv(dc, dtype, k_size, gen, card, b=1, t=312, c=256):
     return r
 
 
-def check_rel_attention_train(ra, dtype, gen, card):
-    """Training shapes (phase 1: B=64, H=4, T=312, dk=64): the forward with
+def check_rel_attention_train(ra, dtype, gen, card, b=REL_SHAPE["b"], t=REL_SHAPE["t"]):
+    """Training shapes (phase 1: B=64, H=4, T=312, dk=64; train-ssl: B=8,
+    T=124): the forward with
     the saved log-sum-exp and the backward, under autograd, against autograd
     through the plain version with the same hash mask; dropout 0 and 0.1,
-    all keys valid and ragged (lengths from 312 down to 56).  Timed with all
+    all keys valid and ragged (lengths from T down to 56).  Timed with all
     keys valid and dropout 0.1, as phase 1 calls them; the plain backward's
     time includes the forward it recomputes."""
-    b, h, t, dk = REL_SHAPE["b"], REL_SHAPE["h"], REL_SHAPE["t"], REL_SHAPE["dk"]
+    h, dk = REL_SHAPE["h"], REL_SHAPE["dk"]
     mk = lambda *s: torch.randn(*s, generator=gen, device="cuda").to(dtype)  # noqa: E731
     qu, qv, k, v, dout = (mk(b, h, t, dk) for _ in range(5))
     p = mk(h, 2 * t - 1, dk)
@@ -1457,7 +1517,8 @@ def phase_kernels(ra, dc, wk, fa, lk, card):
     # the MultiConvformer's depthwise convs and the RNN encoders' LSTM
     # recurrence (phases 26-27), and the recurrence at the LSTM LM's width
     for (name, shape), r in {**check_multiconv_dwconv(dc, gen, card),
-                             **check_lstm_encoder(lk, gen, card)}.items():
+                             **check_lstm_encoder(lk, gen, card),
+                             **check_ssl_shapes(ra, dc, gen, card)}.items():
         _print_timing(card, name, shape, torch.float32, r)
         results[(name, shape, torch.float32)] = r
     torch.cuda.empty_cache()
@@ -1536,7 +1597,7 @@ def encoder_frames(model, waves) -> list:
 
 
 def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, encoder_fwd=ENCODER_FWD,
-                rounds=ROUNDS, encoder_tol=1e-3):
+                rounds=ROUNDS, encoder_tol=1e-3, check=None):
     """Serve every request ``rounds`` times, after one warm-up at each
     length; returns the launch counts, the waveforms and the first length's
     median latency.  The guided model (phase 3), the flash ASRModel
@@ -1597,7 +1658,7 @@ def phase_serve(model, kernels, card, tag="serve", seconds=REQUEST_SECONDS, enco
             raise AssertionError(f"{name}: {n} launches, expected {want}")
     print(f"[{tag}] torch.cuda.max_memory_allocated: {peak} bytes ({peak / 2**30:.2f} GiB)")
 
-    check_encoder_on_cpu(tag, model, waves[-1], seconds[-1], encoder_tol)
+    (check or check_encoder_on_cpu)(tag, model, waves[-1], seconds[-1], encoder_tol)
     return launches, waves, float(np.median(lat[seconds[0]]))
 
 
@@ -3779,7 +3840,8 @@ def phase_recipe_io(kernels, card):
     return total
 
 
-def serve_one(tag, model, wave, kernels, card, encoder_fwd, expected=None, encoder_tol=1e-3):
+def serve_one(tag, model, wave, kernels, card, encoder_fwd, expected=None, encoder_tol=1e-3,
+              check=None):
     """One warm-up and one timed request through Speech2Text (beam 10,
     ctc_weight 0.3, the 24-token cap): its latency, the score bookkeeping,
     one launch of each ``encoder_fwd`` entry point a block (or the counts
@@ -3807,7 +3869,7 @@ def serve_one(tag, model, wave, kernels, card, encoder_fwd, expected=None, encod
             want = expected.get(name, 0)
         if n != want:
             raise AssertionError(f"{tag}: {name}: {n} launches, expected {want}")
-    check_encoder_on_cpu(tag, model, wave, sec, encoder_tol)
+    (check or check_encoder_on_cpu)(tag, model, wave, sec, encoder_tol)
     return launches
 
 
@@ -4248,12 +4310,461 @@ def phase_train_enc(kernels, card):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 28-30: the pretrained Hugging Face choices, read from local
+# directories that this script writes (config.json + model.safetensors; the
+# weights are drawn from a seed, nothing is downloaded)
+# ---------------------------------------------------------------------------
+
+def check_ssl_shapes(ra, dc, gen, card) -> dict:
+    """The two encoder kernels at the Conformer's shapes over the SSL
+    frontend's 10 s of features (T' = SSL_T): the rel-pos forward at
+    serve-ssl's [1, 4, T', 64] and, with its backward, at train-ssl's
+    [SSL_B, 4, T', 64] (dropout 0.1); the depthwise forward at
+    [1, T', 256] and forward and backward at [SSL_B, T', 256], K = 31."""
+    f32 = torch.float32
+    out = {("rel_attention_fwd", f"serve-ssl [1,4,{SSL_T},64]"):
+           check_rel_attention(ra, f32, gen, card, t=SSL_T, n_masked=10)}
+    fwd_r, bwd_r = check_rel_attention_train(ra, f32, gen, card, b=SSL_B, t=SSL_T)
+    shape = f"train-ssl [{SSL_B},4,{SSL_T},64] dropout 0.1"
+    out.update({("rel_attention_fwd", shape): fwd_r, ("rel_attention_bwd", shape): bwd_r})
+    out[("dwconv1d_fwd", f"serve-ssl [1,{SSL_T},256] K=31")] = check_dwconv(dc, f32, 31, gen, card,
+                                                                          t=SSL_T)
+    fwd_r, bwd_r = check_dwconv_train(dc, f32, 31, gen, card, shape=(SSL_B, SSL_T, 256))
+    shape = f"train-ssl [{SSL_B},{SSL_T},256] K=31"
+    out.update({("dwconv1d_fwd", shape): fwd_r, ("dwconv1d_bwd", shape): bwd_r})
+    return out
+
+
+def write_safetensors(path: Path, tensors: dict) -> int:
+    """``tensors`` ({name: float32 or bfloat16 tensor}) as a .safetensors
+    file: an 8-byte little-endian header length, the JSON header (padded
+    with spaces to 8 bytes), the raw little-endian bytes; one tensor copied
+    to the host at a time.  Returns the bytes written."""
+    import struct
+
+    types = {torch.float32: "F32", torch.bfloat16: "BF16"}
+    header, offset = {}, 0
+    for name, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[name] = {"dtype": types[t.dtype], "shape": list(t.shape),
+                        "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)))
+        f.write(blob)
+        for t in tensors.values():
+            t = t.detach().contiguous().cpu()
+            f.write((t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy().tobytes())
+    return 8 + len(blob) + offset
+
+
+def write_hf_dir(path: Path, config: dict, tensors: dict) -> Path:
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config))
+    n = write_safetensors(path / "model.safetensors", tensors)
+    print(f"[hf-dir] {path.name}: {len(tensors)} tensors, {n} bytes of model.safetensors")
+    return path
+
+
+def renamed(module, seed: int, rules, dtype=None) -> dict:
+    """``module``'s weights drawn from ``seed`` by convert.init_weights,
+    renamed to Hugging Face's names by ``rules`` ((regex, replacement), in
+    order)."""
+    import re
+
+    from llm_guided_asr_tpu_torch.convert import init_weights
+
+    init_weights(module, seed)
+    out = {}
+    for name, t in module.state_dict().items():
+        for pat, rep in rules:
+            name = re.sub(pat, rep, name)
+        out[name] = t if dtype is None else t.to(dtype)
+    return out
+
+
+W2V_RULES = [(r"conv_layers_(\d+)_(conv|layer_norm)", r"conv_layers.\1.\2"),
+             (r"^feature_projection_", "feature_projection."),
+             (r"^encoder_layer_norm", "encoder.layer_norm"),
+             (r"^layers_(\d+)\.", r"encoder.layers.\1."),
+             (r"feed_forward_(intermediate|output)_dense", r"feed_forward.\1_dense")]
+
+
+def write_w2v_dir(path: Path, model_type: str, seed: int) -> Path:
+    """A wav2vec2-base / hubert-base directory (W2VConfig's defaults) with
+    weights from ``seed``; the positional conv in the legacy weight-norm
+    layout (weight_g = the norm of weight_v over dims 0 and 1, so that the
+    folded weight is weight_v)."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import W2VConfig, Wav2Vec2Encoder
+
+    cfg = W2VConfig()
+    with torch.device("cuda"):
+        trunk = Wav2Vec2Encoder(cfg)
+    sd = renamed(trunk, seed, W2V_RULES)
+    v = sd.pop("pos_conv_embed_conv.weight")
+    sd["encoder.pos_conv_embed.conv.weight_v"] = v
+    sd["encoder.pos_conv_embed.conv.weight_g"] = v.norm(dim=(0, 1), keepdim=True)
+    sd["encoder.pos_conv_embed.conv.bias"] = sd.pop("pos_conv_embed_conv.bias")
+    config = {k: list(v) if isinstance(v, tuple) else v
+              for k, v in dataclasses.asdict(cfg).items()}
+    return write_hf_dir(path, {**config, "model_type": model_type}, sd)
+
+
+def write_whisper_dir(path: Path, seed: int) -> Path:
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import WhisperEncConfig, WhisperEncoder
+
+    with torch.device("cuda"):
+        enc = WhisperEncoder(WhisperEncConfig(**WHISPER_BASE))
+    sd = renamed(enc, seed, [(r"^embed_positions$", "embed_positions.weight"),
+                             (r"^layers_(\d+)_", r"layers.\1."), (r"^", "encoder.")])
+    return write_hf_dir(path, {**WHISPER_BASE, "model_type": "whisper"}, sd)
+
+
+def write_bert_dir(path: Path, seed: int) -> Path:
+    from llm_guided_asr_tpu_torch.models.hf_encoder import BertBody, BertBodyConfig, BertEmbeddings
+
+    cfg = BertBodyConfig.from_hf_config(BERT_BASE)
+    with torch.device("cuda"):
+        body, emb = BertBody(cfg), BertEmbeddings(cfg)
+    layer = {"query": "attention.self.query", "key": "attention.self.key",
+             "value": "attention.self.value", "attn_out": "attention.output.dense",
+             "attn_ln": "attention.output.LayerNorm", "ff1": "intermediate.dense",
+             "ff2": "output.dense", "ff_ln": "output.LayerNorm"}
+    sd = renamed(body, seed, [(rf"^layers_(\d+)\.{k}\.", rf"encoder.layer.\1.{v}.")
+                              for k, v in layer.items()])
+    sd.update(renamed(emb, seed + 1,
+                      [(r"^(word|position|token_type)\.", r"embeddings.\1_embeddings."),
+                       (r"^ln\.", "embeddings.LayerNorm.")]))
+    return write_hf_dir(path, BERT_BASE, sd)
+
+
+def write_llama_dir(path: Path, seed: int, layers: int) -> Path:
+    """Llama-3.2-1B's widths (serve_parts) at ``layers`` layers, bfloat16
+    weights from ``seed`` (the published checkpoint's type; ASRTask loads
+    them into its float32 model), and a word-level tokenizer.json of its
+    128,256 ids (letters, space and ':' split one by one, the rest
+    placeholders)."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.models.llm.llama import LlamaModel
+
+    cfg = dataclasses.replace(serve_parts()["llm"], num_hidden_layers=layers)
+    llm = LlamaModel(cfg, dtype=torch.bfloat16, device="cuda")
+    sd = renamed(llm, seed, [(r"^layers_(\d+)\.", r"model.layers.\1."),
+                             (r"^(embed_tokens|norm)\.", r"model.\1.")])
+    config = {"model_type": "llama", "vocab_size": cfg.vocab_size,
+              "hidden_size": cfg.hidden_size, "intermediate_size": cfg.intermediate_size,
+              "num_hidden_layers": layers, "num_attention_heads": cfg.num_attention_heads,
+              "num_key_value_heads": cfg.num_key_value_heads, "rms_norm_eps": cfg.rms_norm_eps,
+              "rope_theta": cfg.rope_theta, "tie_word_embeddings": cfg.tie_word_embeddings,
+              "max_position_embeddings": cfg.max_position_embeddings,
+              "rope_scaling": {"rope_type": "llama3", "factor": cfg.rope_scaling_factor,
+                               "low_freq_factor": cfg.rope_low_freq_factor,
+                               "high_freq_factor": cfg.rope_high_freq_factor,
+                               "original_max_position_embeddings":
+                                   cfg.rope_original_max_position}}
+    write_hf_dir(path, config, sd)
+    words = ["<unk>"] + list("abcdefghijklmnopqrstuvwxyz :")
+    vocab = {w: i for i, w in enumerate(words)}
+    vocab.update({f"<t{i}>": i for i in range(len(words), cfg.vocab_size)})
+    (path / "tokenizer.json").write_text(json.dumps({
+        "version": "1.0", "added_tokens": [], "normalizer": None, "post_processor": None,
+        "decoder": None,
+        "pre_tokenizer": {"type": "Split", "pattern": {"String": ""}, "behavior": "Isolated",
+                          "invert": False},
+        "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}))
+    (path / "tokenizer_config.json").write_text(json.dumps(
+        {"tokenizer_class": "PreTrainedTokenizerFast", "unk_token": "<unk>"}))
+    return path
+
+
+def task_model(config: dict, tag: str):
+    """An ASRModel through ASRTask's build_model and init_model_variables
+    (weights from seed 0, the pretrained parts from their directories),
+    on the card (the config's device null), in eval mode."""
+    from llm_guided_asr_tpu_torch.tasks import asr as tasr
+
+    config = {**tasr.ASRTask.get_default_config(), **config}
+    t0 = time.perf_counter()
+    model = tasr.build_model(config)
+    tasr.init_model_variables(model, config, 0)
+    torch.cuda.synchronize()
+    n = sum(p.numel() for p in model.parameters())
+    print(f"[{tag}] ASRTask built and loaded the model in {time.perf_counter() - t0:.1f} s: "
+          f"{n} parameters")
+    return model.eval()
+
+
+def asr_config(root: Path, **over) -> dict:
+    """The task config of train-1's model (vocab 5000, the Conformer and
+    decoder of SSL_ENCODER/SSL_DECODER, ctc_weight 0.3) with ``over``."""
+    tokens = root / "tokens.txt"
+    if not tokens.exists():
+        tokens.write_text("\n".join(["<blank>", "<unk>"] + [f"t{i}" for i in range(2, 4999)]
+                                    + ["<sos/eos>"]) + "\n")
+    return {"token_list": str(tokens), "normalize": "utterance_mvn",
+            "encoder_conf": dict(SSL_ENCODER), "decoder_conf": dict(SSL_DECODER),
+            "model_conf": {"ctc_weight": 0.3}, **over}
+
+
+def cpu_copy(model, keep_decoder=True):
+    """A CPU copy of ``model`` (without its decoder unless ``keep_decoder``)."""
+    import copy
+
+    dec = None if keep_decoder else model._modules.pop("decoder", None)
+    try:
+        return copy.deepcopy(model).cpu()
+    finally:
+        if dec is not None:
+            model._modules["decoder"] = dec
+
+
+def check_hf_on_cpu(tag, model, wave, sec, tol=1e-3):
+    """The card's features (the frozen SSL trunk's, within 1e-4 of their
+    largest value, where the model has one) and encoder output (within
+    ``tol``) against a CPU copy of the model on the same request."""
+    cpu = cpu_copy(model, keep_decoder=False)
+    speech, n = torch.from_numpy(wave[None]), torch.tensor([wave.shape[0]])
+    with torch.inference_mode():
+        if model.cfg.ssl_frontend is not None:
+            got = model.raw_features(speech.cuda(), n.cuda())[0]
+            want = cpu.raw_features(speech, n)[0]
+            scale = max(1.0, want.abs().max().item())
+            err = (got.cpu() - want).abs().max().item()
+            print(f"[{tag}] SSL features {list(want.shape)} card vs CPU: max_abs_err {err:.3e} "
+                  f"(tol 1e-4 x {scale:.2f})")
+            if not err <= 1e-4 * scale:
+                raise AssertionError(f"{tag}: SSL features disagree with the CPU: {err}")
+        enc_gpu, lens_gpu = model.encode(speech.cuda(), n.cuda())
+        enc_cpu, lens_cpu = cpu.encode(speech, n)
+    err = (enc_gpu.cpu() - enc_cpu).abs().max().item()
+    print(f"[{tag}] encoder {list(enc_cpu.shape)} card vs CPU plain path, {sec} s: max_abs_err "
+          f"{err:.3e} (tol {tol:g})")
+    if not (err <= tol and torch.equal(lens_gpu.cpu(), lens_cpu)):
+        raise AssertionError(f"{tag}: encoder disagrees with the CPU plain path: {err}")
+
+
+def check_nbest_from_card_rows(tag, model, wave, card, maxlen=24):
+    """The 10-best of one request searched on the card and on a CPU copy of
+    the model from the card's encoder rows, at most ``maxlen`` tokens:
+    equal tokens (a differing entry only as a near tie), scores within
+    1e-4."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    decode = dict(ctc_weight=0.3, beam_size=10, maxlenratio=-float(maxlen), nbest=10)
+    cpu = cpu_copy(model)
+    with torch.inference_mode():
+        speech, n = torch.from_numpy(wave[None]).cuda(), torch.tensor([wave.shape[0]]).cuda()
+        enc, lens = model.encode(speech, n)
+        got = Speech2Text.from_model(model, **decode).beam(enc, lens, maxlenratio=-float(maxlen),
+                                                           nbest=10)
+        t0 = time.perf_counter()
+        want = Speech2Text.from_model(cpu, **decode).beam(enc.cpu(), lens.cpu(),
+                                                          maxlenratio=-float(maxlen), nbest=10)
+        cpu_s = time.perf_counter() - t0
+    del cpu
+    worst = check_nbest(tag, got, want)
+    print(f"[{tag}] 10-best (<= {maxlen} tokens, {wave.shape[0] / 16000:.1f} s request) from the "
+          f"card's encoder rows, card vs CPU: tokens equal, score max err {worst:.2e} (tol 1e-4; "
+          f"the CPU's search {cpu_s:.1f} s) [{card}]")
+    if not worst <= 1e-4:
+        raise AssertionError(f"{tag}: 10-best scores differ from the CPU's by {worst}")
+
+
+def phase_serve_ssl(kernels, card, root: Path):
+    """Phase 28: ``frontend: ssl`` -- a frozen HuBERT-Base trunk (W2VConfig's
+    defaults, facebook/hubert-base-ls960's widths; weights from seed 1
+    written as a local directory and read back by ASRTask) feeding train-1's
+    Conformer (12 x 256, conv2d input over its 768-dim features, utterance
+    MVN) and the 6 x 256 decoder, vocab 5000: phase 3's requests at beam
+    10, ctc_weight 0.3 (phase_serve: one warm-up each, 3 timed runs each;
+    12 launches of each encoder forward a request, nothing else; latency,
+    RTFx, peak memory), the SSL features (1e-4) and the encoder rows (1e-3)
+    against the CPU on the 4.1 s request, the 10-best from the card's
+    encoder rows against the CPU's search (1e-4), the 10 s request
+    traced (busy share)."""
+    hubert = write_w2v_dir(root / "hubert-base", "hubert", seed=1)
+    model = task_model(asr_config(root, frontend="ssl", frontend_conf={
+        "model_name_or_path": str(hubert), "kind": "hubert"}), "serve-ssl")
+    print(f"[serve-ssl] {sum(p.numel() for p in model.ssl_frontend.parameters())} parameters in "
+          f"the frozen HuBERT-Base trunk")
+    launches, waves, wall_10s = phase_serve(model, kernels, card, "serve-ssl",
+                                            check=check_hf_on_cpu)
+    check_nbest_from_card_rows("serve-ssl", model, waves[-1], card)
+    phase_profile(model, waves[0], wall_10s, card, "profile-ssl")
+    return launches, hubert
+
+
+def phase_train_ssl(kernels, card, root: Path, hubert: Path):
+    """Phase 29: phase 28's model trained as train-1 trains (SpecAug,
+    attention dropout 0.1, AdamW lr 1e-3 with weight decay 0.01) at
+    B = SSL_B x 10 s: first its B = 2 loss in eval mode against a CPU copy
+    (1e-5 relative); then SSL_WARMUP warm-up and SSL_STEPS timed fused
+    steps (finite, falling losses; 12 launches of each encoder entry point
+    a step; step ms, audio s/s, peak memory); the frozen trunk's weights
+    after them are what JAX's optax AdamW step leaves, which decays them
+    with no gradient: w0 * (1 - lr * wd) per update, within 1e-6 of w0."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    model = task_model(asr_config(
+        root, frontend="ssl", specaug="specaug",
+        frontend_conf={"model_name_or_path": str(hubert), "kind": "hubert"},
+        encoder_conf={**SSL_ENCODER, "attention_dropout_rate": 0.1}), "train-ssl")
+    batch = train_batch(2, seed=5)
+    cpu = cpu_copy(model)
+    args = ("speech", "speech_lengths", "text", "text_lengths")
+    with torch.no_grad():
+        got = model(*(batch[k] for k in args))[0].item()
+        want = cpu(*(batch[k].cpu() for k in args))[0].item()
+    del cpu
+    err = abs(got - want) / abs(want)
+    print(f"[train-ssl] B=2 eval-mode loss {want:.6f} on the CPU, card rel err {err:.2e} "
+          f"(tol 1e-5) [{card}]")
+    if not err <= 1e-5:
+        raise AssertionError(f"train-ssl: the card's loss differs from the CPU's by {err}")
+    model.train()
+    if model.ssl_frontend.training:
+        raise AssertionError("train-ssl: the frozen SSL trunk left eval mode")
+    lr, wd = 1e-3, 0.01
+    w0 = {n: p.detach().clone() for n, p in model.ssl_frontend.named_parameters()}
+    state = init_train_state(model, build_optimizer("adamw", {"lr": lr, "weight_decay": wd}))
+    step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+    batch = train_batch(SSL_B)
+    print(f"[train-ssl] {sum(p.numel() for p in model.parameters())} parameters, batch {SSL_B} x "
+          f"{TRAIN_SECONDS} s, text [{SSL_B}, 24]")
+    all_stats, med, launches = run_steps("train-ssl", step, batch, SSL_WARMUP, SSL_STEPS, kernels,
+                                         card)
+    losses = [s["loss"] for s in all_stats]
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train-ssl: loss did not fall: {losses}")
+    blocks = model.cfg.encoder.num_blocks
+    for name, n in launches.items():
+        want_n = SSL_STEPS * blocks if name in ENCODER_FWD + ENCODER_BWD else 0
+        if n != want_n:
+            raise AssertionError(f"train-ssl: {name} launched {n} times, expected {want_n}")
+    decay = (1.0 - lr * wd) ** state.step
+    worst = max(((p.detach() - w0[n] * decay).abs().max() / w0[n].abs().max().clamp(min=1e-30))
+                .item() for n, p in model.ssl_frontend.named_parameters())
+    print(f"[train-ssl] audio seconds per second at the median: "
+          f"{SSL_B * TRAIN_SECONDS / (med / 1e3):.1f}; the frozen trunk after {state.step} "
+          f"AdamW updates equal to w0 x (1 - lr wd)^{state.step} within {worst:.2e} of each "
+          f"tensor's largest value (tol 1e-6) [{card}]")
+    if not worst <= 1e-6:
+        raise AssertionError(f"train-ssl: the frozen trunk moved otherwise than AdamW's decay: "
+                             f"{worst}")
+    profile_step("train-ssl", step, batch, med)
+    return launches, med
+
+
+def hf_models(root: Path, hubert: Path) -> list:
+    """(tag, task config, encoder kernels a block: launches of one request
+    and one step are 12 of each, or none) of phase 30."""
+    w2v = write_w2v_dir(root / "wav2vec2-base", "wav2vec2", seed=2)
+    whisper = write_whisper_dir(root / "whisper-base", seed=3)
+    bert = write_bert_dir(root / "bert-base", seed=4)
+    llm = write_llama_dir(root / "llama-3.2-1b", seed=5, layers=HF_LLM_LAYERS)
+    raw = dict(frontend="none", normalize="none")
+    return [
+        ("serve-hubert_hf", asr_config(root, encoder="hubert_hf", encoder_conf={
+            "model_name_or_path": str(hubert), "output_size": 256}, **raw), False),
+        ("serve-wav2vec2_hf", asr_config(root, encoder="wav2vec2_hf", encoder_conf={
+            "model_name_or_path": str(w2v), "output_size": 256}, **raw), False),
+        ("serve-whisper_hf", asr_config(root, encoder="whisper_hf", encoder_conf={
+            "model_name_or_path": str(whisper), "output_size": 512}), False),
+        ("serve-sinc", asr_config(
+            root, frontend_conf={"type": "sliding_window", "win_length": 400, "hop_length": 160},
+            normalize="none", preencoder="sinc", postencoder="length_adaptor",
+            postencoder_conf={"n_layers": 1},
+            encoder_conf={**SSL_ENCODER, "input_layer": "linear"}), True),
+        ("serve-bert", asr_config(root, postencoder="hugging_face_transformers",
+                                  postencoder_conf={"model_name_or_path": str(bert)}), True),
+        ("serve-hf_decoder", asr_config(
+            root, token_list=None, token_type="hugging_face", bpemodel=str(llm),
+            decoder="hugging_face", decoder_conf={"model_name_or_path": str(llm),
+                                                  "prefix": "transcribe:", "postfix": " text:"}),
+         True),
+    ]
+
+
+def phase_serve_hf(kernels, card, root: Path, hubert: Path):
+    """Phase 30: the other pretrained choices, each built by ASRTask from a
+    directory this script writes: ``hubert_hf`` (phase 28's HuBERT-Base)
+    and ``wav2vec2_hf`` (wav2vec2-base-960h's widths) on the raw waveform,
+    ``whisper_hf`` (whisper-base's encoder) on 80 log-mel bins, each with a
+    Linear to 256 (whisper: 512) and the 6 x 256 decoder; the sliding
+    window + sinc pre-encoder (128 sinc channels, 256 out) + train-1's
+    Conformer (linear input) + the length adaptor; train-1's Conformer +
+    the BERT-base post-encoder (12 x 768); train-1's Conformer + the
+    ``hugging_face`` decoder at Llama-3.2-1B's widths (HF_LLM_LAYERS
+    layers, float32 as ASRTask builds it), with a text prompt around the
+    audio span.  Each serves one warm-up and one timed 10 s request at
+    beam 10 (serve_one: latency, the score bookkeeping, the launches: 12 of
+    each encoder forward over a Conformer, none over the SSL and Whisper
+    encoders), its encoder against the CPU copy (1e-3; the LLM decoder's
+    model without its decoder), and takes one fused AdamW step at B = 2
+    (finite loss, the launches of one step).  The LLM decoder's 10-best
+    of the 4.1 s request, at most HF_LLM_NBEST_TOKENS tokens, is held
+    against the CPU's search from the card's encoder rows (1e-4)."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    total = {}
+    wave = request_waves()[0]
+    for tag, config, conformer in hf_models(root, hubert):
+        model = task_model(config, tag)
+        llm_decoder = config.get("decoder") == "hugging_face"
+        if llm_decoder:
+            depth = "its full depth" if HF_LLM_LAYERS == 16 else "cut from its 16"
+            print(f"[{tag}] the decoder's LM: {HF_LLM_LAYERS} layers of Llama-3.2-1B's widths "
+                  f"({depth}), {next(model.decoder.llm.parameters()).dtype}; prompt ids "
+                  f"{model.cfg.hf_decoder.prefix_ids} + audio + "
+                  f"{model.cfg.hf_decoder.postfix_ids}")
+        blocks = model.cfg.encoder.num_blocks if conformer else 0
+        expected = {k: blocks for k in ENCODER_FWD}
+        launches = serve_one(tag, model, wave, kernels, card, (), expected=expected,
+                             check=check_hf_on_cpu)
+        if llm_decoder:
+            check_nbest_from_card_rows(tag, model, request_waves()[-1], card,
+                                       maxlen=HF_LLM_NBEST_TOKENS)
+        state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
+        step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
+        batch = train_batch(2)
+        model.train()
+        reset_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats, _ = step(batch)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        step_launches = counts(kernels)
+        print(f"[{tag}] one B=2 x {TRAIN_SECONDS} s AdamW step (the first, warm-up included): "
+              f"{ms:.1f} ms, loss {float(stats['loss']):.4f}; launches {step_launches} [{card}]")
+        if not math.isfinite(float(stats["loss"])):
+            raise AssertionError(f"{tag}: non-finite loss {stats}")
+        for name, n in step_launches.items():
+            want_n = blocks if name in ENCODER_FWD + ENCODER_BWD else 0
+            if n != want_n:
+                raise AssertionError(f"{tag}: {name} launched {n} times in a step, "
+                                     f"expected {want_n}")
+        total = add_counts(add_counts(total, launches), step_launches)
+        del model, state, step
+        torch.cuda.empty_cache()
+    return total
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
     serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn,
     train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf,
-    train-ebf, serve-dec, train-dec, serve-enc or train-enc),
+    train-ebf, serve-dec, train-dec, serve-enc, train-enc, serve-ssl,
+    train-ssl or serve-hf),
     and print its result;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
@@ -4286,7 +4797,20 @@ def run_one_phase(name: str, card: str) -> int:
               "serve-dec": lambda: phase_serve_dec(kernels, card),
               "train-dec": lambda: phase_train_dec(kernels, card),
               "serve-enc": lambda: phase_serve_enc(kernels, card),
-              "train-enc": lambda: phase_train_enc(kernels, card)}
+              "train-enc": lambda: phase_train_enc(kernels, card),
+              "serve-ssl": lambda: hf_phase("serve-ssl"),
+              "train-ssl": lambda: hf_phase("train-ssl"),
+              "serve-hf": lambda: hf_phase("serve-hf")}
+
+    def hf_phase(phase):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmp:
+            root = Path(tmp)
+            if phase == "serve-ssl":
+                return phase_serve_ssl(kernels, card, root)
+            hubert = write_w2v_dir(root / "hubert-base", "hubert", seed=1)
+            fn = phase_train_ssl if phase == "train-ssl" else phase_serve_hf
+            return fn(kernels, card, root, hubert)
+
     if name not in phases:
         raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
@@ -4305,7 +4829,8 @@ def main() -> int:
                                     "golden, serve, serve-batch, serve-lm, serve-stream, "
                                     "asr-cli, serve-transducer-rnn, train-transducer-mb, "
                                     "serve-st, train-st, recipe-io, serve-ebf, train-ebf, "
-                                    "serve-dec, train-dec, serve-enc or train-enc")
+                                    "serve-dec, train-dec, serve-enc, train-enc, serve-ssl, "
+                                    "train-ssl or serve-hf")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -4397,6 +4922,13 @@ def main() -> int:
                      ("serve-enc", phase_serve_enc), ("train-enc", phase_train_enc)):
         paths[name] = timed(name, fn, kernels, card)
         torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmp:  # the HF directories
+        root = Path(tmp)
+        paths["serve-ssl"], hubert = timed("serve-ssl", phase_serve_ssl, kernels, card, root)
+        torch.cuda.empty_cache()
+        paths["train-ssl"], _ = timed("train-ssl", phase_train_ssl, kernels, card, root, hubert)
+        torch.cuda.empty_cache()
+        paths["serve-hf"] = timed("serve-hf", phase_serve_hf, kernels, card, root, hubert)
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 
@@ -4467,10 +4999,11 @@ def main() -> int:
                             f"cgmlp_{key}_bound_ms": s["bound_ms"],
                             f"cgmlp_{key}_library_ms": s["library_ms"],
                             f"cgmlp_{key}_max_abs_err": s["err"]})
-        # this slice's shapes (phases 26-27): the MultiConvformer's depthwise
-        # convs, the RNN encoders' LSTM recurrence
+        # the shapes of phases 26-27 (the MultiConvformer's depthwise convs,
+        # the RNN encoders' LSTM recurrence) and 28-29 (the Conformer over
+        # the SSL frontend's 50 Hz features)
         more = [key[1] for key in timings if key[0] == name and key[2] == f32
-                and (key[1] in MCF_SHAPES or key[1] in LSTM_ENC_SHAPES)]
+                and (key[1] in MCF_SHAPES or key[1] in LSTM_ENC_SHAPES or key[1] in SSL_SHAPES)]
         if more:
             row["more_shapes"] = [
                 {"shape": m, **{k: timings[(name, m, f32)].get(k) for k in (

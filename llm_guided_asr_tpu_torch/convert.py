@@ -28,7 +28,9 @@ RNN decoder's ``cell/lstm_{i}``):
   depthwise kernel [K, 1, C]      -> DepthwiseConv1d weight [K, C] (also a
                                      conv of one input channel: the RNN
                                      decoder's ``att_conv``)
-  1-D conv kernel [K, i, o]       -> Conv1d weight [o, i, K] (Whisper's stems)
+  1-D conv kernel [K, i, o]       -> Conv1d weight [o, i, K] (Whisper's stems;
+                                     the SSL trunks' ``conv_layers_*`` and
+                                     ``pos_conv_embed_conv`` also at i = 1)
   LayerNorm/BatchNorm scale       -> weight;  Embed embedding -> weight
   batch_stats mean / var          -> running_mean / running_var
   mvn mean / inv_std              -> mvn_mean / mvn_inv_std
@@ -61,6 +63,13 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[s
             yield prefix + (str(key),), val
 
 
+def _full_conv(mods) -> bool:
+    """A 1-D conv whose kernel stays [o, i, K] whatever its input width:
+    the SSL trunks' feature-extractor convs (one input channel at layer 0)
+    and grouped positional conv."""
+    return bool(mods) and (mods[-1].startswith("conv_layers_") or mods[-1] == "pos_conv_embed_conv")
+
+
 def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
     *mods, leaf = path
     if leaf == "kernel":
@@ -68,7 +77,7 @@ def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
             arr = arr.T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
-        elif arr.ndim == 3 and arr.shape[1] == 1:
+        elif arr.ndim == 3 and arr.shape[1] == 1 and not _full_conv(mods):
             arr = arr[:, 0, :]
         elif arr.ndim == 3:
             arr = arr.transpose(2, 1, 0)
@@ -129,14 +138,16 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     The rule of the JAX benchmark's host_init_variables: biases, running
     means, the rel-pos biases and the Branchformer's ``branch_weights``
     (zeros at flax's init) 0; norm scales (LayerNorm, RMSNorm, the
-    masked batch norm) and running variances 1; every other weight (dense,
-    conv, depthwise conv, the decoders' token embeddings, the LSTM gates,
-    RWKV's, MEGA's and the S4 layers' named leaves, the lightconv weights)
-    N(0, 0.02).
+    masked batch norm, the SSL trunks' group norm) and running variances
+    1; every other weight (dense, conv, depthwise conv, the decoders'
+    token embeddings, the LSTM gates, RWKV's, MEGA's and the S4 layers'
+    named leaves, the lightconv weights) N(0, 0.02).  A module with a ``reset_jax_init`` method then takes flax's own init
+    from it (the sinc filters' mel band edges, the sinc pre-encoder's batch
+    norms, the post-encoder's zero language-token embedding).
     """
     dev = next(model.parameters()).device
     gen = torch.Generator(device=dev).manual_seed(seed)
-    norms = (nn.LayerNorm, RMSNorm, MaskedBatchNorm)
+    norms = (nn.LayerNorm, nn.GroupNorm, RMSNorm, MaskedBatchNorm)
     for module in model.modules():
         for name, p in module.named_parameters(recurse=False):
             if name in ("bias", "branch_weights") or name.startswith("pos_bias"):
@@ -148,4 +159,6 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
         if isinstance(module, MaskedBatchNorm):
             module.running_mean.zero_()
             module.running_var.fill_(1.0)
+        if hasattr(module, "reset_jax_init"):
+            module.reset_jax_init()
     return model

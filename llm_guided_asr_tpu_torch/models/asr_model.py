@@ -12,15 +12,21 @@ sos = eos = vocab_size - 1, blank 0, ignore_id -1, as in the reference.
 
 This is phase 1 of the fork's two-phase training.  Ported: the encoders
 of models/conformer.py make_encoder, the decoders of :func:`make_decoder`
-(transformer, rnn, s4, lightconv, dynamicconv), the default log-mel
-frontend, utterance or global MVN, and SpecAug; every other choice raises
-NotImplementedError.
+(transformer, rnn, s4, lightconv, dynamicconv, hugging_face), the log-mel,
+fused (ops/frontend.py FusedFrontend) and sliding-window frontends, the
+frozen SSL frontend (``ssl_frontend``: a wav2vec2/HuBERT trunk of
+models/ssl_encoders.py over the raw waveform, run without gradient and
+always in eval mode, as JAX's ``stop_gradient`` freezes it), no frontend
+(features or, for the ``*_hf`` encoders, the raw waveform in), the sinc
+pre-encoder and the length-adaptor and BERT post-encoders
+(models/preencoder.py, models/hf_encoder.py), utterance or global MVN, and
+SpecAug.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -40,6 +46,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import (
 )
 from llm_guided_asr_tpu_torch.ops.frontend import (
     FrontendConfig,
+    FusedFrontend,
     default_frontend,
     global_mvn,
     utterance_mvn,
@@ -58,13 +65,26 @@ from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 @dataclasses.dataclass(frozen=True)
 class ASRModelConfig:
     vocab_size: int
-    frontend: FrontendConfig = FrontendConfig()
+    frontend: Optional[FrontendConfig] = FrontendConfig()
     specaug: Optional[SpecAugConfig] = None
     normalize: str = "global_mvn"  # global_mvn | utterance_mvn | none
     encoder_type: str = "conformer"
     encoder: ConformerConfig = ConformerConfig()
     decoder_type: str = "transformer"
     decoder: TransformerDecoderConfig = TransformerDecoderConfig()
+    # decoder_type "hugging_face": models/hf_decoder.py HFCausalDecoderConfig
+    hf_decoder: Optional[Any] = None
+    # frozen SSL frontend: the models/ssl_encoders.py W2VConfig of a
+    # wav2vec2/HuBERT trunk whose hidden states are the features
+    ssl_frontend: Optional[Any] = None
+    # the sinc pre-encoder's models/preencoder.py SincPreencoderConfig,
+    # between normalization and the encoder
+    preencoder: Optional[Any] = None
+    # ("length_adaptor", LengthAdaptorConfig) or ("hugging_face_transformers",
+    # HFPostEncoderConfig), after the encoder
+    postencoder: Optional[Tuple[str, Any]] = None
+    # feature width when there is no frontend (features in)
+    input_size: Optional[int] = None
     ctc_weight: float = 0.5
     ctc_type: str = "builtin"  # builtin | builtin2 | brctc
     brctc_risk_factor: float = 0.0  # the delay risk of brctc (ops/losses.py BayesRiskCTC)
@@ -87,22 +107,28 @@ class ASRModelConfig:
         return self.vocab_size - 1 if self.eos is None else self.eos
 
 
-def extract_features(model: nn.Module, speech: torch.Tensor, speech_lengths: torch.Tensor,
-                     rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """[B, S] waveform -> log-mel -> SpecAug (training mode) -> normalized
-    features, for a model whose ``cfg`` has ``frontend``, ``specaug`` and
-    ``normalize`` (and the ``mvn_*`` buffers for global MVN).  With no
-    frontend (None), ``speech`` is already features [B, T, F]."""
-    cfg = model.cfg
-    f = cfg.frontend
+def raw_features(model: nn.Module, speech: torch.Tensor, speech_lengths: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The log-mel frontend alone (the JAX models' ``_extract_feats``) for
+    a model whose ``cfg`` has ``frontend``: features of a [B, S] waveform;
+    with no frontend, ``speech`` itself.  :meth:`ASRModel.raw_features`
+    adds the frontends only that model has."""
+    f = model.cfg.frontend
     if f is None:
-        feats, feats_lengths = speech, speech_lengths
-    else:
-        feats, feats_lengths = default_frontend(
-            speech, speech_lengths, fs=f.fs, n_fft=f.n_fft, win_length=f.win_length,
-            hop_length=f.hop_length, n_mels=f.n_mels, fmin=f.fmin, fmax=f.fmax,
-            htk=f.htk, center=f.center, window=f.window,
-        )
+        return speech, speech_lengths
+    return default_frontend(
+        speech, speech_lengths, fs=f.fs, n_fft=f.n_fft, win_length=f.win_length,
+        hop_length=f.hop_length, n_mels=f.n_mels, fmin=f.fmin, fmax=f.fmax,
+        htk=f.htk, center=f.center, window=f.window,
+    )
+
+
+def normalize_features(model: nn.Module, feats: torch.Tensor, feats_lengths: torch.Tensor,
+                       rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """SpecAug (training mode) -> normalization, for a model whose ``cfg``
+    has ``specaug`` and ``normalize`` (and the ``mvn_*`` buffers for global
+    MVN)."""
+    cfg = model.cfg
     if cfg.specaug is not None and model.training:
         if rng is None:
             raise ValueError("SpecAug in training mode needs a StepRNG")
@@ -116,13 +142,35 @@ def extract_features(model: nn.Module, speech: torch.Tensor, speech_lengths: tor
     return feats, feats_lengths
 
 
+def extract_features(model: nn.Module, speech: torch.Tensor, speech_lengths: torch.Tensor,
+                     rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """[B, S] waveform -> :func:`raw_features` -> :func:`normalize_features`.
+    With no frontend (None), ``speech`` is already features [B, T, F]."""
+    return normalize_features(model, *raw_features(model, speech, speech_lengths), rng)
+
+
+def make_postencoder(spec: Tuple[str, Any], d: int) -> nn.Module:
+    """The post-encoder of ``(kind, config)`` over a ``d``-wide encoder."""
+    kind, post_cfg = spec
+    if kind == "length_adaptor":
+        from llm_guided_asr_tpu_torch.models.preencoder import LengthAdaptorPostEncoder
+
+        return LengthAdaptorPostEncoder(post_cfg, d)
+    if kind == "hugging_face_transformers":
+        from llm_guided_asr_tpu_torch.models.hf_encoder import HFTransformersPostEncoder
+
+        return HFTransformersPostEncoder(post_cfg, d)
+    raise ValueError(f"unknown postencoder {kind!r}")
+
+
 def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module:
     """The attention decoder of ``cfg.decoder_type`` over an encoder ``d``
     wide, with the JAX model's config mapping (models/asr_model.py:98-161):
     ``rnn`` takes hidden = ``decoder.linear_units``, layers =
     ``num_blocks``, embed_dim = min(D, 256) and att_dim = D; ``s4`` takes
     d_model = D, ``max(num_blocks, 1)`` layers, d_state 16 and the ``diag``
-    kernel; D is ``encoder.output_size``.  Each keeps the
+    kernel; D is ``encoder.output_size``; ``hugging_face`` is the pretrained
+    causal LM of models/hf_decoder.py over a ``linear_in`` from d.  Each keeps the
     ``(enc, enc_lens, ys_in, ys_in_lens, rng, only_last)`` contract."""
     kind, dec, vocab = cfg.decoder_type, cfg.decoder, cfg.vocab_size
     if kind == "transformer":
@@ -136,6 +184,10 @@ def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module
                                            layers=max(dec.num_blocks, 1),
                                            embed_dim=min(width, 256), att_dim=width),
                           d, device=device)
+    if kind == "hugging_face":
+        from llm_guided_asr_tpu_torch.models.hf_decoder import HFCausalDecoder
+
+        return HFCausalDecoder(cfg.hf_decoder, d, device=device)
     if kind == "s4":
         return S4Decoder(S4DecoderConfig(vocab_size=vocab, d_model=cfg.encoder.output_size,
                                          n_layers=max(dec.num_blocks, 1),
@@ -152,40 +204,103 @@ class ASRModel(nn.Module):
 
     def __init__(self, cfg: ASRModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.frontend is None:
-            raise NotImplementedError("a model without the default frontend is not ported yet")
         if cfg.ctc_type not in ("builtin", "builtin2", "brctc"):
             raise ValueError(f"ctc_type={cfg.ctc_type!r}; known: builtin, builtin2, brctc")
         dev = resolve_device(device)
         self.cfg = cfg
-        n_feat = cfg.frontend.n_mels
         with torch.device(dev):
-            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
+            if cfg.ssl_frontend is not None:
+                from llm_guided_asr_tpu_torch.models.ssl_encoders import Wav2Vec2Encoder
+
+                self.ssl_frontend = Wav2Vec2Encoder(cfg.ssl_frontend).eval()
+                n_feat = cfg.ssl_frontend.hidden_size
+            elif cfg.frontend is not None:
+                n_feat = cfg.frontend.output_dim
+                if cfg.frontend.fused:
+                    self.fused_frontend = FusedFrontend(cfg.frontend.fused, cfg.frontend.proj_dim,
+                                                        cfg.frontend.fs)
+            else:
+                n_feat = None
+            enc_in = n_feat if n_feat is not None else (cfg.input_size or 1)
+            if cfg.preencoder is not None:
+                from llm_guided_asr_tpu_torch.models.preencoder import LightweightSincConvs
+
+                self.preencoder = LightweightSincConvs(cfg.preencoder)
+                enc_in = self.preencoder.output_size
+            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, enc_in, device=dev)
             d = self.encoder.output_size
+            if cfg.postencoder is not None:
+                self.postencoder = make_postencoder(cfg.postencoder, d)
+                d = self.postencoder.output_size
             if cfg.ctc_weight < 1.0:
                 self.decoder = make_decoder(cfg, d, dev)
             if cfg.ctc_weight > 0.0:
                 self.ctc_head = nn.Linear(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
-                self.register_buffer("mvn_mean", torch.zeros(n_feat))
-                self.register_buffer("mvn_inv_std", torch.ones(n_feat))
+                # one statistic wide without a frontend, as in JAX
+                dim = n_feat if n_feat is not None else 1
+                self.register_buffer("mvn_mean", torch.zeros(dim))
+                self.register_buffer("mvn_inv_std", torch.ones(dim))
+
+    def train(self, mode: bool = True) -> "ASRModel":
+        """As ``nn.Module.train``; the frozen SSL trunk stays in eval mode."""
+        super().train(mode)
+        if self.cfg.ssl_frontend is not None:
+            self.ssl_frontend.eval()
+        return self
+
+    def raw_features(self, speech: torch.Tensor, speech_lengths: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The frontend alone (JAX ``_extract_feats``): the frozen SSL
+        trunk's hidden states (no gradient), the fused frontend, the sliding
+        window's raw frames, or :func:`raw_features`' log-mel features."""
+        if self.cfg.ssl_frontend is not None and speech.dim() == 2:
+            with torch.no_grad():
+                return self.ssl_frontend(speech, speech_lengths)
+        f = self.cfg.frontend
+        if f is not None and f.fused:
+            return self.fused_frontend(speech, speech_lengths)
+        if f is not None and f.type == "sliding_window":
+            from llm_guided_asr_tpu_torch.models.preencoder import sliding_window
+
+            return sliding_window(speech, speech_lengths, win_length=f.win_length or 400,
+                                  hop_length=f.hop_length)
+        return raw_features(self, speech, speech_lengths)
+
+    def collect_feats(self, speech: torch.Tensor, speech_lengths: torch.Tensor
+                      ) -> Dict[str, torch.Tensor]:
+        feats, feats_lengths = self.raw_features(speech, speech_lengths)
+        return {"feats": feats, "feats_lengths": feats_lengths}
+
+    def _encoder_input(self, speech, speech_lengths, rng):
+        feats, feats_lengths = normalize_features(
+            self, *self.raw_features(speech, speech_lengths), rng)
+        if self.cfg.preencoder is not None:
+            feats = self.preencoder(feats, rng)
+        return feats, feats_lengths
 
     def encode(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         """[B, S] waveform -> ([B, T', D] encoder output, [B] lengths)."""
-        feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
-        return self.encoder(feats, feats_lengths, rng)
+        enc, enc_lens, _ = self.encode_with_intermediates(speech, speech_lengths, rng)
+        return enc, enc_lens
 
     def encode_with_intermediates(self, speech: torch.Tensor, speech_lengths: torch.Tensor,
                                   rng: Optional[StepRNG] = None
                                   ) -> Tuple[torch.Tensor, torch.Tensor, Tuple[torch.Tensor, ...]]:
         """``encode`` plus the intermediate-CTC taps (empty without
         ``encoder.interctc_layer_idx``).  Only the Conformer gives taps; with
-        any other encoder ``interctc_weight`` adds no term, as in JAX."""
-        if not (self.cfg.encoder.interctc_layer_idx and isinstance(self.encoder, ConformerEncoder)):
-            return (*self.encode(speech, speech_lengths, rng), ())
-        feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
-        return self.encoder.forward_with_intermediates(feats, feats_lengths, rng)
+        any other encoder ``interctc_weight`` adds no term, as in JAX.  The
+        post-encoder runs on the encoder's output, not on the taps."""
+        feats, feats_lengths = self._encoder_input(speech, speech_lengths, rng)
+        if self.cfg.encoder.interctc_layer_idx and isinstance(self.encoder, ConformerEncoder):
+            enc, enc_lens, taps = self.encoder.forward_with_intermediates(feats, feats_lengths,
+                                                                          rng)
+        else:
+            (enc, enc_lens), taps = self.encoder(feats, feats_lengths, rng), ()
+        if self.cfg.postencoder is not None:
+            enc, enc_lens = self.postencoder(enc, enc_lens, rng)
+        return enc, enc_lens, taps
 
     def ctc_logits(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return self.ctc_head(encoder_out)

@@ -86,6 +86,8 @@ class ConformerConfig:
     ss_ff_expand: int = 2
     ss_bidirectional: bool = True
     ss_drop_path: float = 0.0
+    # the wav2vec2_hf/hubert_hf/whisper_hf encoders only: the local HF directory
+    model_name_or_path: Optional[str] = None
 
 
 def encoder_conf_values(conf: dict) -> dict:
@@ -424,7 +426,9 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
     Whisper-style encoders here, the E-Branchformer and Branchformer of
     models/branchformer.py, the contextual-block (streaming) Conformer of
     models/streaming.py, the MultiConvformer and (VGG-)RNN encoders of
-    models/extra_encoders.py and the S4 encoder of models/state_spaces.py."""
+    models/extra_encoders.py, the S4 encoder of models/state_spaces.py and
+    the pretrained ``wav2vec2_hf``/``hubert_hf``/``whisper_hf`` encoders of
+    models/ssl_encoders.py (JAX models/conformer.py:385-406)."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
     if encoder_type == "transformer":
@@ -458,4 +462,15 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
         from llm_guided_asr_tpu_torch.models.state_spaces import S4Encoder
 
         return S4Encoder(cfg, input_size, device=device)
+    if encoder_type in ("wav2vec2_hf", "hubert_hf", "whisper_hf"):
+        # the trunk's widths come from the local directory's config.json;
+        # tasks/asr.py loads its weights (init_model_variables)
+        from llm_guided_asr_tpu_torch.models.hf_checkpoint import read_hf_config
+        from llm_guided_asr_tpu_torch.models.ssl_encoders import SSLEncoderWrapper, ssl_config
+
+        if not cfg.model_name_or_path:
+            raise ValueError(f"{encoder_type} needs encoder_conf.model_name_or_path")
+        kind = encoder_type[: -len("_hf")]
+        return SSLEncoderWrapper(kind, ssl_config(kind, read_hf_config(cfg.model_name_or_path)),
+                                 cfg.output_size, device=device)
     raise NotImplementedError(f"encoder type {encoder_type!r} is not ported yet")

@@ -13,8 +13,8 @@ alone loads no head).
 Weights come from a local Hugging Face checkpoint directory
 (:func:`load_llama_dir`: ``config.json`` and ``model.safetensors``, or the
 shards that ``model.safetensors.index.json`` names; no hub lookup).
-:func:`stream_checkpoint` reads them tensor by tensor with the standard
-library and numpy, so the host holds one tensor at a time, and
+:func:`stream_checkpoint` reads them tensor by tensor through the reader
+of models/hf_checkpoint.py, so the host holds one tensor at a time, and
 :func:`convert_hf_state_dict` maps the names.
 
 Attention follows the JAX module's type promotion: scores and the value
@@ -27,15 +27,19 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
-import struct
 from pathlib import Path
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llm_guided_asr_tpu_torch.models.hf_checkpoint import (  # noqa: F401 (re-exported)
+    checkpoint_files,
+    iter_safetensors,
+    load_safetensors,
+)
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1.0e9
@@ -230,9 +234,13 @@ class LlamaModel(nn.Module):
         positions: Optional[torch.Tensor] = None,  # [B, T]; default cumsum(valid)-1
         cache_write_pos: Optional[int] = None,  # slot of the new token in the cache
         return_logits: bool = False,
+        embed_override: Optional[torch.Tensor] = None,  # [B, T, H]
+        override_mask: Optional[torch.Tensor] = None,  # [B, T] bool: use the override
     ):
         """-> (hidden, per-layer (k, v)), or (hidden, logits, per-layer
-        (k, v)) with ``return_logits``."""
+        (k, v)) with ``return_logits``.  ``embed_override`` replaces the
+        token embeddings where ``override_mask`` is True (the projected
+        encoder frames of models/hf_decoder.py)."""
         b, t = input_ids.shape
         if positions is None:
             positions = torch.clamp(torch.cumsum(valid.int(), dim=1) - 1, min=0)
@@ -246,6 +254,8 @@ class LlamaModel(nn.Module):
             causal = torch.ones(t, t, dtype=torch.bool, device=input_ids.device).tril()
             qk_mask = causal[None] & valid[:, None, :] & valid[:, :, None]
         x = self.embed_tokens(input_ids)
+        if embed_override is not None:
+            x = torch.where(override_mask[..., None], embed_override.to(x.dtype), x)
         new_cache = []
         for i in range(self.cfg.num_hidden_layers):
             layer_cache = None if cache is None else cache[i]
@@ -267,67 +277,6 @@ class LlamaModel(nn.Module):
 # ---------------------------------------------------------------------------
 # Hugging Face checkpoints
 # ---------------------------------------------------------------------------
-
-# safetensors dtype -> (numpy type the bytes are read as, torch type)
-_SAFETENSORS_TYPES = {
-    "F64": (np.float64, torch.float64), "F32": (np.float32, torch.float32),
-    "F16": (np.float16, torch.float16), "BF16": (np.int16, torch.bfloat16),
-    "I64": (np.int64, torch.int64), "I32": (np.int32, torch.int32),
-    "I16": (np.int16, torch.int16), "I8": (np.int8, torch.int8),
-    "U8": (np.uint8, torch.uint8), "BOOL": (np.bool_, torch.bool),
-}
-
-
-def _read_header(f) -> Tuple[Dict[str, Any], int]:
-    """The JSON header of an open ``.safetensors`` file and the offset of
-    its data; ``__metadata__`` dropped."""
-    (n_header,) = struct.unpack("<Q", f.read(8))
-    header = json.loads(f.read(n_header))
-    header.pop("__metadata__", None)
-    return header, 8 + n_header
-
-
-def iter_safetensors(path: Union[str, Path]) -> Iterator[Tuple[str, torch.Tensor]]:
-    """(name, CPU tensor in the file's type) of each tensor of a
-    ``.safetensors`` file, read one at a time.
-
-    The format: an 8-byte little-endian header length, a JSON header of
-    ``{name: {"dtype", "shape", "data_offsets": [begin, end]}}`` (and an
-    optional ``__metadata__``), then the raw little-endian bytes.  Each
-    tensor's bytes are read by a seek and one read; BF16 is read as 16-bit
-    integers and viewed as torch.bfloat16, bit for bit.
-    """
-    with open(path, "rb") as f:
-        header, data_start = _read_header(f)
-        for name, info in header.items():
-            if info["dtype"] not in _SAFETENSORS_TYPES:
-                raise ValueError(f"{path}: {name} has dtype {info['dtype']}, which is not read")
-            np_type, torch_type = _SAFETENSORS_TYPES[info["dtype"]]
-            begin, end = info["data_offsets"]
-            f.seek(data_start + begin)
-            arr = np.frombuffer(f.read(end - begin), dtype=np.dtype(np_type).newbyteorder("<"))
-            t = torch.from_numpy(arr.astype(np_type, copy=True)).reshape(info["shape"])
-            yield name, (t.view(torch_type) if torch_type == torch.bfloat16 else t)
-
-
-def load_safetensors(path: Union[str, Path]) -> Dict[str, torch.Tensor]:
-    """A ``.safetensors`` file -> {name: CPU tensor in the file's type}."""
-    return dict(iter_safetensors(path))
-
-
-def checkpoint_files(model_dir: Union[str, Path]) -> List[Path]:
-    """The ``.safetensors`` files of a checkpoint directory: the shards that
-    ``model.safetensors.index.json`` names, in order, or ``model.safetensors``."""
-    model_dir = Path(model_dir)
-    index = model_dir / "model.safetensors.index.json"
-    if index.is_file():
-        weight_map = json.loads(index.read_text())["weight_map"]
-        return [model_dir / f for f in dict.fromkeys(weight_map.values())]
-    single = model_dir / "model.safetensors"
-    if not single.is_file():
-        raise FileNotFoundError(f"no safetensors checkpoint under {model_dir}")
-    return [single]
-
 
 def stream_checkpoint(model_dir: Union[str, Path], cfg: LlamaConfig,
                       dtype: Optional[torch.dtype] = None,

@@ -62,7 +62,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import (
     TransformerDecoderConfig,
     decoder_layers,
 )
-from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, require_log_mel
 from llm_guided_asr_tpu_torch.ops.losses import (
     accuracy,
     add_sos_eos,
@@ -146,6 +146,7 @@ class LLMGuidedASRModel(nn.Module):
         super().__init__()
         if cfg.llm_score_mode not in SCORE_MODES:
             raise ValueError(f"llm_score_mode={cfg.llm_score_mode!r}, not one of {SCORE_MODES}")
+        require_log_mel(cfg.frontend, "the guided model")
         dev = resolve_device(device)
         self.cfg = cfg
         # the guided decoder is encoder.output_size wide, as in JAX; the

@@ -23,7 +23,7 @@ from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_enco
 from llm_guided_asr_tpu_torch.models.lm import LSTMCell, lstm_stack
 from llm_guided_asr_tpu_torch.models.mega_decoder import MEGADecoder
 from llm_guided_asr_tpu_torch.models.rwkv import RWKVDecoder
-from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, require_log_mel
 from llm_guided_asr_tpu_torch.ops.losses import ctc_loss
 from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss, rnnt_loss_multi_blank
 from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
@@ -174,6 +174,7 @@ class TransducerModel(nn.Module):
         if len(cfg.big_blank_ids) != len(cfg.multi_blank_durations):
             raise ValueError(f"multi_blank_ids {cfg.multi_blank_ids} and multi_blank_durations "
                              f"{cfg.multi_blank_durations} differ in length")
+        require_log_mel(cfg.frontend, "the transducer")
         dev = resolve_device(device)
         self.cfg = cfg
         n_feat = cfg.n_feat

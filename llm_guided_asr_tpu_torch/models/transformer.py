@@ -74,7 +74,8 @@ def masked_softmax(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     if mask.dim() == 3:
         mask = mask[:, None]  # [B, 1, Tq, Tk]
     scores = scores.masked_fill(~mask, NEG_INF)
-    attn = torch.softmax(scores.float(), dim=-1).to(scores.dtype)
+    attn = torch.softmax(scores.to(torch.promote_types(scores.dtype, torch.float32)),
+                         dim=-1).to(scores.dtype)
     return attn.masked_fill(~mask, 0.0)
 
 

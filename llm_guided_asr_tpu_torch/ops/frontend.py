@@ -15,13 +15,18 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask, mask_fill
 
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
-    """DefaultFrontend settings (the single-channel log-mel subset)."""
+    """DefaultFrontend settings (the single-channel subset): ``type``
+    "default" is the log-mel frontend, "sliding_window" raw frames of
+    ``win_length`` (default 400) samples for the sinc pre-encoder; a
+    non-empty ``fused`` ((n_fft, hop_length, n_mels) triples) is
+    :class:`FusedFrontend`."""
 
     fs: int = 16000
     n_fft: int = 512
@@ -33,6 +38,23 @@ class FrontendConfig:
     htk: bool = False
     center: bool = True
     window: Optional[str] = "hann"
+    fused: Tuple[Tuple[int, int, int], ...] = ()
+    proj_dim: int = 100
+    type: str = "default"  # default | sliding_window
+
+    @property
+    def output_dim(self) -> int:
+        if self.type == "sliding_window":
+            return self.win_length or 400
+        return self.proj_dim * len(self.fused) if self.fused else self.n_mels
+
+
+def require_log_mel(cfg: Optional[FrontendConfig], model: str) -> None:
+    """Raise unless ``cfg`` is the log-mel frontend (or None): the fused and
+    sliding-window frontends are read by the CTC/attention model only."""
+    if cfg is not None and (cfg.fused or cfg.type != "default"):
+        raise ValueError(f"frontend_conf.fused/type are read by the CTC/attention model only, "
+                         f"not by {model}")
 
 
 def _hz_to_mel(freqs, htk: bool = False) -> np.ndarray:
@@ -216,3 +238,36 @@ def default_frontend(
     olens = stft_out_lengths(speech_lengths, n_fft, hop_length, center)
     olens = torch.clamp(olens, 0, feats.shape[1])
     return mask_fill(feats, make_valid_mask(olens, feats.shape[1])), olens
+
+
+class FusedFrontend(nn.Module):
+    """Multi-resolution fused frontend (fused.py FusedFrontends,
+    align_method linear_projection): one log-mel frontend per
+    (n_fft, hop_length, n_mels) triple, each projected to ``proj_dim`` by
+    ``proj_{i}``, resampled by nearest index to the first one's frames,
+    concatenated ([B, T0, proj_dim * len(frontends)]) with the first one's
+    lengths; pad frames zeroed."""
+
+    def __init__(self, frontends: Tuple[Tuple[int, int, int], ...], proj_dim: int = 100,
+                 fs: int = 16000):
+        super().__init__()
+        self.frontends, self.fs = tuple(tuple(f) for f in frontends), fs
+        for i, (_, _, mels) in enumerate(self.frontends):
+            setattr(self, f"proj_{i}", nn.Linear(mels, proj_dim))
+
+    def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        outs, t0, lens0 = [], None, None
+        for i, (n_fft, hop, mels) in enumerate(self.frontends):
+            f, lens = default_frontend(speech, speech_lengths, fs=self.fs, n_fft=n_fft,
+                                       hop_length=hop, n_mels=mels)
+            p = getattr(self, f"proj_{i}")(f)
+            if i == 0:
+                t0, lens0 = p.shape[1], lens
+            else:
+                idx = torch.clamp(torch.div(torch.arange(t0, device=p.device) * p.shape[1], t0,
+                                            rounding_mode="floor"), 0, p.shape[1] - 1)
+                p = p[:, idx]
+            outs.append(p)
+        feats = torch.cat(outs, dim=-1)
+        return mask_fill(feats, make_valid_mask(lens0, t0)), lens0

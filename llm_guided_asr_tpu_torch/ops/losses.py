@@ -33,7 +33,7 @@ def ctc_loss_per_example(logits: torch.Tensor, logit_lengths: torch.Tensor,
     if time_risk != 0.0:
         return BayesRiskCTC.apply(logits, logit_lengths.long(), labels, label_lengths.long(),
                                   blank_id, float(time_risk))
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     per_ex = F.ctc_loss(logp.transpose(0, 1), labels, logit_lengths.long(), label_lengths.long(),
                         blank=blank_id, reduction="none", zero_infinity=True)
     return torch.where(torch.isfinite(per_ex), per_ex, 0.0)
@@ -107,7 +107,7 @@ def label_smoothing_loss(logits: torch.Tensor, targets: torch.Tensor, smoothing:
     b, _, v = logits.shape
     valid = targets != ignore_id
     tgt = torch.where(valid, targets, 0).long()
-    logp = F.log_softmax(logits.float(), dim=-1)
+    logp = F.log_softmax(logits.to(torch.promote_types(logits.dtype, torch.float32)), dim=-1)
     confidence = 1.0 - smoothing
     low = smoothing / (v - 1)
     tgt_logp = torch.gather(logp, -1, tgt[..., None])[..., 0]

@@ -37,10 +37,10 @@ from llm_guided_asr_tpu_torch.data.dataset import (
 from llm_guided_asr_tpu_torch.data.fileio import read_shape_file, write_shape_file
 from llm_guided_asr_tpu_torch.data.iterator import SequenceIterFactory
 from llm_guided_asr_tpu_torch.data.samplers import build_batch_sampler
-from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig, raw_features
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, encoder_conf_values
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
-from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, default_frontend
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 from llm_guided_asr_tpu_torch.text.tokenizers import (
     HuggingFaceTokenIDConverter,
@@ -74,13 +74,13 @@ ASR_DEFAULTS: Dict[str, Any] = {
     "token_list": None,
     "bpemodel": None,
     "input_size": None,  # None => raw audio via frontend
-    "frontend": "default",  # default | none
+    "frontend": "default",  # default | none | ssl
     "frontend_conf": {},
     "specaug": None,  # specaug | None
     "specaug_conf": {},
-    "preencoder": None,
+    "preencoder": None,  # sinc | None
     "preencoder_conf": {},
-    "postencoder": None,
+    "postencoder": None,  # length_adaptor | hugging_face_transformers | None
     "postencoder_conf": {},
     "normalize": "global_mvn",  # global_mvn | utterance_mvn | none
     "normalize_conf": {},  # {stats_file: ...}
@@ -159,18 +159,19 @@ JAX_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
 PORT_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                  "contextual_block_conformer", "whisper_style", "longformer",
-                 "multiconvformer", "rnn", "vgg_rnn", "s4")
+                 "multiconvformer", "rnn", "vgg_rnn", "s4",
+                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
 JAX_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv", "hugging_face")
-PORT_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv")
+HF_ENCODERS = ("wav2vec2_hf", "hubert_hf", "whisper_hf")
+HF_POSTENCODERS = ("hugging_face_transformers", "hugging_face")
 JAX_MODELS = ("espnet", "llm_guided_asr", "maskctc", "transducer")
 
 # fields of the JAX config dataclasses that the port's do not have, with the
 # JAX defaults: a config that sets one to anything else raises
 _JAX_ONLY_FIELDS = {
     "frontend_conf": {"use_wpe": False, "wpe_taps": 5, "wpe_delay": 3, "wpe_iterations": 2,
-                      "use_beamformer": False, "mask_units": 64, "ref_channel": 0,
-                      "fused": (), "proj_dim": 100, "type": "default"},
-    "encoder_conf": {"rel_pos_type": "latest", "model_name_or_path": None},
+                      "use_beamformer": False, "mask_units": 64, "ref_channel": 0},
+    "encoder_conf": {"rel_pos_type": "latest"},
     "transducer decoder_conf": {"context_size": 256},
 }
 
@@ -206,14 +207,95 @@ def resolve_task_device(config: Dict[str, Any]) -> torch.device:
 # ---------------------------------------------------------------------------
 
 def _frontend_config(config: Dict[str, Any]) -> Optional[FrontendConfig]:
-    if config.get("frontend") == "ssl":
-        raise NotImplementedError(f"frontend=ssl is not ported yet ({ITEM_CHOICES})")
-    if config.get("frontend", "default") in (None, "none") or config.get("input_size") is not None:
+    """The log-mel (or fused, or sliding-window) frontend's config; None
+    for ``frontend: none``/``ssl`` or with ``input_size``."""
+    if config.get("frontend", "default") in (None, "none", "ssl") or (
+            config.get("input_size") is not None):
         return None
     fe = port_fields(FrontendConfig, config.get("frontend_conf"), "frontend_conf")
     if fe.get("fmin") is None:
         fe["fmin"] = 0.0
+    if fe.get("fused"):
+        fe["fused"] = tuple(tuple(f) for f in fe["fused"])
     return FrontendConfig(**fe)
+
+
+def _ssl_frontend_config(config: Dict[str, Any]):
+    """``frontend: ssl``: the W2VConfig of ``frontend_conf``'s local
+    wav2vec2/HuBERT directory (the s3prl frontend's analog)."""
+    if config.get("frontend") != "ssl":
+        return None
+    from llm_guided_asr_tpu_torch.models.hf_checkpoint import read_hf_config
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import W2VConfig
+
+    fc = dict(config.get("frontend_conf", {}) or {})
+    name = fc.get("model_name_or_path")
+    if not name:
+        raise ValueError("frontend=ssl needs frontend_conf.model_name_or_path")
+    kind = fc.get("kind", "wav2vec2")
+    if kind not in ("wav2vec2", "hubert"):
+        raise ValueError(f"frontend=ssl takes kind wav2vec2 or hubert; got {kind!r}")
+    return W2VConfig.from_hf_config(read_hf_config(name))
+
+
+def _preencoder_config(config: Dict[str, Any]):
+    if not config.get("preencoder"):
+        return None
+    if config["preencoder"] != "sinc":
+        raise ValueError(f"unknown preencoder {config['preencoder']!r}; known: sinc")
+    from llm_guided_asr_tpu_torch.models.preencoder import SincPreencoderConfig
+
+    return SincPreencoderConfig(**filter_known_fields(
+        SincPreencoderConfig, config.get("preencoder_conf"), "preencoder_conf"))
+
+
+def _postencoder_config(config: Dict[str, Any]):
+    kind = config.get("postencoder")
+    if not kind:
+        return None
+    pconf = dict(config.get("postencoder_conf", {}) or {})
+    if kind == "length_adaptor":
+        from llm_guided_asr_tpu_torch.models.preencoder import LengthAdaptorConfig
+
+        return "length_adaptor", LengthAdaptorConfig.from_dict(pconf)
+    if kind in HF_POSTENCODERS:
+        from llm_guided_asr_tpu_torch.models.hf_encoder import (
+            HFPostEncoderConfig,
+            read_bert_config,
+        )
+
+        name = pconf.get("model_name_or_path")
+        if not name:
+            raise ValueError("postencoder hugging_face_transformers needs "
+                             "postencoder_conf.model_name_or_path")
+        return "hugging_face_transformers", HFPostEncoderConfig(
+            body=read_bert_config(name),
+            length_adaptor_n_layers=int(pconf.get("length_adaptor_n_layers", 0)),
+            lang_token_id=int(pconf.get("lang_token_id", -1)), model_name_or_path=name)
+    raise ValueError(f"unknown postencoder {kind!r}; known: length_adaptor, "
+                     "hugging_face_transformers")
+
+
+def _hf_decoder_config(config: Dict[str, Any]):
+    """``decoder: hugging_face``: the local causal LM's config and the
+    prompt's ids (the prefix with the tokenizer's special tokens, the
+    postfix without, as ``AutoTokenizer.encode`` gives them in JAX; the
+    directory's tokenizer is read only for a prompt)."""
+    from llm_guided_asr_tpu_torch.models.hf_checkpoint import read_hf_config
+    from llm_guided_asr_tpu_torch.models.hf_decoder import HFCausalDecoderConfig
+    from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
+
+    dec_conf = dict(config.get("decoder_conf", {}) or {})
+    name = dec_conf.get("model_name_or_path")
+    if not name:
+        raise ValueError("decoder=hugging_face needs decoder_conf.model_name_or_path")
+    prefix, postfix = dec_conf.get("prefix", ""), dec_conf.get("postfix", "")
+    tok = LLMTokenizer.from_pretrained(name) if prefix or postfix else None
+    return HFCausalDecoderConfig(
+        llm=LlamaConfig.from_hf_config(read_hf_config(name)),
+        prefix_ids=tuple(tok(prefix)["input_ids"]) if prefix else (),
+        postfix_ids=tuple(tok(postfix, add_special_tokens=False)["input_ids"]) if postfix else (),
+        enc_frames_max=int(dec_conf.get("enc_frames_max", 512)))
 
 
 def _specaug_config(config: Dict[str, Any]) -> Optional[SpecAugConfig]:
@@ -244,10 +326,15 @@ def _vocab_size(config: Dict[str, Any]) -> int:
     return len(read_token_list(config["token_list"]))
 
 
-def _check_unported_asr_choices(config: Dict[str, Any]):
-    for key in ("preencoder", "postencoder"):
-        if config.get(key):
-            raise NotImplementedError(f"{key}={config[key]!r} is not ported yet ({ITEM_CHOICES})")
+def _check_unported_asr_choices(config: Dict[str, Any], model: str = "espnet"):
+    """The choices only the CTC/attention model reads raise for the
+    transducer and the guided models (the JAX package ignores them there)."""
+    if model != "espnet":
+        for key in ("preencoder", "postencoder"):
+            if config.get(key):
+                raise ValueError(f"{key}={config[key]!r} is read by model=espnet only")
+        if config.get("frontend") == "ssl":
+            raise ValueError("frontend=ssl is read by model=espnet only")
     ctc_type = (config.get("ctc_conf") or {}).get("ctc_type", "builtin")
     if ctc_type not in ("builtin", "builtin2", "brctc"):
         raise ValueError(f"unknown ctc_type {ctc_type!r}; known: builtin, builtin2, brctc")
@@ -260,19 +347,26 @@ def build_model_config(config: Dict[str, Any]) -> ASRModelConfig:
     decoder_type = config.get("decoder", "transformer")
     if decoder_type not in JAX_DECODERS:
         raise ValueError(f"unknown decoder {decoder_type!r}; known: {JAX_DECODERS}")
-    if decoder_type not in PORT_DECODERS:
-        raise NotImplementedError(f"decoder={decoder_type!r} is not ported yet ({ITEM_CHOICES})")
+    hf = decoder_type == "hugging_face"
     model_conf = dict(config.get("model_conf", {}) or {})
+    frontend = _frontend_config(config)
+    ssl_frontend = _ssl_frontend_config(config)
     return ASRModelConfig(
         vocab_size=_vocab_size(config),
-        frontend=_frontend_config(config),
+        frontend=frontend,
         specaug=_specaug_config(config),
         normalize=config.get("normalize") or "none",
         encoder_type=encoder_type,
         encoder=encoder,
         decoder_type=decoder_type,
         decoder=TransformerDecoderConfig(**port_fields(
-            TransformerDecoderConfig, config.get("decoder_conf"), "decoder_conf")),
+            TransformerDecoderConfig, {} if hf else config.get("decoder_conf"), "decoder_conf")),
+        hf_decoder=_hf_decoder_config(config) if hf else None,
+        ssl_frontend=ssl_frontend,
+        preencoder=_preencoder_config(config),
+        postencoder=_postencoder_config(config),
+        input_size=(int(config.get("input_size") or 80)
+                    if frontend is None and ssl_frontend is None else None),
         ctc_weight=float(model_conf.get("ctc_weight", 0.5)),
         ctc_type=(config.get("ctc_conf") or {}).get("ctc_type", "builtin"),
         brctc_risk_factor=float((config.get("ctc_conf") or {}).get("brctc_risk_factor", 0.0)),
@@ -292,7 +386,7 @@ def build_transducer_config(config: Dict[str, Any]):
         TransducerModelConfig,
     )
 
-    _check_unported_asr_choices(config)
+    _check_unported_asr_choices(config, "transducer")
     encoder_type, encoder = _encoder_config(config)
     model_conf = dict(config.get("model_conf", {}) or {})
     dec = port_fields(TransducerDecoderConfig, config.get("decoder_conf"), "decoder_conf",
@@ -334,7 +428,7 @@ def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] =
     if name == "llm_guided_asr":
         from llm_guided_asr_tpu_torch.models.llm_guided import build_llm_guided_model
 
-        _check_unported_asr_choices(config)
+        _check_unported_asr_choices(config, name)
         _encoder_config(config)
         return build_llm_guided_model(config, device=dev)
     if name == "transducer":
@@ -359,12 +453,36 @@ def load_mvn_stats(stats_file: Union[str, Path]) -> Dict[str, torch.Tensor]:
             "inv_std": torch.from_numpy(np.asarray(1.0 / std, np.float32))}
 
 
+def _load_into(module: nn.Module, sd: Dict[str, torch.Tensor], where: str,
+               partial: bool = False) -> None:
+    """Copy a converted pretrained state dict into ``module`` (each tensor
+    cast to its parameter's type); a tensor without a home raises, and so
+    does a parameter the checkpoint leaves out unless ``partial``."""
+    own = module.state_dict()
+    unknown = sorted(set(sd) - set(own))
+    missing = [] if partial else sorted(set(own) - set(sd))
+    if unknown or missing:
+        raise KeyError(f"{where}: tensors without a home {unknown[:8]}, "
+                       f"missing {missing[:8]}")
+    for k, v in sd.items():
+        if own[k].shape != v.shape:
+            raise ValueError(f"{where}.{k}: checkpoint shape {tuple(v.shape)} != "
+                             f"{tuple(own[k].shape)}")
+        own[k].copy_(v.to(own[k].dtype))
+
+
 @torch.no_grad()
 def init_model_variables(model: nn.Module, config: Dict[str, Any], seed: int = 0) -> nn.Module:
     """Seeded weights (convert.init_weights: the port's init is not
     flax's), then the MVN stats of ``normalize_conf.stats_file``, the
-    frozen LLM's weights (unless ``_skip_llm_weights``) and the mixed-vocab
-    CTC map (built with the model)."""
+    frozen LLM's weights (unless ``_skip_llm_weights``), the mixed-vocab
+    CTC map (built with the model) and the pretrained Hugging Face weights
+    of local directories (JAX tasks/asr.py:417-456): the ``hugging_face``
+    decoder's LM and the BERT post-encoder's body (unless
+    ``_skip_llm_weights``), the SSL frontend's and the ``*_hf`` encoders'
+    trunks (unless ``_skip_pretrained_encoder``).  The port builds every
+    module at its size, so no dummy batch runs (JAX's flax init takes one:
+    a raw waveform for these choices)."""
     from llm_guided_asr_tpu_torch.convert import init_weights
 
     init_weights(model, seed)
@@ -377,6 +495,36 @@ def init_model_variables(model: nn.Module, config: Dict[str, Any], seed: int = 0
         from llm_guided_asr_tpu_torch.models.llm_guided import load_llm_params
 
         load_llm_params(config, model=model)
+    skip_llm, skip_enc = config.get("_skip_llm_weights"), config.get("_skip_pretrained_encoder")
+    if config.get("decoder") == "hugging_face" and not skip_llm:
+        from llm_guided_asr_tpu_torch.models.llm.llama import stream_checkpoint
+
+        name = (config.get("decoder_conf") or {})["model_name_or_path"]
+        sd = stream_checkpoint(name, model.cfg.hf_decoder.llm)
+        _load_into(model.decoder.llm, sd, "decoder.llm")
+        logger.info(f"loaded pretrained decoder LM weights from {name}")
+    if config.get("frontend") == "ssl" and not skip_enc:
+        from llm_guided_asr_tpu_torch.models.ssl_encoders import load_pretrained_encoder
+
+        fc = dict(config.get("frontend_conf", {}) or {})
+        _, sd = load_pretrained_encoder(fc["model_name_or_path"], fc.get("kind", "wav2vec2"))
+        _load_into(model.ssl_frontend, sd, "ssl_frontend")
+        logger.info(f"loaded frozen SSL frontend weights from {fc['model_name_or_path']}")
+    enc_type = config.get("encoder")
+    if enc_type in HF_ENCODERS and not skip_enc:
+        from llm_guided_asr_tpu_torch.models.ssl_encoders import load_pretrained_encoder
+
+        name = (config.get("encoder_conf") or {}).get("model_name_or_path")
+        _, sd = load_pretrained_encoder(name, enc_type[: -len("_hf")])
+        _load_into(model.encoder.ssl, sd, "encoder.ssl")
+        logger.info(f"loaded pretrained {enc_type} encoder weights from {name}")
+    if config.get("postencoder") in HF_POSTENCODERS and not skip_llm:
+        from llm_guided_asr_tpu_torch.models.hf_encoder import load_hf_postencoder_params
+
+        _, post_cfg = model.cfg.postencoder
+        _load_into(model.postencoder, load_hf_postencoder_params(post_cfg), "postencoder",
+                   partial=True)
+        logger.info(f"loaded pretrained postencoder body from {post_cfg.model_name_or_path}")
     return model
 
 
@@ -506,15 +654,12 @@ def build_iter_factory(config: Dict[str, Any], dataset: ESPnetDataset, shuffle: 
 @torch.no_grad()
 def frontend_feats(model: nn.Module, speech: torch.Tensor, speech_lengths: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The frontend alone, in float32 (the JAX models' collect_feats):
-    log-mel features [B, T, n_mels] and their lengths."""
-    f = model.cfg.frontend
-    if f is None:
-        return speech, speech_lengths
-    return default_frontend(speech, speech_lengths, fs=f.fs, n_fft=f.n_fft,
-                            win_length=f.win_length, hop_length=f.hop_length, n_mels=f.n_mels,
-                            fmin=f.fmin, fmax=f.fmax, htk=f.htk, center=f.center,
-                            window=f.window)
+    """The frontend alone, in float32 (the JAX models' collect_feats): the
+    log-mel (or, for the CTC/attention model, fused, sliding-window or
+    frozen-SSL) features [B, T, F] and their lengths."""
+    if isinstance(model, ASRModel):
+        return model.raw_features(speech, speech_lengths)
+    return raw_features(model, speech, speech_lengths)
 
 
 class FeatsStats:
@@ -548,6 +693,8 @@ def collect_stats(config: Dict[str, Any], output_dir: Path,
     files of each split; returns each split's seconds."""
     config = {**config, "_skip_llm_weights": True}
     model = build_model(config, device).eval()
+    # the frozen SSL trunk (and the fused frontend's projections) shape the features
+    init_model_variables(model, config, int(config.get("seed", 0)))
     seconds = {}
     for split in ("train", "valid"):
         triples = config[f"{split}_data_path_and_name_and_type"]

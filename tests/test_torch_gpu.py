@@ -1655,3 +1655,218 @@ class _OnlyLast(torch.nn.Module):
 
     def forward(self, *args):
         return self.decoder(*args, only_last=True)
+
+
+# the pretrained Hugging Face choices (chip_smoke.py phases 28-30) at tiny
+# widths; the directories hold a config.json alone (weights from a seed)
+TINY_W2V = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+                intermediate_size=48, conv_dim=[16, 16], conv_kernel=[10, 3], conv_stride=[5, 2],
+                num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
+TINY_ENC = dict(output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+                macaron_style=True, cnn_module_kernel=15, dropout_rate=0.0,
+                positional_dropout_rate=0.0, attention_dropout_rate=0.0)
+
+
+def _hf_config(kind, root):
+    """(task config, Conformer encoder?) of one pretrained choice."""
+    import json
+
+    (root / "w2v").mkdir(exist_ok=True)
+    (root / "w2v" / "config.json").write_text(json.dumps({**TINY_W2V, "model_type": "hubert"}))
+    (root / "whisper").mkdir(exist_ok=True)
+    (root / "whisper" / "config.json").write_text(json.dumps(dict(
+        model_type="whisper", d_model=32, encoder_layers=2, encoder_attention_heads=2,
+        encoder_ffn_dim=48, num_mel_bins=40, max_source_positions=200)))
+    (root / "bert").mkdir(exist_ok=True)
+    (root / "bert" / "config.json").write_text(json.dumps(dict(
+        model_type="bert", hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
+        intermediate_size=48, hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)))
+    base = {"token_list": [f"t{i}" for i in range(30)], "normalize": "utterance_mvn",
+            "frontend_conf": {"n_fft": 256, "hop_length": 128, "n_mels": 40},
+            "encoder_conf": dict(TINY_ENC), "model_conf": {"ctc_weight": 0.3},
+            "decoder_conf": {"attention_heads": 2, "linear_units": 64, "num_blocks": 1,
+                             "dropout_rate": 0.0, "positional_dropout_rate": 0.0},
+            "_skip_pretrained_encoder": True, "_skip_llm_weights": True}
+    raw = {"frontend": "none", "normalize": "none"}
+    return {
+        "ssl": ({**base, "frontend": "ssl", "frontend_conf": {
+            "model_name_or_path": str(root / "w2v"), "kind": "hubert"}}, True),
+        "hubert_hf": ({**base, **raw, "encoder": "hubert_hf", "encoder_conf": {
+            "model_name_or_path": str(root / "w2v"), "output_size": 64}}, False),
+        "whisper_hf": ({**base, "encoder": "whisper_hf", "encoder_conf": {
+            "model_name_or_path": str(root / "whisper"), "output_size": 64}}, False),
+        "sinc": ({**base, "normalize": "none", "preencoder": "sinc",
+                  "frontend_conf": {"type": "sliding_window", "win_length": 400,
+                                    "hop_length": 320},
+                  "preencoder_conf": {"out_channels": 32, "sinc_channels": 16,
+                                      "dropout_rate": 0.0},
+                  "encoder_conf": {**TINY_ENC, "input_layer": "linear"},
+                  "postencoder": "length_adaptor",
+                  "postencoder_conf": {"n_layers": 1, "dropout_rate": 0.0}}, True),
+        "bert": ({**base, "postencoder": "hugging_face_transformers",
+                  "postencoder_conf": {"model_name_or_path": str(root / "bert"),
+                                       "length_adaptor_n_layers": 1}}, True),
+        "fused": ({**base, "frontend_conf": {"fused": [[256, 128, 40], [512, 160, 30]],
+                                             "proj_dim": 20}}, True),
+    }[kind]
+
+
+# A gradient that misses the CPU's float32 one is checked in float64: the
+# card's float64 gradient must equal the CPU's (to 1e-6 of the tolerance:
+# the same function), and the card's float32 gradient may sit no further
+# from it than the CPU's float32 one does, plus the tolerance.  The port's
+# losses and softmaxes stay in float64 there, so the reference is float64
+# throughout.  tools/grad_rounding.py, over six seeds of the six models
+# below: only hubert_hf misses (its random trunk's CTC loss is large, and
+# the float32 CTC gradient at the logits sits ~1e-3 off float64 on both
+# devices alike); the float64 gradients agree to <= 4.6e-12, and the card
+# is 0.85-1.01 times as far from them as the CPU.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ssl", "hubert_hf", "whisper_hf", "sinc", "bert", "fused"])
+def test_pretrained_choices_on_the_card_match_the_cpu(card, kind, tmp_path, monkeypatch):
+    """Each choice built by ASRTask (weights from seed 0), card against
+    CPU on a ragged batch: in eval mode the encoder rows (1e-4), the loss
+    (rtol 1e-4) and its gradients (1e-4 of each tensor's largest CPU
+    value, + 1e-6 of the model's largest; one that misses is checked in
+    float64, as said above), one launch of each encoder forward per
+    Conformer block and none over the SSL and Whisper encoders, and for
+    ``frontend: ssl`` the features (1e-4); then in training mode one fused AdamW step (weight
+    decay 0.01) on each device: the loss (rtol 1e-4) and every parameter
+    and buffer after it, the batch norms' running statistics included
+    (1e-5), with the sinc blocks' fixed 0.1 dropout drawing the same masks
+    on both devices, and for ``frontend: ssl`` the frozen trunk decayed as
+    optax's AdamW leaves it, w * (1 - lr wd)."""
+    from llm_guided_asr_tpu_torch.models import preencoder
+    from llm_guided_asr_tpu_torch.tasks import asr as tasr
+
+    config, conformer = _hf_config(kind, tmp_path)
+    config = {**tasr.ASRTask.get_default_config(), **config}
+    cpu = tasr.init_model_variables(tasr.build_model(config, "cpu"), config, 0).eval()
+    gpu = tasr.build_model(config, card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(2)
+    batch = {"speech": _rand(rng, 3, 16000, scale=0.1),
+             "speech_lengths": torch.tensor([16000, 12000, 7000]),
+             "text": torch.from_numpy(rng.integers(1, 29, (3, 6))),
+             "text_lengths": torch.tensor([6, 4, 5])}
+    args = ("speech", "speech_lengths", "text", "text_lengths")
+    before = _counts()
+    with torch.no_grad():
+        enc_gpu, lens_gpu = gpu.encode(batch["speech"].to(card), batch["speech_lengths"].to(card))
+        torch.cuda.synchronize()
+        blocks = 2 if conformer else 0
+        assert _counts() == {k: n + (blocks if k in ("rel_attention_fwd", "dwconv1d_fwd") else 0)
+                             for k, n in before.items()}
+        enc_cpu, lens_cpu = cpu.encode(batch["speech"], batch["speech_lengths"])
+        if kind == "ssl":
+            feats = gpu.raw_features(batch["speech"].to(card), batch["speech_lengths"].to(card))
+            want = cpu.raw_features(batch["speech"], batch["speech_lengths"])
+            torch.testing.assert_close(feats[0].cpu(), want[0], rtol=0, atol=1e-4)
+    assert torch.equal(lens_gpu.cpu(), lens_cpu)
+    torch.testing.assert_close(enc_gpu.cpu(), enc_cpu, rtol=0, atol=1e-4)
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        loss = model(*(batch[k].to(dev) for k in args))[0]
+        loss.backward()
+        losses[name] = loss.item()
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    want = {n: p.grad for n, p in cpu.named_parameters() if p.grad is not None}
+    floor = 1e-6 * max(g.abs().max().item() for g in want.values())
+    exact = None
+    for name, p in gpu.named_parameters():
+        assert (p.grad is None) == (name not in want), name
+        if p.grad is None:
+            continue
+        got, ref = p.grad.cpu(), want[name]
+        tol = 1e-4 * ref.abs().max().item() + floor
+        miss = (got - ref).abs().max().item()
+        if miss > tol:
+            exact = exact or (_float64_grads(cpu, batch, args), _float64_grads(gpu, batch, args))
+            truth = exact[0][name]
+            gap = (exact[1][name] - truth).abs().max().item()
+            assert gap <= 1e-6 * tol, f"{name}: float64 on the card {gap:.3e} from the CPU's"
+            miss = (got.double() - truth).abs().max().item()
+            own = (ref.double() - truth).abs().max().item()
+            assert miss <= own + tol, (f"{name}: {miss:.3e} from the float64 gradient > the "
+                                       f"CPU's float32 {own:.3e} + {tol:.3e}")
+            print(f"{name}: card {miss:.3e}, CPU float32 {own:.3e} from the float64 gradient")
+    masks = torch.Generator()
+
+    def same_masks(x, rate, rng):
+        # the port's dropout with its keep mask drawn on the CPU
+        if rate == 0.0:
+            return x
+        keep = (torch.rand(x.shape, generator=masks) >= rate).to(x.device)
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+
+    monkeypatch.setattr(preencoder, "dropout", same_masks)
+    w0 = {n: p.detach().clone() for n, p in gpu.named_parameters()}
+    losses = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3, "eps": 1e-3,
+                                                                 "weight_decay": 0.01}))
+        masks.manual_seed(0)
+        stats, _ = make_fused_train_step(model.train(), state, torch.Generator().manual_seed(0))(
+            {k: v.to(dev) for k, v in batch.items()})
+        losses[name] = float(stats["loss"])
+    np.testing.assert_allclose(losses["gpu"], losses["cpu"], rtol=1e-4)
+    want = cpu.state_dict()
+    for name, got in gpu.state_dict().items():
+        torch.testing.assert_close(got.cpu(), want[name], rtol=0, atol=1e-5, msg=name)
+    if kind == "ssl":
+        assert not gpu.ssl_frontend.training
+        for name, p in gpu.ssl_frontend.named_parameters():
+            torch.testing.assert_close(p.detach(), w0["ssl_frontend." + name] * (1 - 1e-3 * 0.01),
+                                       rtol=1e-6, atol=0, msg=name)
+
+
+def _float64_grads(model, batch, args):
+    """The model's gradients of ``batch`` in float64, on the CPU."""
+    import copy
+
+    m = copy.deepcopy(model).double()
+    m.zero_grad(set_to_none=True)
+    dev = next(m.parameters()).device
+    m(*(batch[k].to(dev, torch.float64) if batch[k].is_floating_point() else batch[k].to(dev)
+        for k in args))[0].backward()
+    return {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None}
+
+
+@pytest.mark.gpu
+def test_hf_decoder_on_the_card_matches_the_cpu(card, tmp_path):
+    """decoder: hugging_face over a tiny Llama (weights from seed 0, an
+    empty prompt): the teacher-forced logits (1e-4) and the 4-best from the
+    card's encoder rows, card against the CPU (tokens equal, scores 1e-4)."""
+    import json
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+    from llm_guided_asr_tpu_torch.tasks import asr as tasr
+
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=40, hidden_size=32, intermediate_size=48,
+        num_hidden_layers=2, num_attention_heads=4, num_key_value_heads=2, rms_norm_eps=1e-5,
+        max_position_embeddings=512)))
+    config = {**tasr.ASRTask.get_default_config(), **_hf_config("bert", tmp_path)[0],
+              "postencoder": None, "token_list": [f"t{i}" for i in range(40)],
+              "decoder": "hugging_face", "_skip_llm_weights": True,
+              "decoder_conf": {"model_name_or_path": str(tmp_path), "enc_frames_max": 64}}
+    cpu = tasr.init_model_variables(tasr.build_model(config, "cpu"), config, 0).eval()
+    gpu = tasr.build_model(config, card).eval()
+    gpu.load_state_dict(cpu.state_dict())
+    speech = _rand(np.random.default_rng(3), 1, 16000, scale=0.1)
+    decode = dict(ctc_weight=0.3, beam_size=4, maxlenratio=-8.0, nbest=4)
+    with torch.inference_mode():
+        enc, lens = gpu.encode(speech.to(card), torch.tensor([16000], device=card))
+        got = Speech2Text.from_model(gpu, **decode).beam(enc, lens, maxlenratio=-8.0, nbest=4)
+        want = Speech2Text.from_model(cpu, **decode).beam(enc.cpu(), lens.cpu(),
+                                                          maxlenratio=-8.0, nbest=4)
+        ys = torch.tensor([[39, 3, 5, 7]])
+        logits_gpu = gpu.decoder_logits(enc, lens, ys.to(card), torch.tensor([4], device=card))
+        logits_cpu = cpu.decoder_logits(enc.cpu(), lens.cpu(), ys, torch.tensor([4]))
+    torch.testing.assert_close(logits_gpu.cpu(), logits_cpu, rtol=0, atol=1e-4)
+    assert [h.yseq for h in got] == [h.yseq for h in want]
+    np.testing.assert_allclose([h.score for h in got], [h.score for h in want], rtol=0, atol=1e-4)

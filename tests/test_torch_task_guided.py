@@ -80,9 +80,9 @@ def test_build_model_config_matches_jax(corpus):
                   "model_conf": {"joint_size": 24, "aux_ctc_weight": 0.2}}
     _same_fields(tasr.build_transducer_config(transducer), jasr.build_model(transducer).cfg)
     # a JAX choice the port lacks raises, naming its ROADMAP item
-    for bad in ({"encoder": "avhubert"}, {"frontend": "ssl"}, {"model": "maskctc"},
-                {"encoder_conf": {**ENC, "rel_pos_type": "legacy"}},
-                {"preencoder": "sinc"}, {"train_dtype": "bfloat16"}):
+    for bad in ({"encoder": "avhubert"}, {"frontend_conf": {"use_wpe": True}},
+                {"model": "maskctc"}, {"encoder_conf": {**ENC, "rel_pos_type": "legacy"}},
+                {"frontend_conf": {"use_beamformer": True}}, {"train_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             tasr.build_model({**tiny, **bad}, "cpu")
 
