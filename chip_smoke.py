@@ -285,14 +285,56 @@ prints how long it took):
               tokens, from the card's encoder rows against the CPU's search,
               scores 1e-4): each one 10 s request at beam 10 (launches, the
               encoder against the CPU) and one B=2 AdamW step.
+31. serve-mc -- train-1's CTC/attention model (vocab 5000, Conformer
+              12 x 256, decoder 6 x 256, seed 0) behind the multichannel
+              frontend at the JAX defaults (n_fft 512, hop 128, WPE of 5
+              taps, delay 3, 2 iterations, MVDR from the masks of a
+              64-unit BiLSTM over the reference channel's 257
+              log-magnitude bins), fed six channels (CHiME-4's tablet
+              array: one seeded source reaching microphone c c samples
+              late, plus noise): the 10.0, 7.3 and 4.1 s requests at beam
+              10 (one warm-up and one timed run each; 12 launches of each
+              encoder forward and 2 lstm_fwd a request, nothing else; the
+              features and the encoder against a CPU copy, 1e-3), then the
+              10 s request traced: busy share, each mask-estimator LSTM
+              launch in us, WPE's and MVDR's shares of the device time;
+32. train-mc -- that model trained with SpecAug, attention dropout 0.1,
+              AdamW at B=8 x 10 s x 6 channels: the B=2 loss (1e-5) and
+              gradients (1e-3 of the norm, the whole and the mask
+              estimator's) against the CPU on the weights of seed 0, then 1
+              warm-up and 3 timed steps (finite, falling; 12 launches of
+              each encoder entry point and 2 of each LSTM entry point a
+              step);
+33. serve-avhubert -- an ASRModel over AV-HuBERT Base
+              (facebookresearch/av_hubert's base: 768 wide, 12 layers, 12
+              heads, 3,072 units), audio-only as ASRTask builds it (the
+              log-mel frames, T' = 1251 for 10 s), the 6 x 256 decoder:
+              one 10 s request at beam 10 (no hand-written kernel runs),
+              the encoder against a CPU copy on its first 2 s (1e-3), one
+              encode traced;
+34. train-avhubert -- that model trained at B=8 x 10 s (SpecAug, dropout
+              0.1, AdamW): 1 warm-up and 3 timed steps; then the
+              audio-visual module (concat fusion, the ResNet-18 trunk of
+              the 3-D stem, GroupNorm and the SAME-padded stride-2 convs) on
+              B=2 x 10 s of 88 x 88 lip crops at 25 fps, forward and
+              backward timed, and on a 2 s slice the card's output (1e-3)
+              and whole gradient (1e-3 of its norm) against a CPU copy;
+35. align-cli -- in phase 16's directory: asr_align on two valid
+              utterances with part A's model (segments in order inside
+              each utterance; the Viterbi on the card equal to the CPU's
+              from the same log-posteriors) and lm_inference with part C's
+              LM, greedy (each token within 1e-4 of the CPU LM's best) and
+              sampled at temperature 1 from seed 0 (the same text again
+              from the same seed), each CLI call timed.
 The kernel table of phase 2 also holds rows 1-4 at the SSL Conformer's
 shapes: [1, 4, 124, 64] and [8, 4, 124, 64] (with the backward), the
 depthwise [1, 124, 256] and [8, 124, 256] (with the backward).
 
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
 asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io|serve-ebf|
-train-ebf|serve-dec|train-dec|serve-enc|train-enc|serve-ssl|train-ssl|serve-hf`` builds the
-kernels and runs that phase alone (no kernel table);
+train-ebf|serve-dec|train-dec|serve-enc|train-enc|serve-ssl|train-ssl|serve-hf|serve-mc|
+train-mc|serve-avhubert|train-avhubert|align-cli`` builds the kernels and runs that phase
+alone (no kernel table; several, comma-separated, in turn);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
@@ -335,7 +377,9 @@ B=16 and 64) and the LSTM recurrence at the RNN encoders' 320 units (the
 forward at [1, 312, 320] and [1, 1251, 320], forward and backward at
 [16, 312, 320], [16, 1251, 320] and [64, 312, 320]; W_hh in shared
 memory) and at ESPnet's LSTM LM unit 650 ([16, 100, 650], forward and
-backward; W_hh read from L2), phases 26-27, f32.  The
+backward; W_hh read from L2), phases 26-27, and at the multichannel
+mask estimator's 64 units over 1251 frames ([1, 1251, 64] and
+[8, 1251, 64], forward and backward), phases 31-32, f32.  The
 rel-pos entry points are also
 held at logits x3 and with a batch row whose keys are all masked
 ([2, 4, 312, 64], dropout 0.1), their repeat calls must be bitwise equal
@@ -514,7 +558,30 @@ HF_LLM_LAYERS = 16  # Llama-3.2-1B's depth for the hugging_face decoder
 # stateless scorer runs the 1B LM over the whole prompt each step, which
 # the CPU takes seconds for
 HF_LLM_NBEST_TOKENS = 6
-LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE}
+# phases 31-32 (serve-mc, train-mc): the multichannel frontend at the JAX
+# defaults (n_fft 512, hop 128; WPE of 5 taps, delay 3, 2 iterations; MVDR
+# from the masks of a 64-unit BiLSTM over the reference channel's 257
+# log-magnitude bins) before train-1's Conformer, fed the six microphones
+# of CHiME-4's tablet array
+MC_FRONTEND = dict(use_wpe=True, wpe_taps=5, wpe_delay=3, wpe_iterations=2,
+                   use_beamformer=True, mask_units=64, ref_channel=0)
+MC_CHANNELS = 6
+MC_T = 1251  # STFT frames of 10 s at hop 128: the mask estimator's length
+MC_B, MC_WARMUP, MC_STEPS = 8, 1, 3
+# the mask estimator's recurrence at serving (B = 1) and training (B = MC_B)
+LSTM_MASK = [(1, MC_T, MC_FRONTEND["mask_units"]), (MC_B, MC_T, MC_FRONTEND["mask_units"])]
+# phases 33-34 (serve-avhubert, train-avhubert): AV-HuBERT Base
+# (facebookresearch/av_hubert's base: 768 wide, 12 layers, 12 heads, 3,072
+# FFN units, a ResNet-18 video trunk), audio-only through ASRTask's encoder
+# (the log-mel frames, no subsampling: T' = 1251 for 10 s), and the
+# audio-visual module on 88 x 88 grayscale lip crops at 25 fps with 104
+# stacked filterbank features a video frame
+AVH_ENCODER = dict(output_size=768, attention_heads=12, linear_units=3072, num_blocks=12)
+AVH_B, AVH_WARMUP, AVH_STEPS = 8, 1, 3
+AV_B, AV_FPS, AV_PIXELS, AV_AUDIO_DIM, AV_ROUNDS = 2, 25, 88, 104, 3
+CPU_SLICE_SECONDS = 2.0  # the CPU's side of the AV-HuBERT checks, at full width
+LSTM_ENC_SHAPES = {f"[{b},{t},{h}]" for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE
+                   + LSTM_MASK}
 
 
 def nvidia_smi_name_power() -> str:
@@ -1385,7 +1452,9 @@ def check_lstm(lk, gen, card):
 def check_lstm_encoder(lk, gen, card):
     """The LSTM recurrence at the (VGG-)RNN encoders' shapes (phases 26-27:
     320 units over 312 frames after VGG2L, 1251 without it; W_hh in
-    shared memory) and at the LSTM LM's 650 units (W_hh read from L2): the
+    shared memory), at the LSTM LM's 650 units (W_hh read from L2) and at
+    the multichannel mask estimator's 64 units over 1251 frames (phases
+    31-32: B = 1 serving, B = MC_B training; both ways at both): the
     forward at the serving shapes, the forward and the backward at the
     training shapes (B = ENC_B, train-1's B = 64, the LM's 16), each
     against the plain loop at check_lstm's tolerances, repeated and bitwise
@@ -1393,7 +1462,7 @@ def check_lstm_encoder(lk, gen, card):
     timed by CUDA events beside cuDNN's torch.lstm and the loop (one call of
     the loop, already warm from the check: a yardstick only)."""
     results = {}
-    for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE:
+    for b, t, h in LSTM_ENC_SERVE + LSTM_ENC_TRAIN + LSTM_WIDE + LSTM_MASK:
         shape = f"[{b},{t},{h}]"
         xi, w, bias = lstm_inputs(gen, b, t, h)
         lk.KERNEL.reset_launches()
@@ -2924,13 +2993,13 @@ def check_golden_shapes() -> str:
 
 
 def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", decoder_type="transformer",
-                    decoder=None, train=False, **encoder):
+                    decoder=None, train=False, frontend=None, **encoder):
     """The CTC/attention ASRModel of phase 5 (bench.py build_flagship: vocab
     5000, Conformer 12 x 256 with 4 heads, decoder 6 x 256) for serving,
     float32 with TF32 off, weights from seed 0; ``encoder`` overrides the
-    encoder's fields, ``decoder`` the decoder's (of ``decoder_type``).
-    ``train``: SpecAug and attention dropout 0.1 as train-1 trains, in
-    training mode."""
+    encoder's fields, ``decoder`` the decoder's (of ``decoder_type``),
+    ``frontend`` the log-mel FrontendConfig().  ``train``: SpecAug and
+    attention dropout 0.1 as train-1 trains, in training mode."""
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
@@ -2944,7 +3013,7 @@ def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", decoder
         enc["attention_dropout_rate"] = 0.1
     dec = {**dict(attention_heads=4, linear_units=2048, num_blocks=6), **(decoder or {})}
     cfg = ASRModelConfig(
-        vocab_size=5000, frontend=FrontendConfig(), normalize=normalize,
+        vocab_size=5000, frontend=frontend or FrontendConfig(), normalize=normalize,
         specaug=SpecAugConfig() if train else None,
         encoder_type=encoder_type, encoder=ConformerConfig(**enc),
         decoder_type=decoder_type, decoder=TransformerDecoderConfig(**dec),
@@ -3255,7 +3324,7 @@ def read_rtf(d: Path) -> dict:
     return {k: float(v) for k, v in (line.split() for line in (d / "rtf").read_text().splitlines())}
 
 
-def phase_asr_cli(kernels, card):
+def phase_asr_cli(kernels, card, root=None):
     """Phase 16: the task and CLI layer on the card, driven only through the
     CLIs' main(argv) in process, in a temporary directory.  A: phase 15's
     corpus with word text, collect_stats, 2 epochs of the flagship from a
@@ -3263,7 +3332,9 @@ def phase_asr_cli(kernels, card):
     LLM-guided config (tests/parity/tiny_llm_bpe) with part A's encoder by
     init_param, frozen, 1 epoch and a beam-10 decode of 2 utterances.  C: a
     TransformerLM at LM_CONF's widths for 1 epoch, its perplexity, and part
-    A's model decoded with it (lm_weight 0.3)."""
+    A's model decoded with it (lm_weight 0.3).  ``root``: a directory to
+    keep the files in (phase 35 reads them), else a temporary one."""
+    import contextlib
     import tempfile
 
     from llm_guided_asr_tpu_torch.bin import (
@@ -3294,7 +3365,8 @@ def phase_asr_cli(kernels, card):
             total[k] = total.get(k, 0) + v
         return out, sec, launches
 
-    with tempfile.TemporaryDirectory(prefix="asr-cli-") as tmp:
+    with (contextlib.nullcontext(str(root)) if root is not None
+          else tempfile.TemporaryDirectory(prefix="asr-cli-")) as tmp:
         root = Path(tmp)
         # ---- A: the flagship through the CLIs ----
         splits = write_run_corpus(root)
@@ -4090,20 +4162,22 @@ def phase_serve_dec(kernels, card):
     return total
 
 
-def train_batch(b, seed=4):
-    """b x 10 s of seeded noise with 24 seeded token ids an utterance."""
+def train_batch(b, seed=4, channels=0):
+    """b x 10 s of seeded noise with 24 seeded token ids an utterance; with
+    ``channels``, [b, samples, channels] of mc_waves' kind."""
     samples = int(TRAIN_SECONDS * SR)
     rng = np.random.default_rng(seed)
+    speech = (np.stack([mc_wave(rng, samples) for _ in range(b)]) if channels
+              else (rng.standard_normal((b, samples)) * 0.1).astype(np.float32))
     return {
-        "speech": torch.from_numpy((rng.standard_normal((b, samples)) * 0.1)
-                                   .astype(np.float32)).cuda(),
+        "speech": torch.from_numpy(speech).cuda(),
         "speech_lengths": torch.full((b,), samples, device="cuda"),
         "text": torch.from_numpy(rng.integers(1, 4999, (b, 24))).cuda(),
         "text_lengths": torch.full((b,), 24, device="cuda"),
     }
 
 
-def check_grads_on_cpu(tag, model, card):
+def check_grads_on_cpu(tag, model, card, batch=None, exclude=(), decoder_rows=True):
     """The B = GRAD_B gradients in eval mode (no SpecAug or dropout; running
     batch statistics), the card against a CPU copy (plain paths).  The
     whole model: the loss within 1e-5 relative and the gradient within
@@ -4117,13 +4191,19 @@ def check_grads_on_cpu(tag, model, card):
     a ReLU gate of its feed-forward layers whose pre-activation lies
     within float32 rounding of 0 opens on one device and not on the other
     (bin/relu_gates.py finds such gates on the CPU alone, float32 against
-    float64); the gates that differ between the devices are counted."""
+    float64); the gates that differ between the devices are counted.
+    ``batch``: another batch than train_batch(GRAD_B); ``exclude``:
+    parameter prefixes left out of the whole gradient's norm (held by the
+    caller); ``decoder_rows`` False: the decoder's gradients from the
+    card's rows are printed, not held (a phase whose subject is not the
+    decoder: its gradients are in the whole one, and a gate within float32
+    rounding of 0 can flip from the same rows too)."""
     import copy
 
     from llm_guided_asr_tpu_torch.models.transformer import PositionwiseFeedForward
     from llm_guided_asr_tpu_torch.ops.losses import add_sos_eos, label_smoothing_loss
 
-    batch = train_batch(GRAD_B, seed=5)
+    batch = train_batch(GRAD_B, seed=5) if batch is None else batch
     cpu_model = copy.deepcopy(model).cpu().eval()
     model.eval()
     args = ("speech", "speech_lengths", "text", "text_lengths")
@@ -4146,7 +4226,7 @@ def check_grads_on_cpu(tag, model, card):
     z_flipped = max((f.abs().max().item() for f in flipped if f.numel()), default=0.0)
     loss_err = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
     sq = [(float(((grads["card"][n] - g).double() ** 2).sum()), float((g.double() ** 2).sum()))
-          for n, g in grads["cpu"].items()]
+          for n, g in grads["cpu"].items() if not n.startswith(tuple(exclude))]
     norm_err = (sum(d for d, _ in sq) / sum(r for _, r in sq)) ** 0.5
     cfg = model.cfg
     with torch.no_grad():
@@ -4172,7 +4252,8 @@ def check_grads_on_cpu(tag, model, card):
     own, own_name = closest({n: g for n, g in grads["card"].items() if n.startswith("decoder.")},
                             {n: g for n, g in grads["cpu"].items() if n.startswith("decoder.")})
     print(f"[{tag}] B={GRAD_B} loss {losses['cpu']:.5f}, card vs CPU rel err {loss_err:.2e} (tol "
-          f"1e-5); the whole gradient within {norm_err:.2e} of its norm (tol 1e-3); from the "
+          f"1e-5); the whole gradient{' but ' + ', '.join(exclude) if exclude else ''} within "
+          f"{norm_err:.2e} of its norm (tol 1e-3); from the "
           f"card's encoder rows the {len(dec['cpu'])} decoder gradients within {worst:.2f} of "
           f"their tolerance, 1e-4 of each one's largest value + 1e-6 (closest: {worst_name}); "
           f"from each device's own rows {own:.2f} of it ({own_name}), {n_flipped} of the "
@@ -4183,23 +4264,24 @@ def check_grads_on_cpu(tag, model, card):
     if not norm_err <= 1e-3:
         raise AssertionError(f"{tag}: the gradient on the card differs from the CPU's by "
                              f"{norm_err} of its norm")
-    if not worst <= 1.0:
+    if decoder_rows and not worst <= 1.0:
         raise AssertionError(f"{tag}: the decoder gradient of {worst_name} on the card differs "
                              f"from the CPU's by {worst:.2f} times its tolerance")
 
 
-def train_model(tag, model, b, n_warmup, n_steps, kernels, card, expected):
-    """The fused AdamW step on ``b`` x 10 s: warm-up and timed steps
-    (run_steps), losses finite and (over the steps) falling, and the
-    launches of the timed steps equal to ``expected`` per step."""
+def train_model(tag, model, b, n_warmup, n_steps, kernels, card, expected, channels=0):
+    """The fused AdamW step on ``b`` x 10 s (of ``channels`` microphones
+    with them): warm-up and timed steps (run_steps), losses finite and
+    (over the steps) falling, and the launches of the timed steps equal to
+    ``expected`` per step."""
     from llm_guided_asr_tpu_torch.train.optim import build_optimizer
     from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 
     state = init_train_state(model, build_optimizer("adamw", {"lr": 1e-3}))
     step = make_fused_train_step(model, state, torch.Generator().manual_seed(0))
-    batch = train_batch(b)
+    batch = train_batch(b, channels=channels)
     print(f"[{tag}] {sum(p.numel() for p in model.parameters())} parameters, batch {b} x "
-          f"{TRAIN_SECONDS} s, text [{b}, 24]")
+          f"{TRAIN_SECONDS} s{f' x {channels} channels' if channels else ''}, text [{b}, 24]")
     all_stats, med, launches = run_steps(tag, step, batch, n_warmup, n_steps, kernels, card)
     losses = [s["loss"] for s in all_stats]
     if not losses[-1] < losses[0]:
@@ -4758,14 +4840,507 @@ def phase_serve_hf(kernels, card, root: Path, hubert: Path):
     return total
 
 
+# ---------------------------------------------------------------------------
+# phases 31-35: the multichannel WPE/MVDR frontend, AV-HuBERT, and the CTC
+# alignment and LM generation CLIs
+# ---------------------------------------------------------------------------
+
+def mc_wave(rng, samples: int) -> np.ndarray:
+    """[samples, MC_CHANNELS] of seeded noise at CHiME-4's six tablet
+    microphones: one source reaching microphone c c samples late, plus
+    independent noise at each."""
+    src = rng.standard_normal(samples + MC_CHANNELS) * 0.1
+    mics = [src[MC_CHANNELS - c: MC_CHANNELS - c + samples] + 0.02 * rng.standard_normal(samples)
+            for c in range(MC_CHANNELS)]
+    return np.stack(mics, axis=1).astype(np.float32)
+
+
+def mc_waves(seconds=REQUEST_SECONDS, seed=7) -> list:
+    rng = np.random.default_rng(seed)
+    return [mc_wave(rng, int(s * SR)) for s in seconds]
+
+
+def build_mc_asr(train=False):
+    """train-1's CTC/attention model (vocab 5000, Conformer 12 x 256,
+    decoder 6 x 256, weights from seed 0) behind the multichannel frontend
+    of MC_FRONTEND."""
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+
+    return build_serve_asr(frontend=FrontendConfig(**MC_FRONTEND), train=train)
+
+
+def mc_launches(train=False) -> dict:
+    """One launch of each encoder entry point a block and one LSTM launch
+    a direction of the mask estimator, a request or a step."""
+    out = {k: 12 for k in ENCODER_FWD + (ENCODER_BWD if train else ())}
+    out.update({k: 2 for k in ("lstm_fwd", "lstm_bwd")[: 2 if train else 1]})
+    return out
+
+
+def check_mc_on_cpu(tag, model, wave, sec, tol=1e-3):
+    """The card's multichannel features (WPE, the mask estimator's LSTM
+    kernels, MVDR, log-mel) and encoder output against a CPU copy of the
+    model (plain paths) on the same request, each within ``tol``."""
+    import copy
+
+    speech, n = torch.from_numpy(wave[None]), torch.tensor([wave.shape[0]])
+    with torch.inference_mode():
+        f_gpu, _ = model.raw_features(speech.cuda(), n.cuda())
+        enc_gpu, lens_gpu = model.encode(speech.cuda(), n.cuda())
+        cpu = copy.deepcopy(model).cpu()
+        f_cpu, _ = cpu.raw_features(speech, n)
+        enc_cpu, lens_cpu = cpu.encode(speech, n)
+    f_err, e_err = max_err(f_gpu.cpu(), f_cpu), max_err(enc_gpu.cpu(), enc_cpu)
+    print(f"[{tag}] {sec} s x {wave.shape[1]} channels, card vs CPU plain path: features "
+          f"{tuple(f_cpu.shape)} max_abs_err {f_err:.3e} (largest |feature| "
+          f"{f_cpu.abs().max().item():.2f}), encoder max_abs_err {e_err:.3e} (tol {tol:g})")
+    if not (f_err <= tol and e_err <= tol and torch.equal(lens_gpu.cpu(), lens_cpu)):
+        raise AssertionError(f"{tag}: the card disagrees with the CPU plain path: features "
+                             f"{f_err}, encoder {e_err}")
+
+
+class traced_ranges:
+    """Wrap ops.frontend's WPE and MVDR in profiler ranges while the block
+    runs (the port's code stays as it is outside the trace)."""
+
+    def __enter__(self):
+        from torch.profiler import record_function
+
+        from llm_guided_asr_tpu_torch.ops import frontend as fe
+
+        self.saved = {n: getattr(fe, n) for n in ("wpe_dereverb", "mvdr_beamform")}
+        for name, fn in self.saved.items():
+            def ranged(*a, _fn=fn, _name=name, **k):
+                with record_function(_name):
+                    return _fn(*a, **k)
+            setattr(fe, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        from llm_guided_asr_tpu_torch.ops import frontend as fe
+
+        for name, fn in self.saved.items():
+            setattr(fe, name, fn)
+
+
+def phase_serve_mc(kernels, card):
+    """Phase 31: the multichannel model serves the 10.0, 7.3 and 4.1 s
+    requests of six channels at beam 10 (serve_one: one warm-up and one
+    timed run each; 12 launches of each encoder forward and 2 lstm_fwd a
+    request, nothing else; the features and encoder against the CPU),
+    then the 10 s request traced (host and card): the busy share, the
+    mask estimator's two LSTM launches in µs each, and WPE's and MVDR's
+    shares of the device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    model = build_mc_asr()
+    waves = mc_waves()
+    print(f"[serve-mc] ASRModel behind the multichannel frontend {MC_FRONTEND}, "
+          f"{MC_CHANNELS} channels: {sum(p.numel() for p in model.parameters())} parameters, "
+          f"{sum(p.numel() for p in model.mc_frontend.parameters())} in the mask estimator; "
+          f"T' = {encoder_frames(model, waves[:1])[0]} for {REQUEST_SECONDS[0]} s")
+    total = {}
+    for wave in waves:
+        launches = serve_one("serve-mc", model, wave, kernels, card, (), expected=mc_launches(),
+                             check=check_mc_on_cpu)
+        total = add_counts(total, launches)
+    s2t = Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    t0 = time.perf_counter()
+    s2t(waves[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with traced_ranges(), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
+        s2t(waves[0])
+        torch.cuda.synchronize()
+    ranges = {"wpe_dereverb", "mvdr_beamform"}
+    averages = prof.key_averages()
+    events = [e for e in averages
+              if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
+    dev_ms = sum(e.self_device_time_total for e in events) / 1e3
+    shares = {e.key: e.device_time_total / 1e3 for e in averages
+              if e.key in ranges and e.device_type == torch.autograd.DeviceType.CPU}
+    lstm = [e for e in events if "lstm_fwd" in e.key]
+    print(f"[serve-mc] {REQUEST_SECONDS[0]} s request traced (host and card): unprofiled "
+          f"{wall:.1f} ms, device busy {dev_ms:.3f} ms = {100 * dev_ms / wall:.1f}% of it; "
+          + ", ".join(f"{k} {v:.3f} ms = {100 * v / max(dev_ms, 1e-9):.1f}% of the device time"
+                      for k, v in shares.items())
+          + "; the mask estimator's LSTM: "
+          + ", ".join(f"{e.count} launch(es) of {e.key[:40]} at "
+                      f"{e.self_device_time_total / max(e.count, 1):.1f} us each" for e in lstm)
+          + f" [{card}]")
+    print_top("serve-mc", events)
+    if sum(e.count for e in lstm) != 2:
+        raise AssertionError(f"serve-mc: {sum(e.count for e in lstm)} traced lstm_fwd "
+                             f"launches, expected 2")
+    del model, s2t
+    torch.cuda.empty_cache()
+    return total
+
+
+def phase_train_mc(kernels, card):
+    """Phase 32: that model trained with SpecAug and attention dropout 0.1,
+    AdamW, B = MC_B x 10 s of six channels: first the B = GRAD_B loss and
+    gradients on the weights of seed 0 against a CPU copy
+    (check_grads_on_cpu, the mask estimator's gradients left out of the
+    whole gradient's norm and held by check_mc_frontend_grads; the
+    decoder, phases 24-25's subject, held within the whole: at seed 5 one
+    of its ReLU gates lies 3.9e-10 from 0 and flips between the devices
+    from the same encoder rows), then
+    MC_WARMUP warm-up and MC_STEPS timed steps (finite, falling; 12
+    launches of each encoder entry point and 2 of each LSTM entry point a
+    step)."""
+    model = build_mc_asr(train=True)
+    batch = train_batch(GRAD_B, seed=5, channels=MC_CHANNELS)
+    check_grads_on_cpu("train-mc", model, card, batch=batch, exclude=("mc_frontend.",),
+                       decoder_rows=False)
+    check_mc_frontend_grads("train-mc", model, batch, card)
+    launches, _ = train_model("train-mc", model, MC_B, MC_WARMUP, MC_STEPS, kernels, card,
+                              mc_launches(train=True), channels=MC_CHANNELS)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def mc_frontend_grads(frontend, speech, lens, cot) -> dict:
+    """The multichannel frontend's parameter gradients of sum(features *
+    cot), in the frontend's dtype and on its device (float64 on the CPU)."""
+    dev = next(frontend.parameters()).device
+    dtype = next(frontend.parameters()).dtype
+    frontend.zero_grad(set_to_none=True)
+    feats, _ = frontend(speech.to(dev, dtype), lens.to(dev))
+    (feats * cot.to(dev, dtype)).sum().backward()
+    return {n: p.grad.detach().cpu().double() for n, p in frontend.named_parameters()}
+
+
+def check_mc_frontend_grads(tag, model, batch, card):
+    """The mask estimator's gradients through WPE, MVDR and log-mel, of
+    the features against a fixed random cotangent: the card's float32
+    (the LSTM kernels, forward and backward) and the CPU's float32 (the
+    plain loop) against the CPU's float64.  The float32 gradient of this
+    chain sits ~1e-3 off float64 on the CPU alone (tools/mc_grad_rounding.py),
+    so each tensor is held to 1e-4 of its largest CPU value (+ 1e-6 of the
+    largest) and, where it misses that, to no further from float64 than
+    the CPU's float32 one plus that tolerance; the relative distances of
+    the whole are printed."""
+    import copy
+
+    fe = model.mc_frontend
+    speech, lens = batch["speech"], batch["speech_lengths"]
+    with torch.no_grad():
+        t = fe(speech[:1], lens[:1])[0].shape[1]
+    cot = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (speech.shape[0], t, fe.cfg.n_mels)).astype(np.float32))
+    cpu = copy.deepcopy(fe).cpu()
+    g = {"card": mc_frontend_grads(fe, speech, lens, cot),
+         "cpu": mc_frontend_grads(cpu, speech, lens, cot),
+         "f64": mc_frontend_grads(cpu.double(), speech, lens, cot)}
+    fe.zero_grad(set_to_none=True)
+
+    def rel(a, b):
+        return (sum(float(((a[k] - b[k]) ** 2).sum()) for k in b)
+                / sum(float((b[k] ** 2).sum()) for k in b)) ** 0.5
+
+    floor = 1e-6 * max(x.abs().max().item() for x in g["cpu"].values())
+    worst = 0.0
+    for k, ref in g["cpu"].items():
+        tol = 1e-4 * ref.abs().max().item() + floor
+        if (g["card"][k] - ref).abs().max().item() > tol:
+            card_d = (g["card"][k] - g["f64"][k]).abs().max().item()
+            cpu_d = (ref - g["f64"][k]).abs().max().item()
+            worst = max(worst, (card_d - cpu_d) / tol)
+            if not card_d <= cpu_d + tol:
+                raise AssertionError(f"{tag}: {k}: the card's gradient is {card_d:.3e} from "
+                                     f"float64, the CPU's {cpu_d:.3e} (tol {tol:.3e})")
+    print(f"[{tag}] the mask estimator's gradients ({len(g['cpu'])} tensors) through WPE, MVDR "
+          f"and log-mel at B={speech.shape[0]}: card vs CPU {rel(g['card'], g['cpu']):.2e} of "
+          f"their norm; from float64, card {rel(g['card'], g['f64']):.2e}, CPU "
+          f"{rel(g['cpu'], g['f64']):.2e}; each tensor within 1e-4 of the CPU's largest value "
+          f"or no further from float64 than the CPU's (worst excess {worst:.2f} of the "
+          f"tolerance) [{card}]")
+
+
+def check_slice_on_cpu(tag, model, wave, sec, tol=1e-3):
+    """The card's encode (frontend, normalization, encoder) of the first
+    CPU_SLICE_SECONDS of the request against a CPU copy of the model,
+    within ``tol``: the full width, a short input, so the CPU's side
+    stays short."""
+    import copy
+
+    n = int(CPU_SLICE_SECONDS * SR)
+    speech, lens = torch.from_numpy(wave[None, :n]), torch.tensor([n])
+    with torch.inference_mode():
+        enc_gpu, lens_gpu = model.encode(speech.cuda(), lens.cuda())
+        enc_cpu, lens_cpu = copy.deepcopy(model).cpu().encode(speech, lens)
+    err = max_err(enc_gpu.cpu(), enc_cpu)
+    print(f"[{tag}] encoder card vs CPU plain path on the first {CPU_SLICE_SECONDS} s of the "
+          f"{sec} s request: max_abs_err {err:.3e} (tol {tol:g})")
+    if not (err <= tol and torch.equal(lens_gpu.cpu(), lens_cpu)):
+        raise AssertionError(f"{tag}: the card disagrees with the CPU plain path: {err}")
+
+
+def phase_serve_avhubert(kernels, card):
+    """Phase 33: an ASRModel over AV-HuBERT Base, audio-only (vocab 5000,
+    the 6 x 256 decoder, weights from seed 0), serves the 10 s request at
+    beam 10 (serve_one: no hand-written kernel launched; the encoder
+    against the CPU on the request's first CPU_SLICE_SECONDS), then one
+    encode traced (card only)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = build_serve_asr("avhubert", **AVH_ENCODER)
+    wave = request_waves()[0]
+    print(f"[serve-avhubert] ASRModel over AV-HuBERT Base {AVH_ENCODER}, audio-only: "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{sum(p.numel() for p in model.encoder.parameters())} in the encoder; T' = "
+          f"{encoder_frames(model, [wave])[0]} for {REQUEST_SECONDS[0]} s")
+    launches = serve_one("serve-avhubert", model, wave, kernels, card, (), expected={},
+                         check=check_slice_on_cpu)
+    speech, n = torch.from_numpy(wave[None]).cuda(), torch.tensor([wave.shape[0]], device="cuda")
+    with torch.inference_mode(), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.encode(speech, n)
+        torch.cuda.synchronize()
+    dev_ms, events = device_busy(prof)
+    print(f"[serve-avhubert] encode traced (card only): device busy {dev_ms:.3f} ms [{card}]")
+    print_top("serve-avhubert", events, n=6)
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_av_module(card):
+    """The audio-visual path through the module: AVHubertModel (Base,
+    concat fusion, the ResNet-18 trunk; weights from seed 0) on B = AV_B x
+    10 s of AV_PIXELS x AV_PIXELS lip crops at AV_FPS with AV_AUDIO_DIM
+    audio features a frame, forward and backward in training mode
+    (dropout 0.1): one warm-up and AV_ROUNDS timed runs, peak memory; then
+    in eval mode on the first CPU_SLICE_SECONDS (lengths 50 and 40
+    frames) the card's output and every gradient against a CPU copy: the
+    output within 1e-3, the whole gradient within 1e-3 of its norm, or,
+    where it misses that, settled in float64 (the stem's and the first
+    stages' convolution gradients through GroupNorm round at ~7e-4 of
+    their norm on the CPU alone)."""
+    import copy
+
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.avhubert import AVHubertConfig, AVHubertModel
+    from llm_guided_asr_tpu_torch.utils.rng import StepRNG
+
+    with torch.device("cuda"):
+        model = AVHubertModel(AVHubertConfig(), AV_AUDIO_DIM)
+    init_weights(model, seed=0)
+    frames = int(TRAIN_SECONDS * AV_FPS)
+    rng = np.random.default_rng(8)
+    audio = torch.from_numpy(rng.standard_normal((AV_B, frames, AV_AUDIO_DIM))
+                             .astype(np.float32)).cuda()
+    video = torch.from_numpy(rng.uniform(0.0, 1.0, (AV_B, frames, AV_PIXELS, AV_PIXELS))
+                             .astype(np.float32)).cuda()
+    lens = torch.tensor([frames, frames - 40], device="cuda")
+    model.train()
+    gen = torch.Generator().manual_seed(0)
+    dts = []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(1 + AV_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = model(audio, lens, video, rng=StepRNG(gen, "cuda"))
+        out.square().mean().backward()
+        torch.cuda.synchronize()
+        if i:
+            dts.append((time.perf_counter() - t0) * 1e3)
+        model.zero_grad(set_to_none=True)
+    ms = sorted(dts)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train-avhubert] the audio-visual module (AV-HuBERT Base, concat, ResNet-18 trunk; "
+          f"{sum(p.numel() for p in model.parameters())} parameters, "
+          f"{sum(p.numel() for p in model.video_resnet.parameters())} in the trunk) on "
+          f"B={AV_B} x {TRAIN_SECONDS} s: {frames} frames of {AV_PIXELS}x{AV_PIXELS} at "
+          f"{AV_FPS} fps, forward and backward median {float(np.median(ms)):.1f} ms (min "
+          f"{ms[0]:.1f}, max {ms[-1]:.1f}, {AV_ROUNDS} runs), peak memory {peak / 2**30:.2f} "
+          f"GiB [{card}]")
+    model.eval()
+    n = int(CPU_SLICE_SECONDS * AV_FPS)
+    args = (audio[:, :n].contiguous(), torch.tensor([n, n - 10], device="cuda"),
+            video[:, :n].contiguous())
+    cot = torch.from_numpy(rng.standard_normal((AV_B, n, model.cfg.encoder_embed_dim))
+                           .astype(np.float32))
+    cpu = copy.deepcopy(model).cpu()
+    outs, grads = {}, {}
+    for name, m in (("card", model), ("cpu", cpu)):
+        dev = next(m.parameters()).device
+        out, _ = m(*(a.to(dev) for a in args))
+        (out * cot.to(dev)).sum().backward()
+        outs[name] = out.detach().cpu()
+        grads[name] = {k: p.grad.detach().cpu().double() for k, p in m.named_parameters()}
+    def rel(a, b):
+        return (sum(float(((a[k] - g) ** 2).sum()) for k, g in b.items())
+                / sum(float((g ** 2).sum()) for g in b.values())) ** 0.5
+
+    err, g_err = max_err(outs["card"], outs["cpu"]), rel(grads["card"], grads["cpu"])
+    print(f"[train-avhubert] the module card vs CPU on the first {CPU_SLICE_SECONDS} s "
+          f"(B={AV_B}, {n} and {n - 10} frames, eval mode): output max_abs_err {err:.3e} "
+          f"(tol 1e-3), the whole gradient within {g_err:.2e} of its norm (tol 1e-3) [{card}]")
+    if not err <= 1e-3:
+        raise AssertionError(f"train-avhubert: the module's output on the card disagrees with "
+                             f"the CPU's: {err}")
+    if not g_err <= 1e-3:
+        # settled in float64, as tests/test_torch_gpu.py settles a miss: the
+        # module has no hand-written kernel, so it runs in float64 on the
+        # card too; the two float64 gradients must agree, and the card's
+        # float32 one sit no further from them than the CPU's plus 1e-3
+        g64 = {}
+        for name, m in (("card", model), ("cpu", cpu)):
+            m64 = copy.deepcopy(m).double()
+            m64.zero_grad(set_to_none=True)
+            dev = next(m64.parameters()).device
+            out, _ = m64(*(a.to(dev, torch.float64) if a.is_floating_point() else a.to(dev)
+                           for a in args))
+            (out * cot.to(dev, torch.float64)).sum().backward()
+            g64[name] = {k: p.grad.detach().cpu() for k, p in m64.named_parameters()}
+        gap, card_d, cpu_d = (rel(g64["card"], g64["cpu"]), rel(grads["card"], g64["cpu"]),
+                              rel(grads["cpu"], g64["cpu"]))
+        print(f"[train-avhubert] settled in float64: the card's float64 gradient within "
+              f"{gap:.2e} of the CPU's (tol 1e-9); from it the card's float32 {card_d:.2e}, the "
+              f"CPU's {cpu_d:.2e} of its norm (the card's within the CPU's + 1e-3) [{card}]")
+        if not (gap <= 1e-9 and card_d <= cpu_d + 1e-3):
+            raise AssertionError(f"train-avhubert: the module's gradient on the card: float64 "
+                                 f"{gap} from the CPU's, float32 {card_d} from it (CPU {cpu_d})")
+    del model, cpu
+    torch.cuda.empty_cache()
+
+
+def phase_train_avhubert(kernels, card):
+    """Phase 34: the serve-avhubert model trained with SpecAug, dropout 0.1
+    and AdamW at B = AVH_B x 10 s, audio-only: AVH_WARMUP warm-up and
+    AVH_STEPS timed steps (finite, falling; no hand-written kernel); then
+    the audio-visual module's forward and backward (check_av_module)."""
+    model = build_serve_asr("avhubert", train=True, **AVH_ENCODER)
+    launches, _ = train_model("train-avhubert", model, AVH_B, AVH_WARMUP, AVH_STEPS, kernels,
+                              card, {})
+    del model
+    torch.cuda.empty_cache()
+    reset_counts(kernels)
+    check_av_module(card)
+    if any(counts(kernels).values()):
+        raise AssertionError(f"train-avhubert: the module launched {counts(kernels)}")
+    return launches
+
+
+def phase_align_cli(kernels, card, root: Path):
+    """Phase 35, in phase 16's directory: asr_align on two valid
+    utterances with part A's model (12 launches of each encoder forward an
+    utterance, nothing else; every token a segment, in order, inside its
+    utterance; the Viterbi on the card equal to the same on the CPU from
+    the card's log-posteriors), then lm_inference with part C's LM on two
+    word prompts, greedily (each token the CPU LM's best or within 1e-4 of
+    it, on the card's continuation) and sampled at temperature 1 from
+    seed 0 (in the vocabulary; a second run with the same seed draws the
+    same text).  Each CLI call is timed."""
+    from llm_guided_asr_tpu_torch.bin import asr_align, lm_inference
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text, encode_request
+    from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_wav
+    from llm_guided_asr_tpu_torch.ops.ctc_align import ctc_forced_align
+    from llm_guided_asr_tpu_torch.tasks.asr import build_text_converter
+    from llm_guided_asr_tpu_torch.tasks.lm import LMTask
+
+    exp, lexp = root / "exp", root / "lmexp"
+    config, ave = exp / "config.yaml", exp / "valid.loss.ave_2best.pth"
+    two, words = root / "valid2.scp", root / "valid.words"
+    total = {}
+
+    def run(fn, argv):
+        torch.cuda.synchronize()
+        reset_counts(kernels)
+        t0 = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        launches = counts(kernels)
+        total.update(add_counts(total, launches))
+        return out, time.perf_counter() - t0, launches
+
+    aligned, sec, launches = run(asr_align.main, [
+        "--asr_train_config", str(config), "--asr_model_file", str(ave), "--wav_scp", str(two),
+        "--text", str(words), "--output_dir", str(root / "align")])
+    for name, n in launches.items():
+        if n != (12 * len(aligned) if name in ENCODER_FWD else 0):
+            raise AssertionError(f"align-cli: {name} launched {n} times")
+    texts, wavs = read_2columns_text(words), read_2columns_text(two)
+    segments = (root / "align" / "segments").read_text().splitlines()
+    if sorted(aligned) != sorted(wavs) or len(segments) != sum(map(len, aligned.values())):
+        raise AssertionError(f"align-cli: {len(segments)} segments for {sorted(aligned)}")
+    for uid, parts in aligned.items():
+        dur = len(read_wav(wavs[uid])[1]) / SR
+        if [t for t, _, _ in parts] != texts[uid].split():
+            raise AssertionError(f"align-cli: {uid}: aligned tokens differ from the text")
+        bounds = [x for _, t0, t1 in parts for x in (t0, t1)]
+        if bounds != sorted(bounds) or bounds[-1] > dur + 0.05:
+            raise AssertionError(f"align-cli: {uid}: boundaries {bounds} out of order or past "
+                                 f"{dur} s")
+    s2t = Speech2Text(config, ave, beam_size=1, ctc_weight=1.0)
+    uid = sorted(aligned)[0]
+    with torch.inference_mode():
+        enc, enc_lens = encode_request(s2t.model, read_wav(wavs[uid])[1],
+                                       s2t.speech_pad_multiple, s2t.device)
+        logp = s2t.model.ctc_log_softmax(enc)[0]
+    ids = torch.tensor(s2t.converter.tokens2ids(texts[uid].split()))
+    got, want = ctc_forced_align(logp, ids, enc_lens[0]), ctc_forced_align(logp.cpu(), ids,
+                                                                           enc_lens[0].cpu())
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        raise AssertionError(f"align-cli: {uid}: the Viterbi on the card differs from the CPU's")
+    print(f"[align-cli] asr_align: {len(aligned)} utterances, {len(segments)} token segments, "
+          f"{sec:.2f} s (the model's build included); {uid}'s {int(enc_lens[0])} frames' state "
+          f"path on the card = the CPU's [{card}]")
+
+    prompts = root / "prompts"
+    prompts.write_text("p1 w0002 w0003 w0004\np2 w0100\n")
+    lm_args = ["--train_config", str(lexp / "config.yaml"),
+               "--model_file", str(lexp / "valid.loss.ave_1best.pth"), "--text", str(prompts),
+               "--n_new", "12"]
+    greedy, g_sec, launches = run(lm_inference.main, lm_args + ["--output_dir",
+                                                                str(root / "gen_greedy")])
+    sampled, s_sec, _ = run(lm_inference.main, lm_args + [
+        "--output_dir", str(root / "gen_sampled"), "--temperature", "1.0", "--seed", "0"])
+    again, _, _ = run(lm_inference.main, lm_args + [
+        "--output_dir", str(root / "gen_again"), "--temperature", "1.0", "--seed", "0"])
+    if any(launches.values()) or again != sampled:
+        raise AssertionError(f"align-cli: lm_inference launched {launches}, or one seed drew "
+                             f"{sampled} then {again}")
+    lm, lm_config = LMTask.build_model_from_file(lexp / "config.yaml",
+                                                 lexp / "valid.loss.ave_1best.pth", "cpu")
+    tokenizer, converter = build_text_converter(lm_config)
+    vocab = set(converter.token_list)
+    gap = 0.0
+    sos = lm.vocab_size - 1
+    for uid, prompt in read_2columns_text(prompts).items():
+        head = [sos] + converter.tokens2ids(tokenizer.text2tokens(prompt))
+        cont = converter.tokens2ids(tokenizer.text2tokens(greedy[uid]))
+        seq = torch.tensor([head + cont])
+        with torch.inference_mode():
+            logits = lm.lm(seq, torch.tensor([seq.shape[1]]))[0]
+        for i, tok in enumerate(cont):
+            row = logits[len(head) + i - 1]
+            gap = max(gap, float(row.max() - row[tok]))
+        if not set(sampled[uid].split()) <= vocab:
+            raise AssertionError(f"align-cli: {uid}: sampled tokens outside the vocabulary")
+    print(f"[align-cli] lm_inference (part C's LM, {LM_CONF}): greedy 2 prompts x 12 tokens in "
+          f"{g_sec:.2f} s, each token within {gap:.2e} of the CPU LM's best logit (tol 1e-4); "
+          f"sampled at temperature 1, seed 0, in {s_sec:.2f} s, the same text again from the "
+          f"same seed; greedy {greedy}, sampled {sampled} [{card}]")
+    if not gap <= 1e-4:
+        raise AssertionError(f"align-cli: a greedy token is {gap} below the CPU LM's best")
+    return total
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
     serve-batch, serve-lm, serve-stream, asr-cli, serve-transducer-rnn,
     train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf,
     train-ebf, serve-dec, train-dec, serve-enc, train-enc, serve-ssl,
-    train-ssl or serve-hf),
-    and print its result;
+    train-ssl, serve-hf, serve-mc, train-mc, serve-avhubert,
+    train-avhubert or align-cli, which runs asr-cli first), or several
+    named with commas in turn, and print their results;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
     script's phase code stays the same, so two revisions run the same
@@ -4800,7 +5375,17 @@ def run_one_phase(name: str, card: str) -> int:
               "train-enc": lambda: phase_train_enc(kernels, card),
               "serve-ssl": lambda: hf_phase("serve-ssl"),
               "train-ssl": lambda: hf_phase("train-ssl"),
-              "serve-hf": lambda: hf_phase("serve-hf")}
+              "serve-hf": lambda: hf_phase("serve-hf"),
+              "serve-mc": lambda: phase_serve_mc(kernels, card),
+              "train-mc": lambda: phase_train_mc(kernels, card),
+              "serve-avhubert": lambda: phase_serve_avhubert(kernels, card),
+              "train-avhubert": lambda: phase_train_avhubert(kernels, card),
+              "align-cli": lambda: align_phase()}
+
+    def align_phase():
+        with tempfile.TemporaryDirectory(prefix="asr-cli-") as tmp:
+            phase_asr_cli(kernels, card, Path(tmp))
+            return phase_align_cli(kernels, card, Path(tmp))
 
     def hf_phase(phase):
         with tempfile.TemporaryDirectory(prefix="chip_smoke_hf_") as tmp:
@@ -4811,15 +5396,19 @@ def run_one_phase(name: str, card: str) -> int:
             fn = phase_train_ssl if phase == "train-ssl" else phase_serve_hf
             return fn(kernels, card, root, hubert)
 
-    if name not in phases:
-        raise SystemExit(f"chip_smoke: no standalone phase {name!r}; one of {sorted(phases)}")
+    names = name.split(",")
+    unknown = [n for n in names if n not in phases]
+    if unknown:
+        raise SystemExit(f"chip_smoke: no standalone phase {unknown}; one of {sorted(phases)}")
     kernels = [ra.KERNEL, dc.KERNEL, wk.KERNEL, fa.KERNEL, lk.KERNEL]
     phase_build(kernels)
-    t0 = time.perf_counter()
-    phases[name]()
     package = Path(ra.__file__).resolve().parents[2]
-    print(f"[{name}] phase alone took {time.perf_counter() - t0:.1f} s with the port from "
-          f"{package} [{card}]")
+    for n in names:
+        t0 = time.perf_counter()
+        phases[n]()
+        torch.cuda.empty_cache()
+        print(f"[{n}] phase alone took {time.perf_counter() - t0:.1f} s with the port from "
+              f"{package} [{card}]")
     return 0
 
 
@@ -4830,7 +5419,9 @@ def main() -> int:
                                     "asr-cli, serve-transducer-rnn, train-transducer-mb, "
                                     "serve-st, train-st, recipe-io, serve-ebf, train-ebf, "
                                     "serve-dec, train-dec, serve-enc, train-enc, serve-ssl, "
-                                    "train-ssl or serve-hf")
+                                    "train-ssl, serve-hf, serve-mc, train-mc, serve-avhubert, "
+                                    "train-avhubert or align-cli; several, comma-separated, "
+                                    "run in turn")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -4906,7 +5497,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["serve-stream"] = timed("serve-stream", phase_serve_stream, kernels, card)
     torch.cuda.empty_cache()
-    paths["asr-cli"] = timed("asr-cli", phase_asr_cli, kernels, card)
+    with tempfile.TemporaryDirectory(prefix="asr-cli-") as tmp:  # phase 35 reads phase 16's files
+        paths["asr-cli"] = timed("asr-cli", phase_asr_cli, kernels, card, Path(tmp))
+        paths["align-cli"] = timed("align-cli", phase_align_cli, kernels, card, Path(tmp))
     torch.cuda.empty_cache()
     st = build_st()
     paths["serve-st"] = timed("serve-st", phase_serve_st, st, kernels, card)
@@ -4929,6 +5522,12 @@ def main() -> int:
         paths["train-ssl"], _ = timed("train-ssl", phase_train_ssl, kernels, card, root, hubert)
         torch.cuda.empty_cache()
         paths["serve-hf"] = timed("serve-hf", phase_serve_hf, kernels, card, root, hubert)
+    torch.cuda.empty_cache()
+    for name, fn in (("serve-mc", phase_serve_mc), ("train-mc", phase_train_mc),
+                     ("serve-avhubert", phase_serve_avhubert),
+                     ("train-avhubert", phase_train_avhubert)):
+        paths[name] = timed(name, fn, kernels, card)
+        torch.cuda.empty_cache()
     print(f"[done] {time.perf_counter() - t_start:.1f} s; phases "
           + ", ".join(f"{k} {v:.1f} s" for k, v in phases.items()) + f" [{card}]")
 

@@ -86,11 +86,12 @@ def round_up(n: int, multiple: int) -> int:
 
 def encode_request(model: nn.Module, speech: np.ndarray, pad_multiple: int,
                    device: torch.device):
-    """One waveform padded with zeros to a multiple of ``pad_multiple``
-    samples, then ``model.encode`` -> (enc [1, T', D], lengths [1])."""
+    """One waveform ([S], or [S, C] for the multichannel frontend) padded
+    with zeros to a multiple of ``pad_multiple`` samples, then
+    ``model.encode`` -> (enc [1, T', D], lengths [1])."""
     speech = np.asarray(speech, np.float32)
     n = speech.shape[0]
-    padded = np.zeros((round_up(max(n, 1), pad_multiple),), np.float32)
+    padded = np.zeros((round_up(max(n, 1), pad_multiple),) + speech.shape[1:], np.float32)
     padded[:n] = speech
     return model.encode(torch.from_numpy(padded[None]).to(device), torch.tensor([n], device=device))
 

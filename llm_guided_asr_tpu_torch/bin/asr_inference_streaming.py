@@ -22,15 +22,17 @@ hypotheses do not run ahead of the audio; the last chunk decodes to the
 search's usual maxlen.
 
 The port builds from a model object, as its Speech2Text does.  It streams
-only what can be streamed: a contextual-block encoder, the default
-frontend, a normalization that needs no whole utterance (global MVN or
-none; utterance MVN is refused) and the stateless attention scorer.  The
-JAX package's re-encoding fallback for other models is not ported.
+incrementally what can be streamed: a contextual-block encoder, the
+default frontend, a normalization that needs no whole utterance (global
+MVN or none) and the stateless attention scorer.  Any other model takes
+the re-encode fallback (batch_beam_search_online_sim's analog, as in JAX):
+each chunk decodes the whole buffer so far with ``Speech2Text``, so the
+last chunk's result is the offline decode of the utterance.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -44,21 +46,30 @@ from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 class Speech2TextStreaming:
     """Chunk-fed recognizer that carries the encoder and search state."""
 
-    def __init__(self, model, chunk_samples: int = 16000, lookahead_blocks: int = 1, **kwargs):
-        """``kwargs`` go to Speech2Text (beam_size, ctc_weight, lm, ...)."""
+    def __init__(self, model, chunk_samples: int = 16000, lookahead_blocks: int = 1,
+                 incremental: Optional[bool] = None, **kwargs):
+        """``kwargs`` go to Speech2Text (beam_size, ctc_weight, lm, ...).
+        ``incremental``: None streams incrementally where the model can and
+        re-encodes otherwise; True raises for a model that cannot; False
+        always re-encodes."""
         self.s2t = Speech2Text.from_model(model, **kwargs)
         self.chunk_samples = chunk_samples
         self.lookahead_blocks = lookahead_blocks
+        self.model = model
         cfg = model.cfg
         beam = self.s2t.beam
-        if not (getattr(cfg, "encoder_type", None) == "contextual_block_conformer"
-                and cfg.frontend is not None and cfg.normalize in ("global_mvn", "none")
-                and beam is not None and isinstance(beam.att_scorer, StatelessAttScorer)):
+        can_increment = (getattr(cfg, "encoder_type", None) == "contextual_block_conformer"
+                         and cfg.frontend is not None and cfg.normalize in ("global_mvn", "none")
+                         and beam is not None and isinstance(beam.att_scorer, StatelessAttScorer))
+        self.incremental = can_increment if incremental is None else incremental
+        if self.incremental and not can_increment:
             raise ValueError("incremental streaming needs a contextual-block encoder, the "
                              "default frontend, a streamable normalize (global_mvn or none; "
                              "utterance_mvn needs the whole utterance) and the stateless "
                              "attention scorer")
-        self.model = model
+        if not self.incremental:
+            self.reset()
+            return
         self.beam = beam
         self.device = self.s2t.device
         f = cfg.frontend
@@ -83,6 +94,8 @@ class Speech2TextStreaming:
 
     def reset(self):
         self._buffer = np.zeros((0,), np.float32)
+        if not self.incremental:
+            return
         self._frames_done = 0
         self._feats = torch.zeros((0, self._f.n_mels), device=self.device)
         self._sub_done = 0
@@ -121,8 +134,11 @@ class Speech2TextStreaming:
         """Feed one chunk; returns the current (partial or final) results in
         Speech2Text's format."""
         self._buffer = np.concatenate([self._buffer, np.asarray(speech, np.float32)])
-        self._advance(is_final)
-        results = self._current_results()
+        if self.incremental:
+            self._advance(is_final)
+            results = self._current_results()
+        else:  # re-encode fallback: the buffer so far, decoded offline
+            results = self.s2t(self._buffer)
         if is_final:
             self.reset()
         return results

@@ -6,6 +6,10 @@ A Python stage runner over Kaldi-format data dirs (wav.scp + text), in
 process, keeping the reference's stage numbering:
 
   stage 1   data validation (local/data.sh + validate_data_dir.sh analog)
+  stage 2   speed perturbation of the train split (--speed_perturb 0.9,1.0,1.1;
+            perturb_data_dir_speed, asr.sh:579): ``sp<f>-<uid>`` copies in
+            <expdir>/data/train_sp, which a later run that starts past
+            stage 2 reuses as the train split
   stage 3   wav format/validation (format_wav_scp: resolve + check audio)
   stage 4   remove long/short utterances (asr.sh:799)
   stage 5   token list generation (char; asr.sh:877-968)
@@ -24,9 +28,6 @@ process, keeping the reference's stage numbering:
   stage 15  the model-zoo export artifact (asr.sh:1760): the bundle and a
             model card; nothing is uploaded
 
-Not ported yet, and raising when asked for: stage 2 (speed perturbation
-needs ops/augment.py, ROADMAP Queue 1 item 12).
-
     python -m llm_guided_asr_tpu_torch.bin.asr_pipeline --config conf/train.yaml \
         --train_dir data/train --valid_dir data/valid --test_dir data/test \
         --expdir exp/run1 --stage 3 --stop_stage 15 [--decode_nj 4] [--device cpu]
@@ -41,8 +42,11 @@ import sys
 from pathlib import Path
 from typing import Dict, Optional
 
+import numpy as np
+
 from llm_guided_asr_tpu_torch.bin.split_scps import split_scps
-from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_audio
+from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_audio, write_wav
+from llm_guided_asr_tpu_torch.ops.augment import speed_perturb
 from llm_guided_asr_tpu_torch.text.tokenizers import CharTokenizer
 from llm_guided_asr_tpu_torch.utils.job import JobOptions, JobRunner
 
@@ -154,15 +158,38 @@ def stage5_token_list(train_dir: Path, out_file: Path, cfg):
     logger.info(f"stage5: {len(token_list)} tokens -> {out_file}")
 
 
+def stage2_speed_perturb(train_dir: Path, sp_dir: Path, factors) -> Path:
+    """Offline speed-perturbed copies of the train split: factor 1 keeps
+    the utterance as it is, every other factor writes ``sp<f>-<uid>.wav``
+    (``%g`` of f); returns the new split's directory."""
+    sp_dir.mkdir(parents=True, exist_ok=True)
+    wavs = read_2columns_text(train_dir / "wav.scp")
+    texts = read_2columns_text(train_dir / "text")
+    with open(sp_dir / "wav.scp", "w") as fw, open(sp_dir / "text", "w") as ft:
+        for uid, path in wavs.items():
+            if uid not in texts:
+                continue
+            rate, wav = read_audio(path)
+            for f in factors:
+                if abs(f - 1.0) < 1e-6:
+                    fw.write(f"{uid} {path}\n")
+                    ft.write(f"{uid} {texts[uid]}\n")
+                    continue
+                new_uid = f"sp{f:g}-{uid}"
+                p = sp_dir / f"{new_uid}.wav"
+                write_wav(p, rate, speed_perturb(np.asarray(wav, np.float32), f))
+                fw.write(f"{new_uid} {p}\n")
+                ft.write(f"{new_uid} {texts[uid]}\n")
+    logger.info(f"stage2: speed-perturbed train -> {sp_dir} (x{len(factors)})")
+    return sp_dir
+
+
 def _model_file(exp: Path) -> Path:
     return next(exp.glob("valid.*.ave_*best.pth"), None) or exp / "latest.pth"
 
 
 def _check_options(cfg):
     """Options that cannot run raise before any stage writes a file."""
-    if cfg.get("speed_perturb"):
-        raise NotImplementedError("--speed_perturb (stage 2) needs ops/augment.py, which is "
-                                  "not ported yet (ROADMAP Queue 1 item 12)")
     if int(cfg.get("decode_nj", 1)) < 1:
         raise ValueError(f"--decode_nj must be >= 1, not {cfg['decode_nj']}")
     JobRunner(str(cfg.get("cmd_backend", "local")), conf=cfg.get("cmd_conf"))
@@ -257,6 +284,20 @@ def main(cmd=None) -> Optional[dict]:
 
     if stage <= 1 <= stop:
         stage1_validate(dirs)
+    if cfg.get("speed_perturb"):
+        sp_dir = work / "train_sp"
+        if stage <= 2 <= stop:
+            factors = [float(f) for f in str(cfg["speed_perturb"]).split(",")]
+            dirs["train"] = stage2_speed_perturb(dirs["train"], sp_dir, factors)
+        elif sp_dir.exists():
+            # a run that starts past stage 2 trains on the perturbed split
+            # (the reference derives the _sp directory from the config on
+            # every run, asr.sh:579-613)
+            dirs["train"] = sp_dir
+            logger.info(f"speed_perturb set: reusing existing {sp_dir}")
+        elif stage > 2:
+            raise SystemExit(f"--speed_perturb is set but {sp_dir} does not exist; run stage 2 "
+                             "first (or drop --speed_perturb)")
     if stage <= 3 <= stop:
         for split, d in dirs.items():
             stage3_format(d, work / split, cfg)

@@ -21,10 +21,15 @@ layers' ``log_dt``, ``log_a_re``, ``a_im``, ``log_neg_re``, ``lam_im``,
 imag) pair, the lightconv decoder's ``conv_weight`` and the affine
 residual's ``affine`` keep their names and layouts; the (VGG-)RNN
 encoder's LSTM cells are flax's auto-named ``OptimizedLSTMCell_{j}``, the
-RNN decoder's ``cell/lstm_{i}``):
+RNN decoder's ``cell/lstm_{i}``, the multichannel frontend's mask
+estimator ``mc_frontend/OptimizedLSTMCell_0`` (forward) and ``_1``
+(reverse) beside ``mc_frontend/mask_out``; AV-HuBERT keeps flax's names,
+``encoder/trunk/video_resnet/s{i}b{j}/conv1`` and the rest):
 
   Dense kernel [in, out]          -> Linear weight [out, in]
   Conv kernel HWIO [kh, kw, i, o] -> Conv2d weight OIHW
+  Conv kernel [kt, kh, kw, i, o]  -> Conv3d weight [o, i, kt, kh, kw]
+                                     (AV-HuBERT's video stem)
   depthwise kernel [K, 1, C]      -> DepthwiseConv1d weight [K, C] (also a
                                      conv of one input channel: the RNN
                                      decoder's ``att_conv``)
@@ -66,8 +71,9 @@ def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[s
 def _full_conv(mods) -> bool:
     """A 1-D conv whose kernel stays [o, i, K] whatever its input width:
     the SSL trunks' feature-extractor convs (one input channel at layer 0)
-    and grouped positional conv."""
-    return bool(mods) and (mods[-1].startswith("conv_layers_") or mods[-1] == "pos_conv_embed_conv")
+    and grouped positional conv, and AV-HuBERT's grouped positional conv."""
+    return bool(mods) and (mods[-1].startswith("conv_layers_") or mods[-1] == "pos_conv_embed_conv"
+                           or mods[-2:] == ["pos_conv", "conv"])
 
 
 def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
@@ -77,6 +83,8 @@ def _param(path: Tuple[str, ...], arr: np.ndarray) -> Tuple[str, np.ndarray]:
             arr = arr.T
         elif arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)
+        elif arr.ndim == 5:
+            arr = arr.transpose(4, 3, 0, 1, 2)
         elif arr.ndim == 3 and arr.shape[1] == 1 and not _full_conv(mods):
             arr = arr[:, 0, :]
         elif arr.ndim == 3:

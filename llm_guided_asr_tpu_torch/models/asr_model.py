@@ -17,7 +17,9 @@ fused (ops/frontend.py FusedFrontend) and sliding-window frontends, the
 frozen SSL frontend (``ssl_frontend``: a wav2vec2/HuBERT trunk of
 models/ssl_encoders.py over the raw waveform, run without gradient and
 always in eval mode, as JAX's ``stop_gradient`` freezes it), no frontend
-(features or, for the ``*_hf`` encoders, the raw waveform in), the sinc
+(features or, for the ``*_hf`` encoders, the raw waveform in), the
+multichannel WPE/MVDR frontend (``mc_frontend`` on a [B, S, C] batch, or
+its reference channel when neither WPE nor the beamformer is on), the sinc
 pre-encoder and the length-adaptor and BERT post-encoders
 (models/preencoder.py, models/hf_encoder.py), utterance or global MVN, and
 SpecAug.
@@ -47,6 +49,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import (
 from llm_guided_asr_tpu_torch.ops.frontend import (
     FrontendConfig,
     FusedFrontend,
+    MultichannelFrontend,
     default_frontend,
     global_mvn,
     utterance_mvn,
@@ -219,6 +222,8 @@ class ASRModel(nn.Module):
                 if cfg.frontend.fused:
                     self.fused_frontend = FusedFrontend(cfg.frontend.fused, cfg.frontend.proj_dim,
                                                         cfg.frontend.fs)
+                if cfg.frontend.multichannel:
+                    self.mc_frontend = MultichannelFrontend(cfg.frontend)
             else:
                 n_feat = None
             enc_in = n_feat if n_feat is not None else (cfg.input_size or 1)
@@ -252,12 +257,18 @@ class ASRModel(nn.Module):
     def raw_features(self, speech: torch.Tensor, speech_lengths: torch.Tensor
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The frontend alone (JAX ``_extract_feats``): the frozen SSL
-        trunk's hidden states (no gradient), the fused frontend, the sliding
-        window's raw frames, or :func:`raw_features`' log-mel features."""
+        trunk's hidden states (no gradient), the multichannel frontend of a
+        [B, S, C] batch (or its reference channel), the fused frontend, the
+        sliding window's raw frames, or :func:`raw_features`' log-mel
+        features."""
         if self.cfg.ssl_frontend is not None and speech.dim() == 2:
             with torch.no_grad():
                 return self.ssl_frontend(speech, speech_lengths)
         f = self.cfg.frontend
+        if f is not None and speech.dim() == 3:
+            if f.multichannel:
+                return self.mc_frontend(speech, speech_lengths)
+            speech = speech[..., f.ref_channel]
         if f is not None and f.fused:
             return self.fused_frontend(speech, speech_lengths)
         if f is not None and f.type == "sliding_window":

@@ -426,8 +426,8 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
     Whisper-style encoders here, the E-Branchformer and Branchformer of
     models/branchformer.py, the contextual-block (streaming) Conformer of
     models/streaming.py, the MultiConvformer and (VGG-)RNN encoders of
-    models/extra_encoders.py, the S4 encoder of models/state_spaces.py and
-    the pretrained ``wav2vec2_hf``/``hubert_hf``/``whisper_hf`` encoders of
+    models/extra_encoders.py, the audio-only AV-HuBERT of models/avhubert.py,
+    the S4 encoder of models/state_spaces.py and the pretrained ``wav2vec2_hf``/``hubert_hf``/``whisper_hf`` encoders of
     models/ssl_encoders.py (JAX models/conformer.py:385-406)."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
@@ -458,6 +458,16 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
         from llm_guided_asr_tpu_torch.models.extra_encoders import RNNEncoder
 
         return RNNEncoder(cfg, input_size, use_vgg=encoder_type == "vgg_rnn", device=device)
+    if encoder_type == "avhubert":
+        # audio-only at the task level (JAX models/conformer.py:365-378);
+        # the audio-visual path is the encoder's ``video`` argument
+        from llm_guided_asr_tpu_torch.models.avhubert import AVHubertConfig, AVHubertEncoder
+
+        av_cfg = AVHubertConfig(encoder_embed_dim=cfg.output_size, encoder_layers=cfg.num_blocks,
+                                encoder_attention_heads=cfg.attention_heads,
+                                encoder_ffn_embed_dim=cfg.linear_units,
+                                dropout=cfg.dropout_rate, audio_only=True)
+        return AVHubertEncoder(av_cfg, cfg.output_size, input_size, device=device)
     if encoder_type == "s4":
         from llm_guided_asr_tpu_torch.models.state_spaces import S4Encoder
 

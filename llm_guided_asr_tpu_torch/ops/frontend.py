@@ -5,6 +5,11 @@ Hann window, one-sided DFT as one float32 matmul against the windowed
 cos/-sin basis, Slaney mel filterbank (librosa-compatible, computed in
 numpy), natural log with a 1e-10 clamp.  The functions run on the device of
 their input tensor.
+
+:class:`MultichannelFrontend` is the [B, S, C] path: a complex STFT per
+channel, optional WPE, a BiLSTM mask estimator whose two directions are
+the LSTM recurrence kernels of ops/lstm.py, MVDR (ops/beamformer.py), then
+power and log-mel.
 """
 
 from __future__ import annotations
@@ -17,16 +22,20 @@ import numpy as np
 import torch
 from torch import nn
 
+from llm_guided_asr_tpu_torch.models.lm import LSTMCell, lstm_stack
+from llm_guided_asr_tpu_torch.ops.beamformer import mvdr_beamform, wpe_dereverb
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask, mask_fill
 
 
 @dataclasses.dataclass(frozen=True)
 class FrontendConfig:
-    """DefaultFrontend settings (the single-channel subset): ``type``
-    "default" is the log-mel frontend, "sliding_window" raw frames of
-    ``win_length`` (default 400) samples for the sinc pre-encoder; a
-    non-empty ``fused`` ((n_fft, hop_length, n_mels) triples) is
-    :class:`FusedFrontend`."""
+    """DefaultFrontend settings: ``type`` "default" is the log-mel
+    frontend, "sliding_window" raw frames of ``win_length`` (default 400)
+    samples for the sinc pre-encoder; a non-empty ``fused`` ((n_fft,
+    hop_length, n_mels) triples) is :class:`FusedFrontend`.  ``use_wpe``
+    or ``use_beamformer`` engage :class:`MultichannelFrontend` on a
+    [B, S, C] batch; without either, such a batch is read at
+    ``ref_channel``."""
 
     fs: int = 16000
     n_fft: int = 512
@@ -38,6 +47,13 @@ class FrontendConfig:
     htk: bool = False
     center: bool = True
     window: Optional[str] = "hann"
+    use_wpe: bool = False
+    wpe_taps: int = 5
+    wpe_delay: int = 3
+    wpe_iterations: int = 2
+    use_beamformer: bool = False
+    mask_units: int = 64
+    ref_channel: int = 0
     fused: Tuple[Tuple[int, int, int], ...] = ()
     proj_dim: int = 100
     type: str = "default"  # default | sliding_window
@@ -48,13 +64,19 @@ class FrontendConfig:
             return self.win_length or 400
         return self.proj_dim * len(self.fused) if self.fused else self.n_mels
 
+    @property
+    def multichannel(self) -> bool:
+        """Whether a [B, S, C] batch goes through :class:`MultichannelFrontend`."""
+        return self.use_wpe or self.use_beamformer
+
 
 def require_log_mel(cfg: Optional[FrontendConfig], model: str) -> None:
-    """Raise unless ``cfg`` is the log-mel frontend (or None): the fused and
-    sliding-window frontends are read by the CTC/attention model only."""
-    if cfg is not None and (cfg.fused or cfg.type != "default"):
-        raise ValueError(f"frontend_conf.fused/type are read by the CTC/attention model only, "
-                         f"not by {model}")
+    """Raise unless ``cfg`` is the log-mel frontend (or None): the fused,
+    sliding-window and multichannel frontends are read by the
+    CTC/attention model only (the JAX package ignores them elsewhere)."""
+    if cfg is not None and (cfg.fused or cfg.type != "default" or cfg.multichannel):
+        raise ValueError(f"frontend_conf.fused/type/use_wpe/use_beamformer are read by the "
+                         f"CTC/attention model only, not by {model}")
 
 
 def _hz_to_mel(freqs, htk: bool = False) -> np.ndarray:
@@ -136,6 +158,40 @@ def stft_out_lengths(ilens: torch.Tensor, n_fft: int = 512, hop_length: int = 12
     return torch.div(ilens - n_fft, hop_length, rounding_mode="floor") + 1
 
 
+def _stft_parts(speech: torch.Tensor, n_fft: int, win_length: Optional[int], hop_length: int,
+                center: bool, window: Optional[str]) -> torch.Tensor:
+    """[B, S] -> [B, T, 2F]: the one-sided DFT's real parts, then its
+    imaginary parts.  Frames are a strided view of the padded signal; the
+    DFT is one float32 matmul against the windowed basis (full float32:
+    TF32 is off on the card, see utils/device.py), matching the JAX
+    frontend's HIGHEST-precision DFT; float64 input stays float64 (a
+    float64 copy of a model is the rounding arbiter of the tests)."""
+    if speech.dtype != torch.float64:
+        speech = speech.float()
+    if center:
+        pad = n_fft // 2
+        speech = torch.nn.functional.pad(speech[:, None, :], (pad, pad), mode="reflect")[:, 0]
+    frames = speech.unfold(1, n_fft, hop_length)  # [B, T, n_fft]
+    basis = torch.from_numpy(_dft_basis(n_fft, win_length, window)).to(speech.device,
+                                                                       speech.dtype)
+    return frames @ basis
+
+
+def stft(
+    speech: torch.Tensor,
+    n_fft: int = 512,
+    win_length: Optional[int] = None,
+    hop_length: int = 128,
+    center: bool = True,
+    window: Optional[str] = "hann",
+) -> torch.Tensor:
+    """[B, S] -> complex [B, T, F] one-sided STFT (the JAX ``stft``):
+    complex64, complex128 for float64 input."""
+    out = _stft_parts(speech, n_fft, win_length, hop_length, center, window)
+    f = n_fft // 2 + 1
+    return torch.complex(out[..., :f], out[..., f:])
+
+
 def stft_power(
     speech: torch.Tensor,
     n_fft: int = 512,
@@ -144,20 +200,8 @@ def stft_power(
     center: bool = True,
     window: Optional[str] = "hann",
 ) -> torch.Tensor:
-    """[B, S] -> [B, T, F] one-sided power spectrum.
-
-    Frames are a strided view of the padded signal; the DFT is one float32
-    matmul against the windowed basis (full float32: TF32 is off on the
-    card, see utils/device.py), matching the JAX frontend's HIGHEST-precision
-    DFT.
-    """
-    speech = speech.float()
-    if center:
-        pad = n_fft // 2
-        speech = torch.nn.functional.pad(speech[:, None, :], (pad, pad), mode="reflect")[:, 0]
-    frames = speech.unfold(1, n_fft, hop_length)  # [B, T, n_fft]
-    basis = torch.from_numpy(_dft_basis(n_fft, win_length, window)).to(speech.device)
-    out = frames @ basis
+    """[B, S] -> [B, T, F] one-sided power spectrum."""
+    out = _stft_parts(speech, n_fft, win_length, hop_length, center, window)
     f = n_fft // 2 + 1
     return out[..., :f] ** 2 + out[..., f:] ** 2
 
@@ -172,7 +216,8 @@ def logmel_from_power(
     htk: bool = False,
 ) -> torch.Tensor:
     """[B, T, F] power -> [B, T, M] natural-log mel (log_mel.py:57-73)."""
-    melmat = torch.from_numpy(mel_filterbank(fs, n_fft, n_mels, fmin, fmax, htk)).to(power.device)
+    melmat = torch.from_numpy(mel_filterbank(fs, n_fft, n_mels, fmin, fmax, htk)).to(
+        power.device, power.dtype)
     return torch.log(torch.clamp(power @ melmat, min=1e-10))
 
 
@@ -271,3 +316,63 @@ class FusedFrontend(nn.Module):
             outs.append(p)
         feats = torch.cat(outs, dim=-1)
         return mask_fill(feats, make_valid_mask(lens0, t0)), lens0
+
+
+class MultichannelFrontend(nn.Module):
+    """Multichannel DefaultFrontend (the JAX ``MultichannelFrontend``):
+    per-channel complex STFT -> (``use_wpe``) WPE -> (``use_beamformer``)
+    mask estimator and MVDR, else the reference channel -> power -> log-mel,
+    pad frames zeroed.  speech [B, S, C] -> ([B, T, n_mels], [B]).
+
+    The mask estimator reads the reference channel's log magnitude
+    [B, T, F]: a forward LSTM of ``mask_units`` and a reverse one,
+    concatenated, then ``mask_out`` (Dense 2F) and a sigmoid give the
+    speech and noise masks.  Each direction is one input-projection GEMM
+    and one launch of the recurrence kernel.  The reverse one runs over the
+    whole padded row from its end and keeps the order (flax's
+    ``nn.RNN(reverse=True, keep_order=True)`` without ``seq_lengths``).
+    flax auto-names the cells ``OptimizedLSTMCell_0`` (forward) and
+    ``OptimizedLSTMCell_1`` (reverse) at the frontend's top level (the
+    ``mask_lstm_f``/``mask_lstm_b`` wrappers hold no parameters).  The
+    estimator trains with the recognizer; WPE and MVDR have no
+    parameters."""
+
+    def __init__(self, cfg: FrontendConfig):
+        super().__init__()
+        self.cfg = cfg
+        if cfg.use_beamformer:
+            f = cfg.n_fft // 2 + 1
+            self.OptimizedLSTMCell_0 = LSTMCell(cfg.mask_units, f)
+            self.OptimizedLSTMCell_1 = LSTMCell(cfg.mask_units, f)
+            self.mask_out = nn.Linear(2 * cfg.mask_units, 2 * f)
+
+    def masks(self, y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """complex [B, F, C, T] -> the speech and noise masks [B, F, T]."""
+        logmag = torch.log(y[:, :, self.cfg.ref_channel, :].abs() + 1e-6)
+        h = logmag.transpose(1, 2)  # [B, T, F]
+        fwd = lstm_stack([self.OptimizedLSTMCell_0], h)
+        bwd = lstm_stack([self.OptimizedLSTMCell_1], h.flip(1)).flip(1)
+        hh = torch.cat([fwd, bwd], dim=-1)
+        m = torch.sigmoid(self.mask_out(hh)).transpose(1, 2)  # [B, 2F, T]
+        f = y.shape[1]
+        return m[:, :f], m[:, f:]
+
+    def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        c = self.cfg
+        b, s, ch = speech.shape
+        spec = stft(speech.movedim(-1, 1).reshape(b * ch, s), c.n_fft, c.win_length,
+                    c.hop_length, c.center, c.window)  # [B*C, T, F]
+        t, f = spec.shape[1], spec.shape[2]
+        y = spec.reshape(b, ch, t, f).permute(0, 3, 1, 2)  # [B, F, C, T]
+        if c.use_wpe:
+            y = wpe_dereverb(y, c.wpe_taps, c.wpe_delay, c.wpe_iterations)
+        if c.use_beamformer:
+            enhanced = mvdr_beamform(y, *self.masks(y), c.ref_channel)
+        else:
+            enhanced = y[:, :, c.ref_channel, :]
+        power = (enhanced.real ** 2 + enhanced.imag ** 2).transpose(1, 2)  # [B, T, F]
+        feats = logmel_from_power(power, c.fs, c.n_fft, c.n_mels, c.fmin, c.fmax, c.htk)
+        olens = torch.clamp(stft_out_lengths(speech_lengths, c.n_fft, c.hop_length, c.center),
+                            0, feats.shape[1])
+        return mask_fill(feats, make_valid_mask(olens, feats.shape[1])), olens

@@ -149,7 +149,6 @@ ASR_DEFAULTS: Dict[str, Any] = {
 
 # the JAX package's choices the port does not have yet, by ROADMAP item
 ITEM_BF16 = "ROADMAP Queue 1 item 7"
-ITEM_CHOICES = "ROADMAP Queue 1 item 10d"
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
 
@@ -157,10 +156,6 @@ JAX_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
                 "contextual_block_conformer", "whisper_style", "longformer",
                 "multiconvformer", "rnn", "vgg_rnn", "avhubert", "s4",
                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
-PORT_ENCODERS = ("conformer", "transformer", "e_branchformer", "branchformer",
-                 "contextual_block_conformer", "whisper_style", "longformer",
-                 "multiconvformer", "rnn", "vgg_rnn", "s4",
-                 "wav2vec2_hf", "hubert_hf", "whisper_hf")
 JAX_DECODERS = ("transformer", "rnn", "s4", "lightconv", "dynamicconv", "hugging_face")
 HF_ENCODERS = ("wav2vec2_hf", "hubert_hf", "whisper_hf")
 HF_POSTENCODERS = ("hugging_face_transformers", "hugging_face")
@@ -169,8 +164,6 @@ JAX_MODELS = ("espnet", "llm_guided_asr", "maskctc", "transducer")
 # fields of the JAX config dataclasses that the port's do not have, with the
 # JAX defaults: a config that sets one to anything else raises
 _JAX_ONLY_FIELDS = {
-    "frontend_conf": {"use_wpe": False, "wpe_taps": 5, "wpe_delay": 3, "wpe_iterations": 2,
-                      "use_beamformer": False, "mask_units": 64, "ref_channel": 0},
     "encoder_conf": {"rel_pos_type": "latest"},
     "transducer decoder_conf": {"context_size": 256},
 }
@@ -192,7 +185,7 @@ def port_fields(cls, d: Optional[dict], where: str, jax_only: str = "") -> dict:
         if k in d:
             if not _same(d[k], default):
                 raise NotImplementedError(f"{where}.{k}={d[k]!r} is not ported yet "
-                                          f"({ITEM_CHOICES})")
+                                          f"({ITEM_ZOO})")
             del d[k]
     return filter_known_fields(cls, d, where)
 
@@ -313,8 +306,6 @@ def _encoder_config(config: Dict[str, Any]) -> Tuple[str, ConformerConfig]:
     encoder_type = config.get("encoder", "conformer")
     if encoder_type not in JAX_ENCODERS:
         raise ValueError(f"unknown encoder {encoder_type!r}; known: {JAX_ENCODERS}")
-    if encoder_type not in PORT_ENCODERS:
-        raise NotImplementedError(f"encoder={encoder_type!r} is not ported yet ({ITEM_CHOICES})")
     enc = port_fields(ConformerConfig, config.get("encoder_conf"), "encoder_conf")
     return encoder_type, ConformerConfig(**encoder_conf_values(enc))
 

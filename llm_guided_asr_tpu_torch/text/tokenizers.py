@@ -192,6 +192,11 @@ class LLMTokenizer:
         """The vocabulary with the added tokens (``len(AutoTokenizer)``)."""
         return len(set(self.vocab) | set(self.added))
 
+    def get_vocab(self) -> Dict[str, int]:
+        """token -> id of the vocabulary and the added tokens
+        (``AutoTokenizer.get_vocab``)."""
+        return {**self.vocab, **self.added}
+
     def convert_tokens_to_ids(self, tokens: Union[str, Sequence[str]]):
         """A token (or a list of them) -> id(s); an unknown token -> unk."""
         if isinstance(tokens, str):

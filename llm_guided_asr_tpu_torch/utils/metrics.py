@@ -1,22 +1,71 @@
 """Edit-distance scoring (counterpart of llm_guided_asr_tpu/utils/metrics.py).
 
-A plain Levenshtein aligner in Python (the JAX package builds a C++ one;
-the port keeps no copy of it): corpus error rates are substitutions +
-deletions + insertions over the reference length; :func:`align` gives the
+Corpus error rates are substitutions + deletions + insertions over the
+reference length.  :func:`edit_distance` counts them with the native
+Levenshtein aligner of ``csrc/edit_distance.cpp``, built with ``g++`` at
+first use into ``build/host/`` and called through ctypes; a failed build
+raises (the JAX package falls back to Python instead).
+:func:`edit_distance_py` is the same count in Python, :func:`align` the
 alignment for the per-utterance report of bin/score.py, and
 :func:`corpus_bleu` the BLEU of MT/ST scoring.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import hashlib
 import math
+import os
+import subprocess
 from collections import Counter
+from pathlib import Path
 from typing import Dict, Iterable, List, Sequence, Tuple
+
+import numpy as np
+
+EDIT_DISTANCE_SRC = Path(__file__).resolve().parent.parent / "csrc" / "edit_distance.cpp"
+HOST_BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "host"
+GXX_FLAGS = ["-O3", "-shared", "-fPIC"]
+_I64P = ctypes.POINTER(ctypes.c_int64)
+
+
+@functools.lru_cache(maxsize=1)
+def native_lib() -> ctypes.CDLL:
+    """The aligner's library, built unless a library of the same source and
+    flags exists (written to a temporary name and renamed into place, so a
+    concurrent loader sees all of it or none)."""
+    digest = hashlib.sha256(EDIT_DISTANCE_SRC.read_bytes() + " ".join(GXX_FLAGS).encode())
+    out = HOST_BUILD_DIR / f"libedit_distance-{digest.hexdigest()[:16]}.so"
+    if not out.exists():
+        HOST_BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run(["g++", *GXX_FLAGS, "-o", str(tmp), str(EDIT_DISTANCE_SRC)],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed for {EDIT_DISTANCE_SRC.name}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    lib.edit_distance_i64.argtypes = [_I64P, ctypes.c_int64, _I64P, ctypes.c_int64, _I64P]
+    lib.edit_distance_i64.restype = None
+    return lib
 
 
 def edit_distance(ref: Sequence, hyp: Sequence) -> Tuple[int, int, int, int]:
-    """(#sub, #del, #ins, #correct) of an optimal alignment; the backtrace
-    prefers a match or substitution, then a deletion, as the JAX one does."""
+    """(#sub, #del, #ins, #correct) of an optimal alignment, by the native
+    aligner; its backtrace prefers a match or substitution, then a
+    deletion, as :func:`align` does."""
+    codes: Dict = {}
+    r, h = (np.array([codes.setdefault(t, len(codes)) for t in seq], np.int64)
+            for seq in (ref, hyp))
+    out = np.zeros(4, np.int64)
+    native_lib().edit_distance_i64(r.ctypes.data_as(_I64P), len(r), h.ctypes.data_as(_I64P),
+                                   len(h), out.ctypes.data_as(_I64P))
+    return int(out[0]), int(out[1]), int(out[2]), int(out[3])
+
+
+def edit_distance_py(ref: Sequence, hyp: Sequence) -> Tuple[int, int, int, int]:
+    """:func:`edit_distance` from :func:`align`'s Python table."""
     ops = [op for op, _, _ in align(ref, hyp)]
     return ops.count("S"), ops.count("D"), ops.count("I"), ops.count("C")
 

@@ -38,6 +38,8 @@ from llm_guided_asr_tpu_torch.search.cached_decoder import CachedDecoderScorer
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 from test_torch_guided_options import _fill
 
+torch.set_num_threads(1)
+
 # tests/test_batch_decode.py:14 (the stateless case)
 ASR = dict(frontend=dict(n_fft=128, hop_length=64, n_mels=20),
            encoder=dict(output_size=16, attention_heads=2, linear_units=24, num_blocks=1,

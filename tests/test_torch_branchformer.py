@@ -62,6 +62,8 @@ from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 N_FEATS = 20
 ENC = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
            cnn_module_kernel=7, **NO_DROP_ENC)

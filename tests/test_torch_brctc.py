@@ -26,6 +26,8 @@ from llm_guided_asr_tpu_torch.ops.losses import BayesRiskCTC, ctc_loss_per_examp
 from test_torch_train import ASR, VOCAB, _batch, _np, _torch_batch
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 
 def _case():
     """[4, 30, 9] logits; example 3 has 3 frames for the labels (2, 2, 3),

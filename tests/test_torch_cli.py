@@ -2,8 +2,8 @@
 write byte-equal files; ``asr_pipeline`` stages 1 and 3-5 write byte-equal
 data directories and token lists, and the port's stages 10-13 run a
 1-epoch recipe to a well-formed score (the LM stages 7-8 and the n-gram
-stage 9 with it); the options the port lacks raise, naming their ROADMAP
-item; ``ez.Trainer`` trains the tiny model from memory; asr_inference's
+stage 9 with it); options that cannot run raise before a stage writes;
+``ez.Trainer`` trains the tiny model from memory; asr_inference's
 batched branch and the asr_inference_new shim."""
 
 import json
@@ -23,6 +23,8 @@ from llm_guided_asr_tpu_torch.bin import asr_inference, asr_inference_new, asr_p
 from llm_guided_asr_tpu_torch.bin import tokenize_text
 from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, read_audio
 from test_torch_task import ENC, DEC, make_corpus
+
+torch.set_num_threads(1)
 
 REFS = ["u1 the cat sat", "u2 a b c", "u3 hello", "u4 x y z w", "u5 one two"]
 HYPS = ["u1 the cat sit", "u2 a c", "u3 hello there", "u4 x y z w", "u6 extra"]
@@ -114,15 +116,16 @@ def test_pipeline_stages_3_to_13_run_in_the_port(data, tmp_path):
 
 
 @pytest.mark.parametrize("flag, error, match", [
-    (["--speed_perturb", "0.9,1.0,1.1"], NotImplementedError, "ROADMAP Queue 1 item 12"),
+    (["--speed_perturb", "0.9,1.0,1.1", "--stage", "3"], SystemExit, "run stage 2 first"),
     (["--cmd_backend", "bogus"], ValueError, "unknown cmd backend"),
     (["--decode_nj", "0"], ValueError, "decode_nj"),
     (["--cmd_backend", "slurm", "--cmd_conf", "missing/slurm.conf"], FileNotFoundError,
      "slurm.conf")])
 def test_pipeline_options_not_ported_raise(data, tmp_path, flag, error, match):
-    """Stage 2 is not ported; a bad job option fails before any stage
-    writes a file (stages 14-15 and the array jobs run since they were
-    ported: tests/test_torch_recipe_io.py)."""
+    """A run that starts past stage 2 with --speed_perturb and no perturbed
+    split, or a bad job option, fails before any stage writes a file
+    (stage 2: tests/test_torch_tools.py; stages 14-15 and the array jobs:
+    tests/test_torch_recipe_io.py)."""
     with pytest.raises(error, match=match):
         asr_pipeline.main(["--train_dir", str(data / "train"), "--valid_dir",
                            str(data / "valid"), "--expdir", str(tmp_path)] + flag)

@@ -9,12 +9,15 @@ Equality is exact: the same Python values (floats compared by repr, so
 import math
 
 import pytest
+import torch
 import yaml
 from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from llm_guided_asr_tpu.utils import config as jconfig
 from llm_guided_asr_tpu_torch.utils import config as tconfig
+
+torch.set_num_threads(1)
 
 TINY = {
     "token_type": "char",

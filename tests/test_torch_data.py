@@ -16,6 +16,8 @@ from llm_guided_asr_tpu_torch.data import fileio as tfileio
 from llm_guided_asr_tpu_torch.data import iterator as titerator
 from llm_guided_asr_tpu_torch.data import samplers as tsamplers
 
+torch.set_num_threads(1)
+
 N_UTT = 23
 
 

@@ -52,6 +52,8 @@ from test_torch_task_guided import _same_fields
 from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 D, VOCAB = 16, 12
 N_FEATS = 20
 DEC = dict(attention_heads=2, linear_units=24, num_blocks=1, **NO_DROP_DEC)

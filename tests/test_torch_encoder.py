@@ -12,6 +12,8 @@ from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models import conformer as tconf
 from llm_guided_asr_tpu_torch.models import transformer as ttr
 
+torch.set_num_threads(1)
+
 
 def _np_tree(tree):
     return jax.tree_util.tree_map(np.asarray, tree)

@@ -38,6 +38,8 @@ from test_torch_decoders import _assert_grads
 from test_torch_train import NO_DROP_ENC
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 N_FEATS = 20
 ENC = dict(output_size=16, attention_heads=2, linear_units=24, num_blocks=2, **NO_DROP_ENC)
 CASES = {  # encoder type -> (encoder_conf, frames, lengths)

@@ -29,6 +29,8 @@ from llm_guided_asr_tpu_torch.ops import flash_attention as tfa
 from test_torch_train import NO_DROP_ENC, _np
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 
 class _TPUJax:
     """``jax`` for llm_guided_asr_tpu.models.transformer, except that

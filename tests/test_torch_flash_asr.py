@@ -38,6 +38,8 @@ from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _assert_state_close, _batch, _np, \
     _torch_batch
 
+torch.set_num_threads(1)
+
 VOCAB = 12
 SOS = EOS = VOCAB - 1
 FLASH_ASR = dict(

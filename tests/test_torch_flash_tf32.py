@@ -23,6 +23,8 @@ import torch
 from llm_guided_asr_tpu_torch.ops import flash_attention as tfa
 from test_torch_flash import _lengths_mask, library_flash, tpu_branch
 
+torch.set_num_threads(1)
+
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
     """float32 rounded to TF32's 10 mantissa bits, to nearest with ties away

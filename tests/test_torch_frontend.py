@@ -8,6 +8,8 @@ import torch
 from llm_guided_asr_tpu.ops import frontend as jfe
 from llm_guided_asr_tpu_torch.ops import frontend as tfe
 
+torch.set_num_threads(1)
+
 
 def _speech(seed=0):
     rng = np.random.default_rng(seed)

@@ -31,6 +31,8 @@ from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models import espnet_ingest as tingest
 from llm_guided_asr_tpu_torch.models.llm.llama import load_safetensors
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def conformer():

@@ -580,7 +580,10 @@ LSTM_CASES = [(5, 201, 256), (16, 25, 256), (3, 9, 12), (2, 1, 64), (200, 3, 102
               # frames after VGG2L; B = 64 takes two tiles a cluster)
               (16, 312, 320), (64, 312, 320),
               # ESPnet's LSTM LM unit, W_hh read from L2
-              (16, 50, 650)]
+              (16, 50, 650),
+              # the multichannel frontend's mask estimator: 64 units over the
+              # 1251 STFT frames of 10 s, serving (B = 1) and training (B = 8)
+              (1, 1251, 64), (8, 1251, 64)]
 
 
 @pytest.mark.gpu
@@ -614,6 +617,82 @@ def test_lstm_kernels_match_plain(card, b, t, h):
     torch.testing.assert_close(da, refs[0], rtol=0, atol=_grad_tol(refs[0]))
     for name, g, r in zip(("xi", "w_hh", "bias"), grads, refs):
         torch.testing.assert_close(g, r, rtol=0, atol=_grad_tol(r), msg=name)
+
+
+def multichannel_model_and_batch():
+    """A 2-block CTC/attention model (the Transformer encoder: no kernel of
+    its own, so that a float64 copy runs on the CPU) behind the
+    multichannel frontend (WPE and the MVDR beamformer, a 64-unit BiLSTM
+    mask estimator; weights from seed 0) on the CPU in eval mode, a ragged
+    batch of 4 channels (one source, each microphone one sample later, plus
+    noise) and its config."""
+    no_drop = dict(dropout_rate=0.0, positional_dropout_rate=0.0)
+    cfg = ASRModelConfig(
+        vocab_size=30, frontend=FrontendConfig(n_fft=256, hop_length=128, n_mels=40,
+                                               use_wpe=True, use_beamformer=True,
+                                               mask_units=64, ref_channel=1),
+        normalize="utterance_mvn", encoder_type="transformer",
+        encoder=tconf.ConformerConfig(output_size=64, attention_heads=2, linear_units=128,
+                                      num_blocks=2, pos_enc_layer_type="abs_pos",
+                                      attention_dropout_rate=0.0, **no_drop),
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=128, num_blocks=1,
+                                         **no_drop),
+        ctc_weight=0.3)
+    rng = np.random.default_rng(2)
+    src = rng.standard_normal(16004) * 0.1
+    speech = np.stack([src[4 - c: 16004 - c] + 0.02 * rng.standard_normal(16000)
+                       for c in range(4)], axis=1)
+    batch = {"speech": torch.from_numpy(np.stack([speech, speech[::-1]]).astype(np.float32)),
+             "speech_lengths": torch.tensor([16000, 11000]),
+             "text": torch.from_numpy(rng.integers(1, 29, (2, 6))),
+             "text_lengths": torch.tensor([6, 4])}
+    return init_weights(ASRModel(cfg, device="cpu"), seed=0).eval(), batch, cfg
+
+
+@pytest.mark.gpu
+def test_multichannel_model_on_the_card_matches_the_cpu(card):
+    """The model of multichannel_model_and_batch, card against CPU: the
+    features (1e-3), the loss (rtol 1e-5) and its gradients (1e-4 of each
+    tensor's largest CPU value + 1e-6 of the model's largest; one that
+    misses is checked against the CPU's float64 gradient: the card's
+    float32 gradient no further from it than the CPU's float32 one, plus
+    the tolerance, as the pretrained choices' test below settles them);
+    one launch of each LSTM kernel a direction."""
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    cpu, batch, cfg = multichannel_model_and_batch()
+    gpu = ASRModel(cfg, device=card).eval()  # the card's float32 policy: TF32 off
+    gpu.load_state_dict(cpu.state_dict())
+    args = ("speech", "speech_lengths", "text", "text_lengths")
+    out = {}
+    for name, model in (("cpu", cpu), ("gpu", gpu)):
+        dev = next(model.parameters()).device
+        before = dict(tl.KERNEL.launches)
+        with torch.no_grad():
+            feats = model.collect_feats(batch["speech"].to(dev),
+                                        batch["speech_lengths"].to(dev))["feats"]
+        loss = model(*(batch[k].to(dev) for k in args))[0]
+        loss.backward()
+        if name == "gpu":
+            torch.cuda.synchronize()
+            assert tl.KERNEL.launches == {"lstm_fwd": before["lstm_fwd"] + 4,
+                                          "lstm_bwd": before["lstm_bwd"] + 2}
+        out[name] = (feats.cpu(), loss.item(),
+                     {k: p.grad.cpu() for k, p in model.named_parameters()})
+    torch.testing.assert_close(out["gpu"][0], out["cpu"][0], rtol=0, atol=1e-3)
+    np.testing.assert_allclose(out["gpu"][1], out["cpu"][1], rtol=1e-5)
+    want = out["cpu"][2]
+    floor = 1e-6 * max(g.abs().max().item() for g in want.values())
+    exact = None
+    for name, got in out["gpu"][2].items():
+        ref = want[name]
+        tol = 1e-4 * ref.abs().max().item() + floor
+        if (got - ref).abs().max().item() > tol:
+            exact = exact or _float64_grads(cpu, batch, args)
+            miss = (got.double() - exact[name]).abs().max().item()
+            own = (ref.double() - exact[name]).abs().max().item()
+            assert miss <= own + tol, (f"{name}: {miss:.3e} from the float64 gradient > the "
+                                       f"CPU's float32 {own:.3e} + {tol:.3e}")
 
 
 def _fill_shared_kernel():

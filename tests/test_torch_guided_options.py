@@ -32,6 +32,8 @@ from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 from llm_guided_asr_tpu_torch.text.tokenizers import HuggingFaceTokenizer, LLMTokenizer
 
+torch.set_num_threads(1)
+
 BPE_DIR = Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe"
 V = 54  # the BPE tokenizer's vocabulary
 LLM = dict(vocab_size=V, hidden_size=32, intermediate_size=48, num_hidden_layers=2,

@@ -47,6 +47,8 @@ from test_torch_branchformer import _np
 from test_torch_train import NO_DROP_DEC, NO_DROP_ENC
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 TOKENS = ["<blank>", "<unk>"] + list("abcdefghi") + ["<sos/eos>"]
 VOCAB = len(TOKENS)
 SOS = EOS = VOCAB - 1

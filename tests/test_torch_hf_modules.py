@@ -42,6 +42,8 @@ from llm_guided_asr_tpu_torch.ops.frontend import FusedFrontend
 from test_torch_branchformer import _load, _np
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 TINY_W2V = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
                 intermediate_size=48, conv_dim=[16, 16], conv_kernel=[10, 3], conv_stride=[5, 2],
                 num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)

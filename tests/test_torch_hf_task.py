@@ -12,8 +12,10 @@ CTC/attention model, and every such choice through ``ASRTask`` from a YAML:
   pretrained tensors that land equal the JAX loader's of the same
   directory, one fused AdamW step gives a finite loss, Speech2Text
   decodes; ``frontend: ssl``'s ``collect_feats`` are the trunk's states;
-- the choices still missing (avhubert, the WPE/MVDR fields) raise,
-  naming ROADMAP item 10d.
+- the choices the port lacked until the multichannel and AV-HuBERT
+  slice (avhubert, the WPE/MVDR fields) build their modules
+  (tests/test_torch_avhubert.py and tests/test_torch_beamformer.py hold
+  them against JAX).
 """
 
 import functools
@@ -38,6 +40,8 @@ from llm_guided_asr_tpu_torch.utils.config import dump_yaml
 from test_torch_branchformer import _np
 from test_torch_hf_asr import DEC, ENC, TINY_W2V, TOKENS, _batch, _torch
 from test_torch_transducer import seeded_variables
+
+torch.set_num_threads(1)
 
 
 @pytest.fixture(scope="module")
@@ -266,9 +270,20 @@ def test_yaml_builds_loads_trains_and_decodes(hf_dirs, tmp_path, kind):
 @pytest.mark.parametrize("bad", [{"encoder": "avhubert"}, {"frontend_conf": {"use_wpe": True}},
                                  {"frontend_conf": {"use_beamformer": True, "ref_channel": 1}}])
 def test_missing_choices_name_their_roadmap_item(bad):
+    """Once refused with ROADMAP item 10d, each choice now builds: the
+    audio-only AV-HuBERT encoder, WPE alone (no mask estimator) and the
+    beamformer's BiLSTM mask estimator at its reference channel."""
+    from llm_guided_asr_tpu_torch.models.avhubert import AVHubertEncoder
+
     config = {**tasr.ASRTask.get_default_config(), "token_list": TOKENS, **bad}
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 10d"):
-        tasr.build_model(config, "cpu")
+    model = tasr.build_model(config, "cpu")
+    if "encoder" in bad:
+        assert isinstance(model.encoder, AVHubertEncoder) and model.encoder.cfg.audio_only
+        return
+    fe = model.mc_frontend
+    assert fe.cfg.use_wpe == bad["frontend_conf"].get("use_wpe", False)
+    assert hasattr(fe, "OptimizedLSTMCell_1") == fe.cfg.use_beamformer
+    assert fe.cfg.ref_channel == bad["frontend_conf"].get("ref_channel", 0)
 
 
 @pytest.mark.parametrize("model", ["transducer", "guided"])

@@ -17,6 +17,8 @@ from llm_guided_asr_tpu.ops.rel_attention import rel_attention_pad_pos, rel_flas
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as tdw
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
 
+torch.set_num_threads(1)
+
 
 def _rel_inputs(b, h, t, dk, lengths, seed, dtype=np.float32):
     rng = np.random.default_rng(seed)

@@ -26,6 +26,8 @@ from llm_guided_asr_tpu.ops.rel_attention import (
 from llm_guided_asr_tpu_torch.ops import depthwise_conv as tdw
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
 
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("seed", [0, 7, 12345, -1, -2**31, 2**31 - 1, -987654321])
 def test_dropout_keep_mask_is_bit_equal_to_jax(seed):

@@ -10,6 +10,8 @@ from llm_guided_asr_tpu.models.llm import llama as jl
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models.llm import llama as tl
 
+torch.set_num_threads(1)
+
 CFG = dict(vocab_size=61, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, rope_theta=500000.0,
            rope_scaling_factor=32.0, rope_low_freq_factor=1.0, rope_high_freq_factor=4.0,

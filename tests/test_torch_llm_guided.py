@@ -30,6 +30,8 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 
+torch.set_num_threads(1)
+
 V = 50
 SOS = EOS = 7
 LLM = dict(vocab_size=V, hidden_size=32, intermediate_size=48, num_hidden_layers=2,

@@ -28,6 +28,8 @@ from llm_guided_asr_tpu_torch.models.llm.llama import (
 from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
 from llm_guided_asr_tpu_torch.models.llm_guided import build_llm_guided_model, load_llm_params
 
+torch.set_num_threads(1)
+
 BPE_DIR = Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe"
 LLM = dict(vocab_size=40, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2)

@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from tokenizers import Regex, Tokenizer, decoders, models, pre_tokenizers
 from transformers import AutoTokenizer, PreTrainedTokenizerFast
 
@@ -19,6 +20,8 @@ from llm_guided_asr_tpu.models.llm.prompt import split_template as j_split_templ
 from llm_guided_asr_tpu_torch.models.llm.prompt import build_ctc_to_llm_map, split_template
 from llm_guided_asr_tpu_torch.text import hf_pipeline
 from llm_guided_asr_tpu_torch.text.tokenizers import HuggingFaceTokenizer, LLMTokenizer
+
+torch.set_num_threads(1)
 
 PARITY = Path(__file__).resolve().parent / "parity"
 KINDS = ("bytelevel", "qwen", "metaspace", "metaspace_legacy")

@@ -18,6 +18,8 @@ from llm_guided_asr_tpu_torch.search.beam_search import Hypothesis
 from llm_guided_asr_tpu_torch.tasks.lm import build_lm
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 V = 11
 TOKENS = np.array([[10, 3, 4, 7, 1, 2], [10, 5, 9, 0, 0, 0], [10, 2, 2, 8, 6, 0]], np.int64)
 LENGTHS = np.array([6, 3, 5], np.int64)

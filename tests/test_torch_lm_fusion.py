@@ -22,6 +22,8 @@ from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from test_torch_batch_decode import ENC_LENS, _asr_models, _check_batch, _enc, _same
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 V = 8  # the vocabulary of test_torch_batch_decode's ASRModel (sos = eos = 7)
 LM_WEIGHT = 0.5
 TOKENS = [f"t{i}" for i in range(V)]

@@ -12,6 +12,7 @@ from pathlib import Path
 import jax
 import numpy as np
 import pytest
+import torch
 
 from llm_guided_asr_tpu.tasks import lm as jlm_task
 from llm_guided_asr_tpu.utils import config as jconfig
@@ -19,6 +20,8 @@ from llm_guided_asr_tpu_torch import convert
 from llm_guided_asr_tpu_torch.bin import lm_calc_perplexity, lm_train, train
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.tasks import lm as tlm_task
+
+torch.set_num_threads(1)
 
 TOKENS = ["<blank>", "<unk>", "a", "b", "c", "d", "<sos/eos>"]
 TIME_KEYS = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}

@@ -33,6 +33,8 @@ import torch
 from llm_guided_asr_tpu_torch.ops import lstm as tl
 from test_torch_flash_tf32 import tf32
 
+torch.set_num_threads(1)
+
 MAX_CLUSTERS = 7  # clusters of 16 CTAs an H100 held at once (ops/lstm.py max_active_clusters)
 # (B, L, H): H = 12 leaves the second CTA's slice part past H; H = 40 leaves
 # three of eight CTAs empty; H = 64 takes clusters of 16 and four k chunks

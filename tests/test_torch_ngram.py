@@ -12,6 +12,8 @@ from llm_guided_asr_tpu_torch.bin.golden_check import TONE_TOKENS, make_tone_cor
 from llm_guided_asr_tpu_torch.search import ngram as tng
 from llm_guided_asr_tpu_torch.search.beam_search import Hypothesis
 
+torch.set_num_threads(1)
+
 SENTENCES = [list(text) for _, text in make_tone_corpus().values()]
 
 

@@ -15,6 +15,8 @@ from llm_guided_asr_tpu.train import optim as joptim
 from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 
+torch.set_num_threads(1)
+
 SHAPES = {"a": (128, 160), "b": (7, 5), "c": (11,)}
 STEPS = 5
 # each optimizer's options beyond lr: every branch the JAX wrappers take

@@ -16,6 +16,8 @@ import llm_guided_asr_tpu_torch
 from llm_guided_asr_tpu_torch.ops.cuda_build import BUILD_DIR, CudaKernel
 from llm_guided_asr_tpu_torch.ops.rel_attention import KERNEL as REL_KERNEL
 
+torch.set_num_threads(1)
+
 REPO = Path(__file__).resolve().parent.parent
 # the card-only tests run where JAX is not installed, so they count as port files
 PORT_FILES = sorted(Path(llm_guided_asr_tpu_torch.__file__).parent.rglob("*.py")) + [

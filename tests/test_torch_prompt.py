@@ -16,6 +16,8 @@ from llm_guided_asr_tpu.utils.testing import make_tiny_llm_dir
 from llm_guided_asr_tpu_torch.models.llm import prompt as tp
 from llm_guided_asr_tpu_torch.text.tokenizers import LLMTokenizer
 
+torch.set_num_threads(1)
+
 BPE_DIR = Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe"
 TEMPLATES = [None, 'fix "((HYP))" then reply: ', 'fix "((HYP))" -> "',
              'words: ((BIAS)) fix "((HYP))" -> "', "((BIAS))((HYP))"]

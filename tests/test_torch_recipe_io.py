@@ -30,6 +30,8 @@ from llm_guided_asr_tpu_torch.data import flac as tflac
 from llm_guided_asr_tpu_torch.data import kaldi_ark as tark
 from llm_guided_asr_tpu_torch.utils import job as tjob
 
+torch.set_num_threads(1)
+
 RNG_SEED = 0
 
 

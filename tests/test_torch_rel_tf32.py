@@ -39,6 +39,8 @@ from llm_guided_asr_tpu.ops.rel_attention import rel_attention_pad_pos, rel_flas
 from llm_guided_asr_tpu_torch.ops import rel_attention as tra
 from test_torch_flash_tf32 import tf32_matmul
 
+torch.set_num_threads(1)
+
 LOG2E = 1.4426950408889634
 MASKED2 = np.float32(-1e30) * np.float32(LOG2E)  # a masked key's score in base 2
 BK, ROWS, BQ = 32, 64, 16  # the kernels' tiles at head dim 64

@@ -21,6 +21,8 @@ from llm_guided_asr_tpu_torch.bin.golden_check import LLM_DIR
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models.llm import llama as tllama
 
+torch.set_num_threads(1)
+
 
 def test_reader_is_bitwise_the_safetensors_package():
     path = LLM_DIR / "model.safetensors"

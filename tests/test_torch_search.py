@@ -14,6 +14,8 @@ from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate, pack_prom
 from llm_guided_asr_tpu_torch.search import ctc_prefix as tcp
 from llm_guided_asr_tpu_torch.search.greedy import ctc_greedy_decode
 
+torch.set_num_threads(1)
+
 PROMPT = dict(prefix_ids=(2, 3, 4), suffix_ids=(5, 6), start_of_response_id=7,
               end_of_response_id=7, pad_id=0)
 

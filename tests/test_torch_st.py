@@ -42,6 +42,8 @@ from llm_guided_asr_tpu_torch.tasks import st as tst
 from llm_guided_asr_tpu_torch.text.tokenizers import HuggingFaceTokenizer
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 LLM_DIR = Path(__file__).resolve().parent / "parity" / "tiny_llm_bytelevel"
 ENCODER = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=1,
                macaron_style=False, cnn_module_kernel=7)

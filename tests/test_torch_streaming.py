@@ -35,6 +35,8 @@ from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.timesync import CTCBeamSearchTimesync
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 V, BLOCK = 9, 8  # sos = eos = 8
 FRONTEND = dict(n_fft=128, hop_length=64, n_mels=20)
 ENCODER = dict(output_size=16, attention_heads=2, linear_units=24, num_blocks=2,
@@ -215,7 +217,8 @@ def _jax_streaming(chunk_samples, beam_kw, monkeypatch):
 def test_speech2text_streaming_matches_jax(monkeypatch):
     """decode_utterance chunk by chunk: each chunk's partial hypothesis and
     score (1e-4) against JAX, the encoder rows equal to the offline encode
-    (1e-5), and utterance MVN refused."""
+    (1e-5), and utterance MVN refused when incremental streaming is asked
+    for."""
     _, _, tmodel = _models()
     beam_kw = dict(beam_size=3, ctc_weight=0.3)
     wave = (np.random.default_rng(26).standard_normal(9000) * 0.3).astype(np.float32)
@@ -248,7 +251,31 @@ def test_speech2text_streaming_matches_jax(monkeypatch):
 
     umvn = ASRModel(dataclasses.replace(tmodel.cfg, normalize="utterance_mvn"), device="cpu")
     with pytest.raises(ValueError, match="utterance_mvn"):
-        Speech2TextStreaming(umvn, **beam_kw)
+        Speech2TextStreaming(umvn, incremental=True, **beam_kw)
+
+
+def test_reencode_fallback_decodes_the_buffer_so_far():
+    """A model that cannot stream incrementally (utterance MVN) re-decodes
+    the buffer so far at every chunk, as JAX's fallback does: each chunk's
+    result is Speech2Text's on the prefix, the last one the whole
+    utterance's."""
+    import dataclasses
+
+    tmodel = _models()[2]
+    umvn = ASRModel(dataclasses.replace(tmodel.cfg, normalize="utterance_mvn"), device="cpu")
+    umvn.load_state_dict({k: v for k, v in tmodel.state_dict().items() if not k.startswith("mvn_")})
+    beam_kw = dict(beam_size=3, ctc_weight=0.3)
+    stream = Speech2TextStreaming(umvn, chunk_samples=2500, **beam_kw)
+    assert not stream.incremental
+    wave = (np.random.default_rng(27).standard_normal(6000) * 0.3).astype(np.float32)
+    got = stream.decode_utterance(wave)
+    offline = Speech2Text.from_model(umvn, **beam_kw)
+    assert len(got) == 3
+    for i, part in enumerate(got):
+        want = offline(wave[: 2500 * (i + 1)])
+        assert [r[0] for r in part] == [r[0] for r in want]
+        assert part[0][1].score == want[0][1].score
+    assert len(stream._buffer) == 0  # the final chunk resets the stream
 
 
 @pytest.mark.parametrize("att_weight", [0.0, 0.4])

@@ -38,6 +38,8 @@ from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from llm_guided_asr_tpu.data.fileio import write_wav
 from test_e2e_tiny import SR, TOKEN_LIST, TONES, synth
 
+torch.set_num_threads(1)
+
 TIME_KEYS = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}
 BPE_DIR = str(Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe")
 ENC = {"output_size": 32, "attention_heads": 2, "linear_units": 64, "num_blocks": 2,

@@ -29,6 +29,8 @@ from llm_guided_asr_tpu_torch.convert import params_from_jax, params_from_msgpac
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from test_torch_task import ENC, _compare_decodes, _guided, _tiny, corpus  # noqa: F401
 
+torch.set_num_threads(1)
+
 
 @pytest.fixture(scope="module")
 def jax_guided(corpus):
@@ -80,11 +82,15 @@ def test_build_model_config_matches_jax(corpus):
                   "model_conf": {"joint_size": 24, "aux_ctc_weight": 0.2}}
     _same_fields(tasr.build_transducer_config(transducer), jasr.build_model(transducer).cfg)
     # a JAX choice the port lacks raises, naming its ROADMAP item
-    for bad in ({"encoder": "avhubert"}, {"frontend_conf": {"use_wpe": True}},
-                {"model": "maskctc"}, {"encoder_conf": {**ENC, "rel_pos_type": "legacy"}},
-                {"frontend_conf": {"use_beamformer": True}}, {"train_dtype": "bfloat16"}):
+    for bad in ({"model": "maskctc"}, {"encoder_conf": {**ENC, "rel_pos_type": "legacy"}},
+                {"train_dtype": "bfloat16"}):
         with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
             tasr.build_model({**tiny, **bad}, "cpu")
+    # the multichannel fields and AV-HuBERT, once refused, give JAX's config
+    for good in ({"encoder": "avhubert"}, {"frontend_conf": {"use_wpe": True}},
+                 {"frontend_conf": {"use_beamformer": True, "mask_units": 16}}):
+        _same_fields(tasr.build_model_config({**tiny, **good}),
+                     jasr.build_model_config({**tiny, **good}))
 
 
 def test_port_decodes_the_jax_guided_directory(corpus, jax_guided):

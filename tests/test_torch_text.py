@@ -6,6 +6,7 @@ JAX package's copies (exact)."""
 
 import numpy as np
 import pytest
+import torch
 
 from llm_guided_asr_tpu.data import dataset as jdataset
 from llm_guided_asr_tpu.text import cleaner as jcleaner
@@ -15,6 +16,8 @@ from llm_guided_asr_tpu_torch.data import dataset as tdataset
 from llm_guided_asr_tpu_torch.text import cleaner as tcleaner
 from llm_guided_asr_tpu_torch.text import phoneme as tphoneme
 from llm_guided_asr_tpu_torch.text import tokenizers as ttok
+
+torch.set_num_threads(1)
 
 LINES = ["hello world", "  two  spaces ", "<noise> the cat <noise>sat", "Mr. Smith's (aside) café",
          "tion ough igh qu x", "", "ÀÉÎ—naïve [laugh] 42"]

@@ -9,6 +9,7 @@ import shutil
 from pathlib import Path
 
 import pytest
+import torch
 from transformers import AutoTokenizer
 
 from llm_guided_asr_tpu.utils.testing import make_tiny_llm_dir
@@ -18,6 +19,8 @@ from llm_guided_asr_tpu_torch.text.tokenizers import (
     LLMTokenizer,
     TokenIDConverter,
 )
+
+torch.set_num_threads(1)
 
 BPE_DIR = Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe"
 TEXTS = [

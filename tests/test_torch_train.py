@@ -30,6 +30,8 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 
+torch.set_num_threads(1)
+
 VOCAB = 12
 NO_DROP_ENC = dict(dropout_rate=0.0, positional_dropout_rate=0.0, attention_dropout_rate=0.0)
 NO_DROP_DEC = dict(dropout_rate=0.0, positional_dropout_rate=0.0)

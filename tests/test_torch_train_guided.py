@@ -36,6 +36,8 @@ from test_torch_train import (
     _torch_batch,
 )
 
+torch.set_num_threads(1)
+
 LLM = dict(vocab_size=50, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2, rope_theta=500000.0,
            rope_scaling_factor=32.0, rope_original_max_position=64)

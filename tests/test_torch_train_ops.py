@@ -18,6 +18,8 @@ from llm_guided_asr_tpu_torch.ops import specaug as tspec
 from llm_guided_asr_tpu_torch.ops.masked_bn import masked_batch_norm
 from llm_guided_asr_tpu_torch.train import optim as toptim
 
+torch.set_num_threads(1)
+
 T = torch.from_numpy
 
 

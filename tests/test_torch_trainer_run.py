@@ -37,6 +37,8 @@ from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from llm_guided_asr_tpu_torch.train.reporter import Reporter
 from test_torch_train import ASR, OPT, VOCAB, _batch, _np, _torch_batch
 
+torch.set_num_threads(1)
+
 INTER = dict(interctc_layer_idx=(1,))
 SCHED = dict(scheduler="warmuplr", scheduler_conf={"warmup_steps": 4})
 TIME_KEYS = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}

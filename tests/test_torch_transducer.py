@@ -32,6 +32,8 @@ from llm_guided_asr_tpu_torch.ops.wkv import KERNEL as WKV_KERNEL
 from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
 from test_torch_train import NO_DROP_ENC, _np
 
+torch.set_num_threads(1)
+
 VOCAB = 8
 # tests/test_transducer.py tiny_transducer_cfg, dropout off
 TINY = dict(

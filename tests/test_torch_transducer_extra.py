@@ -26,6 +26,8 @@ from llm_guided_asr_tpu_torch.search import transducer_extra as textra
 from test_torch_train import NO_DROP_ENC, _np
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 VOCAB, BEAM, T = 7, 4, 9
 ENC = dict(output_size=8, attention_heads=2, linear_units=8, num_blocks=1, use_cnn_module=False,
            **NO_DROP_ENC)

@@ -32,6 +32,8 @@ from llm_guided_asr_tpu_torch.utils.config import loads_yaml
 from test_torch_train import NO_DROP_ENC, _np
 from test_torch_transducer import seeded_variables
 
+torch.set_num_threads(1)
+
 VOCAB = 9
 
 

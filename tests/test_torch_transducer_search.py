@@ -13,6 +13,8 @@ from llm_guided_asr_tpu_torch.models import transducer as ttd
 from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
 from test_torch_transducer import _batch, _encode, _models
 
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("decoder_type", ["stateless", "rwkv"])
 def test_greedy_decode_matches_jax(decoder_type):

@@ -16,6 +16,8 @@ from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from test_torch_train import OPT, _assert_state_close, _np
 from test_torch_transducer import _batch, _configs, _models, _torch_batch
 
+torch.set_num_threads(1)
+
 
 def test_fused_train_step_matches_jax():
     """One AdamW step of the RWKV transducer (clip 5): the loss at 1e-4,

@@ -16,6 +16,8 @@ import torch
 from llm_guided_asr_tpu.ops import wkv as jwkv
 from llm_guided_asr_tpu_torch.ops import wkv as twkv
 
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)  # float32, the same formula in another framework
 
 

@@ -42,6 +42,8 @@ import torch
 
 from llm_guided_asr_tpu.ops import wkv as jwkv
 
+torch.set_num_threads(1)
+
 H100_SMS = 132
 MIN_VALUE = -1e38
 

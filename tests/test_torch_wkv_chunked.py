@@ -35,6 +35,8 @@ import torch.nn.functional as F
 from llm_guided_asr_tpu.ops import depthwise_conv as jdw
 from llm_guided_asr_tpu.ops import wkv as jwkv
 
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-5, atol=1e-5)  # the tolerance every WKV forward check holds
 H100_SMS = 132
 MIN_VALUE = -1e38
