@@ -325,7 +325,24 @@ prints how long it took):
               from the same log-posteriors) and lm_inference with part C's
               LM, greedy (each token within 1e-4 of the CPU LM's best) and
               sampled at temperature 1 from seed 0 (the same text again
-              from the same seed), each CLI call timed.
+              from the same seed), each CLI call timed;
+36. serve-bf16 -- phase 3's guided model and its bfloat16-compute twin
+              (train_dtype: bfloat16: the same float32 weights, bf16
+              activations) serving the 10.0/7.3/4.1 s requests at beam 10 in
+              turns: latencies, encode times, peak memory, launches by
+              operand dtype (the encoder kernels in bf16 for the twin), one
+              traced bf16 request; with the first pass pinned to float32's,
+              each length's best against float32's (one token sequence's
+              scores in both dtypes within 5e-3, BatchBeamSearch.rescore),
+              and what three deliberately wrong bf16 paths read there;
+37. train-bf16 -- train-1's, train-flash's and train-2's models in float32
+              and bf16 from the same weights, each on its own phase's
+              batch: a B=4 (B=2) step's losses (5e-3) and gradients (each
+              tensor within 5e-2 of its norm, or so on the float32 run's
+              decoder ReLU gates; the whole within 5e-2) against float32,
+              then warm-up and timed
+              steps of each dtype in turns, every encoder entry point
+              launched once a block a step in the step's dtype.
 The kernel table of phase 2 also holds rows 1-4 at the SSL Conformer's
 shapes: [1, 4, 124, 64] and [8, 4, 124, 64] (with the backward), the
 depthwise [1, 124, 256] and [8, 124, 256] (with the backward).
@@ -333,8 +350,8 @@ depthwise [1, 124, 256] and [8, 124, 256] (with the backward).
 ``--phase train-1|train-run|train-transducer|golden|serve|serve-batch|serve-lm|serve-stream|
 asr-cli|serve-transducer-rnn|train-transducer-mb|serve-st|train-st|recipe-io|serve-ebf|
 train-ebf|serve-dec|train-dec|serve-enc|train-enc|serve-ssl|train-ssl|serve-hf|serve-mc|
-train-mc|serve-avhubert|train-avhubert|align-cli`` builds the kernels and runs that phase
-alone (no kernel table; several, comma-separated, in turn);
+train-mc|serve-avhubert|train-avhubert|align-cli|serve-bf16|train-bf16`` builds the
+kernels and runs that phase alone (no kernel table; several, comma-separated, in turn);
 ``--package-root DIR`` then imports the port from another checkout, so that
 two revisions run one phase in turns.
 
@@ -388,6 +405,11 @@ TFLOP/s and key splits are printed.  Bounds take float32 matrix products
 (the attention kernels) at the 3xTF32 rate, 165 TFLOP/s, and other float32
 work at the CUDA cores' 67 TFLOP/s.
 
+Each row of the kernel table also carries phase 2's bfloat16 numbers at
+its timed and serving shapes (``bf16_*``, ``bf16_serve_*``; bounds at the
+bf16 rate) and its bfloat16 launches in phases 36-37
+(``bf16_launches_by_path``).
+
 The last two lines of standard output are the kernel table as one JSON
 object and {"ok": true, "device": {...}}; the line before them is the
 card's name and power limit.  Without a card the script exits with
@@ -397,6 +419,7 @@ status 2 and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import subprocess
@@ -5332,6 +5355,478 @@ def phase_align_cli(kernels, card, root: Path):
     return total
 
 
+# phases 36-37 (serve-bf16, train-bf16): the two headline models in
+# bfloat16 compute (train_dtype: bfloat16), float32 parameters
+# bfloat16 scores and losses against float32, relative to their size: with
+# the guided model's first pass pinned (pinned_first_pass), one 24-token
+# sequence scored at most 2.81e-4 apart in the two dtypes, and the steps'
+# losses at most 4.1e-4 (the first loss of train-2's timed steps), on an
+# H100 80GB HBM3 at 700 W; the limit keeps a tenfold margin over both
+BF16_REL = 5e-3
+BF16_GRAD_REL = 5e-2  # a tensor's gradient against float32, of max(its norm, 0.1 the largest)
+BF16_GRAD_B = 4  # the gradient check's batch rows (of train-1's batch)
+F32, BF16 = torch.float32, torch.bfloat16
+
+
+def dtype_counts(kernels) -> dict:
+    """{entry point: {dtype: launches}} since the counts were last reset."""
+    return {name: dict(by) for k in kernels for name, by in k.dtype_launches.items() if by}
+
+
+def check_dtype_launches(tag, kernels, want: dict) -> dict:
+    """Each entry point of ``want`` ({name: {dtype: n}}) launched exactly
+    so; a bfloat16 path that launched nothing in bfloat16 fails."""
+    got = dtype_counts(kernels)
+    print(f"[{tag}] kernel launches by operand dtype: {got}")
+    for name, by in want.items():
+        if got.get(name, {}) != {str(k): n for k, n in by.items() if n}:
+            raise AssertionError(f"{tag}: {name} launched {got.get(name)}, expected {by}")
+        if by.get(BF16, 0) and not got[name].get(str(BF16)):
+            raise AssertionError(f"{tag}: {name} launched nothing in bfloat16")
+    return got
+
+
+def bf16_twin(model):
+    """A model of ``model``'s config and weights computing in bfloat16."""
+    from llm_guided_asr_tpu_torch.models.asr_model import ASRModel
+    from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
+
+    if isinstance(model, LLMGuidedASRModel):
+        twin = LLMGuidedASRModel(model.cfg, llm_dtype=next(model.llm.parameters()).dtype,
+                                 device="cuda", dtype=BF16)
+    else:
+        twin = ASRModel(model.cfg, device="cuda", dtype=BF16)
+    twin.load_state_dict(model.state_dict())
+    for p, q in zip(model.parameters(), twin.parameters()):  # a phase may have frozen some
+        q.requires_grad_(p.requires_grad)
+    return twin.train(model.training)
+
+
+class pinned_first_pass:
+    """Within the block, the bfloat16 guided model's first pass (its greedy
+    CTC hypothesis, the LLM's prompt) is the float32 model's of the same
+    input: on random weights the CTC head's 128,256 outputs sit within
+    rounding of one another at many frames, so bfloat16 can pick another
+    token there and hand the LLM another prompt.  Pinned, the two dtypes
+    compare the same computation."""
+
+    def __init__(self, bf16, f32, speech, lengths):
+        self.bf16 = bf16
+        with torch.inference_mode():
+            enc32 = f32.encode(speech, lengths)
+            enc16 = bf16.encode(speech, lengths)
+            self.hyp = f32._first_pass_hyp(*enc32)
+            own = bf16._first_pass_hyp(*enc16)
+        self.same = (torch.equal(own[1], self.hyp[1])
+                     and all(torch.equal(a[: int(n)], b[: int(n)])
+                             for a, b, n in zip(own[0], self.hyp[0], self.hyp[1])))
+
+    def __enter__(self):
+        self.bf16._first_pass_hyp = lambda *args: self.hyp
+        return self
+
+    def __exit__(self, *exc):
+        del self.bf16._first_pass_hyp
+
+
+def pin_request(wave, s2t16, s2t32) -> pinned_first_pass:
+    """pinned_first_pass for one request as Speech2Text pads it."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import round_up
+
+    padded = np.zeros((1, round_up(wave.shape[0], s2t32.speech_pad_multiple)), np.float32)
+    padded[0, : wave.shape[0]] = wave
+    return pinned_first_pass(s2t16.model, s2t32.model, torch.from_numpy(padded).cuda(),
+                             torch.tensor([wave.shape[0]], device="cuda"))
+
+
+@contextlib.contextmanager
+def bf16_fault(kind, model):
+    """A deliberately wrong bfloat16 path, to show what the comparison's
+    limit tells apart: ``softmax``, the attention softmax of
+    models/transformer.py on bfloat16 scores with a bfloat16 result (no
+    float32 step); ``logp``, ``model``'s decoder log-probs rounded to
+    bfloat16 (a log-softmax left in bfloat16); ``ctc``, its CTC
+    log-softmax left in bfloat16, so that the search's CTC prefix scores
+    follow it into bfloat16."""
+    from llm_guided_asr_tpu_torch.models import transformer as tr
+
+    plain = tr.masked_softmax
+    if kind == "softmax":
+        def masked_softmax(scores, mask):
+            mask = mask[:, None] if mask.dim() == 3 else mask
+            attn = torch.softmax(scores.to(BF16).masked_fill(~mask, tr.NEG_INF), dim=-1)
+            return attn.masked_fill(~mask, 0.0)
+
+        tr.masked_softmax = masked_softmax
+    elif kind == "logp":
+        step = model.decode_step
+
+        def decode_step(*args, **kwargs):
+            logp, state = step(*args, **kwargs)
+            return logp.to(BF16).float(), state
+
+        model.decode_step = decode_step
+    elif kind == "ctc":
+        ctc = model.ctc_log_softmax
+        model.ctc_log_softmax = lambda enc: ctc(enc).to(BF16)
+    else:
+        raise ValueError(kind)
+    try:
+        yield
+    finally:
+        tr.masked_softmax = plain
+        model.__dict__.pop("decode_step", None)
+        model.__dict__.pop("ctc_log_softmax", None)
+
+
+def bf16_fault_readings(tag, wave, s2t16, s2t32, best) -> dict:
+    """The float32 search's ``best`` of one request forced through the
+    bfloat16 search (first pass pinned) on the sound path and on each
+    bf16_fault: {path: relative error against its float32 score}."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
+
+    out = {}
+    with pin_request(wave, s2t16, s2t32):
+        for kind in ("sound", "softmax", "logp", "ctc"):
+            fault = (contextlib.nullcontext() if kind == "sound"
+                     else bf16_fault(kind, s2t16.model))
+            with fault, torch.inference_mode():
+                enc16 = encode_request(s2t16.model, wave, s2t16.speech_pad_multiple,
+                                       s2t16.device)
+                score = s2t16.beam.rescore(*enc16, best.yseq, maxlenratio=s2t16.maxlenratio)
+            out[kind] = abs(score - best.score) / max(1.0, abs(best.score))
+    print(f"[{tag}] the float32 best ({best.score:.4f}) forced through bfloat16: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in out.items()) + f" of the score (limit "
+          f"{BF16_REL}; softmax: the attention softmax without its float32 step; logp: the "
+          "log-probs rounded to bfloat16; ctc: the CTC log-softmax and prefix scores in "
+          "bfloat16)")
+    return out
+
+
+def compare_best_bf16(tag, wave, s2t16, s2t32) -> tuple:
+    """The bfloat16 and float32 searches' best of one request, a and b,
+    with the first pass pinned (pinned_first_pass).  Equal: the scores
+    within BF16_REL of their size.  Different (random weights leave the
+    beam among near ties at every step, so bfloat16's rounding can move
+    its path): each sequence forced through the other dtype's search
+    (``BatchBeamSearch.rescore``) scores within BF16_REL of its own
+    search's score, so that the two dtypes score the same tokens alike and
+    part only on the path; the token where they part and the float32 gap
+    between them are printed.  Returns (equal, the largest relative score
+    error, whether bfloat16's own first pass was float32's)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
+
+    pin = pin_request(wave, s2t16, s2t32)
+    with pin:
+        (_, a), = s2t16(wave)
+        (_, b), = s2t32(wave)
+        if a.yseq == b.yseq:
+            err = abs(a.score - b.score) / max(1.0, abs(b.score))
+            print(f"[{tag}] the bfloat16 and float32 bests are equal (bfloat16's own first "
+                  f"pass {'equal' if pin.same else 'different'}), scores {a.score:.4f} and "
+                  f"{b.score:.4f}")
+            if err > BF16_REL:
+                raise AssertionError(f"{tag}: score {a.score} in bfloat16, {b.score} in "
+                                     "float32")
+            return True, err, pin.same
+        enc16 = encode_request(s2t16.model, wave, s2t16.speech_pad_multiple, s2t16.device)
+        enc32 = encode_request(s2t32.model, wave, s2t32.speech_pad_multiple, s2t32.device)
+        a32 = s2t32.beam.rescore(*enc32, a.yseq, maxlenratio=s2t32.maxlenratio)
+        b16 = s2t16.beam.rescore(*enc16, b.yseq, maxlenratio=s2t16.maxlenratio)
+    errs = (abs(a.score - a32) / max(1.0, abs(a32)), abs(b16 - b.score) / max(1.0, abs(b.score)))
+    part = next(i for i, (x, y) in enumerate(zip(a.yseq + [-1], b.yseq + [-1])) if x != y)
+    print(f"[{tag}] the bfloat16 and float32 bests part at token {part} of {len(b.yseq) - 2} "
+          f"(bfloat16's own first pass {'equal' if pin.same else 'different'}): bfloat16's "
+          f"best scores {a.score:.4f} (float32 {a32:.4f}), float32's {b.score:.4f} (bfloat16 "
+          f"{b16:.4f}); float32 gap {b.score - a32:.4f}, bfloat16 gap {a.score - b16:.4f}")
+    if max(errs) > BF16_REL:
+        raise AssertionError(f"{tag}: the dtypes score one sequence apart: {errs}")
+    return False, max(errs), pin.same
+
+
+def phase_serve_bf16(model, kernels, card):
+    """Phase 3's guided model (12 x 256 Conformer, 6 x 256 guided decoder,
+    the Llama-3.2-1B-wide bf16 LLM) and its bfloat16-compute twin (the same
+    float32 weights), each serving the 10.0, 7.3 and 4.1 s requests at beam
+    10 in turns (f32, bf16, bf16, f32 ...), ROUNDS timed runs a length
+    after one warm-up each: latencies, encode times, peak memory, launches
+    by dtype (the encoder kernels in bfloat16 for the twin, float32 for the
+    model), one traced bfloat16 10 s request; each length's bfloat16
+    hypothesis against the float32 one by compare_best_bf16 (tokens
+    compared; a sequence's scores in both dtypes within BF16_REL)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    models = {F32: model.eval(), BF16: bf16_twin(model).eval()}
+    s2t = {dt: Speech2Text.from_model(m, ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+           for dt, m in models.items()}
+    waves = request_waves()
+    for dt in (F32, BF16):
+        for wave in waves:
+            s2t[dt](wave)
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    lat = {dt: {sec: [] for sec in REQUEST_SECONDS} for dt in (F32, BF16)}
+    peak = dict.fromkeys((F32, BF16), 0)
+    hyps = {}
+    for r in range(ROUNDS):
+        for dt in ((F32, BF16) if r % 2 == 0 else (BF16, F32)):
+            for sec, wave in zip(REQUEST_SECONDS, waves):
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                (ids, hyp), = s2t[dt](wave)
+                torch.cuda.synchronize()
+                lat[dt][sec].append(time.perf_counter() - t0)
+                peak[dt] = max(peak[dt], torch.cuda.max_memory_allocated())
+                if hyps.setdefault((dt, sec), hyp).yseq != hyp.yseq:
+                    raise AssertionError(f"serve-bf16 {dt}: the same request gave another "
+                                         "hypothesis")
+    n = ROUNDS * len(REQUEST_SECONDS)
+    blocks = model.cfg.encoder.num_blocks
+    launches = counts(kernels)
+    by_dtype = check_dtype_launches("serve-bf16", kernels, {
+        name: {F32: blocks * n, BF16: blocks * n} for name in ENCODER_FWD})
+    med = {}
+    for sec, wave in zip(REQUEST_SECONDS, waves):
+        row = []
+        for dt in (F32, BF16):
+            ms = sorted(x * 1e3 for x in lat[dt][sec])
+            med[(dt, sec)] = float(np.median(ms))
+            row.append(f"{str(dt)[6:]} median {med[(dt, sec)]:.1f} ms (min {ms[0]:.1f}, max "
+                       f"{ms[-1]:.1f}), RTFx {sec / med[(dt, sec)] * 1e3:.2f}")
+        print(f"[serve-bf16] {sec:.1f} s request, {ROUNDS} runs each: " + "; ".join(row)
+              + f" [{card}]")
+    for dt in (F32, BF16):
+        speech = torch.from_numpy(waves[0][None]).cuda()
+        n_s = torch.tensor([waves[0].shape[0]], device="cuda")
+        t_enc = []
+        with torch.inference_mode():
+            for _ in range(ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                models[dt].encode(speech, n_s)
+                torch.cuda.synchronize()
+                t_enc.append(time.perf_counter() - t0)
+        print(f"[serve-bf16] {str(dt)[6:]}: 10 s encode median "
+              f"{float(np.median(t_enc)) * 1e3:.1f} ms; peak memory {peak[dt]} bytes "
+              f"({peak[dt] / 2**30:.2f} GiB) [{card}]")
+    worst, equal, first = 0.0, 0, 0
+    for sec, wave in zip(REQUEST_SECONDS, waves):
+        check_scores(hyps[(BF16, sec)])
+        same, err, pass_same = compare_best_bf16(f"serve-bf16 {sec} s", wave, s2t[BF16],
+                                                 s2t[F32])
+        equal, worst, first = equal + same, max(worst, err), first + pass_same
+    print(f"[serve-bf16] first pass pinned to float32's ({first} of {len(waves)} equal "
+          f"unpinned): {equal} of {len(waves)} bfloat16 bests equal the float32 ones; one "
+          f"sequence's scores in the two dtypes at most {worst:.2e} of the score apart (tol "
+          f"{BF16_REL})")
+    bf16_fault_readings("serve-bf16 10.0 s", waves[0], s2t[BF16], s2t[F32],
+                        hyps[(F32, REQUEST_SECONDS[0])])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        s2t[BF16](waves[0])
+        torch.cuda.synchronize()
+    dev_ms, events = device_busy(prof)
+    print(f"[serve-bf16] 10.0 s bfloat16 request traced (card only): device busy {dev_ms:.1f} "
+          f"ms = {100 * dev_ms / med[(BF16, REQUEST_SECONDS[0])]:.1f}% of the unprofiled "
+          f"median [{card}]")
+    print_top("serve-bf16", events)
+    del models[BF16], s2t
+    torch.cuda.empty_cache()
+    return launches, by_dtype
+
+
+@contextlib.contextmanager
+def relu_gates(model, gates=None):
+    """Within the block, every ReLU feed-forward of ``model`` (the
+    decoders') either records its gates (``gates`` None: the yielded
+    {module: [w_1's output > 0, a call each]}) or takes the recorded ones
+    in place of its own ReLU (h * gate), as tests/test_torch_bf16.py's
+    relu_gated_grads runs bfloat16 on the float32 run's gates."""
+    from llm_guided_asr_tpu_torch.models.transformer import PositionwiseFeedForward
+
+    ffs = {n: m for n, m in model.named_modules()
+           if isinstance(m, PositionwiseFeedForward) and m.activation is torch.relu}
+    hooks = []
+    if gates is None:
+        gates = {}
+        hooks = [m.w_1.register_forward_hook(
+            lambda mod, args, out, n=n: gates.setdefault(n, []).append(out.detach() > 0))
+            for n, m in ffs.items()]
+    else:
+        for n, m in ffs.items():
+            m.activation = lambda h, it=iter(gates[n]): h * next(it).to(h.dtype)
+    try:
+        yield gates
+    finally:
+        for h in hooks:
+            h.remove()
+        for m in ffs.values():
+            m.activation = torch.relu
+
+
+def check_grads_bf16(tag, f32, bf16, batch, args):
+    """One training-mode forward and backward of ``batch`` in each model
+    from the same step generator (the same SpecAug and dropout draws; the
+    guided model's first pass pinned to float32's, pinned_first_pass): the
+    losses within BF16_REL, the whole gradient within BF16_GRAD_REL of its
+    norm, and each float32 parameter's float32 gradient within
+    BF16_GRAD_REL of max(its float32 norm, 0.1 of the largest).  A tensor
+    that misses is held to the same limit on a bfloat16 run that takes the
+    float32 run's decoder ReLU gates (relu_gates): a gate within rounding
+    of 0 flips with the dtype and moves the gradient behind it, as the CPU
+    test settles it."""
+    from llm_guided_asr_tpu_torch.utils.rng import StepRNG
+
+    from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
+
+    pin = contextlib.nullcontext()
+    if isinstance(f32, LLMGuidedASRModel):
+        pin = pinned_first_pass(bf16, f32, batch["speech"], batch["speech_lengths"])
+        print(f"[{tag}] the first pass pinned to float32's (bfloat16's own "
+              f"{'equal' if pin.same else 'different'})")
+
+    def run(m):
+        m.zero_grad()
+        loss, stats, _ = m(*(batch[k] for k in args), rng=StepRNG(
+            torch.Generator().manual_seed(5), "cuda"))
+        loss.backward()
+        grads = {n: p.grad.detach().clone() for n, p in m.named_parameters()
+                 if p.grad is not None}
+        m.zero_grad()
+        return {k: float(v.detach()) for k, v in stats.items()}, grads
+
+    with pin:
+        with relu_gates(f32) as gates:
+            s32, g32 = run(f32)
+        s16, g16 = run(bf16)
+    for k in s32:
+        if k != "acc" and abs(s16[k] - s32[k]) > BF16_REL * max(1.0, abs(s32[k])):
+            raise AssertionError(f"{tag}: {k} {s16[k]} in bfloat16, {s32[k]} in float32")
+    if g16.keys() != g32.keys() or any(g.dtype != F32 for g in g16.values()):
+        raise AssertionError(f"{tag}: bfloat16 gradients are not the float32 parameters'")
+    # L2 norms: a ReLU gate within rounding of 0 flips a few elements of a
+    # tensor's gradient in either dtype, which a max-abs check would count
+    floor = 0.1 * max(g.norm().item() for g in g32.values())
+
+    def errs(g):
+        return {n: (g[n] - g32[n]).norm().item() / max(g32[n].norm().item(), floor)
+                for n in g32}
+
+    err = errs(g16)
+    name_w = max(err, key=err.get)
+    whole = (math.sqrt(sum((g16[n] - g).norm().item() ** 2 for n, g in g32.items()))
+             / math.sqrt(sum(g.norm().item() ** 2 for g in g32.values())))
+    print(f"[{tag}] B={batch['speech'].shape[0]} step, bfloat16 against float32: losses "
+          + ", ".join(f"{k} {s16[k]:.4f}/{s32[k]:.4f}" for k in s32)
+          + f"; {len(g32)} gradients, the whole {whole:.3e} of its norm, the worst tensor "
+          f"{err[name_w]:.3e} of its norm ({name_w}; tol {BF16_GRAD_REL})")
+    if whole > BF16_GRAD_REL:
+        raise AssertionError(f"{tag}: the whole gradient {whole} > {BF16_GRAD_REL}")
+    missed = sorted(n for n, e in err.items() if e > BF16_GRAD_REL)
+    if missed:
+        with pin, relu_gates(bf16, gates):
+            gated = errs(run(bf16)[1])
+        print(f"[{tag}] on the float32 run's decoder ReLU gates ({len(gates)} feed-forwards): "
+              + ", ".join(f"{n} {err[n]:.3e} -> {gated[n]:.3e}" for n in missed)
+              + f" of its norm (tol {BF16_GRAD_REL}); the worst tensor there "
+              f"{max(gated.values()):.3e}")
+        bad = [n for n in missed if gated[n] > BF16_GRAD_REL]
+        if bad:
+            raise AssertionError(f"{tag}: gradients {bad} > {BF16_GRAD_REL} on the float32 "
+                                 "gates too")
+
+
+def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card,
+                    frozen=(), check_loss_falls=True):
+    """One model's float32 and bfloat16 twins on one batch: the gradient
+    check (check_grads_bf16) on up to BF16_GRAD_B rows, then ``n_warm`` +
+    ``n_steps`` steps of each dtype in turns (f32, bf16) from the same
+    weights: step times, audio s/s, peak memory, the first loss against
+    float32's, ``names`` launched once a block a step each, all in the
+    step's dtype; one bfloat16 step traced.  Returns the bfloat16 steps'
+    (launches, launches by dtype)."""
+    from llm_guided_asr_tpu_torch.train.optim import build_optimizer, path_prefix_mask
+    from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
+
+    args = ("speech", "speech_lengths", "text", "text_lengths")
+    check_grads_bf16(f"train-bf16 {tag}", f32, bf16,
+                     {k: v[:BF16_GRAD_B] for k, v in batch.items()}, args)
+    blocks = f32.cfg.encoder.num_blocks
+    out = {}
+    for dt, m in ((F32, f32), (BF16, bf16)):
+        tx = build_optimizer("adamw", {"lr": 1e-3},
+                             freeze_mask=path_prefix_mask(m, frozen) if frozen else ())
+        step = make_fused_train_step(m, init_train_state(m, tx), torch.Generator().manual_seed(0))
+        stats, med, launches = run_steps(f"train-bf16 {tag} {str(dt)[6:]}", step, batch, n_warm,
+                                         n_steps, kernels, card)
+        peak = torch.cuda.max_memory_allocated()
+        by_dtype = check_dtype_launches(f"train-bf16 {tag} {str(dt)[6:]}", kernels, {
+            name: {dt: blocks * n_steps} for name in names})
+        out[dt] = (stats, med, peak, (launches, by_dtype), step)
+    (s32, m32, p32, _, _), (s16, m16, p16, l16, step16) = out[F32], out[BF16]
+    audio = batch["speech"].shape[0] * batch["speech"].shape[1] / SR
+    l0, l1 = s32[0]["loss"], s16[0]["loss"]
+    print(f"[train-bf16] {tag}: step median float32 {m32:.1f} ms, bfloat16 {m16:.1f} ms "
+          f"({m32 / m16:.2f}x); audio s/s {audio / m32 * 1e3:.1f} and {audio / m16 * 1e3:.1f}; "
+          f"peak memory {p32 / 2**30:.2f} and {p16 / 2**30:.2f} GiB; first loss {l0:.4f} and "
+          f"{l1:.4f} [{card}]")
+    if abs(l1 - l0) > BF16_REL * max(1.0, abs(l0)):
+        raise AssertionError(f"train-bf16 {tag}: first loss {l1} in bfloat16, {l0} in float32")
+    if check_loss_falls and not np.mean([s["loss"] for s in s16][-3:]) < l1:
+        raise AssertionError(f"train-bf16 {tag}: the bfloat16 loss did not fall")
+    profile_step(f"train-bf16 {tag} bf16", step16, batch, m16)
+    return l16
+
+
+def phase_train_bf16(guided, kernels, card):
+    """train-1's model (12 x 256 Conformer, 6 x 256 decoder, vocab 5000,
+    SpecAug, attention dropout 0.1, AdamW, B=64 x 10 s), train-flash's
+    (the same with flash self-attention, B=8 x 60 s) and train-2's (phase
+    3's guided model, encoder, CTC head and LLM frozen, B=2) in float32 and
+    in bfloat16 compute from the same weights (train_bf16_case): every
+    encoder entry point, forward and backward where the encoder trains,
+    launched in bfloat16 by the twins.  Returns the bfloat16 timed steps'
+    launches of the three (all, and by dtype)."""
+    samples = int(TRAIN_SECONDS * SR)
+
+    def noise_batch(seed, b, n_samples, text):
+        rng = np.random.default_rng(seed)
+        return {"speech": torch.from_numpy((rng.standard_normal((b, n_samples)) * 0.1)
+                                           .astype(np.float32)).cuda(),
+                "speech_lengths": torch.full((b,), n_samples, device="cuda"),
+                "text": torch.from_numpy(rng.integers(1, 5000, (b, text))).cuda(),
+                "text_lengths": torch.full((b,), text, device="cuda")}
+
+    f32 = build_train1().train()
+    batch = noise_batch(4, TRAIN_B, samples, 24)
+    batch["text"] = torch.ones_like(batch["text"])  # train-1's
+    out = [train_bf16_case("train-1", f32, bf16_twin(f32), batch, TRAIN_WARMUP, TRAIN_STEPS,
+                           ENCODER_FWD + ENCODER_BWD, kernels, card)]
+    del f32
+    torch.cuda.empty_cache()
+    f32 = build_flash_asr().train()
+    batch = noise_batch(6, FLASH_B, int(FLASH_SECONDS[0] * SR), FLASH_TEXT)  # train-flash's
+    out.append(train_bf16_case("train-flash", f32, bf16_twin(f32), batch, FLASH_WARMUP,
+                               FLASH_STEPS, FLASH_FWD + FLASH_BWD, kernels, card))
+    del f32
+    torch.cuda.empty_cache()
+    batch = noise_batch(1, GUIDED_B, samples, 16)
+    batch["text"] = torch.ones_like(batch["text"])  # train-2's
+    guided.train()
+    out.append(train_bf16_case("train-2", guided, bf16_twin(guided), batch, GUIDED_WARMUP,
+                               GUIDED_STEPS, ENCODER_FWD, kernels, card,
+                               frozen=["encoder", "ctc_head", "llm"], check_loss_falls=False))
+    torch.cuda.empty_cache()
+    launches = {name: sum(c[0][name] for c in out) for name in out[0][0]}
+    by_dtype = {}
+    for _, case in out:
+        for name, by in case.items():
+            for dt, n in by.items():
+                by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + n
+    return launches, by_dtype
+
+
 def run_one_phase(name: str, card: str) -> int:
     """``--phase``: build the kernels and run one phase that needs nothing of
     the others (train-1, train-run, train-transducer, golden, serve,
@@ -5339,8 +5834,9 @@ def run_one_phase(name: str, card: str) -> int:
     train-transducer-mb, serve-st, train-st, recipe-io, serve-ebf,
     train-ebf, serve-dec, train-dec, serve-enc, train-enc, serve-ssl,
     train-ssl, serve-hf, serve-mc, train-mc, serve-avhubert,
-    train-avhubert or align-cli, which runs asr-cli first), or several
-    named with commas in turn, and print their results;
+    train-avhubert, align-cli, which runs asr-cli first, serve-bf16 or
+    train-bf16), or several named with commas in turn, and print their
+    results;
     no kernel table.  With ``--package-root`` the port comes from another
     checkout (an older revision unpacked by ``git archive``) while this
     script's phase code stays the same, so two revisions run the same
@@ -5380,7 +5876,9 @@ def run_one_phase(name: str, card: str) -> int:
               "train-mc": lambda: phase_train_mc(kernels, card),
               "serve-avhubert": lambda: phase_serve_avhubert(kernels, card),
               "train-avhubert": lambda: phase_train_avhubert(kernels, card),
-              "align-cli": lambda: align_phase()}
+              "align-cli": lambda: align_phase(),
+              "serve-bf16": lambda: phase_serve_bf16(build_model(), kernels, card),
+              "train-bf16": lambda: phase_train_bf16(build_model(), kernels, card)}
 
     def align_phase():
         with tempfile.TemporaryDirectory(prefix="asr-cli-") as tmp:
@@ -5420,8 +5918,8 @@ def main() -> int:
                                     "serve-st, train-st, recipe-io, serve-ebf, train-ebf, "
                                     "serve-dec, train-dec, serve-enc, train-enc, serve-ssl, "
                                     "train-ssl, serve-hf, serve-mc, train-mc, serve-avhubert, "
-                                    "train-avhubert or align-cli; several, comma-separated, "
-                                    "run in turn")
+                                    "train-avhubert, align-cli, serve-bf16 or train-bf16; "
+                                    "several, comma-separated, run in turn")
     ap.add_argument("--package-root", type=Path,
                     help="with --phase: import the port from this checkout instead")
     args = ap.parse_args()
@@ -5467,6 +5965,11 @@ def main() -> int:
     paths["train-1"], _ = timed("train-1", phase_train1, kernels, card)
     paths["train-2"], _ = timed("train-2", phase_train2, model, kernels, card)
     paths["train-run"] = timed("train-run", phase_train_run, kernels, card, model)
+    bf16_paths = {}  # {phase: {entry point: {dtype: launches}}}
+    paths["serve-bf16"], bf16_paths["serve-bf16"] = timed("serve-bf16", phase_serve_bf16, model,
+                                                          kernels, card)
+    paths["train-bf16"], bf16_paths["train-bf16"] = timed("train-bf16", phase_train_bf16, model,
+                                                          kernels, card)
     del model
     torch.cuda.empty_cache()
     transducer = build_transducer()
@@ -5573,6 +6076,17 @@ def main() -> int:
             s = timings[(name, serve_shape, f32)]
             row.update(serve_ms=s["ms"], serve_plain_ms=s["plain_ms"],
                        serve_bound_ms=s["bound_ms"], serve_library_ms=s["library_ms"])
+        # the bfloat16 operands of phases 36-37 (bounds at the bf16 rate)
+        for key, bf_shape in (("bf16", shape), ("bf16_serve", serve_shape)):
+            s = timings.get((name, bf_shape, torch.bfloat16))
+            if s is not None:
+                row.update({f"{key}_ms": s["ms"], f"{key}_plain_ms": s["plain_ms"],
+                            f"{key}_bound_ms": s["bound_ms"], f"{key}_bound_by": s["bound_by"],
+                            f"{key}_library_ms": s["library_ms"],
+                            f"{key}_max_abs_err": s["err"]})
+        if any(name in by for by in bf16_paths.values()):
+            row["bf16_launches_by_path"] = {
+                p_: by.get(name, {}).get(str(torch.bfloat16), 0) for p_, by in bf16_paths.items()}
         if name == "wkv_bwd":  # chunked: the labels of ~40 s of audio
             s = timings[(name, f"[{','.join(map(str, WKV_BWD_LONG))}]", f32)]
             row.update(chunks=timings[(name, shape, f32)]["chunks"], long_shape=list(WKV_BWD_LONG),

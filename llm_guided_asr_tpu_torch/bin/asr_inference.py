@@ -136,6 +136,7 @@ class Speech2Text:
         use_cached_decoder: bool = False,
         transducer_search: str = "default",
         device: Union[str, torch.device] = "cuda",
+        dtype: Optional[torch.dtype] = None,
         *,
         model: Optional[nn.Module] = None,
         tokenizer: Optional[HuggingFaceTokenizer] = None,
@@ -149,7 +150,10 @@ class Speech2Text:
         standard decoder scores with its per-beam KV cache (opt in, as in
         JAX).  ``lm_train_config``/``lm_file`` or ``lm``, ``lm_weight``:
         shallow fusion (the weight is 0 without an LM); ``pre_beam_ratio``:
-        the pre-beam keeps int(ratio * beam) candidates a hypothesis."""
+        the pre-beam keeps int(ratio * beam) candidates a hypothesis.
+        ``dtype``: the compute dtype of the model built from files, float32
+        by default (as JAX's, whatever ``train_dtype`` trained it) or
+        bfloat16; a model object computes in its own."""
         if isinstance(asr_train_config, nn.Module):
             raise TypeError("a model object goes to Speech2Text.from_model(model, ...)")
         self.config = None
@@ -158,8 +162,8 @@ class Speech2Text:
                 raise ValueError("Speech2Text needs asr_train_config (or from_model)")
             from llm_guided_asr_tpu_torch.tasks.asr import ASRTask, build_text_converter
 
-            model, self.config = ASRTask.build_model_from_file(asr_train_config,
-                                                               asr_model_file, device)
+            model, self.config = ASRTask.build_model_from_file(
+                asr_train_config, asr_model_file, device, dtype or torch.float32)
             tc_config = dict(self.config)
             if token_type:
                 tc_config["token_type"] = token_type
@@ -167,6 +171,9 @@ class Speech2Text:
                 tc_config["bpemodel"] = bpemodel
             tokenizer, converter = build_text_converter(tc_config)
         else:
+            if dtype is not None:
+                raise ValueError("dtype is for a model built from files; a model object "
+                                 "computes in its own")
             converter = (None if tokenizer is None
                          else HuggingFaceTokenIDConverter(tokenizer.tokenizer))
         self.model = model.eval()
@@ -287,16 +294,22 @@ class Speech2Text:
     def batch_call(self, speeches: Sequence[np.ndarray]) -> List[list]:
         """Decode several requests in one encode and one lockstep beam
         search: the batch is padded to the longest request rounded up to
-        ``speech_pad_multiple``.  A transducer or a model without a beam
-        search decodes them one by one, as in the JAX package."""
+        ``speech_pad_multiple``, each request ([S], or [S, C] for the
+        multichannel frontend, as :func:`encode_request` takes it) in a row.
+        A transducer or a model without a beam search decodes them one by
+        one, as in the JAX package."""
         if self.beam is None or self.is_transducer:
             return [self(s) for s in speeches]
-        n = round_up(max(max(len(s) for s in speeches), 1), self.speech_pad_multiple)
-        batch = np.zeros((len(speeches), n), np.float32)
+        speeches = [np.asarray(s, np.float32) for s in speeches]
+        channels = {s.shape[1:] for s in speeches}
+        if len(channels) != 1:
+            raise ValueError(f"batch_call: requests of different channel shapes {channels}")
+        n = round_up(max(max(s.shape[0] for s in speeches), 1), self.speech_pad_multiple)
+        batch = np.zeros((len(speeches), n) + channels.pop(), np.float32)
         lens = np.zeros((len(speeches),), np.int64)
         for i, s in enumerate(speeches):
-            batch[i, : len(s)] = np.asarray(s, np.float32)
-            lens[i] = len(s)
+            batch[i, : s.shape[0]] = s
+            lens[i] = s.shape[0]
         enc, enc_lens = self.model.encode(torch.from_numpy(batch).to(self.device),
                                           torch.from_numpy(lens).to(self.device))
         per_utt = self.beam.batch_decode(enc, enc_lens, maxlenratio=self.maxlenratio,

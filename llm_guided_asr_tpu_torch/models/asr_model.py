@@ -23,6 +23,16 @@ its reference channel when neither WPE nor the beamformer is on), the sinc
 pre-encoder and the length-adaptor and BERT post-encoders
 (models/preencoder.py, models/hf_encoder.py), utterance or global MVN, and
 SpecAug.
+
+Compute dtype (JAX's ``dtype``, ``train_dtype: bfloat16`` or ``use_amp``):
+float32, or bfloat16 for the Conformer encoder with the transformer
+decoder behind the log-mel frontend.  Parameters, buffers and gradients
+stay float32; the features are cast to the compute dtype at the encoder's
+input (JAX ``encode``), and every block computes in its input's type
+(models/transformer.py).  The frontend stays float32 (JAX drops its DFT to
+one MXU pass for a bfloat16 model; the port keeps the float32 product).
+The CTC and attention log-softmaxes and losses run in float32.  Any other
+choice in bfloat16 raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,6 +51,7 @@ from llm_guided_asr_tpu_torch.models.conformer import (
 )
 from llm_guided_asr_tpu_torch.models.rnn_decoder import RNNDecoder, RNNDecoderConfig
 from llm_guided_asr_tpu_torch.models.s4_decoder import S4Decoder, S4DecoderConfig
+from llm_guided_asr_tpu_torch.models.transformer import Dense
 from llm_guided_asr_tpu_torch.models.transformer_decoder import (
     ConvTransformerDecoder,
     TransformerDecoder,
@@ -63,6 +74,43 @@ from llm_guided_asr_tpu_torch.ops.losses import (
 from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig, specaug
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG
+
+# the JAX package's bfloat16 choices the port does not have yet
+ITEM_BF16 = "ROADMAP Queue 1 item 7b"
+COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def refuse_bf16(what: str) -> None:
+    raise NotImplementedError(f"{what} in bfloat16 is not ported yet ({ITEM_BF16})")
+
+
+def check_compute_dtype(dtype: torch.dtype, cfg, encoder_type: str) -> None:
+    """float32, or bfloat16 for the Conformer behind the log-mel frontend
+    (or features in); bfloat16 with any other encoder or frontend raises."""
+    if dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute dtype {dtype}; expected one of {COMPUTE_DTYPES}")
+    if dtype != torch.bfloat16:
+        return
+    if encoder_type != "conformer":
+        refuse_bf16(f"encoder {encoder_type!r}")
+    f = cfg.frontend
+    if f is not None and (f.fused or f.multichannel or f.type == "sliding_window"):
+        refuse_bf16("the fused, sliding-window or multichannel frontend")
+
+
+def register_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """The compute dtype as an empty, non-persistent buffer ``compute``: it
+    is in no checkpoint and follows ``.double()`` (a float64 check) and
+    ``.to()`` as the parameters do; ``module.compute.dtype`` reads it."""
+    module.register_buffer("compute", torch.empty(0, dtype=dtype), persistent=False)
+
+
+def to_compute(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``module``'s compute dtype: where rows enter the model's
+    blocks (the features at the encoder, as JAX ``encode`` casts them;
+    encoder or LLM rows at a head or decoder, as flax's Dense casts its
+    input), the one place the model casts them."""
+    return x.to(module.compute.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -202,16 +250,26 @@ def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module
 
 
 class ASRModel(nn.Module):
-    """The CTC/attention model, float32.  ``.train()`` turns on dropout,
+    """The CTC/attention model, computing in ``dtype`` (float32, or
+    bfloat16: see the module docstring).  ``.train()`` turns on dropout,
     SpecAug and batch statistics; the forward then needs a StepRNG."""
 
-    def __init__(self, cfg: ASRModelConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: ASRModelConfig, device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.ctc_type not in ("builtin", "builtin2", "brctc"):
             raise ValueError(f"ctc_type={cfg.ctc_type!r}; known: builtin, builtin2, brctc")
+        check_compute_dtype(dtype, cfg, cfg.encoder_type)
+        if dtype == torch.bfloat16:
+            if cfg.decoder_type != "transformer" and cfg.ctc_weight < 1.0:
+                refuse_bf16(f"decoder {cfg.decoder_type!r}")
+            for name in ("ssl_frontend", "preencoder", "postencoder"):
+                if getattr(cfg, name) is not None:
+                    refuse_bf16(name)
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device(dev):
+            register_compute_dtype(self, dtype)
             if cfg.ssl_frontend is not None:
                 from llm_guided_asr_tpu_torch.models.ssl_encoders import Wav2Vec2Encoder
 
@@ -240,7 +298,7 @@ class ASRModel(nn.Module):
             if cfg.ctc_weight < 1.0:
                 self.decoder = make_decoder(cfg, d, dev)
             if cfg.ctc_weight > 0.0:
-                self.ctc_head = nn.Linear(d, cfg.vocab_size)
+                self.ctc_head = Dense(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
                 # one statistic wide without a frontend, as in JAX
                 dim = n_feat if n_feat is not None else 1
@@ -286,6 +344,7 @@ class ASRModel(nn.Module):
     def _encoder_input(self, speech, speech_lengths, rng):
         feats, feats_lengths = normalize_features(
             self, *self.raw_features(speech, speech_lengths), rng)
+        feats = to_compute(self, feats)
         if self.cfg.preencoder is not None:
             feats = self.preencoder(feats, rng)
         return feats, feats_lengths
@@ -314,15 +373,15 @@ class ASRModel(nn.Module):
         return enc, enc_lens, taps
 
     def ctc_logits(self, encoder_out: torch.Tensor) -> torch.Tensor:
-        return self.ctc_head(encoder_out)
+        return self.ctc_head(to_compute(self, encoder_out))
 
     def ctc_log_softmax(self, encoder_out: torch.Tensor) -> torch.Tensor:
-        return F.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
+        return F.log_softmax(self.ctc_logits(encoder_out).float(), dim=-1)
 
     def decoder_logits(self, encoder_out, encoder_out_lengths, ys_in, ys_in_lengths,
                        rng: Optional[StepRNG] = None, only_last: bool = False) -> torch.Tensor:
-        return self.decoder(encoder_out, encoder_out_lengths, ys_in, ys_in_lengths, rng,
-                            only_last=only_last)
+        return self.decoder(to_compute(self, encoder_out), encoder_out_lengths, ys_in,
+                            ys_in_lengths, rng, only_last=only_last)
 
     def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor, text: torch.Tensor,
                 text_lengths: torch.Tensor, rng: Optional[StepRNG] = None

@@ -27,6 +27,7 @@ from torch import nn
 
 from llm_guided_asr_tpu_torch.models.transformer import (
     Conv2dSubsampling,
+    Dense,
     FlashSelfAttention,
     LayerNorm,
     MultiHeadedAttention,
@@ -35,6 +36,7 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     RelPositionalEncoding,
     RelPositionMultiHeadedAttention,
     TransformerEncoderLayer,
+    at_least_f32,
     sub4_lengths,
 )
 from llm_guided_asr_tpu_torch.ops.depthwise_conv import depthwise_conv1d
@@ -159,17 +161,18 @@ class ConvolutionModule(nn.Module):
 
     def __init__(self, d: int, kernel_size: int, norm_type: str, activation, mask_pads: bool):
         super().__init__()
-        self.pointwise_conv1 = nn.Linear(d, 2 * d)
+        self.pointwise_conv1 = Dense(d, 2 * d)
         self.depthwise_conv = DepthwiseConv1d(d, kernel_size)
         self.norm = MaskedBatchNorm(d) if norm_type == "batch_norm" else LayerNorm(d)
-        self.pointwise_conv2 = nn.Linear(d, d)
+        self.pointwise_conv2 = Dense(d, d)
         self.activation = activation
         self.mask_pads = mask_pads
 
     def forward(self, x, valid):
         h = self.pointwise_conv1(x)
         a, gate = h.chunk(2, dim=-1)
-        h = a * torch.sigmoid(gate)  # flax nn.glu: first half x sigmoid(second)
+        # flax nn.glu: first half x sigmoid(second), in float32, rounded once
+        h = (at_least_f32(a) * torch.sigmoid(at_least_f32(gate))).to(a.dtype)
         if self.mask_pads:
             h = h.masked_fill(~valid[..., None], 0.0)
         h = self.depthwise_conv(h.contiguous())
@@ -235,7 +238,7 @@ def input_layer(kind: str, input_size: int, output_size: int) -> Tuple[Optional[
     if kind == "conv2d":
         return Conv2dSubsampling(input_size, output_size), output_size
     if kind == "linear":
-        return nn.Linear(input_size, output_size), output_size
+        return Dense(input_size, output_size), output_size
     if kind == "none":
         return None, input_size
     raise ValueError(f"input_layer={kind!r}; expected one of {INPUT_LAYERS}")

@@ -43,7 +43,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llm_guided_asr_tpu_torch.models.asr_model import extract_features
+from llm_guided_asr_tpu_torch.models.asr_model import (
+    check_compute_dtype,
+    extract_features,
+    register_compute_dtype,
+    to_compute,
+)
 from llm_guided_asr_tpu_torch.models.conformer import (
     ConformerConfig,
     encoder_conf_values,
@@ -58,6 +63,7 @@ from llm_guided_asr_tpu_torch.models.llm.prompt import (
     pack_prompt,
     split_template,
 )
+from llm_guided_asr_tpu_torch.models.transformer import Dense, LayerNorm
 from llm_guided_asr_tpu_torch.models.transformer_decoder import (
     TransformerDecoderConfig,
     decoder_layers,
@@ -139,14 +145,20 @@ class LLMGuidedASRConfig:
 
 
 class LLMGuidedASRModel(nn.Module):
-    """Serving-path model; the ASR side runs in float32, the LLM in ``llm_dtype``."""
+    """Serving-path model; the ASR side (encoder, CTC head, ``embed``, the
+    guided decoder) computes in ``dtype`` (float32, or bfloat16 over float32
+    parameters, as models/asr_model.py says), the LLM in ``llm_dtype``.  The
+    LLM's response hidden states are cast to ``dtype`` before ``embed``; the
+    cached decode keeps its LLM KV buffers in float32 and the guided
+    decoder's input streams in ``dtype``; log-probs are float32."""
 
     def __init__(self, cfg: LLMGuidedASRConfig, llm_dtype=torch.bfloat16,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.llm_score_mode not in SCORE_MODES:
             raise ValueError(f"llm_score_mode={cfg.llm_score_mode!r}, not one of {SCORE_MODES}")
         require_log_mel(cfg.frontend, "the guided model")
+        check_compute_dtype(dtype, cfg, cfg.encoder_type)
         dev = resolve_device(device)
         self.cfg = cfg
         # the guided decoder is encoder.output_size wide, as in JAX; the
@@ -156,21 +168,22 @@ class LLMGuidedASRModel(nn.Module):
         n_feat = cfg.n_feat
         ctc_dim = cfg.ctc_dim
         with torch.device(dev):
+            register_compute_dtype(self, dtype)
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
             d_enc = self.encoder.output_size
-            self.ctc_head = nn.Linear(d_enc, ctc_dim)
+            self.ctc_head = Dense(d_enc, ctc_dim)
             if cfg.ctc_vocab_size:
                 self.register_buffer("ctc_map_ids", torch.zeros((ctc_dim, cfg.ctc_map_width),
                                                                 dtype=torch.int64))
                 self.register_buffer("ctc_map_lens", torch.zeros(ctc_dim, dtype=torch.int64))
             self.llm = LlamaModel(cfg.llm, dtype=llm_dtype, device=dev,
                                   lm_head=cfg.llm_score_mode == "log_softmax")
-            self.embed = nn.Linear(cfg.llm.hidden_size, d)
+            self.embed = Dense(cfg.llm.hidden_size, d)
             for i, layer in enumerate(decoder_layers(cfg.decoder, d, d_enc)):
                 setattr(self, f"block_{i}", layer)
             # a bare flax nn.LayerNorm in the JAX model: epsilon 1e-6
-            self.after_norm = nn.LayerNorm(d, eps=1e-6)
-            self.output_layer = nn.Linear(d, cfg.vocab_size)
+            self.after_norm = LayerNorm(d, eps=1e-6)
+            self.output_layer = Dense(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
                 self.register_buffer("mvn_mean", torch.zeros(n_feat))
                 self.register_buffer("mvn_inv_std", torch.ones(n_feat))
@@ -195,10 +208,10 @@ class LLMGuidedASRModel(nn.Module):
         has no frontend) -> ([B, T', D] encoder output, [B] lengths);
         SpecAug runs in training mode, the encoder always in eval mode."""
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
-        return self.encoder(feats, feats_lengths)
+        return self.encoder(to_compute(self, feats), feats_lengths)
 
     def ctc_log_softmax(self, encoder_out: torch.Tensor) -> torch.Tensor:
-        return F.log_softmax(self.ctc_head(encoder_out).float(), dim=-1)
+        return F.log_softmax(self.ctc_head(to_compute(self, encoder_out)).float(), dim=-1)
 
     def _first_pass_hyp(self, encoder_out, encoder_out_lengths):
         """Greedy CTC hypothesis in LLM-vocab ids, over the valid frames, or
@@ -232,13 +245,14 @@ class LLMGuidedASRModel(nn.Module):
                                             bias_words_lengths)
         with torch.no_grad():  # the LLM is frozen: no backward graph through it
             hidden, _ = self.llm(ids, valid)
-        resp = gather_response(hidden, resp_start, ys_in.shape[1]).float()
+        resp = to_compute(self, gather_response(hidden, resp_start, ys_in.shape[1]))
         resp_valid = make_valid_mask(ys_in_lengths, ys_in.shape[1])
         return resp.masked_fill(~resp_valid[..., None], 0.0)
 
     def decoder_logits(self, encoder_out, encoder_out_lengths, ys_in, ys_in_lengths,
                        rng: Optional[StepRNG] = None, bias_words=None, bias_words_lengths=None):
         """Full (uncached) guided decoder forward -> [B, L, V] logits."""
+        encoder_out = to_compute(self, encoder_out)
         x = self.embed(self._llm_response_states(
             encoder_out, encoder_out_lengths, ys_in, ys_in_lengths, bias_words,
             bias_words_lengths))
@@ -318,6 +332,7 @@ class LLMGuidedASRModel(nn.Module):
             v_bufs.append(vb)
         kv_valid = torch.zeros((b * beam, tc), dtype=torch.bool, device=dev)
         kv_valid.view(b, beam, tc)[:, :, :tp] = valid[:, None]
+        encoder_out = to_compute(self, encoder_out)
         gd_mem = [layer.project_mem_kv(encoder_out) for layer in self.decoders]
         return {
             "k": k_bufs,
@@ -328,7 +343,7 @@ class LLMGuidedASRModel(nn.Module):
             "gd_mem_k": torch.stack([m[0] for m in gd_mem]),  # [L, B, T, H, dk]
             "gd_mem_v": torch.stack([m[1] for m in gd_mem]),
             "gd_xs": torch.zeros((len(gd_mem), b * beam, resp_max, encoder_out.shape[2]),
-                                 dtype=torch.float32, device=dev),
+                                 dtype=encoder_out.dtype, device=dev),
         }
 
     def decode_step(
@@ -370,10 +385,10 @@ class LLMGuidedASRModel(nn.Module):
         if use_lm_logits:
             return F.log_softmax(out[1][:, -1].float(), dim=-1), state
 
-        x_cur = self.embed(out[0].float())  # [B*K, 1, D]
+        x_cur = self.embed(to_compute(self, out[0]))  # [B*K, 1, D]
         tgt_mask = (torch.arange(resp_max, device=dev) <= step)[None, None, :].expand(rows, 1, resp_max)
         t_enc = encoder_out.shape[1]
-        mem = lane_rows(encoder_out, beam)
+        mem = lane_rows(to_compute(self, encoder_out), beam)
         mem_valid = torch.arange(t_enc, device=dev)[None, :] < encoder_out_lengths[:, None]
         mem_mask = lane_rows(mem_valid[:, None, :], beam)  # [B*K, 1, T]
         gd_xs = state["gd_xs"]
@@ -439,14 +454,15 @@ def guided_fields(config: Dict[str, Any]) -> Dict[str, Any]:
     )
 
 
-def build_llm_guided_model(config: Dict[str, Any],
-                           device: Union[str, torch.device] = "cuda") -> LLMGuidedASRModel:
+def build_llm_guided_model(config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
+                           dtype: torch.dtype = torch.float32) -> LLMGuidedASRModel:
     """The model of a task config.  ``llm_conf.model_name_or_path`` names a
     local checkpoint directory (its config.json and tokenizer.json give the
     LLM's size and the prompt template); the LLM's weights are loaded
     separately by :func:`load_llm_params` (frozen weights live in no
     checkpoint).  With a ``ctc_token_list`` the CTC head has that
-    vocabulary and the CTC map buffers are filled here."""
+    vocabulary and the CTC map buffers are filled here.  The ASR side
+    computes in ``dtype``."""
     llm_conf = _conf(config, "llm_conf")
     spec = resolve_llm_spec(llm_conf)
     model_conf = _conf(config, "model_conf")
@@ -463,7 +479,7 @@ def build_llm_guided_model(config: Dict[str, Any],
         llm_score_mode=str(model_conf.get("llm_score_mode", "hidden")),
         **guided_fields(config),
     )
-    model = LLMGuidedASRModel(cfg, llm_dtype=llm_dtype(llm_conf), device=device)
+    model = LLMGuidedASRModel(cfg, llm_dtype=llm_dtype(llm_conf), device=device, dtype=dtype)
     if cfg.ctc_vocab_size:
         table = build_ctc_map_variables(config)
         with torch.no_grad():

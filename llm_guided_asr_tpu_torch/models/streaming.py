@@ -33,15 +33,15 @@ from llm_guided_asr_tpu_torch.models.conformer import (
     _ACTIVATIONS,
     ConformerConfig,
     ConvolutionModule,
+    embed_features,
+    input_layer,
 )
 from llm_guided_asr_tpu_torch.models.transformer import (
-    Conv2dSubsampling,
     LayerNorm,
     MultiHeadedAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
     sinusoidal_pos_enc,
-    sub4_lengths,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -53,9 +53,8 @@ PE_MAX_LEN = 5000  # the JAX PositionalEncoding's table; encode_chunk clips to i
 class ContextualBlockLayer(nn.Module):
     """One Conformer layer run block by block with a carried context token."""
 
-    def __init__(self, cfg: ConformerConfig):
+    def __init__(self, cfg: ConformerConfig, d: int):
         super().__init__()
-        d = cfg.output_size
         act = _ACTIVATIONS[cfg.activation_type]
         self.cfg = cfg
         self.self_attn = MultiHeadedAttention(d, cfg.attention_heads, cfg.attention_dropout_rate)
@@ -101,31 +100,33 @@ class ContextualBlockLayer(nn.Module):
 
 
 class ContextualBlockConformerEncoder(nn.Module):
-    """[B, T, F] features -> ([B, T', D], [B] lengths), block-causal."""
+    """[B, T, F] features -> ([B, T', D], [B] lengths), block-causal.
+
+    The input layer is ``conv2d`` (x4 subsampling), ``linear`` (one Dense)
+    or ``none`` (the layers take the features' width), as in JAX; only
+    :meth:`encode_chunk` needs ``conv2d``."""
 
     def __init__(self, cfg: ConformerConfig, input_size: int, block_size: int = 40,
                  device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        if cfg.input_layer != "conv2d":
-            raise NotImplementedError(f"input_layer={cfg.input_layer!r} is not ported yet")
         self.cfg = cfg
         self.block_size = block_size
-        self.output_size = cfg.output_size
         with torch.device(resolve_device(device)):
-            self.embed = Conv2dSubsampling(input_size, cfg.output_size)
+            self.embed, d = input_layer(cfg.input_layer, input_size, cfg.output_size)
+            self.output_size = d
             self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
             for i in range(cfg.num_blocks):
-                setattr(self, f"layer_{i}", ContextualBlockLayer(cfg))
+                setattr(self, f"layer_{i}", ContextualBlockLayer(cfg, d))
             if cfg.normalize_before:
-                self.after_norm = LayerNorm(cfg.output_size)
+                self.after_norm = LayerNorm(d)
 
     def _layers(self):
         return [getattr(self, f"layer_{i}") for i in range(self.cfg.num_blocks)]
 
     def forward(self, feats, feats_lengths,
                 rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.pos_enc(self.embed(feats), rng=rng)
-        out_lengths = sub4_lengths(feats_lengths, feats.shape[1])
+        x, out_lengths = embed_features(self, feats, feats_lengths)
+        x = self.pos_enc(x, rng=rng)
         b, t, d = x.shape
         s = self.block_size
         n = -(-t // s)
@@ -150,6 +151,8 @@ class ContextualBlockConformerEncoder(nn.Module):
         carried contexts; the first ``n_valid`` sub-frames are valid.  The
         positions are pos_offset + [0, m), clipped to the 5000-row table
         as the JAX function clips them.  Returns ([B, m, D], new ctxs)."""
+        if self.cfg.input_layer != "conv2d":
+            raise NotImplementedError("streaming encode_chunk requires conv2d input")
         x = self.embed(feats)  # [B, m, D]: VALID convs over 4m + 6 frames
         b, m, d = x.shape
         s = self.block_size

@@ -6,6 +6,18 @@ onto the other by path.  Masks follow the valid convention (True = attend).
 Dropout runs in training mode (``nn.Module.train()`` stands for the JAX
 ``deterministic=False``) and draws from the ``rng`` (utils/rng.py StepRNG)
 that every forward takes.
+
+Compute dtype (flax's ``dtype`` field): parameters stay float32 and every
+module computes in its input's type, casting its parameters to it where
+flax's ``promote_dtype`` casts them (:class:`Dense`, the rel-pos biases,
+the subsampling convs), so a bfloat16 input runs the block in bfloat16 and
+autograd returns float32 gradients for the float32 parameters.  LayerNorm
+statistics and the attention softmaxes run in float32 (at least) and are
+cast back, as flax's LayerNorm and the JAX modules do; a chain of
+elementwise ops that XLA fuses (the attention scores' scale, the positional
+encoding's scale and add, the GLU) runs in float32 and is rounded once.
+The model casts its features to the compute dtype once
+(models/asr_model.py).
 """
 
 from __future__ import annotations
@@ -16,6 +28,7 @@ from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.ops.flash_attention import HEAD_DIMS, flash_attention
@@ -25,9 +38,30 @@ from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 NEG_INF = -1.0e9  # large-negative attention bias of the dense paths
 
 
-def LayerNorm(d: int, eps: float = 1e-5) -> nn.LayerNorm:
-    """LayerNorm with torch's epsilon 1e-5, as the JAX helper sets it."""
-    return nn.LayerNorm(d, eps=eps)
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """x in float32, or as it is if it is float32 or wider (float64)."""
+    return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's ``nn.LayerNorm``: statistics, scale and bias in float32 (at
+    least), the output cast to the input's type.  The epsilon defaults to
+    torch's 1e-5, as the JAX helper sets it (a bare flax LayerNorm: 1e-6)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(at_least_f32(x), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y if y.dtype == x.dtype else y.to(x.dtype)
+
+
+class Dense(nn.Linear):
+    """flax's ``nn.Dense`` over float32 parameters: the weight and bias cast
+    to the input's type (bfloat16 in a bfloat16 model), the product in it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == self.weight.dtype:
+            return F.linear(x, self.weight, self.bias)
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), bias)
 
 
 @functools.lru_cache(maxsize=8)
@@ -58,8 +92,8 @@ class PositionwiseFeedForward(nn.Module):
     def __init__(self, d_model: int, hidden_units: int,
                  activation: Callable = torch.relu, dropout_rate: float = 0.1):
         super().__init__()
-        self.w_1 = nn.Linear(d_model, hidden_units)
-        self.w_2 = nn.Linear(hidden_units, d_model)
+        self.w_1 = Dense(d_model, hidden_units)
+        self.w_2 = Dense(hidden_units, d_model)
         self.activation = activation
         self.dropout_rate = dropout_rate
 
@@ -87,10 +121,10 @@ class MultiHeadedAttention(nn.Module):
                  kv_dim: Optional[int] = None):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(kv_dim or d_model, d_model)
-        self.linear_v = nn.Linear(kv_dim or d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_q = Dense(d_model, d_model)
+        self.linear_k = Dense(kv_dim or d_model, d_model)
+        self.linear_v = Dense(kv_dim or d_model, d_model)
+        self.linear_out = Dense(d_model, d_model)
         self.dropout_rate = dropout_rate  # on the attention probabilities
 
     def _proj(self, x, layer):
@@ -108,8 +142,10 @@ class MultiHeadedAttention(nn.Module):
             k, v = kv_precomputed
         else:
             k, v = self.project_kv(key, value)
-        scores = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(self.d_k)
-        attn = dropout(masked_softmax(scores, mask), active_rate(self, self.dropout_rate), rng)
+        # scaled and normalized in float32, rounded once (XLA fuses both)
+        scores = at_least_f32(torch.einsum("bqhd,bkhd->bhqk", q, k)) / math.sqrt(self.d_k)
+        attn = masked_softmax(scores, mask).to(v.dtype)
+        attn = dropout(attn, active_rate(self, self.dropout_rate), rng)
         out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
         return self.linear_out(out.reshape(*out.shape[:-2], self.h * self.d_k))
 
@@ -127,11 +163,11 @@ class RelPositionMultiHeadedAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_pos = nn.Linear(d_model, d_model, bias=False)
-        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_q = Dense(d_model, d_model)
+        self.linear_k = Dense(d_model, d_model)
+        self.linear_v = Dense(d_model, d_model)
+        self.linear_pos = Dense(d_model, d_model, bias=False)
+        self.linear_out = Dense(d_model, d_model)
         self.pos_bias_u = nn.Parameter(torch.zeros(num_heads, self.d_k))
         self.pos_bias_v = nn.Parameter(torch.zeros(num_heads, self.d_k))
         self.dropout_rate = dropout_rate
@@ -144,8 +180,8 @@ class RelPositionMultiHeadedAttention(nn.Module):
             return y.reshape(y.shape[0], y.shape[1], self.h, self.d_k).transpose(1, 2)
 
         q = self.linear_q(x).reshape(b, t, self.h, self.d_k)
-        qu = (q + self.pos_bias_u).transpose(1, 2).contiguous()
-        qv = (q + self.pos_bias_v).transpose(1, 2).contiguous()
+        qu = (q + self.pos_bias_u.to(q.dtype)).transpose(1, 2).contiguous()
+        qv = (q + self.pos_bias_v.to(q.dtype)).transpose(1, 2).contiguous()
         k = heads(self.linear_k(x)).contiguous()
         v = heads(self.linear_v(x)).contiguous()
         p = heads(self.linear_pos(pos_emb))[0].contiguous()  # [H, 2T-1, dk]
@@ -173,10 +209,10 @@ class FlashSelfAttention(nn.Module):
     def __init__(self, d_model: int, num_heads: int, dropout_rate: float = 0.0):
         super().__init__()
         self.h, self.d_k = num_heads, d_model // num_heads
-        self.linear_q = nn.Linear(d_model, d_model)
-        self.linear_k = nn.Linear(d_model, d_model)
-        self.linear_v = nn.Linear(d_model, d_model)
-        self.linear_out = nn.Linear(d_model, d_model)
+        self.linear_q = Dense(d_model, d_model)
+        self.linear_k = Dense(d_model, d_model)
+        self.linear_v = Dense(d_model, d_model)
+        self.linear_out = Dense(d_model, d_model)
         self.dropout_rate = dropout_rate
 
     def forward(self, x, valid, rng: Optional[StepRNG] = None):
@@ -191,8 +227,9 @@ class FlashSelfAttention(nn.Module):
             out = flash_attention(q, k, v, valid.to(torch.int32).contiguous(),
                                   1.0 / math.sqrt(self.d_k))
         else:
-            scores = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(self.d_k)
-            out = torch.einsum("bhqk,bhkd->bhqd", masked_softmax(scores, valid[:, None, :]), v)
+            scores = at_least_f32(torch.einsum("bhqd,bhkd->bhqk", q, k)) / math.sqrt(self.d_k)
+            out = torch.einsum("bhqk,bhkd->bhqd",
+                               masked_softmax(scores, valid[:, None, :]).to(v.dtype), v)
         out = out.transpose(1, 2).reshape(b, t, d)
         return self.linear_out(dropout(out, active_rate(self, self.dropout_rate), rng))
 
@@ -207,7 +244,8 @@ class PositionalEncoding(nn.Module):
     def forward(self, x, offset: int = 0, rng: Optional[StepRNG] = None):
         t, d = x.shape[1], x.shape[2]
         pe = torch.from_numpy(sinusoidal_pos_enc(offset + t, d)[offset:])
-        x = x * math.sqrt(d) + pe.to(device=x.device, dtype=x.dtype)[None]
+        # in float32 and rounded once, as XLA fuses the scale and the add
+        x = (at_least_f32(x) * math.sqrt(d) + pe.to(x.device)[None]).to(x.dtype)
         return dropout(x, active_rate(self, self.dropout_rate), rng)
 
 
@@ -239,13 +277,18 @@ class Conv2dSubsampling(nn.Module):
         self.conv_0 = nn.Conv2d(1, odim, 3, stride=2)
         self.conv_1 = nn.Conv2d(odim, odim, 3, stride=2)
         f2 = ((idim - 1) // 2 - 1) // 2
-        self.out = nn.Linear(odim * f2, odim)
+        self.out = Dense(odim * f2, odim)
 
     def forward(self, x):
-        h = torch.relu(self.conv_0(x[:, None]))
-        h = torch.relu(self.conv_1(h))
+        h = torch.relu(_conv(self.conv_0, x[:, None]))
+        h = torch.relu(_conv(self.conv_1, h))
         h = h.permute(0, 2, 3, 1)  # [B, T', F', C]
         return self.out(h.reshape(h.shape[0], h.shape[1], -1))
+
+
+def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` in its input's type (flax's ``nn.Conv`` with ``dtype``)."""
+    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride)
 
 
 def sub4_frames(t: int) -> int:

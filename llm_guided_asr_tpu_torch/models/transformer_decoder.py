@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
     DecoderLayer,
     LayerNorm,
     MultiHeadedAttention,
@@ -58,7 +59,10 @@ def decoder_layers(cfg: TransformerDecoderConfig, d_model: int,
 
 
 class TransformerDecoder(nn.Module):
-    """(memory [B, T, D], lengths, ys_in [B, L], lengths) -> logits [B, L, V]."""
+    """(memory [B, T, D], lengths, ys_in [B, L], lengths) -> logits [B, L, V],
+    computed in the memory's type (the model's compute dtype): the
+    embedding rows are cast to it, as flax's ``nn.Embed`` with ``dtype``
+    casts its table."""
 
     def __init__(self, vocab_size: int, cfg: TransformerDecoderConfig, d_model: int):
         super().__init__()
@@ -70,7 +74,7 @@ class TransformerDecoder(nn.Module):
         if cfg.normalize_before:
             self.after_norm = LayerNorm(d_model)
         if cfg.use_output_layer and not cfg.tie_input_output:
-            self.output_layer = nn.Linear(d_model, vocab_size)
+            self.output_layer = Dense(d_model, vocab_size)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
                 ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,
@@ -79,7 +83,7 @@ class TransformerDecoder(nn.Module):
         before the output layer: [B, V] logits for the beam search's scorer,
         which needs no other position."""
         cfg = self.cfg
-        x = self.pos_enc(self.embed(ys_in), rng=rng)
+        x = self.pos_enc(self.embed(ys_in).to(memory.dtype), rng=rng)
         tgt_mask = causal_attn_mask(ys_in_lengths, ys_in.shape[1])
         memory_mask = make_valid_mask(memory_lengths, memory.shape[1])[:, None, :]
         for i in range(cfg.num_blocks):
@@ -90,8 +94,8 @@ class TransformerDecoder(nn.Module):
             x = x[torch.arange(x.shape[0], device=x.device), ys_in_lengths - 1]
         if not cfg.use_output_layer:
             return x
-        if cfg.tie_input_output:  # flax embed.attend
-            return x @ self.embed.weight.t()
+        if cfg.tie_input_output:  # flax embed.attend, in x's type
+            return x @ self.embed.weight.to(x.dtype).t()
         return self.output_layer(x)
 
 

@@ -47,7 +47,9 @@ class CudaKernel:
 
     ``launches[name]`` counts the calls of the C entry point ``name`` made
     through :meth:`launch` that the card accepted, and nothing else, so a
-    caller can show that a path went through each kernel.
+    caller can show that a path went through each kernel;
+    ``dtype_launches[name]`` splits them by the operands' dtype where the
+    wrapper names it (``{"torch.bfloat16": n, ...}``).
     """
 
     def __init__(self, source: str, functions: Dict[str, Sequence], error_fn: str,
@@ -57,6 +59,7 @@ class CudaKernel:
         self.queries = dict(queries or {})  # C functions that launch nothing: name -> argtypes
         self.error_fn = error_fn
         self.launches: Dict[str, int] = dict.fromkeys(self.functions, 0)
+        self.dtype_launches: Dict[str, Dict[str, int]] = {name: {} for name in self.functions}
         self.ptxas_log = ""
         self._lib: Optional[ctypes.CDLL] = None
 
@@ -119,13 +122,16 @@ class CudaKernel:
             self._lib = lib
         return self._lib
 
-    def launch(self, function: str, *args) -> None:
+    def launch(self, function: str, *args, dtype=None) -> None:
         lib = self._load()
         code = getattr(lib, function)(*args)
         if code != 0:
             msg = getattr(lib, self.error_fn)(code).decode()
             raise RuntimeError(f"{function} launch failed: CUDA error {code} ({msg})")
         self.launches[function] += 1
+        if dtype is not None:
+            by_dtype = self.dtype_launches[function]
+            by_dtype[str(dtype)] = by_dtype.get(str(dtype), 0) + 1
 
     def query(self, function: str, *args) -> int:
         """The int a query function returns; it launches nothing and is not
@@ -134,4 +140,5 @@ class CudaKernel:
 
     def reset_launches(self) -> None:
         self.launches = dict.fromkeys(self.functions, 0)
+        self.dtype_launches = {name: {} for name in self.functions}
 

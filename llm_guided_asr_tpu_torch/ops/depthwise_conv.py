@@ -90,7 +90,7 @@ def _fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         KERNEL.launch("dwconv1d_fwd", x.data_ptr(), w.data_ptr(), y.data_ptr(),
                       b, t, c, w.shape[0], _DTYPE_CODE[x.dtype],
-                      torch.cuda.current_stream().cuda_stream)
+                      torch.cuda.current_stream().cuda_stream, dtype=x.dtype)
     return y
 
 
@@ -117,7 +117,8 @@ def depthwise_conv1d_bwd(x: torch.Tensor, w: torch.Tensor,
         work = torch.empty(b * slabs * k_size * c, dtype=torch.float32, device=x.device)
         KERNEL.launch("dwconv1d_bwd", dy.data_ptr(), x.data_ptr(), w.data_ptr(),
                       dx.data_ptr(), dw.data_ptr(), work.data_ptr(), slabs, b, t, c, k_size,
-                      _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream)
+                      _DTYPE_CODE[x.dtype], torch.cuda.current_stream().cuda_stream,
+                      dtype=x.dtype)
     return dx, dw.to(w.dtype)
 
 

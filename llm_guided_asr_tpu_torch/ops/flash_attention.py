@@ -150,7 +150,8 @@ def _fwd(q, k, v, valid, sm_scale, want_lse: bool):
                             device=q.device) if splits > 1 else None)
         KERNEL.launch("flash_attention_fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       valid.data_ptr(), out.data_ptr(), None if lse is None else lse.data_ptr(),
-                      None if work is None else work.data_ptr(), splits, *_tail(q, sm_scale))
+                      None if work is None else work.data_ptr(), splits, *_tail(q, sm_scale),
+                      dtype=q.dtype)
     return out, lse
 
 
@@ -200,7 +201,7 @@ def flash_attention_bwd_dkv(q, k, v, valid, dout, lse, delta, sm_scale: float
         with torch.cuda.device(q.device):
             KERNEL.launch("flash_attention_bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           valid.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          dk.data_ptr(), dv.data_ptr(), *_tail(q, sm_scale))
+                          dk.data_ptr(), dv.data_ptr(), *_tail(q, sm_scale), dtype=q.dtype)
     return dk, dv
 
 
@@ -217,7 +218,7 @@ def flash_attention_bwd_dq(q, k, v, valid, dout, lse, delta, sm_scale: float) ->
         with torch.cuda.device(q.device):
             KERNEL.launch("flash_attention_bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                           valid.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                          dq.data_ptr(), *_tail(q, sm_scale))
+                          dq.data_ptr(), *_tail(q, sm_scale), dtype=q.dtype)
     return dq
 
 

@@ -16,6 +16,15 @@ on CUDA tensors they launch the hand-written kernels of
 :func:`rel_attention_plain`, the dense einsum with the pad-reshape
 rel-shift, and :func:`rel_attention_bwd_plain`, autograd through it.  Masked keys score -1e30 in
 both, as in the TPU kernel; a row with at least one valid key is exact.
+
+bfloat16 operands (a bfloat16 model's): the kernels and the plain version
+read them exactly, compute every score, probability and gradient in
+float32 and round only their outputs (out, dqu, dqv, dk, dv) to bfloat16;
+dp is summed in float32 and rounded once, where the autograd function
+returns it in p's type.  Both keep more precision than the TPU kernel,
+which rounds the unnormalized probabilities to bfloat16 before P.V and
+the backward's dS and unshifted dBD before their products
+(llm_guided_asr_tpu/ops/rel_attention.py:86-100, 183-187, 256).
 """
 
 from __future__ import annotations
@@ -212,7 +221,7 @@ def _fwd(qu, qv, k, v, p, kv_valid, sm_scale, seed, dropout_rate, want_lse: bool
                       v.data_ptr(), p.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
                       None if lse is None else lse.data_ptr(),
                       None if work is None else work.data_ptr(), splits, b, h, t, dk,
-                      *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype))
+                      *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype), dtype=qu.dtype)
     return out, lse
 
 
@@ -266,7 +275,7 @@ def rel_attention_bwd(qu, qv, k, v, p, kv_valid, out, lse, dout, sm_scale: float
                       v.data_ptr(), p.data_ptr(), kv_valid.data_ptr(), out.data_ptr(),
                       lse.data_ptr(), dout.data_ptr(), delta.data_ptr(),
                       *(g.data_ptr() for g in grads), dp.data_ptr(), work.data_ptr(), b, h, t,
-                      dk, *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype))
+                      dk, *_dropout_args(sm_scale, seed, dropout_rate, qu.dtype), dtype=qu.dtype)
     return (*grads, dp)
 
 

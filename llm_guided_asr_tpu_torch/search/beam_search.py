@@ -39,7 +39,7 @@ larger frame budget; no token is decoded again.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -324,6 +324,48 @@ class BatchBeamSearch:
         out = self._search(encs, enc_lens, maxlens, minlens,
                            self._lmax(int(encs.shape[1]), maxlenratio), scorer_ctx)
         return self._lanes_to_hyps(out, nbest)
+
+    @torch.inference_mode()
+    def rescore(self, enc: torch.Tensor, enc_lens: torch.Tensor, yseq: Sequence[int],
+                maxlenratio: float = 0.0) -> float:
+        """The score this search gives the hypothesis ``yseq`` ([sos, y...,
+        eos], or a prefix [sos, y...] as the beam ranks it) of one utterance
+        (enc [1, T, D]), its tokens forced through the scorers one step at a
+        time: the attention log-probs (and the LM's) with their weights and
+        the penalty, plus ``ctc_weight`` times the CTC prefix score of the
+        whole prefix (for eos, of the complete sequence).  A hypothesis as
+        long as the search lets one grow was merged without its eos scored,
+        and is rescored so.  It arbitrates a hypothesis that another search
+        (in another dtype) found."""
+        enc_lens = enc_lens.reshape(-1).long()
+        lmax = self._lmax(int(enc.shape[1]), maxlenratio)
+        limit = min(int(self._length_bounds(enc_lens, maxlenratio, 0.0)[0][0]), lmax - 1)
+        if list(yseq[:1]) != [self.sos]:
+            raise ValueError(f"rescore: {list(yseq)} does not start with sos")
+        merged = yseq[-1] == self.eos and len(yseq) - 2 == limit
+        tokens = list(yseq[1:-1]) if merged else list(yseq[1:])
+        dev = enc.device
+        ctc_logp = self._ctc_table(enc)
+        att_state = self.att_scorer.init(enc, enc_lens, 1, lmax)
+        ctc = ctc_prefix_init(ctc_logp, enc_lens, 1, self.blank_id)
+        rows = torch.full((1, lmax), self.sos, dtype=torch.int64, device=dev)
+        base, psi = 0.0, 0.0
+        for step, token in enumerate(tokens):
+            lens = torch.full((1,), step + 1, dtype=torch.int64, device=dev)
+            att_logp, att_state = self.att_scorer.step(enc, enc_lens, att_state, rows, lens, step)
+            base += self.att_weight * float(att_logp[0, token]) + self.penalty
+            if self._use_lm:
+                base += self.lm_weight * float(self.lm_score_fn(rows, lens)[0, token])
+            if self.ctc_weight != 0.0:
+                cand = torch.full((1, 1), token, dtype=torch.int64, device=dev)
+                psi_t = ctc_prefix_psi(ctc_logp, enc_lens, ctc, cand[:, :, None],
+                                       blank_id=self.blank_id, eos_id=self.eos)[:, :, 0]
+                psi = float(psi_t[0, 0])
+                if token != self.eos:
+                    ctc = ctc_prefix_advance(ctc_logp, enc_lens, ctc, cand,
+                                             torch.zeros_like(cand), psi_t, self.blank_id)
+            rows[0, step + 1] = token
+        return base + self.ctc_weight * psi
 
     def _lanes_to_hyps(self, out: np.ndarray, nbest: int) -> List[List[Hypothesis]]:
         """_finalize's [B, K, Lmax + 6] host array -> each lane's hypotheses."""

@@ -8,6 +8,9 @@ decoder's own weights, so the cached and the full-recompute paths share
 them.  As the JAX functions do, it takes every LayerNorm at epsilon 1e-6
 (the decoder module itself runs at 1e-5), adds the sinusoidal position of
 each row's token, and always applies ``after_norm`` and ``output_layer``.
+Like the JAX functions, which multiply by the float32 parameters as they
+are, it computes in the parameters' type: a bfloat16 model's memory is
+promoted to it.
 
 The scorer protocol is that of search/scorers.py: B lanes of K rows,
 lane-major.
@@ -58,6 +61,7 @@ class CachedDecoderScorer:
     def init(self, enc, enc_lens, beam: int, lmax: int, ctx=None) -> Dict:
         """Memory K/V of each lane per layer [L, B, T, H, dk]; empty
         self-attention buffers [L, B*K, lmax, H, dk]."""
+        enc = enc.to(torch.promote_types(enc.dtype, self.decoder.embed.weight.dtype))
         b, t, d = enc.shape
         dk = d // self.h
         mem_k, mem_v = [], []

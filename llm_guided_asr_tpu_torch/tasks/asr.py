@@ -37,7 +37,12 @@ from llm_guided_asr_tpu_torch.data.dataset import (
 from llm_guided_asr_tpu_torch.data.fileio import read_shape_file, write_shape_file
 from llm_guided_asr_tpu_torch.data.iterator import SequenceIterFactory
 from llm_guided_asr_tpu_torch.data.samplers import build_batch_sampler
-from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig, raw_features
+from llm_guided_asr_tpu_torch.models.asr_model import (
+    ASRModel,
+    ASRModelConfig,
+    raw_features,
+    refuse_bf16,
+)
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, encoder_conf_values
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
@@ -148,7 +153,7 @@ ASR_DEFAULTS: Dict[str, Any] = {
 }
 
 # the JAX package's choices the port does not have yet, by ROADMAP item
-ITEM_BF16 = "ROADMAP Queue 1 item 7"
+# (bfloat16's, item 7b: models/asr_model.py ITEM_BF16)
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
 
@@ -161,32 +166,27 @@ HF_ENCODERS = ("wav2vec2_hf", "hubert_hf", "whisper_hf")
 HF_POSTENCODERS = ("hugging_face_transformers", "hugging_face")
 JAX_MODELS = ("espnet", "llm_guided_asr", "maskctc", "transducer")
 
-# fields of the JAX config dataclasses that the port's do not have, with the
-# JAX defaults: a config that sets one to anything else raises
-_JAX_ONLY_FIELDS = {
-    "encoder_conf": {"rel_pos_type": "latest"},
-    "transducer decoder_conf": {"context_size": 256},
+# fields the JAX config dataclasses carry and the JAX package never reads:
+# accepted with any value and dropped (JAX builds the "latest" rel-pos
+# encoding whatever rel_pos_type says, and ignores context_size)
+_JAX_UNREAD_FIELDS = {
+    "encoder_conf": ("rel_pos_type",),
+    "transducer decoder_conf": ("context_size",),
 }
 
 
-def _same(a, b) -> bool:
-    if isinstance(a, (list, tuple)) and isinstance(b, (list, tuple)):
-        return tuple(a) == tuple(b)
-    return a == b
-
-
-def port_fields(cls, d: Optional[dict], where: str, jax_only: str = "") -> dict:
-    """``d`` filtered to the fields of the port's dataclass ``cls``; a field
-    only the JAX dataclass has raises unless it keeps the JAX default, and
-    a field neither has is dropped with a warning (as the JAX package
+def port_fields(cls, d: Optional[dict], where: str, jax_unread: str = "") -> dict:
+    """``d`` filtered to the fields of the port's dataclass ``cls``: a field
+    the JAX dataclass carries but never reads is dropped (``rel_pos_type:
+    legacy`` with a warning that the latest encoding is built, as in JAX),
+    and a field neither has is dropped with a warning (as the JAX package
     warns)."""
     d = dict(d or {})
-    for k, default in _JAX_ONLY_FIELDS.get(jax_only or where, {}).items():
-        if k in d:
-            if not _same(d[k], default):
-                raise NotImplementedError(f"{where}.{k}={d[k]!r} is not ported yet "
-                                          f"({ITEM_ZOO})")
-            del d[k]
+    for k in _JAX_UNREAD_FIELDS.get(jax_unread or where, ()):
+        value = d.pop(k, None)
+        if k == "rel_pos_type" and value not in (None, "latest"):
+            logger.warning(f"{where}.rel_pos_type={value!r}: the latest relative positional "
+                           "encoding is built, as the JAX package builds it")
     return filter_known_fields(cls, d, where)
 
 
@@ -400,20 +400,28 @@ def build_transducer_config(config: Dict[str, Any]):
     )
 
 
-def resolve_dtype(config: Dict[str, Any]) -> torch.dtype:
-    """train_dtype ('use_amp' analog): the port's ASR modules run in float32."""
+def resolve_dtype(config: Dict[str, Any], dtype: Optional[torch.dtype] = None) -> torch.dtype:
+    """``dtype`` if given, else ``train_dtype`` (``use_amp`` the analog):
+    float32, or bfloat16 for ``bfloat16``/``bf16`` (JAX tasks/asr.py:304)."""
+    if dtype is not None:
+        return dtype
     name = config.get("train_dtype") or ("bfloat16" if config.get("use_amp") else "float32")
-    if name in ("bfloat16", "bf16"):
-        raise NotImplementedError(f"train_dtype={name} (use_amp) is not ported yet ({ITEM_BF16})")
-    if name != "float32":
-        raise ValueError(f"unknown train_dtype {name!r}")
-    return torch.float32
+    if name not in _DTYPES:
+        raise ValueError(f"unknown train_dtype {name!r}; known: {sorted(_DTYPES)}")
+    return _DTYPES[name]
 
 
-def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None
-                ) -> nn.Module:
-    """The model of a config, on ``device`` (default: the config's)."""
-    resolve_dtype(config)
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.bfloat16}
+
+
+def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None,
+                dtype: Optional[torch.dtype] = None) -> nn.Module:
+    """The model of a config, on ``device`` (default: the config's),
+    computing in ``dtype`` (default: the config's ``train_dtype``).  The
+    CTC/attention and guided models take bfloat16 for the Conformer behind
+    the log-mel frontend; every other model or choice raises in bfloat16,
+    naming its ROADMAP item."""
+    dtype = resolve_dtype(config, dtype)
     dev = resolve_device(device) if device is not None else resolve_task_device(config)
     name = config.get("model", "espnet")
     if name == "llm_guided_asr":
@@ -421,13 +429,15 @@ def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] =
 
         _check_unported_asr_choices(config, name)
         _encoder_config(config)
-        return build_llm_guided_model(config, device=dev)
+        return build_llm_guided_model(config, device=dev, dtype=dtype)
     if name == "transducer":
         from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
 
+        if dtype == torch.bfloat16:
+            refuse_bf16("model='transducer'")
         return TransducerModel(build_transducer_config(config), device=dev)
     if name == "espnet":
-        return ASRModel(build_model_config(config), device=dev)
+        return ASRModel(build_model_config(config), device=dev, dtype=dtype)
     if name in JAX_MODELS:
         raise NotImplementedError(f"model={name!r} is not ported yet ({ITEM_ZOO})")
     raise ValueError(f"unknown model {name!r}; known: {JAX_MODELS}")
@@ -825,14 +835,17 @@ class ASRTask:
     @classmethod
     def build_model_from_file(cls, config_file: Union[str, Path],
                               model_file: Optional[Union[str, Path]] = None,
-                              device: Union[str, torch.device, None] = "cuda"
+                              device: Union[str, torch.device, None] = "cuda",
+                              dtype: torch.dtype = torch.float32
                               ) -> Tuple[nn.Module, Dict[str, Any]]:
         """Rebuild (model, config) from a config.yaml artifact of either
         package and a ``.pth`` or ``.msgpack`` checkpoint (abs_task.py:2272);
         the model is in eval mode on ``device`` (the config's device is the
-        training run's and is not read here)."""
+        training run's and is not read here), computing in ``dtype``:
+        float32 by default, as JAX's, whatever ``train_dtype`` the training
+        run had."""
         config = {**cls.get_default_config(), **load_yaml(config_file)}
-        model = build_model(config, device)
+        model = build_model(config, device, dtype)
         init_model_variables(model, config, int(config.get("seed", 0)))
         if model_file is not None:
             load_model_file(model, model_file)

@@ -52,7 +52,7 @@ GUIDED = dict(llm=dict(vocab_size=GV, hidden_size=32, intermediate_size=48, num_
                           end_of_response_id=7, pad_id=0),
               encoder=dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=1,
                            use_cnn_module=False),
-              decoder=dict(attention_heads=2, linear_units=64, num_blocks=2))
+              decoder=dict(attention_heads=2, linear_units=64, num_blocks=1))
 ENC_LENS = np.array([21, 14, 7])  # three ragged utterances
 
 

@@ -223,3 +223,24 @@ def test_speech2text_serves_a_multichannel_request():
     assert torch.equal(got[0], want[0]) and got[1].tolist() == want[1].tolist()
     (ids, hyp), = Speech2Text.from_model(model, beam_size=2, maxlenratio=-3.0)(wave)
     assert np.isfinite(hyp.score) and all(0 <= i < len(TOKENS) for i in ids)
+
+
+def test_batch_call_lanes_match_lone_multichannel_requests():
+    """``batch_call`` pads [S, C] requests into one [B, n, C] batch; each
+    lane's hypothesis equals the same request decoded alone (both pad to
+    one 1600-sample bucket, so the encoder frames agree): tokens equal,
+    scores within 1e-3 (the serve-batch rule)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    model = copy.deepcopy(_models(True)[2]).eval()
+    speech = _speech(4)[0]
+    waves = [speech[0, :1500], speech[1, :900], speech[0, 200:1000]]
+    s2t = Speech2Text.from_model(model, beam_size=3, maxlenratio=-3.0)
+    batched = s2t.batch_call(waves)
+    assert len(batched) == len(waves)
+    for wave, ((ids, hyp),) in zip(waves, batched):
+        (lone_ids, lone), = s2t(wave)
+        assert ids == lone_ids
+        assert abs(hyp.score - lone.score) <= 1e-3
+    with pytest.raises(ValueError, match="channel shapes"):
+        s2t.batch_call([waves[0], waves[1][:, :2]])

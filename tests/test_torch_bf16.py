@@ -1,0 +1,626 @@
+"""Port vs JAX in bfloat16 compute (``train_dtype: bfloat16`` / ``use_amp``):
+float32 parameters, bfloat16 activations, float32 statistics, softmaxes
+and losses, on both sides from the same weights.
+
+Two frameworks do not round bfloat16 at the same places (XLA's CPU fuses
+elementwise bfloat16 ops in float32; PyTorch eager rounds after each op),
+so every check has three parts, each against the same inputs:
+
+1. JAX-bf16 against JAX-f32: JAX's own bfloat16 error, e_J;
+2. port-bf16 against JAX-f32: within 2 e_J + 1e-3 max|ref|;
+3. port-bf16 against JAX-bf16: within ``rel`` max|ref|, stated per check
+   (2e-2 for outputs, losses and log-probs; 5e-2 for per-tensor gradients,
+   whose bfloat16 products sum many rounded terms), plus e_J: where a ReLU
+   gate within rounding of 0 flips in JAX's bfloat16 run (the subsampling
+   convs', the decoders' feed-forwards'), JAX-bf16 sits that far from
+   float32 itself, and no tighter bound on the pair holds.
+
+A per-tensor gradient that misses the rule behind a ReLU is settled by its
+gates, as a float32 miss at a ReLU gate within rounding of 0 is settled in
+the port's other tests: the port's bfloat16 step is run again with every
+ReLU of the decoders taking the float32 run's gate (``h * (h32 > 0)``),
+and that run's gradient must lie within part 2's bound of JAX-f32 (part 3
+does not apply to it: JAX's bfloat16 run flips gates of its own).
+Nothing else changes in that run.
+
+max|ref| is the JAX-f32 tensor's largest magnitude; for gradients it is at
+least 1e-1 of the largest gradient of the module or model (``floor``): a
+bfloat16 gradient's rounding scales with the activations it sums, not with
+its own size, so a gradient that is zero in exact arithmetic (a key
+projection's bias, to which the softmax is invariant) comes back from both
+packages at ~1e-3 of the largest gradient.
+
+Covered: the rel-pos attention module against JAX's fused kernel (Pallas
+in interpret mode, T = 16) and its dense path; FlashSelfAttention (the
+flash op's plain version) against the JAX module's dense branch on the
+valid rows; the depthwise conv forward and gradients; the Conformer
+CTC/attention ``ASRModel``'s loss, stats and per-tensor gradients; the
+guided model's phase-2 loss and gradients, and its
+``decode_prefix``/``decode_step`` log-probs; beam-10 n-best of both
+models: the best hypotheses equal, or a near tie in float32 (both forced
+through the float32 model's search, ``BatchBeamSearch.rescore``, their gap
+within twice bfloat16's own scoring error of the two), and every
+hypothesis the lists share scored alike; the refusals naming ROADMAP item
+7b (``use_amp`` and a JAX-written bfloat16 directory are in
+test_torch_task_guided.py).
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from llm_guided_asr_tpu.models import llm_guided as jlg
+from llm_guided_asr_tpu.models import transformer as jtr
+from llm_guided_asr_tpu.models.asr_model import ASRModel as JASRModel
+from llm_guided_asr_tpu.models.asr_model import ASRModelConfig as JASRModelConfig
+from llm_guided_asr_tpu.models.conformer import ConformerConfig as JConformerConfig
+from llm_guided_asr_tpu.models.conformer import DepthwiseConv1d as JDepthwiseConv1d
+from llm_guided_asr_tpu.models.llm.llama import LlamaConfig as JLlamaConfig
+from llm_guided_asr_tpu.models.llm.prompt import PromptTemplate as JPromptTemplate
+from llm_guided_asr_tpu.models.transformer_decoder import (
+    TransformerDecoderConfig as JDecoderConfig,
+)
+from llm_guided_asr_tpu.ops.frontend import FrontendConfig as JFrontendConfig
+from llm_guided_asr_tpu.search.beam_search import BatchBeamSearch as JBeamSearch
+from llm_guided_asr_tpu.search.scorers import CachedGuidedScorer as JCachedScorer
+from llm_guided_asr_tpu.train import trainer as jtrainer
+from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text, encode_request
+from llm_guided_asr_tpu_torch.convert import params_from_jax
+from llm_guided_asr_tpu_torch.models import llm_guided as tlg
+from llm_guided_asr_tpu_torch.models import transformer as ttr
+from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
+from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, DepthwiseConv1d
+from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
+from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
+from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
+from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from llm_guided_asr_tpu_torch.tasks import asr as tasr
+from test_torch_llm_guided import LLM, PROMPT
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
+from test_torch_transducer import seeded_variables
+
+torch.set_num_threads(1)
+
+BF16, F32 = torch.bfloat16, torch.float32
+OUT_REL, GRAD_REL = 2e-2, 5e-2
+VOCAB = 12
+FRONTEND = dict(n_fft=128, hop_length=64, n_mels=20)
+ENCODER = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
+               macaron_style=True, cnn_module_kernel=7, **NO_DROP_ENC)
+DECODER = dict(attention_heads=2, linear_units=64, num_blocks=2, **NO_DROP_DEC)
+GUIDED_FRONTEND = dict(n_fft=256, hop_length=128, n_mels=23)
+SOS = EOS = PROMPT["start_of_response_id"]
+
+
+def check_bf16(got, j_bf16, j_f32, rel, what="", floor=0.0):
+    """The three-part rule of the module docstring (``rel`` None: parts 1
+    and 2 only); returns (e_J, the port's distance from JAX-f32, its distance
+    from JAX-bf16) over max|ref|."""
+    got, jb, jf = (np.asarray(x, np.float64) for x in (got, j_bf16, j_f32))
+    assert got.shape == jf.shape == jb.shape, what
+    scale = max(np.abs(jf).max(), floor, 1e-30)
+    e_j = np.abs(jb - jf).max()
+    e_port = np.abs(got - jf).max()
+    e_pair = np.abs(got - jb).max()
+    assert e_port <= 2 * e_j + 1e-3 * scale, (
+        f"{what}: port-bf16 {e_port:.3e} from JAX-f32 > 2 e_J {2 * e_j:.3e} + 1e-3 max|ref|")
+    assert rel is None or e_pair <= rel * scale + e_j, (
+        f"{what}: port-bf16 {e_pair:.3e} from JAX-bf16 > {rel} max|ref| + e_J "
+        f"{rel * scale + e_j:.3e}")
+    return e_j / scale, e_port / scale, e_pair / scale
+
+
+def _f(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def check_stats(stats, jb_stats, jf_stats):
+    """The losses of one step as one vector by the three-part rule (a
+    scalar's own e_J is the luck of its sum's cancellations); the token
+    accuracy, an argmax count, equal to JAX-bf16's or JAX-f32's."""
+    assert stats.keys() == jf_stats.keys() == jb_stats.keys()
+    keys = sorted(k for k in stats if k != "acc")
+    check_bf16([float(stats[k].detach()) for k in keys], [jb_stats[k] for k in keys],
+               [jf_stats[k] for k in keys], OUT_REL, "losses")
+    if "acc" in stats:
+        assert float(stats["acc"]) in (pytest.approx(jb_stats["acc"]),
+                                       pytest.approx(jf_stats["acc"]))
+
+
+def check_grads(named, want_b, want_f, rel=GRAD_REL, gated=None):
+    """Every float32 parameter's float32 gradient by the three-part rule,
+    max|ref| floored at 1e-1 of the largest reference gradient; a miss is
+    checked again on ``gated()``'s gradients (the run on the float32 ReLU
+    gates), which must meet parts 1 and 2.  Returns the names settled so."""
+    floor = 1e-1 * max(np.abs(g.numpy()).max() for g in want_f.values())
+    assert {n for n, _ in named} == set(want_f)
+    settled, again = [], None
+    for name, p in named:
+        assert p.dtype == p.grad.dtype == F32, name
+        try:
+            check_bf16(p.grad, want_b[name], want_f[name], rel, name, floor)
+        except AssertionError:
+            if gated is None:
+                raise
+            again = again if again is not None else gated()
+            check_bf16(again[name], want_b[name], want_f[name], None, name, floor)
+            settled.append(name)
+    return settled
+
+
+def relu_gated_grads(model_bf16, model_f32, run):
+    """The bfloat16 model's gradients of ``run(model)`` (a loss) with every
+    ReLU feed-forward taking the float32 model's gates on the same run."""
+    import copy
+
+    gates = {}
+    hooks = [m.w_1.register_forward_hook(
+        lambda mod, args, out, n=n: gates.__setitem__(n, out.detach() > 0))
+        for n, m in model_f32.named_modules()
+        if isinstance(m, ttr.PositionwiseFeedForward) and m.activation is torch.relu]
+    try:
+        run(model_f32)
+    finally:
+        for h in hooks:
+            h.remove()
+    model = copy.deepcopy(model_bf16)
+    model.zero_grad()
+    for n, m in model.named_modules():
+        if n in gates:
+            m.activation = lambda h, g=gates[n]: h * g.to(h.dtype)
+    run(model).backward()
+    return {n: p.grad for n, p in model.named_parameters()}
+
+
+# ---------------------------------------------------------------------------
+# modules that reach a kernel
+# ---------------------------------------------------------------------------
+
+REL = dict(b=2, t=16, d=32, h=2)
+
+
+@functools.lru_cache(maxsize=None)
+def _rel_case():
+    """Inputs, a cotangent, seeded variables and JAX-f32's output and
+    gradients (the dense path: the fused kernel's float32 result is the
+    same function to float32 rounding)."""
+    b, t, d = REL["b"], REL["t"], REL["d"]
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    cot = rng.standard_normal((b, t, d)).astype(np.float32)
+    valid = np.arange(t)[None] < np.array([[t], [9]])
+    pos = jtr.rel_pos_enc(t, d)[None]
+    jmod = jtr.RelPositionMultiHeadedAttention(REL["h"], impl="dense")
+    variables = seeded_variables(jmod, jnp.asarray(x), jnp.asarray(pos),
+                                 jnp.asarray(valid)[:, None, :], seed=12)
+    return (x, cot, valid, pos, variables), _rel_jax(jmod, (x, cot, valid, pos, variables))
+
+
+def _rel_jax(jmod, case):
+    """(output, (parameter gradients, dx)) of sum(out * cot), jitted."""
+    x, cot, valid, pos, variables = case
+
+    def f(params, xx):
+        out = jmod.apply({"params": params}, xx.astype(jmod.dtype), jnp.asarray(pos),
+                         jnp.asarray(valid)[:, None, :])
+        return jnp.sum(out.astype(jnp.float32) * cot), out
+
+    (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+        variables["params"], jnp.asarray(x))
+    return _f(out), grads
+
+
+@pytest.mark.parametrize("impl", ["fused", "dense"])
+def test_rel_attention_module_bf16_matches_jax(impl):
+    """RelPositionMultiHeadedAttention at T = 16, d = 32, 2 heads, a ragged
+    batch: the output and the gradients of x and of every parameter, against
+    JAX's fused kernel (interpret mode; its operands bfloat16) and its dense
+    path."""
+    case, (jf_out, jf_g) = _rel_case()
+    x, cot, valid, pos, variables = case
+    jb_out, jb_g = _rel_jax(
+        jtr.RelPositionMultiHeadedAttention(REL["h"], dtype=jnp.bfloat16, impl=impl), case)
+    tmod = ttr.RelPositionMultiHeadedAttention(REL["d"], REL["h"])
+    tmod.load_state_dict(params_from_jax(_np(variables)), strict=True)
+    tx = torch.from_numpy(x).to(BF16).requires_grad_(True)
+    out = tmod.eval()(tx, torch.from_numpy(pos).to(BF16), torch.from_numpy(valid))
+    assert out.dtype == BF16
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    check_bf16(out.float().detach(), jb_out, jf_out, OUT_REL, "out")
+    check_bf16(tx.grad.float(), _f(jb_g[1]), _f(jf_g[1]), GRAD_REL, "dx")
+    check_grads(list(tmod.named_parameters()), params_from_jax({"params": _np(jb_g[0])}),
+                params_from_jax({"params": _np(jf_g[0])}))
+
+
+def test_flash_self_attention_bf16_matches_jax():
+    """FlashSelfAttention at T = 64, d = 128, 2 heads of 64 (the flash
+    op's head dim; the plain version on the CPU), a ragged batch: the
+    output's valid rows and the gradients of x and of every parameter
+    (the cotangent 0 on pad rows, where the JAX module's CPU branch attends
+    while the port's flash path zeroes them) against the JAX module's dense
+    branch."""
+    b, t, d, h = 2, 64, 128, 2
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((b, t, d)).astype(np.float32)
+    valid = np.arange(t)[None] < np.array([[t], [41]])
+    cot = rng.standard_normal((b, t, d)).astype(np.float32) * valid[..., None]
+    jmods = {dt: jtr.FlashSelfAttention(num_heads=h, dtype=dt)
+             for dt in (jnp.float32, jnp.bfloat16)}
+    variables = seeded_variables(jmods[jnp.float32], jnp.asarray(x), jnp.asarray(valid),
+                                 seed=20)
+
+    def j_run(dt):
+        def f(params, xx):
+            out = jmods[dt].apply({"params": params}, xx.astype(dt), jnp.asarray(valid))
+            return jnp.sum(out.astype(jnp.float32) * cot), out
+        (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+            variables["params"], jnp.asarray(x))
+        return _f(out), grads
+
+    (jb_out, jb_g), (jf_out, jf_g) = j_run(jnp.bfloat16), j_run(jnp.float32)
+    tmod = ttr.FlashSelfAttention(d, h)
+    tmod.load_state_dict(params_from_jax(_np(variables)), strict=True)
+    tx = torch.from_numpy(x).to(BF16).requires_grad_(True)
+    out = tmod.eval()(tx, torch.from_numpy(valid))
+    assert out.dtype == BF16
+    (out.float() * torch.from_numpy(cot)).sum().backward()
+    check_bf16(out.float().detach()[valid], jb_out[valid], jf_out[valid], OUT_REL, "out")
+    check_bf16(tx.grad.float(), _f(jb_g[1]), _f(jf_g[1]), GRAD_REL, "dx")
+    check_grads(list(tmod.named_parameters()), params_from_jax({"params": _np(jb_g[0])}),
+                params_from_jax({"params": _np(jf_g[0])}))
+
+
+def test_depthwise_conv_bf16_forward_and_gradients_match_jax():
+    """The conv module's depthwise conv [2, 64, 32] x K = 7 on a bfloat16
+    input: y, dx, and the float32 kernel's and bias's gradients (JAX casts
+    the kernel to bfloat16, so dw comes back through the cast)."""
+    rng = np.random.default_rng(13)
+    x = rng.standard_normal((2, 64, 32)).astype(np.float32)
+    cot = rng.standard_normal((2, 64, 32)).astype(np.float32)
+    jmods = {dt: JDepthwiseConv1d(7, dtype=dt) for dt in (jnp.float32, jnp.bfloat16)}
+    variables = seeded_variables(jmods[jnp.float32], jnp.asarray(x), seed=14)
+
+    def j_run(dt):
+        def f(params, xx):
+            y = jmods[dt].apply({"params": params}, xx.astype(dt))
+            return jnp.sum(y.astype(jnp.float32) * cot), y
+        (_, y), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+            variables["params"], jnp.asarray(x))
+        return _f(y), grads
+
+    (jb_y, jb_g), (jf_y, jf_g) = j_run(jnp.bfloat16), j_run(jnp.float32)
+    tmod = DepthwiseConv1d(32, 7)
+    tmod.load_state_dict(params_from_jax(_np(variables)), strict=True)
+    tx = torch.from_numpy(x).to(BF16).requires_grad_(True)
+    y = tmod(tx)
+    assert y.dtype == BF16
+    (y.float() * torch.from_numpy(cot)).sum().backward()
+    check_bf16(y.float().detach(), jb_y, jf_y, OUT_REL, "y")
+    check_bf16(tx.grad.float(), _f(jb_g[1]), _f(jf_g[1]), GRAD_REL, "dx")
+    check_grads(list(tmod.named_parameters()), params_from_jax({"params": _np(jb_g[0])}),
+                params_from_jax({"params": _np(jf_g[0])}))
+
+
+# ---------------------------------------------------------------------------
+# the Conformer CTC/attention model (phase 1)
+# ---------------------------------------------------------------------------
+
+ASR_COMMON = dict(vocab_size=VOCAB, normalize="utterance_mvn", ctc_weight=0.3)
+ASR_EOS = VOCAB - 1
+N_SAMPLES = 4000  # one request, padded to 4800 by Speech2Text
+
+
+@functools.lru_cache(maxsize=None)
+def _asr():
+    """(JAX models by dtype, seeded variables with batch statistics, the
+    port's bfloat16 and float32 models with the same weights)."""
+    jmodel = JASRModel(JASRModelConfig(frontend=JFrontendConfig(**FRONTEND),
+                                       encoder=JConformerConfig(**ENCODER),
+                                       decoder=JDecoderConfig(**DECODER), **ASR_COMMON))
+    batch = _batch(np.random.default_rng(0))
+    variables = seeded_variables(jmodel, *(jnp.asarray(batch[k])
+                                           for k in jtrainer.DEFAULT_BATCH_ARGS), seed=15)
+    cfg = ASRModelConfig(frontend=FrontendConfig(**FRONTEND), encoder=ConformerConfig(**ENCODER),
+                         decoder=TransformerDecoderConfig(**DECODER), **ASR_COMMON)
+    port = {}
+    for dt in (BF16, F32):
+        port[dt] = ASRModel(cfg, device="cpu", dtype=dt)
+        port[dt].load_state_dict(params_from_jax(_np(variables)), strict=True)
+    return {F32: jmodel, BF16: jmodel.clone(dtype=jnp.bfloat16)}, variables, port
+
+
+@functools.lru_cache(maxsize=None)
+def _asr_jax_grads(dtype):
+    jmodels, variables, _ = _asr()
+    jmodel = jmodels[dtype]
+    batch = _batch(np.random.default_rng(1))
+    args = [jnp.asarray(batch[k]) for k in jtrainer.DEFAULT_BATCH_ARGS]
+
+    def loss(params):
+        (out, stats, _), _ = jmodel.apply({**variables, "params": params}, *args,
+                                          deterministic=False, mutable=["batch_stats"])
+        return out, stats
+
+    (_, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    return {k: float(v) for k, v in stats.items()}, params_from_jax({"params": _np(grads)})
+
+
+def test_asr_model_bf16_loss_stats_and_gradients_match_jax():
+    """One training-mode forward and backward of a ragged batch (dropout 0,
+    batch statistics): the losses and every float32 gradient by the
+    three-part rule; the port's encoder ran in bfloat16."""
+    _, _, port = _asr()
+    model = port[BF16].train()
+    batch = _torch_batch(_batch(np.random.default_rng(1)))
+    loss, stats, _ = model(*batch.values())
+    loss.backward()
+    assert loss.dtype == F32 and model.compute.dtype == BF16
+    (jb_stats, jb_grads), (jf_stats, jf_grads) = _asr_jax_grads(BF16), _asr_jax_grads(F32)
+    check_stats(stats, jb_stats, jf_stats)
+    settled = check_grads(list(model.named_parameters()), jb_grads, jf_grads, gated=lambda: (
+        relu_gated_grads(model, port[F32].train(), lambda m: m(*batch.values())[0])))
+    assert all(".feed_forward.w_1." in n for n in settled), settled
+    for buf in ("running_mean", "running_var"):
+        assert all(b.dtype == F32 for n, b in model.named_buffers() if n.endswith(buf))
+
+
+def assert_nbest_equal_or_tied(got, want, rescore32):
+    """n-best lists (Hypothesis) of the port's bfloat16 model (``got``) and
+    of JAX's (``want``): the best token sequences equal, or a near tie in
+    float32: both rescored by the port's float32 search (``rescore32``, its
+    score of a forced token sequence), their gap within twice the larger of
+    the two bfloat16 searches' scoring errors of them.  Every sequence in
+    both lists scored within 2e-2 of its size.  Below the best, a rank may
+    hold another sequence: beam pruning at a near tie (a prefix within
+    rounding of the last one kept) reorders or replaces the tail, and JAX's
+    own bfloat16 10-best parts from its float32 one so (the guided model's
+    ranks 9-10 here)."""
+    assert len(got) == len(want)
+    g, w = got[0], want[0]
+    if g.yseq != w.yseq:
+        s_g, s_w = rescore32(g.yseq), rescore32(w.yseq)
+        err = max(abs(g.score - s_g), abs(w.score - s_w))
+        assert abs(s_g - s_w) <= 2 * err, (
+            f"{g.yseq} ({g.score}) vs {w.yseq} ({w.score}): float32 scores {s_g} and {s_w} "
+            f"part by more than twice bfloat16's scoring error {err}")
+    theirs = {tuple(h.yseq): h.score for h in want}
+    for h in got:
+        if tuple(h.yseq) in theirs:
+            ref = theirs[tuple(h.yseq)]
+            assert abs(h.score - ref) <= OUT_REL * max(1.0, abs(ref)), (h.yseq, h.score, ref)
+
+
+def f32_rescorer(model, speech):
+    """The float32 model's search score of a forced sequence on ``speech``
+    padded as Speech2Text pads it (BatchBeamSearch.rescore)."""
+    s2t = speech2text(model.eval())
+    with torch.no_grad():
+        enc, lens = encode_request(model, speech, 1600, torch.device("cpu"))
+    return lambda yseq: s2t.beam.rescore(enc, lens, yseq, maxlenratio=-8.0)
+
+
+def test_asr_model_bf16_beam10_nbest_matches_jax():
+    """Beam 10, ctc_weight 0.3, an 8-token cap, 10-best: the port's
+    Speech2Text over the bfloat16 model against JAX's BatchBeamSearch over
+    the JAX bfloat16 model's encoder output (the stateless scorer); its
+    lockstep batch_call of the request twice gives two equal lanes, scored
+    as the request alone (2e-2)."""
+    jmodels, variables, port = _asr()
+    speech = (np.random.default_rng(16).standard_normal(N_SAMPLES) * 0.5).astype(np.float32)
+    padded = np.zeros((1, -(-N_SAMPLES // 1600) * 1600), np.float32)
+    padded[0, :N_SAMPLES] = speech
+    jmodel = jmodels[BF16]
+    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+        variables, jnp.asarray(padded), jnp.asarray([N_SAMPLES], jnp.int32))
+    j_hyps = JBeamSearch(jmodel, variables, vocab_size=VOCAB, sos=ASR_EOS, eos=ASR_EOS,
+                         beam_size=10, ctc_weight=0.3)(enc, enc_lens, maxlenratio=-8.0, nbest=10)
+    s2t = speech2text(port[BF16].eval(), nbest=10)
+    out = s2t(speech)
+    assert len(out) == 10 and any(ids for ids, _ in out)
+    # the lockstep batch: two lanes of the request, alike, scored as alone
+    lanes = s2t.batch_call([speech, speech])
+    assert [h.yseq for _, h in lanes[0]] == [h.yseq for _, h in lanes[1]]
+    assert abs(lanes[0][0][1].score - out[0][1].score) <= OUT_REL * abs(out[0][1].score)
+    rescore32 = f32_rescorer(port[F32], speech)
+    assert_nbest_equal_or_tied([h for _, h in out], j_hyps, rescore32)
+    # the forced rescoring gives the float32 search's own scores
+    for _, h in speech2text(port[F32].eval(), nbest=3)(speech):
+        assert abs(rescore32(h.yseq) - h.score) <= 1e-4, h
+
+
+def speech2text(model, **kwargs):
+    """The decode checks' recognizer: beam 10, ctc_weight 0.3, 8 tokens."""
+    return Speech2Text.from_model(model, ctc_weight=0.3, beam_size=10, maxlenratio=-8.0,
+                                  **kwargs)
+
+
+# ---------------------------------------------------------------------------
+# the LLM-guided model (phase 2 and serving); the LLM in float32 on both sides
+# ---------------------------------------------------------------------------
+
+GUIDED_V = LLM["vocab_size"]
+GUIDED_SAMPLES = 9000
+
+
+@functools.lru_cache(maxsize=None)
+def _guided():
+    """(JAX models by dtype, seeded variables with batch statistics, the
+    port's bfloat16 and float32 models with the same weights)."""
+    common = dict(vocab_size=GUIDED_V, normalize="utterance_mvn", ctc_weight=0.3)
+    jmodel = jlg.LLMGuidedASRModel(jlg.LLMGuidedASRConfig(
+        llm=JLlamaConfig(**LLM), prompt=JPromptTemplate(**PROMPT),
+        frontend=JFrontendConfig(**GUIDED_FRONTEND), encoder=JConformerConfig(**ENCODER),
+        decoder=JDecoderConfig(**DECODER), **common))
+    batch = _guided_batch()
+    variables = seeded_variables(jmodel, *(jnp.asarray(batch[k])
+                                           for k in jtrainer.DEFAULT_BATCH_ARGS), seed=17)
+    cfg = tlg.LLMGuidedASRConfig(
+        llm=LlamaConfig(**LLM), prompt=PromptTemplate(**PROMPT),
+        frontend=FrontendConfig(**GUIDED_FRONTEND), encoder=ConformerConfig(**ENCODER),
+        decoder=TransformerDecoderConfig(**DECODER), **common)
+    port = {}
+    for dt in (BF16, F32):
+        port[dt] = tlg.LLMGuidedASRModel(cfg, llm_dtype=F32, device="cpu", dtype=dt)
+        port[dt].load_state_dict(params_from_jax(_np(variables)), strict=True)
+    return {F32: jmodel, BF16: jmodel.clone(dtype=jnp.bfloat16)}, variables, port
+
+
+def _guided_batch():
+    return _batch(np.random.default_rng(2), b=2, s=GUIDED_SAMPLES, l=4, lo=8, hi=GUIDED_V)
+
+
+@functools.lru_cache(maxsize=None)
+def _guided_jax_grads(dtype):
+    jmodels, variables, _ = _guided()
+    args = [jnp.asarray(_guided_batch()[k]) for k in jtrainer.DEFAULT_BATCH_ARGS]
+
+    def loss(params):
+        (out, stats, _), _ = jmodels[dtype].apply({**variables, "params": params}, *args,
+                                                  deterministic=False, mutable=["batch_stats"])
+        return out, stats
+
+    (_, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    return {k: float(v) for k, v in stats.items()}, params_from_jax({"params": _np(grads)})
+
+
+def test_guided_model_bf16_loss_and_gradients_match_jax():
+    """The phase-2 loss (encoder in eval mode, LLM frozen) of a ragged batch:
+    the losses and every gradient but the LLM's (no gradient in either) by
+    the three-part rule."""
+    _, _, port = _guided()
+    model = port[BF16].train()
+    batch = _torch_batch(_guided_batch())
+    loss, stats, _ = model(*batch.values())
+    loss.backward()
+    assert loss.dtype == F32 and model.compute.dtype == BF16
+    (jb_stats, jb_grads), (jf_stats, jf_grads) = _guided_jax_grads(BF16), _guided_jax_grads(F32)
+    check_stats(stats, jb_stats, jf_stats)
+    named = [(n, p) for n, p in model.named_parameters() if not n.startswith("llm.")]
+    assert all(p.grad is None for n, p in model.named_parameters() if n.startswith("llm."))
+    keep = {n for n, _ in named}
+    settled = check_grads(
+        named, {n: g for n, g in jb_grads.items() if n in keep},
+        {n: g for n, g in jf_grads.items() if n in keep},
+        gated=lambda: relu_gated_grads(model, port[F32].train(),
+                                       lambda m: m(*batch.values())[0]))
+    assert all(".feed_forward.w_1." in n for n in settled), settled
+
+
+@functools.lru_cache(maxsize=None)
+def _guided_enc():
+    """JAX-f32's encoder output of one request as Speech2Text pads it,
+    the common input of the decode checks."""
+    jmodels, variables, _ = _guided()
+    speech = (np.random.default_rng(18).standard_normal(GUIDED_SAMPLES) * 0.1).astype(np.float32)
+    padded = np.zeros((1, -(-GUIDED_SAMPLES // 1600) * 1600), np.float32)
+    padded[0, :GUIDED_SAMPLES] = speech
+    enc, lens = jax.jit(functools.partial(jmodels[F32].apply, method=jmodels[F32].encode))(
+        variables, jnp.asarray(padded), jnp.asarray([GUIDED_SAMPLES], jnp.int32))
+    return speech, enc, lens
+
+
+def test_guided_decode_prefix_and_steps_bf16_match_jax():
+    """decode_prefix then four decode_step calls of 3 beams (a reorder
+    between them) from one float32 encoder output, which both models cast
+    to bfloat16: the float32 log-probs by the three-part rule; the guided
+    decoder's input streams are bfloat16, the LLM's KV buffers float32."""
+    jmodels, variables, port = _guided()
+    _, j_enc, j_lens = _guided_enc()
+    k_beam, lmax = 3, 8
+    enc = torch.from_numpy(np.array(j_enc))
+    lens = torch.from_numpy(np.array(j_lens)).long()
+    t_sc = CachedGuidedScorer(port[BF16].eval())
+    j_sc = {dt: JCachedScorer(jmodels[dt], variables) for dt in (BF16, F32)}
+    j_state = {dt: jax.jit(j_sc[dt].init, static_argnums=(2, 3))(j_enc, j_lens[0], k_beam, lmax)
+               for dt in (BF16, F32)}
+    j_step = {dt: jax.jit(j_sc[dt].step) for dt in (BF16, F32)}
+    with torch.no_grad():
+        t_state = t_sc.init(enc, lens[0], k_beam, lmax)
+    assert t_state["gd_xs"].dtype == BF16 and t_state["k"][0].dtype == F32
+    tokens = np.full((k_beam, lmax), SOS, np.int32)
+    tlen = np.ones(k_beam, np.int32)
+    chosen = [[14, 26, 9], [25, 18, 9], [14, 11, 32]]
+    for step in range(4):
+        j_logp = {}
+        for dt in (BF16, F32):
+            j_logp[dt], j_state[dt] = j_step[dt](j_enc, j_lens[0], j_state[dt],
+                                                 jnp.asarray(tokens), jnp.asarray(tlen),
+                                                 jnp.asarray(step))
+        with torch.no_grad():
+            t_logp, t_state = t_sc.step(enc, lens[0], t_state, torch.from_numpy(tokens).long(),
+                                        torch.from_numpy(tlen).long(), step)
+        assert t_logp.dtype == F32
+        check_bf16(t_logp, _f(j_logp[BF16]), _f(j_logp[F32]), OUT_REL, f"step {step}")
+        if step == 3:
+            break
+        tokens[:, step + 1] = [chosen[b][step] for b in range(k_beam)]
+        tlen += 1
+        parent = np.array([2, 0, 1]) if step == 1 else np.arange(k_beam)
+        tokens = tokens[parent]
+        for dt in (BF16, F32):
+            j_state[dt] = j_sc[dt].select(j_state[dt], jnp.asarray(parent))
+        t_state = t_sc.select(t_state, torch.from_numpy(parent))
+
+
+def test_guided_bf16_beam10_nbest_matches_jax():
+    """Beam 10 with the cached guided scorer, ctc_weight 0.3, an 8-token
+    cap, 10-best: the port's Speech2Text over the bfloat16 model against
+    JAX's BatchBeamSearch over the JAX bfloat16 model's encoder output."""
+    jmodels, variables, port = _guided()
+    speech, _, _ = _guided_enc()
+    padded = np.zeros((1, -(-GUIDED_SAMPLES // 1600) * 1600), np.float32)
+    padded[0, :GUIDED_SAMPLES] = speech
+    jmodel = jmodels[BF16]
+    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+        variables, jnp.asarray(padded), jnp.asarray([GUIDED_SAMPLES], jnp.int32))
+    j_hyps = JBeamSearch(jmodel, variables, att_scorer=JCachedScorer(jmodel, variables),
+                         vocab_size=GUIDED_V, sos=SOS, eos=EOS, beam_size=10,
+                         ctc_weight=0.3)(enc, enc_lens, maxlenratio=-8.0, nbest=10)
+    out = speech2text(port[BF16].eval(), nbest=10)(speech)
+    assert len(out) == 10
+    assert_nbest_equal_or_tied([h for _, h in out], j_hyps, f32_rescorer(port[F32], speech))
+
+
+# ---------------------------------------------------------------------------
+# what stays float32
+# ---------------------------------------------------------------------------
+
+def test_choices_outside_the_slice_refuse_bf16_naming_item_7b():
+    """bfloat16 takes the Conformer with the transformer decoder behind the
+    log-mel frontend (CTC/attention and guided); every other encoder,
+    decoder, frontend and model raises NotImplementedError naming ROADMAP
+    Queue 1 item 7b, and an unknown train_dtype a ValueError."""
+    base = dict(frontend=FrontendConfig(**FRONTEND), encoder=ConformerConfig(**ENCODER),
+                decoder=TransformerDecoderConfig(**DECODER), **ASR_COMMON)
+    for bad in (dict(encoder_type="e_branchformer"), dict(decoder_type="rnn"),
+                dict(frontend=FrontendConfig(**FRONTEND, use_wpe=True, mask_units=8)),
+                dict(frontend=FrontendConfig(**FRONTEND, type="sliding_window")),
+                dict(postencoder=("length_adaptor", None))):
+        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+            ASRModel(ASRModelConfig(**{**base, **bad}), device="cpu", dtype=BF16)
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+        tlg.LLMGuidedASRModel(tlg.LLMGuidedASRConfig(
+            vocab_size=GUIDED_V, llm=LlamaConfig(**LLM), prompt=PromptTemplate(**PROMPT),
+            encoder_type="transformer", encoder=ConformerConfig(**ENCODER)),
+            device="cpu", dtype=BF16)
+    config = {**tasr.ASRTask.get_default_config(), "token_list": ["<blank>", "a", "<sos/eos>"],
+              "encoder_conf": {"output_size": 16, "attention_heads": 2, "num_blocks": 1},
+              "frontend_conf": FRONTEND}
+    for model in ("transducer", "espnet"):
+        for amp in ({"train_dtype": "bfloat16"}, {"use_amp": True}):
+            conf = {**config, "model": model, **amp,
+                    **({"encoder": "branchformer"} if model == "espnet" else {})}
+            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+                tasr.build_model(conf, "cpu")
+    with pytest.raises(ValueError, match="train_dtype"):
+        tasr.build_model({**config, "train_dtype": "float16"}, "cpu")
+    model = tasr.build_model({**config, "use_amp": True}, "cpu")
+    assert model.compute.dtype == BF16
+    assert {p.dtype for p in model.parameters()} == {F32}
+    assert {b.dtype for n, b in model.named_buffers() if n != "compute"} <= {F32}
+    assert "compute" not in model.state_dict()

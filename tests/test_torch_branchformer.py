@@ -65,9 +65,11 @@ from test_torch_transducer import seeded_variables
 torch.set_num_threads(1)
 
 N_FEATS = 20
+# one decoder block: the tests are about the encoders (two blocks where a
+# test takes every gradient) and the tied output layer
 ENC = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
            cnn_module_kernel=7, **NO_DROP_ENC)
-DEC = dict(attention_heads=2, linear_units=32, num_blocks=2, tie_input_output=True, **NO_DROP_DEC)
+DEC = dict(attention_heads=2, linear_units=32, num_blocks=1, tie_input_output=True, **NO_DROP_DEC)
 J_ENCODERS = {"e_branchformer": jbf.EBranchformerEncoder, "branchformer": jbf.BranchformerEncoder,
               "transformer": jconf.TransformerEncoder, "conformer": jconf.ConformerEncoder}
 T_ENCODERS = {"e_branchformer": EBranchformerEncoder, "branchformer": BranchformerEncoder,

@@ -89,7 +89,7 @@ def test_asr_model_brctc_with_interctc_matches_jax():
     """ctc_weight 1.0 (the CTC terms alone), risk 0.5 on the final CTC,
     interctc over block 1 at weight 0.3 with no risk: loss, loss_ctc,
     loss_interctc and every gradient against JAX's."""
-    enc = dict(ASR["encoder"], interctc_layer_idx=(1,))
+    enc = dict(ASR["encoder"], interctc_layer_idx=(1,), num_blocks=2)  # block 1 of 2
     common = dict(vocab_size=VOCAB, normalize="utterance_mvn", ctc_weight=1.0,
                   ctc_type="brctc", brctc_risk_factor=0.5, interctc_weight=0.3)
     jmodel = JASRModel(JASRModelConfig(frontend=JFrontendConfig(**ASR["frontend"]),

@@ -1,5 +1,7 @@
 """Port vs JAX: transformer blocks and the Conformer encoder, same weights."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ from llm_guided_asr_tpu.models import transformer as jtr
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models import conformer as tconf
 from llm_guided_asr_tpu_torch.models import transformer as ttr
+from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
 
@@ -47,9 +50,9 @@ def test_conformer_encoder_matches_jax(pad_safe_conv, activation_type):
     feats = rng.standard_normal((3, 57, 20)).astype(np.float32)
     lengths = np.array([57, 40, 23], np.int32)
     jmod = jconf.ConformerEncoder(jconf.ConformerConfig(**cfg_kw))
-    variables = jmod.init(jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(lengths))
+    variables = seeded_variables(jmod, jnp.asarray(feats), jnp.asarray(lengths))
     variables = _randomize_batch_stats(variables, rng)
-    j_out, j_lens = jmod.apply(variables, jnp.asarray(feats), jnp.asarray(lengths))
+    j_out, j_lens = jax.jit(jmod.apply)(variables, jnp.asarray(feats), jnp.asarray(lengths))
 
     tmod = _load(tconf.ConformerEncoder(tconf.ConformerConfig(**cfg_kw), 20, device="cpu"),
                  variables)
@@ -66,9 +69,10 @@ def test_rel_pos_attention_module_matches_jax():
     valid = np.arange(t)[None] < np.array([[t], [11]])
     pos = jtr.rel_pos_enc(t, d)[None]
     jmod = jtr.RelPositionMultiHeadedAttention(h, impl="dense")
-    variables = jmod.init(jax.random.PRNGKey(1), jnp.asarray(x), jnp.asarray(pos),
-                          jnp.asarray(valid)[:, None, :])
-    j_out = jmod.apply(variables, jnp.asarray(x), jnp.asarray(pos), jnp.asarray(valid)[:, None, :])
+    variables = seeded_variables(jmod, jnp.asarray(x), jnp.asarray(pos),
+                                 jnp.asarray(valid)[:, None, :], seed=1)
+    j_out = jax.jit(jmod.apply)(variables, jnp.asarray(x), jnp.asarray(pos),
+                                jnp.asarray(valid)[:, None, :])
     tmod = _load(ttr.RelPositionMultiHeadedAttention(d, h), variables)
     with torch.no_grad():
         t_out = tmod(torch.from_numpy(x), torch.from_numpy(pos), torch.from_numpy(valid))
@@ -79,11 +83,12 @@ def test_conv2d_subsampling_and_lengths_match_jax():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 31, 23)).astype(np.float32)
     jmod = jtr.Conv2dSubsampling(16)
-    variables = jmod.init(jax.random.PRNGKey(2), jnp.asarray(x))
+    variables = seeded_variables(jmod, jnp.asarray(x), seed=2)
     tmod = _load(ttr.Conv2dSubsampling(23, 16), variables)
     with torch.no_grad():
         t_out = tmod(torch.from_numpy(x))
-    np.testing.assert_allclose(t_out.numpy(), np.asarray(jmod.apply(variables, jnp.asarray(x))),
+    np.testing.assert_allclose(t_out.numpy(),
+                               np.asarray(jax.jit(jmod.apply)(variables, jnp.asarray(x))),
                                rtol=1e-5, atol=1e-5)
     lens = np.array([31, 30, 9, 4, 1], np.int32)
     np.testing.assert_array_equal(
@@ -102,17 +107,19 @@ def test_decoder_layer_cached_paths_match_jax():
     tgt_mask = np.tril(np.ones((lq, lq), bool))[None].repeat(b, 0)
     mem_mask = (np.arange(t)[None] < np.array([[t], [8]]))[:, None, :]
     jmod = jtr.DecoderLayer(h, 48)
-    variables = jmod.init(jax.random.PRNGKey(3), jnp.asarray(tgt), jnp.asarray(tgt_mask),
-                          jnp.asarray(mem), jnp.asarray(mem_mask))
+    variables = seeded_variables(jmod, jnp.asarray(tgt), jnp.asarray(tgt_mask),
+                                 jnp.asarray(mem), jnp.asarray(mem_mask), seed=3)
     tmod = _load(ttr.DecoderLayer(d, h, 48), variables)
-    j_full = jmod.apply(variables, jnp.asarray(tgt), jnp.asarray(tgt_mask), jnp.asarray(mem),
-                        jnp.asarray(mem_mask))
-    j_mk, j_mv = jmod.apply(variables, None, None, jnp.asarray(mem), None, project_mem_kv_only=True)
+    apply = jax.jit(jmod.apply)  # eager flax compiles every op at each new shape
+    j_full = apply(variables, jnp.asarray(tgt), jnp.asarray(tgt_mask), jnp.asarray(mem),
+                   jnp.asarray(mem_mask))
+    j_mk, j_mv = jax.jit(functools.partial(jmod.apply, project_mem_kv_only=True))(
+        variables, None, None, jnp.asarray(mem), None)
     step = 3
     step_mask = np.broadcast_to(np.arange(lq) <= step, (b, 1, lq))
-    j_step = jmod.apply(variables, jnp.asarray(tgt[:, step:step + 1]), jnp.asarray(step_mask),
-                        jnp.asarray(mem), jnp.asarray(mem_mask), self_kv=jnp.asarray(tgt),
-                        mem_kv=(j_mk, j_mv))
+    j_step = apply(variables, jnp.asarray(tgt[:, step:step + 1]), jnp.asarray(step_mask),
+                   jnp.asarray(mem), jnp.asarray(mem_mask), self_kv=jnp.asarray(tgt),
+                   mem_kv=(j_mk, j_mv))
     with torch.no_grad():
         T = torch.from_numpy
         t_full = tmod(T(tgt), T(tgt_mask), T(mem), T(mem_mask))

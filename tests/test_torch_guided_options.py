@@ -39,9 +39,11 @@ V = 54  # the BPE tokenizer's vocabulary
 LLM = dict(vocab_size=V, hidden_size=32, intermediate_size=48, num_hidden_layers=2,
            num_attention_heads=4, num_key_value_heads=2)
 FRONTEND = dict(n_fft=256, hop_length=128, n_mels=23)
-ENCODER = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=2,
+# one block each: the options are about the prompt and the scores, not
+# depth, and XLA compiles each JAX call in about half the time of two
+ENCODER = dict(output_size=32, attention_heads=2, linear_units=64, num_blocks=1,
                macaron_style=True, cnn_module_kernel=7)
-DECODER = dict(attention_heads=2, linear_units=64, num_blocks=2)
+DECODER = dict(attention_heads=2, linear_units=64, num_blocks=1)
 BIAS_TEMPLATE = 'words: ((BIAS)) fix "((HYP))" -> "'
 CTC_TOKENS = ["<blank>", "<unk>", "ab", "c", "a", "b", "<sos/eos>"]
 N = 6000

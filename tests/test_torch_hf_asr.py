@@ -55,7 +55,9 @@ SOS = EOS = VOCAB - 1
 TINY_W2V = dict(hidden_size=32, num_hidden_layers=2, num_attention_heads=2,
                 intermediate_size=48, conv_dim=[16, 16], conv_kernel=[10, 3], conv_stride=[5, 2],
                 num_conv_pos_embeddings=16, num_conv_pos_embedding_groups=4)
-ENC = dict(output_size=16, attention_heads=2, linear_units=24, num_blocks=2,
+# one Conformer block: the tests are about the trunks before it, and XLA
+# compiles each JAX step in about half the time of two blocks
+ENC = dict(output_size=16, attention_heads=2, linear_units=24, num_blocks=1,
            cnn_module_kernel=7, **NO_DROP_ENC)
 DEC = dict(attention_heads=2, linear_units=24, num_blocks=1, **NO_DROP_DEC)
 N_SAMPLES = 3000  # padded to 3200 by Speech2Text

@@ -9,6 +9,7 @@ import torch
 from llm_guided_asr_tpu.models.llm import llama as jl
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models.llm import llama as tl
+from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
 
@@ -21,7 +22,8 @@ CFG = dict(vocab_size=61, hidden_size=32, intermediate_size=48, num_hidden_layer
 def _models():
     jmod = jl.LlamaModel(jl.LlamaConfig(**CFG), dtype=jnp.float32)
     ids = jnp.zeros((2, 12), jnp.int32)
-    variables = jmod.init(jax.random.PRNGKey(0), ids, jnp.ones((2, 12), bool))
+    # seeded weights at init-like scales: no eager flax init
+    variables = seeded_variables(jmod, ids, jnp.ones((2, 12), bool))
     tmod = tl.LlamaModel(tl.LlamaConfig(**CFG), dtype=torch.float32, device="cpu")
     tmod.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, variables)))
     return jmod, variables, tmod.eval()
@@ -42,7 +44,8 @@ def test_prompt_forward_and_cached_steps_match_jax():
     valid = np.ones((b, tp), bool)
     valid[1, 4:7] = False  # mid-row pads, as the prompt packer leaves them
     valid[0, 11] = False
-    j_hidden, j_cache = jmod.apply(variables, jnp.asarray(ids), jnp.asarray(valid))
+    apply = jax.jit(jmod.apply)  # eager flax compiles every op at each new shape
+    j_hidden, j_cache = apply(variables, jnp.asarray(ids), jnp.asarray(valid))
     with torch.no_grad():
         t_hidden, t_cache = tmod(torch.from_numpy(ids).long(), torch.from_numpy(valid))
     np.testing.assert_allclose(t_hidden.numpy()[valid], np.asarray(j_hidden)[valid],
@@ -68,9 +71,9 @@ def test_prompt_forward_and_cached_steps_match_jax():
     for step in range(n_steps):
         tok = rng.integers(1, CFG["vocab_size"], (b, 1)).astype(np.int32)
         pos = (nvalid + step)[:, None]
-        j_h, j_new = jmod.apply(variables, jnp.asarray(tok), jnp.ones((b, 1), bool),
-                                cache={"layers": j_layers}, cache_valid=j_valid,
-                                positions=jnp.asarray(pos))
+        j_h, j_new = apply(variables, jnp.asarray(tok), jnp.ones((b, 1), bool),
+                           cache={"layers": j_layers}, cache_valid=j_valid,
+                           positions=jnp.asarray(pos))
         j_layers = [(jnp.concatenate([ck, nk], 1), jnp.concatenate([cv, nv], 1))
                     for (ck, cv), (nk, nv) in zip(j_layers, j_new["layers"])]
         j_valid = jnp.concatenate([j_valid, jnp.ones((b, 1), bool)], 1)

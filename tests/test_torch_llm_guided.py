@@ -29,6 +29,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecod
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
 
@@ -63,8 +64,9 @@ def models():
     speech = (rng.standard_normal((1, N_SAMPLES)) * 0.1).astype(np.float32)
     lengths = np.array([N_SAMPLES], np.int32)
     text = jnp.ones((1, 4), jnp.int32)
-    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(0)}, jnp.asarray(speech),
-                                     jnp.asarray(lengths), text, jnp.array([4]))
+    # seeded weights at init-like scales, no flax init to compile
+    variables = seeded_variables(jmodel, jnp.asarray(speech), jnp.asarray(lengths), text,
+                                 jnp.array([4]))
     stats = jax.tree_util.tree_map_with_path(
         lambda p, x: (rng.uniform(0.5, 1.5, x.shape) if p[-1].key == "var"
                       else rng.standard_normal(x.shape) * 0.1).astype(np.float32),

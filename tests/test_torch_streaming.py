@@ -108,6 +108,32 @@ def test_contextual_block_encoder_matches_jax():
                                     0, 5)
 
 
+@pytest.mark.parametrize("input_layer", ["linear", "none"])
+def test_contextual_block_input_layers_match_jax(input_layer):
+    """The offline pass under ``input_layer`` linear (one Dense to 16) and
+    none (the layers at the features' width, 12) on a ragged batch, one
+    layer, against the JAX module (1e-5); encode_chunk refuses both, as in
+    JAX."""
+    cfg = {**ENCODER, "input_layer": input_layer, "num_blocks": 1}
+    jenc = JBlockEncoder(JConformerConfig(**cfg), block_size=BLOCK)
+    rng = np.random.default_rng(23)
+    feats = rng.standard_normal((2, 21, 12)).astype(np.float32)
+    lens = np.array([21, 9], np.int32)
+    variables = seeded_variables(jenc, jnp.asarray(feats), jnp.asarray(lens), seed=24)
+    j_out, j_lens = jax.jit(lambda f, n: jenc.apply(variables, f, n))(jnp.asarray(feats),
+                                                                      jnp.asarray(lens))
+    tenc = ContextualBlockConformerEncoder(ConformerConfig(**cfg), 12, block_size=BLOCK,
+                                           device="cpu")
+    tenc.load_state_dict(params_from_jax(_np(variables)), strict=True)
+    assert tenc.output_size == (16 if input_layer == "linear" else 12) == j_out.shape[-1]
+    with torch.no_grad():
+        t_out, t_lens = tenc.eval()(torch.from_numpy(feats), torch.from_numpy(lens).long())
+    np.testing.assert_array_equal(t_lens.numpy(), np.asarray(j_lens))
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **TOL)
+    with pytest.raises(NotImplementedError, match="conv2d"):
+        tenc.encode_chunk(torch.zeros(1, 4 * BLOCK + 6, 12), torch.zeros(2, 1, 12), 0, BLOCK)
+
+
 def test_encode_chunk_equals_offline_encode():
     """Feeding an utterance's features block by block with the carried
     contexts gives the offline rows (the positions and the feature offset
@@ -295,12 +321,13 @@ def test_ctc_timesync_matches_jax(att_weight):
         assert [h.yseq for h in got] == [h.yseq for h in want]
         np.testing.assert_allclose([h.score for h in got], [h.score for h in want], atol=1e-4)
         return
+    decoder_logits = jax.jit(functools.partial(jmodel.apply, method=jmodel.decoder_logits))
     for h in got:  # a prefix may sit on two slots (paths are not merged, as in JAX)
         assert any(w.yseq == h.yseq and abs(w.scores["ctc"] - h.scores["ctc"]) <= 1e-4
                    for w in want)
         ys = jnp.asarray([[8] + h.yseq])
-        logits = jmodel.apply(variables, jnp.asarray(enc), jnp.asarray(enc_lens), ys,
-                              jnp.asarray([len(h.yseq) + 1]), method=jmodel.decoder_logits)
+        logits = decoder_logits(variables, jnp.asarray(enc), jnp.asarray(enc_lens), ys,
+                                jnp.asarray([len(h.yseq) + 1]))
         lp = np.asarray(jax.nn.log_softmax(logits[0], -1))
         dec = sum(lp[i, t] for i, t in enumerate(h.yseq + [8]))
         np.testing.assert_allclose(h.scores["decoder"], dec, atol=1e-4)

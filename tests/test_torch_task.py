@@ -19,10 +19,14 @@ widths, all on the CPU (``--device cpu`` for the port):
 The JAX runs happen once, in a module fixture; the guided model, the
 config builders and a bfloat16 tree are in test_torch_task_guided.py."""
 
+import contextlib
+import functools
 import json
 from pathlib import Path
 
+import flax.linen
 import flax.serialization
+import jax
 import numpy as np
 import pytest
 import torch
@@ -42,10 +46,12 @@ torch.set_num_threads(1)
 
 TIME_KEYS = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}
 BPE_DIR = str(Path(__file__).resolve().parent / "parity" / "tiny_llm_bpe")
-ENC = {"output_size": 32, "attention_heads": 2, "linear_units": 64, "num_blocks": 2,
+# one block each: the task layer is about wiring, not depth, and XLA
+# compiles each JAX step in about half the time of two blocks
+ENC = {"output_size": 32, "attention_heads": 2, "linear_units": 64, "num_blocks": 1,
        "macaron_style": True, "use_cnn_module": True, "cnn_module_kernel": 7,
        "dropout_rate": 0.0, "positional_dropout_rate": 0.0, "attention_dropout_rate": 0.0}
-DEC = {"attention_heads": 2, "linear_units": 64, "num_blocks": 2, "dropout_rate": 0.0,
+DEC = {"attention_heads": 2, "linear_units": 64, "num_blocks": 1, "dropout_rate": 0.0,
        "positional_dropout_rate": 0.0}
 
 
@@ -112,10 +118,34 @@ def corpus(tmp_path_factory):
     return root
 
 
+_EAGER_INIT = flax.linen.Module.init
+
+
+def _jit_init(self, rngs, *args, **kwargs):
+    """flax's init under jax.jit: JAX's task layer (init_model_variables)
+    runs it eagerly, ~20 s for the tiny model on one CPU thread, and jit
+    gives the same variables in a few seconds."""
+    return jax.jit(functools.partial(_EAGER_INIT, self, **kwargs))(rngs, *args)
+
+
+@contextlib.contextmanager
+def jit_flax_init():
+    """A context in which every flax init of the JAX package is jitted."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(flax.linen.Module, "init", _jit_init)
+        yield
+
+
 @pytest.fixture(scope="module")
 def jax_exp(corpus):
     """JAX: collect_stats, one seeded init written as a params msgpack, two
-    epochs of ASRTask.main from it, and a decode of the valid split."""
+    epochs of ASRTask.main from it, and a decode of the valid split (each
+    flax init jitted)."""
+    with jit_flax_init():
+        return _jax_exp(corpus)
+
+
+def _jax_exp(corpus):
     root = corpus
     jasr.ASRTask.main(["--config", str(root / "train.yaml"), "--collect_stats", "true",
                        "--output_dir", str(root / "jstats")])
@@ -173,6 +203,46 @@ def test_asr_task_main_matches_jax_epoch_by_epoch(corpus, jax_exp):
     # the port's config.yaml reads back in the JAX package as the port wrote it
     assert jconfig.load_yaml(root / "texp" / "config.yaml")["init_param"] == \
         [str(root / "init.msgpack")]
+
+
+def assert_float32_checkpoint(path: Path):
+    """Every floating tensor of a checkpoint (weights and optimizer state)
+    is float32."""
+    ckpt = torch.load(path, map_location="cpu", weights_only=False)
+    tensors = []
+
+    def walk(x):
+        if isinstance(x, torch.Tensor):
+            tensors.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(ckpt)
+    floats = {t.dtype for t in tensors if t.is_floating_point()}
+    assert floats == {torch.float32}, floats
+    return ckpt
+
+
+def test_asr_task_trains_the_model_in_bf16(corpus, jax_exp):
+    """``--train_dtype bfloat16`` through the port's ASRTask.main (one
+    epoch of the tiny CTC/attention model, the JAX package's stats file):
+    finite losses, and the weights and the Adam state in float32 in every
+    checkpoint, as JAX saves them."""
+    root = corpus
+    out = root / "texp_bf16"
+    state = asr_train.main(["--config", str(root / "train.yaml"), "--normalize_conf",
+                            f"stats_file={jax_exp['stats']}", "--train_dtype", "bfloat16",
+                            "--max_epoch", "1", "--output_dir", str(out), "--device", "cpu"])
+    assert state.step == 2
+    stats = json.loads((out / "reporter.json").read_text())["stats"]["1"]
+    assert all(np.isfinite(v) for ph in ("train", "valid") for v in stats[ph].values())
+    ckpt = assert_float32_checkpoint(out / "checkpoint.pth")
+    assert ckpt["optimizer"]["state"]
+    assert_float32_checkpoint(out / "1epoch.pth")
 
 
 def _compare_decodes(got: Path, want: Path):

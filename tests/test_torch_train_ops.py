@@ -1,6 +1,8 @@
 """Port vs JAX: the training ops — masked batch norm, SpecAug, losses and
 learning-rate schedules — on the same numpy inputs."""
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -136,10 +138,11 @@ def _ctc_inputs():
 
 def test_ctc_loss_and_gradient_match_jax():
     logits, ll, labels, lab_l = _ctc_inputs()
-    j_loss, j_grad = jax.value_and_grad(jlosses.ctc_loss)(
+    # jitted: eager JAX compiles each op of the CTC scans on its own
+    j_loss, j_grad = jax.jit(jax.value_and_grad(jlosses.ctc_loss))(
         jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l))
-    j_per = jlosses.ctc_loss_per_example(jnp.asarray(logits), jnp.asarray(ll),
-                                         jnp.asarray(labels), jnp.asarray(lab_l))
+    j_per = jax.jit(jlosses.ctc_loss_per_example)(jnp.asarray(logits), jnp.asarray(ll),
+                                                  jnp.asarray(labels), jnp.asarray(lab_l))
     lt = T(logits).requires_grad_(True)
     t_loss = tlosses.ctc_loss(lt, T(ll), T(labels), T(lab_l))
     (t_grad,) = torch.autograd.grad(t_loss, lt)
@@ -150,9 +153,9 @@ def test_ctc_loss_and_gradient_match_jax():
     np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad), rtol=1e-4, atol=1e-5)
     assert np.all(t_grad.numpy()[2] == 0.0)  # the infeasible example takes no gradient
     # the Bayes-risk CTC (brctc) is ported: its loss and gradient match too
-    j_loss, j_grad = jax.value_and_grad(jlosses.ctc_loss)(
-        jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l),
-        time_risk=0.5)
+    j_loss, j_grad = jax.jit(jax.value_and_grad(functools.partial(jlosses.ctc_loss,
+                                                                  time_risk=0.5)))(
+        jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l))
     lt = T(logits).requires_grad_(True)
     t_loss = tlosses.ctc_loss(lt, T(ll), T(labels), T(lab_l), time_risk=0.5)
     (t_grad,) = torch.autograd.grad(t_loss, lt)

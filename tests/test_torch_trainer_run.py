@@ -36,10 +36,13 @@ from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from llm_guided_asr_tpu_torch.train.reporter import Reporter
 from test_torch_train import ASR, OPT, VOCAB, _batch, _np, _torch_batch
+from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
 
-INTER = dict(interctc_layer_idx=(1,))
+# two blocks, so that block 1 is a tap in the middle of the encoder and the
+# interCTC gradient stops short of block 2
+INTER = dict(interctc_layer_idx=(1,), num_blocks=2)
 SCHED = dict(scheduler="warmuplr", scheduler_conf={"warmup_steps": 4})
 TIME_KEYS = {"time", "iter_time", "grad_time", "optim_step_time", "train_step_time"}
 N_TRAIN, N_VALID = 5, 2  # 5 microbatches at accum_grad 2: 2 updates and a tail of 1
@@ -80,8 +83,9 @@ def jax_inter():
     jcfg, tcfg = _configs(**INTER)
     jmodel = JASRModel(jcfg)
     batch = _batch(np.random.default_rng(0))
-    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(0)},
-                                     *(jnp.asarray(batch[k]) for k in jtrainer.DEFAULT_BATCH_ARGS))
+    # seeded weights at init-like scales, no flax init to compile
+    variables = seeded_variables(jmodel, *(jnp.asarray(batch[k])
+                                           for k in jtrainer.DEFAULT_BATCH_ARGS))
     return jmodel, _np(variables), tcfg
 
 
