@@ -456,6 +456,9 @@ MB_DURATIONS = (2, 4, 8)  # phase 18's big blanks (Xu et al. 2023)
 # 4.1 s request (the CPU's searches, not the card's, set the phase's time)
 CHECK_FRAMES = 64
 TRD_B, TRD_WARMUP, TRD_STEPS = 16, 2, 5
+# the RWKV prediction network's depth (the reference's default is 4 blocks;
+# cut to 2 to pay for the bf16 twins of phases 36-37)
+RWKV_LAYERS = 2
 # the LSTM recurrence of phases 17-18: the beam-5 prefix (200 labels after
 # the blank) and the training labels (U + 1 = 25), hidden 256
 LSTM_SERVE = (TRANSDUCER_BEAM, 201, 256)
@@ -576,7 +579,10 @@ WHISPER_BASE = dict(d_model=512, encoder_layers=6, encoder_attention_heads=8,
 BERT_BASE = dict(model_type="bert", hidden_size=768, num_hidden_layers=12, num_attention_heads=12,
                  intermediate_size=3072, vocab_size=30522, max_position_embeddings=512,
                  type_vocab_size=2, layer_norm_eps=1e-12, pad_token_id=0)
-HF_LLM_LAYERS = 16  # Llama-3.2-1B's depth for the hugging_face decoder
+# the hugging_face decoder's depth at Llama-3.2-1B's widths: 4 of its 16
+# layers (the CPU's 10-best check of serve-hf took ~55 s at 16), the depth
+# cut that pays for the bf16 twins of phases 36-37
+HF_LLM_LAYERS = 4
 # the hugging_face decoder's 10-best held against the CPU's search: its
 # stateless scorer runs the 1B LM over the whole prompt each step, which
 # the CPU takes seconds for
@@ -2441,7 +2447,8 @@ def build_transducer():
     """The RWKV transducer at full width: vocab 5000, utterance MVN, the
     flagship Conformer of train-1 with SpecAug and encoder and attention
     dropout 0.1 (training mode only), the reference RWKVDecoder's defaults
-    (block_size 512, 4 blocks), joint 256, aux CTC 0.3; float32."""
+    (block_size 512; 2 blocks of its 4: the depth cut that pays for the
+    bf16 twins of phases 36-37), joint 256, aux CTC 0.3; float32."""
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
 
@@ -2465,7 +2472,7 @@ def build_transducer_config():
                                 cnn_module_kernel=31, dropout_rate=0.1,
                                 attention_dropout_rate=0.1),
         decoder=TransducerDecoderConfig(decoder_type="rwkv", embed_size=512, hidden_size=512,
-                                        num_layers=4),
+                                        num_layers=RWKV_LAYERS),
         joint_size=256, aux_ctc_weight=0.3,
     )
 
@@ -2621,10 +2628,10 @@ def phase_train_transducer(model, kernels, card, tag="train-transducer", n_warmu
     return launches, med
 
 
-def build_transducer_lstm(decoder_type="rnn", multi_blank=False):
+def build_transducer_lstm(decoder_type="rnn", multi_blank=False, num_blocks=None):
     """build_transducer's model with another prediction network: the LSTM at
     the JAX config's widths (embed 256, hidden 256, 1 layer) or MEGA
-    (hidden 256, 4 blocks as the RWKV network's depth, the JAX defaults: qk
+    (hidden 256, 4 blocks, the reference RWKV network's depth, the JAX defaults: qk
     64, 4 EMA heads, the simple bias, FFN 2 x hidden), dropout 0.1; with
     ``multi_blank``, big blanks of 2, 4 and 8 frames at the default ids
     (the top 3 of the 5000) and sigma 0.05 (Xu et al. 2023)."""
@@ -2642,6 +2649,9 @@ def build_transducer_lstm(decoder_type="rnn", multi_blank=False):
                                       dropout_rate=0.1)
     cfg = dataclasses.replace(base, decoder=dec,
                               multi_blank_durations=MB_DURATIONS if multi_blank else ())
+    if num_blocks is not None:  # the encoder's depth (the bf16 twins')
+        cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                                   num_blocks=num_blocks))
     return init_weights(TransducerModel(cfg, device="cuda"), seed=0)
 
 
@@ -5387,15 +5397,15 @@ def check_dtype_launches(tag, kernels, want: dict) -> dict:
 
 
 def bf16_twin(model):
-    """A model of ``model``'s config and weights computing in bfloat16."""
-    from llm_guided_asr_tpu_torch.models.asr_model import ASRModel
+    """A model of ``model``'s config and weights computing in bfloat16 (an
+    ASRModel, the guided model or a transducer)."""
     from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
 
     if isinstance(model, LLMGuidedASRModel):
         twin = LLMGuidedASRModel(model.cfg, llm_dtype=next(model.llm.parameters()).dtype,
                                  device="cuda", dtype=BF16)
     else:
-        twin = ASRModel(model.cfg, device="cuda", dtype=BF16)
+        twin = type(model)(model.cfg, device="cuda", dtype=BF16)
     twin.load_state_dict(model.state_dict())
     for p, q in zip(model.parameters(), twin.parameters()):  # a phase may have frozen some
         q.requires_grad_(p.requires_grad)
@@ -5429,9 +5439,19 @@ class pinned_first_pass:
         del self.bf16._first_pass_hyp
 
 
+class no_first_pass(contextlib.nullcontext):
+    """pinned_first_pass's stand-in for a model without a first pass."""
+
+    same = True
+
+
 def pin_request(wave, s2t16, s2t32) -> pinned_first_pass:
-    """pinned_first_pass for one request as Speech2Text pads it."""
+    """pinned_first_pass for one request as Speech2Text pads it (nothing
+    to pin for a model without a first pass: the CTC/attention model)."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import round_up
+
+    if not hasattr(s2t32.model, "_first_pass_hyp"):
+        return no_first_pass()
 
     padded = np.zeros((1, round_up(wave.shape[0], s2t32.speech_pad_multiple)), np.float32)
     padded[0, : wave.shape[0]] = wave
@@ -5553,7 +5573,9 @@ def phase_serve_bf16(model, kernels, card):
     by dtype (the encoder kernels in bfloat16 for the twin, float32 for the
     model), one traced bfloat16 10 s request; each length's bfloat16
     hypothesis against the float32 one by compare_best_bf16 (tokens
-    compared; a sequence's scores in both dtypes within BF16_REL)."""
+    compared; a sequence's scores in both dtypes within BF16_REL); then
+    the transducer's and the other encoders' and decoders' twins
+    (serve_bf16_twins)."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
@@ -5633,7 +5655,11 @@ def phase_serve_bf16(model, kernels, card):
     print_top("serve-bf16", events)
     del models[BF16], s2t
     torch.cuda.empty_cache()
-    return launches, by_dtype
+    more, more_by = serve_bf16_twins(kernels, card)
+    for name, d in more_by.items():
+        for dt, n in d.items():
+            by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + n
+    return add_counts(launches, more), by_dtype
 
 
 @contextlib.contextmanager
@@ -5738,14 +5764,16 @@ def check_grads_bf16(tag, f32, bf16, batch, args):
 
 
 def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card,
-                    frozen=(), check_loss_falls=True):
+                    frozen=(), check_loss_falls=True, per_step=None, f32_rows=()):
     """One model's float32 and bfloat16 twins on one batch: the gradient
     check (check_grads_bf16) on up to BF16_GRAD_B rows, then ``n_warm`` +
     ``n_steps`` steps of each dtype in turns (f32, bf16) from the same
     weights: step times, audio s/s, peak memory, the first loss against
-    float32's, ``names`` launched once a block a step each, all in the
-    step's dtype; one bfloat16 step traced.  Returns the bfloat16 steps'
-    (launches, launches by dtype)."""
+    float32's, ``names`` launched once a block a step each (or as
+    ``per_step`` says: {entry point: launches a step}), all in the step's
+    dtype but ``f32_rows``, float32 whatever it (the WKV and LSTM kernels,
+    which JAX runs in float32 inside a bfloat16 model); one bfloat16 step
+    traced.  Returns the bfloat16 steps' (launches, launches by dtype)."""
     from llm_guided_asr_tpu_torch.train.optim import build_optimizer, path_prefix_mask
     from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 
@@ -5753,6 +5781,7 @@ def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card
     check_grads_bf16(f"train-bf16 {tag}", f32, bf16,
                      {k: v[:BF16_GRAD_B] for k, v in batch.items()}, args)
     blocks = f32.cfg.encoder.num_blocks
+    per_step = per_step or {name: blocks for name in names}
     out = {}
     for dt, m in ((F32, f32), (BF16, bf16)):
         tx = build_optimizer("adamw", {"lr": 1e-3},
@@ -5762,7 +5791,8 @@ def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card
                                          n_steps, kernels, card)
         peak = torch.cuda.max_memory_allocated()
         by_dtype = check_dtype_launches(f"train-bf16 {tag} {str(dt)[6:]}", kernels, {
-            name: {dt: blocks * n_steps} for name in names})
+            name: {(F32 if name in f32_rows else dt): n * n_steps}
+            for name, n in per_step.items()})
         out[dt] = (stats, med, peak, (launches, by_dtype), step)
     (s32, m32, p32, _, _), (s16, m16, p16, l16, step16) = out[F32], out[BF16]
     audio = batch["speech"].shape[0] * batch["speech"].shape[1] / SR
@@ -5786,8 +5816,9 @@ def phase_train_bf16(guided, kernels, card):
     3's guided model, encoder, CTC head and LLM frozen, B=2) in float32 and
     in bfloat16 compute from the same weights (train_bf16_case): every
     encoder entry point, forward and backward where the encoder trains,
-    launched in bfloat16 by the twins.  Returns the bfloat16 timed steps'
-    launches of the three (all, and by dtype)."""
+    launched in bfloat16 by the twins; then the transducer's and the other
+    encoders' twins (train_bf16_twins).  Returns the bfloat16 timed steps' launches of all
+    cases (all, and by dtype)."""
     samples = int(TRAIN_SECONDS * SR)
 
     def noise_batch(seed, b, n_samples, text):
@@ -5818,6 +5849,7 @@ def phase_train_bf16(guided, kernels, card):
                                GUIDED_STEPS, ENCODER_FWD, kernels, card,
                                frozen=["encoder", "ctc_head", "llm"], check_loss_falls=False))
     torch.cuda.empty_cache()
+    out += train_bf16_twins(kernels, card)
     launches = {name: sum(c[0][name] for c in out) for name in out[0][0]}
     by_dtype = {}
     for _, case in out:
@@ -5825,6 +5857,199 @@ def phase_train_bf16(guided, kernels, card):
             for dt, n in by.items():
                 by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + n
     return launches, by_dtype
+
+
+# the bfloat16 twins of the transducers and of the other encoders and
+# decoders: full width, TWIN_BLOCKS encoder blocks (a depth cut that keeps
+# phases 36-37 short), each beside its float32 twin in turns
+TWIN_BLOCKS = 4
+TWIN_ROUNDS = 2  # timed runs of the 10 s request a dtype
+
+
+def forced_transducer_score(model, enc, n, yseq, per_frame=1, blank=0) -> float:
+    """The best alignment's log-probability of the labels ``yseq`` over the
+    first ``n`` rows of ``enc`` [1, T, D] in ``model``'s own arithmetic (the
+    joint's log-probs in float32, as the searches take them): at most
+    ``per_frame`` labels a frame, each frame closed by a blank (the
+    default beam's lattice at max_sym_exp 2)."""
+    u, dev = len(yseq), enc.device
+    tokens = torch.tensor([list(yseq)], dtype=torch.long, device=dev).reshape(1, u)
+    with torch.inference_mode():
+        g = model.decode_labels(tokens)
+        logp = torch.log_softmax(model.joint_full(enc[:, :n], g).float(), dim=-1)[0].double()
+    emit = logp[:, torch.arange(u, device=dev), tokens[0]]  # [n, U]
+    neg = torch.full((1,), -1e30, dtype=torch.float64, device=dev)
+    alpha = torch.cat([torch.zeros(1, dtype=torch.float64, device=dev), neg.expand(u)])
+    for t in range(n):
+        cur = best = alpha
+        for _ in range(per_frame):
+            cur = torch.cat([neg, cur[:-1] + emit[t]])
+            best = torch.maximum(best, cur)
+        alpha = best + logp[t, :, blank]
+    return float(alpha[u])
+
+
+def compare_transducer_bf16(tag, wave, s2t16, s2t32) -> tuple:
+    """compare_best_bf16 for the transducer's default beam: the two dtypes'
+    bests equal, their scores within BF16_REL of their size; or, where
+    bfloat16's rounding moved the path, each best's forced alignment
+    (forced_transducer_score) scored by both dtypes within BF16_REL of its
+    size, so that the dtypes score the same labels alike, and the float32
+    gap between the two bests printed.  Returns (equal, the largest
+    relative error)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
+
+    a, b = s2t16(wave)[0][1], s2t32(wave)[0][1]
+    if a.yseq == b.yseq:
+        err = abs(a.score - b.score) / max(1.0, abs(b.score))
+        print(f"[{tag}] the bfloat16 and float32 bests are equal ({len(a.yseq)} labels), "
+              f"scores {a.score:.4f} and {b.score:.4f}")
+        if err > BF16_REL:
+            raise AssertionError(f"{tag}: score {a.score} in bfloat16, {b.score} in float32")
+        return True, err
+    rows = {dt: encode_request(s.model, wave, s.speech_pad_multiple, s.device)
+            for dt, s in ((BF16, s2t16), (F32, s2t32))}
+    scores = {(dt, w): forced_transducer_score(s.model, rows[dt][0], int(rows[dt][1][0]),
+                                               h.yseq) / (len(h.yseq) + 1)
+              for dt, s in ((BF16, s2t16), (F32, s2t32)) for w, h in (("a", a), ("b", b))}
+    errs = [abs(scores[(BF16, w)] - scores[(F32, w)]) / max(1.0, abs(scores[(F32, w)]))
+            for w in ("a", "b")]
+    part = next(i for i, (x, y) in enumerate(zip(a.yseq + [-1], b.yseq + [-1])) if x != y)
+    print(f"[{tag}] the bfloat16 and float32 bests part at label {part} ({len(a.yseq)} and "
+          f"{len(b.yseq)} labels): forced alignments, normalized, bfloat16's best "
+          f"{scores[(BF16, 'a')]:.4f} (float32 {scores[(F32, 'a')]:.4f}), float32's "
+          f"{scores[(F32, 'b')]:.4f} (bfloat16 {scores[(BF16, 'b')]:.4f}); float32 gap "
+          f"{scores[(F32, 'b')] - scores[(F32, 'a')]:.4f}")
+    if max(errs) > BF16_REL:
+        raise AssertionError(f"{tag}: the dtypes score one label sequence apart: {errs}")
+    return False, max(errs)
+
+
+def serve_bf16_twin(tag, f32, wave, kernels, card, decode, per_request, f32_rows=()) -> tuple:
+    """``f32`` and its bfloat16 twin (bf16_twin) serve the 10 s request
+    through Speech2Text (``decode``) after one warm-up each, TWIN_ROUNDS
+    timed runs a dtype in turns (f32, bf16, bf16, f32): latencies, peak
+    memory, the same hypothesis every run; ``per_request`` ({entry point:
+    launches a request}) launched in the request's dtype, ``f32_rows``
+    ({entry point: None}: one launch a prediction-network call) in float32
+    whatever it; the two bests compared (compare_best_bf16, or
+    compare_transducer_bf16 for a transducer).  Returns (launches, launches
+    by dtype)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    models = {F32: f32.eval(), BF16: bf16_twin(f32).eval()}
+    s2t = {dt: Speech2Text.from_model(m, **decode) for dt, m in models.items()}
+    for dt in (F32, BF16):
+        s2t[dt](wave)
+    torch.cuda.synchronize()
+    calls = dict.fromkeys((F32, BF16), 0)  # prediction-network calls (transducer)
+    hooks = [m.decoder.register_forward_hook(
+        lambda *_, dt=dt: calls.__setitem__(dt, calls[dt] + 1)) for dt, m in models.items()]
+    reset_counts(kernels)
+    lat, peak, hyps = {F32: [], BF16: []}, dict.fromkeys((F32, BF16), 0), {}
+    for r in range(TWIN_ROUNDS):
+        for dt in ((F32, BF16) if r % 2 == 0 else (BF16, F32)):
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            hyp = s2t[dt](wave)[0][1]
+            torch.cuda.synchronize()
+            lat[dt].append(time.perf_counter() - t0)
+            peak[dt] = max(peak[dt], torch.cuda.max_memory_allocated())
+            if hyps.setdefault(dt, hyp).yseq != hyp.yseq:
+                raise AssertionError(f"{tag} {dt}: the same request gave another hypothesis")
+    for h in hooks:
+        h.remove()
+    launches = counts(kernels)
+    want = {name: {F32: n * TWIN_ROUNDS, BF16: n * TWIN_ROUNDS}
+            for name, n in per_request.items()}
+    want.update({name: {F32: calls[F32] + calls[BF16]} for name in f32_rows})
+    by_dtype = check_dtype_launches(tag, kernels, want)
+    print(f"[{tag}] 10.0 s request, {TWIN_ROUNDS} runs each: " + "; ".join(
+        f"{str(dt)[6:]} median {float(np.median(lat[dt])) * 1e3:.1f} ms (min "
+        f"{min(lat[dt]) * 1e3:.1f}, max {max(lat[dt]) * 1e3:.1f}), peak memory "
+        f"{peak[dt] / 2**30:.2f} GiB" for dt in (F32, BF16)) + f" [{card}]")
+    if hasattr(f32, "joint_full"):
+        compare_transducer_bf16(tag, wave, s2t[BF16], s2t[F32])
+    else:
+        check_scores(hyps[BF16])
+        compare_best_bf16(tag, wave, s2t[BF16], s2t[F32])
+    del models[BF16], s2t
+    torch.cuda.empty_cache()
+    return launches, by_dtype
+
+
+def serve_bf16_twins(kernels, card) -> tuple:
+    """The bfloat16 twins' serving: the LSTM transducer (its default beam
+    5: the encoder kernels in bfloat16, the LSTM recurrence in float32 as
+    flax promotes it), the E-Branchformer and the MultiConvformer
+    CTC/attention models, and the Conformer with the rnn decoder (beam 10,
+    ctc_weight 0.3), each at TWIN_BLOCKS blocks of full width beside its
+    float32 twin (serve_bf16_twin).  Returns the summed (launches, launches
+    by dtype)."""
+    wave = request_waves()[0]
+    beam = dict(ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
+    enc = dict.fromkeys(ENCODER_FWD, TWIN_BLOCKS)
+    cases = (
+        ("serve-bf16 transducer-rnn", lambda: build_transducer_lstm(num_blocks=TWIN_BLOCKS),
+         dict(beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM), enc, ("lstm_fwd",)),
+        ("serve-bf16 e_branchformer", lambda: build_serve_asr(
+            "e_branchformer", **{**EBF_ENCODER, "num_blocks": TWIN_BLOCKS}), beam, enc, ()),
+        ("serve-bf16 multiconvformer", lambda: build_serve_asr(
+            "multiconvformer", **{**NEW_ENCODERS["multiconvformer"], "num_blocks": TWIN_BLOCKS}),
+         beam, {"rel_attention_fwd": TWIN_BLOCKS,
+                "dwconv1d_fwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS}, ()),
+        ("serve-bf16 rnn decoder", lambda: build_serve_asr(
+            decoder_type="rnn", decoder=NEW_DECODERS["rnn"], num_blocks=TWIN_BLOCKS), beam, enc,
+         ()),
+    )
+    launches, by_dtype = {}, {}
+    for tag, build, decode, per_request, f32_rows in cases:
+        got, by = serve_bf16_twin(tag, build(), wave, kernels, card, decode, per_request,
+                                  f32_rows)
+        launches = add_counts(launches, got)
+        for name, d in by.items():
+            for dt, n in d.items():
+                by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + n
+        torch.cuda.empty_cache()
+    return launches, by_dtype
+
+
+def train_bf16_twins(kernels, card) -> list:
+    """The bfloat16 twins' training (train_bf16_case: the gradient check,
+    then 1 warm-up and 3 timed steps a dtype): the RWKV transducer at
+    TRD_B x 10 s (the encoder kernels in bfloat16 forward and backward, the
+    WKV kernels in float32 as JAX runs them), the E-Branchformer and the
+    MultiConvformer CTC/attention models at ENC_B x 10 s, each at
+    TWIN_BLOCKS blocks of full width.  Returns each case's bfloat16
+    (launches, launches by dtype)."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
+
+    enc = dict.fromkeys(ENCODER_FWD + ENCODER_BWD, TWIN_BLOCKS)
+    cfg = build_transducer_config()
+    cfg = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder,
+                                                               num_blocks=TWIN_BLOCKS))
+    out = []
+    for tag, build, b, per_step, f32_rows in (
+            ("transducer-rwkv", lambda: init_weights(TransducerModel(cfg, device="cuda"), seed=0),
+             TRD_B, {**enc, "wkv_fwd": RWKV_LAYERS, "wkv_bwd": RWKV_LAYERS},
+             ("wkv_fwd", "wkv_bwd")),
+            ("e_branchformer", lambda: build_serve_asr(
+                "e_branchformer", train=True, **{**EBF_ENCODER, "num_blocks": TWIN_BLOCKS}),
+             ENC_B, enc, ()),
+            ("multiconvformer", lambda: build_serve_asr(
+                "multiconvformer", train=True,
+                **{**NEW_ENCODERS["multiconvformer"], "num_blocks": TWIN_BLOCKS}), ENC_B,
+             {**enc, "dwconv1d_fwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS,
+              "dwconv1d_bwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS}, ())):
+        f32 = build().train()
+        out.append(train_bf16_case(tag, f32, bf16_twin(f32), train_batch(b, seed=5), 1, 3, (),
+                                   kernels, card, per_step=per_step, f32_rows=f32_rows))
+        del f32
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_one_phase(name: str, card: str) -> int:
@@ -6087,6 +6312,10 @@ def main() -> int:
         if any(name in by for by in bf16_paths.values()):
             row["bf16_launches_by_path"] = {
                 p_: by.get(name, {}).get(str(torch.bfloat16), 0) for p_, by in bf16_paths.items()}
+            # every launch of phases 36-37 (float32 and bfloat16 twins) by
+            # operand dtype: rows 5 and 7 stay float32 in the bfloat16 models
+            row["bf16_phase_launches_by_dtype"] = {p_: by.get(name, {})
+                                                   for p_, by in bf16_paths.items()}
         if name == "wkv_bwd":  # chunked: the labels of ~40 s of audio
             s = timings[(name, f"[{','.join(map(str, WKV_BWD_LONG))}]", f32)]
             row.update(chunks=timings[(name, shape, f32)]["chunks"], long_shape=list(WKV_BWD_LONG),

@@ -25,14 +25,19 @@ pre-encoder and the length-adaptor and BERT post-encoders
 SpecAug.
 
 Compute dtype (JAX's ``dtype``, ``train_dtype: bfloat16`` or ``use_amp``):
-float32, or bfloat16 for the Conformer encoder with the transformer
-decoder behind the log-mel frontend.  Parameters, buffers and gradients
-stay float32; the features are cast to the compute dtype at the encoder's
-input (JAX ``encode``), and every block computes in its input's type
-(models/transformer.py).  The frontend stays float32 (JAX drops its DFT to
-one MXU pass for a bfloat16 model; the port keeps the float32 product).
-The CTC and attention log-softmaxes and losses run in float32.  Any other
-choice in bfloat16 raises, naming its ROADMAP item.
+float32, or bfloat16 for every encoder of :data:`BF16_ENCODERS`, every
+decoder and both post-encoders, behind the log-mel frontend (or features
+in).  Parameters, buffers and gradients stay float32; the features are
+cast to the compute dtype at the encoder's input (JAX ``encode``), and
+every block computes in its input's type (models/transformer.py), except
+where flax computes a module in float32 inside a bfloat16 model (the LSTM
+cells, built without a dtype; the state-space FFT convolutions).  The
+frontend stays float32 (JAX drops its DFT to one MXU pass for a bfloat16
+model; the port keeps the float32 product).  The CTC and attention
+log-softmaxes and losses run in float32.  The SSL frontend, the sinc
+pre-encoder, the fused, sliding-window and multichannel frontends, and the
+streaming, AV-HuBERT and pretrained-trunk encoders raise in bfloat16,
+naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -84,14 +89,20 @@ def refuse_bf16(what: str) -> None:
     raise NotImplementedError(f"{what} in bfloat16 is not ported yet ({ITEM_BF16})")
 
 
+# the encoders that compute in bfloat16 (models/conformer.py make_encoder)
+BF16_ENCODERS = ("conformer", "transformer", "longformer", "whisper_style", "e_branchformer",
+                 "branchformer", "multiconvformer", "rnn", "vgg_rnn", "s4")
+
+
 def check_compute_dtype(dtype: torch.dtype, cfg, encoder_type: str) -> None:
-    """float32, or bfloat16 for the Conformer behind the log-mel frontend
-    (or features in); bfloat16 with any other encoder or frontend raises."""
+    """float32, or bfloat16 for an encoder of :data:`BF16_ENCODERS` behind
+    the log-mel frontend (or features in); bfloat16 with any other encoder
+    or frontend raises."""
     if dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute dtype {dtype}; expected one of {COMPUTE_DTYPES}")
     if dtype != torch.bfloat16:
         return
-    if encoder_type != "conformer":
+    if encoder_type not in BF16_ENCODERS:
         refuse_bf16(f"encoder {encoder_type!r}")
     f = cfg.frontend
     if f is not None and (f.fused or f.multichannel or f.type == "sliding_window"):
@@ -111,6 +122,15 @@ def to_compute(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
     encoder or LLM rows at a head or decoder, as flax's Dense casts its
     input), the one place the model casts them."""
     return x.to(module.compute.dtype)
+
+
+def embed_labels(decoder: nn.Module, labels: torch.Tensor) -> torch.Tensor:
+    """A transducer prediction network's input: [B, U] labels -> [B, U+1,
+    E] embedding rows of the blank context 0 and the labels (clipped into
+    the vocabulary), in ``decoder``'s compute dtype (flax's ``nn.Embed``
+    with ``dtype`` casts its table)."""
+    y = torch.cat([torch.zeros_like(labels[:, :1]), labels], dim=1)
+    return to_compute(decoder, decoder.embed(y.clamp(0, decoder.vocab_size - 1)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -214,15 +234,17 @@ def make_postencoder(spec: Tuple[str, Any], d: int) -> nn.Module:
     raise ValueError(f"unknown postencoder {kind!r}")
 
 
-def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module:
+def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device,
+                 dtype: torch.dtype = torch.float32) -> nn.Module:
     """The attention decoder of ``cfg.decoder_type`` over an encoder ``d``
     wide, with the JAX model's config mapping (models/asr_model.py:98-161):
     ``rnn`` takes hidden = ``decoder.linear_units``, layers =
     ``num_blocks``, embed_dim = min(D, 256) and att_dim = D; ``s4`` takes
     d_model = D, ``max(num_blocks, 1)`` layers, d_state 16 and the ``diag``
     kernel; D is ``encoder.output_size``; ``hugging_face`` is the pretrained
-    causal LM of models/hf_decoder.py over a ``linear_in`` from d.  Each keeps the
-    ``(enc, enc_lens, ys_in, ys_in_lens, rng, only_last)`` contract."""
+    causal LM of models/hf_decoder.py over a ``linear_in`` from d, computing
+    in ``dtype``.  Each keeps the ``(enc, enc_lens, ys_in, ys_in_lens, rng,
+    only_last)`` contract and computes in the encoder rows' type."""
     kind, dec, vocab = cfg.decoder_type, cfg.decoder, cfg.vocab_size
     if kind == "transformer":
         return TransformerDecoder(vocab, dec, d)
@@ -238,7 +260,7 @@ def make_decoder(cfg: ASRModelConfig, d: int, device: torch.device) -> nn.Module
     if kind == "hugging_face":
         from llm_guided_asr_tpu_torch.models.hf_decoder import HFCausalDecoder
 
-        return HFCausalDecoder(cfg.hf_decoder, d, device=device)
+        return HFCausalDecoder(cfg.hf_decoder, d, device=device, dtype=dtype)
     if kind == "s4":
         return S4Decoder(S4DecoderConfig(vocab_size=vocab, d_model=cfg.encoder.output_size,
                                          n_layers=max(dec.num_blocks, 1),
@@ -261,9 +283,7 @@ class ASRModel(nn.Module):
             raise ValueError(f"ctc_type={cfg.ctc_type!r}; known: builtin, builtin2, brctc")
         check_compute_dtype(dtype, cfg, cfg.encoder_type)
         if dtype == torch.bfloat16:
-            if cfg.decoder_type != "transformer" and cfg.ctc_weight < 1.0:
-                refuse_bf16(f"decoder {cfg.decoder_type!r}")
-            for name in ("ssl_frontend", "preencoder", "postencoder"):
+            for name in ("ssl_frontend", "preencoder"):
                 if getattr(cfg, name) is not None:
                     refuse_bf16(name)
         dev = resolve_device(device)
@@ -296,7 +316,7 @@ class ASRModel(nn.Module):
                 self.postencoder = make_postencoder(cfg.postencoder, d)
                 d = self.postencoder.output_size
             if cfg.ctc_weight < 1.0:
-                self.decoder = make_decoder(cfg, d, dev)
+                self.decoder = make_decoder(cfg, d, dev, dtype)
             if cfg.ctc_weight > 0.0:
                 self.ctc_head = Dense(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
@@ -373,7 +393,10 @@ class ASRModel(nn.Module):
         return enc, enc_lens, taps
 
     def ctc_logits(self, encoder_out: torch.Tensor) -> torch.Tensor:
-        return self.ctc_head(to_compute(self, encoder_out))
+        """The CTC head's logits, float32 (at least) and not rounded: every
+        caller casts them to float32 at once (models/transformer.py Dense
+        ``f32_out``)."""
+        return self.ctc_head(to_compute(self, encoder_out), f32_out=True)
 
     def ctc_log_softmax(self, encoder_out: torch.Tensor) -> torch.Tensor:
         return F.log_softmax(self.ctc_logits(encoder_out).float(), dim=-1)

@@ -13,6 +13,11 @@ hand-written kernels sit in every block: ops/rel_attention.py (the
 attention branch over the rel-pos table) and ops/depthwise_conv.py (the
 cgMLP's depthwise conv, ``linear_units / 2`` channels), forward and
 backward.  Every LayerNorm takes eps 1e-5.
+
+Compute dtype: the features' (the model casts them); every Dense, conv and
+LayerNorm computes in it (flax's ``dtype``), the kernels on their bfloat16
+entries in a bfloat16 model.  A LayerNorm that reads a residual add
+normalizes the unrounded sum (models/transformer.py add_and_norm).
 """
 
 from __future__ import annotations
@@ -31,12 +36,14 @@ from llm_guided_asr_tpu_torch.models.conformer import (
     input_layer,
 )
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
     LayerNorm,
     MultiHeadedAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
     RelPositionalEncoding,
     RelPositionMultiHeadedAttention,
+    add_and_norm,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -55,10 +62,10 @@ class ConvolutionalGatingMLP(nn.Module):
     def __init__(self, d: int, linear_units: int, kernel_size: int, dropout_rate: float):
         super().__init__()
         half = linear_units // 2
-        self.channel_proj1 = nn.Linear(d, linear_units)
+        self.channel_proj1 = Dense(d, linear_units)
         self.norm = LayerNorm(half)
         self.depthwise_conv = DepthwiseConv1d(half, kernel_size)
-        self.channel_proj2 = nn.Linear(half, d)
+        self.channel_proj2 = Dense(half, d)
         self.dropout_rate = dropout_rate
 
     def forward(self, x, valid, rng: Optional[StepRNG] = None):
@@ -71,8 +78,8 @@ class ConvolutionalGatingMLP(nn.Module):
 class GroupedConv1d(nn.Module):
     """flax ``nn.Conv(C, (K,), padding="SAME", feature_group_count=C)``
     over [B, T, C] with bias: weight [K, C] (convert.py's depthwise
-    layout), computed by F.conv1d as JAX computes it by XLA's grouped
-    conv, not by the depthwise kernel."""
+    layout), computed by F.conv1d in its input's type as JAX computes it by
+    XLA's grouped conv, not by the depthwise kernel."""
 
     def __init__(self, channels: int, kernel_size: int):
         super().__init__()
@@ -81,8 +88,8 @@ class GroupedConv1d(nn.Module):
 
     def forward(self, x):
         k, c = self.weight.shape
-        y = F.conv1d(x.transpose(1, 2), self.weight.t()[:, None, :], self.bias,
-                     padding=(k - 1) // 2, groups=c)
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype).t()[:, None, :],
+                     self.bias.to(x.dtype), padding=(k - 1) // 2, groups=c)
         return y.transpose(1, 2)
 
 
@@ -116,7 +123,7 @@ class EBranchformerBlock(nn.Module):
         self.cgmlp = ConvolutionalGatingMLP(d, cfg.linear_units, cfg.cnn_module_kernel,
                                             cfg.dropout_rate)
         self.merge_conv = GroupedConv1d(2 * d, MERGE_KERNEL)
-        self.merge_proj = nn.Linear(2 * d, d)
+        self.merge_proj = Dense(2 * d, d)
         self.norm_ff2 = LayerNorm(d)
         self.feed_forward2 = PositionwiseFeedForward(d, cfg.linear_units, torch.relu,
                                                      cfg.dropout_rate)
@@ -124,13 +131,14 @@ class EBranchformerBlock(nn.Module):
 
     def forward(self, x, pos_emb, valid, rng: Optional[StepRNG] = None):
         rate = active_rate(self, self.cfg.dropout_rate)
-        x = x + 0.5 * dropout(self.feed_forward1(self.norm_ff1(x), rng), rate, rng)
-        ha = dropout(_attend(self.attn, self.norm_mha(x), pos_emb, valid, rng), rate, rng)
-        hc = dropout(self.cgmlp(self.norm_mlp(x), valid, rng), rate, rng)
+        h = 0.5 * dropout(self.feed_forward1(self.norm_ff1(x), rng), rate, rng)
+        ha = dropout(_attend(self.attn, self.norm_mha(x, h), pos_emb, valid, rng), rate, rng)
+        hc = dropout(self.cgmlp(self.norm_mlp(x, h), valid, rng), rate, rng)
+        x = x + h
         cat = torch.cat([ha, hc], dim=-1).masked_fill(~valid[..., None], 0.0)
-        x = x + dropout(self.merge_proj(cat + self.merge_conv(cat)), rate, rng)
-        x = x + 0.5 * dropout(self.feed_forward2(self.norm_ff2(x), rng), rate, rng)
-        return self.norm_final(x)
+        x, h = add_and_norm(x, dropout(self.merge_proj(cat + self.merge_conv(cat)), rate, rng),
+                            self.norm_ff2)
+        return self.norm_final(x, 0.5 * dropout(self.feed_forward2(h, rng), rate, rng))
 
 
 class BranchformerBlock(nn.Module):
@@ -153,7 +161,7 @@ class BranchformerBlock(nn.Module):
         hc = self.cgmlp(self.norm_mlp(x), valid, rng)
         w = torch.softmax(self.branch_weights, dim=0)
         merged = w[0] * ha + w[1] * hc
-        return self.norm_final(x + dropout(merged, active_rate(self, self.cfg.dropout_rate), rng))
+        return self.norm_final(x, dropout(merged, active_rate(self, self.cfg.dropout_rate), rng))
 
 
 class EBranchformerEncoder(nn.Module):

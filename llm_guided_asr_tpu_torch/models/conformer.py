@@ -374,7 +374,8 @@ class SameConv1d(nn.Module):
     [B, T, C_in]: weight [C_out, C_in, K] (Conv1d's layout), bias.  SAME
     pads explicitly as flax does: ceil(T/s) outputs, the total padding
     split with the odd frame on the right (at stride 2 and K = 3: (0, 1)
-    for an even T, (1, 1) for an odd one)."""
+    for an even T, (1, 1) for an odd one).  In its input's type (flax's
+    ``dtype``)."""
 
     def __init__(self, c_in: int, c_out: int, kernel_size: int, stride: int = 1):
         super().__init__()
@@ -386,7 +387,8 @@ class SameConv1d(nn.Module):
         t, k, s = x.shape[1], self.weight.shape[2], self.stride
         total = max((-(-t // s) - 1) * s + k - t, 0)
         xp = F.pad(x.transpose(1, 2), (total // 2, total - total // 2))
-        return F.conv1d(xp, self.weight, self.bias, stride=s).transpose(1, 2)
+        return F.conv1d(xp, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=s).transpose(1, 2)
 
 
 class WhisperStyleEncoder(nn.Module):

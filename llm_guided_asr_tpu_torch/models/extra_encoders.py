@@ -23,6 +23,16 @@
   ``OptimizedLSTMCell_{2i+1}`` (backward) at the encoder's top level.
 
 Every LayerNorm takes eps 1e-5; the GELU is the tanh form.
+
+Compute dtype: the features' (the model casts them).  Every Dense, conv
+and LayerNorm computes in it, the depthwise convs on the kernel's
+bfloat16 entry in a bfloat16 model; a LayerNorm that reads a residual add
+normalizes the unrounded sum (models/transformer.py add_and_norm).  The
+(VGG-)RNN encoder's LSTM cells take no dtype in JAX
+(models/extra_encoders.py:198-199, ``nn.OptimizedLSTMCell`` without one),
+so flax promotes their input to the float32 parameters: each direction's
+recurrence runs on the kernel's float32 entry, and the projection casts
+the concatenated states back to the compute dtype.
 """
 
 from __future__ import annotations
@@ -44,12 +54,16 @@ from llm_guided_asr_tpu_torch.models.conformer import (
 )
 from llm_guided_asr_tpu_torch.models.lm import LSTMCell, lstm_stack
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
     LayerNorm,
     MultiHeadedAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
     RelPositionalEncoding,
     RelPositionMultiHeadedAttention,
+    add_and_norm,
+    at_least_f32,
+    conv_in_dtype,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -69,13 +83,13 @@ class MultiConvCGMLP(nn.Module):
         super().__init__()
         half = linear_units // 2
         self.kernel_sizes = tuple(kernel_sizes)
-        self.channel_proj1 = nn.Linear(d, linear_units)
+        self.channel_proj1 = Dense(d, linear_units)
         self.norm = LayerNorm(half)
         for i, k in enumerate(self.kernel_sizes):
             self.add_module(f"depthwise_conv_{i}", DepthwiseConv1d(half, k))
         self.merge_conv = DepthwiseConv1d(half * len(self.kernel_sizes), MERGE_KERNEL)
-        self.merge_proj = nn.Linear(half * len(self.kernel_sizes), half)
-        self.channel_proj2 = nn.Linear(half, d)
+        self.merge_proj = Dense(half * len(self.kernel_sizes), half)
+        self.channel_proj2 = Dense(half, d)
         self.dropout_rate = dropout_rate
 
     def forward(self, x, valid, rng: Optional[StepRNG] = None):
@@ -119,17 +133,18 @@ class MultiConvformerBlock(nn.Module):
         rate = active_rate(self, cfg.dropout_rate)
         if cfg.macaron_style:
             h = self.feed_forward_macaron(self.norm_ff_macaron(x), rng)
-            x = x + 0.5 * dropout(h, rate, rng)
-        h = self.norm_mha(x)
+            x, h = add_and_norm(x, 0.5 * dropout(h, rate, rng), self.norm_mha)
+        else:
+            h = self.norm_mha(x)
         if self.rel:
             h = self.self_attn(h, pos_emb, valid, rng)
         else:
             h = self.self_attn(h, h, h, valid[:, None, :], rng=rng)
-        x = x + dropout(h, rate, rng)
-        x = x + dropout(self.cgmlp(self.norm_conv(x), valid, rng), rate, rng)
+        x, h = add_and_norm(x, dropout(h, rate, rng), self.norm_conv)
+        x, h = add_and_norm(x, dropout(self.cgmlp(h, valid, rng), rate, rng), self.norm_ff)
         scale = 0.5 if cfg.macaron_style else 1.0
-        x = x + scale * dropout(self.feed_forward(self.norm_ff(x), rng), rate, rng)
-        return x if cfg.normalize_before else self.norm_final(x)
+        h = scale * dropout(self.feed_forward(h, rng), rate, rng)
+        return x + h if cfg.normalize_before else self.norm_final(x, h)
 
 
 class MultiConvformerEncoder(nn.Module):
@@ -172,7 +187,8 @@ class MultiConvformerEncoder(nn.Module):
 class VGG2L(nn.Module):
     """Two stages of [3x3 conv, ReLU, 3x3 conv, ReLU, 2x2 max pool] (64 and
     128 channels, SAME padding): [B, T, F] -> [B, T // 4, (F // 4) * 128],
-    flattened with the channels minor as flax's NHWC reshape."""
+    flattened with the channels minor as flax's NHWC reshape; each conv in
+    its input's type (flax's ``nn.Conv`` with ``dtype``)."""
 
     def __init__(self):
         super().__init__()
@@ -185,8 +201,8 @@ class VGG2L(nn.Module):
     def forward(self, feats):
         x = feats[:, None]
         for i in range(2):
-            x = torch.relu(getattr(self, f"conv{i}_1")(x))
-            x = torch.relu(getattr(self, f"conv{i}_2")(x))
+            for j in (1, 2):
+                x = torch.relu(conv_in_dtype(getattr(self, f"conv{i}_{j}"), x))
             x = F.max_pool2d(x, 2)
         x = x.permute(0, 2, 3, 1)
         return x.reshape(x.shape[0], x.shape[1], -1)
@@ -207,12 +223,12 @@ class RNNEncoder(nn.Module):
                 self.vgg = VGG2L()
                 width = (input_size // 4) * 128
             else:
-                self.embed = nn.Linear(input_size, hidden)
+                self.embed = Dense(input_size, hidden)
                 width = hidden
             for i in range(cfg.num_blocks):
                 for j in (2 * i, 2 * i + 1):
                     self.add_module(f"OptimizedLSTMCell_{j}", LSTMCell(hidden, width))
-                self.add_module(f"proj{i}", nn.Linear(2 * hidden, hidden))
+                self.add_module(f"proj{i}", Dense(2 * hidden, hidden))
                 width = hidden
 
     def forward(self, feats, feats_lengths,
@@ -222,9 +238,11 @@ class RNNEncoder(nn.Module):
             out_lengths = torch.div(feats_lengths, 4, rounding_mode="floor")
         else:
             x, out_lengths = self.embed(feats), feats_lengths
+        dtype = x.dtype
         for i in range(self.cfg.num_blocks):
-            fwd = lstm_stack([getattr(self, f"OptimizedLSTMCell_{2 * i}")], x)
-            bwd = lstm_stack([getattr(self, f"OptimizedLSTMCell_{2 * i + 1}")], x.flip(1)).flip(1)
-            x = torch.tanh(getattr(self, f"proj{i}")(torch.cat([fwd, bwd], dim=-1)))
+            xf = at_least_f32(x)  # the cells' float32, as flax promotes them
+            fwd = lstm_stack([getattr(self, f"OptimizedLSTMCell_{2 * i}")], xf)
+            bwd = lstm_stack([getattr(self, f"OptimizedLSTMCell_{2 * i + 1}")], xf.flip(1)).flip(1)
+            x = torch.tanh(getattr(self, f"proj{i}")(torch.cat([fwd, bwd], dim=-1), dtype))
         valid = make_valid_mask(out_lengths, x.shape[1])
         return x.masked_fill(~valid[..., None], 0.0), out_lengths

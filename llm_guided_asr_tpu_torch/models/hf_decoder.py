@@ -13,8 +13,10 @@ models/llm/llama.py); the audio span is at most ``enc_frames_max`` frames,
 its pads sit mid-row and are masked out of the attention, positions skip
 them (the model's cumsum positions).  The logits at the ys positions are
 the decoder's output, float32; ``only_last`` keeps each row's last one
-(the stateless beam scorer's call).  The model is float32 throughout, as
-the task builds it.
+(the stateless beam scorer's call).  The parameters are float32, as the
+task builds them; the decoder computes in the model's compute dtype
+(``dtype``: float32, or bfloat16 as JAX's ``LlamaModel(dtype=...)`` over
+float32 parameters), the LM's norms and softmaxes in float32.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig, LlamaModel
+from llm_guided_asr_tpu_torch.models.transformer import Dense
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 
@@ -40,13 +43,15 @@ class HFCausalDecoderConfig:
 
 class HFCausalDecoder(nn.Module):
     def __init__(self, cfg: HFCausalDecoderConfig, d_in: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
-        self.llm = LlamaModel(cfg.llm, dtype=torch.float32, device=dev, lm_head=True)
+        # float32 computes in the parameters' own type (which follows .double())
+        self.llm = LlamaModel(cfg.llm, dtype=torch.float32, device=dev, lm_head=True,
+                              compute_dtype=None if dtype == torch.float32 else dtype)
         with torch.device(dev):
-            self.linear_in = nn.Linear(d_in, cfg.llm.hidden_size)
+            self.linear_in = Dense(d_in, cfg.llm.hidden_size)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
                 ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,

@@ -22,7 +22,10 @@ does not run it.
 Module names follow the flax modules (``body.layers_0.query``,
 ``attn_ln``, ``adaptor_0``, ``lang_token_embed``), so
 convert.params_from_jax maps the JAX tree onto them.  Attention is plain
-einsum and softmax in float32: no hand-written kernel runs here.
+einsum with a float32 softmax: no hand-written kernel runs here.  The
+post-encoder computes in its input's type (the model's compute dtype): in
+bfloat16 the scores are scaled in it and normalized in float32, then cast
+back (JAX models/hf_encoder.py:101-105).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.hf_checkpoint import load_hf_state_dict, read_hf_config
+from llm_guided_asr_tpu_torch.models.transformer import Dense, LayerNorm, conv_in_dtype
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
@@ -91,14 +95,14 @@ class BertLayer(nn.Module):
         super().__init__()
         self.cfg = cfg
         h, eps = cfg.hidden_size, cfg.layer_norm_eps
-        self.query = nn.Linear(h, h)
-        self.key = nn.Linear(h, h)
-        self.value = nn.Linear(h, h)
-        self.attn_out = nn.Linear(h, h)
-        self.attn_ln = nn.LayerNorm(h, eps=eps)
-        self.ff1 = nn.Linear(h, cfg.intermediate_size)
-        self.ff2 = nn.Linear(cfg.intermediate_size, h)
-        self.ff_ln = nn.LayerNorm(h, eps=eps)
+        self.query = Dense(h, h)
+        self.key = Dense(h, h)
+        self.value = Dense(h, h)
+        self.attn_out = Dense(h, h)
+        self.attn_ln = LayerNorm(h, eps=eps)
+        self.ff1 = Dense(h, cfg.intermediate_size)
+        self.ff2 = Dense(cfg.intermediate_size, h)
+        self.ff_ln = LayerNorm(h, eps=eps)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor, rng: Optional[StepRNG] = None):
         cfg = self.cfg
@@ -170,7 +174,7 @@ class HFTransformersPostEncoder(nn.Module):
         self.cfg = cfg
         for i in range(cfg.length_adaptor_n_layers):
             setattr(self, f"adaptor_{i}", nn.Conv1d(d_in, d_in, 2, stride=2))
-        self.linear_in = nn.Linear(d_in, cfg.body.hidden_size)
+        self.linear_in = Dense(d_in, cfg.body.hidden_size)
         if cfg.lang_token_id != -1:
             self.lang_token_embed = nn.Parameter(torch.zeros(cfg.body.hidden_size))
         self.body = BertBody(cfg.body)
@@ -189,7 +193,7 @@ class HFTransformersPostEncoder(nn.Module):
         if cfg.length_adaptor_n_layers:
             x = x.transpose(1, 2)
             for i in range(cfg.length_adaptor_n_layers):
-                x = F.relu(getattr(self, f"adaptor_{i}")(x))
+                x = F.relu(conv_in_dtype(getattr(self, f"adaptor_{i}"), x))
             x = x.transpose(1, 2)
         lengths = torch.clamp(torch.div(lengths, ratio, rounding_mode="floor"), min=1)
         x = self.linear_in(x)

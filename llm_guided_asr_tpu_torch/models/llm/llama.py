@@ -40,6 +40,7 @@ from llm_guided_asr_tpu_torch.models.hf_checkpoint import (  # noqa: F401 (re-ex
     iter_safetensors,
     load_safetensors,
 )
+from llm_guided_asr_tpu_torch.models.transformer import Dense
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 
 NEG_INF = -1.0e9
@@ -143,10 +144,10 @@ class LlamaAttention(nn.Module):
         self.cfg = cfg
         h, hkv, hd = cfg.num_attention_heads, cfg.num_key_value_heads, cfg.head_dim
         bias = cfg.attention_bias
-        self.q_proj = nn.Linear(cfg.hidden_size, h * hd, bias=bias, dtype=dtype)
-        self.k_proj = nn.Linear(cfg.hidden_size, hkv * hd, bias=bias, dtype=dtype)
-        self.v_proj = nn.Linear(cfg.hidden_size, hkv * hd, bias=bias, dtype=dtype)
-        self.o_proj = nn.Linear(h * hd, cfg.hidden_size, bias=False, dtype=dtype)
+        self.q_proj = Dense(cfg.hidden_size, h * hd, bias=bias, dtype=dtype)
+        self.k_proj = Dense(cfg.hidden_size, hkv * hd, bias=bias, dtype=dtype)
+        self.v_proj = Dense(cfg.hidden_size, hkv * hd, bias=bias, dtype=dtype)
+        self.o_proj = Dense(h * hd, cfg.hidden_size, bias=False, dtype=dtype)
 
     def forward(self, x, positions, attn_mask, inv_freq, cache=None, cache_write_pos=None):
         """x [B, T, D]; attn_mask [B, T, Tk] (True = attend, causality included).
@@ -183,9 +184,9 @@ class LlamaAttention(nn.Module):
 class LlamaMLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, dtype=torch.float32):
         super().__init__()
-        self.gate_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False, dtype=dtype)
-        self.up_proj = nn.Linear(cfg.hidden_size, cfg.intermediate_size, bias=False, dtype=dtype)
-        self.down_proj = nn.Linear(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=dtype)
+        self.gate_proj = Dense(cfg.hidden_size, cfg.intermediate_size, bias=False, dtype=dtype)
+        self.up_proj = Dense(cfg.hidden_size, cfg.intermediate_size, bias=False, dtype=dtype)
+        self.down_proj = Dense(cfg.intermediate_size, cfg.hidden_size, bias=False, dtype=dtype)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -210,18 +211,23 @@ class LlamaModel(nn.Module):
     """Final hidden states (after ``norm``) and per-layer (k, v)."""
 
     def __init__(self, cfg: LlamaConfig, dtype=torch.bfloat16,
-                 device: Union[str, torch.device] = "cuda", lm_head: bool = False):
+                 device: Union[str, torch.device] = "cuda", lm_head: bool = False,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = dtype
+        # the type the blocks compute in when it is not the parameters'
+        # (flax's ``dtype`` over float32 parameters): the embedding rows
+        # are cast to it and every projection casts its weight to its input
+        self.compute_dtype = compute_dtype
         with torch.device(dev):
             self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size, dtype=dtype)
             for i in range(cfg.num_hidden_layers):
                 setattr(self, f"layers_{i}", LlamaBlock(cfg, dtype))
             self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps, dtype)
             if lm_head and not cfg.tie_word_embeddings:
-                self.lm_head = nn.Linear(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
+                self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False, dtype=dtype)
             self.register_buffer("inv_freq", torch.tensor(rope_frequencies(cfg)),
                                  persistent=False)
 
@@ -254,6 +260,8 @@ class LlamaModel(nn.Module):
             causal = torch.ones(t, t, dtype=torch.bool, device=input_ids.device).tril()
             qk_mask = causal[None] & valid[:, None, :] & valid[:, :, None]
         x = self.embed_tokens(input_ids)
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         if embed_override is not None:
             x = torch.where(override_mask[..., None], embed_override.to(x.dtype), x)
         new_cache = []
@@ -265,7 +273,7 @@ class LlamaModel(nn.Module):
         x = self.norm(x)
         if return_logits:
             if self.cfg.tie_word_embeddings:
-                logits = x @ self.embed_tokens.weight.t()
+                logits = x @ self.embed_tokens.weight.to(x.dtype).t()
             elif hasattr(self, "lm_head"):
                 logits = self.lm_head(x)
             else:

@@ -16,6 +16,15 @@ TPU kernel in the JAX package.  Parameter names follow the flax modules
 ``mega_0.rel_pos_bias.relative_position_bias``, ``ffn_0.linear1``,
 ``final_norm``) so that convert.params_from_jax maps one tree onto the
 other; every LayerNorm is a bare flax one, eps 1e-6.
+
+Compute dtype: the model's (``compute`` buffer), as the JAX modules'
+``dtype``: the embedding rows cast to it, every Dense and LayerNorm in its
+input's type.  The EMA runs in float32 and casts its output back (JAX
+models/mega_decoder.py:112-135); the query and key take the float32
+``qk_weight``/``qk_bias`` and so are float32, as JAX promotes them, and
+the scores and their softmax are float32, cast to the values' type
+(:219-231); each post-norm reads its residual sum unrounded
+(models/transformer.py add_and_norm).
 """
 
 from __future__ import annotations
@@ -27,6 +36,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llm_guided_asr_tpu_torch.models.asr_model import embed_labels, register_compute_dtype
+from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    LayerNorm,
+    at_least_f32,
+    sigmoid,
+    silu,
+)
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 LN_EPS = 1e-6  # flax nn.LayerNorm's default
@@ -58,9 +75,11 @@ class MultiHeadDampedEMA(nn.Module):
         return torch.einsum("dnl,dn->dl", k, proj)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B, L, D] -> [B, L, D]."""
+        """[B, L, D] -> [B, L, D], in float32 (at least) and cast back to
+        x's type."""
         length = x.shape[1]
         kern = self.kernel(length)
+        xin, x = x, at_least_f32(x)
         if length <= FFT_THRESHOLD:
             idx = torch.arange(length, device=x.device)
             lag = idx[:, None] - idx[None, :]  # [L(m), L(l)] = m - l
@@ -71,7 +90,7 @@ class MultiHeadDampedEMA(nn.Module):
             kf = torch.fft.rfft(kern, n=n, dim=-1)  # [D, n/2+1]
             xf = torch.fft.rfft(x.transpose(1, 2), n=n, dim=-1)  # [B, D, n/2+1]
             out = torch.fft.irfft(xf * kf[None], n=n, dim=-1)[..., :length].transpose(1, 2)
-        return out + x * self.residual_weight
+        return (out + x * self.residual_weight).to(xin.dtype)
 
 
 class SimpleRelativePositionBias(nn.Module):
@@ -126,9 +145,9 @@ class MEGABlock(nn.Module):
         self.dropout_rate = dropout_rate
         self.att_dropout_rate = dropout_rate if att_dropout_rate is None else att_dropout_rate
         self.ema_dropout_rate = dropout_rate if ema_dropout_rate is None else ema_dropout_rate
-        self.proj_v = nn.Linear(size, v_size)
+        self.proj_v = Dense(size, v_size)
         self.ema = MultiHeadDampedEMA(size, num_heads)
-        self.proj_mx = nn.Linear(size, qk_size + v_size + 2 * size)
+        self.proj_mx = Dense(size, qk_size + v_size + 2 * size)
         self.qk_weight = nn.Parameter(torch.zeros(2, qk_size))
         self.qk_bias = nn.Parameter(torch.zeros(2, qk_size))
         if rel_pos_bias_type == "rotary":
@@ -137,18 +156,18 @@ class MEGABlock(nn.Module):
             self.rel_pos_bias = SimpleRelativePositionBias(max_positions)
         else:
             raise ValueError(f"mega_rel_pos_bias={rel_pos_bias_type!r}; expected simple or rotary")
-        self.proj_h = nn.Linear(v_size, size)
-        self.norm = nn.LayerNorm(size, eps=LN_EPS)
+        self.proj_h = Dense(v_size, size)
+        self.norm = LayerNorm(size, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
         """[B, L, D] -> [B, L, D]; every position is a real label."""
         d, qk, v = self.size, self.qk_size, self.v_size
         residual = x
-        value = dropout(F.silu(self.proj_v(x)), active_rate(self, self.dropout_rate), rng)
-        ema_out = dropout(F.silu(self.ema(x)), active_rate(self, self.ema_dropout_rate), rng)
+        value = dropout(silu(self.proj_v(x)), active_rate(self, self.dropout_rate), rng)
+        ema_out = dropout(silu(self.ema(x)), active_rate(self, self.ema_dropout_rate), rng)
         base = self.proj_mx(ema_out)
-        residual_weight = torch.sigmoid(base[..., :d])
-        qk_gates = F.silu(base[..., d: d + qk + v])
+        residual_weight = sigmoid(base[..., :d])
+        qk_gates = silu(base[..., d: d + qk + v])
         intermediate = base[..., d + qk + v:]
         qk_x, att_gate = qk_gates[..., :qk], qk_gates[..., qk:]
         query = qk_x * self.qk_weight[0] + self.qk_bias[0]
@@ -157,12 +176,12 @@ class MEGABlock(nn.Module):
         scores = (torch.einsum("bld,bmd->blm", query, key) * qk ** -0.5
                   + self.rel_pos_bias(length)[None])
         causal = torch.ones(length, length, dtype=torch.bool, device=x.device).tril()
-        attn = torch.softmax(torch.where(causal, scores, -1e30), dim=-1)
+        attn = torch.softmax(torch.where(causal, scores, -1e30), dim=-1).to(value.dtype)
         attn = dropout(attn, active_rate(self, self.att_dropout_rate), rng)
         self_out = torch.einsum("blm,bmd->bld", attn, value)
-        h = F.silu(intermediate + self.proj_h(self_out * att_gate))
+        h = silu(intermediate + self.proj_h(self_out * att_gate))
         h = dropout(h, active_rate(self, self.dropout_rate), rng)
-        return self.norm(residual + residual_weight * (h - residual))
+        return self.norm(residual, residual_weight * (h - residual))
 
 
 class NormalizedFeedForward(nn.Module):
@@ -171,14 +190,14 @@ class NormalizedFeedForward(nn.Module):
     def __init__(self, size: int, hidden_size: int, dropout_rate: float):
         super().__init__()
         self.dropout_rate = dropout_rate
-        self.linear1 = nn.Linear(size, hidden_size)
-        self.linear2 = nn.Linear(hidden_size, size)
-        self.norm = nn.LayerNorm(size, eps=LN_EPS)
+        self.linear1 = Dense(size, hidden_size)
+        self.linear2 = Dense(hidden_size, size)
+        self.norm = LayerNorm(size, eps=LN_EPS)
 
     def forward(self, x: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
         rate = active_rate(self, self.dropout_rate)
-        h = dropout(F.silu(self.linear1(x)), rate, rng)
-        return self.norm(dropout(self.linear2(h), rate, rng) + x)
+        h = dropout(silu(self.linear1(x)), rate, rng)
+        return self.norm(x, dropout(self.linear2(h), rate, rng))
 
 
 class MEGADecoder(nn.Module):
@@ -186,10 +205,11 @@ class MEGADecoder(nn.Module):
     embedding of width ``hidden_size``, ``num_layers`` (MEGA block,
     feed-forward) pairs and a final LayerNorm."""
 
-    def __init__(self, vocab_size: int, cfg):
+    def __init__(self, vocab_size: int, cfg, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.cfg = cfg
+        register_compute_dtype(self, dtype)
         h = cfg.hidden_size
         self.embed = nn.Embedding(vocab_size, h)
         self.n_blocks = cfg.num_layers or 4
@@ -200,11 +220,10 @@ class MEGADecoder(nn.Module):
                 cfg.mega_att_dropout_rate, cfg.mega_ema_dropout_rate))
             self.add_module(f"ffn_{i}", NormalizedFeedForward(
                 h, cfg.mega_ffn_size or 2 * h, cfg.dropout_rate))
-        self.final_norm = nn.LayerNorm(h, eps=LN_EPS)
+        self.final_norm = LayerNorm(h, eps=LN_EPS)
 
     def forward(self, labels: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
-        y = torch.cat([torch.zeros_like(labels[:, :1]), labels], dim=1)
-        x = self.embed(y.clamp(0, self.vocab_size - 1))
+        x = embed_labels(self, labels)
         x = dropout(x, active_rate(self, self.cfg.dropout_rate), rng)
         for i in range(self.n_blocks):
             x = getattr(self, f"mega_{i}")(x, rng)

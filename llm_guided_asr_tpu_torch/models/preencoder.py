@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from llm_guided_asr_tpu_torch.models.transformer import Dense, LayerNorm, conv_in_dtype
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 
@@ -212,15 +213,16 @@ class LengthAdaptorConfig:
 class LengthAdaptorPostEncoder(nn.Module):
     """Stride-2 conv + ReLU per layer after the encoder, lengths halved (at
     least 1); ``input_layer: linear`` first maps to ``output_size`` with a
-    Linear, a LayerNorm (flax's epsilon 1e-6) and dropout."""
+    Linear, a LayerNorm (flax's epsilon 1e-6) and dropout.  In its input's
+    type (the model's compute dtype), as JAX's with ``dtype``."""
 
     def __init__(self, cfg: LengthAdaptorConfig, d_in: int):
         super().__init__()
         self.cfg = cfg
         d = d_in
         if cfg.input_layer == "linear":
-            self.embed = nn.Linear(d_in, cfg.output_size)
-            self.embed_ln = nn.LayerNorm(cfg.output_size, eps=1e-6)
+            self.embed = Dense(d_in, cfg.output_size)
+            self.embed_ln = LayerNorm(cfg.output_size, eps=1e-6)
             d = cfg.output_size
         for i in range(cfg.n_layers):
             setattr(self, f"adaptor_{i}", nn.Conv1d(d, d, 2, stride=2))
@@ -233,6 +235,6 @@ class LengthAdaptorPostEncoder(nn.Module):
             x = dropout(self.embed_ln(self.embed(x)), active_rate(self, cfg.dropout_rate), rng)
         x = x.transpose(1, 2)
         for i in range(cfg.n_layers):
-            x = F.relu(getattr(self, f"adaptor_{i}")(x))
+            x = F.relu(conv_in_dtype(getattr(self, f"adaptor_{i}"), x))
             lengths = torch.div(lengths, 2, rounding_mode="floor")
         return x.transpose(1, 2), torch.clamp(lengths, min=1)

@@ -19,6 +19,13 @@ Either kernel convolves the sequence causally by FFT (length 2L), then
 task selects ``diag`` only; ``nplr`` is reachable at module level.
 models/state_spaces.py imports the NPLR pieces from here.  Every
 LayerNorm takes eps 1e-5.
+
+Compute dtype: the encoder rows' (the model casts them); the embedding
+rows are cast to it.  The FFT convolution runs in float32, its output is
+cast to the compute dtype and ``+ D u`` promotes to float32 through the
+float32 ``d`` (as JAX promotes it) until ``out_proj`` casts back; the
+diagonal kernel is rounded to the compute dtype first, the NPLR one is not
+(JAX models/s4_decoder.py:113-124, 228-238).
 """
 
 from __future__ import annotations
@@ -33,9 +40,11 @@ from torch import nn
 
 from llm_guided_asr_tpu_torch.models.conformer import gelu_tanh
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
     LayerNorm,
     MultiHeadedAttention,
     PositionwiseFeedForward,
+    add_and_norm,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -132,12 +141,13 @@ class S4DLayer(nn.Module):
         s4d_init(self, (h, n))
         self.c = nn.Parameter(torch.zeros(h, n, 2))
         self.d = nn.Parameter(torch.ones(h))
-        self.out_proj = nn.Linear(h, h)
+        self.out_proj = Dense(h, h)
 
     def forward(self, u):
+        # the kernel rounded to the compute dtype (JAX models/s4_decoder.py:113-115)
         kernel = s4d_kernel(self.log_dt, self.log_a_re, self.a_im, self.c, u.shape[1])
-        y = fft_causal_conv(u, kernel).to(u.dtype) + u * self.d
-        return self.out_proj(gelu_tanh(y))
+        y = fft_causal_conv(u, kernel.to(u.dtype)).to(u.dtype) + u * self.d
+        return self.out_proj(gelu_tanh(y), u.dtype)
 
 
 def init_nplr(module: nn.Module, n: int) -> None:
@@ -177,13 +187,13 @@ class S4NPLRLayer(nn.Module):
         self.log_dt = nn.Parameter(torch.zeros(h))
         self.c = nn.Parameter(torch.zeros(h, cfg.d_state, 2))
         self.d = nn.Parameter(torch.ones(h))
-        self.out_proj = nn.Linear(h, h)
+        self.out_proj = Dense(h, h)
 
     def forward(self, u):
         kernel = s4_nplr_kernel(*nplr_dplr(self), complex_pair(self.c), torch.exp(self.log_dt),
                                 u.shape[1])
         y = fft_causal_conv(u, kernel).to(u.dtype) + u * self.d
-        return self.out_proj(gelu_tanh(y))
+        return self.out_proj(gelu_tanh(y), u.dtype)
 
 
 SSM_LAYERS = {"diag": S4DLayer, "nplr": S4NPLRLayer}
@@ -216,7 +226,7 @@ class S4Decoder(nn.Module):
                 self.add_module(f"ffn_{i}", PositionwiseFeedForward(
                     d, cfg.linear_units, dropout_rate=cfg.dropout_rate))
             self.final_ln = LayerNorm(d)
-            self.output = nn.Linear(d, cfg.vocab_size)
+            self.output = Dense(d, cfg.vocab_size)
 
     def forward(self, enc: torch.Tensor, enc_lengths: torch.Tensor, ys_in: torch.Tensor,
                 ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,
@@ -224,14 +234,13 @@ class S4Decoder(nn.Module):
         cfg = self.cfg
         b, length = ys_in.shape
         pad = ~make_valid_mask(ys_in_lengths, length)[..., None]
-        x = self.embed(ys_in.clamp(0, cfg.vocab_size - 1)).masked_fill(pad, 0.0)
+        x = self.embed(ys_in.clamp(0, cfg.vocab_size - 1)).to(enc.dtype).masked_fill(pad, 0.0)
         mem_mask = make_valid_mask(enc_lengths, enc.shape[1])[:, None, :]
         for i in range(cfg.n_layers):
             sub = lambda name: getattr(self, f"{name}_{i}")  # noqa: E731
-            x = x + sub("s4")(sub("s4_ln")(x))
-            h = sub("att_ln")(x)
-            x = x + sub("cross")(h, enc, enc, mem_mask, rng=rng)
-            x = x + sub("ffn")(sub("ffn_ln")(x), rng)
+            x, h = add_and_norm(x, sub("s4")(sub("s4_ln")(x)), sub("att_ln"))
+            x, h = add_and_norm(x, sub("cross")(h, enc, enc, mem_mask, rng=rng), sub("ffn_ln"))
+            x = x + sub("ffn")(h, rng)
             x = x.masked_fill(pad, 0.0)
         x = self.final_ln(x)
         if only_last:

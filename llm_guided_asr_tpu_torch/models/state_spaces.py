@@ -18,6 +18,16 @@ convolves the reversed sequence.  Pads are zeroed before every layer but
 ``mha``, which masks its keys instead.  Module names are flax's, the
 auto-named layers included (``S4Core_0``, ``S4DCore_0``, ``FFLayer_0``,
 ``MHALayer_0``).
+
+Compute dtype: the trunk's input's (the model casts the features).  The
+FFT convolutions run in float32 and their output is cast to the compute
+dtype; ``+ D u`` promotes to float32 through the float32 ``d`` until
+``out_proj`` casts back (JAX models/state_spaces.py:46-53, 104-109,
+169-174).  The ``affine`` residual multiplies by a float32 parameter and
+so carries the residual stream in float32, as JAX promotes it; every norm
+returns the compute dtype (flax's ``dtype``) and every layer reads it.
+One difference: under ``ss_norm: none`` with the ``affine`` residual JAX
+hands the float32 stream to the next layer, which the port rounds first.
 """
 
 from __future__ import annotations
@@ -44,7 +54,12 @@ from llm_guided_asr_tpu_torch.models.s4_decoder import (
     s4d_init,
     s4d_kernel,
 )
-from llm_guided_asr_tpu_torch.models.transformer import MultiHeadedAttention
+from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    LayerNorm,
+    MultiHeadedAttention,
+    sigmoid,
+)
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
@@ -72,13 +87,14 @@ class _SSMCore(nn.Module):
         self.dropout_rate = dropout_rate
         self.log_dt = nn.Parameter(torch.zeros(d_model))
         self.d = nn.Parameter(torch.ones(d_model))
-        self.out_proj = nn.Linear(d_model, d_model)
+        self.out_proj = Dense(d_model, d_model)
 
     def forward(self, u, rng: Optional[StepRNG] = None):
         kerns = self.kernels(u.shape[1])
         y = causal_or_bidi_conv(u, kerns[0], kerns[1] if self.bidirectional else None)
-        y = gelu_tanh(y.to(u.dtype) + u * self.d)
-        return self.out_proj(dropout(y, active_rate(self, self.dropout_rate), rng))
+        y = gelu_tanh(y.to(u.dtype) + u * self.d)  # float32 (at least) through d
+        y = dropout(y, active_rate(self, self.dropout_rate), rng)
+        return self.out_proj(y, u.dtype)
 
 
 class S4DCore(_SSMCore):
@@ -118,8 +134,8 @@ class FFLayer(nn.Module):
 
     def __init__(self, d_model: int, expand: int = 2, dropout_rate: float = 0.0):
         super().__init__()
-        self.ff1 = nn.Linear(d_model, d_model * expand)
-        self.ff2 = nn.Linear(d_model * expand, d_model)
+        self.ff1 = Dense(d_model, d_model * expand)
+        self.ff2 = Dense(d_model * expand, d_model)
         self.dropout_rate = dropout_rate
 
     def forward(self, x, rng: Optional[StepRNG] = None):
@@ -178,16 +194,16 @@ class ResidualFn(nn.Module):
         if kind in ("affine", "A"):
             self.affine = nn.Parameter(torch.ones(1))
         elif kind in ("highway", "H"):
-            self.Wx = nn.Linear(d_model, d_model)
-            self.Wy = nn.Linear(d_model, d_model)
+            self.Wx = Dense(d_model, d_model)
+            self.Wy = Dense(d_model, d_model)
 
     def forward(self, x, y):
         if self.kind in ("residual", "R"):
             return x + y
-        if self.kind in ("affine", "A"):
+        if self.kind in ("affine", "A"):  # float32 (at least), as JAX promotes it
             return x + self.affine * y
         if self.kind in ("highway", "H"):
-            r = torch.sigmoid(self.Wx(x) + self.Wy(y))
+            r = sigmoid(self.Wx(x) + self.Wy(y))
             return (1.0 - r) * x + r * y
         if self.kind in ("decay", "D"):
             beta = self.i_layer ** -0.5
@@ -197,23 +213,27 @@ class ResidualFn(nn.Module):
 
 class Norm(nn.Module):
     """``ln`` (LayerNorm, flax's default eps 1e-6), ``bn`` (the masked batch
-    norm) or nothing (state_spaces/components.py Normalization)."""
+    norm) or nothing (state_spaces/components.py Normalization) of x (+
+    ``residual``: the LayerNorm reads the sum unrounded, models/
+    transformer.py add_and_norm); a norm's output is in ``dtype`` (flax's
+    ``dtype``), nothing returns the sum as it is."""
 
     def __init__(self, kind: str, d_model: int):
         super().__init__()
         self.kind = kind
         if kind == "layer":
-            self.ln = nn.LayerNorm(d_model, eps=1e-6)
+            self.ln = LayerNorm(d_model, eps=1e-6)
         elif kind == "batch":
             self.bn = MaskedBatchNorm(d_model)
         elif kind not in ("none", ""):
             raise ValueError(f"unknown norm {kind!r}")
 
-    def forward(self, x, valid):
+    def forward(self, x, valid, dtype: torch.dtype, residual: Optional[torch.Tensor] = None):
         if self.kind == "layer":
-            return self.ln(x)
+            return self.ln(x, residual).to(dtype)
+        x = x if residual is None else x + residual
         if self.kind == "batch":
-            return self.bn(x, valid)
+            return self.bn(x, valid).to(dtype)
         return x
 
 
@@ -232,9 +252,10 @@ class Pool(nn.Module):
             raise ValueError(f"unknown pool {kind!r}")
         self.kind, self.stride = kind, stride
         if kind == "linear":
-            self.pool_lin = nn.Linear(stride * d_model, d_model)
+            self.pool_lin = Dense(stride * d_model, d_model)
 
-    def forward(self, x):
+    def forward(self, x, dtype: torch.dtype):
+        """``dtype``: the compute dtype, which ``pool_lin`` reads."""
         b, t, d = x.shape
         s = self.stride
         if self.kind == "sample":
@@ -242,7 +263,7 @@ class Pool(nn.Module):
         pad = (-t) % s
         xw = torch.nn.functional.pad(x, (0, 0, 0, pad)).reshape(b, (t + pad) // s, s, d)
         if self.kind == "linear":
-            return self.pool_lin(xw.reshape(b, (t + pad) // s, s * d))
+            return self.pool_lin(xw.reshape(b, (t + pad) // s, s * d).to(dtype))
         return xw.mean(dim=2)
 
 
@@ -258,9 +279,20 @@ class SequenceResidualBlock(nn.Module):
         self.norm = Norm(cfg.ss_norm, cfg.output_size)
         self.residual = ResidualFn(cfg.ss_residual, cfg.output_size, i_layer)
 
-    def forward(self, x, valid, rng: Optional[StepRNG] = None):
+    def forward(self, x, valid, dtype: torch.dtype, rng: Optional[StepRNG] = None,
+                pending: Optional[torch.Tensor] = None):
+        """(x, pending): ``dtype`` is the compute dtype, which every layer
+        reads; ``pending`` a residual branch still to add to x, which the
+        pre-norm reads unrounded in the sum (the plain ``residual`` of a
+        pre-norm block hands its own on so)."""
         cfg = self.cfg
-        y = self.norm(x, valid) if cfg.ss_prenorm else x
+        if cfg.ss_prenorm:
+            y = self.norm(x, valid, dtype, pending)
+        else:
+            y = x
+        if pending is not None:
+            x = x + pending
+        y = y.to(dtype)
         layer = getattr(self, self.layer_attr)
         if self.layer_name == "mha":
             y = layer(y, valid, rng)
@@ -273,8 +305,12 @@ class SequenceResidualBlock(nn.Module):
             keep = torch.rand(x.shape[0], 1, 1, generator=rng.device,
                               device=x.device) < 1.0 - cfg.ss_drop_path
             y = torch.where(keep, y / (1.0 - cfg.ss_drop_path), 0.0)
+        if self.residual.kind in ("residual", "R"):
+            if cfg.ss_prenorm:
+                return x, y
+            return self.norm(x, valid, dtype, y), None
         x = self.residual(x, y)
-        return x if cfg.ss_prenorm else self.norm(x, valid)
+        return (x if cfg.ss_prenorm else self.norm(x, valid, dtype)), None
 
 
 class SequenceModel(nn.Module):
@@ -299,17 +335,23 @@ class SequenceModel(nn.Module):
         return bool(cfg.ss_pool) and cfg.ss_pool_stride > 1 and g < cfg.num_blocks - 1
 
     def forward(self, x, lengths, rng: Optional[StepRNG] = None):
+        """x in the compute dtype."""
         cfg = self.cfg
-        i = 0
+        dtype = x.dtype
+        i, pending = 0, None
         for g in range(cfg.num_blocks):
             valid = make_valid_mask(lengths, x.shape[1])
             for lname in cfg.ss_layers:
                 i += 1
-                x = getattr(self, f"block_{g}_{lname}_{i}")(x, valid, rng)
+                x, pending = getattr(self, f"block_{g}_{lname}_{i}")(x, valid, dtype, rng,
+                                                                     pending)
             if self._pools(g):
-                x = getattr(self, f"pool_{g}")(x)
+                if pending is not None:
+                    x, pending = x + pending, None
+                x = getattr(self, f"pool_{g}")(x, dtype)
                 lengths = pool_lengths(lengths, cfg.ss_pool_stride)
-        return self.final_norm(x, make_valid_mask(lengths, x.shape[1])), lengths
+        valid = make_valid_mask(lengths, x.shape[1])
+        return self.final_norm(x, valid, dtype, pending), lengths
 
 
 class S4Encoder(nn.Module):

@@ -8,6 +8,18 @@ models/mega_decoder.py); loss = RNN-T (ops/rnnt.py; the multi-blank loss
 when ``multi_blank_durations`` is set) + aux_ctc_weight * CTC on the
 encoder.  ``forward`` takes the same ``rng`` as ASRModel, so that
 train/trainer.py's fused step drives it unchanged.
+
+Compute dtype (JAX's ``dtype``: float32, or bfloat16 for ``train_dtype:
+bfloat16`` / ``use_amp``), as models/asr_model.py has it: float32
+parameters, the features cast at the encoder's input (JAX ``encode``), the
+prediction network's embedding rows cast to the compute dtype (flax's
+``nn.Embed`` with ``dtype``), every Dense in its input's type.  The LSTM
+prediction network computes in float32 inside a bfloat16 model, as flax
+promotes it (JAX models/transducer.py:104 builds ``OptimizedLSTMCell``
+without a dtype), and the joint casts its rows back.  The joint's and the
+CTC head's logits are float32 products of the rounded operands (every
+caller casts them to float32 at once); the lattice log-softmax, the losses
+and the searches' log-probs are float32.
 """
 
 from __future__ import annotations
@@ -18,11 +30,18 @@ from typing import Dict, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from llm_guided_asr_tpu_torch.models.asr_model import extract_features
+from llm_guided_asr_tpu_torch.models.asr_model import (
+    check_compute_dtype,
+    embed_labels,
+    extract_features,
+    register_compute_dtype,
+    to_compute,
+)
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_encoder
 from llm_guided_asr_tpu_torch.models.lm import LSTMCell, lstm_stack
 from llm_guided_asr_tpu_torch.models.mega_decoder import MEGADecoder
 from llm_guided_asr_tpu_torch.models.rwkv import RWKVDecoder
+from llm_guided_asr_tpu_torch.models.transformer import Dense, at_least_f32
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, require_log_mel
 from llm_guided_asr_tpu_torch.ops.losses import ctc_loss
 from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss, rnnt_loss_multi_blank
@@ -54,19 +73,21 @@ class TransducerDecoderConfig:
 
 class StatelessDecoder(nn.Module):
     """asr_transducer/decoder/stateless_decoder.py: [B, U] -> [B, U+1, H],
-    an embedding of the labels after the blank context 0."""
+    an embedding of the labels after the blank context 0, in the compute
+    dtype."""
 
-    def __init__(self, vocab_size: int, cfg: TransducerDecoderConfig):
+    def __init__(self, vocab_size: int, cfg: TransducerDecoderConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.cfg = cfg
+        register_compute_dtype(self, dtype)
         self.embed = nn.Embedding(vocab_size, cfg.embed_size)
         if cfg.embed_size != cfg.hidden_size:
-            self.proj = nn.Linear(cfg.embed_size, cfg.hidden_size)
+            self.proj = Dense(cfg.embed_size, cfg.hidden_size)
 
     def forward(self, labels: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
-        y = torch.cat([torch.zeros_like(labels[:, :1]), labels], dim=1)
-        x = self.embed(y.clamp(0, self.vocab_size - 1))
+        x = embed_labels(self, labels)
         x = dropout(x, active_rate(self, self.cfg.dropout_rate), rng)
         if self.cfg.embed_size != self.cfg.hidden_size:
             x = self.proj(x)
@@ -78,23 +99,28 @@ class RNNDecoder(nn.Module):
     embedding of the labels after the blank context 0, dropout, then
     ``num_layers`` LSTM cells laid out as flax's ``OptimizedLSTMCell_{i}``
     (the names flax gives the cells that ``nn.RNN`` wraps), run as one
-    fused recurrence over the whole sequence (models/lm.py lstm_stack)."""
+    fused recurrence over the whole sequence (models/lm.py lstm_stack).
+    The embedding is in the compute dtype; the cells compute in float32
+    (at least) and return float32 in a bfloat16 model."""
 
-    def __init__(self, vocab_size: int, cfg: TransducerDecoderConfig):
+    def __init__(self, vocab_size: int, cfg: TransducerDecoderConfig,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.vocab_size = vocab_size
         self.cfg = cfg
+        register_compute_dtype(self, dtype)
         self.embed = nn.Embedding(vocab_size, cfg.embed_size)
         for i in range(cfg.num_layers):
             self.add_module(f"OptimizedLSTMCell_{i}", LSTMCell(
                 cfg.hidden_size, cfg.embed_size if i == 0 else cfg.hidden_size))
 
     def forward(self, labels: torch.Tensor, rng: Optional[StepRNG] = None) -> torch.Tensor:
-        y = torch.cat([torch.zeros_like(labels[:, :1]), labels], dim=1)
-        x = self.embed(y.clamp(0, self.vocab_size - 1))
+        x = embed_labels(self, labels)
         x = dropout(x, active_rate(self, self.cfg.dropout_rate), rng)
         cells = [getattr(self, f"OptimizedLSTMCell_{i}") for i in range(self.cfg.num_layers)]
-        return lstm_stack(cells, x)
+        # flax promotes the bfloat16 embedding to the cells' float32 (JAX
+        # models/transducer.py:104: OptimizedLSTMCell without a dtype)
+        return lstm_stack(cells, at_least_f32(x))
 
 
 DECODERS = {"stateless": StatelessDecoder, "rnn": RNNDecoder, "rwkv": RWKVDecoder,
@@ -102,17 +128,24 @@ DECODERS = {"stateless": StatelessDecoder, "rnn": RNNDecoder, "rwkv": RWKVDecode
 
 
 class JointNetwork(nn.Module):
-    """asr_transducer/joint_network.py: tanh(W_enc h + W_dec g) -> vocab."""
+    """asr_transducer/joint_network.py: tanh(W_enc h + W_dec g) -> vocab
+    in the encoder rows' type (g is cast to it in ``lin_dec``); the logits
+    in float32 (at least), not rounded, as every caller (the losses, the
+    searches' log-softmax) casts them to float32 at once
+    (models/transformer.py Dense ``dtype``, ``f32_out``)."""
 
     def __init__(self, vocab_size: int, enc_size: int, dec_size: int, joint_size: int = 256):
         super().__init__()
-        self.lin_enc = nn.Linear(enc_size, joint_size)
-        self.lin_dec = nn.Linear(dec_size, joint_size)
-        self.lin_out = nn.Linear(joint_size, vocab_size)
+        self.lin_enc = Dense(enc_size, joint_size)
+        self.lin_dec = Dense(dec_size, joint_size)
+        self.lin_out = Dense(joint_size, vocab_size)
 
     def forward(self, enc: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
         """enc [..., De] and dec [..., Dd], broadcastable -> [..., V]."""
-        return self.lin_out(torch.tanh(self.lin_enc(enc) + self.lin_dec(dec)))
+        # in bfloat16 the add and the tanh each round, as the JAX joint's
+        # compiled CPU graph does (JAX models/transducer.py:118-121)
+        h = self.lin_enc(enc)
+        return self.lin_out(torch.tanh(h + self.lin_dec(dec, h.dtype)), f32_out=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,10 +196,12 @@ class TransducerModelConfig:
 
 
 class TransducerModel(nn.Module):
-    """The transducer, float32.  ``.train()`` turns on dropout, SpecAug and
-    batch statistics; the forward then needs a StepRNG."""
+    """The transducer, computing in ``dtype`` (float32, or bfloat16: see the
+    module docstring).  ``.train()`` turns on dropout, SpecAug and batch
+    statistics; the forward then needs a StepRNG."""
 
-    def __init__(self, cfg: TransducerModelConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: TransducerModelConfig, device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         dec_type = cfg.decoder.decoder_type
         if dec_type not in DECODERS:
@@ -175,16 +210,18 @@ class TransducerModel(nn.Module):
             raise ValueError(f"multi_blank_ids {cfg.multi_blank_ids} and multi_blank_durations "
                              f"{cfg.multi_blank_durations} differ in length")
         require_log_mel(cfg.frontend, "the transducer")
+        check_compute_dtype(dtype, cfg, cfg.encoder_type)
         dev = resolve_device(device)
         self.cfg = cfg
         n_feat = cfg.n_feat
         with torch.device(dev):
+            register_compute_dtype(self, dtype)
             self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
             d = self.encoder.output_size
-            self.decoder = DECODERS[dec_type](cfg.vocab_size, cfg.decoder)
+            self.decoder = DECODERS[dec_type](cfg.vocab_size, cfg.decoder, dtype=dtype)
             self.joint = JointNetwork(cfg.vocab_size, d, cfg.decoder.hidden_size, cfg.joint_size)
             if cfg.aux_ctc_weight > 0:
-                self.ctc_head = nn.Linear(d, cfg.vocab_size)
+                self.ctc_head = Dense(d, cfg.vocab_size)
             if cfg.normalize == "global_mvn":
                 # one statistic per feature; the JAX model keeps a single
                 # one (broadcast) when it has no frontend
@@ -197,15 +234,19 @@ class TransducerModel(nn.Module):
         """[B, S] waveform (or [B, T, input_size] features without a
         frontend) -> ([B, T', D] encoder output, [B] lengths)."""
         feats, feats_lengths = extract_features(self, speech, speech_lengths, rng)
-        return self.encoder(feats, feats_lengths, rng)
+        return self.encoder(to_compute(self, feats), feats_lengths, rng)
 
     def joint_full(self, enc: torch.Tensor, dec: torch.Tensor) -> torch.Tensor:
-        """[B, T, De] x [B, U+1, Dd] -> [B, T, U+1, V] lattice logits."""
-        return self.joint(enc[:, :, None, :], dec[:, None, :, :])
+        """[B, T, De] x [B, U+1, Dd] -> [B, T, U+1, V] lattice logits (the
+        encoder rows cast to the compute dtype; the joint casts the
+        prediction network's, float32 from the LSTM in a bfloat16 model,
+        as the joint's flax Dense casts its input)."""
+        return self.joint(to_compute(self, enc)[:, :, None, :],
+                          dec[:, None, :, :])
 
     def joint_step(self, enc_vec: torch.Tensor, dec_vec: torch.Tensor) -> torch.Tensor:
         """[B, De] x [B, Dd] -> [B, V]: one lattice cell (decoding)."""
-        return self.joint(enc_vec, dec_vec)
+        return self.joint(to_compute(self, enc_vec), dec_vec)
 
     def decode_labels(self, labels: torch.Tensor) -> torch.Tensor:
         """[B, U] labels -> [B, U+1, H] prediction-network outputs (decoding)."""
@@ -231,7 +272,8 @@ class TransducerModel(nn.Module):
         stats = {"loss_rnnt": loss_rnnt}
         loss = loss_rnnt
         if cfg.aux_ctc_weight > 0:
-            loss_ctc = ctc_loss(self.ctc_head(enc), enc_lens, text, text_lengths, cfg.blank_id)
+            loss_ctc = ctc_loss(self.ctc_head(enc, f32_out=True), enc_lens, text, text_lengths,
+                                cfg.blank_id)
             stats["loss_ctc"] = loss_ctc
             loss = loss + cfg.aux_ctc_weight * loss_ctc
         stats["loss"] = loss

@@ -46,22 +46,116 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
 class LayerNorm(nn.LayerNorm):
     """flax's ``nn.LayerNorm``: statistics, scale and bias in float32 (at
     least), the output cast to the input's type.  The epsilon defaults to
-    torch's 1e-5, as the JAX helper sets it (a bare flax LayerNorm: 1e-6)."""
+    torch's 1e-5, as the JAX helper sets it (a bare flax LayerNorm: 1e-6).
+    With ``residual`` it normalizes x + residual, the sum taken in float32
+    (at least) and not rounded first (:func:`add_and_norm`)."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(at_least_f32(x), self.normalized_shape, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        xf = at_least_f32(x)
+        if residual is not None:
+            xf = xf + at_least_f32(residual)
+        y = F.layer_norm(xf, self.normalized_shape, self.weight, self.bias, self.eps)
         return y if y.dtype == x.dtype else y.to(x.dtype)
+
+
+def _logistic(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1.0 + torch.exp(-x))
+
+
+class _JaxSigmoid(torch.autograd.Function):
+    """jax.nn.sigmoid in a 16-bit type as XLA's CPU lowering computes it:
+    1 / (1 + exp(-x)), each op rounded; its derivative g * (y * sigmoid(-x))
+    likewise (jax's logistic JVP)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _logistic(x)
+        ctx.save_for_backward(x, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        return g * (y * _logistic(-x))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.sigmoid: torch's in float32 and wider; in bfloat16 the op
+    sequence XLA lowers it to, each op rounded (:class:`_JaxSigmoid`)."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return _JaxSigmoid.apply(x)
+    return torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.silu = x * sigmoid(x), with :func:`sigmoid`."""
+    if x.dtype in (torch.bfloat16, torch.float16):
+        return x * _JaxSigmoid.apply(x)
+    return F.silu(x)
+
+
+def add_and_norm(x: torch.Tensor, h: torch.Tensor, norm: LayerNorm
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + h, norm(x + h)): the residual stream in x's type, and in
+    bfloat16 its norm read from the sum before it rounds, as XLA's CPU
+    lowering of a bfloat16 block reads the add that feeds a LayerNorm."""
+    s = x + h
+    if s.dtype in (torch.bfloat16, torch.float16):
+        return s, norm(x, h)
+    return s, norm(s)
 
 
 class Dense(nn.Linear):
     """flax's ``nn.Dense`` over float32 parameters: the weight and bias cast
-    to the input's type (bfloat16 in a bfloat16 model), the product in it."""
+    to the input's type (bfloat16 in a bfloat16 model), the product in it.
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    Two cases follow XLA's CPU lowering of a bfloat16 Dense, which keeps a
+    product unrounded where the program casts it to float32 at once, and
+    a gradient unrounded where it meets a cast from float32
+    (:class:`_CastDense`):
+
+    - ``dtype``: the compute dtype for an input of another type (a float32
+      row that flax promoted): the input is cast to it inside, and the
+      gradients of the input and of the parameters come back in float32;
+    - ``f32_out``: the product of the rounded operands is returned in
+      float32, not rounded (logits that go straight into a float32
+      log-softmax or loss, k and v into the float32 WKV)."""
+
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None,
+                f32_out: bool = False) -> torch.Tensor:
+        dtype = x.dtype if dtype is None else dtype
+        if dtype != x.dtype or (f32_out and dtype in (torch.bfloat16, torch.float16)):
+            return _CastDense.apply(x, self.weight, self.bias, dtype, f32_out)
         if x.dtype == self.weight.dtype:
             return F.linear(x, self.weight, self.bias)
         bias = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), bias)
+
+
+class _CastDense(torch.autograd.Function):
+    """y = x.to(dtype) W.to(dtype)^T + b.to(dtype): in dtype, or the same
+    product of the rounded operands in float32 (``f32_out``).  The
+    backward takes the output gradient in dtype (a float32 one rounded to
+    it first, as the cast's VJP rounds it) and computes in float32: dx in
+    x's type, dW and db in float32, none of them rounded to dtype."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, dtype, f32_out):
+        xc, wc = x.to(dtype), weight.to(dtype)
+        bc = None if bias is None else bias.to(dtype)
+        ctx.save_for_backward(xc, wc)
+        ctx.x_dtype, ctx.dtype, ctx.has_bias = x.dtype, dtype, bias is not None
+        if f32_out:
+            return F.linear(xc.float(), wc.float(), None if bc is None else bc.float())
+        return F.linear(xc, wc, bc)
+
+    @staticmethod
+    def backward(ctx, g):
+        xc, wc = ctx.saved_tensors
+        g32 = g.to(ctx.dtype).float().reshape(-1, g.shape[-1])
+        dx = (g32 @ wc.float()).reshape(*g.shape[:-1], wc.shape[1]).to(ctx.x_dtype)
+        dw = g32.t() @ xc.float().reshape(-1, xc.shape[-1])
+        return dx, dw, (g32.sum(0) if ctx.has_bias else None), None, None
 
 
 @functools.lru_cache(maxsize=8)
@@ -280,15 +374,17 @@ class Conv2dSubsampling(nn.Module):
         self.out = Dense(odim * f2, odim)
 
     def forward(self, x):
-        h = torch.relu(_conv(self.conv_0, x[:, None]))
-        h = torch.relu(_conv(self.conv_1, h))
+        h = torch.relu(conv_in_dtype(self.conv_0, x[:, None]))
+        h = torch.relu(conv_in_dtype(self.conv_1, h))
         h = h.permute(0, 2, 3, 1)  # [B, T', F', C]
         return self.out(h.reshape(h.shape[0], h.shape[1], -1))
 
 
-def _conv(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` in its input's type (flax's ``nn.Conv`` with ``dtype``)."""
-    return F.conv2d(x, conv.weight.to(x.dtype), conv.bias.to(x.dtype), conv.stride)
+def conv_in_dtype(conv: nn.modules.conv._ConvNd, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (a torch Conv1d/Conv2d) in its input's type: the weight
+    and bias cast to it (flax's ``nn.Conv`` with ``dtype``)."""
+    bias = None if conv.bias is None else conv.bias.to(x.dtype)
+    return conv._conv_forward(x, conv.weight.to(x.dtype), bias)
 
 
 def sub4_frames(t: int) -> int:
@@ -322,8 +418,9 @@ class TransformerEncoderLayer(nn.Module):
         """x [B, T, D]; mask [B, T, T] or [B, 1, T], True = attend."""
         rate = active_rate(self, self.dropout_rate)
         h = self.norm1(x)
-        x = x + dropout(self.self_attn(h, h, h, mask, rng=rng), rate, rng)
-        return x + dropout(self.feed_forward(self.norm2(x), rng), rate, rng)
+        x, h = add_and_norm(x, dropout(self.self_attn(h, h, h, mask, rng=rng), rate, rng),
+                            self.norm2)
+        return x + dropout(self.feed_forward(h, rng), rate, rng)
 
 
 class DecoderLayer(nn.Module):

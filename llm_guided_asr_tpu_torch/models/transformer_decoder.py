@@ -29,6 +29,8 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     MultiHeadedAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
+    add_and_norm,
+    sigmoid,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import causal_attn_mask, make_valid_mask
@@ -111,18 +113,18 @@ class CausalConvAttn(nn.Module):
     def __init__(self, d: int, heads: int, kernel_size: int, dynamic: bool):
         super().__init__()
         self.heads, self.kernel_size, self.dynamic = heads, kernel_size, dynamic
-        self.in_proj = nn.Linear(d, 2 * d)
+        self.in_proj = Dense(d, 2 * d)
         if dynamic:
-            self.weight_proj = nn.Linear(d, heads * kernel_size)
+            self.weight_proj = Dense(d, heads * kernel_size)
         else:
             self.conv_weight = nn.Parameter(torch.zeros(heads, kernel_size))
-        self.out_proj = nn.Linear(d, d)
+        self.out_proj = Dense(d, d)
 
     def forward(self, x):
         b, length, d = x.shape
         k, h = self.kernel_size, self.heads
         a, g = self.in_proj(x).chunk(2, dim=-1)
-        v = a * torch.sigmoid(g)
+        v = a * sigmoid(g)
         # [B, L, D, K] windows; tap K-1 is the position itself
         win = F.pad(v, (0, 0, k - 1, 0)).unfold(1, k, 1).reshape(b, length, h, d // h, k)
         if self.dynamic:
@@ -139,7 +141,8 @@ class ConvTransformerDecoder(nn.Module):
     embedding * sqrt(d) + sinusoidal positions, pads zeroed, then per block
     pre-norm residual branches ``block_{i}_conv`` (CausalConvAttn),
     ``block_{i}_src_attn`` (dense MHA over the memory) and ``block_{i}_ff``,
-    then ``after_norm`` and ``output_layer``.  No ``tie_input_output``."""
+    then ``after_norm`` and ``output_layer``.  No ``tie_input_output``.
+    Computed in the memory's type, as :class:`TransformerDecoder`."""
 
     def __init__(self, vocab_size: int, cfg: TransformerDecoderConfig, d_model: int,
                  dynamic: bool = False, kernel_size: int = 11,
@@ -166,22 +169,23 @@ class ConvTransformerDecoder(nn.Module):
             if cfg.normalize_before:
                 self.after_norm = LayerNorm(d_model)
             if cfg.use_output_layer:
-                self.output_layer = nn.Linear(d_model, vocab_size)
+                self.output_layer = Dense(d_model, vocab_size)
 
     def forward(self, memory: torch.Tensor, memory_lengths: torch.Tensor, ys_in: torch.Tensor,
                 ys_in_lengths: torch.Tensor, rng: Optional[StepRNG] = None,
                 only_last: bool = False) -> torch.Tensor:
         cfg = self.cfg
         rate = active_rate(self, cfg.dropout_rate)
-        x = self.pos_enc(self.embed(ys_in), rng=rng)
+        x = self.pos_enc(self.embed(ys_in).to(memory.dtype), rng=rng)
         x = x.masked_fill(~make_valid_mask(ys_in_lengths, ys_in.shape[1])[..., None], 0.0)
         memory_mask = make_valid_mask(memory_lengths, memory.shape[1])[:, None, :]
         for i in range(cfg.num_blocks):
             block = lambda name: getattr(self, f"block_{i}_{name}")  # noqa: E731
-            x = x + dropout(block("conv")(block("norm1")(x)), rate, rng)
-            h = block("norm2")(x)
-            x = x + dropout(block("src_attn")(h, memory, memory, memory_mask, rng=rng), rate, rng)
-            x = x + dropout(block("ff")(block("norm3")(x), rng), rate, rng)
+            x, h = add_and_norm(x, dropout(block("conv")(block("norm1")(x)), rate, rng),
+                                block("norm2"))
+            h = block("src_attn")(h, memory, memory, memory_mask, rng=rng)
+            x, h = add_and_norm(x, dropout(h, rate, rng), block("norm3"))
+            x = x + dropout(block("ff")(h, rng), rate, rng)
         if cfg.normalize_before:
             x = self.after_norm(x)
         if only_last:

@@ -229,7 +229,8 @@ def lstm_fwd(xi: torch.Tensor, w_hh: torch.Tensor, bias: torch.Tensor,
         KERNEL.launch("lstm_fwd", xi.data_ptr(), w_hh.data_ptr(), bias.data_ptr(), y.data_ptr(),
                       gates.data_ptr() if save else None, cells.data_ptr() if save else None,
                       b, length, hidden, p.cluster, p.units, p.n_tiles, p.k_chunks,
-                      int(p.streamed), p.smem_bytes, torch.cuda.current_stream().cuda_stream)
+                      int(p.streamed), p.smem_bytes, torch.cuda.current_stream().cuda_stream,
+                      dtype=xi.dtype)
     return y, gates, cells
 
 
@@ -256,7 +257,7 @@ def lstm_bwd(dy: torch.Tensor, gates: torch.Tensor, cells: torch.Tensor,
         KERNEL.launch("lstm_bwd", dy.data_ptr(), gates.data_ptr(), cells.data_ptr(),
                       w_hh.data_ptr(), da.data_ptr(), b, length, hidden, p.cluster, p.units,
                       p.n_tiles, int(p.streamed), p.smem_bytes,
-                      torch.cuda.current_stream().cuda_stream)
+                      torch.cuda.current_stream().cuda_stream, dtype=dy.dtype)
     return da
 
 

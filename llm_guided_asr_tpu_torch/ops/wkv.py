@@ -162,7 +162,8 @@ def _fwd(w, u, k, v, state: Optional[WKVState], want_state: bool):
                     if n > 1 else None)
             KERNEL.launch("wkv_fwd", w.data_ptr(), u.data_ptr(), kf.data_ptr(), vf.data_ptr(),
                           *ptrs0, None if work is None else work.data_ptr(), y.data_ptr(),
-                          *ptrs1, n, b, t, c, torch.cuda.current_stream().cuda_stream)
+                          *ptrs1, n, b, t, c, torch.cuda.current_stream().cuda_stream,
+                          dtype=kf.dtype)
     return y.to(k.dtype), (tuple(state1) if want_state else None)
 
 
@@ -215,7 +216,7 @@ def wkv_bwd(w: torch.Tensor, u: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         KERNEL.launch("wkv_bwd", w.data_ptr(), u.data_ptr(), kf.data_ptr(), vf.data_ptr(),
                       yf.data_ptr(), gyf.data_ptr(), work.data_ptr(), gw.data_ptr(),
                       gu.data_ptr(), gk.data_ptr(), gv.data_ptr(), n, b, t, c,
-                      torch.cuda.current_stream().cuda_stream)
+                      torch.cuda.current_stream().cuda_stream, dtype=kf.dtype)
     return gw, gu, gk.to(k.dtype), gv.to(v.dtype)
 
 

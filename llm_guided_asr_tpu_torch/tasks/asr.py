@@ -41,7 +41,6 @@ from llm_guided_asr_tpu_torch.models.asr_model import (
     ASRModel,
     ASRModelConfig,
     raw_features,
-    refuse_bf16,
 )
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, encoder_conf_values
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
@@ -433,9 +432,7 @@ def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] =
     if name == "transducer":
         from llm_guided_asr_tpu_torch.models.transducer import TransducerModel
 
-        if dtype == torch.bfloat16:
-            refuse_bf16("model='transducer'")
-        return TransducerModel(build_transducer_config(config), device=dev)
+        return TransducerModel(build_transducer_config(config), device=dev, dtype=dtype)
     if name == "espnet":
         return ASRModel(build_model_config(config), device=dev, dtype=dtype)
     if name in JAX_MODELS:

@@ -20,6 +20,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from llm_guided_asr_tpu_torch.models.asr_model import refuse_bf16
 from llm_guided_asr_tpu_torch.models.lm import (
     ESPnetLanguageModel,
     SequentialRNNLM,
@@ -70,8 +71,12 @@ LM_DEFAULTS: Dict[str, Any] = {
 }
 
 
-def build_lm(config: Dict[str, Any],
-             device: Union[str, torch.device] = "cuda") -> ESPnetLanguageModel:
+def build_lm(config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
+             dtype: torch.dtype = torch.float32) -> ESPnetLanguageModel:
+    """The LM of a config, on ``device``, computing in float32; bfloat16
+    (JAX's ``dtype``) raises, naming its ROADMAP item."""
+    if dtype != torch.float32:
+        refuse_bf16("the language model")
     vocab_size = len(read_token_list(config["token_list"]))
     lm_type = config.get("lm", "transformer")
     conf = dict(config.get("lm_conf", {}) or {})
@@ -140,15 +145,17 @@ class LMTask:
     @classmethod
     def build_model_from_file(cls, config_file: Union[str, Path],
                               model_file: Optional[Union[str, Path]] = None,
-                              device: Union[str, torch.device] = "cuda"
+                              device: Union[str, torch.device] = "cuda",
+                              dtype: torch.dtype = torch.float32
                               ) -> Tuple[ESPnetLanguageModel, Dict[str, Any]]:
         """(model in eval mode, config) from a config.yaml and a ``.pth`` or
-        ``.msgpack`` checkpoint of either package."""
+        ``.msgpack`` checkpoint of either package, computing in ``dtype``
+        (float32 only)."""
         from llm_guided_asr_tpu_torch.convert import init_weights
         from llm_guided_asr_tpu_torch.tasks.asr import load_model_file
 
         config = {**cls.get_default_config(), **load_yaml(config_file)}
-        model = build_lm(config, device)
+        model = build_lm(config, device, dtype)
         init_weights(model, int(config.get("seed", 0)))
         if model_file is not None:
             load_model_file(model, model_file)

@@ -35,6 +35,7 @@ from llm_guided_asr_tpu_torch.models.llm_guided import (
     load_llm_params,
     resolve_llm_spec,
 )
+from llm_guided_asr_tpu_torch.models.asr_model import refuse_bf16
 from llm_guided_asr_tpu_torch.models.llm_guided_st import LLMGuidedSTConfig, LLMGuidedSTModel
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.tasks.asr import (
@@ -114,11 +115,14 @@ ST_BATCH_ARGS = ("speech", "speech_lengths", "text", "text_lengths", "src_text",
                  "src_text_lengths")
 
 
-def build_st_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None
-                   ) -> LLMGuidedSTModel:
+def build_st_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None,
+                   dtype: torch.dtype = torch.float32) -> LLMGuidedSTModel:
     """The ST model of a config (tasks/st.py build_st_model), on ``device``
     (default: the config's); the LLM's weights are loaded by
-    :func:`init_st_variables`."""
+    :func:`init_st_variables`.  It computes in float32; bfloat16 (JAX's
+    ``dtype``) raises, naming its ROADMAP item."""
+    if dtype != torch.float32:
+        refuse_bf16("the ST model")
     dev = resolve_device(device) if device is not None else resolve_task_device(config)
     llm_conf = dict(config.get("llm_conf") or {})
     spec = resolve_llm_spec(llm_conf)
@@ -209,13 +213,14 @@ class STTask:
     @classmethod
     def build_model_from_file(cls, config_file: Union[str, Path],
                               model_file: Optional[Union[str, Path]] = None,
-                              device: Union[str, torch.device, None] = "cuda"
+                              device: Union[str, torch.device, None] = "cuda",
+                              dtype: torch.dtype = torch.float32
                               ) -> Tuple[LLMGuidedSTModel, Dict[str, Any]]:
         """Rebuild (model, config) from a config.yaml of either package and
         a ``.pth`` or ``.msgpack`` checkpoint; the model is in eval mode on
-        ``device``."""
+        ``device``, computing in ``dtype`` (float32 only)."""
         config = {**cls.get_default_config(), **load_yaml(config_file)}
-        model = build_st_model(config, device)
+        model = build_st_model(config, device, dtype)
         init_st_variables(model, config, int(config.get("seed", 0)))
         if model_file is not None:
             load_model_file(model, model_file)

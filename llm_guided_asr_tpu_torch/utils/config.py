@@ -723,7 +723,9 @@ def loads_yaml(text: str, name: str = "<yaml>"):
 # YAML: writer
 # ---------------------------------------------------------------------------
 
-_PLAIN_OK = re.compile(r"^[A-Za-z0-9_./+()<>=@,-]+(?: [A-Za-z0-9_./+()<>=@,-]+)*$")
+# \Z, not $: "$" also matches before a trailing newline, and "A\n" written
+# plain reads back as "A"
+_PLAIN_OK = re.compile(r"^[A-Za-z0-9_./+()<>=@,-]+(?: [A-Za-z0-9_./+()<>=@,-]+)*\Z")
 
 
 def _printable(c: str) -> bool:

@@ -22,13 +22,14 @@ from llm_guided_asr_tpu_torch.bin import asr_align
 from llm_guided_asr_tpu_torch.data.fileio import write_wav
 from llm_guided_asr_tpu_torch.ops import ctc_align as tca
 from test_torch_branchformer import _batch, _fast_jax_init, _task_config
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
 
 
 T_MAX = 24
-_JAX_ALIGN = jax.jit(jca.ctc_forced_align)  # one compile a (T, U) shape
+_JAX_ALIGN = jit(jca.ctc_forced_align)  # one compile a (T, U) shape
 
 
 def _case(seed, ties, repeat, t=T_MAX):

@@ -26,7 +26,7 @@ from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_enco
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 from test_torch_branchformer import _np
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -70,7 +70,7 @@ def _av(fuse, **extra):
         out, _ = jm.apply({"params": params}, audio, lens, video)
         return jnp.sum(out * cot), out
 
-    (_, out), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
+    (_, out), grads = jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
     return variables, np.asarray(out), params_from_jax({"params": _np(grads)}), cot
 
 
@@ -98,7 +98,7 @@ def test_audio_only_encoder_matches_jax():
         out, _ = jenc.apply({"params": params}, audio, lens)
         return jnp.sum(out * cot), out
 
-    (_, want), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
+    (_, want), grads = jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
     enc = make_encoder("avhubert", ConformerConfig(**ccfg), N_AUDIO, device="cpu")
     assert isinstance(enc, tav.AVHubertEncoder) and enc.cfg.audio_only
     assert not hasattr(enc.trunk, "video_resnet")
@@ -120,7 +120,7 @@ def test_modality_dropout_zeroes_one_half_as_jax(audio_dropout):
     variables = _av("concat")[0]
     jm = jav.AVHubertModel(jav.AVHubertConfig(modality_fuse="concat", **TINY, **extra))
     audio, lens, video = _inputs()
-    want, _ = jax.jit(lambda v, r: jm.apply(v, audio, lens, video, deterministic=False,
+    want, _ = jit(lambda v, r: jm.apply(v, audio, lens, video, deterministic=False,
                                              rngs={"dropout": r}))(variables,
                                                                    jax.random.PRNGKey(0))
     model = tav.AVHubertModel(tav.AVHubertConfig(modality_fuse="concat", **TINY, **extra),
@@ -170,7 +170,7 @@ def test_audio_only_asr_model_from_a_task_config_matches_jax():
                                            rngs={"dropout": jax.random.PRNGKey(0)})
         return loss, stats
 
-    (_, j_stats), grads = jax.jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
+    (_, j_stats), grads = jit(jax.value_and_grad(f, has_aux=True))(variables["params"])
     model = tasr.build_model(config, "cpu").train()
     model.load_state_dict(params_from_jax(_np(variables)), strict=True)
     loss, stats, _ = model(*(torch.from_numpy(a) if a.dtype == np.float32

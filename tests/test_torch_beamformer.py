@@ -31,7 +31,7 @@ from llm_guided_asr_tpu_torch.ops import beamformer as tbf
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig, MultichannelFrontend
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from test_torch_branchformer import _np
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -54,7 +54,7 @@ def _close(got, want, rel=1e-5):
 @pytest.mark.parametrize("channels", [2, 3])
 def test_wpe_matches_jax(channels):
     y = _complex(np.random.default_rng(channels), (2, 5, channels, 40))
-    want = jax.jit(lambda a: jbf.wpe_dereverb(a, 3, 2, 2))(y)
+    want = jit(lambda a: jbf.wpe_dereverb(a, 3, 2, 2))(y)
     _close(tbf.wpe_dereverb(torch.from_numpy(y), 3, 2, 2).numpy(), want)
 
 
@@ -85,7 +85,7 @@ def test_frontend_features_match_jax(wpe):
     jm = JMultichannelFrontend(use_wpe=wpe, use_beamformer=True, **FRONT)
     speech, lens = _speech()
     variables = seeded_variables(jm, jnp.asarray(speech), jnp.asarray(lens), seed=1)
-    j_feats, j_lens = jax.jit(jm.apply)(variables, speech, lens)
+    j_feats, j_lens = jit(jm.apply)(variables, speech, lens)
     tm = MultichannelFrontend(FrontendConfig(use_wpe=wpe, use_beamformer=True, **FRONT))
     tm.load_state_dict(params_from_jax(_np(variables)), strict=True)
     feats, flens = tm(*map(torch.from_numpy, (speech, lens)))
@@ -142,7 +142,7 @@ def _jax_grads(wpe, x64=False):
                                               deterministic=False, mutable=["batch_stats"])
             return out, stats
 
-        (_, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+        (_, stats), grads = jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
         grads = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), grads)
     return ({k: float(v) for k, v in stats.items()},
             {n: g.numpy().astype(np.float64)

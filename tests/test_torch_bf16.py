@@ -81,7 +81,7 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from test_torch_llm_guided import LLM, PROMPT
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -210,7 +210,7 @@ def _rel_jax(jmod, case):
                          jnp.asarray(valid)[:, None, :])
         return jnp.sum(out.astype(jnp.float32) * cot), out
 
-    (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+    (_, out), grads = jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
         variables["params"], jnp.asarray(x))
     return _f(out), grads
 
@@ -258,7 +258,7 @@ def test_flash_self_attention_bf16_matches_jax():
         def f(params, xx):
             out = jmods[dt].apply({"params": params}, xx.astype(dt), jnp.asarray(valid))
             return jnp.sum(out.astype(jnp.float32) * cot), out
-        (_, out), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+        (_, out), grads = jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
             variables["params"], jnp.asarray(x))
         return _f(out), grads
 
@@ -289,7 +289,7 @@ def test_depthwise_conv_bf16_forward_and_gradients_match_jax():
         def f(params, xx):
             y = jmods[dt].apply({"params": params}, xx.astype(dt))
             return jnp.sum(y.astype(jnp.float32) * cot), y
-        (_, y), grads = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+        (_, y), grads = jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
             variables["params"], jnp.asarray(x))
         return _f(y), grads
 
@@ -346,7 +346,7 @@ def _asr_jax_grads(dtype):
                                           deterministic=False, mutable=["batch_stats"])
         return out, stats
 
-    (_, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    (_, stats), grads = jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
     return {k: float(v) for k, v in stats.items()}, params_from_jax({"params": _np(grads)})
 
 
@@ -415,7 +415,7 @@ def test_asr_model_bf16_beam10_nbest_matches_jax():
     padded = np.zeros((1, -(-N_SAMPLES // 1600) * 1600), np.float32)
     padded[0, :N_SAMPLES] = speech
     jmodel = jmodels[BF16]
-    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    enc, enc_lens = jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(padded), jnp.asarray([N_SAMPLES], jnp.int32))
     j_hyps = JBeamSearch(jmodel, variables, vocab_size=VOCAB, sos=ASR_EOS, eos=ASR_EOS,
                          beam_size=10, ctc_weight=0.3)(enc, enc_lens, maxlenratio=-8.0, nbest=10)
@@ -484,7 +484,7 @@ def _guided_jax_grads(dtype):
                                                   deterministic=False, mutable=["batch_stats"])
         return out, stats
 
-    (_, stats), grads = jax.jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
+    (_, stats), grads = jit(jax.value_and_grad(loss, has_aux=True))(variables["params"])
     return {k: float(v) for k, v in stats.items()}, params_from_jax({"params": _np(grads)})
 
 
@@ -519,7 +519,7 @@ def _guided_enc():
     speech = (np.random.default_rng(18).standard_normal(GUIDED_SAMPLES) * 0.1).astype(np.float32)
     padded = np.zeros((1, -(-GUIDED_SAMPLES // 1600) * 1600), np.float32)
     padded[0, :GUIDED_SAMPLES] = speech
-    enc, lens = jax.jit(functools.partial(jmodels[F32].apply, method=jmodels[F32].encode))(
+    enc, lens = jit(functools.partial(jmodels[F32].apply, method=jmodels[F32].encode))(
         variables, jnp.asarray(padded), jnp.asarray([GUIDED_SAMPLES], jnp.int32))
     return speech, enc, lens
 
@@ -536,9 +536,9 @@ def test_guided_decode_prefix_and_steps_bf16_match_jax():
     lens = torch.from_numpy(np.array(j_lens)).long()
     t_sc = CachedGuidedScorer(port[BF16].eval())
     j_sc = {dt: JCachedScorer(jmodels[dt], variables) for dt in (BF16, F32)}
-    j_state = {dt: jax.jit(j_sc[dt].init, static_argnums=(2, 3))(j_enc, j_lens[0], k_beam, lmax)
+    j_state = {dt: jit(j_sc[dt].init, static_argnums=(2, 3))(j_enc, j_lens[0], k_beam, lmax)
                for dt in (BF16, F32)}
-    j_step = {dt: jax.jit(j_sc[dt].step) for dt in (BF16, F32)}
+    j_step = {dt: jit(j_sc[dt].step) for dt in (BF16, F32)}
     with torch.no_grad():
         t_state = t_sc.init(enc, lens[0], k_beam, lmax)
     assert t_state["gd_xs"].dtype == BF16 and t_state["k"][0].dtype == F32
@@ -576,7 +576,7 @@ def test_guided_bf16_beam10_nbest_matches_jax():
     padded = np.zeros((1, -(-GUIDED_SAMPLES // 1600) * 1600), np.float32)
     padded[0, :GUIDED_SAMPLES] = speech
     jmodel = jmodels[BF16]
-    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    enc, enc_lens = jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(padded), jnp.asarray([GUIDED_SAMPLES], jnp.int32))
     j_hyps = JBeamSearch(jmodel, variables, att_scorer=JCachedScorer(jmodel, variables),
                          vocab_size=GUIDED_V, sos=SOS, eos=EOS, beam_size=10,
@@ -591,36 +591,57 @@ def test_guided_bf16_beam10_nbest_matches_jax():
 # ---------------------------------------------------------------------------
 
 def test_choices_outside_the_slice_refuse_bf16_naming_item_7b():
-    """bfloat16 takes the Conformer with the transformer decoder behind the
-    log-mel frontend (CTC/attention and guided); every other encoder,
-    decoder, frontend and model raises NotImplementedError naming ROADMAP
-    Queue 1 item 7b, and an unknown train_dtype a ValueError."""
+    """bfloat16 takes every encoder but the streaming, AV-HuBERT and
+    pretrained-trunk ones, every decoder and both post-encoders behind the
+    log-mel frontend (CTC/attention, guided and transducer; their parity
+    is tests/test_torch_bf16_models.py's); the SSL frontend, the sinc
+    pre-encoder, the fused, sliding-window and multichannel frontends, those
+    encoders, the ST model and the LMs raise NotImplementedError naming
+    ROADMAP Queue 1 item 7b, and an unknown train_dtype a ValueError."""
+    from llm_guided_asr_tpu_torch.models.preencoder import SincPreencoderConfig
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import W2VConfig
+    from llm_guided_asr_tpu_torch.tasks import lm as tlm
+    from llm_guided_asr_tpu_torch.tasks import st as tst
+
     base = dict(frontend=FrontendConfig(**FRONTEND), encoder=ConformerConfig(**ENCODER),
                 decoder=TransformerDecoderConfig(**DECODER), **ASR_COMMON)
-    for bad in (dict(encoder_type="e_branchformer"), dict(decoder_type="rnn"),
+    item = "ROADMAP Queue 1 item 7b"
+    for bad in (dict(encoder_type="contextual_block_conformer"), dict(encoder_type="avhubert"),
+                dict(encoder_type="hubert_hf"), dict(encoder_type="wav2vec2_hf"),
+                dict(encoder_type="whisper_hf"),
                 dict(frontend=FrontendConfig(**FRONTEND, use_wpe=True, mask_units=8)),
                 dict(frontend=FrontendConfig(**FRONTEND, type="sliding_window")),
-                dict(postencoder=("length_adaptor", None))):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+                dict(frontend=FrontendConfig(**FRONTEND, fused=((128, 64, 20), (256, 64, 20)))),
+                dict(ssl_frontend=W2VConfig()), dict(preencoder=SincPreencoderConfig())):
+        with pytest.raises(NotImplementedError, match=item):
             ASRModel(ASRModelConfig(**{**base, **bad}), device="cpu", dtype=BF16)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
+    with pytest.raises(NotImplementedError, match=item):
         tlg.LLMGuidedASRModel(tlg.LLMGuidedASRConfig(
             vocab_size=GUIDED_V, llm=LlamaConfig(**LLM), prompt=PromptTemplate(**PROMPT),
-            encoder_type="transformer", encoder=ConformerConfig(**ENCODER)),
+            encoder_type="avhubert", encoder=ConformerConfig(**ENCODER)),
             device="cpu", dtype=BF16)
+    with pytest.raises(NotImplementedError, match=item):
+        tst.build_st_model({}, "cpu", BF16)
+    with pytest.raises(NotImplementedError, match=item):
+        tlm.build_lm({}, "cpu", BF16)
     config = {**tasr.ASRTask.get_default_config(), "token_list": ["<blank>", "a", "<sos/eos>"],
               "encoder_conf": {"output_size": 16, "attention_heads": 2, "num_blocks": 1},
               "frontend_conf": FRONTEND}
-    for model in ("transducer", "espnet"):
-        for amp in ({"train_dtype": "bfloat16"}, {"use_amp": True}):
-            conf = {**config, "model": model, **amp,
-                    **({"encoder": "branchformer"} if model == "espnet" else {})}
-            with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 7b"):
-                tasr.build_model(conf, "cpu")
+    for amp in ({"train_dtype": "bfloat16"}, {"use_amp": True}):
+        for over in ({"encoder": "contextual_block_conformer"},
+                     {"frontend_conf": {**FRONTEND, "type": "sliding_window"}}):
+            with pytest.raises(NotImplementedError, match=item):
+                tasr.build_model({**config, **amp, **over}, "cpu")
     with pytest.raises(ValueError, match="train_dtype"):
         tasr.build_model({**config, "train_dtype": "float16"}, "cpu")
-    model = tasr.build_model({**config, "use_amp": True}, "cpu")
-    assert model.compute.dtype == BF16
-    assert {p.dtype for p in model.parameters()} == {F32}
-    assert {b.dtype for n, b in model.named_buffers() if n != "compute"} <= {F32}
-    assert "compute" not in model.state_dict()
+    # the transducers and the other encoders and decoders build in bfloat16
+    # through the task, as the Conformer does: float32 parameters and
+    # buffers, none of them saved
+    for over in ({}, {"model": "transducer"}, {"encoder": "branchformer"},
+                 {"decoder": "rnn"}, {"train_dtype": "bf16", "model": "transducer",
+                                      "decoder_conf": {"decoder_type": "rwkv"}}):
+        model = tasr.build_model({**config, "use_amp": True, **over}, "cpu")
+        assert model.compute.dtype == BF16, over
+        assert {p.dtype for p in model.parameters()} == {F32}
+        assert {b.dtype for n, b in model.named_buffers() if not n.endswith("compute")} <= {F32}
+        assert not any(k.endswith("compute") for k in model.state_dict())

@@ -59,7 +59,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecod
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -95,7 +95,7 @@ def test_cgmlp_matches_jax():
     valid = np.arange(19)[None] < np.array([[19], [12], [5]])
     jmod = jbf.ConvolutionalGatingMLP(64, 7, 0.0)
     variables = seeded_variables(jmod, jnp.asarray(x), jnp.asarray(valid), seed=1)
-    want = jax.jit(jmod.apply)(variables, jnp.asarray(x), jnp.asarray(valid))
+    want = jit(jmod.apply)(variables, jnp.asarray(x), jnp.asarray(valid))
     tmod = _load(ConvolutionalGatingMLP(32, 64, 7, 0.0), variables).eval()
     with torch.no_grad():
         got = tmod(torch.from_numpy(x), torch.from_numpy(valid))
@@ -123,10 +123,10 @@ def test_encoder_matches_jax(kind, input_layer):
         return jnp.sum(out * r), (out, out_lens)
 
     if with_grads:
-        (_, (j_out, j_lens)), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+        (_, (j_out, j_lens)), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
             variables["params"])
     else:
-        _, (j_out, j_lens) = jax.jit(j_loss)(variables["params"])
+        _, (j_out, j_lens) = jit(j_loss)(variables["params"])
     tmod = make_encoder(kind, ConformerConfig(**cfg), N_FEATS, device="cpu")
     assert isinstance(tmod, T_ENCODERS[kind])
     _load(tmod, variables).train()
@@ -155,7 +155,7 @@ def test_conformer_input_layers_match_jax(input_layer):
     jmod = jconf.ConformerEncoder(jconf.ConformerConfig(**cfg))
     jargs = (jnp.asarray(feats), jnp.asarray(lens))
     variables = seeded_variables(jmod, *jargs, seed=4)
-    j_out, j_lens = jax.jit(jmod.apply)(variables, *jargs)
+    j_out, j_lens = jit(jmod.apply)(variables, *jargs)
     tmod = _load(make_encoder("conformer", ConformerConfig(**cfg), N_FEATS, device="cpu"),
                  variables).eval()
     with torch.no_grad():
@@ -201,7 +201,7 @@ def test_ebranchformer_tied_asr_model_loss_and_gradients_match_jax():
                                       deterministic=False)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tmodel.train()
     loss, stats, _ = tmodel(*_torch_batch(batch).values())
@@ -343,7 +343,7 @@ def test_guided_model_takes_the_encoders_width_under_input_layer_none():
         [3200, 2500, 1600], np.int32)}
     jargs = [jnp.asarray(batch[k]) for k in jtrainer.DEFAULT_BATCH_ARGS]
     variables = seeded_variables(jmodel, *jargs, seed=8)
-    j_loss, j_stats, _ = jax.jit(jmodel.apply)(variables, *jargs)
+    j_loss, j_stats, _ = jit(jmodel.apply)(variables, *jargs)
     tmodel = _load(tlg.LLMGuidedASRModel(tlg.LLMGuidedASRConfig(
         llm=LlamaConfig(**llm), prompt=PromptTemplate(**prompt),
         frontend=FrontendConfig(**front), encoder=ConformerConfig(**enc),

@@ -23,7 +23,7 @@ from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
 from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.losses import BayesRiskCTC, ctc_loss_per_example
-from test_torch_train import ASR, VOCAB, _batch, _np, _torch_batch
+from test_torch_train import ASR, VOCAB, _batch, _np, _torch_batch, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -52,7 +52,7 @@ def test_brctc_loss_and_logits_gradient_match_jax(time_risk):
                                         jnp.asarray(label_lengths), time_risk=time_risk)
         return jnp.sum(per_ex * weights), per_ex
 
-    (_, j_per_ex), j_grad = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_per_ex), j_grad = jit(jax.value_and_grad(j_loss, has_aux=True))(
         jnp.asarray(logits))
     x = torch.from_numpy(logits).requires_grad_(True)
     per_ex = ctc_loss_per_example(x, torch.from_numpy(logit_lengths).long(),
@@ -103,7 +103,7 @@ def test_asr_model_brctc_with_interctc_matches_jax():
                                            deterministic=False, mutable=["batch_stats"])
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tcfg = ASRModelConfig(frontend=FrontendConfig(**ASR["frontend"]),
                           encoder=ConformerConfig(**enc), **common)

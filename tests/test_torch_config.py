@@ -147,6 +147,16 @@ def test_generated_trees_match_pyyaml(tree, allow_unicode, width):
     assert _same(tconfig.loads_yaml(out), tree), out
 
 
+@pytest.mark.parametrize("tree", ["A\n", {"A\n": None}, {"k": "A\n"}, [{"A\n": None}],
+                                  {"1e-3": {"A\n": None}}, "a b\n"])
+def test_strings_ending_in_a_newline_are_written_quoted(tree):
+    """A string that would be plain but for its last newline is quoted:
+    PyYAML and the port read the written text back as the same tree."""
+    out = tconfig.dumps_yaml(tree)
+    assert _same(yaml.safe_load(out), tree), out
+    assert _same(tconfig.loads_yaml(out), tree), out
+
+
 def test_scalar_resolution_is_yaml_1_1():
     cases = {"1e-3": "1e-3", "1.0e-3": 1.0e-3, "1.e+2": 100.0, "yes": True, "Off": False,
              "017": 15, "0o17": "0o17", "0x1f": 31, "09": "09", "1_000": 1000, "~": None,

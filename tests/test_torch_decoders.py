@@ -49,7 +49,7 @@ from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from test_torch_branchformer import TOKENS, _fast_jax_init, _load
 from test_torch_task_guided import _same_fields
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _batch, _np, _torch_batch, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -107,7 +107,7 @@ def test_decoder_matches_jax(kind):
         last = jdec.apply({"params": params}, *jargs, only_last=True)
         return jnp.sum(logits * r), (logits, last)
 
-    (_, (j_logits, j_last)), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, (j_logits, j_last)), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     _load(tdec, variables).train()
     targs = [torch.from_numpy(x) if x.dtype == np.float32 else torch.from_numpy(x).long()
@@ -160,7 +160,7 @@ def test_asr_model_with_dynamicconv_decoder_and_whisper_encoder_matches_jax(tmp_
                                       deterministic=False)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     _load(tmodel, variables).train()
     loss, stats, _ = tmodel(*_torch_batch(batch).values())

@@ -13,6 +13,7 @@ from llm_guided_asr_tpu.models import transformer as jtr
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models import conformer as tconf
 from llm_guided_asr_tpu_torch.models import transformer as ttr
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -52,7 +53,7 @@ def test_conformer_encoder_matches_jax(pad_safe_conv, activation_type):
     jmod = jconf.ConformerEncoder(jconf.ConformerConfig(**cfg_kw))
     variables = seeded_variables(jmod, jnp.asarray(feats), jnp.asarray(lengths))
     variables = _randomize_batch_stats(variables, rng)
-    j_out, j_lens = jax.jit(jmod.apply)(variables, jnp.asarray(feats), jnp.asarray(lengths))
+    j_out, j_lens = jit(jmod.apply)(variables, jnp.asarray(feats), jnp.asarray(lengths))
 
     tmod = _load(tconf.ConformerEncoder(tconf.ConformerConfig(**cfg_kw), 20, device="cpu"),
                  variables)
@@ -71,7 +72,7 @@ def test_rel_pos_attention_module_matches_jax():
     jmod = jtr.RelPositionMultiHeadedAttention(h, impl="dense")
     variables = seeded_variables(jmod, jnp.asarray(x), jnp.asarray(pos),
                                  jnp.asarray(valid)[:, None, :], seed=1)
-    j_out = jax.jit(jmod.apply)(variables, jnp.asarray(x), jnp.asarray(pos),
+    j_out = jit(jmod.apply)(variables, jnp.asarray(x), jnp.asarray(pos),
                                 jnp.asarray(valid)[:, None, :])
     tmod = _load(ttr.RelPositionMultiHeadedAttention(d, h), variables)
     with torch.no_grad():
@@ -88,7 +89,7 @@ def test_conv2d_subsampling_and_lengths_match_jax():
     with torch.no_grad():
         t_out = tmod(torch.from_numpy(x))
     np.testing.assert_allclose(t_out.numpy(),
-                               np.asarray(jax.jit(jmod.apply)(variables, jnp.asarray(x))),
+                               np.asarray(jit(jmod.apply)(variables, jnp.asarray(x))),
                                rtol=1e-5, atol=1e-5)
     lens = np.array([31, 30, 9, 4, 1], np.int32)
     np.testing.assert_array_equal(
@@ -110,10 +111,10 @@ def test_decoder_layer_cached_paths_match_jax():
     variables = seeded_variables(jmod, jnp.asarray(tgt), jnp.asarray(tgt_mask),
                                  jnp.asarray(mem), jnp.asarray(mem_mask), seed=3)
     tmod = _load(ttr.DecoderLayer(d, h, 48), variables)
-    apply = jax.jit(jmod.apply)  # eager flax compiles every op at each new shape
+    apply = jit(jmod.apply)  # eager flax compiles every op at each new shape
     j_full = apply(variables, jnp.asarray(tgt), jnp.asarray(tgt_mask), jnp.asarray(mem),
                    jnp.asarray(mem_mask))
-    j_mk, j_mv = jax.jit(functools.partial(jmod.apply, project_mem_kv_only=True))(
+    j_mk, j_mv = jit(functools.partial(jmod.apply, project_mem_kv_only=True))(
         variables, None, None, jnp.asarray(mem), None)
     step = 3
     step_mask = np.broadcast_to(np.arange(lq) <= step, (b, 1, lq))

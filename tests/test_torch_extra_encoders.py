@@ -35,7 +35,7 @@ from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig, make_enco
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from test_torch_branchformer import _load
 from test_torch_decoders import _assert_grads
-from test_torch_train import NO_DROP_ENC
+from test_torch_train import NO_DROP_ENC, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -73,7 +73,7 @@ def _run_pair(jmod, tmod, x, lengths):
                                         mutable=["batch_stats"])
         return jnp.sum(out * r), (out, out_lens)
 
-    (_, (j_out, j_lens)), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, (j_out, j_lens)), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     _load(tmod, variables).train()
     out, out_lens = tmod(torch.from_numpy(x), torch.from_numpy(lengths).long())
@@ -134,7 +134,7 @@ def test_vgg_rnn_transducer_matches_jax():
                                       deterministic=False)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tmodel = _load(ttd.TransducerModel(ttd.TransducerModelConfig(
         frontend=FrontendConfig(**fe), encoder=ConformerConfig(**enc),

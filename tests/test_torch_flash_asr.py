@@ -36,7 +36,7 @@ from llm_guided_asr_tpu_torch.search.scorers import StatelessAttScorer
 from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, _assert_state_close, _batch, _np, \
-    _torch_batch
+    _torch_batch, jit
 
 torch.set_num_threads(1)
 
@@ -65,7 +65,7 @@ def _models():
                           decoder=TransformerDecoderConfig(**FLASH_ASR["decoder"]), **common)
     jmodel = JASRModel(jcfg)
     batch = _batch(np.random.default_rng(0))
-    variables = jax.jit(jmodel.init)({"params": jax.random.PRNGKey(0)},
+    variables = jit(jmodel.init)({"params": jax.random.PRNGKey(0)},
                                      *(jnp.asarray(batch[k]) for k in jtrainer.DEFAULT_BATCH_ARGS))
     tmodel = ASRModel(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_jax(_np(variables)), strict=True)
@@ -80,7 +80,7 @@ def _j_encode(jmodel, variables, speech):
     """JAX's encoder output of the waveform as Speech2Text pads it."""
     padded = np.zeros((1, -(-N_SAMPLES // 1600) * 1600), np.float32)
     padded[0, :N_SAMPLES] = speech
-    return jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    return jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(padded), jnp.asarray([N_SAMPLES], jnp.int32))
 
 
@@ -112,7 +112,7 @@ def _jax_grads():
                                                deterministic=False, mutable=["batch_stats"])
         return loss, (stats, moved)
 
-    (_, (stats, moved)), grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, (stats, moved)), grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     return stats, grads, moved
 
@@ -203,7 +203,7 @@ def test_greedy_ctc_dispatch_matches_jax():
     jmodel, variables, tmodel = _models()
     speech = _speech()
     enc, enc_lens = _j_encode(jmodel, variables, speech)
-    logp = jax.jit(functools.partial(jmodel.apply, method=jmodel.ctc_log_softmax))(variables, enc)
+    logp = jit(functools.partial(jmodel.apply, method=jmodel.ctc_log_softmax))(variables, enc)
     tokens, n = j_greedy(logp, enc_lens, blank_id=0)
     s2t = Speech2Text.from_model(tmodel, ctc_weight=1.0, beam_size=1)
     assert s2t.beam is None

@@ -1949,3 +1949,149 @@ def test_hf_decoder_on_the_card_matches_the_cpu(card, tmp_path):
     torch.testing.assert_close(logits_gpu.cpu(), logits_cpu, rtol=0, atol=1e-4)
     assert [h.yseq for h in got] == [h.yseq for h in want]
     np.testing.assert_allclose([h.score for h in got], [h.score for h in want], rtol=0, atol=1e-4)
+
+
+# the bfloat16 transducers and encoders, decoders and post-encoders beyond
+# the Conformer with the transformer decoder, at tiny widths (features in):
+# kind -> (the model's class and config keywords, the kernel launches of
+# one training forward and backward by dtype)
+_B16, _F32 = str(torch.bfloat16), str(torch.float32)
+_CONF = {"rel_attention_fwd": {_B16: 2}, "rel_attention_bwd": {_B16: 2},
+         "dwconv1d_fwd": {_B16: 2}, "dwconv1d_bwd": {_B16: 2}}
+_CONF1 = {name: {_B16: 1} for name in _CONF}  # one Conformer block
+BF16_MODELS = {
+    "e_branchformer": ("asr", dict(encoder_type="e_branchformer"), _CONF),
+    "branchformer": ("asr", dict(encoder_type="branchformer"), _CONF),
+    "multiconvformer": ("asr", dict(encoder_type="multiconvformer"),
+                        {**_CONF, "dwconv1d_fwd": {_B16: 10}, "dwconv1d_bwd": {_B16: 10}}),
+    "vgg_rnn": ("asr", dict(encoder_type="vgg_rnn"), {"lstm_fwd": {_F32: 4},
+                                                      "lstm_bwd": {_F32: 4}}),
+    "rnn": ("asr", dict(encoder_type="rnn", input_layer="linear"),
+            {"lstm_fwd": {_F32: 4}, "lstm_bwd": {_F32: 4}}),
+    "transformer": ("asr", dict(encoder_type="transformer"), {}),
+    "longformer": ("asr", dict(encoder_type="longformer"), {}),
+    "whisper_style": ("asr", dict(encoder_type="whisper_style"), {}),
+    "s4": ("asr", dict(encoder_type="s4", ss_layers=("s4", "s4d", "ff"), ss_d_state=16), {}),
+    "rnn-decoder": ("asr", dict(decoder_type="rnn"), _CONF1),
+    "s4-decoder": ("asr", dict(decoder_type="s4"), _CONF1),
+    "lightconv": ("asr", dict(decoder_type="lightconv"), _CONF1),
+    "dynamicconv": ("asr", dict(decoder_type="dynamicconv"), _CONF1),
+    "hugging_face": ("asr", dict(decoder_type="hugging_face"), _CONF1),
+    "length_adaptor": ("asr", dict(postencoder="length_adaptor"), _CONF1),
+    "bert": ("asr", dict(postencoder="bert"), _CONF1),
+    "transducer-stateless": ("transducer", dict(decoder_type="stateless"), _CONF),
+    "transducer-rnn": ("transducer", dict(decoder_type="rnn"),
+                       {**_CONF, "lstm_fwd": {_F32: 1}, "lstm_bwd": {_F32: 1}}),
+    "transducer-rwkv": ("transducer", dict(decoder_type="rwkv"),
+                        {**_CONF, "wkv_fwd": {_F32: 2}, "wkv_bwd": {_F32: 2}}),
+    "transducer-mega": ("transducer", dict(decoder_type="mega"), _CONF),
+    "transducer-multi_blank": ("transducer", dict(decoder_type="rnn", multi_blank=True),
+                               {**_CONF, "lstm_fwd": {_F32: 1}, "lstm_bwd": {_F32: 1}}),
+}
+
+
+def _bf16_model(kind, dev, dtype):
+    """The model of BF16_MODELS[kind] on ``dev`` computing in ``dtype``:
+    vocab 50, 2 blocks of 64 (1 for the Conformer under a new decoder or
+    post-encoder), features of 40 in, no dropout; weights from seed 0."""
+    from llm_guided_asr_tpu_torch.models import transducer as ttd
+    from llm_guided_asr_tpu_torch.models.hf_encoder import BertBodyConfig, HFPostEncoderConfig
+    from llm_guided_asr_tpu_torch.models.preencoder import LengthAdaptorConfig
+
+    family, over, _ = BF16_MODELS[kind]
+    over = dict(over)
+    enc = dict(output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+               cnn_module_kernel=15, dropout_rate=0.0, positional_dropout_rate=0.0,
+               attention_dropout_rate=0.0)
+    for k in ("input_layer", "ss_layers", "ss_d_state"):
+        if k in over:
+            enc[k] = over.pop(k)
+    if family == "transducer":
+        multi = over.pop("multi_blank", False)
+        dec = ttd.TransducerDecoderConfig(embed_size=32, hidden_size=48, num_layers=2,
+                                          mega_qk_size=16, mega_num_heads=2, **over)
+        if over["decoder_type"] in ("rnn", "stateless"):
+            dec = ttd.TransducerDecoderConfig(embed_size=32, hidden_size=48, num_layers=1,
+                                              **over)
+        cfg = ttd.TransducerModelConfig(
+            vocab_size=50, frontend=None, normalize="none", input_size=40,
+            encoder=tconf.ConformerConfig(**enc), decoder=dec, joint_size=32,
+            aux_ctc_weight=0.3, multi_blank_durations=(2, 3) if multi else ())
+        return init_weights(ttd.TransducerModel(cfg, device=dev, dtype=dtype), seed=0)
+    post = over.pop("postencoder", None)
+    if post == "length_adaptor":
+        post = ("length_adaptor", LengthAdaptorConfig(n_layers=1))
+    elif post == "bert":
+        post = ("hugging_face_transformers", HFPostEncoderConfig(body=BertBodyConfig(
+            hidden_size=64, num_hidden_layers=1, num_attention_heads=2, intermediate_size=96,
+            hidden_dropout=0.0, attention_dropout=0.0)))
+    if "decoder_type" in over or post is not None:
+        enc["num_blocks"] = 1
+    if over.get("decoder_type") == "hugging_face":
+        from llm_guided_asr_tpu_torch.models.hf_decoder import HFCausalDecoderConfig
+        from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
+
+        over["hf_decoder"] = HFCausalDecoderConfig(
+            llm=LlamaConfig(vocab_size=50, hidden_size=32, intermediate_size=48,
+                            num_hidden_layers=1, num_attention_heads=2, num_key_value_heads=1),
+            prefix_ids=(1,), postfix_ids=(2,), enc_frames_max=32)
+    cfg = ASRModelConfig(
+        vocab_size=50, frontend=None, normalize="none", input_size=40, ctc_weight=0.3,
+        encoder=tconf.ConformerConfig(**enc), postencoder=post,
+        decoder=TransformerDecoderConfig(attention_heads=2, linear_units=96, num_blocks=1,
+                                         dropout_rate=0.0, positional_dropout_rate=0.0),
+        **over)
+    return init_weights(ASRModel(cfg, device=dev, dtype=dtype), seed=0)
+
+
+def _dtype_launches():
+    from llm_guided_asr_tpu_torch.ops import lstm as tl
+
+    return {name: dict(by) for k in (tra.KERNEL, tdw.KERNEL, twkv.KERNEL, tfa.KERNEL, tl.KERNEL)
+            for name, by in k.dtype_launches.items()}
+
+
+def _loss_and_grad(model, batch):
+    loss, _, _ = model(*batch)
+    loss.backward()
+    grad = torch.cat([p.grad.reshape(-1).float().cpu() for p in model.parameters()
+                      if p.grad is not None])
+    return float(loss.detach()), grad
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", list(BF16_MODELS))
+def test_bf16_models_on_the_card_match_the_cpu(card, kind):
+    """Each bfloat16 model of BF16_MODELS (float32 weights from seed 0), one
+    training-mode forward and backward of a ragged batch: the card's
+    bfloat16 run sits as close to the CPU's float32 plain path as the
+    CPU's own bfloat16 run does (loss and the whole gradient: within twice
+    the CPU's bfloat16 error plus 1e-3 of the reference); the card's kernel
+    launches by operand dtype: the encoder kernels in bfloat16, the WKV and
+    LSTM kernels in float32, as JAX computes them in a bfloat16 model."""
+    rng = np.random.default_rng(3)
+    feats, lengths = _rand(rng, 3, 83, 40, scale=1.0), torch.tensor([83, 70, 41])
+    text = torch.from_numpy(rng.integers(1, 45, (3, 5)))
+    text_lens = torch.tensor([5, 3, 4])
+    text = torch.where(torch.arange(5)[None] < text_lens[:, None], text, -1)
+    batch = (feats, lengths, text, text_lens)
+    runs, weights = {}, None
+    for name, dev, dtype in (("ref", "cpu", torch.float32), ("cpu", "cpu", torch.bfloat16),
+                             ("card", card, torch.bfloat16)):
+        model = _bf16_model(kind, dev, dtype).train()
+        if weights is None:  # the CPU's draw (a card draws other numbers from the seed)
+            weights = model.state_dict()
+        model.load_state_dict(weights)
+        assert {p.dtype for p in model.parameters()} == {torch.float32}
+        before = _dtype_launches()
+        runs[name] = _loss_and_grad(model, tuple(x.to(dev) for x in batch))
+        torch.cuda.synchronize()
+        after = _dtype_launches()
+    got = {n: {dt: c - before[n].get(dt, 0) for dt, c in by.items() if c - before[n].get(dt, 0)}
+           for n, by in after.items()}
+    assert {n: by for n, by in got.items() if by} == BF16_MODELS[kind][2]
+    (ref_l, ref_g), (cpu_l, cpu_g), (card_l, card_g) = runs["ref"], runs["cpu"], runs["card"]
+    assert abs(card_l - ref_l) <= 2 * abs(cpu_l - ref_l) + 1e-3 * abs(ref_l), (card_l, cpu_l,
+                                                                               ref_l)
+    e_cpu, e_card = (cpu_g - ref_g).norm().item(), (card_g - ref_g).norm().item()
+    assert e_card <= 2 * e_cpu + 1e-3 * ref_g.norm().item(), (e_card, e_cpu)

@@ -31,6 +31,7 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
 from llm_guided_asr_tpu_torch.text.tokenizers import HuggingFaceTokenizer, LLMTokenizer
+from test_torch_train import jit
 
 torch.set_num_threads(1)
 
@@ -133,7 +134,7 @@ def test_bias_decoder_logits_and_loss_match_jax(biased):
     bias, bias_lens = _bias([["abc"], ["cab", "b"]])
     ys = np.array([[1, 11, 12, 13], [1, 13, 0, 0]])
     ys_lens = np.array([4, 2])
-    j = jax.jit(lambda *a: jmodel.apply(variables, *a[:4], bias_words=a[4],
+    j = jit(lambda *a: jmodel.apply(variables, *a[:4], bias_words=a[4],
                                         bias_words_lengths=a[5], method=jmodel.decoder_logits))
     j_logits = np.asarray(j(*(jnp.asarray(x) for x in (enc, enc_lens, ys, ys_lens, bias,
                                                         bias_lens))))
@@ -150,7 +151,7 @@ def test_bias_decoder_logits_and_loss_match_jax(biased):
     speech = (rng.standard_normal((2, N)) * 0.1).astype(np.float32)
     slens = np.array([N, 4000])
     text, tlens = np.array([[11, 12, 13], [13, -1, -1]]), np.array([3, 1])
-    j_loss, j_stats, _ = jax.jit(lambda *a: jmodel.apply(variables, *a[:4], bias_words=a[4],
+    j_loss, j_stats, _ = jit(lambda *a: jmodel.apply(variables, *a[:4], bias_words=a[4],
                                                          bias_words_lengths=a[5]))(
         *(jnp.asarray(x) for x in (speech, slens, text, tlens, bias, bias_lens)))
     with torch.no_grad():
@@ -171,9 +172,9 @@ def test_bias_cached_steps_match_jax(biased):
     K, LMAX = 3, 6
     j_sc = JCachedScorer(jmodel, variables)
     j_sc.set_bias(jnp.asarray(bias), jnp.asarray(bias_lens))
-    j_state = jax.jit(j_sc.init, static_argnums=(2, 3))(jnp.asarray(enc),
+    j_state = jit(j_sc.init, static_argnums=(2, 3))(jnp.asarray(enc),
                                                         jnp.asarray(enc_lens[0]), K, LMAX)
-    j_step = jax.jit(j_sc.step)
+    j_step = jit(j_sc.step)
     ctx = (torch.from_numpy(bias), torch.from_numpy(bias_lens))
     t_sc, set_sc, plain_sc = (CachedGuidedScorer(tmodel) for _ in range(3))
     set_sc.set_bias(*ctx)
@@ -223,7 +224,7 @@ def test_biased_beam_and_speech2text_switching(biased):
 
     padded = np.zeros((1, 6400), np.float32)
     padded[0, :N] = wave
-    j_enc, j_lens = jax.jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
+    j_enc, j_lens = jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
         jnp.asarray(padded), jnp.asarray([N]))
     j_bs = JBeamSearch(jmodel, variables, att_scorer=JCachedScorer(jmodel, variables),
                        vocab_size=V, sos=1, eos=1, beam_size=3, ctc_weight=0.3)
@@ -257,9 +258,9 @@ def test_log_softmax_mode_matches_jax():
     enc, enc_lens = _enc(b=1, seed=8)
     K, LMAX = 2, 5
     j_sc = JCachedScorer(jmodel, variables)
-    j_state = jax.jit(j_sc.init, static_argnums=(2, 3))(jnp.asarray(enc),
+    j_state = jit(j_sc.init, static_argnums=(2, 3))(jnp.asarray(enc),
                                                         jnp.asarray(enc_lens[0]), K, LMAX)
-    j_step = jax.jit(j_sc.step)
+    j_step = jit(j_sc.step)
     t_sc = CachedGuidedScorer(tmodel)
     e, el = torch.from_numpy(enc), torch.from_numpy(enc_lens[:1])
     with torch.no_grad():
@@ -293,7 +294,7 @@ def test_mixed_vocab_first_pass_and_loss_match_jax():
     rng = np.random.default_rng(9)
     enc = rng.standard_normal((3, 24, 32)).astype(np.float32) * 4.0  # a peaked CTC head
     enc_lens = np.array([24, 17, 5])
-    j_hyp, j_n = jax.jit(lambda e, n: jmodel.apply(variables, e, n,
+    j_hyp, j_n = jit(lambda e, n: jmodel.apply(variables, e, n,
                                                    method=jmodel._first_pass_hyp))(
         jnp.asarray(enc), jnp.asarray(enc_lens))
     with torch.no_grad():
@@ -305,7 +306,7 @@ def test_mixed_vocab_first_pass_and_loss_match_jax():
     speech = (rng.standard_normal((2, N)) * 0.1).astype(np.float32)
     slens, text, tlens = np.array([N, 4500]), np.array([[11, 12, 13], [13, -1, -1]]), np.array([3, 1])
     ctc_text, ctc_lens = np.array([[2, 3], [3, -1]]), np.array([2, 1])
-    j_loss, j_stats, _ = jax.jit(lambda *a: jmodel.apply(variables, *a[:4], ctc_text=a[4],
+    j_loss, j_stats, _ = jit(lambda *a: jmodel.apply(variables, *a[:4], ctc_text=a[4],
                                                          ctc_text_lengths=a[5]))(
         *(jnp.asarray(x) for x in (speech, slens, text, tlens, ctc_text, ctc_lens)))
     T = torch.from_numpy

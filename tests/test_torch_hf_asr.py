@@ -44,7 +44,7 @@ from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from test_torch_branchformer import _np
-from test_torch_train import NO_DROP_DEC, NO_DROP_ENC
+from test_torch_train import NO_DROP_DEC, NO_DROP_ENC, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -142,7 +142,7 @@ def _jax_grads(kind, root):
                                            deterministic=False, mutable=["batch_stats"])
         return loss, stats
 
-    (_, stats), grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(variables["params"])
+    (_, stats), grads = jit(jax.value_and_grad(j_loss, has_aux=True))(variables["params"])
     return stats, grads
 
 
@@ -202,7 +202,7 @@ def _jax_float64_grads(kind, root):
                                          mutable=["batch_stats"])
             return out
 
-        grads = jax.tree_util.tree_map(np.asarray, jax.jit(jax.grad(loss))(v64["params"]))
+        grads = jax.tree_util.tree_map(np.asarray, jit(jax.grad(loss))(v64["params"]))
     return {n: g.numpy().astype(np.float64)
             for n, g in params_from_jax({"params": grads}).items()}
 
@@ -257,7 +257,7 @@ def test_beam10_nbest_matches_jax(hf_dirs):
     speech = (np.random.default_rng(11).standard_normal(N_SAMPLES) * 0.5).astype(np.float32)
     padded = np.zeros((1, 3200), np.float32)
     padded[0, :N_SAMPLES] = speech
-    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    enc, enc_lens = jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(padded), jnp.asarray([N_SAMPLES], jnp.int32))
     j_hyps = JBeamSearch(jmodel, variables, vocab_size=VOCAB, sos=SOS, eos=EOS, beam_size=10,
                          ctc_weight=0.3)(enc, enc_lens, maxlenratio=-8.0, nbest=10)

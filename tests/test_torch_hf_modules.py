@@ -40,6 +40,7 @@ from llm_guided_asr_tpu_torch.models.hf_checkpoint import load_hf_state_dict, re
 from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
 from llm_guided_asr_tpu_torch.ops.frontend import FusedFrontend
 from test_torch_branchformer import _load, _np
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -129,7 +130,7 @@ def test_w2v_encoder_matches_jax(dirs, name):
                                                  else "wav2vec2")
     wav = np.random.default_rng(0).standard_normal((2, 2000)).astype(np.float32)
     lens = np.array([2000, 1333], np.int32)
-    want, want_lens = jax.jit(jssl.Wav2Vec2Encoder(jcfg).apply)(
+    want, want_lens = jit(jssl.Wav2Vec2Encoder(jcfg).apply)(
         {"params": jparams}, jnp.asarray(wav), jnp.asarray(lens))
     tcfg, sd = tssl.load_pretrained_encoder(d, "hubert" if name == "hubert" else "wav2vec2")
     enc = tssl.Wav2Vec2Encoder(tcfg)
@@ -160,7 +161,7 @@ def test_whisper_encoder_matches_jax(whisper_dir):
     assert sd.keys() == want_sd.keys()
     feats = np.random.default_rng(1).standard_normal((2, 33, 12)).astype(np.float32)
     lens = np.array([33, 21], np.int32)
-    want, want_lens = jax.jit(jssl.WhisperEncoder(jcfg).apply)(
+    want, want_lens = jit(jssl.WhisperEncoder(jcfg).apply)(
         {"params": jparams}, jnp.asarray(feats), jnp.asarray(lens))
     enc = tssl.WhisperEncoder(tcfg)
     enc.load_state_dict(sd, strict=True)
@@ -210,7 +211,7 @@ def test_sinc_preencoder_matches_jax(train, monkeypatch):
                                   mutable=["batch_stats"])
         return jnp.sum(out * r), (out, upd)
 
-    (_, (want, upd)), jgrads = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+    (_, (want, upd)), jgrads = jit(jax.value_and_grad(loss, has_aux=True))(
         variables["params"])
     tmod = _load(tpre.LightweightSincConvs(tpre.SincPreencoderConfig(**cfg)), variables)
     tmod.train(train)
@@ -323,7 +324,7 @@ def test_fused_frontend_matches_jax():
     lens = np.array([3000, 2100], np.int32)
     jmod = jfe.FusedFrontend(frontends=fused, proj_dim=6)
     variables = seeded_variables(jmod, jnp.asarray(wav), jnp.asarray(lens), seed=10)
-    want, want_lens = jax.jit(jmod.apply)(variables, jnp.asarray(wav), jnp.asarray(lens))
+    want, want_lens = jit(jmod.apply)(variables, jnp.asarray(wav), jnp.asarray(lens))
     tmod = _load(FusedFrontend(fused, proj_dim=6), variables)
     with torch.no_grad():
         got, got_lens = tmod(torch.from_numpy(wav), torch.from_numpy(lens).long())
@@ -356,8 +357,8 @@ def test_hf_decoder_matches_jax(llm_dir):
     ylens = np.array([3, 2], np.int32)
     args = tuple(jnp.asarray(a) for a in (mem, mlens, ys, ylens))
     variables = seeded_variables(jdec, *args, seed=12)
-    want = jax.jit(jdec.apply)(variables, *args)
-    want_last = jax.jit(lambda v, *a: jdec.apply(v, *a, only_last=True))(variables, *args)
+    want = jit(jdec.apply)(variables, *args)
+    want_last = jit(lambda v, *a: jdec.apply(v, *a, only_last=True))(variables, *args)
     tcfg = thd.HFCausalDecoderConfig(llm=LlamaConfig.from_hf_config(hf), prefix_ids=(1, 5),
                                      postfix_ids=(6,), enc_frames_max=5)
     assert tcfg.llm == LlamaConfig(**vars(jllm))

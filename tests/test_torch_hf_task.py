@@ -39,6 +39,7 @@ from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from llm_guided_asr_tpu_torch.utils.config import dump_yaml
 from test_torch_branchformer import _np
 from test_torch_hf_asr import DEC, ENC, TINY_W2V, TOKENS, _batch, _torch
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -171,7 +172,7 @@ def test_loss_and_gradients_match_jax(hf_dirs, kind):
                                       *(jnp.asarray(a) for a in args), deterministic=True)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tmodel.zero_grad(set_to_none=True)
     loss, stats, _ = tmodel(*_torch(args))
@@ -198,7 +199,7 @@ def test_hf_decoder_beam10_nbest_matches_jax(hf_dirs):
     speech = (np.random.default_rng(11).standard_normal(3000) * 0.5).astype(np.float32)
     padded = np.zeros((1, 3200), np.float32)
     padded[0, :3000] = speech
-    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    enc, enc_lens = jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(padded), jnp.asarray([3000], jnp.int32))
     j_hyps = JBeamSearch(jmodel, variables, vocab_size=vocab, sos=sos, eos=sos, beam_size=10,
                          ctc_weight=0.3)(enc, enc_lens, maxlenratio=-5.0, nbest=10)

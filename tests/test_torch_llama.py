@@ -9,6 +9,7 @@ import torch
 from llm_guided_asr_tpu.models.llm import llama as jl
 from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models.llm import llama as tl
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -44,7 +45,7 @@ def test_prompt_forward_and_cached_steps_match_jax():
     valid = np.ones((b, tp), bool)
     valid[1, 4:7] = False  # mid-row pads, as the prompt packer leaves them
     valid[0, 11] = False
-    apply = jax.jit(jmod.apply)  # eager flax compiles every op at each new shape
+    apply = jit(jmod.apply)  # eager flax compiles every op at each new shape
     j_hidden, j_cache = apply(variables, jnp.asarray(ids), jnp.asarray(valid))
     with torch.no_grad():
         t_hidden, t_cache = tmod(torch.from_numpy(ids).long(), torch.from_numpy(valid))

@@ -29,6 +29,7 @@ from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecod
 from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.scorers import CachedGuidedScorer
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -48,7 +49,7 @@ N_SAMPLES = 9000
 
 
 def _j_encode(jmodel, variables, speech, lengths):
-    return jax.jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
+    return jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
         jnp.asarray(speech), jnp.asarray(lengths))
 
 
@@ -104,7 +105,7 @@ def test_decoder_logits_match_jax(models):
     ys = rng.integers(8, V, (2, 5)).astype(np.int32)
     ys[:, 0] = SOS
     ys_lens = np.array([5, 3], np.int32)
-    j_logits = jax.jit(lambda *a: jmodel.apply(variables, *a, method=jmodel.decoder_logits))(
+    j_logits = jit(lambda *a: jmodel.apply(variables, *a, method=jmodel.decoder_logits))(
         *(jnp.asarray(x) for x in (enc, enc_lens, ys, ys_lens)))
     T = lambda x: torch.from_numpy(np.ascontiguousarray(x))
     with torch.no_grad():
@@ -122,8 +123,8 @@ def test_cached_decode_steps_match_jax(models):
     t_sc = CachedGuidedScorer(tmodel)
     enc = torch.from_numpy(np.array(j_enc))
     lens = torch.from_numpy(np.array(j_lens)).long()
-    j_state = jax.jit(j_sc.init, static_argnums=(2, 3))(j_enc, j_lens[0], K, LMAX)
-    j_step = jax.jit(j_sc.step)
+    j_state = jit(j_sc.init, static_argnums=(2, 3))(j_enc, j_lens[0], K, LMAX)
+    j_step = jit(j_sc.step)
     with torch.no_grad():
         t_state = t_sc.init(enc, lens[0], K, LMAX)
     tokens = np.full((K, LMAX), SOS, np.int32)

@@ -27,6 +27,7 @@ from llm_guided_asr_tpu_torch.models.llm.llama import (
 )
 from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
 from llm_guided_asr_tpu_torch.models.llm_guided import build_llm_guided_model, load_llm_params
+from test_torch_train import jit
 
 torch.set_num_threads(1)
 
@@ -42,9 +43,9 @@ def test_return_logits_matches_jax(tied):
     valid = np.ones((2, 9), bool)
     valid[1, 6:] = False
     jmod = JLlamaModel(JLlamaConfig(**LLM, tie_word_embeddings=tied), dtype=jnp.float32)
-    variables = jax.jit(lambda k: jmod.init(k, jnp.asarray(ids), jnp.asarray(valid),
+    variables = jit(lambda k: jmod.init(k, jnp.asarray(ids), jnp.asarray(valid),
                                             return_logits=True))(jax.random.PRNGKey(0))
-    _, j_logits, _ = jax.jit(lambda v, i, m: jmod.apply(v, i, m, return_logits=True))(
+    _, j_logits, _ = jit(lambda v, i, m: jmod.apply(v, i, m, return_logits=True))(
         variables, jnp.asarray(ids), jnp.asarray(valid))
     tmod = LlamaModel(LlamaConfig(**LLM, tie_word_embeddings=tied), dtype=torch.float32,
                       device="cpu", lm_head=True)

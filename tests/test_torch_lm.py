@@ -16,6 +16,7 @@ from llm_guided_asr_tpu_torch.convert import params_from_jax
 from llm_guided_asr_tpu_torch.models import lm as tlm
 from llm_guided_asr_tpu_torch.search.beam_search import Hypothesis
 from llm_guided_asr_tpu_torch.tasks.lm import build_lm
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -54,7 +55,7 @@ def test_lm_logits_and_nll_match_jax(kind):
     jmodel, variables, tmodel = _lms(kind)
     lm_vars = {"params": variables["params"]["lm"]}
     toks, lens = jnp.asarray(TOKENS, jnp.int32), jnp.asarray(LENGTHS, jnp.int32)
-    want = jax.jit(jmodel.lm.apply)(lm_vars, toks, lens)
+    want = jit(jmodel.lm.apply)(lm_vars, toks, lens)
     with torch.no_grad():
         got = tmodel.lm(torch.from_numpy(TOKENS), torch.from_numpy(LENGTHS))
     valid = np.arange(TOKENS.shape[1])[None] < LENGTHS[:, None]
@@ -63,14 +64,14 @@ def test_lm_logits_and_nll_match_jax(kind):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
     text = np.where(valid, TOKENS, -1)
-    j_nll, j_cnt = jax.jit(functools.partial(jmodel.apply, method=jmodel.nll))(
+    j_nll, j_cnt = jit(functools.partial(jmodel.apply, method=jmodel.nll))(
         variables, jnp.asarray(text, jnp.int32), lens)
     with torch.no_grad():
         t_nll, t_cnt = tmodel.nll(torch.from_numpy(text), torch.from_numpy(LENGTHS))
         t_loss, stats, weight = tmodel(torch.from_numpy(text), torch.from_numpy(LENGTHS))
     np.testing.assert_allclose(t_nll.numpy(), np.asarray(j_nll), **TOL)
     np.testing.assert_array_equal(t_cnt.numpy(), np.asarray(j_cnt))
-    j_loss, j_stats, j_weight = jax.jit(jmodel.apply)(variables, jnp.asarray(text, jnp.int32), lens)
+    j_loss, j_stats, j_weight = jit(jmodel.apply)(variables, jnp.asarray(text, jnp.int32), lens)
     np.testing.assert_allclose(t_loss.item(), float(j_loss), **TOL)
     np.testing.assert_allclose(stats["perplexity"].item(), float(j_stats["perplexity"]), **TOL)
     assert weight.item() == float(j_weight) == 3.0
@@ -81,7 +82,7 @@ def test_lm_score_fn_matches_jax(kind):
     """The beam search's full scorer: the log-probs after each row's prefix."""
     jmodel, variables, tmodel = _lms(kind)
     jscore = jlm.make_lm_score_fn(jmodel.lm, {"params": variables["params"]["lm"]})
-    want = jax.jit(jscore)(jnp.asarray(TOKENS, jnp.int32), jnp.asarray(LENGTHS, jnp.int32))
+    want = jit(jscore)(jnp.asarray(TOKENS, jnp.int32), jnp.asarray(LENGTHS, jnp.int32))
     with torch.no_grad():
         got = tlm.make_lm_score_fn(tmodel.lm)(torch.from_numpy(TOKENS), torch.from_numpy(LENGTHS))
     assert got.dtype == torch.float32 and got.shape == (3, V)

@@ -40,6 +40,7 @@ from llm_guided_asr_tpu_torch.data.fileio import read_2columns_text, write_wav
 from llm_guided_asr_tpu_torch.models.llm_guided import resolve_llm_spec
 from llm_guided_asr_tpu_torch.tasks import st as tst
 from llm_guided_asr_tpu_torch.text.tokenizers import HuggingFaceTokenizer
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -138,7 +139,7 @@ def jax_results(models):
                    for v, m in jms.items()}
         return out[(True, 0.5)][0], (out, shared["decoder_logits"])
 
-    (_, out), grads = jax.jit(jax.value_and_grad(run, has_aux=True))(variables["params"])
+    (_, out), grads = jit(jax.value_and_grad(run, has_aux=True))(variables["params"])
     return jax.tree_util.tree_map(np.asarray, (*out, grads))
 
 
@@ -220,7 +221,7 @@ def jax_nbest(models):
     wave = (wave * 32767.0).astype(np.int16).astype(np.float32) / 32768.0  # the wav round trip
     padded = np.zeros((8000,), np.float32)  # to a multiple of speech_pad_multiple (1600)
     padded[:7000] = wave
-    enc, lens = jax.jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
+    enc, lens = jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
         jnp.asarray(padded[None]), jnp.asarray([7000]))
     cfg = jmodel.cfg
     beam = JBeamSearch(jmodel, variables, vocab_size=cfg.vocab_size, sos=cfg.sos_id,

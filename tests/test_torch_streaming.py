@@ -33,6 +33,7 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.search import ctc_prefix as tcp
 from llm_guided_asr_tpu_torch.search.beam_search import BatchBeamSearch
 from llm_guided_asr_tpu_torch.search.timesync import CTCBeamSearchTimesync
+from test_torch_train import jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -81,7 +82,7 @@ def test_contextual_block_encoder_matches_jax():
     feats = rng.standard_normal((2, 83, 20)).astype(np.float32)
     lens = np.array([83, 30], np.int32)  # 20 and 8 sub-frames of 20: 3 blocks of 8
     enc_vars = {"params": variables["params"]["encoder"]}
-    j_out, j_lens = jax.jit(lambda f, n: jenc.apply(enc_vars, f, n))(
+    j_out, j_lens = jit(lambda f, n: jenc.apply(enc_vars, f, n))(
         jnp.asarray(feats), jnp.asarray(lens))
     with torch.no_grad():
         t_out, t_lens = tmodel.encoder(torch.from_numpy(feats), torch.from_numpy(lens).long())
@@ -96,7 +97,7 @@ def test_contextual_block_encoder_matches_jax():
         return jenc.apply(enc_vars, f, c, off, nv, method=JBlockEncoder.encode_chunk)
 
     for off, n_valid in ((2 * BLOCK, m), (3 * BLOCK, 11), (4990, m)):  # the last clips the table
-        j_x, j_ctx = jax.jit(j_chunk)(jnp.asarray(chunk), jnp.asarray(ctxs), jnp.asarray(off),
+        j_x, j_ctx = jit(j_chunk)(jnp.asarray(chunk), jnp.asarray(ctxs), jnp.asarray(off),
                                       jnp.asarray(n_valid))
         with torch.no_grad():
             t_x, t_ctx = tmodel.encoder.encode_chunk(torch.from_numpy(chunk),
@@ -120,7 +121,7 @@ def test_contextual_block_input_layers_match_jax(input_layer):
     feats = rng.standard_normal((2, 21, 12)).astype(np.float32)
     lens = np.array([21, 9], np.int32)
     variables = seeded_variables(jenc, jnp.asarray(feats), jnp.asarray(lens), seed=24)
-    j_out, j_lens = jax.jit(lambda f, n: jenc.apply(variables, f, n))(jnp.asarray(feats),
+    j_out, j_lens = jit(lambda f, n: jenc.apply(variables, f, n))(jnp.asarray(feats),
                                                                       jnp.asarray(lens))
     tenc = ContextualBlockConformerEncoder(ConformerConfig(**cfg), 12, block_size=BLOCK,
                                            device="cpu")
@@ -321,7 +322,7 @@ def test_ctc_timesync_matches_jax(att_weight):
         assert [h.yseq for h in got] == [h.yseq for h in want]
         np.testing.assert_allclose([h.score for h in got], [h.score for h in want], atol=1e-4)
         return
-    decoder_logits = jax.jit(functools.partial(jmodel.apply, method=jmodel.decoder_logits))
+    decoder_logits = jit(functools.partial(jmodel.apply, method=jmodel.decoder_logits))
     for h in got:  # a prefix may sit on two slots (paths are not merged, as in JAX)
         assert any(w.yseq == h.yseq and abs(w.scores["ctc"] - h.scores["ctc"]) <= 1e-4
                    for w in want)

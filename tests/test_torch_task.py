@@ -41,6 +41,7 @@ from llm_guided_asr_tpu_torch.convert import params_from_jax, params_from_msgpac
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from llm_guided_asr_tpu.data.fileio import write_wav
 from test_e2e_tiny import SR, TOKEN_LIST, TONES, synth
+from test_torch_train import jit
 
 torch.set_num_threads(1)
 
@@ -125,7 +126,7 @@ def _jit_init(self, rngs, *args, **kwargs):
     """flax's init under jax.jit: JAX's task layer (init_model_variables)
     runs it eagerly, ~20 s for the tiny model on one CPU thread, and jit
     gives the same variables in a few seconds."""
-    return jax.jit(functools.partial(_EAGER_INIT, self, **kwargs))(rngs, *args)
+    return jit(functools.partial(_EAGER_INIT, self, **kwargs))(rngs, *args)
 
 
 @contextlib.contextmanager

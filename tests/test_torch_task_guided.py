@@ -43,6 +43,7 @@ from test_torch_task import (  # noqa: F401
     corpus,
     jit_flax_init,
 )
+from test_torch_train import jit
 
 torch.set_num_threads(1)
 
@@ -157,7 +158,7 @@ def test_legacy_rel_pos_config_encodes_as_jax(corpus):
     variables = seeded_variables(jmodel, jnp.asarray(speech), jnp.asarray(lens),
                                  jnp.asarray(text), jnp.asarray([3, 3]), seed=9)
     tmodel.load_state_dict(params_from_jax(jax.tree_util.tree_map(np.asarray, variables)))
-    j_enc, j_lens = jax.jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
+    j_enc, j_lens = jit(lambda s, n: jmodel.apply(variables, s, n, method=jmodel.encode))(
         jnp.asarray(speech), jnp.asarray(lens))
     with torch.no_grad():
         t_enc, t_lens = tmodel.encode(torch.from_numpy(speech), torch.from_numpy(lens).long())

@@ -19,6 +19,7 @@ from llm_guided_asr_tpu_torch.ops import losses as tlosses
 from llm_guided_asr_tpu_torch.ops import specaug as tspec
 from llm_guided_asr_tpu_torch.ops.masked_bn import masked_batch_norm
 from llm_guided_asr_tpu_torch.train import optim as toptim
+from test_torch_train import jit
 
 torch.set_num_threads(1)
 
@@ -139,9 +140,9 @@ def _ctc_inputs():
 def test_ctc_loss_and_gradient_match_jax():
     logits, ll, labels, lab_l = _ctc_inputs()
     # jitted: eager JAX compiles each op of the CTC scans on its own
-    j_loss, j_grad = jax.jit(jax.value_and_grad(jlosses.ctc_loss))(
+    j_loss, j_grad = jit(jax.value_and_grad(jlosses.ctc_loss))(
         jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l))
-    j_per = jax.jit(jlosses.ctc_loss_per_example)(jnp.asarray(logits), jnp.asarray(ll),
+    j_per = jit(jlosses.ctc_loss_per_example)(jnp.asarray(logits), jnp.asarray(ll),
                                                   jnp.asarray(labels), jnp.asarray(lab_l))
     lt = T(logits).requires_grad_(True)
     t_loss = tlosses.ctc_loss(lt, T(ll), T(labels), T(lab_l))
@@ -153,7 +154,7 @@ def test_ctc_loss_and_gradient_match_jax():
     np.testing.assert_allclose(t_grad.numpy(), np.asarray(j_grad), rtol=1e-4, atol=1e-5)
     assert np.all(t_grad.numpy()[2] == 0.0)  # the infeasible example takes no gradient
     # the Bayes-risk CTC (brctc) is ported: its loss and gradient match too
-    j_loss, j_grad = jax.jit(jax.value_and_grad(functools.partial(jlosses.ctc_loss,
+    j_loss, j_grad = jit(jax.value_and_grad(functools.partial(jlosses.ctc_loss,
                                                                   time_risk=0.5)))(
         jnp.asarray(logits), jnp.asarray(ll), jnp.asarray(labels), jnp.asarray(lab_l))
     lt = T(logits).requires_grad_(True)

@@ -35,7 +35,7 @@ from llm_guided_asr_tpu_torch.train import checkpoint as tckpt
 from llm_guided_asr_tpu_torch.train import optim as toptim
 from llm_guided_asr_tpu_torch.train import trainer as ttrainer
 from llm_guided_asr_tpu_torch.train.reporter import Reporter
-from test_torch_train import ASR, OPT, VOCAB, _batch, _np, _torch_batch
+from test_torch_train import ASR, OPT, VOCAB, _batch, _np, _torch_batch, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -131,7 +131,7 @@ def test_interctc_loss_and_gradients_match_jax(jax_inter):
                                            deterministic=False, mutable=["batch_stats"])
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     model = _port_model(tcfg, variables).train()
     loss, stats, _ = model(*_torch_batch(batch).values())

@@ -30,7 +30,7 @@ from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
 from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss
 from llm_guided_asr_tpu_torch.ops.wkv import KERNEL as WKV_KERNEL
 from llm_guided_asr_tpu_torch.search.transducer_beam import transducer_beam_decode
-from test_torch_train import NO_DROP_ENC, _np
+from test_torch_train import NO_DROP_ENC, _np, jit
 
 torch.set_num_threads(1)
 
@@ -116,7 +116,7 @@ def _models(decoder_type):
 def _encode(decoder_type, speech, lengths):
     """Both encoders on the same waveforms, held together at 1e-4."""
     jmodel, variables, tmodel = _models(decoder_type)
-    enc, enc_lens = jax.jit(functools.partial(jmodel.apply, method=jmodel.encode))(
+    enc, enc_lens = jit(functools.partial(jmodel.apply, method=jmodel.encode))(
         variables, jnp.asarray(speech), jnp.asarray(lengths))
     with torch.no_grad():
         tenc, tlens = tmodel.eval().encode(torch.from_numpy(speech), torch.from_numpy(lengths))
@@ -138,12 +138,12 @@ def test_rwkv_decoder_matches_jax():
     assert tdec.ln_in.eps == tdec.block_1.ln2.eps == 1e-6  # bare flax LayerNorms
     with torch.no_grad():
         got = tdec.eval()(torch.from_numpy(labels).long())
-    want = np.asarray(jax.jit(jdec.apply)(variables, jnp.asarray(labels)))
+    want = np.asarray(jit(jdec.apply)(variables, jnp.asarray(labels)))
     assert got.shape == (2, 6, 20)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
 
 
-_j_rnnt_value_and_grad = jax.jit(jax.value_and_grad(j_rnnt_loss))
+_j_rnnt_value_and_grad = jit(jax.value_and_grad(j_rnnt_loss))
 
 
 @pytest.mark.parametrize("u_lens", [[3, 2], [0, 1]], ids=["labels", "empty_label"])
@@ -174,7 +174,7 @@ def test_transducer_loss_and_gradients_match_jax(decoder_type):
                                       deterministic=False)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tmodel.train()
     tmodel.zero_grad()

@@ -29,7 +29,7 @@ from llm_guided_asr_tpu_torch.models.mega_decoder import MEGADecoder
 from llm_guided_asr_tpu_torch.ops.rnnt import rnnt_loss, rnnt_loss_multi_blank
 from llm_guided_asr_tpu_torch.tasks import asr as tasr
 from llm_guided_asr_tpu_torch.utils.config import loads_yaml
-from test_torch_train import NO_DROP_ENC, _np
+from test_torch_train import NO_DROP_ENC, _np, jit
 from test_torch_transducer import seeded_variables
 
 torch.set_num_threads(1)
@@ -78,7 +78,7 @@ def _decoder_parity(jdec, tdec, variables, labels):
         out = jdec.apply({"params": params}, jnp.asarray(labels))
         return jnp.sum(out * proj), out
 
-    (_, want), j_grads = jax.jit(jax.value_and_grad(j_obj, has_aux=True))(variables["params"])
+    (_, want), j_grads = jit(jax.value_and_grad(j_obj, has_aux=True))(variables["params"])
     tdec.zero_grad()
     got = tdec.eval()(torch.from_numpy(labels).long())
     (got * torch.from_numpy(proj)).sum().backward()
@@ -132,7 +132,7 @@ def test_mega_decoder_keeps_the_position_range_check():
         tdec(torch.zeros((1, 4), dtype=torch.long))
 
 
-_j_mb_value_and_grad = jax.jit(jax.value_and_grad(j_multi_blank),
+_j_mb_value_and_grad = jit(jax.value_and_grad(j_multi_blank),
                                static_argnames=("blank_id", "big_blank_ids",
                                                 "big_blank_durations", "sigma"))
 
@@ -267,7 +267,7 @@ def test_transducer_loss_and_gradients_match_jax(kind):
                                       deterministic=False)
         return loss, stats
 
-    (_, j_stats), j_grads = jax.jit(jax.value_and_grad(j_loss, has_aux=True))(
+    (_, j_stats), j_grads = jit(jax.value_and_grad(j_loss, has_aux=True))(
         variables["params"])
     tmodel = ttd.TransducerModel(tcfg, device="cpu")
     tmodel.load_state_dict(params_from_jax(_np(variables)), strict=True)
