@@ -335,14 +335,23 @@ prints how long it took):
               each length's best against float32's (one token sequence's
               scores in both dtypes within 5e-3, BatchBeamSearch.rescore),
               and what three deliberately wrong bf16 paths read there;
+              then twins at full width and 4 encoder blocks: the LSTM
+              transducer, E-Branchformer, MultiConvformer, rnn decoder,
+              the SSL frontend (4 of HuBERT-Base's layers), AV-HuBERT and
+              the six-channel WPE/MVDR model on the 10 s request, the
+              streaming Conformer in 1 s chunks, one request each of
+              hubert_hf, wav2vec2_hf, whisper_hf, sinc and fused models,
+              and the Transformer and RNN LMs' NLL of one batch;
 37. train-bf16 -- train-1's, train-flash's and train-2's models in float32
               and bf16 from the same weights, each on its own phase's
               batch: a B=4 (B=2) step's losses (5e-3) and gradients (each
-              tensor within 5e-2 of its norm, or so on the float32 run's
-              decoder ReLU gates; the whole within 5e-2) against float32,
-              then warm-up and timed
-              steps of each dtype in turns, every encoder entry point
-              launched once a block a step in the step's dtype.
+              tensor and the whole within 5e-2 of its norm, or so on the
+              float32 run's ReLU gates) against float32, then warm-up and
+              timed steps of each dtype in turns, every encoder entry
+              point launched once a block a step in the step's dtype;
+              then twins at 4 encoder blocks: the RWKV transducer,
+              E-Branchformer, MultiConvformer, SSL-frontend, AV-HuBERT and
+              ST models.
 The kernel table of phase 2 also holds rows 1-4 at the SSL Conformer's
 shapes: [1, 4, 124, 64] and [8, 4, 124, 64] (with the backward), the
 depthwise [1, 124, 256] and [8, 124, 256] (with the backward).
@@ -3026,13 +3035,15 @@ def check_golden_shapes() -> str:
 
 
 def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", decoder_type="transformer",
-                    decoder=None, train=False, frontend=None, **encoder):
+                    decoder=None, train=False, frontend=None, model=None, **encoder):
     """The CTC/attention ASRModel of phase 5 (bench.py build_flagship: vocab
     5000, Conformer 12 x 256 with 4 heads, decoder 6 x 256) for serving,
     float32 with TF32 off, weights from seed 0; ``encoder`` overrides the
     encoder's fields, ``decoder`` the decoder's (of ``decoder_type``),
-    ``frontend`` the log-mel FrontendConfig().  ``train``: SpecAug and
-    attention dropout 0.1 as train-1 trains, in training mode."""
+    ``frontend`` the log-mel FrontendConfig(), ``model`` any other
+    ASRModelConfig field (``frontend`` None among them).  ``train``:
+    SpecAug and attention dropout 0.1 as train-1 trains, in training
+    mode."""
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.asr_model import ASRModel, ASRModelConfig
     from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
@@ -3045,13 +3056,12 @@ def build_serve_asr(encoder_type="conformer", normalize="utterance_mvn", decoder
     if train:
         enc["attention_dropout_rate"] = 0.1
     dec = {**dict(attention_heads=4, linear_units=2048, num_blocks=6), **(decoder or {})}
-    cfg = ASRModelConfig(
-        vocab_size=5000, frontend=frontend or FrontendConfig(), normalize=normalize,
-        specaug=SpecAugConfig() if train else None,
-        encoder_type=encoder_type, encoder=ConformerConfig(**enc),
-        decoder_type=decoder_type, decoder=TransformerDecoderConfig(**dec),
-        ctc_weight=0.3,
-    )
+    cfg = ASRModelConfig(**{
+        "vocab_size": 5000, "frontend": frontend or FrontendConfig(), "normalize": normalize,
+        "specaug": SpecAugConfig() if train else None,
+        "encoder_type": encoder_type, "encoder": ConformerConfig(**enc),
+        "decoder_type": decoder_type, "decoder": TransformerDecoderConfig(**dec),
+        "ctc_weight": 0.3, **(model or {})})
     model = init_weights(ASRModel(cfg, device="cuda"), seed=0)
     return model.train() if train else model.eval()
 
@@ -3187,10 +3197,7 @@ def phase_serve_stream(kernels, card):
     model = build_serve_asr(encoder_type="contextual_block_conformer", normalize="global_mvn",
                             linear_units=2048, cnn_module_kernel=STREAM_KERNEL,
                             block_size=STREAM_BLOCK)
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    with torch.no_grad():
-        model.mvn_mean.copy_(torch.randn(80, generator=gen, device="cuda") * 0.5 - 8.0)
-        model.mvn_inv_std.copy_(1.0 / (0.5 + torch.rand(80, generator=gen, device="cuda")))
+    seed_stream_mvn(model)
     print("[serve-stream] AISHELL streaming Conformer widths; the recipe's hop_size 16 and "
           "look_ahead 16 have no counterpart in the JAX encoder (context: mean-pooled blocks)")
     kw = dict(beam_size=10, ctc_weight=0.3, maxlenratio=-24.0)
@@ -3580,23 +3587,34 @@ def phase_asr_cli(kernels, card, root=None):
 # phases 19-21: LLM-guided speech translation and the recipe inputs
 ST_B, ST_WARMUP, ST_STEPS = 8, 1, 5
 ST_SRC_LEN, ST_TGT_LEN = 24, 16  # source and translation tokens of a 10 s utterance
+# the ST model's LLM depth at Llama-3.2-1B's widths: 4 of its 16 layers (its
+# full-prefix scorer runs the LLM over every row's whole prefix each step,
+# 2.2-2.7 s a request at 16), the depth cut that pays for phases 36-37's
+# new twins
+ST_LLM_LAYERS = 4
 RECIPE_UTTS, RECIPE_TRAIN = 24, 16  # the first of phase 15's utterances, flac
 RECIPE_LLM = Path(__file__).resolve().parent / "tests" / "parity" / "tiny_llm_bytelevel"
 RECIPE_WORDS = ("hello", "world", "speech", "model", "guided", "large", "language", "the",
                 "numbers", "translate", "café", "zwölf")
 
 
-def build_st():
-    """Phase 3's model as LLMGuidedSTModel: the same Conformer, guided
-    decoder and Llama-3.2-1B dims (bf16), its source vocabulary the LLM's
+def build_st(num_blocks=None):
+    """Phase 3's model as LLMGuidedSTModel: the same Conformer (or its first
+    ``num_blocks`` blocks), guided decoder and Llama-3.2-1B's widths (bf16)
+    at ST_LLM_LAYERS layers, its source vocabulary the LLM's
     (tasks/st.py:96), an extra ASR decoder at the guided decoder's widths,
     SpecAug for phase 20; asr_weight 0.3, mtlalpha 0.5, lsm_weight 0.1;
     weights from seed 0."""
+    import dataclasses
+
     from llm_guided_asr_tpu_torch.convert import init_weights
     from llm_guided_asr_tpu_torch.models.llm_guided_st import LLMGuidedSTConfig, LLMGuidedSTModel
     from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig
 
     parts = serve_parts()
+    parts["llm"] = dataclasses.replace(parts["llm"], num_hidden_layers=ST_LLM_LAYERS)
+    if num_blocks is not None:
+        parts["encoder"] = dataclasses.replace(parts["encoder"], num_blocks=num_blocks)
     cfg = LLMGuidedSTConfig(src_vocab_size=parts["vocab_size"], specaug=SpecAugConfig(),
                             extra_asr_decoder=parts["decoder"], asr_weight=0.3, mtlalpha=0.5,
                             lsm_weight=0.1, **parts)
@@ -3678,6 +3696,22 @@ def phase_serve_st(model, kernels, card):
     return launches
 
 
+def st_batch(b, seed=2):
+    """b x 10 s of seeded noise, a translation of ST_TGT_LEN and a source
+    of ST_SRC_LEN seeded LLM ids (100 to 5,000) an utterance."""
+    samples = int(TRAIN_SECONDS * SR)
+    rng = np.random.default_rng(seed)
+    return {
+        "speech": torch.from_numpy((rng.standard_normal((b, samples)) * 0.1)
+                                   .astype(np.float32)).cuda(),
+        "speech_lengths": torch.full((b,), samples, device="cuda"),
+        "text": torch.from_numpy(rng.integers(100, 5000, (b, ST_TGT_LEN))).cuda(),
+        "text_lengths": torch.full((b,), ST_TGT_LEN, device="cuda"),
+        "src_text": torch.from_numpy(rng.integers(100, 5000, (b, ST_SRC_LEN))).cuda(),
+        "src_text_lengths": torch.full((b,), ST_SRC_LEN, device="cuda"),
+    }
+
+
 def phase_train_st(model, kernels, card):
     """Phase 20: the ST model trained by make_fused_train_step at B=8 x
     10 s (translation [8, 16], source [8, 24] in LLM ids), SpecAug, AdamW
@@ -3694,18 +3728,7 @@ def phase_train_st(model, kernels, card):
     print(f"[train-st] {len(frozen)} frozen LLM tensors, "
           f"{sum(p.numel() for p in state.params)} trainable parameters")
     step = make_fused_train_step(model, state, torch.Generator().manual_seed(2), ST_BATCH_ARGS)
-    samples = int(TRAIN_SECONDS * SR)
-    rng = np.random.default_rng(2)
-    top = min(5000, model.cfg.vocab_size)
-    batch = {
-        "speech": torch.from_numpy((rng.standard_normal((ST_B, samples)) * 0.1)
-                                   .astype(np.float32)).cuda(),
-        "speech_lengths": torch.full((ST_B,), samples, device="cuda"),
-        "text": torch.from_numpy(rng.integers(100, top, (ST_B, ST_TGT_LEN))).cuda(),
-        "text_lengths": torch.full((ST_B,), ST_TGT_LEN, device="cuda"),
-        "src_text": torch.from_numpy(rng.integers(100, top, (ST_B, ST_SRC_LEN))).cuda(),
-        "src_text_lengths": torch.full((ST_B,), ST_SRC_LEN, device="cuda"),
-    }
+    batch = st_batch(ST_B)
     all_stats, med, launches = run_steps("train-st", step, batch, ST_WARMUP, ST_STEPS, kernels,
                                          card)
     losses = [s["loss"] for s in all_stats]
@@ -5398,12 +5421,12 @@ def check_dtype_launches(tag, kernels, want: dict) -> dict:
 
 def bf16_twin(model):
     """A model of ``model``'s config and weights computing in bfloat16 (an
-    ASRModel, the guided model or a transducer)."""
+    ASRModel, the guided or ST model or a transducer)."""
     from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
 
-    if isinstance(model, LLMGuidedASRModel):
-        twin = LLMGuidedASRModel(model.cfg, llm_dtype=next(model.llm.parameters()).dtype,
-                                 device="cuda", dtype=BF16)
+    if isinstance(model, LLMGuidedASRModel):  # the guided model or the ST model
+        twin = type(model)(model.cfg, llm_dtype=next(model.llm.parameters()).dtype,
+                           device="cuda", dtype=BF16)
     else:
         twin = type(model)(model.cfg, device="cuda", dtype=BF16)
     twin.load_state_dict(model.state_dict())
@@ -5418,15 +5441,19 @@ class pinned_first_pass:
     input: on random weights the CTC head's 128,256 outputs sit within
     rounding of one another at many frames, so bfloat16 can pick another
     token there and hand the LLM another prompt.  Pinned, the two dtypes
-    compare the same computation."""
+    compare the same computation.  The first passes are taken in eval mode
+    (no SpecAug draw)."""
 
     def __init__(self, bf16, f32, speech, lengths):
         self.bf16 = bf16
+        modes = [(m, m.training) for m in (bf16, f32)]
         with torch.inference_mode():
-            enc32 = f32.encode(speech, lengths)
-            enc16 = bf16.encode(speech, lengths)
+            enc32 = f32.eval().encode(speech, lengths)
+            enc16 = bf16.eval().encode(speech, lengths)
             self.hyp = f32._first_pass_hyp(*enc32)
             own = bf16._first_pass_hyp(*enc16)
+        for m, mode in modes:
+            m.train(mode)
         self.same = (torch.equal(own[1], self.hyp[1])
                      and all(torch.equal(a[: int(n)], b[: int(n)])
                              for a, b, n in zip(own[0], self.hyp[0], self.hyp[1])))
@@ -5523,7 +5550,7 @@ def bf16_fault_readings(tag, wave, s2t16, s2t32, best) -> dict:
     return out
 
 
-def compare_best_bf16(tag, wave, s2t16, s2t32) -> tuple:
+def compare_best_bf16(tag, wave, s2t16, s2t32, bests=None) -> tuple:
     """The bfloat16 and float32 searches' best of one request, a and b,
     with the first pass pinned (pinned_first_pass).  Equal: the scores
     within BF16_REL of their size.  Different (random weights leave the
@@ -5532,14 +5559,17 @@ def compare_best_bf16(tag, wave, s2t16, s2t32) -> tuple:
     (``BatchBeamSearch.rescore``) scores within BF16_REL of its own
     search's score, so that the two dtypes score the same tokens alike and
     part only on the path; the token where they part and the float32 gap
-    between them are printed.  Returns (equal, the largest relative score
-    error, whether bfloat16's own first pass was float32's)."""
-    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
-
+    between them are printed.  ``bests``: the two searches' bests of this
+    request already found, for a model without a first pass to pin.
+    Returns (equal, the largest relative score error, whether bfloat16's
+    own first pass was float32's)."""
     pin = pin_request(wave, s2t16, s2t32)
     with pin:
-        (_, a), = s2t16(wave)
-        (_, b), = s2t32(wave)
+        if bests is not None and isinstance(pin, no_first_pass):
+            a, b = bests
+        else:
+            (_, a), = s2t16(wave)
+            (_, b), = s2t32(wave)
         if a.yseq == b.yseq:
             err = abs(a.score - b.score) / max(1.0, abs(b.score))
             print(f"[{tag}] the bfloat16 and float32 bests are equal (bfloat16's own first "
@@ -5549,6 +5579,22 @@ def compare_best_bf16(tag, wave, s2t16, s2t32) -> tuple:
                 raise AssertionError(f"{tag}: score {a.score} in bfloat16, {b.score} in "
                                      "float32")
             return True, err, pin.same
+        own = "equal" if pin.same else "different"
+        err = rescore_pair_bf16(tag, wave, s2t16, s2t32, a, b,
+                                f"bfloat16's own first pass {own}")
+    return False, err, pin.same
+
+
+def rescore_pair_bf16(tag, wave, s2t16, s2t32, a, b, note="") -> float:
+    """Two different bests of one request, ``a`` bfloat16's and ``b``
+    float32's: each forced through the other dtype's search
+    (``BatchBeamSearch.rescore`` over the request as Speech2Text pads it)
+    scores within BF16_REL of its own search's score, so that the dtypes
+    score the same tokens alike and part only on the path; the token where
+    they part and the float32 gap printed.  Returns the larger error."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
+
+    with torch.inference_mode():
         enc16 = encode_request(s2t16.model, wave, s2t16.speech_pad_multiple, s2t16.device)
         enc32 = encode_request(s2t32.model, wave, s2t32.speech_pad_multiple, s2t32.device)
         a32 = s2t32.beam.rescore(*enc32, a.yseq, maxlenratio=s2t32.maxlenratio)
@@ -5556,12 +5602,12 @@ def compare_best_bf16(tag, wave, s2t16, s2t32) -> tuple:
     errs = (abs(a.score - a32) / max(1.0, abs(a32)), abs(b16 - b.score) / max(1.0, abs(b.score)))
     part = next(i for i, (x, y) in enumerate(zip(a.yseq + [-1], b.yseq + [-1])) if x != y)
     print(f"[{tag}] the bfloat16 and float32 bests part at token {part} of {len(b.yseq) - 2} "
-          f"(bfloat16's own first pass {'equal' if pin.same else 'different'}): bfloat16's "
-          f"best scores {a.score:.4f} (float32 {a32:.4f}), float32's {b.score:.4f} (bfloat16 "
-          f"{b16:.4f}); float32 gap {b.score - a32:.4f}, bfloat16 gap {a.score - b16:.4f}")
+          f"({note}): bfloat16's best scores {a.score:.4f} (float32 {a32:.4f}), float32's "
+          f"{b.score:.4f} (bfloat16 {b16:.4f}); float32 gap {b.score - a32:.4f}, bfloat16 gap "
+          f"{a.score - b16:.4f}")
     if max(errs) > BF16_REL:
         raise AssertionError(f"{tag}: the dtypes score one sequence apart: {errs}")
-    return False, max(errs), pin.same
+    return max(errs)
 
 
 def phase_serve_bf16(model, kernels, card):
@@ -5574,8 +5620,9 @@ def phase_serve_bf16(model, kernels, card):
     model), one traced bfloat16 10 s request; each length's bfloat16
     hypothesis against the float32 one by compare_best_bf16 (tokens
     compared; a sequence's scores in both dtypes within BF16_REL); then
-    the transducer's and the other encoders' and decoders' twins
-    (serve_bf16_twins)."""
+    the twins of the transducer, the other encoders and decoders, the SSL,
+    pretrained and AV-HuBERT trunks, the raw-audio and multichannel
+    frontends, streaming and the LMs (serve_bf16_twins)."""
     from torch.profiler import ProfilerActivity, profile
 
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
@@ -5664,51 +5711,60 @@ def phase_serve_bf16(model, kernels, card):
 
 @contextlib.contextmanager
 def relu_gates(model, gates=None):
-    """Within the block, every ReLU feed-forward of ``model`` (the
-    decoders') either records its gates (``gates`` None: the yielded
-    {module: [w_1's output > 0, a call each]}) or takes the recorded ones
-    in place of its own ReLU (h * gate), as tests/test_torch_bf16.py's
-    relu_gated_grads runs bfloat16 on the float32 run's gates."""
-    from llm_guided_asr_tpu_torch.models.transformer import PositionwiseFeedForward
+    """Within the block, every ReLU that ``model``'s run calls
+    (``torch.relu``/``F.relu`` and the stored ``activation`` of the
+    feed-forwards: the decoders', the subsampling convs', the length
+    adaptor's) either records its gate (``gates`` None: the yielded list,
+    h > 0 a call each, in call order) or takes the recorded one in place of
+    its own (h * gate), as tests/test_torch_bf16_models.py's
+    relu_replayed_grads runs bfloat16 on the float32 run's gates."""
+    functional = torch.nn.functional
+    relus = (torch.relu, functional.relu)
+    record = gates is None
+    gates = [] if record else gates
+    pending = iter(gates)
 
-    ffs = {n: m for n, m in model.named_modules()
-           if isinstance(m, PositionwiseFeedForward) and m.activation is torch.relu}
-    hooks = []
-    if gates is None:
-        gates = {}
-        hooks = [m.w_1.register_forward_hook(
-            lambda mod, args, out, n=n: gates.setdefault(n, []).append(out.detach() > 0))
-            for n, m in ffs.items()]
-    else:
-        for n, m in ffs.items():
-            m.activation = lambda h, it=iter(gates[n]): h * next(it).to(h.dtype)
+    def gate(h, *args, **kwargs):
+        if record:
+            gates.append(h.detach() > 0)
+            return relus[0](h)
+        return h * next(pending).to(h.dtype)
+
+    mods = [m for m in model.modules() if getattr(m, "activation", None) in relus]
+    saved = [m.activation for m in mods]
+    for m in mods:
+        m.activation = gate
+    torch.relu = functional.relu = gate
     try:
         yield gates
+        if not record and next(pending, None) is not None:
+            raise AssertionError("the bfloat16 run called ReLU fewer times than float32's")
     finally:
-        for h in hooks:
-            h.remove()
-        for m in ffs.values():
-            m.activation = torch.relu
+        torch.relu, functional.relu = relus
+        for m, act in zip(mods, saved):
+            m.activation = act
 
 
 def check_grads_bf16(tag, f32, bf16, batch, args):
     """One training-mode forward and backward of ``batch`` in each model
     from the same step generator (the same SpecAug and dropout draws; the
-    guided model's first pass pinned to float32's, pinned_first_pass): the
+    guided and ST models' first pass pinned to float32's in both,
+    pinned_first_pass): the
     losses within BF16_REL, the whole gradient within BF16_GRAD_REL of its
     norm, and each float32 parameter's float32 gradient within
     BF16_GRAD_REL of max(its float32 norm, 0.1 of the largest).  A tensor
     that misses is held to the same limit on a bfloat16 run that takes the
-    float32 run's decoder ReLU gates (relu_gates): a gate within rounding
-    of 0 flips with the dtype and moves the gradient behind it, as the CPU
-    test settles it."""
+    float32 run's ReLU gates (relu_gates): a gate within rounding of 0
+    flips with the dtype and moves the gradient behind it, as the CPU test
+    settles it."""
     from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 
     from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
 
-    pin = contextlib.nullcontext()
+    pin = pin32 = contextlib.nullcontext()
     if isinstance(f32, LLMGuidedASRModel):
         pin = pinned_first_pass(bf16, f32, batch["speech"], batch["speech_lengths"])
+        pin32 = pinned_first_pass(f32, f32, batch["speech"], batch["speech_lengths"])
         print(f"[{tag}] the first pass pinned to float32's (bfloat16's own "
               f"{'equal' if pin.same else 'different'})")
 
@@ -5722,7 +5778,7 @@ def check_grads_bf16(tag, f32, bf16, batch, args):
         m.zero_grad()
         return {k: float(v.detach()) for k, v in stats.items()}, grads
 
-    with pin:
+    with pin, pin32:
         with relu_gates(f32) as gates:
             s32, g32 = run(f32)
         s16, g16 = run(bf16)
@@ -5740,9 +5796,9 @@ def check_grads_bf16(tag, f32, bf16, batch, args):
                 for n in g32}
 
     err = errs(g16)
-    name_w = max(err, key=err.get)
     whole = (math.sqrt(sum((g16[n] - g).norm().item() ** 2 for n, g in g32.items()))
              / math.sqrt(sum(g.norm().item() ** 2 for g in g32.values())))
+    name_w = max(err, key=err.get)
     print(f"[{tag}] B={batch['speech'].shape[0]} step, bfloat16 against float32: losses "
           + ", ".join(f"{k} {s16[k]:.4f}/{s32[k]:.4f}" for k in s32)
           + f"; {len(g32)} gradients, the whole {whole:.3e} of its norm, the worst tensor "
@@ -5753,7 +5809,7 @@ def check_grads_bf16(tag, f32, bf16, batch, args):
     if missed:
         with pin, relu_gates(bf16, gates):
             gated = errs(run(bf16)[1])
-        print(f"[{tag}] on the float32 run's decoder ReLU gates ({len(gates)} feed-forwards): "
+        print(f"[{tag}] on the float32 run's ReLU gates ({len(gates)} calls): "
               + ", ".join(f"{n} {err[n]:.3e} -> {gated[n]:.3e}" for n in missed)
               + f" of its norm (tol {BF16_GRAD_REL}); the worst tensor there "
               f"{max(gated.values()):.3e}")
@@ -5764,20 +5820,23 @@ def check_grads_bf16(tag, f32, bf16, batch, args):
 
 
 def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card,
-                    frozen=(), check_loss_falls=True, per_step=None, f32_rows=()):
-    """One model's float32 and bfloat16 twins on one batch: the gradient
-    check (check_grads_bf16) on up to BF16_GRAD_B rows, then ``n_warm`` +
-    ``n_steps`` steps of each dtype in turns (f32, bf16) from the same
-    weights: step times, audio s/s, peak memory, the first loss against
-    float32's, ``names`` launched once a block a step each (or as
+                    frozen=(), check_loss_falls=True, per_step=None, f32_rows=(),
+                    args=("speech", "speech_lengths", "text", "text_lengths")):
+    """One model's float32 and bfloat16 twins on one batch (its ``args``):
+    the gradient check (check_grads_bf16) on up to BF16_GRAD_B rows, then
+    ``n_warm`` + ``n_steps`` steps of each dtype in turns (f32, bf16) from
+    the same weights: step times, audio s/s, peak memory, the first loss
+    against float32's, ``names`` launched once a block a step each (or as
     ``per_step`` says: {entry point: launches a step}), all in the step's
     dtype but ``f32_rows``, float32 whatever it (the WKV and LSTM kernels,
     which JAX runs in float32 inside a bfloat16 model); one bfloat16 step
-    traced.  Returns the bfloat16 steps' (launches, launches by dtype)."""
+    traced.  A model with a first pass (guided, ST) runs its own in the
+    steps, so the two dtypes' first losses may read two prompts (near
+    ties of the random CTC head); check_grads_bf16 compares the losses on
+    one.  Returns the bfloat16 steps' (launches, launches by dtype)."""
     from llm_guided_asr_tpu_torch.train.optim import build_optimizer, path_prefix_mask
     from llm_guided_asr_tpu_torch.train.trainer import init_train_state, make_fused_train_step
 
-    args = ("speech", "speech_lengths", "text", "text_lengths")
     check_grads_bf16(f"train-bf16 {tag}", f32, bf16,
                      {k: v[:BF16_GRAD_B] for k, v in batch.items()}, args)
     blocks = f32.cfg.encoder.num_blocks
@@ -5786,9 +5845,10 @@ def train_bf16_case(tag, f32, bf16, batch, n_warm, n_steps, names, kernels, card
     for dt, m in ((F32, f32), (BF16, bf16)):
         tx = build_optimizer("adamw", {"lr": 1e-3},
                              freeze_mask=path_prefix_mask(m, frozen) if frozen else ())
-        step = make_fused_train_step(m, init_train_state(m, tx), torch.Generator().manual_seed(0))
-        stats, med, launches = run_steps(f"train-bf16 {tag} {str(dt)[6:]}", step, batch, n_warm,
-                                         n_steps, kernels, card)
+        step = make_fused_train_step(m, init_train_state(m, tx), torch.Generator().manual_seed(0),
+                                     args)
+        stats, med, launches = run_steps(f"train-bf16 {tag} {str(dt)[6:]}", step, batch,
+                                         n_warm, n_steps, kernels, card)
         peak = torch.cuda.max_memory_allocated()
         by_dtype = check_dtype_launches(f"train-bf16 {tag} {str(dt)[6:]}", kernels, {
             name: {(F32 if name in f32_rows else dt): n * n_steps}
@@ -5816,8 +5876,9 @@ def phase_train_bf16(guided, kernels, card):
     3's guided model, encoder, CTC head and LLM frozen, B=2) in float32 and
     in bfloat16 compute from the same weights (train_bf16_case): every
     encoder entry point, forward and backward where the encoder trains,
-    launched in bfloat16 by the twins; then the transducer's and the other
-    encoders' twins (train_bf16_twins).  Returns the bfloat16 timed steps' launches of all
+    launched in bfloat16 by the twins; then the twins of the transducer,
+    the other encoders, the SSL-frontend, AV-HuBERT and ST models
+    (train_bf16_twins).  Returns the bfloat16 timed steps' launches of all
     cases (all, and by dtype)."""
     samples = int(TRAIN_SECONDS * SR)
 
@@ -5925,16 +5986,18 @@ def compare_transducer_bf16(tag, wave, s2t16, s2t32) -> tuple:
     return False, max(errs)
 
 
-def serve_bf16_twin(tag, f32, wave, kernels, card, decode, per_request, f32_rows=()) -> tuple:
+def serve_bf16_twin(tag, f32, wave, kernels, card, decode, per_request, f32_rows=(),
+                    f32_per_request=None) -> tuple:
     """``f32`` and its bfloat16 twin (bf16_twin) serve the 10 s request
     through Speech2Text (``decode``) after one warm-up each, TWIN_ROUNDS
     timed runs a dtype in turns (f32, bf16, bf16, f32): latencies, peak
     memory, the same hypothesis every run; ``per_request`` ({entry point:
     launches a request}) launched in the request's dtype, ``f32_rows``
-    ({entry point: None}: one launch a prediction-network call) in float32
-    whatever it; the two bests compared (compare_best_bf16, or
-    compare_transducer_bf16 for a transducer).  Returns (launches, launches
-    by dtype)."""
+    ({entry point: None}: one launch a prediction-network call) and
+    ``f32_per_request`` ({entry point: launches a request}: the
+    multichannel mask estimator's LSTM) in float32 whatever it; the two
+    bests compared (compare_best_bf16, or compare_transducer_bf16 for a
+    transducer).  Returns (launches, launches by dtype)."""
     from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
 
     models = {F32: f32.eval(), BF16: bf16_twin(f32).eval()}
@@ -5963,6 +6026,7 @@ def serve_bf16_twin(tag, f32, wave, kernels, card, decode, per_request, f32_rows
     want = {name: {F32: n * TWIN_ROUNDS, BF16: n * TWIN_ROUNDS}
             for name, n in per_request.items()}
     want.update({name: {F32: calls[F32] + calls[BF16]} for name in f32_rows})
+    want.update({name: {F32: 2 * n * TWIN_ROUNDS} for name, n in (f32_per_request or {}).items()})
     by_dtype = check_dtype_launches(tag, kernels, want)
     print(f"[{tag}] 10.0 s request, {TWIN_ROUNDS} runs each: " + "; ".join(
         f"{str(dt)[6:]} median {float(np.median(lat[dt])) * 1e3:.1f} ms (min "
@@ -5972,7 +6036,7 @@ def serve_bf16_twin(tag, f32, wave, kernels, card, decode, per_request, f32_rows
         compare_transducer_bf16(tag, wave, s2t[BF16], s2t[F32])
     else:
         check_scores(hyps[BF16])
-        compare_best_bf16(tag, wave, s2t[BF16], s2t[F32])
+        compare_best_bf16(tag, wave, s2t[BF16], s2t[F32], (hyps[BF16], hyps[F32]))
     del models[BF16], s2t
     torch.cuda.empty_cache()
     return launches, by_dtype
@@ -5985,10 +6049,17 @@ def serve_bf16_twins(kernels, card) -> tuple:
     CTC/attention models, and the Conformer with the rnn decoder (beam 10,
     ctc_weight 0.3), each at TWIN_BLOCKS blocks of full width beside its
     float32 twin (serve_bf16_twin).  Returns the summed (launches, launches
-    by dtype)."""
+    by dtype).  Then the twins of the SSL frontend (HuBERT-Base's widths at
+    TWIN_SSL_LAYERS layers), AV-HuBERT Base (TWIN_BLOCKS of its 12 layers)
+    and the six-channel WPE/MVDR frontend (the mask estimator's LSTM in
+    float32 in both dtypes, as JAX computes the frontend) as the others;
+    the streaming Conformer (serve_bf16_stream); one untimed request of
+    hubert_hf, wav2vec2_hf, whisper_hf, sinc + sliding window and the fused
+    frontend (serve_bf16_once); the LMs' nll (lm_bf16_twins)."""
     wave = request_waves()[0]
     beam = dict(ctc_weight=0.3, beam_size=10, maxlenratio=-24.0)
     enc = dict.fromkeys(ENCODER_FWD, TWIN_BLOCKS)
+    mc_wave_10s = mc_waves()[0]
     cases = (
         ("serve-bf16 transducer-rnn", lambda: build_transducer_lstm(num_blocks=TWIN_BLOCKS),
          dict(beam_size=TRANSDUCER_BEAM, nbest=TRANSDUCER_BEAM), enc, ("lstm_fwd",)),
@@ -6001,15 +6072,295 @@ def serve_bf16_twins(kernels, card) -> tuple:
         ("serve-bf16 rnn decoder", lambda: build_serve_asr(
             decoder_type="rnn", decoder=NEW_DECODERS["rnn"], num_blocks=TWIN_BLOCKS), beam, enc,
          ()),
+        ("serve-bf16 ssl", build_twin_ssl, beam, enc, ()),
+        ("serve-bf16 avhubert", lambda: build_serve_asr(
+            "avhubert", **{**AVH_ENCODER, "num_blocks": TWIN_BLOCKS}), beam, {}, ()),
     )
     launches, by_dtype = {}, {}
-    for tag, build, decode, per_request, f32_rows in cases:
-        got, by = serve_bf16_twin(tag, build(), wave, kernels, card, decode, per_request,
-                                  f32_rows)
+
+    def add(got, by):
+        nonlocal launches
         launches = add_counts(launches, got)
         for name, d in by.items():
             for dt, n in d.items():
                 by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + n
+        torch.cuda.empty_cache()
+
+    for tag, build, decode, per_request, f32_rows in cases:
+        add(*serve_bf16_twin(tag, build(), wave, kernels, card, decode, per_request, f32_rows))
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+
+    add(*serve_bf16_twin("serve-bf16 multichannel", build_serve_asr(
+        frontend=FrontendConfig(**MC_FRONTEND), num_blocks=TWIN_BLOCKS), mc_wave_10s, kernels,
+        card, beam, enc, f32_per_request={"lstm_fwd": 2}))
+    add(*serve_bf16_stream(kernels, card))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_twins_") as tmp:
+        for tag, build, per_request in twin_once_models(Path(tmp)):
+            add(*serve_bf16_once(tag, build(), wave, kernels, card, beam, per_request))
+    add(*lm_bf16_twins(kernels, card))
+    return launches, by_dtype
+
+
+# the twins of the choices that JAX's dtype reaches through the SSL,
+# pretrained and AV-HuBERT trunks, the raw-audio and multichannel
+# frontends, streaming, ST and the LMs: the SSL trunks at TWIN_SSL_LAYERS
+# of their 12 layers (Whisper-base's 6), AV-HuBERT Base and every Conformer
+# at TWIN_BLOCKS blocks (depth cuts that keep phases 36-37 short); the
+# *_hf encoders' widths from a config.json alone (the weights from seed 0)
+TWIN_SSL_LAYERS = 4
+TWIN_FUSED = ((512, 128, 80), (1024, 256, 80))  # two log-mel resolutions, 100 each
+TWIN_LM_B, TWIN_LM_LEN = 16, 24  # the LMs' nll batch: 16 rows of <= 24 tokens
+
+
+def build_twin_ssl(train=False):
+    """train-1's Conformer (TWIN_BLOCKS blocks) and decoder behind the
+    frozen SSL frontend: HuBERT-Base's widths at TWIN_SSL_LAYERS layers."""
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import W2VConfig
+
+    return build_serve_asr(train=train, num_blocks=TWIN_BLOCKS, model={
+        "frontend": None, "ssl_frontend": W2VConfig(num_hidden_layers=TWIN_SSL_LAYERS)})
+
+
+def write_config_dir(path: Path, config: dict) -> Path:
+    """A model directory holding config.json alone."""
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(config))
+    return path
+
+
+def twin_once_models(root: Path) -> list:
+    """(tag, builder of the float32 model, encoder entry points a request)
+    of the twins that serve one untimed request each: hubert_hf
+    (HuBERT-Base's widths) and wav2vec2_hf (the same widths, with
+    wav2vec2-large-lv60's layer-norm feature extractor and pre-norm
+    layers) on the raw waveform, whisper_hf (whisper-base's) on 80 log-mel bins, each under
+    the 6 x 256 decoder; the sliding window + sinc pre-encoder + the
+    Conformer (linear input) + the length adaptor; the fused frontend +
+    the Conformer."""
+    import dataclasses
+
+    from llm_guided_asr_tpu_torch.models.preencoder import (
+        LengthAdaptorConfig,
+        SincPreencoderConfig,
+    )
+    from llm_guided_asr_tpu_torch.models.ssl_encoders import W2VConfig
+    from llm_guided_asr_tpu_torch.ops.frontend import FrontendConfig
+
+    w2v = {k: list(v) if isinstance(v, tuple) else v
+           for k, v in dataclasses.asdict(W2VConfig(num_hidden_layers=TWIN_SSL_LAYERS)).items()}
+    dirs = {"hubert": write_config_dir(root / "hubert", {**w2v, "model_type": "hubert"}),
+            # wav2vec2-large-lv60's layer-norm feature extractor and pre-norm
+            # layers at the base's widths, the branches HuBERT-Base leaves out
+            "wav2vec2": write_config_dir(root / "wav2vec2", {
+                **w2v, "model_type": "wav2vec2", "feat_extract_norm": "layer",
+                "do_stable_layer_norm": True, "conv_bias": True})}
+    dirs["whisper"] = write_config_dir(root / "whisper", {
+        **WHISPER_BASE, "encoder_layers": TWIN_SSL_LAYERS, "model_type": "whisper"})
+    raw = {"frontend": None, "normalize": "none"}
+    enc = dict.fromkeys(ENCODER_FWD, TWIN_BLOCKS)
+    return [
+        ("serve-bf16 hubert_hf", lambda: build_serve_asr(
+            "hubert_hf", model=raw, model_name_or_path=str(dirs["hubert"])), {}),
+        ("serve-bf16 wav2vec2_hf", lambda: build_serve_asr(
+            "wav2vec2_hf", model=raw, model_name_or_path=str(dirs["wav2vec2"])), {}),
+        ("serve-bf16 whisper_hf", lambda: build_serve_asr(
+            "whisper_hf", model_name_or_path=str(dirs["whisper"]), output_size=512), {}),
+        ("serve-bf16 sinc", lambda: build_serve_asr(
+            frontend=FrontendConfig(type="sliding_window", win_length=400, hop_length=160),
+            normalize="none", input_layer="linear", num_blocks=TWIN_BLOCKS, model={
+                "preencoder": SincPreencoderConfig(),
+                "postencoder": ("length_adaptor", LengthAdaptorConfig(n_layers=1))}), enc),
+        ("serve-bf16 fused", lambda: build_serve_asr(
+            frontend=FrontendConfig(fused=TWIN_FUSED, proj_dim=100), num_blocks=TWIN_BLOCKS),
+         enc),
+    ]
+
+
+def serve_bf16_once(tag, f32, wave, kernels, card, decode, per_request) -> tuple:
+    """``f32`` and its bfloat16 twin serve one untimed request each
+    (Speech2Text, ``decode``): ``per_request`` launched in each request's
+    dtype; the two bests compared (compare_best_bf16).  Returns (launches,
+    launches by dtype)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import Speech2Text
+
+    models = {F32: f32.eval(), BF16: bf16_twin(f32).eval()}
+    s2t = {dt: Speech2Text.from_model(m, **decode) for dt, m in models.items()}
+    torch.cuda.synchronize()
+    reset_counts(kernels)
+    hyps, ms = {}, {}
+    for dt in (F32, BF16):
+        t0 = time.perf_counter()
+        hyps[dt] = s2t[dt](wave)[0][1]
+        torch.cuda.synchronize()
+        ms[dt] = (time.perf_counter() - t0) * 1e3
+    launches = counts(kernels)
+    by_dtype = check_dtype_launches(tag, kernels, {name: {F32: n, BF16: n}
+                                                   for name, n in per_request.items()})
+    print(f"[{tag}] one untimed 10.0 s request each (first calls): float32 {ms[F32]:.1f} ms, "
+          f"bfloat16 {ms[BF16]:.1f} ms; {sum(p.numel() for p in f32.parameters())} parameters "
+          f"[{card}]")
+    check_scores(hyps[BF16])
+    compare_best_bf16(tag, wave, s2t[BF16], s2t[F32], (hyps[BF16], hyps[F32]))
+    del models[BF16], s2t
+    torch.cuda.empty_cache()
+    return launches, by_dtype
+
+
+def seed_stream_mvn(model) -> None:
+    """serve-stream's seeded global-MVN statistics of 80 log-mel bins."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    with torch.no_grad():
+        model.mvn_mean.copy_(torch.randn(80, generator=gen, device="cuda") * 0.5 - 8.0)
+        model.mvn_inv_std.copy_(1.0 / (0.5 + torch.rand(80, generator=gen, device="cuda")))
+
+
+def serve_bf16_stream(kernels, card) -> tuple:
+    """serve-stream's contextual-block Conformer (its 12 blocks: at 4 the
+    random model's CTC budget lets the partial hypotheses grow past 100
+    tokens, which the search rescores every chunk) and its bfloat16 twin
+    stream the 10 s request in 1 s chunks through
+    Speech2TextStreaming (beam 10, ctc_weight 0.3, the 24-token cap), one
+    warm-up and TWIN_ROUNDS timed streams a dtype in turns: each chunk's
+    latency and the last one's; the depthwise forward (K = 15) once a
+    completed block a layer in the stream's dtype; the final hypotheses
+    equal (scores within BF16_REL), or each of the two sequences scored
+    alike by the two dtypes' offline searches (BatchBeamSearch.rescore).
+    Returns (launches, launches by dtype)."""
+    from llm_guided_asr_tpu_torch.bin.asr_inference import encode_request
+    from llm_guided_asr_tpu_torch.bin.asr_inference_streaming import Speech2TextStreaming
+
+    tag = "serve-bf16 stream"
+    f32 = build_serve_asr(encoder_type="contextual_block_conformer", normalize="global_mvn",
+                          linear_units=2048, cnn_module_kernel=STREAM_KERNEL,
+                          block_size=STREAM_BLOCK)
+    seed_stream_mvn(f32)
+    models = {F32: f32, BF16: bf16_twin(f32).eval()}
+    kw = dict(beam_size=10, ctc_weight=0.3, maxlenratio=-24.0)
+    streams = {dt: Speech2TextStreaming(m, chunk_samples=STREAM_CHUNK, **kw)
+               for dt, m in models.items()}
+    wave = request_waves()[0]
+
+    def stream_once(st):
+        st.reset()
+        chunk_ms, out = [], None
+        for start in range(0, len(wave), STREAM_CHUNK):
+            t0 = time.perf_counter()
+            out = st(wave[start: start + STREAM_CHUNK], is_final=start + STREAM_CHUNK >= len(wave))
+            torch.cuda.synchronize()
+            chunk_ms.append((time.perf_counter() - t0) * 1e3)
+        return chunk_ms, out[0]
+
+    for dt in (F32, BF16):
+        stream_once(streams[dt])
+    reset_counts(kernels)
+    runs = {F32: [], BF16: []}
+    for r in range(TWIN_ROUNDS):
+        for dt in ((F32, BF16) if r % 2 == 0 else (BF16, F32)):
+            runs[dt].append(stream_once(streams[dt]))
+    launches, got = counts(kernels), dtype_counts(kernels)
+    with torch.inference_mode():  # padded by one more bucket, as serve-stream says why
+        speech = torch.from_numpy(np.pad(wave, (0, 1600))[None]).cuda()
+        _, lens = f32.encode(speech, torch.tensor([len(wave)], device="cuda"))
+    blocks = -(-int(lens[0]) // STREAM_BLOCK)
+    n = f32.cfg.encoder.num_blocks * blocks * TWIN_ROUNDS
+    want = {str(F32): n, str(BF16): n}
+    print(f"[{tag}] kernel launches by operand dtype: {got}")
+    if got.get("dwconv1d_fwd") != want:
+        raise AssertionError(f"{tag}: dwconv1d_fwd launched {got.get('dwconv1d_fwd')}, "
+                             f"expected {want}")
+    by_dtype = got
+    print(f"[{tag}] 10.0 s in {len(runs[F32][0][0])} chunks of {STREAM_CHUNK / SR:.1f} s, "
+          f"{TWIN_ROUNDS} streams each: " + "; ".join(
+              f"{str(dt)[6:]} chunk median "
+              f"{float(np.median([x for c, _ in runs[dt] for x in c[:-1]])):.1f} ms, the last "
+              f"{float(np.median([c[-1] for c, _ in runs[dt]])):.1f} ms" for dt in (F32, BF16))
+          + f" [{card}]")
+    (_, a), (_, b) = runs[BF16][-1][1], runs[F32][-1][1]
+    if a.yseq == b.yseq:
+        err = abs(a.score - b.score) / max(1.0, abs(b.score))
+        print(f"[{tag}] the final hypotheses are equal ({len(a.yseq) - 2} tokens), streamed "
+              f"scores {a.score:.4f} and {b.score:.4f}")
+        if err > BF16_REL:
+            raise AssertionError(f"{tag}: streamed score {a.score} in bfloat16, {b.score} in "
+                                 "float32")
+    else:
+        s2t = {dt: st.s2t for dt, st in streams.items()}
+        with torch.inference_mode():
+            rows = {dt: encode_request(s2t[dt].model, wave, s2t[dt].speech_pad_multiple,
+                                       s2t[dt].device) for dt in (F32, BF16)}
+            cap = -float(max(len(a.yseq), len(b.yseq)))  # a stream may pass the offline cap
+            sc = {(dt, w): s2t[dt].beam.rescore(*rows[dt], h.yseq, maxlenratio=cap)
+                  for dt in (F32, BF16) for w, h in (("a", a), ("b", b))}
+        errs = [abs(sc[(BF16, w)] - sc[(F32, w)]) / max(1.0, abs(sc[(F32, w)]))
+                for w in ("a", "b")]
+        print(f"[{tag}] the final hypotheses part ({len(a.yseq) - 2} and {len(b.yseq) - 2} "
+              f"tokens): offline scores of bfloat16's {sc[(BF16, 'a')]:.4f} / float32 "
+              f"{sc[(F32, 'a')]:.4f}, of float32's {sc[(BF16, 'b')]:.4f} / "
+              f"{sc[(F32, 'b')]:.4f}; float32 gap {sc[(F32, 'b')] - sc[(F32, 'a')]:.4f}")
+        if max(errs) > BF16_REL:
+            raise AssertionError(f"{tag}: the dtypes score one sequence apart: {errs}")
+    del models, streams
+    torch.cuda.empty_cache()
+    return launches, by_dtype
+
+
+def lm_bf16_twins(kernels, card) -> tuple:
+    """serve-lm's Transformer LM (LM_CONF, vocab 5000) and ESPnet's
+    sequential RNN LM (2 LSTM layers of 650, vocab 5000), each with its
+    bfloat16 twin (as ``build_lm(config, device, bfloat16)`` builds it; the
+    weights from seed 0): one nll batch of TWIN_LM_B rows of at most
+    TWIN_LM_LEN tokens, one warm-up and TWIN_ROUNDS timed calls a dtype in
+    turns: times, the rows' NLL within BF16_REL of float32's; the RNN LM's
+    LSTM kernel with float32 operands in both.  Returns (launches, by
+    dtype)."""
+    from llm_guided_asr_tpu_torch.convert import init_weights
+    from llm_guided_asr_tpu_torch.models.lm import (
+        ESPnetLanguageModel,
+        SequentialRNNLM,
+        SequentialRNNLMConfig,
+        TransformerLM,
+        TransformerLMConfig,
+    )
+
+    rng = np.random.default_rng(9)
+    text = torch.from_numpy(rng.integers(1, 4999, (TWIN_LM_B, TWIN_LM_LEN))).cuda()
+    lens = torch.from_numpy(rng.integers(TWIN_LM_LEN // 2, TWIN_LM_LEN + 1, TWIN_LM_B)).cuda()
+    launches, by_dtype = {}, {}
+    for tag, build, lstm in (
+            ("transformer LM", lambda dt: TransformerLM(TransformerLMConfig(
+                vocab_size=5000, dropout_rate=0.0, **LM_CONF), device="cuda", dtype=dt), False),
+            ("seq_rnn LM", lambda dt: SequentialRNNLM(SequentialRNNLMConfig(vocab_size=5000),
+                                                      device="cuda", dtype=dt), True)):
+        models = {dt: ESPnetLanguageModel(build(dt), 5000).eval() for dt in (F32, BF16)}
+        init_weights(models[F32], seed=0)
+        models[BF16].load_state_dict(models[F32].state_dict())
+        nll, ms = {}, {F32: [], BF16: []}
+        with torch.inference_mode():
+            for dt in (F32, BF16):
+                models[dt].nll(text, lens)
+            torch.cuda.synchronize()
+            reset_counts(kernels)
+            for r in range(TWIN_ROUNDS):
+                for dt in ((F32, BF16) if r % 2 == 0 else (BF16, F32)):
+                    t0 = time.perf_counter()
+                    nll[dt], _ = models[dt].nll(text, lens)
+                    torch.cuda.synchronize()
+                    ms[dt].append((time.perf_counter() - t0) * 1e3)
+        n = 2 * models[F32].lm.cfg.nlayers * TWIN_ROUNDS if lstm else 0
+        by = check_dtype_launches(f"serve-bf16 {tag}", kernels,
+                                  {"lstm_fwd": {F32: n}} if lstm else {})
+        launches = add_counts(launches, counts(kernels))
+        for name, d in by.items():
+            for dt, c in d.items():
+                by_dtype.setdefault(name, {})[dt] = by_dtype.get(name, {}).get(dt, 0) + c
+        err = ((nll[BF16] - nll[F32]).abs() / nll[F32].abs().clamp(min=1.0)).max().item()
+        print(f"[serve-bf16 {tag}] nll of [{TWIN_LM_B}, <= {TWIN_LM_LEN}] tokens, "
+              f"{TWIN_ROUNDS} calls each: float32 median {float(np.median(ms[F32])):.2f} ms, "
+              f"bfloat16 {float(np.median(ms[BF16])):.2f} ms; rows' NLL in bfloat16 within "
+              f"{err:.2e} of float32's (tol {BF16_REL}) [{card}]")
+        if err > BF16_REL:
+            raise AssertionError(f"serve-bf16 {tag}: bfloat16 NLL {err} from float32's")
+        del models
         torch.cuda.empty_cache()
     return launches, by_dtype
 
@@ -6020,8 +6371,13 @@ def train_bf16_twins(kernels, card) -> list:
     TRD_B x 10 s (the encoder kernels in bfloat16 forward and backward, the
     WKV kernels in float32 as JAX runs them), the E-Branchformer and the
     MultiConvformer CTC/attention models at ENC_B x 10 s, each at
-    TWIN_BLOCKS blocks of full width.  Returns each case's bfloat16
+    TWIN_BLOCKS blocks of full width; then the SSL-frontend model
+    (build_twin_ssl, SSL_B) and AV-HuBERT Base (TWIN_BLOCKS of its 12
+    layers, AVH_B), as train-ssl and train-avhubert train them, and the ST
+    model (ST_B; the encoder at TWIN_BLOCKS blocks, the LLM frozen; the
+    translation and source losses).  Returns each case's bfloat16
     (launches, launches by dtype)."""
+    from llm_guided_asr_tpu_torch.tasks.st import ST_BATCH_ARGS
     import dataclasses
 
     from llm_guided_asr_tpu_torch.convert import init_weights
@@ -6043,12 +6399,21 @@ def train_bf16_twins(kernels, card) -> list:
                 "multiconvformer", train=True,
                 **{**NEW_ENCODERS["multiconvformer"], "num_blocks": TWIN_BLOCKS}), ENC_B,
              {**enc, "dwconv1d_fwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS,
-              "dwconv1d_bwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS}, ())):
+              "dwconv1d_bwd": (len(MCF_KERNELS) + 1) * TWIN_BLOCKS}, ()),
+            ("ssl", lambda: build_twin_ssl(train=True), SSL_B, enc, ()),
+            ("avhubert", lambda: build_serve_asr(
+                "avhubert", train=True, **{**AVH_ENCODER, "num_blocks": TWIN_BLOCKS}), AVH_B,
+             {}, ())):
         f32 = build().train()
         out.append(train_bf16_case(tag, f32, bf16_twin(f32), train_batch(b, seed=5), 1, 3, (),
                                    kernels, card, per_step=per_step, f32_rows=f32_rows))
         del f32
         torch.cuda.empty_cache()
+    f32 = build_st(num_blocks=TWIN_BLOCKS).train()
+    out.append(train_bf16_case("st", f32, bf16_twin(f32), st_batch(ST_B), 1, 3, (), kernels,
+                               card, frozen=["llm"], per_step=enc, args=ST_BATCH_ARGS))
+    del f32
+    torch.cuda.empty_cache()
     return out
 
 

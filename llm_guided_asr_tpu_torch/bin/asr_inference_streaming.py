@@ -99,6 +99,9 @@ class Speech2TextStreaming:
         self._frames_done = 0
         self._feats = torch.zeros((0, self._f.n_mels), device=self.device)
         self._sub_done = 0
+        # float32 whatever the model computes in, as JAX's (:134-137): the
+        # contexts stay float32 across chunks, the encoder rows and CTC
+        # log-probs are kept in float32
         self._ctxs = torch.zeros((self._n_layers, 1, self._d), device=self.device)
         self._cap = 16 * self._block
         self._enc = torch.zeros((self._cap, self._d), device=self.device)

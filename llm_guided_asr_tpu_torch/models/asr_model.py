@@ -25,19 +25,21 @@ pre-encoder and the length-adaptor and BERT post-encoders
 SpecAug.
 
 Compute dtype (JAX's ``dtype``, ``train_dtype: bfloat16`` or ``use_amp``):
-float32, or bfloat16 for every encoder of :data:`BF16_ENCODERS`, every
-decoder and both post-encoders, behind the log-mel frontend (or features
-in).  Parameters, buffers and gradients stay float32; the features are
-cast to the compute dtype at the encoder's input (JAX ``encode``), and
+float32 or bfloat16, for every frontend, pre-encoder, encoder, decoder and
+post-encoder.  Parameters, buffers and gradients stay float32; the features
+are cast to the compute dtype at the encoder's input (JAX ``encode``), and
 every block computes in its input's type (models/transformer.py), except
 where flax computes a module in float32 inside a bfloat16 model (the LSTM
 cells, built without a dtype; the state-space FFT convolutions).  The
-frontend stays float32 (JAX drops its DFT to one MXU pass for a bfloat16
-model; the port keeps the float32 product).  The CTC and attention
-log-softmaxes and losses run in float32.  The SSL frontend, the sinc
-pre-encoder, the fused, sliding-window and multichannel frontends, and the
-streaming, AV-HuBERT and pretrained-trunk encoders raise in bfloat16,
-naming their ROADMAP item.
+log-mel, fused, sliding-window and multichannel frontends stay float32, as
+JAX builds them without a dtype (JAX models/asr_model.py:169-190,
+models/preencoder.py:29-44; JAX drops the log-mel DFT to one MXU pass for
+a bfloat16 model, the port keeps the float32 product), and their features
+are cast once at the encoder's input.  The frozen SSL frontend computes in
+the compute dtype from the raw waveform on (JAX :167), so its features
+are normalized in the compute dtype (the MVNs run in their input's type,
+JAX :246-307) and enter the encoder as they are.  The CTC and attention
+log-softmaxes and losses run in float32.
 """
 
 from __future__ import annotations
@@ -56,7 +58,7 @@ from llm_guided_asr_tpu_torch.models.conformer import (
 )
 from llm_guided_asr_tpu_torch.models.rnn_decoder import RNNDecoder, RNNDecoderConfig
 from llm_guided_asr_tpu_torch.models.s4_decoder import S4Decoder, S4DecoderConfig
-from llm_guided_asr_tpu_torch.models.transformer import Dense
+from llm_guided_asr_tpu_torch.models.transformer import Dense, register_compute_dtype, to_compute
 from llm_guided_asr_tpu_torch.models.transformer_decoder import (
     ConvTransformerDecoder,
     TransformerDecoder,
@@ -80,48 +82,13 @@ from llm_guided_asr_tpu_torch.ops.specaug import SpecAugConfig, specaug
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG
 
-# the JAX package's bfloat16 choices the port does not have yet
-ITEM_BF16 = "ROADMAP Queue 1 item 7b"
 COMPUTE_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def refuse_bf16(what: str) -> None:
-    raise NotImplementedError(f"{what} in bfloat16 is not ported yet ({ITEM_BF16})")
-
-
-# the encoders that compute in bfloat16 (models/conformer.py make_encoder)
-BF16_ENCODERS = ("conformer", "transformer", "longformer", "whisper_style", "e_branchformer",
-                 "branchformer", "multiconvformer", "rnn", "vgg_rnn", "s4")
-
-
-def check_compute_dtype(dtype: torch.dtype, cfg, encoder_type: str) -> None:
-    """float32, or bfloat16 for an encoder of :data:`BF16_ENCODERS` behind
-    the log-mel frontend (or features in); bfloat16 with any other encoder
-    or frontend raises."""
+def check_compute_dtype(dtype: torch.dtype) -> None:
+    """float32 or bfloat16; any other dtype raises."""
     if dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute dtype {dtype}; expected one of {COMPUTE_DTYPES}")
-    if dtype != torch.bfloat16:
-        return
-    if encoder_type not in BF16_ENCODERS:
-        refuse_bf16(f"encoder {encoder_type!r}")
-    f = cfg.frontend
-    if f is not None and (f.fused or f.multichannel or f.type == "sliding_window"):
-        refuse_bf16("the fused, sliding-window or multichannel frontend")
-
-
-def register_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
-    """The compute dtype as an empty, non-persistent buffer ``compute``: it
-    is in no checkpoint and follows ``.double()`` (a float64 check) and
-    ``.to()`` as the parameters do; ``module.compute.dtype`` reads it."""
-    module.register_buffer("compute", torch.empty(0, dtype=dtype), persistent=False)
-
-
-def to_compute(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
-    """``x`` in ``module``'s compute dtype: where rows enter the model's
-    blocks (the features at the encoder, as JAX ``encode`` casts them;
-    encoder or LLM rows at a head or decoder, as flax's Dense casts its
-    input), the one place the model casts them."""
-    return x.to(module.compute.dtype)
 
 
 def embed_labels(decoder: nn.Module, labels: torch.Tensor) -> torch.Tensor:
@@ -281,11 +248,7 @@ class ASRModel(nn.Module):
         super().__init__()
         if cfg.ctc_type not in ("builtin", "builtin2", "brctc"):
             raise ValueError(f"ctc_type={cfg.ctc_type!r}; known: builtin, builtin2, brctc")
-        check_compute_dtype(dtype, cfg, cfg.encoder_type)
-        if dtype == torch.bfloat16:
-            for name in ("ssl_frontend", "preencoder"):
-                if getattr(cfg, name) is not None:
-                    refuse_bf16(name)
+        check_compute_dtype(dtype)
         dev = resolve_device(device)
         self.cfg = cfg
         with torch.device(dev):
@@ -293,7 +256,7 @@ class ASRModel(nn.Module):
             if cfg.ssl_frontend is not None:
                 from llm_guided_asr_tpu_torch.models.ssl_encoders import Wav2Vec2Encoder
 
-                self.ssl_frontend = Wav2Vec2Encoder(cfg.ssl_frontend).eval()
+                self.ssl_frontend = Wav2Vec2Encoder(cfg.ssl_frontend, dtype=dtype).eval()
                 n_feat = cfg.ssl_frontend.hidden_size
             elif cfg.frontend is not None:
                 n_feat = cfg.frontend.output_dim
@@ -310,7 +273,8 @@ class ASRModel(nn.Module):
 
                 self.preencoder = LightweightSincConvs(cfg.preencoder)
                 enc_in = self.preencoder.output_size
-            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, enc_in, device=dev)
+            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, enc_in, device=dev,
+                                        dtype=dtype)
             d = self.encoder.output_size
             if cfg.postencoder is not None:
                 self.postencoder = make_postencoder(cfg.postencoder, d)

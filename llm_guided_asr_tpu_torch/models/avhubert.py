@@ -22,6 +22,15 @@ stem, a 44-pixel one (0, 1) for the pool and a 22-pixel one (0, 1) for a
 1e-6; the GELU of the positional embedding is the tanh form; every other
 LayerNorm is the 1e-5 helper.  No hand-written kernel runs here: the
 convolutions, GEMMs and the attention are PyTorch's.
+
+Compute dtype (JAX's ``dtype``): :class:`AVHubertEncoder` casts the audio
+features and the video to it (JAX :212, :218), and every conv, Dense and
+LayerNorm computes in it, the GroupNorms and LayerNorms with float32
+statistics; the modality-dropout mask and the zeros of a missing modality
+are in it too (:182-197).  The port turns TF32 off for parity
+(utils/device.py), which reaches float32 products alone: in bfloat16 the
+convolutions and GEMMs take bfloat16 operands on the tensor cores with
+float32 accumulation whatever that flag says.
 """
 
 from __future__ import annotations
@@ -35,9 +44,15 @@ from torch import nn
 
 from llm_guided_asr_tpu_torch.models.conformer import gelu_tanh
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    GroupNorm,
     LayerNorm,
     MultiHeadedAttention,
     PositionwiseFeedForward,
+    add_and_norm,
+    conv_in_dtype,
+    register_compute_dtype,
+    to_compute,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -79,7 +94,8 @@ def same_pad(sizes: Sequence[int], kernel: Sequence[int],
 
 class SameConv(nn.Module):
     """A bias-free flax ``nn.Conv`` with SAME padding, channels first:
-    2-D ([N, C, H, W]) or 3-D ([N, C, T, H, W]) by the kernel's rank."""
+    2-D ([N, C, H, W]) or 3-D ([N, C, T, H, W]) by the kernel's rank, in
+    its input's type."""
 
     def __init__(self, cin: int, cout: int, kernel: Tuple[int, ...],
                  strides: Optional[Tuple[int, ...]] = None):
@@ -91,11 +107,11 @@ class SameConv(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.pad(x, same_pad(x.shape[2:], self.kernel, self.strides))
         conv = F.conv3d if len(self.kernel) == 3 else F.conv2d
-        return conv(x, self.weight, stride=self.strides)
+        return conv(x, self.weight.to(x.dtype), stride=self.strides)
 
 
-def group_norm(channels: int) -> nn.GroupNorm:
-    return nn.GroupNorm(min(32, channels), channels, eps=GN_EPS)
+def group_norm(channels: int) -> GroupNorm:
+    return GroupNorm(min(32, channels), channels, eps=GN_EPS)
 
 
 class BasicBlock2D(nn.Module):
@@ -160,7 +176,7 @@ class ConvPositionalEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.pad(x.transpose(1, 2), same_pad(x.shape[1:2], (self.kernel,), (1,)))
-        return x + gelu_tanh(self.conv(h).transpose(1, 2))
+        return x + gelu_tanh(conv_in_dtype(self.conv, h).transpose(1, 2))
 
 
 class _TrunkLayer(nn.Module):
@@ -179,8 +195,8 @@ class _TrunkLayer(nn.Module):
     def forward(self, x: torch.Tensor, mask: torch.Tensor,
                 rng: Optional[StepRNG] = None) -> torch.Tensor:
         h = self.ln1(x)
-        x = x + self.attn(h, h, h, mask, rng=rng)
-        return x + self.ffn(self.ln2(x), rng)
+        x, h = add_and_norm(x, self.attn(h, h, h, mask, rng=rng), self.ln2)
+        return x + self.ffn(h, rng)
 
 
 class AVHubertModel(nn.Module):
@@ -190,13 +206,13 @@ class AVHubertModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         d = cfg.encoder_embed_dim
-        self.audio_proj = nn.Linear(audio_dim, d)
+        self.audio_proj = Dense(audio_dim, d)
         if not cfg.audio_only:
             self.video_resnet = ResEncoder(cfg)
-            self.video_proj = nn.Linear(cfg.resnet_channels[-1], d)
+            self.video_proj = Dense(cfg.resnet_channels[-1], d)
         fused = 2 * d if cfg.modality_fuse == "concat" else d
         self.fuse_norm = LayerNorm(fused)
-        self.post_proj = nn.Linear(fused, d)
+        self.post_proj = Dense(fused, d)
         self.pos_conv = ConvPositionalEmbedding(d, cfg.conv_pos, cfg.conv_pos_groups)
         for i in range(cfg.encoder_layers):
             setattr(self, f"layer_{i}", _TrunkLayer(cfg))
@@ -252,19 +268,23 @@ class AVHubertEncoder(nn.Module):
     """The registry's encoder: (feats, lengths, rng) -> (``out_proj`` of the
     trunk's output, lengths); no subsampling.  Audio-only at the task level
     (the reference's ``audio_only``); ``video`` [B, T, H, W] takes the
-    audio-visual path of a model built with ``audio_only=False``."""
+    audio-visual path of a model built with ``audio_only=False``.  Both
+    inputs are cast to ``dtype``, the compute dtype."""
 
     def __init__(self, cfg: AVHubertConfig, output_size: int, input_size: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.output_size = output_size
         with torch.device(resolve_device(device)):
+            register_compute_dtype(self, dtype)
             self.trunk = AVHubertModel(cfg, input_size)
-            self.out_proj = nn.Linear(cfg.encoder_embed_dim, output_size)
+            self.out_proj = Dense(cfg.encoder_embed_dim, output_size)
 
     def forward(self, feats: Optional[torch.Tensor], lengths: torch.Tensor,
                 rng: Optional[StepRNG] = None, video: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+        feats = None if feats is None else to_compute(self, feats)
+        video = None if video is None else to_compute(self, video)
         x, out_lens = self.trunk(feats, lengths, video, rng)
         return self.out_proj(x), out_lens

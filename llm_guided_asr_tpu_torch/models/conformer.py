@@ -426,14 +426,21 @@ class WhisperStyleEncoder(nn.Module):
 
 
 def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
-                 device: Union[str, torch.device] = "cuda") -> nn.Module:
+                 device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32) -> nn.Module:
     """Encoder registry: the Conformer, the Transformer, Longformer and
     Whisper-style encoders here, the E-Branchformer and Branchformer of
     models/branchformer.py, the contextual-block (streaming) Conformer of
     models/streaming.py, the MultiConvformer and (VGG-)RNN encoders of
     models/extra_encoders.py, the audio-only AV-HuBERT of models/avhubert.py,
     the S4 encoder of models/state_spaces.py and the pretrained ``wav2vec2_hf``/``hubert_hf``/``whisper_hf`` encoders of
-    models/ssl_encoders.py (JAX models/conformer.py:385-406)."""
+    models/ssl_encoders.py (JAX models/conformer.py:385-406).
+
+    Every encoder computes in its input's type; ``dtype`` (the model's
+    compute dtype) reaches those that cast an input of their own, as the
+    JAX modules with ``dtype`` do: the streaming encoder's chunk features,
+    AV-HuBERT's audio and video, and the pretrained trunks' waveform or
+    frames."""
     if encoder_type == "conformer":
         return ConformerEncoder(cfg, input_size, device=device)
     if encoder_type == "transformer":
@@ -454,7 +461,7 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
         from llm_guided_asr_tpu_torch.models.streaming import ContextualBlockConformerEncoder
 
         return ContextualBlockConformerEncoder(cfg, input_size, block_size=cfg.block_size,
-                                               device=device)
+                                               device=device, dtype=dtype)
     if encoder_type == "multiconvformer":
         from llm_guided_asr_tpu_torch.models.extra_encoders import MultiConvformerEncoder
 
@@ -472,7 +479,7 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
                                 encoder_attention_heads=cfg.attention_heads,
                                 encoder_ffn_embed_dim=cfg.linear_units,
                                 dropout=cfg.dropout_rate, audio_only=True)
-        return AVHubertEncoder(av_cfg, cfg.output_size, input_size, device=device)
+        return AVHubertEncoder(av_cfg, cfg.output_size, input_size, device=device, dtype=dtype)
     if encoder_type == "s4":
         from llm_guided_asr_tpu_torch.models.state_spaces import S4Encoder
 
@@ -487,5 +494,5 @@ def make_encoder(encoder_type: str, cfg: ConformerConfig, input_size: int,
             raise ValueError(f"{encoder_type} needs encoder_conf.model_name_or_path")
         kind = encoder_type[: -len("_hf")]
         return SSLEncoderWrapper(kind, ssl_config(kind, read_hf_config(cfg.model_name_or_path)),
-                                 cfg.output_size, device=device)
+                                 cfg.output_size, device=device, dtype=dtype)
     raise NotImplementedError(f"encoder type {encoder_type!r} is not ported yet")

@@ -158,7 +158,7 @@ class LLMGuidedASRModel(nn.Module):
         if cfg.llm_score_mode not in SCORE_MODES:
             raise ValueError(f"llm_score_mode={cfg.llm_score_mode!r}, not one of {SCORE_MODES}")
         require_log_mel(cfg.frontend, "the guided model")
-        check_compute_dtype(dtype, cfg, cfg.encoder_type)
+        check_compute_dtype(dtype)
         dev = resolve_device(device)
         self.cfg = cfg
         # the guided decoder is encoder.output_size wide, as in JAX; the
@@ -169,7 +169,8 @@ class LLMGuidedASRModel(nn.Module):
         ctc_dim = cfg.ctc_dim
         with torch.device(dev):
             register_compute_dtype(self, dtype)
-            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
+            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev,
+                                        dtype=dtype)
             d_enc = self.encoder.output_size
             self.ctc_head = Dense(d_enc, ctc_dim)
             if cfg.ctc_vocab_size:

@@ -22,7 +22,12 @@ vocabulary.  As in the JAX model:
   where JAX's gather clamps it silently;
 - the LLM is frozen and its hidden states carry no gradient (:159);
 - sos/eos of the translation are the LLM's response delimiters, the
-  source side's ``src_vocab_size - 1`` (:64-78).
+  source side's ``src_vocab_size - 1`` (:64-78);
+- the ASR side (encoder, ``ctc_head``, ``embed``, the guided blocks,
+  ``after_norm``, ``output_layer``, the ``extra_asr_decoder``) computes in
+  ``dtype`` (float32, or bfloat16 over float32 parameters, as the guided
+  model does), the LLM's response states cast to it (:162); the source
+  CTC log-softmax (:145) and the losses run in float32.
 
 Decoding (bin/st_inference.py) takes the full-prefix scorer, as the JAX
 package does: ``decoder_logits(..., only_last=True)`` projects the last
@@ -41,6 +46,7 @@ from llm_guided_asr_tpu_torch.models.conformer import ConformerConfig
 from llm_guided_asr_tpu_torch.models.llm.llama import LlamaConfig
 from llm_guided_asr_tpu_torch.models.llm.prompt import PromptTemplate
 from llm_guided_asr_tpu_torch.models.llm_guided import LLMGuidedASRModel
+from llm_guided_asr_tpu_torch.models.transformer import to_compute
 from llm_guided_asr_tpu_torch.models.transformer_decoder import (
     TransformerDecoder,
     TransformerDecoderConfig,
@@ -116,11 +122,12 @@ class LLMGuidedSTConfig:
 class LLMGuidedSTModel(LLMGuidedASRModel):
     """The ST model: the guided ASR model's modules (encoder, source-vocab
     ``ctc_head``, ``llm``, ``embed``, ``block_{i}``, ``after_norm``,
-    ``output_layer``) plus the optional ``extra_asr_decoder``."""
+    ``output_layer``) plus the optional ``extra_asr_decoder``, computing in
+    ``dtype``."""
 
     def __init__(self, cfg: LLMGuidedSTConfig, llm_dtype=torch.bfloat16,
-                 device: Union[str, torch.device] = "cuda"):
-        super().__init__(cfg, llm_dtype=llm_dtype, device=device)
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
+        super().__init__(cfg, llm_dtype=llm_dtype, device=device, dtype=dtype)
         if cfg.extra_asr_decoder is not None:
             with torch.device(self.ctc_head.weight.device):
                 self.extra_asr_decoder = TransformerDecoder(
@@ -142,6 +149,7 @@ class LLMGuidedSTModel(LLMGuidedASRModel):
                        rng: Optional[StepRNG] = None, only_last: bool = False) -> torch.Tensor:
         """The guided decoder over the translation prefix -> [B, L, V]
         logits, or [B, V] at each row's last position with ``only_last``."""
+        encoder_out = to_compute(self, encoder_out)
         x = self.embed(self._llm_response_states(encoder_out, encoder_out_lengths, ys_in,
                                                  ys_in_lengths))
         tgt_mask = causal_attn_mask(ys_in_lengths, ys_in.shape[1])
@@ -175,8 +183,8 @@ class LLMGuidedSTModel(LLMGuidedASRModel):
             zero = torch.zeros((), dtype=torch.float32, device=enc.device)
             loss_asr_ctc = loss_asr_att = zero
             if cfg.mtlalpha > 0.0:
-                loss_asr_ctc = ctc_loss(self.ctc_head(enc), enc_lens, src_text, src_text_lengths,
-                                        cfg.blank_id)
+                loss_asr_ctc = ctc_loss(self.ctc_head(enc, f32_out=True), enc_lens, src_text,
+                                        src_text_lengths, cfg.blank_id)
                 stats["loss_asr_ctc"] = loss_asr_ctc
             if cfg.mtlalpha < 1.0 and cfg.extra_asr_decoder is not None:
                 s_in, s_out = add_sos_eos(src_text, src_text_lengths, cfg.src_sos_id,

@@ -17,6 +17,16 @@
 
 The bare flax LayerNorms of the Transformer LM (``input_norm``,
 ``after_norm``) take flax's epsilon 1e-6; its encoder layers take 1e-5.
+
+Compute dtype (JAX's ``dtype``, passed from code; the LM task, the LM
+CLIs and the recognizer's fused LM build float32, as JAX's do): the
+embedding rows are cast to it (flax's ``nn.Embed`` with ``dtype``).  The
+Transformer LM computes every layer in it; the RNN LM's cells take no
+dtype in JAX (models/lm.py:116-118), so flax promotes their input to the
+float32 parameters: the LSTM runs on the kernel's float32 entry and the GRU
+its float32 cell, and the output Dense casts the states back.  Both return
+the logits in float32, unrounded (models/transformer.py Dense ``f32_out``):
+every caller takes a float32 log-softmax of them at once (:151, :171).
 """
 
 from __future__ import annotations
@@ -29,8 +39,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    LayerNorm,
     PositionalEncoding,
     TransformerEncoderLayer,
+    at_least_f32,
+    register_compute_dtype,
+    to_compute,
 )
 from llm_guided_asr_tpu_torch.ops.lstm import lstm_recurrence
 from llm_guided_asr_tpu_torch.utils.config import filter_known_fields
@@ -58,9 +73,11 @@ class TransformerLMConfig:
 
 
 class TransformerLM(nn.Module):
-    """(tokens [B, L], lengths [B]) -> logits [B, L, V] under a causal mask."""
+    """(tokens [B, L], lengths [B]) -> float32 logits [B, L, V] under a
+    causal mask, computed in ``dtype``."""
 
-    def __init__(self, cfg: TransformerLMConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: TransformerLMConfig, device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if cfg.pos_enc != "sinusoidal":
             # the reference adds no positional encoding for None, the JAX
@@ -71,26 +88,27 @@ class TransformerLM(nn.Module):
                              f"the reference adds none)")
         self.cfg = cfg
         with torch.device(resolve_device(device)):
+            register_compute_dtype(self, dtype)
             self.embed = nn.Embedding(cfg.vocab_size, cfg.embed_unit)
-            self.input_proj = nn.Linear(cfg.embed_unit, cfg.att_unit)
-            self.input_norm = nn.LayerNorm(cfg.att_unit, eps=1e-6)
+            self.input_proj = Dense(cfg.embed_unit, cfg.att_unit)
+            self.input_norm = LayerNorm(cfg.att_unit, eps=1e-6)
             self.pos_enc = PositionalEncoding(cfg.dropout_rate)
             for i in range(cfg.layer):
                 setattr(self, f"block_{i}", TransformerEncoderLayer(
                     cfg.att_unit, cfg.head, cfg.unit, cfg.dropout_rate, 0.0))
-            self.after_norm = nn.LayerNorm(cfg.att_unit, eps=1e-6)
-            self.output = nn.Linear(cfg.att_unit, cfg.vocab_size)
+            self.after_norm = LayerNorm(cfg.att_unit, eps=1e-6)
+            self.output = Dense(cfg.att_unit, cfg.vocab_size)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 rng: Optional[StepRNG] = None) -> torch.Tensor:
         cfg = self.cfg
-        x = self.input_norm(self.input_proj(self.embed(tokens)))
+        x = self.input_norm(self.input_proj(to_compute(self, self.embed(tokens))))
         x = torch.relu(dropout(x, active_rate(self, cfg.dropout_rate), rng))
         x = self.pos_enc(x, rng=rng)
         mask = causal_attn_mask(lengths, tokens.shape[1])
         for i in range(cfg.layer):
             x = getattr(self, f"block_{i}")(x, mask, rng)
-        return self.output(self.after_norm(x))
+        return self.output(self.after_norm(x), f32_out=True)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -172,27 +190,32 @@ class GRUCell(nn.Module):
 
 
 class SequentialRNNLM(nn.Module):
-    """(tokens [B, L], lengths [B]) -> logits [B, L, V]; the recurrence runs
-    over all L positions (``lengths`` is not read, as in JAX)."""
+    """(tokens [B, L], lengths [B]) -> float32 logits [B, L, V]; the
+    recurrence runs over all L positions (``lengths`` is not read, as in
+    JAX), in float32 whatever ``dtype`` (the embedding's and the output
+    Dense's) is."""
 
-    def __init__(self, cfg: SequentialRNNLMConfig, device: Union[str, torch.device] = "cuda"):
+    def __init__(self, cfg: SequentialRNNLMConfig, device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         cells = {"lstm": LSTMCell, "gru": GRUCell}
         if cfg.rnn_type not in cells:
             raise ValueError(f"rnn_type={cfg.rnn_type!r}; expected lstm or gru")
         self.cfg = cfg
         with torch.device(resolve_device(device)):
+            register_compute_dtype(self, dtype)
             self.embed = nn.Embedding(cfg.vocab_size, cfg.unit)
             for i in range(cfg.nlayers):
                 setattr(self, f"rnn_{i}", cells[cfg.rnn_type](cfg.unit))
-            self.output = nn.Linear(cfg.unit, cfg.vocab_size)
+            self.output = Dense(cfg.unit, cfg.vocab_size)
 
     def forward(self, tokens: torch.Tensor, lengths: torch.Tensor,
                 rng: Optional[StepRNG] = None) -> torch.Tensor:
-        x = self.embed(tokens)
+        # the cells' float32, as flax promotes the compute-dtype rows
+        x = at_least_f32(to_compute(self, self.embed(tokens)))
         for i in range(self.cfg.nlayers):
             x = getattr(self, f"rnn_{i}")(x)
-        return self.output(x)
+        return self.output(x, self.compute.dtype, f32_out=True)
 
 
 class ESPnetLanguageModel(nn.Module):
@@ -203,6 +226,12 @@ class ESPnetLanguageModel(nn.Module):
         self.lm = lm
         self.vocab_size = vocab_size
         self.ignore_id = ignore_id
+
+    @property
+    def compute(self) -> torch.Tensor:
+        """The LM's compute-dtype buffer (models/transformer.py
+        register_compute_dtype)."""
+        return self.lm.compute
 
     def nll(self, text: torch.Tensor, text_lengths: torch.Tensor,
             rng: Optional[StepRNG] = None) -> Tuple[torch.Tensor, torch.Tensor]:

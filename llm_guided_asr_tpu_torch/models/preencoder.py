@@ -15,6 +15,13 @@ Module names follow the flax modules (``filters.f``, ``bn0``, ``dconv_1``,
 a grouped conv of one input channel per group keeps flax's [K, C_out]
 layout, as the port's depthwise convolutions do.  No hand-written kernel
 runs here.
+
+Compute dtype: the frames' (the model casts them).  The sinc kernel is
+rebuilt from the band edges in float32 and cast to it (JAX :99-101); the
+log compression, the grouped convs, the pools and the activations compute
+in it; the batch norms take float32 statistics (and running buffers) and
+normalize in float32 before casting back, as JAX's ``_ChannelBN`` does
+(:117-131).
 """
 
 from __future__ import annotations
@@ -27,7 +34,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from llm_guided_asr_tpu_torch.models.transformer import Dense, LayerNorm, conv_in_dtype
+from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    LayerNorm,
+    at_least_f32,
+    conv_in_dtype,
+)
 from llm_guided_asr_tpu_torch.utils.rng import StepRNG, active_rate, dropout
 
 
@@ -91,15 +103,16 @@ class SincConv1d(nn.Module):
         return torch.cat([torch.flip(right, (1,)), center, right], dim=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[B*, D] -> [B*, C, D - K + 1] (VALID)."""
-        return F.conv1d(x[:, None, :], self.kernel()[:, None, :])
+        """[B*, D] -> [B*, C, D - K + 1] (VALID), in x's type."""
+        return F.conv1d(x[:, None, :], self.kernel().to(x.dtype)[:, None, :])
 
 
 class ChannelBatchNorm(nn.Module):
     """Per-channel batch norm over every (row, position) of [N, C, D]
     (``_ChannelBN``): batch statistics in training mode (the biased
     variance E[x^2] - E[x]^2), which update the running ones at momentum
-    0.9; the running ones in eval mode."""
+    0.9; the running ones in eval mode.  Statistics and the normalization
+    in float32 (at least), the output in the input's type."""
 
     def __init__(self, c: int, momentum: float = 0.9, eps: float = 1e-5):
         super().__init__()
@@ -116,10 +129,11 @@ class ChannelBatchNorm(nn.Module):
         self.running_var.fill_(1.0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = at_least_f32(x)
         if self.training:
-            xf = x.transpose(0, 1).reshape(x.shape[1], -1)
-            mean = xf.mean(dim=1)
-            var = torch.clamp((xf * xf).mean(dim=1) - mean * mean, min=0.0)
+            flat = xf.transpose(0, 1).reshape(x.shape[1], -1)
+            mean = flat.mean(dim=1)
+            var = torch.clamp((flat * flat).mean(dim=1) - mean * mean, min=0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1 - m) * mean.detach())
@@ -127,7 +141,8 @@ class ChannelBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
-        return ((x - mean[:, None]) * inv[:, None] * self.weight[:, None] + self.bias[:, None])
+        y = (xf - mean[:, None]) * inv[:, None] * self.weight[:, None] + self.bias[:, None]
+        return y if y.dtype == x.dtype else y.to(x.dtype)
 
 
 class GroupedConv1d(nn.Module):
@@ -141,9 +156,9 @@ class GroupedConv1d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(c_out))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """[N, C_in, D] -> [N, C_out, D']."""
-        return F.conv1d(x, self.weight.t()[:, None, :], self.bias, stride=self.stride,
-                        groups=self.c_in)
+        """[N, C_in, D] -> [N, C_out, D'], in x's type."""
+        return F.conv1d(x, self.weight.to(x.dtype).t()[:, None, :], self.bias.to(x.dtype),
+                        stride=self.stride, groups=self.c_in)
 
 
 @dataclasses.dataclass(frozen=True)

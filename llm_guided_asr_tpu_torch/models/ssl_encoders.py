@@ -16,6 +16,18 @@ positional conv of either layout.
 Every GELU here is the exact erf form (``jax.nn.gelu(approximate=False)``),
 not the tanh form of the port's Conformer.  Attention is plain einsum and
 softmax in float32, as in JAX: no hand-written kernel runs here.
+
+Compute dtype (JAX's ``dtype``): each trunk casts its input to its
+``dtype`` (the model's compute dtype) and every conv, Dense and LayerNorm
+computes in it, the norms' statistics and the attention softmaxes in
+float32.  The wav2vec2/HuBERT trunk casts the raw waveform itself to
+bfloat16 before the conv feature extractor, as the JAX module does
+(ssl_encoders.py:165): its first conv then reads rounded samples, which
+a float32 conv in front would not; the port copies the rounding so that
+the two packages' bfloat16 trunks see the same input.  Whisper's position
+table is cast to the compute dtype before the add (:338).  A LayerNorm
+that reads a residual add normalizes the unrounded sum
+(models/transformer.py add_and_norm).
 """
 
 from __future__ import annotations
@@ -33,6 +45,15 @@ from llm_guided_asr_tpu_torch.models.hf_checkpoint import (
     load_hf_state_dict,
     read_hf_config,
     strip_prefix,
+)
+from llm_guided_asr_tpu_torch.models.transformer import (
+    Dense,
+    GroupNorm,
+    LayerNorm,
+    add_and_norm,
+    conv_in_dtype,
+    register_compute_dtype,
+    to_compute,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -96,7 +117,7 @@ class _W2VFeatureExtractor(nn.Module):
     """VALID strided convs over the waveform, each followed by GELU: group
     norm (groups = channels, statistics over every frame of the padded
     row, pads included, as in JAX) on layer 0 only, or a LayerNorm over
-    the channels on every layer."""
+    the channels on every layer; in the input's type."""
 
     def __init__(self, cfg: W2VConfig):
         super().__init__()
@@ -107,10 +128,10 @@ class _W2VFeatureExtractor(nn.Module):
                     nn.Conv1d(cin, c, k, stride=s, bias=cfg.conv_bias))
             if cfg.feat_extract_norm == "group" and i == 0:
                 setattr(self, "conv_layers_0_layer_norm",
-                        nn.GroupNorm(c, c, eps=cfg.layer_norm_eps))
+                        GroupNorm(c, c, eps=cfg.layer_norm_eps))
             elif cfg.feat_extract_norm == "layer":
                 setattr(self, f"conv_layers_{i}_layer_norm",
-                        nn.LayerNorm(c, eps=cfg.layer_norm_eps))
+                        LayerNorm(c, eps=cfg.layer_norm_eps))
             cin = c
 
     def forward(self, speech: torch.Tensor) -> torch.Tensor:
@@ -118,7 +139,7 @@ class _W2VFeatureExtractor(nn.Module):
         cfg = self.cfg
         x = speech[:, None, :]  # [B, 1, N]
         for i in range(len(cfg.conv_dim)):
-            x = getattr(self, f"conv_layers_{i}_conv")(x)
+            x = conv_in_dtype(getattr(self, f"conv_layers_{i}_conv"), x)
             if cfg.feat_extract_norm == "group" and i == 0:
                 x = self.conv_layers_0_layer_norm(x)
             elif cfg.feat_extract_norm == "layer":
@@ -135,10 +156,10 @@ class _SelfAttention(nn.Module):
     def __init__(self, d: int, heads: int, k_bias: bool = True):
         super().__init__()
         self.h, self.hd = heads, d // heads
-        self.q_proj = nn.Linear(d, d)
-        self.k_proj = nn.Linear(d, d, bias=k_bias)
-        self.v_proj = nn.Linear(d, d)
-        self.out_proj = nn.Linear(d, d)
+        self.q_proj = Dense(d, d)
+        self.k_proj = Dense(d, d, bias=k_bias)
+        self.v_proj = Dense(d, d)
+        self.out_proj = Dense(d, d)
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         b, t, d = x.shape
@@ -160,37 +181,40 @@ class _W2VLayer(nn.Module):
         d, eps = cfg.hidden_size, cfg.layer_norm_eps
         self.pre_norm = cfg.do_stable_layer_norm
         self.attention = _SelfAttention(d, cfg.num_attention_heads)
-        self.layer_norm = nn.LayerNorm(d, eps=eps)
-        self.feed_forward_intermediate_dense = nn.Linear(d, cfg.intermediate_size)
-        self.feed_forward_output_dense = nn.Linear(cfg.intermediate_size, d)
-        self.final_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.layer_norm = LayerNorm(d, eps=eps)
+        self.feed_forward_intermediate_dense = Dense(d, cfg.intermediate_size)
+        self.feed_forward_output_dense = Dense(cfg.intermediate_size, d)
+        self.final_layer_norm = LayerNorm(d, eps=eps)
 
     def _ff(self, z):
         return self.feed_forward_output_dense(F.gelu(self.feed_forward_intermediate_dense(z)))
 
     def forward(self, x: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
         if self.pre_norm:
-            x = x + self.attention(self.layer_norm(x), valid)
-            return x + self._ff(self.final_layer_norm(x))
-        x = self.layer_norm(x + self.attention(x, valid))
-        return self.final_layer_norm(x + self._ff(x))
+            x, h = add_and_norm(x, self.attention(self.layer_norm(x), valid),
+                                self.final_layer_norm)
+            return x + self._ff(h)
+        x = self.layer_norm(x, self.attention(x, valid))
+        return self.final_layer_norm(x, self._ff(x))
 
 
 class Wav2Vec2Encoder(nn.Module):
     """HF Wav2Vec2Model / HubertModel forward (eval mode):
-    [B, N] raw 16 kHz audio -> ([B, T, hidden], [B] lengths clamped to T)."""
+    [B, N] raw 16 kHz audio -> ([B, T, hidden], [B] lengths clamped to T),
+    computing in ``dtype`` from the waveform on."""
 
-    def __init__(self, cfg: W2VConfig):
+    def __init__(self, cfg: W2VConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         d, eps, k = cfg.hidden_size, cfg.layer_norm_eps, cfg.num_conv_pos_embeddings
+        register_compute_dtype(self, dtype)
         self.feature_extractor = _W2VFeatureExtractor(cfg)
-        self.feature_projection_layer_norm = nn.LayerNorm(cfg.conv_dim[-1], eps=eps)
-        self.feature_projection_projection = nn.Linear(cfg.conv_dim[-1], d)
+        self.feature_projection_layer_norm = LayerNorm(cfg.conv_dim[-1], eps=eps)
+        self.feature_projection_projection = Dense(cfg.conv_dim[-1], d)
         # weight norm folded at conversion: one plain grouped conv
         self.pos_conv_embed_conv = nn.Conv1d(d, d, k, padding=k // 2,
                                              groups=cfg.num_conv_pos_embedding_groups)
-        self.encoder_layer_norm = nn.LayerNorm(d, eps=eps)
+        self.encoder_layer_norm = LayerNorm(d, eps=eps)
         for i in range(cfg.num_hidden_layers):
             setattr(self, f"layers_{i}", _W2VLayer(cfg))
         self.output_size = d
@@ -198,17 +222,19 @@ class Wav2Vec2Encoder(nn.Module):
     def forward(self, speech: torch.Tensor, speech_lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        x = self.feature_extractor(speech)
+        # the raw waveform in the compute dtype, as JAX casts it (:165)
+        x = self.feature_extractor(to_compute(self, speech))
         lengths = torch.clamp(cfg.out_lengths(speech_lengths), max=x.shape[1])
         valid = make_valid_mask(lengths, x.shape[1])
         x = self.feature_projection_projection(self.feature_projection_layer_norm(x))
         x = x.masked_fill(~valid[..., None], 0.0)  # HF zeroes pads before the encoder
-        pos = self.pos_conv_embed_conv(x.transpose(1, 2)).transpose(1, 2)
+        pos = conv_in_dtype(self.pos_conv_embed_conv, x.transpose(1, 2)).transpose(1, 2)
         if cfg.num_conv_pos_embeddings % 2 == 0:
             pos = pos[:, :-1]
-        x = x + F.gelu(pos)
-        if not cfg.do_stable_layer_norm:
-            x = self.encoder_layer_norm(x)
+        if cfg.do_stable_layer_norm:
+            x = x + F.gelu(pos)
+        else:
+            x = self.encoder_layer_norm(x, F.gelu(pos))
         for i in range(cfg.num_hidden_layers):
             x = getattr(self, f"layers_{i}")(x, valid)
         if cfg.do_stable_layer_norm:
@@ -297,45 +323,49 @@ class WhisperEncConfig:
 
 class WhisperEncoder(nn.Module):
     """HF WhisperModel.encoder forward (eval): [B, T, n_mels] ->
-    ([B, (T + 1) // 2, d], lengths (L + 1) // 2).  More half-rate frames
-    than ``max_source_positions`` raise, as the JAX slice does."""
+    ([B, (T + 1) // 2, d], lengths (L + 1) // 2), computing in ``dtype``.
+    More half-rate frames than ``max_source_positions`` raise, as the JAX
+    slice does."""
 
-    def __init__(self, cfg: WhisperEncConfig):
+    def __init__(self, cfg: WhisperEncConfig, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         d = cfg.d_model
+        register_compute_dtype(self, dtype)
         self.conv1 = nn.Conv1d(cfg.num_mel_bins, d, 3, padding=1)
         self.conv2 = nn.Conv1d(d, d, 3, stride=2, padding=1)
         self.embed_positions = nn.Parameter(torch.zeros(cfg.max_source_positions, d))
         for i in range(cfg.encoder_layers):
-            setattr(self, f"layers_{i}_self_attn_layer_norm", nn.LayerNorm(d, eps=1e-5))
+            setattr(self, f"layers_{i}_self_attn_layer_norm", LayerNorm(d, eps=1e-5))
             setattr(self, f"layers_{i}_self_attn",
                     _SelfAttention(d, cfg.encoder_attention_heads, k_bias=False))
-            setattr(self, f"layers_{i}_final_layer_norm", nn.LayerNorm(d, eps=1e-5))
-            setattr(self, f"layers_{i}_fc1", nn.Linear(d, cfg.encoder_ffn_dim))
-            setattr(self, f"layers_{i}_fc2", nn.Linear(cfg.encoder_ffn_dim, d))
-        self.layer_norm = nn.LayerNorm(d, eps=1e-5)
+            setattr(self, f"layers_{i}_final_layer_norm", LayerNorm(d, eps=1e-5))
+            setattr(self, f"layers_{i}_fc1", Dense(d, cfg.encoder_ffn_dim))
+            setattr(self, f"layers_{i}_fc2", Dense(cfg.encoder_ffn_dim, d))
+        self.layer_norm = LayerNorm(d, eps=1e-5)
         self.output_size = d
 
     def forward(self, feats: torch.Tensor, feats_lengths: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         cfg = self.cfg
-        x = F.gelu(self.conv1(feats.transpose(1, 2)))
-        x = F.gelu(self.conv2(x)).transpose(1, 2)
+        x = F.gelu(conv_in_dtype(self.conv1, to_compute(self, feats).transpose(1, 2)))
+        x = F.gelu(conv_in_dtype(self.conv2, x)).transpose(1, 2)
         out_lengths = torch.div(feats_lengths + 1, 2, rounding_mode="floor")
         t = x.shape[1]
         if t > cfg.max_source_positions:
             raise ValueError(f"{t} encoder frames exceed max_source_positions="
                              f"{cfg.max_source_positions}")
-        x = x + self.embed_positions[:t][None]
+        x = x + self.embed_positions[:t][None].to(x.dtype)
         valid = make_valid_mask(out_lengths, t)
+        norms = [getattr(self, f"layers_{i}_self_attn_layer_norm")
+                 for i in range(cfg.encoder_layers)] + [self.layer_norm]
+        y = norms[0](x)
         for i in range(cfg.encoder_layers):
-            y = getattr(self, f"layers_{i}_self_attn_layer_norm")(x)
-            x = x + getattr(self, f"layers_{i}_self_attn")(y, valid)
-            y = getattr(self, f"layers_{i}_final_layer_norm")(x)
-            y = F.gelu(getattr(self, f"layers_{i}_fc1")(y))
-            x = x + getattr(self, f"layers_{i}_fc2")(y)
-        return self.layer_norm(x).masked_fill(~valid[..., None], 0.0), out_lengths
+            x, y = add_and_norm(x, getattr(self, f"layers_{i}_self_attn")(y, valid),
+                                getattr(self, f"layers_{i}_final_layer_norm"))
+            y = getattr(self, f"layers_{i}_fc2")(F.gelu(getattr(self, f"layers_{i}_fc1")(y)))
+            x, y = add_and_norm(x, y, norms[i + 1])
+        return y.masked_fill(~valid[..., None], 0.0), out_lengths
 
 
 def convert_hf_whisper_encoder_state_dict(sd: Mapping[str, Any], cfg: WhisperEncConfig
@@ -381,24 +411,24 @@ def ssl_config(kind: str, hf: Mapping[str, Any]):
     return WhisperEncConfig.from_hf_config(hf) if kind == "whisper" else W2VConfig.from_hf_config(hf)
 
 
-def make_ssl_trunk(kind: str, cfg) -> nn.Module:
-    return WhisperEncoder(cfg) if kind == "whisper" else Wav2Vec2Encoder(cfg)
+def make_ssl_trunk(kind: str, cfg, dtype: torch.dtype = torch.float32) -> nn.Module:
+    return (WhisperEncoder if kind == "whisper" else Wav2Vec2Encoder)(cfg, dtype)
 
 
 class SSLEncoderWrapper(nn.Module):
     """Pretrained trunk (``ssl``) + Linear to the model width
     (``output_proj``), pads zeroed: the ``wav2vec2_hf``/``hubert_hf``
     encoders read the raw waveform (``frontend: none``), ``whisper_hf`` mel
-    frames."""
+    frames; all in ``dtype``."""
 
     def __init__(self, kind: str, ssl_cfg, output_size: int,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.kind = kind
         self.output_size = output_size
         with torch.device(resolve_device(device)):
-            self.ssl = make_ssl_trunk(kind, ssl_cfg)
-            self.output_proj = nn.Linear(self.ssl.output_size, output_size)
+            self.ssl = make_ssl_trunk(kind, ssl_cfg, dtype)
+            self.output_proj = Dense(self.ssl.output_size, output_size)
 
     def forward(self, feats, feats_lengths, rng=None) -> Tuple[torch.Tensor, torch.Tensor]:
         x, out_lengths = self.ssl(feats, feats_lengths)

@@ -19,6 +19,17 @@ The conv module is block-local: its depthwise conv (ops/depthwise_conv.py,
 block's edges, with a LayerNorm after it; the blocks run one after the
 other, since attention reads the carried context, so a layer launches the
 depthwise kernel once a block.
+
+Compute dtype: the features' (the model casts them; :meth:`encode_chunk`
+casts its own, as the JAX module's first conv does).  The offline pass's
+zero contexts are in it (JAX :183) and each block's context mean divides
+by the valid count in it (:107).  A context carried in float32 (the
+streaming recognizer's, as JAX's starts as float32 zeros) keeps that type
+across blocks, as flax promotes it, and enters the attention in the
+compute dtype, where JAX's Dense casts it; its values are the compute
+dtype's, so nothing rounds there.  The chunk's positional encoding is the
+offline pass's (models/transformer.py PositionalEncoding) at the chunk's
+positions, so chunk and offline rows agree bit for bit in either dtype.
 """
 
 from __future__ import annotations
@@ -41,7 +52,10 @@ from llm_guided_asr_tpu_torch.models.transformer import (
     MultiHeadedAttention,
     PositionalEncoding,
     PositionwiseFeedForward,
+    at_least_f32,
+    register_compute_dtype,
     sinusoidal_pos_enc,
+    to_compute,
 )
 from llm_guided_asr_tpu_torch.utils.device import resolve_device
 from llm_guided_asr_tpu_torch.utils.masks import make_valid_mask
@@ -77,7 +91,7 @@ class ContextualBlockLayer(nn.Module):
         if cfg.macaron_style:
             x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x), rng)
         h = self.norm_mha(x)
-        kv = torch.cat([ctx[:, None, :], h], dim=1)  # [B, S+1, D]
+        kv = torch.cat([ctx[:, None, :].to(h.dtype), h], dim=1)  # [B, S+1, D]
         kv_valid = torch.cat([torch.ones_like(valid[:, :1]), valid], dim=1)
         x = x + self.self_attn(h, kv, kv, kv_valid[:, None, :], rng=rng)
         if cfg.use_cnn_module:
@@ -104,14 +118,15 @@ class ContextualBlockConformerEncoder(nn.Module):
 
     The input layer is ``conv2d`` (x4 subsampling), ``linear`` (one Dense)
     or ``none`` (the layers take the features' width), as in JAX; only
-    :meth:`encode_chunk` needs ``conv2d``."""
+    :meth:`encode_chunk` needs ``conv2d``.  It computes in ``dtype``."""
 
     def __init__(self, cfg: ConformerConfig, input_size: int, block_size: int = 40,
-                 device: Union[str, torch.device] = "cuda"):
+                 device: Union[str, torch.device] = "cuda", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cfg = cfg
         self.block_size = block_size
         with torch.device(resolve_device(device)):
+            register_compute_dtype(self, dtype)
             self.embed, d = input_layer(cfg.input_layer, input_size, cfg.output_size)
             self.output_size = d
             self.pos_enc = PositionalEncoding(cfg.positional_dropout_rate)
@@ -150,17 +165,18 @@ class ContextualBlockConformerEncoder(nn.Module):
         i reads input frames [4i, 4i + 6]); ctxs [num_blocks, B, D] are the
         carried contexts; the first ``n_valid`` sub-frames are valid.  The
         positions are pos_offset + [0, m), clipped to the 5000-row table
-        as the JAX function clips them.  Returns ([B, m, D], new ctxs)."""
+        as the JAX function clips them.  Returns ([B, m, D], new ctxs in
+        ctxs' type)."""
         if self.cfg.input_layer != "conv2d":
             raise NotImplementedError("streaming encode_chunk requires conv2d input")
-        x = self.embed(feats)  # [B, m, D]: VALID convs over 4m + 6 frames
+        x = self.embed(to_compute(self, feats))  # [B, m, D]: VALID convs over 4m + 6 frames
         b, m, d = x.shape
         s = self.block_size
         if m % s != 0:
             raise ValueError(f"chunk produces {m} sub-frames, not a multiple of block_size {s}")
-        pe = torch.from_numpy(sinusoidal_pos_enc(PE_MAX_LEN, d)).to(device=x.device, dtype=x.dtype)
+        pe = torch.from_numpy(sinusoidal_pos_enc(PE_MAX_LEN, d)).to(x.device)
         pos = torch.clamp(pos_offset + torch.arange(m, device=x.device), 0, PE_MAX_LEN - 1)
-        x = x * math.sqrt(d) + pe[pos][None]
+        x = (at_least_f32(x) * math.sqrt(d) + pe[pos][None]).to(x.dtype)
         valid = torch.arange(m, device=x.device) < n_valid
         blocks = x.reshape(b, m // s, s, d)
         bvalid = valid.reshape(1, m // s, s).expand(b, m // s, s)

@@ -210,13 +210,14 @@ class TransducerModel(nn.Module):
             raise ValueError(f"multi_blank_ids {cfg.multi_blank_ids} and multi_blank_durations "
                              f"{cfg.multi_blank_durations} differ in length")
         require_log_mel(cfg.frontend, "the transducer")
-        check_compute_dtype(dtype, cfg, cfg.encoder_type)
+        check_compute_dtype(dtype)
         dev = resolve_device(device)
         self.cfg = cfg
         n_feat = cfg.n_feat
         with torch.device(dev):
             register_compute_dtype(self, dtype)
-            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev)
+            self.encoder = make_encoder(cfg.encoder_type, cfg.encoder, n_feat, device=dev,
+                                        dtype=dtype)
             d = self.encoder.output_size
             self.decoder = DECODERS[dec_type](cfg.vocab_size, cfg.decoder, dtype=dtype)
             self.joint = JointNetwork(cfg.vocab_size, d, cfg.decoder.hidden_size, cfg.joint_size)

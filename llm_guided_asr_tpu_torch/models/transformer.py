@@ -43,6 +43,21 @@ def at_least_f32(x: torch.Tensor) -> torch.Tensor:
     return x.float() if x.dtype in (torch.bfloat16, torch.float16) else x
 
 
+def register_compute_dtype(module: nn.Module, dtype: torch.dtype) -> None:
+    """The compute dtype as an empty, non-persistent buffer ``compute``: it
+    is in no checkpoint and follows ``.double()`` (a float64 check) and
+    ``.to()`` as the parameters do; ``module.compute.dtype`` reads it."""
+    module.register_buffer("compute", torch.empty(0, dtype=dtype), persistent=False)
+
+
+def to_compute(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``module``'s compute dtype: where rows enter the model's
+    blocks (the features at the encoder, as JAX ``encode`` casts them;
+    encoder or LLM rows at a head or decoder, as flax's Dense casts its
+    input), the one place the model casts them."""
+    return x.to(module.compute.dtype)
+
+
 class LayerNorm(nn.LayerNorm):
     """flax's ``nn.LayerNorm``: statistics, scale and bias in float32 (at
     least), the output cast to the input's type.  The epsilon defaults to
@@ -55,6 +70,16 @@ class LayerNorm(nn.LayerNorm):
         if residual is not None:
             xf = xf + at_least_f32(residual)
         y = F.layer_norm(xf, self.normalized_shape, self.weight, self.bias, self.eps)
+        return y if y.dtype == x.dtype else y.to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """flax's ``nn.GroupNorm`` over channels-first [N, C, ...]: statistics,
+    scale and bias in float32 (at least), the output cast to the input's
+    type."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.group_norm(at_least_f32(x), self.num_groups, self.weight, self.bias, self.eps)
         return y if y.dtype == x.dtype else y.to(x.dtype)
 
 

@@ -152,7 +152,6 @@ ASR_DEFAULTS: Dict[str, Any] = {
 }
 
 # the JAX package's choices the port does not have yet, by ROADMAP item
-# (bfloat16's, item 7b: models/asr_model.py ITEM_BF16)
 ITEM_MULTI_GPU = "ROADMAP Queue 1 item 11"
 ITEM_ZOO = "ROADMAP Queue 1 item 12"
 
@@ -416,10 +415,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "bf16": torch.b
 def build_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None,
                 dtype: Optional[torch.dtype] = None) -> nn.Module:
     """The model of a config, on ``device`` (default: the config's),
-    computing in ``dtype`` (default: the config's ``train_dtype``).  The
-    CTC/attention and guided models take bfloat16 for the Conformer behind
-    the log-mel frontend; every other model or choice raises in bfloat16,
-    naming its ROADMAP item."""
+    computing in ``dtype`` (default: the config's ``train_dtype``):
+    float32, or bfloat16 for every model and choice the port builds."""
     dtype = resolve_dtype(config, dtype)
     dev = resolve_device(device) if device is not None else resolve_task_device(config)
     name = config.get("model", "espnet")

@@ -20,7 +20,6 @@ from typing import Any, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from llm_guided_asr_tpu_torch.models.asr_model import refuse_bf16
 from llm_guided_asr_tpu_torch.models.lm import (
     ESPnetLanguageModel,
     SequentialRNNLM,
@@ -73,17 +72,17 @@ LM_DEFAULTS: Dict[str, Any] = {
 
 def build_lm(config: Dict[str, Any], device: Union[str, torch.device] = "cuda",
              dtype: torch.dtype = torch.float32) -> ESPnetLanguageModel:
-    """The LM of a config, on ``device``, computing in float32; bfloat16
-    (JAX's ``dtype``) raises, naming its ROADMAP item."""
-    if dtype != torch.float32:
-        refuse_bf16("the language model")
+    """The LM of a config, on ``device``, computing in ``dtype`` (JAX's,
+    passed from code: the LM trainer and CLIs build float32, as JAX's do)."""
     vocab_size = len(read_token_list(config["token_list"]))
     lm_type = config.get("lm", "transformer")
     conf = dict(config.get("lm_conf", {}) or {})
     if lm_type == "transformer":
-        lm = TransformerLM(TransformerLMConfig.from_dict(conf, vocab_size), device=device)
+        lm = TransformerLM(TransformerLMConfig.from_dict(conf, vocab_size), device=device,
+                           dtype=dtype)
     elif lm_type in ("seq_rnn", "sequential_rnn"):
-        lm = SequentialRNNLM(SequentialRNNLMConfig.from_dict(conf, vocab_size), device=device)
+        lm = SequentialRNNLM(SequentialRNNLMConfig.from_dict(conf, vocab_size), device=device,
+                             dtype=dtype)
     else:
         raise ValueError(f"unknown lm type {lm_type!r}")
     return ESPnetLanguageModel(lm, vocab_size)
@@ -150,7 +149,7 @@ class LMTask:
                               ) -> Tuple[ESPnetLanguageModel, Dict[str, Any]]:
         """(model in eval mode, config) from a config.yaml and a ``.pth`` or
         ``.msgpack`` checkpoint of either package, computing in ``dtype``
-        (float32 only)."""
+        (float32 by default, as JAX's)."""
         from llm_guided_asr_tpu_torch.convert import init_weights
         from llm_guided_asr_tpu_torch.tasks.asr import load_model_file
 

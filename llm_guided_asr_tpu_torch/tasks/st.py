@@ -35,7 +35,6 @@ from llm_guided_asr_tpu_torch.models.llm_guided import (
     load_llm_params,
     resolve_llm_spec,
 )
-from llm_guided_asr_tpu_torch.models.asr_model import refuse_bf16
 from llm_guided_asr_tpu_torch.models.llm_guided_st import LLMGuidedSTConfig, LLMGuidedSTModel
 from llm_guided_asr_tpu_torch.models.transformer_decoder import TransformerDecoderConfig
 from llm_guided_asr_tpu_torch.tasks.asr import (
@@ -118,11 +117,9 @@ ST_BATCH_ARGS = ("speech", "speech_lengths", "text", "text_lengths", "src_text",
 def build_st_model(config: Dict[str, Any], device: Union[str, torch.device, None] = None,
                    dtype: torch.dtype = torch.float32) -> LLMGuidedSTModel:
     """The ST model of a config (tasks/st.py build_st_model), on ``device``
-    (default: the config's); the LLM's weights are loaded by
-    :func:`init_st_variables`.  It computes in float32; bfloat16 (JAX's
-    ``dtype``) raises, naming its ROADMAP item."""
-    if dtype != torch.float32:
-        refuse_bf16("the ST model")
+    (default: the config's), computing in ``dtype`` (JAX's, passed from
+    code: the ST trainer and CLIs build float32, as JAX's do); the LLM's
+    weights are loaded by :func:`init_st_variables`."""
     dev = resolve_device(device) if device is not None else resolve_task_device(config)
     llm_conf = dict(config.get("llm_conf") or {})
     spec = resolve_llm_spec(llm_conf)
@@ -147,7 +144,7 @@ def build_st_model(config: Dict[str, Any], device: Union[str, torch.device, None
         length_normalized_loss=bool(model_conf.get("length_normalized_loss", False)),
         **guided_fields(config),
     )
-    return LLMGuidedSTModel(cfg, llm_dtype=llm_dtype(llm_conf), device=dev)
+    return LLMGuidedSTModel(cfg, llm_dtype=llm_dtype(llm_conf), device=dev, dtype=dtype)
 
 
 @torch.no_grad()
@@ -218,7 +215,7 @@ class STTask:
                               ) -> Tuple[LLMGuidedSTModel, Dict[str, Any]]:
         """Rebuild (model, config) from a config.yaml of either package and
         a ``.pth`` or ``.msgpack`` checkpoint; the model is in eval mode on
-        ``device``, computing in ``dtype`` (float32 only)."""
+        ``device``, computing in ``dtype`` (float32 by default, as JAX's)."""
         config = {**cls.get_default_config(), **load_yaml(config_file)}
         model = build_st_model(config, device, dtype)
         init_st_variables(model, config, int(config.get("seed", 0)))

@@ -1987,6 +1987,10 @@ BF16_MODELS = {
     "transducer-mega": ("transducer", dict(decoder_type="mega"), _CONF),
     "transducer-multi_blank": ("transducer", dict(decoder_type="rnn", multi_blank=True),
                                {**_CONF, "lstm_fwd": {_F32: 1}, "lstm_bwd": {_F32: 1}}),
+    # the contextual-block Conformer: one block of 40 a layer at 20 sub-frames
+    "contextual_block": ("asr", dict(encoder_type="contextual_block_conformer"),
+                         {"dwconv1d_fwd": {_B16: 2}, "dwconv1d_bwd": {_B16: 2}}),
+    "avhubert": ("asr", dict(encoder_type="avhubert"), {}),
 }
 
 
